@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's detect serving path on one CUDA card and check it.
+
+Run from the repository root with no arguments: `python3 chip_smoke.py`.
+It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
+CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc, and runs six phases,
+each printing one JSON line:
+
+  1. card    nvidia-smi name and power limit, kernel build times and ptxas info
+  2. nms     kernel A (`nms_keep`) vs its plain version on the card: B=32 random
+             candidates at K=384 and K=1024 and the 3-box suppression chain,
+             keep masks equal bit for bit
+  3. attn    kernel B (`attention_qkv`) vs its plain version on the card: bf16
+             (32, 400, 256) heads=2 and (32, 400, 512) heads=4 within
+             atol = rtol = 2e-2, f32 (32, 400, 256) within atol 1e-5, and a
+             streamed-K/V case at N=1600 (1280 px)
+  4. fp32    yolo11n fp32 `Predictor.predict` on two 480x640 frames at 640 px,
+             on cuda and on cpu (TF32 off): equal num and classes, boxes within
+             1e-2 px, scores within 1e-5; both launch counters rise
+  5. bf16    the main path: yolo11n bf16 `Predictor.predict` at batch 32 on
+             640x640 frames, once with the launch counters reset (they must
+             each read >= 1), then timed: 20 calls end to end (host clock,
+             median img/s) and the device part alone (CUDA events, frames
+             already on the card); per-kernel device times (torch.profiler)
+             at the shapes that run gave each kernel, beside the plain
+             version's and, for B, `F.scaled_dot_product_attention`'s (a
+             yardstick only); `*call_ms` are the same calls timed back to
+             back with CUDA events, host launch overhead included
+  6. profile device time by kernel and by copy over three main-path
+             predicts, and the kernels' busy share of the wall time
+             (torch.profiler; the run is slower than the untraced one)
+
+Then it prints the card's name and power limit, the per-kernel JSON line and,
+last, {"ok": true, "device": {...}}. Any failed phase exits non-zero without
+that last line; so does a host without CUDA or a directory without the port.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+SEED = 0
+H100_BYTES_PER_S = 3.35e12  # HBM3, SXM part (NVIDIA data sheet)
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores
+IOU_OPS = 14  # f32 operations for one IoU and its compare (ops/iou.py order)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of `fn` over `iters` back-to-back calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of the kernels one call of `fn` launches (torch.profiler),
+    without the host's launch overhead between calls; copies excluded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request")
+    return total_us / 1e3 / iters
+
+
+def random_candidates(rng, b: int, k: int):
+    """Score-sorted random boxes in a 640 px frame, as in the JAX kernel tests."""
+    cxy = rng.uniform(50, 590, (b, k, 2))
+    wh = rng.uniform(10, 120, (b, k, 2))
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+    scores = -np.sort(-rng.uniform(0, 1, (b, k)).astype(np.float32), axis=1)
+    return boxes, scores > 0.15
+
+
+def smoke_weights(frames_u8: np.ndarray):
+    """yolo11n detect weights for the device comparison.
+
+    The seeded init (`build_model`) with the class-head biases at 0, and each
+    batch norm's statistics set to those of its conv's output on `frames_u8`.
+    The plain init's activations fade through the graph (class logits near
+    1e-4, so scores tie at f32 resolution and any rounding reorders them);
+    with the statistics calibrated, every layer feeds the next at unit scale
+    and the logits spread over O(1).
+    """
+    import torch
+
+    from yolo_infer_tpu_torch.models.blocks import Conv
+    from yolo_infer_tpu_torch.models.yolo11 import build_model
+    from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch
+
+    model, spec = build_model("detect", "n", seed=SEED)
+    hooks = []
+    with torch.no_grad():
+        for branch in model.model[-1].cv3:
+            branch[-1].bias.zero_()
+        for m in model.modules():
+            if isinstance(m, Conv):
+                def calibrate(conv, inp, out, bn=m.bn):
+                    bn.running_mean.copy_(out.mean((0, 2, 3)))
+                    bn.running_var.copy_(out.var((0, 2, 3)))
+                hooks.append(m.conv.register_forward_hook(calibrate))
+        model(preprocess_batch(torch.from_numpy(frames_u8), (640, 640)))
+    for h in hooks:
+        h.remove()
+    return model, spec
+
+
+def match_detections(a, b, box_tol: float, score_tol: float) -> int:
+    """Detections of `a` with no partner in `b` (same class, box and score
+    within tolerance); equal scores may come out in either order."""
+    used = np.zeros(len(b), bool)
+    missing = 0
+    for i in range(len(a)):
+        hit = np.nonzero(~used & (b.classes == a.classes[i])
+                         & (np.abs(b.boxes - a.boxes[i]).max(axis=1) <= box_tol)
+                         & (np.abs(b.scores - a.scores[i]) <= score_tol))[0]
+        if len(hit):
+            used[hit[0]] = True
+        else:
+            missing += 1
+    return missing
+
+
+def phase_card(report):
+    from yolo_infer_tpu_torch.ops.kernels import _build
+
+    line = card_line()
+    t0 = time.perf_counter()
+    built = _build.build(["nms_fused", "attention_fused"])
+    report["card"] = line
+    return {"phase": "card", "card": line, "build_s": time.perf_counter() - t0, "kernels": built}
+
+
+def phase_nms(report):
+    import torch
+
+    from yolo_infer_tpu_torch.ops.kernels.nms_fused import nms_keep, nms_keep_reference
+
+    rng = np.random.default_rng(SEED)
+    out = {"phase": "nms", "cases": []}
+    for k in (384, 1024):
+        boxes, valid = random_candidates(rng, 32, k)
+        bx, va = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+        got = nms_keep(bx, va, 0.45)
+        want_dev = nms_keep_reference(bx, va, 0.45)
+        want_cpu = nms_keep_reference(torch.from_numpy(boxes), torch.from_numpy(valid), 0.45)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want_dev) and torch.equal(got.cpu(), want_cpu)
+        out["cases"].append({"K": k, "B": 32, "kept": int(got.sum()), "equal": ok})
+        if not ok:
+            raise AssertionError(f"keep mask differs at K={k}: {int((got != want_dev).sum())} entries")
+    chain = torch.tensor([[[0, 0, 100, 100], [40, 0, 140, 100], [80, 0, 180, 100], [500, 500, 510, 510]]],
+                         dtype=torch.float32, device="cuda")
+    kept = nms_keep(chain, torch.tensor([[True, True, True, False]], device="cuda"), 0.3)
+    if kept.cpu().tolist() != [[True, False, True, False]]:
+        raise AssertionError(f"suppression chain: {kept.cpu().tolist()}")
+    out["cases"].append({"chain": True, "equal": True})
+    return out
+
+
+def phase_attn(report):
+    import torch
+
+    from yolo_infer_tpu_torch.ops.kernels.attention_fused import attention_qkv, attention_qkv_reference
+
+    rng = np.random.default_rng(SEED + 1)
+    out = {"phase": "attn", "cases": []}
+    cases = [(32, 400, 2, torch.bfloat16, 2e-2, 2e-2), (32, 400, 4, torch.bfloat16, 2e-2, 2e-2),
+             (32, 400, 2, torch.float32, 1e-5, 0.0), (4, 1600, 2, torch.bfloat16, 2e-2, 2e-2)]
+    for b, n, heads, dtype, atol, rtol in cases:
+        qkv = torch.from_numpy(rng.standard_normal((b, n, heads * 128)).astype(np.float32)).to("cuda", dtype)
+        got = attention_qkv(qkv, heads, 32, 64)
+        want = attention_qkv_reference(qkv, heads, 32, 64)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        out["cases"].append({"B": b, "N": n, "heads": heads, "dtype": str(dtype), "max_abs_err": err})
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    return out
+
+
+def phase_fp32(report):
+    import torch
+
+    import yolo_infer_tpu_torch.ops.kernels.attention_fused as attn_mod
+    import yolo_infer_tpu_torch.ops.kernels.nms_fused as nms_mod
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+
+    rng = np.random.default_rng(SEED + 2)
+    frames = rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    model, spec = smoke_weights(frames)
+    report["weights"] = (model, spec)
+    on_cpu = Predictor(copy.deepcopy(model), spec, device="cpu", compute_dtype=torch.float32)
+    on_gpu = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.float32)
+    nms_mod.nms_keep.launches = attn_mod.attention_qkv.launches = 0
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = on_gpu.predict(list(frames), conf=0.001, iou=0.45, imgsz=640)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = {"nms_keep": nms_mod.nms_keep.launches, "attention_qkv": attn_mod.attention_qkv.launches}
+    want = on_cpu.predict(list(frames), conf=0.001, iou=0.45, imgsz=640)
+    out = {"phase": "fp32", "launches": launches, "images": []}
+    for g, w in zip(got, want):
+        img = {"num_cuda": len(g), "num_cpu": len(w)}
+        if len(g) == len(w):
+            img["unmatched"] = match_detections(g, w, 1e-2, 1e-5)
+            img["classes_equal"] = bool(np.array_equal(np.sort(g.classes), np.sort(w.classes)))
+        out["images"].append(img)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel did not run in the fp32 predict: {launches}")
+    for img in out["images"]:
+        if img["num_cuda"] != img["num_cpu"] or img["unmatched"] or not img["classes_equal"]:
+            emit(out)
+            raise AssertionError("fp32 predict on cuda differs from cpu")
+    return out
+
+
+def phase_bf16(report):
+    import torch
+    import torch.nn.functional as F
+
+    import yolo_infer_tpu_torch.models.blocks as blocks_mod
+    import yolo_infer_tpu_torch.ops.nms as nms_ops
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+    from yolo_infer_tpu_torch.ops.kernels import attention_fused as attn_mod
+    from yolo_infer_tpu_torch.ops.kernels import nms_fused as nms_mod
+
+    model, spec = report["weights"]
+    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 3)
+    frames = rng.integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
+    pred.predict(frames, conf=0.25)  # warm-up (cuDNN plans, kernel loads)
+    torch.cuda.synchronize()
+
+    # the main path, once, with counters at 0 and the kernels' inputs captured
+    seen = {}
+
+    def capture(name, fn):
+        def wrapped(*args):
+            seen.setdefault(name, tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return fn(*args)
+        return wrapped
+
+    blocks_mod.attention_qkv = capture("attention_qkv", attn_mod.attention_qkv)
+    nms_ops.nms_keep = capture("nms_keep", nms_mod.nms_keep)
+    nms_mod.nms_keep.launches = attn_mod.attention_qkv.launches = 0
+    try:
+        results = pred.predict(frames, conf=0.25)
+    finally:
+        blocks_mod.attention_qkv = attn_mod.attention_qkv
+        nms_ops.nms_keep = nms_mod.nms_keep
+    launches = {"nms_keep": nms_mod.nms_keep.launches, "attention_qkv": attn_mod.attention_qkv.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+    nums = [len(r) for r in results]
+    for r in results:
+        if not (np.isfinite(r.boxes).all() and np.isfinite(r.scores).all() and len(r) <= 300):
+            raise AssertionError("non-finite or oversized detections")
+        if len(r) and ((r.boxes < 0).any() or (r.boxes[:, [0, 2]] > 640).any() or (r.boxes[:, [1, 3]] > 640).any()):
+            raise AssertionError("boxes outside the frame")
+
+    # end to end (numpy frames in, Results out) per call, and the device part
+    # alone (frames already on the card, dets left there) by CUDA events
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict(frames, conf=0.25)
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    frames_dev = torch.from_numpy(frames).cuda()
+    batch_device_ms = cuda_ms(lambda: pred.predict_raw(frames_dev, 0.25, 0.45, 640, 300), iters=20)
+
+    kernels = []
+    # kernel B at the main path's input
+    slab, heads, kd, hd = seen["attention_qkv"]
+    ref = attn_mod.attention_qkv_reference(slab, heads, kd, hd)
+    err_b = float((attn_mod.attention_qkv(slab, heads, kd, hd).float() - ref.float()).abs().max())
+    b, n, d = slab.shape
+    q, k, v = (slab.view(b, n, heads, 2 * kd + hd)[..., s].transpose(1, 2)
+               for s in (slice(0, kd), slice(kd, 2 * kd), slice(2 * kd, None)))
+    bytes_b = slab.numel() * slab.element_size() + b * n * heads * hd * slab.element_size()
+    flops_b = 2 * b * heads * n * n * (kd + hd)
+    kernel_b = lambda: attn_mod.attention_qkv(slab, heads, kd, hd)  # noqa: E731
+    plain_b = lambda: attn_mod.attention_qkv_reference(slab, heads, kd, hd)  # noqa: E731
+    library_b = lambda: F.scaled_dot_product_attention(q, k, v, scale=kd ** -0.5)  # noqa: E731
+    kernels.append({
+        "name": "attention_qkv", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/attention_fused.cu",
+        "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:114", "launches": launches["attention_qkv"],
+        "max_abs_err": err_b,
+        "ms": device_ms(kernel_b), "plain_ms": device_ms(plain_b),
+        "bound_ms": 1e3 * max(bytes_b / H100_BYTES_PER_S, flops_b / H100_BF16_FLOPS),
+        "bound_by": "bytes" if bytes_b / H100_BYTES_PER_S >= flops_b / H100_BF16_FLOPS else "operations",
+        "library_ms": device_ms(library_b),
+        "call_ms": cuda_ms(kernel_b), "plain_call_ms": cuda_ms(plain_b), "library_call_ms": cuda_ms(library_b),
+        "shape": [b, n, d], "dtype": str(slab.dtype),
+    })
+    # kernel A at the main path's input
+    cboxes, valid, thr = seen["nms_keep"]
+    err_a = float((nms_mod.nms_keep(cboxes, valid, thr) != nms_mod.nms_keep_reference(cboxes, valid, thr)).sum())
+    bk, kk, _ = cboxes.shape
+    bytes_a = cboxes.numel() * 4 + 2 * bk * kk
+    ops_a = bk * kk * (kk - 1) // 2 * IOU_OPS
+    kernel_a = lambda: nms_mod.nms_keep(cboxes, valid, thr)  # noqa: E731
+    plain_a = lambda: nms_mod.nms_keep_reference(cboxes, valid, thr)  # noqa: E731
+    kernels.append({
+        "name": "nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/nms_fused.cu",
+        "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:86", "launches": launches["nms_keep"],
+        "max_abs_err": err_a,
+        "ms": device_ms(kernel_a), "plain_ms": device_ms(plain_a, iters=10),
+        "call_ms": cuda_ms(kernel_a), "plain_call_ms": cuda_ms(plain_a, iters=10),
+        "bound_ms": 1e3 * max(bytes_a / H100_BYTES_PER_S, ops_a / H100_F32_FLOPS),
+        "bound_by": "bytes" if bytes_a / H100_BYTES_PER_S >= ops_a / H100_F32_FLOPS else "operations",
+        "library_ms": None,
+        "shape": [bk, kk, 4], "valid": int(valid.sum()),
+    })
+    if err_a != 0 or err_b > 2e-2:
+        raise AssertionError(f"main-path kernel outputs differ from the plain versions: A {err_a}, B {err_b}")
+    report["kernels"] = kernels
+    report["serving"] = (pred, frames)
+    median = times[len(times) // 2]
+    return {"phase": "bf16", "batch": int(frames.shape[0]), "imgsz": 640, "calls": len(times),
+            "img_per_s": frames.shape[0] / median, "ms_per_batch_median": 1e3 * median,
+            "ms_per_batch_min": 1e3 * times[0], "ms_per_batch_max": 1e3 * times[-1],
+            "device_ms_per_batch": batch_device_ms, "device_img_per_s": 1e3 * frames.shape[0] / batch_device_ms,
+            "launches": launches, "detections_per_image": [min(nums), max(nums)]}
+
+
+def phase_profile(report):
+    """Device time by kernel over three main-path predicts (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pred, frames = report["serving"]
+    pred.predict(frames, conf=0.25)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pred.predict(frames, conf=0.25)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 3
+    # device-side events only (CPU ops also carry their kernels' time); the
+    # profiler's own buffer requests are not the program's work
+    rows = [(e.key, e.self_device_time_total / 1e3 / 3, e.count // 3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key != "Activity Buffer Request"]
+    rows.sort(key=lambda r: -r[1])
+    copy_ms = sum(ms for k, ms, _ in rows if k.startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(ms for k, ms, _ in rows if not k.startswith(("Memcpy", "Memset")))
+    return {"phase": "profile", "wall_ms_per_predict": wall_ms, "kernel_ms_per_predict": kernel_ms,
+            "copy_ms_per_predict": copy_ms, "kernel_busy_share": kernel_ms / wall_ms,
+            "top": [{"name": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:15]]}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import yolo_infer_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here ({exc}); run from the repository root",
+              file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False  # f32 convs and products in full f32 (bf16 is unaffected)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    report = {}
+    failed = []
+    for phase in (phase_card, phase_nms, phase_attn, phase_fp32, phase_bf16, phase_profile):
+        t0 = time.perf_counter()
+        try:
+            result = phase(report)
+            result["seconds"] = time.perf_counter() - t0
+            emit(result)
+        except Exception as exc:  # report every phase, then fail the run
+            failed.append(phase.__name__)
+            emit({"phase": phase.__name__, "ok": False, "error": repr(exc)})
+            traceback.print_exc()
+            if phase is phase_card:
+                break
+    if failed or "kernels" not in report:
+        print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
+        return 1
+    print(report["card"])
+    emit({"kernels": report["kernels"]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

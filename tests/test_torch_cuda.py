@@ -1,0 +1,73 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+This file imports neither jax nor the JAX package, so it also runs on a host
+that has only torch: `python -m pytest --noconftest tests/test_torch_cuda.py`
+(the repo's conftest sets up jax). The `cuda` tests skip without a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yolo_infer_tpu_torch.core.predictor import Predictor
+from yolo_infer_tpu_torch.models.yolo11 import build_model
+from yolo_infer_tpu_torch.ops.kernels import attention_fused, nms_fused
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _candidates(seed, b, k):
+    rng = np.random.default_rng(seed)
+    cxy = rng.uniform(50, 590, (b, k, 2))
+    wh = rng.uniform(10, 120, (b, k, 2))
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+    return torch.from_numpy(boxes), torch.from_numpy(rng.uniform(0, 1, (b, k)) > 0.15)
+
+
+def test_wrappers_take_the_plain_versions_for_cpu_tensors():
+    boxes, valid = _candidates(0, 2, 50)
+    slab = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 16, 128)).astype(np.float32))
+    launches = (nms_fused.nms_keep.launches, attention_fused.attention_qkv.launches)
+    assert torch.equal(nms_fused.nms_keep(boxes, valid, 0.45), nms_fused.nms_keep_reference(boxes, valid, 0.45))
+    assert torch.equal(attention_fused.attention_qkv(slab, 1, 32, 64),
+                       attention_fused.attention_qkv_reference(slab, 1, 32, 64))
+    assert (nms_fused.nms_keep.launches, attention_fused.attention_qkv.launches) == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [384, 1024])
+def test_keep_kernel_is_bit_equal_to_the_plain_version(card, k):
+    boxes, valid = _candidates(k, 8, k)
+    before = nms_fused.nms_keep.launches
+    got = nms_fused.nms_keep(boxes.to(card), valid.to(card), 0.45)
+    assert nms_fused.nms_keep.launches == before + 1
+    assert torch.equal(got.cpu(), nms_fused.nms_keep_reference(boxes, valid, 0.45))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype,atol,rtol", [(400, torch.bfloat16, 2e-2, 2e-2), (400, torch.float32, 1e-5, 0.0),
+                                               (1600, torch.bfloat16, 2e-2, 2e-2)])
+def test_attention_kernel_matches_the_plain_version(card, n, dtype, atol, rtol):
+    slab = torch.from_numpy(np.random.default_rng(n).standard_normal((4, n, 256)).astype(np.float32)).to(card, dtype)
+    before = attention_fused.attention_qkv.launches
+    got = attention_fused.attention_qkv(slab, 2, 32, 64)
+    assert attention_fused.attention_qkv.launches == before + 1
+    want = attention_fused.attention_qkv_reference(slab, 2, 32, 64)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_main_path_launches_both_kernels(card):
+    model, spec = build_model("detect", "n", seed=0)
+    pred = Predictor(model, spec)
+    assert pred.device.type == "cuda"
+    frames = np.random.default_rng(4).integers(0, 256, (2, 640, 640, 3), dtype=np.uint8)
+    nms_fused.nms_keep.launches = attention_fused.attention_qkv.launches = 0
+    pred.predict(frames)
+    assert nms_fused.nms_keep.launches == 1 and attention_fused.attention_qkv.launches == 1

@@ -1,0 +1,210 @@
+"""YOLO11 building blocks as `nn.Module`s (detect path).
+
+Port of `yolo_infer_tpu/models/blocks.py`: Conv, DWConv, Bottleneck, C3k,
+C3k2, SPPF, Attention, PSABlock, C2PSA and Detect. Submodules carry the
+ultralytics names (`conv`/`bn`, `cv1`, `m.{j}`, `ffn.0`, `cv3.{i}.0.0`, ...)
+so an ultralytics-named state dict loads with `load_state_dict`
+(`models/convert.py`). Activations are NCHW inside the blocks.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from yolo_infer_tpu_torch.nn.layers import (
+    BN_EPS,
+    BN_MOMENTUM,
+    autopad,
+    bn_scale_bias,
+    fold_batchnorm,
+    max_pool,
+    silu,
+)
+from yolo_infer_tpu_torch.ops.kernels.attention_fused import attention_qkv
+
+
+class Conv(nn.Module):
+    """Conv2d (k//2 padding, groups) -> batch norm (eval) -> optional SiLU.
+
+    `fold()` merges the batch norm into the conv's weight and bias in place
+    (the deploy form); afterwards `bn` is None.
+    """
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k), groups=g, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        if self.bn is not None:
+            scale, bias = bn_scale_bias(self.bn.weight, self.bn.bias, self.bn.running_mean, self.bn.running_var)
+            y = y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
+        return silu(y) if self.act else y
+
+    @torch.no_grad()
+    def fold(self) -> None:
+        if self.bn is None:
+            return
+        bn = self.bn
+        w, b = fold_batchnorm(self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        self.conv.weight = nn.Parameter(w)
+        self.conv.bias = nn.Parameter(b)
+        self.bn = None
+
+
+class DWConv(Conv):
+    """Depthwise conv: groups = gcd(c1, c2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, act: bool = True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, k: Tuple[int, int] = (3, 3)):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0])
+        self.cv2 = Conv(c_, c2, k[1])
+        self.add = shortcut
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3k(nn.Module):
+    def __init__(self, c1: int, c2: int, n: int = 2, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c1, c_, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3k2(nn.Module):
+    def __init__(self, c1: int, c2: int, n: int, c3k: bool, e: float = 0.5, shortcut: bool = True):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            C3k(self.c, self.c, 2, shortcut) if c3k else Bottleneck(self.c, self.c, shortcut, e=0.5)
+            for _ in range(n)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class SPPF(nn.Module):
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c_ * 4, c2, 1)
+        self.k = k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(max_pool(ys[-1], self.k))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class Attention(nn.Module):
+    """C2PSA multi-head attention over the P5 grid.
+
+    The qkv conv's channels are head-major, [h: q | k | v]. The attention
+    itself runs on the (B, N, heads*(2kd+hd)) slab, read in place by
+    `attention_qkv` (the hand-written kernel on a CUDA tensor); `pe`, a 3x3
+    depthwise conv, runs on the v channels of every head.
+    """
+
+    def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        h = dim + num_heads * self.key_dim * 2
+        self.qkv = Conv(dim, h, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, g=dim, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        n = hh * ww
+        heads, kd, hd = self.num_heads, self.key_dim, self.head_dim
+        qkv = self.qkv(x)
+        # NHWC rows of the qkv map; a view when `qkv` is channels_last
+        slab = qkv.permute(0, 2, 3, 1).reshape(b, n, -1).contiguous()
+        o = attention_qkv(slab, heads, kd, hd)  # (B, N, heads*hd), head-major
+        out = o.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        v_spatial = slab.reshape(b, n, heads, 2 * kd + hd)[..., 2 * kd:].reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        return self.proj(out + self.pe(v_spatial))
+
+
+class PSABlock(nn.Module):
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.attn = Attention(c, num_heads)
+        self.ffn = nn.Sequential(Conv(c, c * 2, 1), Conv(c * 2, c, 1, act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    def __init__(self, c1: int, n: int, e: float = 0.5):
+        super().__init__()
+        self.c = int(c1 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv2 = Conv(2 * self.c, c1, 1)
+        self.m = nn.Sequential(*(PSABlock(self.c, max(self.c // 64, 1)) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        return self.cv2(torch.cat([a, self.m(b)], 1))
+
+
+def detect_branch_channels(ch: Sequence[int], nc: int, reg_max: int) -> Tuple[int, int]:
+    c2 = max(16, ch[0] // 4, reg_max * 4)
+    c3 = max(ch[0], min(nc, 100))
+    return c2, c3
+
+
+class Detect(nn.Module):
+    """Decoupled anchor-free detect head: a DFL box branch (cv2) and a
+    depthwise class branch (cv3) per level, concatenated [box | cls]."""
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16):
+        super().__init__()
+        c2, c3 = detect_branch_channels(ch, nc, reg_max)
+        self.cv2 = nn.ModuleList(
+            nn.Sequential(Conv(c, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for c in ch
+        )
+        self.cv3 = nn.ModuleList(
+            nn.Sequential(
+                nn.Sequential(DWConv(c, c, 3), Conv(c, c3, 1)),
+                nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)),
+                nn.Conv2d(c3, nc, 1),
+            )
+            for c in ch
+        )
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-level (B, 4*reg_max + nc, H, W) raw maps."""
+        return [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(xs)]

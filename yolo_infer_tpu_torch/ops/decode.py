@@ -1,0 +1,96 @@
+"""Anchor-free DFL box decode.
+
+Port of `yolo_infer_tpu/ops/decode.py` (`make_anchors`, `dfl_expectation`,
+`dist2bbox`, `decode_scores_raw`, `anchor_rows_from_idx`). Head maps are
+NHWC, (B, H, W, 4*reg_max + nc), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+
+def make_anchors(
+    feat_shapes: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    grid_cell_offset: float = 0.5,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor points (A, 2) in feature-grid units and per-anchor strides (A, 1)."""
+    points, strd = [], []
+    for (h, w), s in zip(feat_shapes, strides):
+        sx = torch.arange(w, dtype=torch.float32, device=device) + grid_cell_offset
+        sy = torch.arange(h, dtype=torch.float32, device=device) + grid_cell_offset
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        points.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1))
+        strd.append(torch.full((h * w, 1), float(s), dtype=torch.float32, device=device))
+    return torch.cat(points, dim=0), torch.cat(strd, dim=0)
+
+
+def dfl_expectation(box_dist: torch.Tensor, reg_max: int = 16, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., 4*reg_max) distribution logits -> (..., 4) expected l,t,r,b distances.
+
+    `dtype` is the softmax compute dtype (the serving path passes the head's
+    own dtype); the result is f32."""
+    shape = box_dist.shape[:-1]
+    logits = box_dist.reshape(*shape, 4, reg_max).to(dtype)
+    probs = torch.softmax(logits, dim=-1)
+    bins = torch.arange(reg_max, dtype=dtype, device=box_dist.device)
+    return torch.matmul(probs, bins).float()
+
+
+def dist2bbox(dist: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tensor:
+    """ltrb distances (..., 4) + anchor points (..., 2) -> xyxy boxes."""
+    lt, rb = dist.chunk(2, dim=-1)
+    return torch.cat([anchor_points - lt, anchor_points + rb], dim=-1)
+
+
+def decode_scores_raw(
+    feats: List[torch.Tensor],
+    nc: int,
+    reg_max: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-level class reduction with NO box decode.
+
+    -> (best f32 (B, A) sigmoided, cls f32 (B, A), box_dist (B, A, 4*reg_max)
+    in the feats' dtype). The front half of select-then-decode NMS
+    (`ops.nms.batched_nms_seldec`), which decodes the selected rows only.
+    """
+    best_l, cls_l, dist_l = [], [], []
+    for f in feats:
+        b, h, w, _ = f.shape
+        dist_l.append(f[..., : 4 * reg_max].reshape(b, h * w, 4 * reg_max))
+        best, cls = f[..., 4 * reg_max:].max(dim=-1)
+        best_l.append(best.reshape(b, h * w))
+        cls_l.append(cls.reshape(b, h * w))
+    best = torch.sigmoid(torch.cat(best_l, dim=1).float())
+    cls = torch.cat(cls_l, dim=1).float()
+    return best, cls, torch.cat(dist_l, dim=1)
+
+
+def anchor_rows_from_idx(
+    idx: torch.Tensor,
+    feat_shapes: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    grid_cell_offset: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor points/strides for selected flat-grid indices, arithmetically.
+
+    idx (B, K) int into the concatenated per-level anchor grid ->
+    (anchor_points (B, K, 2) f32, strides (B, K, 1) f32); matches
+    `make_anchors` row for row.
+    """
+    x = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    y = torch.zeros_like(x)
+    st = torch.zeros_like(x)
+    base = 0
+    for (h, w), s in zip(feat_shapes, strides):
+        in_level = (idx >= base) & (idx < base + h * w)
+        li = idx - base
+        x = torch.where(in_level, (li % w).float() + grid_cell_offset, x)
+        y = torch.where(in_level, torch.div(li, w, rounding_mode="floor").float() + grid_cell_offset, y)
+        st = torch.where(in_level, torch.full_like(st, float(s)), st)
+        base += h * w
+    return torch.stack([x, y], dim=-1), st[..., None]
