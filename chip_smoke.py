@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detect serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving paths on one CUDA card and check them.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
-CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc, and runs six phases,
-each printing one JSON line:
+four CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel),
+and runs eleven phases, each printing one JSON line:
 
   1. card    nvidia-smi name and power limit, kernel build times and ptxas info
   2. nms     kernel A (`nms_keep`) vs its plain version on the card: B=32 random
@@ -29,10 +29,36 @@ each printing one JSON line:
   6. profile device time by kernel and by copy over three main-path
              predicts, and the kernels' busy share of the wall time
              (torch.profiler; the run is slower than the untraced one)
+  7. rnms    kernel C (`rotated_nms_keep`) vs its plain version on the card:
+             B=16 random oriented candidates at K=1024 and K=160 and a
+             3-box suppression chain, keep masks equal bit for bit
+  8. mpack   kernel D (`upsample4x_threshold_pack`) vs its plain version on
+             the card: random (300, 160, 160) and (37, 24, 40) soft masks,
+             packed bytes equal bit for bit
+  9. tasks_fp32  yolo11n segment, obb (nc 15), pose and classify fp32
+             `Predictor.predict` on two frames of different sizes (the host
+             letterbox) at 640 px, on cuda and on cpu (TF32 off), on weights
+             calibrated as in phase 4 (segment: mask logits at unit spread
+             too): equal counts, detections paired as sets (same class), the
+             pairs' boxes, obb and keypoints within 5e-2 px and scores within
+             1e-4, mask pixels differing at most 1e-4, probs within 1e-5;
+             each task's kernel counters rise
+ 10. seg_bf16  the segment path: yolo11n-seg bf16 `predict` at batch 32 on
+             640x640 frames, mask_mode "device": one call with the counters
+             reset (A, B and D must each read >= 1), 20 timed calls and the
+             device part as in phase 5, kernel D at the captured input
+             (bit-equal to its plain version; times beside its bound), and
+             the device time by kernel over three predicts
+ 11. obb_bf16  the OBB path: yolo11n-obb (nc 15) bf16 `predict` at batch 16
+             on 1024x1024 frames (the OBB models' input size): counters B
+             and C >= 1, timings as in phase 10, kernel C at the captured
+             K=1024 input
 
-Then it prints the card's name and power limit, the per-kernel JSON line and,
-last, {"ok": true, "device": {...}}. Any failed phase exits non-zero without
-that last line; so does a host without CUDA or a directory without the port.
+Then it prints the card's name and power limit, the per-kernel JSON line (A
+and B measured on the detect path, C on the OBB path, D on the segment path)
+and, last, {"ok": true, "device": {...}}. Any failed phase exits non-zero
+without that last line; so does a host without CUDA or a directory without
+the port.
 """
 
 from __future__ import annotations
@@ -51,6 +77,23 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, SXM part (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 IOU_OPS = 14  # f32 operations for one IoU and its compare (ops/iou.py order)
+# f32 operations for one probIoU and its compare (ops/rotated.py order): 9
+# additions or subtractions, 12 products, 2 divisions, 2 square roots, one
+# log, one exp, a negation, 4 clamp sides, one compare (ops per pair; each
+# candidate's clamped determinant adds 4 ops per candidate)
+PROBIOU_OPS = 38
+# kernel D per output pixel: the W tap (2 products, 1 sum) and the compare;
+# per upsampled row and source column: the H tap (2 products, 1 sum)
+PACK_OPS_PER_PIXEL = 4
+PACK_OPS_PER_HTAP = 3
+# cuda vs cpu in f32 (phase 9): sums taken in another order through the 24
+# layers move head outputs by ~1e-5 of their size; coordinates reach the
+# frame's 640 px (keypoint offsets are also scaled by the stride, 32) and a
+# logit of a few units moves its sigmoid by up to ~2e-5
+PX_TOL = 5e-2
+SCORE_TOL = 1e-4
+SEG_SERVE = (32, 640)  # segment path: batch, imgsz
+OBB_SERVE = (16, 1024)  # OBB path: batch, imgsz (the OBB models' input size)
 
 
 def emit(obj) -> None:
@@ -106,53 +149,136 @@ def random_candidates(rng, b: int, k: int):
     return boxes, scores > 0.15
 
 
-def smoke_weights(frames_u8: np.ndarray):
-    """yolo11n detect weights for the device comparison.
+def smoke_weights(frames_u8: np.ndarray, task: str = "detect", nc: int = 80):
+    """yolo11n weights of `task` for the device comparisons.
 
     The seeded init (`build_model`) with the class-head biases at 0, and each
     batch norm's statistics set to those of its conv's output on `frames_u8`.
     The plain init's activations fade through the graph (class logits near
     1e-4, so scores tie at f32 resolution and any rounding reorders them);
     with the statistics calibrated, every layer feeds the next at unit scale
-    and the logits spread over O(1).
+    and the logits spread over O(1). For segment the mask-coefficient convs
+    are then scaled so the mask logits (prototypes x coefficients) spread at
+    unit standard deviation too: mask pixels sit at sigmoid 0.5 only rarely.
     """
     import torch
 
-    from yolo_infer_tpu_torch.models.blocks import Conv
+    from yolo_infer_tpu_torch.models.blocks import Conv, Detect
     from yolo_infer_tpu_torch.models.yolo11 import build_model
     from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch
 
-    model, spec = build_model("detect", "n", seed=SEED)
+    model, spec = build_model(task, "n", nc=nc, seed=SEED)
+    head = model.model[-1]
+    x = preprocess_batch(torch.from_numpy(frames_u8), (640, 640))
     hooks = []
     with torch.no_grad():
-        for branch in model.model[-1].cv3:
-            branch[-1].bias.zero_()
+        if isinstance(head, Detect):
+            for branch in head.cv3:
+                branch[-1].bias.zero_()
         for m in model.modules():
             if isinstance(m, Conv):
                 def calibrate(conv, inp, out, bn=m.bn):
                     bn.running_mean.copy_(out.mean((0, 2, 3)))
                     bn.running_var.copy_(out.var((0, 2, 3)))
                 hooks.append(m.conv.register_forward_hook(calibrate))
-        model(preprocess_batch(torch.from_numpy(frames_u8), (640, 640)))
-    for h in hooks:
-        h.remove()
+        out = model(x)
+        for h in hooks:
+            h.remove()
+        if task == "segment":
+            b = x.shape[0]
+            mc = torch.cat([m.reshape(b, -1, m.shape[-1]) for m in out["mc"]], 1)
+            pick = torch.from_numpy(np.random.default_rng(SEED).choice(mc.shape[1], 256, replace=False))
+            spread = torch.bmm(out["proto"].reshape(b, -1, mc.shape[-1]), mc[:, pick].transpose(1, 2)).std()
+            for branch in head.cv4:
+                branch[-1].weight.div_(spread)
+                branch[-1].bias.div_(spread)
     return model, spec
 
 
-def match_detections(a, b, box_tol: float, score_tol: float) -> int:
-    """Detections of `a` with no partner in `b` (same class, box and score
-    within tolerance); equal scores may come out in either order."""
+def match_detections(a, b, box_tol: float, score_tol: float):
+    """Pair the detections of `a` with partners in `b` (same class, box and
+    score within tolerance; equal scores may come out in either order).
+    Returns (number of `a` detections with no partner, [(i, j), ...])."""
     used = np.zeros(len(b), bool)
-    missing = 0
+    missing, pairs = 0, []
     for i in range(len(a)):
         hit = np.nonzero(~used & (b.classes == a.classes[i])
                          & (np.abs(b.boxes - a.boxes[i]).max(axis=1) <= box_tol)
                          & (np.abs(b.scores - a.scores[i]) <= score_tol))[0]
         if len(hit):
             used[hit[0]] = True
+            pairs.append((i, int(hit[0])))
         else:
             missing += 1
-    return missing
+    return missing, pairs
+
+
+def counters():
+    """The four kernel wrappers, by name (their `launches` attributes are the counts)."""
+    from yolo_infer_tpu_torch.ops.kernels import attention_fused, mask_pack, nms_fused, rotated_nms_fused
+
+    return {"nms_keep": nms_fused.nms_keep, "attention_qkv": attention_fused.attention_qkv,
+            "rotated_nms_keep": rotated_nms_fused.rotated_nms_keep,
+            "upsample4x_threshold_pack": mask_pack.upsample4x_threshold_pack}
+
+
+def reset_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def kernel_profile(fn, calls: int = 3):
+    """Device time by kernel and by copy over `calls` calls of `fn`
+    (torch.profiler), and the kernels' busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    # device-side events only (CPU ops also carry their kernels' time); the
+    # profiler's own buffer requests are not the program's work
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key != "Activity Buffer Request"]
+    rows.sort(key=lambda r: -r[1])
+    copy_ms = sum(ms for k, ms, _ in rows if k.startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(ms for k, ms, _ in rows if not k.startswith(("Memcpy", "Memset")))
+    return {"wall_ms_per_predict": wall_ms, "kernel_ms_per_predict": kernel_ms,
+            "copy_ms_per_predict": copy_ms, "kernel_busy_share": kernel_ms / wall_ms,
+            "top": [{"name": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:15]]}
+
+
+def timed_serving(pred, frames, imgsz: int):
+    """20 end-to-end `predict` calls (numpy frames in, Results out; host
+    clock) and the device part alone (frames already on the card, dets left
+    there; CUDA events)."""
+    import torch
+
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict(frames, conf=0.25, imgsz=imgsz)
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    frames_dev = torch.from_numpy(frames).cuda()
+    device = cuda_ms(lambda: pred.predict_raw(frames_dev, 0.25, 0.45, imgsz, 300), iters=20)
+    median = times[len(times) // 2]
+    b = frames.shape[0]
+    return {"batch": int(b), "imgsz": imgsz, "calls": len(times), "img_per_s": b / median,
+            "ms_per_batch_median": 1e3 * median, "ms_per_batch_min": 1e3 * times[0],
+            "ms_per_batch_max": 1e3 * times[-1], "device_ms_per_batch": device,
+            "device_img_per_s": 1e3 * b / device}
 
 
 def phase_card(report):
@@ -160,7 +286,7 @@ def phase_card(report):
 
     line = card_line()
     t0 = time.perf_counter()
-    built = _build.build(["nms_fused", "attention_fused"])
+    built = _build.build(list(_build.KERNELS))
     report["card"] = line
     return {"phase": "card", "card": line, "build_s": time.perf_counter() - t0, "kernels": built}
 
@@ -237,7 +363,7 @@ def phase_fp32(report):
     for g, w in zip(got, want):
         img = {"num_cuda": len(g), "num_cpu": len(w)}
         if len(g) == len(w):
-            img["unmatched"] = match_detections(g, w, 1e-2, 1e-5)
+            img["unmatched"] = match_detections(g, w, 1e-2, 1e-5)[0]
             img["classes_equal"] = bool(np.array_equal(np.sort(g.classes), np.sort(w.classes)))
         out["images"].append(img)
     if min(launches.values()) < 1:
@@ -320,7 +446,8 @@ def phase_bf16(report):
     library_b = lambda: F.scaled_dot_product_attention(q, k, v, scale=kd ** -0.5)  # noqa: E731
     kernels.append({
         "name": "attention_qkv", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/attention_fused.cu",
-        "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:114", "launches": launches["attention_qkv"],
+        "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:114", "path": "detect b32 640 bf16",
+        "launches": launches["attention_qkv"],
         "max_abs_err": err_b,
         "ms": device_ms(kernel_b), "plain_ms": device_ms(plain_b),
         "bound_ms": 1e3 * max(bytes_b / H100_BYTES_PER_S, flops_b / H100_BF16_FLOPS),
@@ -339,7 +466,8 @@ def phase_bf16(report):
     plain_a = lambda: nms_mod.nms_keep_reference(cboxes, valid, thr)  # noqa: E731
     kernels.append({
         "name": "nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/nms_fused.cu",
-        "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:86", "launches": launches["nms_keep"],
+        "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:86", "path": "detect b32 640 bf16",
+        "launches": launches["nms_keep"],
         "max_abs_err": err_a,
         "ms": device_ms(kernel_a), "plain_ms": device_ms(plain_a, iters=10),
         "call_ms": cuda_ms(kernel_a), "plain_call_ms": cuda_ms(plain_a, iters=10),
@@ -362,29 +490,278 @@ def phase_bf16(report):
 
 def phase_profile(report):
     """Device time by kernel over three main-path predicts (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     pred, frames = report["serving"]
-    pred.predict(frames, conf=0.25)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            pred.predict(frames, conf=0.25)
+    return {"phase": "profile", **kernel_profile(lambda: pred.predict(frames, conf=0.25))}
+
+
+def random_rotated(rng, b: int, k: int):
+    """Random oriented candidates in a 640 px frame, as Gaussian terms, and a validity mask."""
+    import torch
+
+    from yolo_infer_tpu_torch.ops.rotated import gauss_terms
+
+    rb = np.concatenate([rng.uniform(50, 590, (b, k, 2)), rng.uniform(10, 120, (b, k, 2)),
+                         rng.uniform(-np.pi / 2, np.pi / 2, (b, k, 1))], -1).astype(np.float32)
+    return gauss_terms(torch.from_numpy(rb).cuda()).contiguous(), torch.from_numpy(rng.uniform(0, 1, (b, k)) > 0.15).cuda()
+
+
+def phase_rnms(report):
+    import torch
+
+    from yolo_infer_tpu_torch.ops.kernels.rotated_nms_fused import rotated_nms_keep, rotated_nms_keep_reference
+    from yolo_infer_tpu_torch.ops.rotated import gauss_terms
+
+    rng = np.random.default_rng(SEED + 4)
+    out = {"phase": "rnms", "cases": []}
+    for k in (1024, 160):
+        gauss, valid = random_rotated(rng, 16, k)
+        got = rotated_nms_keep(gauss, valid, 0.45)
+        want = rotated_nms_keep_reference(gauss, valid, 0.45)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 3
-    # device-side events only (CPU ops also carry their kernels' time); the
-    # profiler's own buffer requests are not the program's work
-    rows = [(e.key, e.self_device_time_total / 1e3 / 3, e.count // 3) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and e.key != "Activity Buffer Request"]
-    rows.sort(key=lambda r: -r[1])
-    copy_ms = sum(ms for k, ms, _ in rows if k.startswith(("Memcpy", "Memset")))
-    kernel_ms = sum(ms for k, ms, _ in rows if not k.startswith(("Memcpy", "Memset")))
-    return {"phase": "profile", "wall_ms_per_predict": wall_ms, "kernel_ms_per_predict": kernel_ms,
-            "copy_ms_per_predict": copy_ms, "kernel_busy_share": kernel_ms / wall_ms,
-            "top": [{"name": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:15]]}
+        ok = torch.equal(got, want)
+        out["cases"].append({"K": k, "B": 16, "kept": int(got.sum()), "equal": ok})
+        if not ok:
+            raise AssertionError(f"rotated keep mask differs at K={k}: {int((got != want).sum())} entries")
+    chain = torch.tensor([[[50, 50, 100, 40, 0.3], [90, 50, 100, 40, 0.3], [130, 50, 100, 40, 0.3],
+                           [400, 400, 20, 20, 0.0]]], dtype=torch.float32, device="cuda")
+    kept = rotated_nms_keep(gauss_terms(chain).contiguous(), torch.tensor([[True, True, True, False]], device="cuda"), 0.3)
+    if kept.cpu().tolist() != [[True, False, True, False]]:
+        raise AssertionError(f"rotated suppression chain: {kept.cpu().tolist()}")
+    out["cases"].append({"chain": True, "equal": True})
+    return out
+
+
+def phase_mpack(report):
+    import torch
+
+    from yolo_infer_tpu_torch.ops.kernels.mask_pack import (
+        upsample4x_threshold_pack,
+        upsample4x_threshold_pack_reference,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    out = {"phase": "mpack", "cases": []}
+    for shape in ((300, 160, 160), (37, 24, 40)):
+        soft = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda()
+        got = upsample4x_threshold_pack(soft)
+        want = upsample4x_threshold_pack_reference(soft)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        out["cases"].append({"shape": list(shape), "ones_share": float(np.unpackbits(got.cpu().numpy()).mean()),
+                             "equal": ok})
+        if not ok:
+            raise AssertionError(f"packed masks differ at {shape}: {int((got != want).sum())} bytes")
+    return out
+
+
+# the kernels each task's predict must launch
+TASK_KERNELS = {"segment": ("nms_keep", "attention_qkv", "upsample4x_threshold_pack"),
+                "obb": ("attention_qkv", "rotated_nms_keep"),
+                "pose": ("nms_keep", "attention_qkv"),
+                "classify": ("attention_qkv",)}
+TASK_NC = {"segment": 80, "obb": 15, "pose": 1, "classify": 1000}
+
+
+def phase_tasks_fp32(report):
+    import torch
+
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+
+    rng = np.random.default_rng(SEED + 6)
+    calib = rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8), rng.integers(0, 256, (360, 500, 3), dtype=np.uint8)]
+    out = {"phase": "tasks_fp32", "tasks": {}}
+    failures = []
+    report["task_weights"] = {}
+    for task in ("segment", "obb", "pose", "classify"):
+        model, spec = smoke_weights(calib, task, TASK_NC[task])
+        report["task_weights"][task] = (model, spec)
+        on_cpu = Predictor(copy.deepcopy(model), spec, device="cpu", compute_dtype=torch.float32)
+        on_gpu = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.float32)
+        torch.backends.cudnn.deterministic = True
+        try:
+            reset_counters()
+            got = on_gpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)
+            launches = read_counters()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        want = on_cpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)
+        res = {"launches": launches, "images": []}
+        if min(launches[k] for k in TASK_KERNELS[task]) < 1:
+            failures.append(f"{task}: a kernel did not run: {launches}")
+        for g, w in zip(got, want):
+            img = {"num_cuda": len(g), "num_cpu": len(w)}
+            if task == "classify":
+                img["probs_max_abs_err"] = float(np.abs(g.probs - w.probs).max())
+                img["top5_equal"] = bool(np.array_equal(np.argsort(-g.probs)[:5], np.argsort(-w.probs)[:5]))
+                if img["probs_max_abs_err"] > 1e-5:
+                    failures.append(f"classify probs differ by {img['probs_max_abs_err']}")
+            else:
+                # pair detections loosely (same class, box within 1 px, score
+                # within 1e-3), then hold the pairs to the tolerances
+                missing, pairs = match_detections(g, w, 1.0, 1e-3)
+                img["unmatched"] = missing + len(w) - len(pairs)
+                errs = {}
+                if pairs:
+                    i, j = map(list, zip(*pairs))
+                    errs["box_max_abs_err"] = float(np.abs(g.boxes[i] - w.boxes[j]).max())
+                    errs["score_max_abs_err"] = float(np.abs(g.scores[i] - w.scores[j]).max())
+                    if task == "obb":
+                        errs["obb_max_abs_err"] = float(np.abs(g.obb[i] - w.obb[j]).max())
+                    if task == "pose":
+                        errs["kpts_max_abs_err"] = float(np.abs(g.keypoints[i] - w.keypoints[j]).max())
+                    if task == "segment":
+                        gm, wm = g.masks.numpy()[i], w.masks.numpy()[j]
+                        img["mask_pixels"] = int(gm.size)
+                        img["mask_ones_share"] = float(gm.mean())
+                        img["mask_pixels_differing"] = int((gm != wm).sum())
+                        if img["mask_pixels_differing"] > 1e-4 * gm.size:
+                            failures.append(f"masks differ in {img['mask_pixels_differing']} of {gm.size} pixels")
+                img.update(errs)
+                for key, err in errs.items():
+                    if err > (SCORE_TOL if key.startswith("score") else PX_TOL):
+                        failures.append(f"{task}: {key} {err}")
+                if len(g) != len(w) or img["unmatched"] or len(g) == 0:
+                    failures.append(f"{task}: detections differ ({img})")
+            res["images"].append(img)
+        out["tasks"][task] = res
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def capture_inputs(module, name: str, seen: dict):
+    """Wrap `module.<name>` (a kernel wrapper as the calling module sees it)
+    so its first call's arguments are cloned into `seen[name]`; returns the
+    function that restores it."""
+    import torch
+
+    fn = getattr(module, name)
+
+    def wrapped(*args):
+        seen.setdefault(name, tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return fn(*args)
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, fn)
+
+
+def phase_seg_bf16(report):
+    import torch
+
+    import yolo_infer_tpu_torch.ops.masks as masks_mod
+    from yolo_infer_tpu_torch.core.predictor import LazyMasks, Predictor
+    from yolo_infer_tpu_torch.ops.kernels import mask_pack as mp_mod
+
+    model, spec = report["task_weights"]["segment"]
+    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16, mask_mode="device")
+    batch, imgsz = SEG_SERVE
+    frames = np.random.default_rng(SEED + 7).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+    pred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
+    torch.cuda.synchronize()
+
+    seen = {}
+    restore = capture_inputs(masks_mod, "upsample4x_threshold_pack", seen)
+    reset_counters()
+    try:
+        results = pred.predict(frames, conf=0.25, imgsz=imgsz)
+    finally:
+        restore()
+    launches = read_counters()
+    if min(launches[k] for k in TASK_KERNELS["segment"]) < 1:
+        raise AssertionError(f"a kernel did not run on the segment path: {launches}")
+    nums = [len(r) for r in results]
+    if min(nums) < 1 or max(nums) > 300:
+        raise AssertionError(f"segment detections per image out of range: {min(nums)}..{max(nums)}")
+    LazyMasks.prefetch(results[:2], np.uint8)  # one device-to-host copy for both
+    for r in results[:2]:
+        m = r.masks.numpy()
+        if m.shape != (len(r), imgsz, imgsz) or not (np.isfinite(r.boxes).all() and np.isfinite(r.scores).all()):
+            raise AssertionError(f"bad segment output: masks {m.shape}, {len(r)} detections")
+    mask_ones = float(np.mean([r.masks.numpy().mean() for r in results[:2]]))
+    timing = timed_serving(pred, frames, imgsz)
+
+    (soft,) = seen["upsample4x_threshold_pack"]
+    kernel_d = lambda: mp_mod.upsample4x_threshold_pack(soft)  # noqa: E731
+    plain_d = lambda: mp_mod.upsample4x_threshold_pack_reference(soft)  # noqa: E731
+    got, want = kernel_d(), plain_d()
+    err_d = float((got != want).sum())
+    if err_d:
+        raise AssertionError(f"kernel D differs from its plain version on the segment path: {err_d} bytes")
+    n, h, w = soft.shape
+    bytes_d = soft.numel() * 4 + got.numel()
+    ops_d = n * 4 * h * 4 * w * PACK_OPS_PER_PIXEL + n * 4 * h * w * PACK_OPS_PER_HTAP
+    report["kernels"].append({
+        "name": "upsample4x_threshold_pack", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/mask_pack.cu",
+        "replaces": "yolo_infer_tpu/ops/pallas/mask_pack.py:92", "path": f"segment b{batch} {imgsz} bf16",
+        "launches": launches["upsample4x_threshold_pack"], "max_abs_err": err_d,
+        "ms": device_ms(kernel_d), "plain_ms": device_ms(plain_d, iters=5),
+        "call_ms": cuda_ms(kernel_d, iters=20), "plain_call_ms": cuda_ms(plain_d, iters=5, warmup=1),
+        "bound_ms": 1e3 * max(bytes_d / H100_BYTES_PER_S, ops_d / H100_F32_FLOPS),
+        "bound_by": "bytes" if bytes_d / H100_BYTES_PER_S >= ops_d / H100_F32_FLOPS else "operations",
+        "library_ms": None, "shape": [n, h, w],
+    })
+    del soft, got, want, seen
+    profile = kernel_profile(lambda: pred.predict(frames, conf=0.25, imgsz=imgsz))
+    return {"phase": "seg_bf16", **timing, "launches": launches, "detections_per_image": [min(nums), max(nums)],
+            "mask_ones_share": mask_ones, "profile": profile}
+
+
+def phase_obb_bf16(report):
+    import torch
+
+    import yolo_infer_tpu_torch.ops.rotated as rot_mod
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+    from yolo_infer_tpu_torch.ops.kernels import rotated_nms_fused as rn_mod
+
+    model, spec = report["task_weights"]["obb"]
+    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16)
+    batch, imgsz = OBB_SERVE
+    frames = np.random.default_rng(SEED + 8).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+    pred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
+    torch.cuda.synchronize()
+
+    seen = {}
+    restore = capture_inputs(rot_mod, "rotated_nms_keep", seen)
+    reset_counters()
+    try:
+        results = pred.predict(frames, conf=0.25, imgsz=imgsz)
+    finally:
+        restore()
+    launches = read_counters()
+    if min(launches[k] for k in TASK_KERNELS["obb"]) < 1:
+        raise AssertionError(f"a kernel did not run on the OBB path: {launches}")
+    nums = [len(r) for r in results]
+    if min(nums) < 1:
+        raise AssertionError("an image without oriented detections")
+    for r in results:
+        if not (np.isfinite(r.obb).all() and np.isfinite(r.scores).all() and len(r) <= 300):
+            raise AssertionError("non-finite or oversized oriented detections")
+    timing = timed_serving(pred, frames, imgsz)
+
+    gauss, valid, thr = seen["rotated_nms_keep"]
+    kernel_c = lambda: rn_mod.rotated_nms_keep(gauss, valid, thr)  # noqa: E731
+    plain_c = lambda: rn_mod.rotated_nms_keep_reference(gauss, valid, thr)  # noqa: E731
+    err_c = float((kernel_c() != plain_c()).sum())
+    if err_c:
+        raise AssertionError(f"kernel C differs from its plain version on the OBB path: {err_c} entries")
+    b, k, _ = gauss.shape
+    bytes_c = gauss.numel() * 4 + 2 * b * k
+    ops_c = b * k * (k - 1) // 2 * PROBIOU_OPS + b * k * 4
+    report["kernels"].append({
+        "name": "rotated_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/rotated_nms_fused.cu",
+        "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:149", "path": f"obb b{batch} {imgsz} bf16",
+        "launches": launches["rotated_nms_keep"], "max_abs_err": err_c,
+        "ms": device_ms(kernel_c), "plain_ms": device_ms(plain_c, iters=5),
+        "call_ms": cuda_ms(kernel_c, iters=20), "plain_call_ms": cuda_ms(plain_c, iters=5, warmup=1),
+        "bound_ms": 1e3 * max(bytes_c / H100_BYTES_PER_S, ops_c / H100_F32_FLOPS),
+        "bound_by": "bytes" if bytes_c / H100_BYTES_PER_S >= ops_c / H100_F32_FLOPS else "operations",
+        "library_ms": None, "shape": [b, k, 5], "valid": int(valid.sum()),
+    })
+    profile = kernel_profile(lambda: pred.predict(frames, conf=0.25, imgsz=imgsz))
+    return {"phase": "obb_bf16", **timing, "launches": launches, "detections_per_image": [min(nums), max(nums)],
+            "profile": profile}
 
 
 def main() -> int:
@@ -407,7 +784,9 @@ def main() -> int:
 
     report = {}
     failed = []
-    for phase in (phase_card, phase_nms, phase_attn, phase_fp32, phase_bf16, phase_profile):
+    phases = (phase_card, phase_nms, phase_attn, phase_fp32, phase_bf16, phase_profile,
+              phase_rnms, phase_mpack, phase_tasks_fp32, phase_seg_bf16, phase_obb_bf16)
+    for phase in phases:
         t0 = time.perf_counter()
         try:
             result = phase(report)
@@ -419,11 +798,12 @@ def main() -> int:
             traceback.print_exc()
             if phase is phase_card:
                 break
-    if failed or "kernels" not in report:
+    if failed or len(report.get("kernels", ())) != 4:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     print(report["card"])
-    emit({"kernels": report["kernels"]})
+    order = ("nms_keep", "attention_qkv", "rotated_nms_keep", "upsample4x_threshold_pack")
+    emit({"kernels": sorted(report["kernels"], key=lambda k: order.index(k["name"]))})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from yolo_infer_tpu_torch.core.predictor import Predictor
+import yolo_infer_tpu_torch.ops.masks as masks_mod
+from yolo_infer_tpu_torch.core.predictor import LazyMasks, Predictor
 from yolo_infer_tpu_torch.models.yolo11 import build_model
-from yolo_infer_tpu_torch.ops.kernels import attention_fused, nms_fused
+from yolo_infer_tpu_torch.ops.kernels import attention_fused, mask_pack, nms_fused, rotated_nms_fused
+from yolo_infer_tpu_torch.ops.rotated import gauss_terms
 
 
 @pytest.fixture
@@ -71,3 +73,73 @@ def test_main_path_launches_both_kernels(card):
     nms_fused.nms_keep.launches = attention_fused.attention_qkv.launches = 0
     pred.predict(frames)
     assert nms_fused.nms_keep.launches == 1 and attention_fused.attention_qkv.launches == 1
+
+
+def _rotated_candidates(seed, b, k):
+    rng = np.random.default_rng(seed)
+    rb = np.concatenate([rng.uniform(50, 590, (b, k, 2)), rng.uniform(10, 120, (b, k, 2)),
+                         rng.uniform(-np.pi / 2, np.pi / 2, (b, k, 1))], -1).astype(np.float32)
+    return gauss_terms(torch.from_numpy(rb)).contiguous(), torch.from_numpy(rng.uniform(0, 1, (b, k)) > 0.15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [160, 1024])
+def test_rotated_keep_kernel_is_bit_equal_to_the_plain_version(card, k):
+    gauss, valid = _rotated_candidates(k, 8, k)
+    g, v = gauss.to(card), valid.to(card)
+    before = rotated_nms_fused.rotated_nms_keep.launches
+    got = rotated_nms_fused.rotated_nms_keep(g, v, 0.45)
+    assert rotated_nms_fused.rotated_nms_keep.launches == before + 1
+    assert torch.equal(got, rotated_nms_fused.rotated_nms_keep_reference(g, v, 0.45))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 160, 160), (37, 24, 40)])
+def test_mask_pack_kernel_is_bit_equal_to_the_plain_version(card, shape):
+    soft = torch.from_numpy(np.random.default_rng(shape[0]).random(shape).astype(np.float32)).to(card)
+    before = mask_pack.upsample4x_threshold_pack.launches
+    got = mask_pack.upsample4x_threshold_pack(soft)
+    assert mask_pack.upsample4x_threshold_pack.launches == before + 1
+    assert got.shape == (shape[0], 4 * shape[1], shape[2] // 2)
+    assert torch.equal(got, mask_pack.upsample4x_threshold_pack_reference(soft))
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
+    gauss, valid = _rotated_candidates(0, 2, 64)
+    g, v = gauss.to(card), valid.to(card)
+    with pytest.raises(ValueError, match="contiguous"):
+        rotated_nms_fused.rotated_nms_keep(g.transpose(0, 1).contiguous().transpose(0, 1), v, 0.45)
+    with pytest.raises(ValueError, match="float32"):
+        rotated_nms_fused.rotated_nms_keep(g.double(), v, 0.45)
+    soft = torch.rand((4, 16, 32), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        mask_pack.upsample4x_threshold_pack(soft.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        mask_pack.upsample4x_threshold_pack(soft.half())
+    boxes = torch.rand((2, 64, 4), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms_fused.nms_keep(boxes.transpose(0, 1).contiguous().transpose(0, 1), v, 0.45)
+    with pytest.raises(ValueError, match="float32"):
+        nms_fused.nms_keep(boxes.half(), v, 0.45)
+
+
+@pytest.mark.cuda
+def test_segment_predict_masks_match_the_plain_path(card):
+    model, spec = build_model("segment", "n", seed=0)
+    pred = Predictor(model, spec, compute_dtype=torch.float32)
+    frames = np.random.default_rng(5).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = mask_pack.upsample4x_threshold_pack.launches
+        got = pred.predict(frames, conf=0.0, max_det=50)
+        assert mask_pack.upsample4x_threshold_pack.launches == before + 1
+        masks_mod.upsample4x_threshold_pack = mask_pack.upsample4x_threshold_pack_reference
+        want = pred.predict(frames, conf=0.0, max_det=50)
+    finally:
+        masks_mod.upsample4x_threshold_pack = mask_pack.upsample4x_threshold_pack
+        torch.backends.cudnn.deterministic = False
+    for g, w in zip(got, want):
+        assert isinstance(g.masks, LazyMasks) and len(g) == len(w) > 0
+        assert g.masks.shape == (len(g), 480, 640)
+        np.testing.assert_array_equal(g.masks.numpy(), w.masks.numpy())

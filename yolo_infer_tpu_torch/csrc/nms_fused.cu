@@ -13,11 +13,12 @@
 //   bitmask in shared memory, K rows of ceil(K/32) 32-bit words (bit j of row
 //   i: i < j and iou(i, j) > thr). 18 KB at K = 384, 128 KB at K = 1024, so
 //   the launch asks for dynamic shared memory above 48 KB.
-//   Phase 2: one warp walks i = 0..K-1. Lane w holds word w of the removed
-//   set (K <= 1024 means at most 32 words); candidate i is kept when it is
-//   valid and not removed, and then its row is ORed into the removed set.
-//   Every lane carries a copy of the word under the walk, so a decision
-//   costs a bit test and two ORs, not a shuffle.
+//   Phase 2: one warp walks i = 0..K-1 (nms_walk.cuh, shared with kernel C).
+//   Lane w holds word w of the removed set (K <= 1024 means at most 32
+//   words); candidate i is kept when it is valid and not removed, and then
+//   its row is ORed into the removed set. Every lane carries a copy of the
+//   word under the walk, so a decision costs a bit test and two ORs, not a
+//   shuffle.
 // Sequential greedy is the fixpoint's limit, so the mask is bit-identical to
 // the plain version (ops/nms.py _nms_fixpoint over ops/iou.py
 // box_iou_matrix) as long as every IoU rounds the same way: the IoU is
@@ -28,10 +29,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nms_walk.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 1024;
 
 __device__ __forceinline__ float box_area(const float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f), fmaxf(__fsub_rn(b.w, b.y), 0.f));
@@ -89,31 +91,7 @@ nms_keep_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ va
   }
   __syncthreads();
 
-  if (threadIdx.x < 32) {
-    // Lane w < W holds word w of the removed set. Each lane also tracks `cur`,
-    // the word being walked, so the decision chain needs no shuffle per
-    // candidate; both mask loads are independent of the decision.
-    const int lane = threadIdx.x;
-    uint32_t removed = 0;
-    uint8_t* kb = keep + static_cast<size_t>(img) * K;
-    for (int w = 0; w < W; ++w) {
-      uint32_t cur = __shfl_sync(0xffffffffu, removed, w);
-      uint32_t kept_bits = 0;
-      const int i0 = w << 5;
-      const int iend = min(i0 + 32, K);
-      for (int i = i0; i < iend; ++i) {
-        const uint32_t row_cur = mask[i * W + w];
-        const uint32_t row_own = lane < W ? mask[i * W + lane] : 0u;
-        const uint32_t bit = 1u << (i - i0);
-        if (svalid[i] && !(cur & bit)) {
-          kept_bits |= bit;
-          cur |= row_cur;
-          removed |= row_own;
-        }
-      }
-      if (i0 + lane < K) kb[i0 + lane] = (kept_bits >> lane) & 1u;
-    }
-  }
+  if (threadIdx.x < 32) greedy_keep_walk(mask, svalid, keep + static_cast<size_t>(img) * K, K, W);
 }
 
 }  // namespace
@@ -122,7 +100,7 @@ nms_keep_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ va
 // the current device. Returns the cudaError_t of the launch.
 extern "C" int nms_keep_launch(const void* boxes, const void* valid, void* keep, int B, int K,
                                float thr, void* stream) {
-  if (B < 1 || K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = (K + 31) / 32;
   const size_t smem = static_cast<size_t>(K) * (sizeof(float4) + sizeof(float)) +
                       static_cast<size_t>(K) * W * sizeof(uint32_t) + K;

@@ -1,16 +1,18 @@
-"""YOLO11 building blocks as `nn.Module`s (detect path).
+"""YOLO11 building blocks as `nn.Module`s.
 
 Port of `yolo_infer_tpu/models/blocks.py`: Conv, DWConv, Bottleneck, C3k,
-C3k2, SPPF, Attention, PSABlock, C2PSA and Detect. Submodules carry the
-ultralytics names (`conv`/`bn`, `cv1`, `m.{j}`, `ffn.0`, `cv3.{i}.0.0`, ...)
-so an ultralytics-named state dict loads with `load_state_dict`
-(`models/convert.py`). Activations are NCHW inside the blocks.
+C3k2, SPPF, Attention, PSABlock, C2PSA and the heads Detect, Segment (with
+Proto), Pose, OBB and Classify. Submodules carry the ultralytics names
+(`conv`/`bn`, `cv1`, `m.{j}`, `ffn.0`, `cv3.{i}.0.0`, `cv4.{i}.2`,
+`proto.upsample`, `linear`, ...) so an ultralytics-named state dict loads
+with `load_state_dict` (`models/convert.py`). Activations are NCHW inside the
+blocks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -18,6 +20,7 @@ import torch.nn as nn
 from yolo_infer_tpu_torch.nn.layers import (
     BN_EPS,
     BN_MOMENTUM,
+    adaptive_avg_pool,
     autopad,
     bn_scale_bias,
     fold_batchnorm,
@@ -205,6 +208,86 @@ class Detect(nn.Module):
             for c in ch
         )
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Per-level (B, 4*reg_max + nc, H, W) raw maps."""
-        return [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(xs)]
+    def forward(self, xs: List[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
+        """{"feats": per-level (B, 4*reg_max + nc, H, W) raw maps}."""
+        return {"feats": [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(xs)]}
+
+
+class _DetectPlus(Detect):
+    """Detect + a per-level `cv4` branch (Conv 3 -> Conv 3 -> Conv2d 1) whose
+    raw maps come out under `key`: mask coefficients (Segment), keypoints
+    (Pose) or the angle (OBB)."""
+
+    key = ""
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int, c_out: int):
+        super().__init__(nc, ch, reg_max)
+        c_mid = max(ch[0] // 4, c_out)
+        self.cv4 = nn.ModuleList(
+            nn.Sequential(Conv(c, c_mid, 3), Conv(c_mid, c_mid, 3), nn.Conv2d(c_mid, c_out, 1)) for c in ch
+        )
+
+    def forward(self, xs: List[torch.Tensor]) -> Dict[str, Any]:
+        out = super().forward(xs)
+        out[self.key] = [self.cv4[i](x) for i, x in enumerate(xs)]
+        return out
+
+
+class Proto(nn.Module):
+    """Mask prototypes: Conv 3 -> ConvTranspose2d(2, 2) -> Conv 3 -> Conv 1,
+    at twice the P3 resolution (stride 4)."""
+
+    def __init__(self, c1: int, c_: int, nm: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, nm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+class Segment(_DetectPlus):
+    """Detect + per-level mask coefficients (`mc`) + prototypes (`proto`)."""
+
+    key = "mc"
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16, nm: int = 32):
+        super().__init__(nc, ch, reg_max, nm)
+        self.proto = Proto(ch[0], max(ch[0] // 4, nm * 2), nm)
+
+    def forward(self, xs: List[torch.Tensor]) -> Dict[str, Any]:
+        out = super().forward(xs)
+        out["proto"] = self.proto(xs[0])
+        return out
+
+
+class Pose(_DetectPlus):
+    """Detect + per-level raw keypoint maps (`kpts`, K*D channels)."""
+
+    key = "kpts"
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16, kpt_shape: Tuple[int, int] = (17, 3)):
+        super().__init__(nc, ch, reg_max, kpt_shape[0] * kpt_shape[1])
+
+
+class OBB(_DetectPlus):
+    """Detect + per-level raw angle maps (`angle`, ne channels)."""
+
+    key = "angle"
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16, ne: int = 1):
+        super().__init__(nc, ch, reg_max, ne)
+
+
+class Classify(nn.Module):
+    """Conv 1 to `c_hidden` -> global average pool -> linear -> (B, nc) logits."""
+
+    def __init__(self, c1: int, nc: int, c_hidden: int = 1280):
+        super().__init__()
+        self.conv = Conv(c1, c_hidden, 1)
+        self.linear = nn.Linear(c_hidden, nc)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(adaptive_avg_pool(self.conv(x)).to(self.linear.weight.dtype))

@@ -129,6 +129,30 @@ def _detect(out, prefix, p, s) -> None:
         _conv2d(out, f"{prefix}.cv3.{i}.2", cp[4])
 
 
+def _extra_branch(out, prefix, ps, ss) -> None:
+    """The `cv4` branch: per level [Conv, Conv, Conv2d]."""
+    for i, bp in enumerate(ps):
+        bs = _sub(ss, i)
+        _conv(out, f"{prefix}.{i}.0", bp[0], _sub(bs, 0))
+        _conv(out, f"{prefix}.{i}.1", bp[1], _sub(bs, 1))
+        _conv2d(out, f"{prefix}.{i}.2", bp[2])
+
+
+def _proto(out, prefix, p, s) -> None:
+    _conv(out, f"{prefix}.cv1", p["cv1"], _sub(s, "cv1"))
+    # (kh, kw, O, I) -> torch ConvTranspose2d's (I, O, kh, kw)
+    out[f"{prefix}.upsample.weight"] = np.ascontiguousarray(np.asarray(p["up"]["wt"], np.float32).transpose(3, 2, 0, 1))
+    out[f"{prefix}.upsample.bias"] = p["up"]["b"]
+    _conv(out, f"{prefix}.cv2", p["cv2"], _sub(s, "cv2"))
+    _conv(out, f"{prefix}.cv3", p["cv3"], _sub(s, "cv3"))
+
+
+def _classify(out, prefix, p, s) -> None:
+    _conv(out, f"{prefix}.conv", p["conv"], _sub(s, "conv"))
+    out[f"{prefix}.linear.weight"] = np.ascontiguousarray(np.asarray(p["linear"]["w"], np.float32).T)  # (I, O) -> (O, I)
+    out[f"{prefix}.linear.bias"] = p["linear"]["b"]
+
+
 def params_from_jax(params: Mapping[str, Any], spec: ModelSpec, state: Optional[Mapping[str, Any]] = None) -> YOLO11:
     """JAX parameter tree (numpy leaves) -> `YOLO11` holding the same weights.
 
@@ -149,8 +173,14 @@ def params_from_jax(params: Mapping[str, Any], spec: ModelSpec, state: Optional[
             _bottleneck(sd, prefix, p, s)  # same two convs, cv1 and cv2
         elif t == "C2PSA":
             _c2psa(sd, prefix, p, s)
-        elif t == "Detect":
+        elif t in ("Detect", "Segment", "Pose", "OBB"):
             _detect(sd, prefix, p, s)
+            if t != "Detect":
+                _extra_branch(sd, f"{prefix}.cv4", p["cv4"], _sub(s, "cv4"))
+            if t == "Segment":
+                _proto(sd, f"{prefix}.proto", p["proto"], _sub(s, "proto"))
+        elif t == "Classify":
+            _classify(sd, prefix, p, s)
         elif t not in ("Upsample", "Concat"):
             raise NotImplementedError(f"layer type {t} is not ported yet")
     return load_state_dict(sd, spec)

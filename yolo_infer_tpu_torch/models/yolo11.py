@@ -1,4 +1,4 @@
-"""YOLO11 module, seeded builder, BN folding and dtype cast (detect task).
+"""YOLO11 module, seeded `build_model`, BN folding and dtype cast (every task).
 
 Port of `yolo_infer_tpu/models/yolo11.py`. `YOLO11` runs the layer DAG of a
 `ModelSpec` in plain form: the JAX package's halo-tiled early stage, its
@@ -9,7 +9,7 @@ identical outputs, so they have no counterpart here.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -24,8 +24,6 @@ class YOLO11(nn.Module):
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
-        if spec.task != "detect":
-            raise NotImplementedError(f"task {spec.task!r} is not ported yet; only 'detect' is")
         layers: List[nn.Module] = []
         for layer in spec.layers:
             t = layer.typ
@@ -41,6 +39,14 @@ class YOLO11(nn.Module):
                 m = nn.Identity()  # parameter-free; keeps `model.<i>` aligned with the spec
             elif t == "Detect":
                 m = B.Detect(spec.nc, layer.c_in, spec.reg_max)
+            elif t == "Segment":
+                m = B.Segment(spec.nc, layer.c_in, spec.reg_max, spec.nm)
+            elif t == "Pose":
+                m = B.Pose(spec.nc, layer.c_in, spec.reg_max, spec.kpt_shape)
+            elif t == "OBB":
+                m = B.OBB(spec.nc, layer.c_in, spec.reg_max, spec.ne)
+            elif t == "Classify":
+                m = B.Classify(layer.c_in, spec.nc, layer.kw["c_hidden"])
             else:
                 raise ValueError(f"unknown layer type {t}")
             layers.append(m)
@@ -48,10 +54,15 @@ class YOLO11(nn.Module):
         self.spec = spec
         self._keep = frozenset(save_indices(spec))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
         """`x` is (B, H, W, 3) float in [0, 1], NHWC as the JAX package takes it.
 
-        Returns {"feats": [(B, Hi, Wi, 4*reg_max + nc)] * 3}, NHWC views.
+        Returns the JAX package's head dict, maps as NHWC views:
+          detect  : {"feats": [(B, Hi, Wi, 4*reg_max + nc)] * 3}
+          segment : + {"mc": [(B, Hi, Wi, nm)] * 3, "proto": (B, H/4, W/4, nm)}
+          pose    : + {"kpts": [(B, Hi, Wi, K*D)] * 3}
+          obb     : + {"angle": [(B, Hi, Wi, ne)] * 3}
+          classify: {"logits": (B, nc) f32}
         """
         x = x.permute(0, 3, 1, 2).to(self.model[0].conv.weight.dtype)
         ys: Dict[int, torch.Tensor] = {}
@@ -67,29 +78,40 @@ class YOLO11(nn.Module):
                 y = upsample2x(inp)
             elif t == "Concat":
                 y = torch.cat(inp, 1)
-            elif t == "Detect":
-                return {"feats": [f.permute(0, 2, 3, 1) for f in m(inp)]}
+            elif t in ("Detect", "Segment", "Pose", "OBB"):
+                return {k: [f.permute(0, 2, 3, 1) for f in v] if isinstance(v, list) else v.permute(0, 2, 3, 1)
+                        for k, v in m(inp).items()}
+            elif t == "Classify":
+                return {"logits": m(inp).float()}
             else:
                 y = m(inp)
             prev = y
             if layer.idx in self._keep:
                 ys[layer.idx] = y
-        raise ValueError("spec has no Detect head")
+        raise ValueError("spec has no head")
 
 
 @torch.no_grad()
 def _init_weights(model: YOLO11, generator: torch.Generator) -> None:
-    """Kaiming-uniform conv weights (var 1/fan_in), identity BN, zero biases,
-    then the Detect bias priors (box 1.0, cls = prior frequency)."""
+    """Kaiming-uniform conv and transposed-conv weights (var 1/fan_in),
+    identity BN, zero biases, linear weights and bias uniform in
+    ±sqrt(1/fan_in); then the Detect bias priors (box 1.0, cls = prior
+    frequency) on the heads that have them."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = m.weight[0].numel()  # (O, I/g, kh, kw) or, transposed, (I, O, kh, kw)
             bound = math.sqrt(1.0 / fan_in) * math.sqrt(3.0)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            bound = math.sqrt(1.0 / m.in_features)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.uniform_(-bound, bound, generator=generator)
     spec = model.spec
     det = model.model[-1]
+    if not isinstance(det, B.Detect):
+        return
     for i, s in enumerate(spec.strides):
         det.cv2[i][-1].bias.fill_(1.0)
         det.cv3[i][-1].bias.fill_(math.log(5 / spec.nc / (640 / s) ** 2))
@@ -113,9 +135,10 @@ def fold_model(model: YOLO11) -> YOLO11:
 
 
 def cast_model(model: YOLO11, dtype: torch.dtype) -> YOLO11:
-    """Cast conv weights and biases to `dtype` in place. Batch-norm
-    statistics of an unfolded model stay f32, as the JAX state tree does."""
+    """Cast conv, transposed-conv and linear weights and biases to `dtype` in
+    place. Batch-norm statistics of an unfolded model stay f32, as the JAX
+    state tree does."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             m.to(dtype)
     return model

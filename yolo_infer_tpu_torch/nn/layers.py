@@ -1,6 +1,8 @@
 """NN primitives of the YOLO11 family on NCHW tensors.
 
-Port of `yolo_infer_tpu/nn/layers.py` (the float deploy path only). The JAX
+Port of `yolo_infer_tpu/nn/layers.py` (the float deploy path only; its
+`conv_transpose2x` and `dense` are `nn.ConvTranspose2d(c, c, 2, 2)` and
+`nn.Linear` in `models/blocks.py`). The JAX
 package keeps activations NHWC with HWIO kernels; inside the port's modules
 activations are NCHW (a channels_last view where the caller hands in NHWC)
 and kernels OIHW, the layout `torch.nn.functional.conv2d` takes. Public
@@ -39,6 +41,11 @@ def max_pool(x: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample (exact integer-factor semantics)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def adaptive_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool of an NCHW map -> (N, C)."""
+    return x.mean(dim=(2, 3))
 
 
 def bn_scale_bias(

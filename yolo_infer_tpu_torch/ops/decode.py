@@ -1,8 +1,9 @@
 """Anchor-free DFL box decode.
 
 Port of `yolo_infer_tpu/ops/decode.py` (`make_anchors`, `dfl_expectation`,
-`dist2bbox`, `decode_scores_raw`, `anchor_rows_from_idx`). Head maps are
-NHWC, (B, H, W, 4*reg_max + nc), as in the JAX package.
+`dist2bbox`, `decode_scores_raw`, `anchor_rows_from_idx`, `decode_raw`,
+`decode_keypoints`). Head maps are NHWC, (B, H, W, 4*reg_max + nc), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -94,3 +95,49 @@ def anchor_rows_from_idx(
         st = torch.where(in_level, torch.full_like(st, float(s)), st)
         base += h * w
     return torch.stack([x, y], dim=-1), st[..., None]
+
+
+def decode_raw(
+    feats: List[torch.Tensor],
+    nc: int,
+    reg_max: int = 16,
+    strides: Sequence[int] = (8, 16, 32),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-level maps -> (ltrb dist (B, A, 4) f32, scores (B, A, nc) f32
+    sigmoided, anchor points (A, 2), strides (A, 1)).
+
+    The front half of the full-grid box decode; OBB combines the distances
+    with its decoded angle (`ops.rotated.dist2rbox`).
+    """
+    if feats[0].shape[-1] != 4 * reg_max + nc:
+        raise ValueError(f"head channels {feats[0].shape[-1]} != 4*reg_max+nc = {4 * reg_max + nc}")
+    anchor_points, strd = make_anchors([(f.shape[1], f.shape[2]) for f in feats], strides, device=feats[0].device)
+    b = feats[0].shape[0]
+    flat = torch.cat([f.reshape(b, -1, f.shape[-1]) for f in feats], dim=1)
+    dist = dfl_expectation(flat[..., : 4 * reg_max], reg_max)
+    scores = torch.sigmoid(flat[..., 4 * reg_max:].float())
+    return dist, scores, anchor_points, strd
+
+
+def decode_keypoints(
+    kpts_flat: torch.Tensor,
+    anchor_points: torch.Tensor,
+    strd: torch.Tensor,
+    kpt_shape: Tuple[int, int] = (17, 3),
+) -> torch.Tensor:
+    """Raw keypoint rows (B, A, K*D) -> (B, A, K, D) image coordinates
+    (and sigmoided visibility when D == 3).
+
+    `anchor_points` / `strd` are the grid tables (A, 2) / (A, 1) or per-row
+    selections (B, A, 2) / (B, A, 1): the serving tail decodes only the
+    max_det selected rows.
+    """
+    b, a, _ = kpts_flat.shape
+    k, d = kpt_shape
+    y = kpts_flat.reshape(b, a, k, d).float()
+    ap = anchor_points if anchor_points.dim() == 3 else anchor_points[None]
+    st = strd if strd.dim() == 3 else strd[None]
+    xy = (y[..., :2] * 2.0 + (ap[:, :, None, :] - 0.5)) * st[:, :, None, :]
+    if d == 3:
+        return torch.cat([xy, torch.sigmoid(y[..., 2:3])], dim=-1)
+    return xy

@@ -3,8 +3,8 @@
 Each source compiles with nvcc into its own shared library with a plain C
 interface, loaded with `ctypes`; no PyTorch headers are involved, so a build
 takes seconds. Libraries land in `yolo_infer_tpu_torch/_build/` under a name
-that carries a hash of the source and flags, so an edited source rebuilds.
-A failed build or load raises.
+that carries a hash of the source, the `csrc/` headers it includes and the
+flags, so an edited source or header rebuilds. A failed build or load raises.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,8 +25,11 @@ BUILD_DIR = _PKG / "_build"
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# nms_fused: no FMA contraction, so the IoU rounds exactly as the plain version's
-_EXTRA_FLAGS: Dict[str, List[str]] = {"nms_fused": ["--fmad=false"]}
+# every kernel that must equal its plain version bit for bit: no FMA
+# contraction, so each operation rounds as PyTorch's elementwise kernels do
+_EXTRA_FLAGS: Dict[str, List[str]] = {name: ["--fmad=false"]
+                                      for name in ("nms_fused", "rotated_nms_fused", "mask_pack")}
+KERNELS = ("nms_fused", "attention_fused", "rotated_nms_fused", "mask_pack")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -44,9 +48,21 @@ def _flags(name: str) -> List[str]:
     return _BASE_FLAGS + _EXTRA_FLAGS.get(name, [])
 
 
+def _sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and the `csrc/` headers it includes, transitively."""
+    todo, seen = [CSRC_DIR / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC_DIR / inc for inc in re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in _sources(name))
+                            + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

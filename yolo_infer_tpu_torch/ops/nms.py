@@ -64,22 +64,30 @@ def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def _presel_finish(cboxes, ccls, top_scores, top_idx, iou_thres, *, max_det: int, class_aware: bool = True):
     """Keep mask over the score-sorted (B, K) candidates, then the fixed
     max_det output layout."""
-    b, k = top_scores.shape
     valid = top_scores > 0
     sup_boxes = cboxes + ccls[..., None] * MAX_WH if class_aware else cboxes
     kept = nms_keep_mask(sup_boxes.contiguous(), valid, iou_thres)
+    return _keep_layout(kept, cboxes, ccls, top_scores, top_idx, max_det)
+
+
+def _keep_layout(kept, cboxes, ccls, top_scores, top_idx, max_det: int) -> Dict[str, torch.Tensor]:
+    """The kept candidates, best first, in fixed (B, max_det) slots: boxes
+    (B, max_det, D), scores, classes, valid, num (B,) int32, anchor_idx;
+    empty slots are zero / -1."""
+    b, k = top_scores.shape
     final = torch.where(kept, top_scores, torch.full_like(top_scores, -1.0))
     if k < max_det:  # fewer candidates than output slots: pad before top_k
         pad = max_det - k
         final = torch.cat([final, final.new_full((b, pad), -1.0)], dim=1)
-        cboxes = torch.cat([cboxes, cboxes.new_zeros((b, pad, 4))], dim=1)
+        cboxes = torch.cat([cboxes, cboxes.new_zeros((b, pad, cboxes.shape[-1]))], dim=1)
         ccls = torch.cat([ccls, ccls.new_zeros((b, pad))], dim=1)
         top_idx = torch.cat([top_idx, top_idx.new_zeros((b, pad))], dim=1)
     out_scores, sel = _topk_stable(final, max_det)
     out_valid = out_scores > 0
     zero = torch.zeros((), dtype=torch.float32, device=final.device)
     return {
-        "boxes": torch.where(out_valid[..., None], torch.gather(cboxes, 1, sel[..., None].expand(-1, -1, 4)), zero),
+        "boxes": torch.where(out_valid[..., None],
+                             torch.gather(cboxes, 1, sel[..., None].expand(-1, -1, cboxes.shape[-1])), zero),
         "scores": torch.where(out_valid, out_scores, zero),
         "classes": torch.where(out_valid, torch.gather(ccls, 1, sel), torch.full_like(out_scores, -1.0)),
         "valid": out_valid,
