@@ -3,8 +3,8 @@
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
-four CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel),
-and runs eleven phases, each printing one JSON line:
+six CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel),
+and runs fifteen phases, each printing one JSON line:
 
   1. card    nvidia-smi name and power limit, kernel build times and ptxas info
   2. nms     kernel A (`nms_keep`) vs its plain version on the card: B=32 random
@@ -50,25 +50,54 @@ and runs eleven phases, each printing one JSON line:
              (bit-equal to its plain version; times beside its bound), and
              the device time by kernel over three predicts
  11. obb_bf16  the OBB path: yolo11n-obb (nc 15) bf16 `predict` at batch 16
-             on 1024x1024 frames (the OBB models' input size): counters B
-             and C >= 1, timings as in phase 10, kernel C at the captured
-             K=1024 input
+             on 1024x1024 frames (the OBB models' input size): counters B,
+             C and F >= 1 (OBB's full-grid decode runs F), timings as in
+             phase 10, kernel C at the captured K=1024 input
+ 12. dfl     kernel F (`dfl_decode`) vs its plain version on the card:
+             random (16, 8400, 64) f32 and bf16 logits, contiguous and as
+             the strided slice of a (16, 8400, 144) head slab, within 1e-5
+ 13. gnms    kernel G (`greedy_nms_keep`) vs its plain version on the card,
+             bit-equal: random sorted candidates' IoU at (16, 4096), K = 1000
+             and 37 (not multiples of 32), an all-invalid image, and a
+             4096-box suppression chain (each box overlaps the next)
+ 14. val_fp32  `YOLO11Validator.validate` of yolo11n detect and pose (fp32,
+             640 px, the val defaults: batch 16, conf 0.001, iou 0.6,
+             multi-label, pre_topk 4096) on cuda and on cpu over seeded PNG
+             datasets of 24 frames of two sizes written with `save_image`
+             and labelled with the cpu predictions at conf 0.25: mAP50-95,
+             mAP50 and pose mAP within 1e-3, and each batch's detections
+             with score >= 0.25 paired as sets (boxes within PX_TOL, scores
+             within SCORE_TOL, keypoints within KPT_TOL); counters F and G
+             rise
+ 15. val_bf16  the validation path: yolo11n detect bf16 validation at 640
+             px, batch 16, conf 0.001, iou 0.6, pre_topk 4096 over 64
+             frames, run twice (counters reset before the first; F and G
+             must each read >= 1), the second timed: images/s and
+             inference_ms_per_image from the validator, peak device
+             memory, kernels F and G and the plain IoU build in front of G
+             at the captured inputs (F within 1e-5, G bit-equal; device
+             times beside their bounds), and the device time by kernel over
+             three batches
 
 Then it prints the card's name and power limit, the per-kernel JSON line (A
-and B measured on the detect path, C on the OBB path, D on the segment path)
-and, last, {"ok": true, "device": {...}}. Any failed phase exits non-zero
-without that last line; so does a host without CUDA or a directory without
-the port.
+and B measured on the detect path, C on the OBB path, D on the segment path,
+F and G on the validation path) and, last, {"ok": true, "device": {...}}.
+Any failed phase exits non-zero without that last line; so does a host
+without CUDA or a directory without the port.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -92,8 +121,18 @@ PACK_OPS_PER_HTAP = 3
 # logit of a few units moves its sigmoid by up to ~2e-5
 PX_TOL = 5e-2
 SCORE_TOL = 1e-4
+# val_fp32 keypoints: a keypoint is (offset * 2 + anchor) * stride, so the
+# head's cuda-vs-cpu difference reaches it 64x at stride 32, and the
+# validation keeps ~9k pairs at score >= 0.25 (serving: ~600): 0.058 px seen
+KPT_TOL = 0.1
 SEG_SERVE = (32, 640)  # segment path: batch, imgsz
 OBB_SERVE = (16, 1024)  # OBB path: batch, imgsz (the OBB models' input size)
+# kernel F per logit: max, subtraction, exp, product and two sums; per side
+# one division (exp counted as one operation)
+DFL_OPS_PER_LOGIT = 6
+VAL = dict(imgsz=640, batch=16, conf=0.001, iou=0.6, pre_topk=4096)  # the validator's defaults
+VAL_FP32_FRAMES = 24
+VAL_BF16_FRAMES = 64
 
 
 def emit(obj) -> None:
@@ -214,12 +253,20 @@ def match_detections(a, b, box_tol: float, score_tol: float):
 
 
 def counters():
-    """The four kernel wrappers, by name (their `launches` attributes are the counts)."""
-    from yolo_infer_tpu_torch.ops.kernels import attention_fused, mask_pack, nms_fused, rotated_nms_fused
+    """The six kernel wrappers, by name (their `launches` attributes are the counts)."""
+    from yolo_infer_tpu_torch.ops.kernels import (
+        attention_fused,
+        dfl_decode,
+        greedy_nms,
+        mask_pack,
+        nms_fused,
+        rotated_nms_fused,
+    )
 
     return {"nms_keep": nms_fused.nms_keep, "attention_qkv": attention_fused.attention_qkv,
             "rotated_nms_keep": rotated_nms_fused.rotated_nms_keep,
-            "upsample4x_threshold_pack": mask_pack.upsample4x_threshold_pack}
+            "upsample4x_threshold_pack": mask_pack.upsample4x_threshold_pack,
+            "dfl_decode": dfl_decode.dfl_decode, "greedy_nms_keep": greedy_nms.greedy_nms_keep}
 
 
 def reset_counters() -> None:
@@ -556,7 +603,7 @@ def phase_mpack(report):
 
 # the kernels each task's predict must launch
 TASK_KERNELS = {"segment": ("nms_keep", "attention_qkv", "upsample4x_threshold_pack"),
-                "obb": ("attention_qkv", "rotated_nms_keep"),
+                "obb": ("attention_qkv", "rotated_nms_keep", "dfl_decode"),
                 "pose": ("nms_keep", "attention_qkv"),
                 "classify": ("attention_qkv",)}
 TASK_NC = {"segment": 80, "obb": 15, "pose": 1, "classify": 1000}
@@ -631,16 +678,17 @@ def phase_tasks_fp32(report):
     return out
 
 
-def capture_inputs(module, name: str, seen: dict):
+def capture_inputs(module, name: str, seen: dict, clone: bool = True):
     """Wrap `module.<name>` (a kernel wrapper as the calling module sees it)
-    so its first call's arguments are cloned into `seen[name]`; returns the
-    function that restores it."""
+    so its first call's arguments are cloned into `seen[name]` (or kept as
+    they are, strided views included, with `clone=False`: for arguments the
+    path never writes to again); returns the function that restores it."""
     import torch
 
     fn = getattr(module, name)
 
     def wrapped(*args):
-        seen.setdefault(name, tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        seen.setdefault(name, tuple(a.clone() if clone and torch.is_tensor(a) else a for a in args))
         return fn(*args)
 
     setattr(module, name, wrapped)
@@ -763,6 +811,295 @@ def phase_obb_bf16(report):
     return {"phase": "obb_bf16", **timing, "launches": launches, "detections_per_image": [min(nums), max(nums)],
             "profile": profile}
 
+def phase_dfl(report):
+    import torch
+
+    from yolo_infer_tpu_torch.ops.kernels.dfl_decode import dfl_decode, dfl_decode_reference
+
+    rng = np.random.default_rng(SEED + 9)
+    slab = torch.from_numpy(rng.normal(0, 3, (16, 8400, 144)).astype(np.float32)).cuda()
+    out = {"phase": "dfl", "cases": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        typed = slab.to(dtype)
+        for layout, x in (("contiguous", typed[..., :64].contiguous()), ("slab slice", typed[..., :64])):
+            got = dfl_decode(x)
+            want = dfl_decode_reference(x)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            out["cases"].append({"shape": list(x.shape), "dtype": str(dtype), "layout": layout,
+                                 "strides": list(x.stride()), "max_abs_err": err})
+            if not err <= 1e-5:
+                raise AssertionError(f"kernel F differs from its plain version by {err} ({dtype}, {layout})")
+    return out
+
+
+def phase_gnms(report):
+    import torch
+
+    from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
+    from yolo_infer_tpu_torch.ops.kernels.greedy_nms import greedy_nms_keep, greedy_nms_keep_reference
+
+    rng = np.random.default_rng(SEED + 10)
+    out = {"phase": "gnms", "cases": []}
+
+    def check(case, iou, valid, thr):
+        got = greedy_nms_keep(iou, valid, thr)
+        want = greedy_nms_keep_reference(iou, valid, thr)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        out["cases"].append({"case": case, "B": iou.shape[0], "K": iou.shape[1], "valid": int(valid.sum()),
+                             "kept": int(got.sum()), "equal": ok})
+        if not ok:
+            raise AssertionError(f"kernel G differs from its plain version ({case}): {int((got != want).sum())} entries")
+        return got
+
+    for b, k in ((16, 4096), (4, 1000), (3, 37)):
+        boxes, valid = random_candidates(rng, b, k)
+        bx, va = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+        if k == 37:
+            va[1] = False  # an image with no valid candidate
+        check("random" if k != 37 else "random, image 1 all invalid", box_iou_matrix(bx, bx), va, 0.6)
+    # box i overlaps box i+1 at IoU 0.5 and box i+2 at 0.2: greedy keeps every other box
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")[:, None] * 10
+    chain = torch.cat([x, torch.zeros_like(x), x + 30, torch.full_like(x, 10)], 1)[None]
+    kept = check("chain", box_iou_matrix(chain, chain), torch.ones((1, 4096), dtype=torch.bool, device="cuda"), 0.3)
+    if not torch.equal(kept[0], torch.arange(4096, device="cuda") % 2 == 0):
+        raise AssertionError("suppression chain: kernel G did not keep every other box")
+    return out
+
+
+class _Recorder:
+    """A predictor that records every `predict_raw` result on the host."""
+
+    def __init__(self, pred):
+        self.pred, self.spec, self.device, self.dets = pred, pred.spec, pred.device, []
+
+    def predict_raw(self, *args, **kw):
+        out = self.pred.predict_raw(*args, **kw)
+        self.dets.append({k: v.cpu().numpy() for k, v in out.items()})
+        return out
+
+
+def write_val_dataset(root: Path, frames, results, task: str, nc: int):
+    """YOLO-format dataset of `frames` (PNG, `save_image`) labelled with
+    `results` (normalized xywh; pose keypoints with visibility 2 where the
+    predicted keypoint confidence exceeds 0.5, else 1), as a dict config."""
+    from yolo_infer_tpu_torch.data.loader import save_image
+
+    (root / "labels" / "val").mkdir(parents=True, exist_ok=True)
+    for i, (frame, r) in enumerate(zip(frames, results)):
+        save_image(root / "images" / "val" / f"f{i:03d}.png", frame, compress_level=1)
+        h, w = frame.shape[:2]
+        lines = []
+        for j in range(len(r)):
+            x1, y1, x2, y2 = (r.boxes[j] / [w, h, w, h]).clip(0, 1)
+            line = f"{r.classes[j]} {(x1 + x2) / 2:.6f} {(y1 + y2) / 2:.6f} {x2 - x1:.6f} {y2 - y1:.6f}"
+            if task == "pose":
+                line += "".join(f" {x / w:.6f} {y / h:.6f} {2 if v > 0.5 else 1}" for x, y, v in r.keypoints[j])
+            lines.append(line)
+        (root / "labels" / "val" / f"f{i:03d}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(root), "val": "images/val", "names": {c: str(c) for c in range(nc)}}
+
+
+class _Dets(SimpleNamespace):
+    """One image's detections (boxes, scores, classes, kpts) for `match_detections`."""
+
+    def __len__(self):
+        return len(self.scores)
+
+
+def pair_val_detections(got, want):
+    """Pair each recorded batch's detections with score >= 0.25 as sets, in
+    both directions (a partner may sit just below the cut). Returns
+    (unpaired count, largest keypoint error of the pairs, detections seen)."""
+    unpaired, kpt_err, seen = 0, 0.0, 0
+    for g, w in zip(got, want):
+        for i in range(len(g["num"])):
+            def dets(d, lo):
+                k = int(d["num"][i])
+                keep = d["scores"][i, :k] >= lo
+                return _Dets(boxes=d["boxes"][i, :k][keep], scores=d["scores"][i, :k][keep],
+                             classes=d["classes"][i, :k][keep], kpts=d["kpts"][i, :k][keep] if "kpts" in d else None)
+
+            for a, b in ((dets(g, 0.25 + SCORE_TOL), dets(w, 0.25 - SCORE_TOL)),
+                         (dets(w, 0.25 + SCORE_TOL), dets(g, 0.25 - SCORE_TOL))):
+                missing, pairs = match_detections(a, b, PX_TOL, SCORE_TOL)
+                unpaired += missing
+                seen += len(a)
+                if pairs and a.kpts is not None:
+                    ia, ib = map(list, zip(*pairs))
+                    kpt_err = max(kpt_err, float(np.abs(a.kpts[ia] - b.kpts[ib]).max()))
+    return unpaired, kpt_err, seen
+
+
+def phase_val_fp32(report):
+    rng = np.random.default_rng(SEED + 11)
+    half = VAL_FP32_FRAMES // 2
+    frames = ([rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(half)]
+              + [rng.integers(0, 256, (360, 500, 3), dtype=np.uint8) for _ in range(half)])
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_val_"))
+    try:
+        return _val_fp32(report, frames, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _val_fp32(report, frames, root: Path):
+    import torch
+
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+    from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+
+    out = {"phase": "val_fp32", "frames": len(frames), "tasks": {}}
+    failures = []
+    for task, (model, spec) in (("detect", report["weights"]), ("pose", report["task_weights"]["pose"])):
+        on_cpu = Predictor(copy.deepcopy(model), spec, device="cpu", compute_dtype=torch.float32)
+        on_gpu = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.float32)
+        labels = on_cpu.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=VAL["imgsz"])
+        data = write_val_dataset(root / task, frames, labels, task, spec.nc)
+        gpu_rec, cpu_rec = _Recorder(on_gpu), _Recorder(on_cpu)
+        torch.backends.cudnn.deterministic = True
+        try:
+            reset_counters()
+            got = YOLO11Validator(model=SimpleNamespace(predictor=gpu_rec), output_dir=root / f"{task}_cuda").validate(
+                data, verbose=False, **VAL)
+            launches = read_counters()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        want = YOLO11Validator(model=SimpleNamespace(predictor=cpu_rec), output_dir=root / f"{task}_cpu").validate(
+            data, verbose=False, **VAL)
+        unpaired, kpt_err, seen = pair_val_detections(gpu_rec.dets, cpu_rec.dets)
+        metrics = {"cuda": got["metrics"], "cpu": want["metrics"]}
+        diffs = {k: abs(got["metrics"][k] - want["metrics"][k]) for k in ("mAP50-95", "mAP50")}
+        if task == "pose":
+            metrics.update(pose_cuda=got["pose_metrics"], pose_cpu=want["pose_metrics"])
+            diffs.update({f"pose {k}": abs(got["pose_metrics"][k] - want["pose_metrics"][k])
+                          for k in ("mAP50-95", "mAP50")})
+        out["tasks"][task] = {"launches": launches, "metrics": metrics, "max_metric_diff": max(diffs.values()),
+                              "dets_score_ge_0.25": seen, "unpaired": unpaired, "kpts_max_abs_err": kpt_err,
+                              "num_images": got["num_images"]}
+        if min(launches[k] for k in ("attention_qkv", "dfl_decode", "greedy_nms_keep")) < 1:
+            failures.append(f"{task}: a kernel did not run in the cuda validation: {launches}")
+        if max(diffs.values()) > 1e-3:
+            failures.append(f"{task}: metrics differ between cuda and cpu: {diffs}")
+        if unpaired or seen == 0 or kpt_err > KPT_TOL:
+            failures.append(f"{task}: {unpaired} of {seen} detections unpaired, keypoints off by {kpt_err}")
+        if not 0 < got["metrics"]["mAP50"] <= 1:
+            failures.append(f"{task}: mAP50 {got['metrics']['mAP50']}")
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def phase_val_bf16(report):
+    import torch
+
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+
+    model, spec = report["weights"]
+    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16)
+    frames = np.random.default_rng(SEED + 12).integers(0, 256, (VAL_BF16_FRAMES, 480, 640, 3), dtype=np.uint8)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_val_"))
+    try:
+        return _val_bf16(report, pred, spec, frames, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _val_bf16(report, pred, spec, frames, root: Path):
+    import torch
+
+    import yolo_infer_tpu_torch.ops.decode as decode_mod
+    import yolo_infer_tpu_torch.ops.nms as nms_ops
+    from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+    from yolo_infer_tpu_torch.ops.kernels import dfl_decode as f_mod
+    from yolo_infer_tpu_torch.ops.kernels import greedy_nms as g_mod
+
+    labels = pred.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=VAL["imgsz"])
+    data = write_val_dataset(root / "data", frames, labels, "detect", spec.nc)
+    validator = YOLO11Validator(model=pred, output_dir=root / "out")
+
+    # the validation path, once, with counters at 0 and kernel inputs captured
+    seen = {}
+    restores = [capture_inputs(decode_mod, "dfl_decode", seen, clone=False),
+                capture_inputs(nms_ops, "box_iou_matrix", seen, clone=False),
+                capture_inputs(nms_ops, "greedy_nms_keep", seen, clone=False)]
+    reset_counters()
+    try:
+        first = validator.validate(data, verbose=False, **VAL)
+    finally:
+        for restore in restores:
+            restore()
+    launches = read_counters()
+    batches = -(-VAL_BF16_FRAMES // VAL["batch"])
+    if min(launches[k] for k in ("attention_qkv", "dfl_decode", "greedy_nms_keep")) < 1:
+        raise AssertionError(f"a kernel did not run on the validation path: {launches}")
+    if not 0 < first["metrics"]["mAP50"] <= 1 or first["num_images"] != VAL_BF16_FRAMES:
+        raise AssertionError(f"validation result out of range: {first['metrics']}, {first['num_images']} images")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = validator.validate(data, verbose=False, **VAL)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # kernel F at the path's own input: the strided (16, 8400, 64) slice of the head slab
+    x, reg_max = seen["dfl_decode"]
+    kernel_f = lambda: f_mod.dfl_decode(x, reg_max)  # noqa: E731
+    plain_f = lambda: f_mod.dfl_decode_reference(x, reg_max)  # noqa: E731
+    err_f = float((kernel_f() - plain_f()).abs().max())
+    b, a, c = x.shape
+    bytes_f = b * a * c * x.element_size() + b * a * 4 * 4
+    ops_f = b * a * c * DFL_OPS_PER_LOGIT + b * a * 4
+    # kernel G at the path's own input, and the plain IoU build in front of it
+    iou, valid, thr = seen["greedy_nms_keep"]
+    sup, _ = seen["box_iou_matrix"]
+    kernel_g = lambda: g_mod.greedy_nms_keep(iou, valid, thr)  # noqa: E731
+    plain_g = lambda: g_mod.greedy_nms_keep_reference(iou, valid, thr)  # noqa: E731
+    iou_build = lambda: nms_ops.box_iou_matrix(sup, sup)  # noqa: E731
+    err_g = float((kernel_g() != plain_g()).sum())
+    bk, k, _ = iou.shape
+    # the upper triangle of the valid rows is all G must read (bits of the
+    # other rows are never used), plus the valid flags in and the keep flags out
+    rows = torch.nonzero(valid)[:, 1]
+    pairs_g = int((k - 1 - rows).sum())
+    bytes_g = 4 * pairs_g + 2 * bk * k
+    if err_f > 1e-5 or err_g:
+        raise AssertionError(f"validation-path kernel outputs differ from the plain versions: F {err_f}, G {err_g}")
+    val_path = f"detect val b{VAL['batch']} {VAL['imgsz']} bf16"
+    report["kernels"] += [{
+        "name": "dfl_decode", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/dfl_decode.cu",
+        "replaces": "yolo_infer_tpu/ops/pallas/dfl_kernel.py:49", "path": val_path,
+        "launches": launches["dfl_decode"], "max_abs_err": err_f,
+        "ms": device_ms(kernel_f), "plain_ms": device_ms(plain_f),
+        "call_ms": cuda_ms(kernel_f), "plain_call_ms": cuda_ms(plain_f),
+        "bound_ms": 1e3 * max(bytes_f / H100_BYTES_PER_S, ops_f / H100_F32_FLOPS),
+        "bound_by": "bytes" if bytes_f / H100_BYTES_PER_S >= ops_f / H100_F32_FLOPS else "operations",
+        "library_ms": None, "shape": [b, a, c], "strides": list(x.stride()), "dtype": str(x.dtype),
+    }, {
+        "name": "greedy_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/greedy_nms.cu",
+        "replaces": "yolo_infer_tpu/ops/pallas/nms_kernel.py:48", "path": val_path,
+        "launches": launches["greedy_nms_keep"], "max_abs_err": err_g,
+        "ms": device_ms(kernel_g), "plain_ms": device_ms(plain_g, iters=3),
+        "call_ms": cuda_ms(kernel_g, iters=20), "plain_call_ms": cuda_ms(plain_g, iters=3, warmup=1),
+        "bound_ms": 1e3 * max(bytes_g / H100_BYTES_PER_S, pairs_g / H100_F32_FLOPS),
+        "bound_by": "bytes" if bytes_g / H100_BYTES_PER_S >= pairs_g / H100_F32_FLOPS else "operations",
+        "library_ms": None, "shape": [bk, k, k], "valid": int(valid.sum()),
+    }]
+    f_row, g_row = report["kernels"][-2:]
+    frames_dev = torch.from_numpy(frames[:VAL["batch"]]).cuda()
+    profile = kernel_profile(lambda: pred.predict_raw(frames_dev, VAL["conf"], VAL["iou"], VAL["imgsz"], 300,
+                                                      multi_label=True, pre_topk=VAL["pre_topk"]))
+    return {"phase": "val_bf16", "frames": VAL_BF16_FRAMES, "batch": VAL["batch"], "imgsz": VAL["imgsz"],
+            "images_per_s": timed["speed"]["images_per_s"],
+            "inference_ms_per_image": timed["speed"]["inference_ms_per_image"], "total_s": timed["speed"]["total_s"],
+            "first_run": first["speed"], "metrics": timed["metrics"], "peak_memory_gb": peak_gb,
+            "launches": launches, "launches_per_batch": {k: v / batches for k, v in launches.items()},
+            "per_batch_ms": {"dfl_decode": f_row["ms"], "greedy_nms_keep": g_row["ms"],
+                             "box_iou_matrix": device_ms(iou_build, iters=5)},
+            "bound_ms": {"dfl_decode": f_row["bound_ms"], "greedy_nms_keep": g_row["bound_ms"]},
+            "iou_matrix_gb": iou.numel() * 4 / 1e9, "profile": profile}
+
 
 def main() -> int:
     try:
@@ -785,7 +1122,8 @@ def main() -> int:
     report = {}
     failed = []
     phases = (phase_card, phase_nms, phase_attn, phase_fp32, phase_bf16, phase_profile,
-              phase_rnms, phase_mpack, phase_tasks_fp32, phase_seg_bf16, phase_obb_bf16)
+              phase_rnms, phase_mpack, phase_tasks_fp32, phase_seg_bf16, phase_obb_bf16,
+              phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -798,11 +1136,12 @@ def main() -> int:
             traceback.print_exc()
             if phase is phase_card:
                 break
-    if failed or len(report.get("kernels", ())) != 4:
+    if failed or len(report.get("kernels", ())) != 6:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     print(report["card"])
-    order = ("nms_keep", "attention_qkv", "rotated_nms_keep", "upsample4x_threshold_pack")
+    order = ("nms_keep", "attention_qkv", "rotated_nms_keep", "upsample4x_threshold_pack", "dfl_decode",
+             "greedy_nms_keep")
     emit({"kernels": sorted(report["kernels"], key=lambda k: order.index(k["name"]))})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

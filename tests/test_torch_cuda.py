@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (A, B, C, D, F, G) against their plain versions, on the card.
 
 This file imports neither jax nor the JAX package, so it also runs on a host
 that has only torch: `python -m pytest --noconftest tests/test_torch_cuda.py`
@@ -12,7 +12,15 @@ import torch
 import yolo_infer_tpu_torch.ops.masks as masks_mod
 from yolo_infer_tpu_torch.core.predictor import LazyMasks, Predictor
 from yolo_infer_tpu_torch.models.yolo11 import build_model
-from yolo_infer_tpu_torch.ops.kernels import attention_fused, mask_pack, nms_fused, rotated_nms_fused
+from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
+from yolo_infer_tpu_torch.ops.kernels import (
+    attention_fused,
+    dfl_decode,
+    greedy_nms,
+    mask_pack,
+    nms_fused,
+    rotated_nms_fused,
+)
 from yolo_infer_tpu_torch.ops.rotated import gauss_terms
 
 
@@ -143,3 +151,58 @@ def test_segment_predict_masks_match_the_plain_path(card):
         assert isinstance(g.masks, LazyMasks) and len(g) == len(w) > 0
         assert g.masks.shape == (len(g), 480, 640)
         np.testing.assert_array_equal(g.masks.numpy(), w.masks.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dfl_kernel_matches_the_plain_version(card, dtype):
+    slab = torch.from_numpy(np.random.default_rng(6).normal(0, 3, (4, 2100, 144)).astype(np.float32)).to(card, dtype)
+    for x in (slab[..., :64], slab[..., :64].contiguous()):
+        before = dfl_decode.dfl_decode.launches
+        got = dfl_decode.dfl_decode(x)
+        assert dfl_decode.dfl_decode.launches == before + 1
+        torch.testing.assert_close(got, dfl_decode.dfl_decode_reference(x), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(2, 4096), (4, 1000), (3, 37)])
+def test_greedy_keep_kernel_is_bit_equal_to_the_plain_version(card, b, k):
+    boxes, valid = _candidates(k + 1, b, k)
+    boxes, valid = boxes.to(card), valid.to(card)
+    valid[-1] = False  # an image with no valid candidate
+    iou = box_iou_matrix(boxes, boxes)
+    before = greedy_nms.greedy_nms_keep.launches
+    got = greedy_nms.greedy_nms_keep(iou, valid, 0.6)
+    assert greedy_nms.greedy_nms_keep.launches == before + 1
+    assert torch.equal(got, greedy_nms.greedy_nms_keep_reference(iou, valid, 0.6))
+    assert not got[-1].any()
+
+
+@pytest.mark.cuda
+def test_validation_path_launches_f_and_g(card):
+    model, spec = build_model("pose", "n", nc=1, seed=0)
+    pred = Predictor(model, spec, compute_dtype=torch.float32)
+    frames = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)).to(card)
+    dfl_decode.dfl_decode.launches = greedy_nms.greedy_nms_keep.launches = 0
+    dets = pred.predict_raw(frames, 0.001, 0.6, 640, 300, multi_label=True, pre_topk=4096)
+    assert dfl_decode.dfl_decode.launches == 1 and greedy_nms.greedy_nms_keep.launches == 1
+    assert dets["kpts"].shape == (2, 300, 17, 3) and bool(torch.isfinite(dets["boxes"]).all())
+
+
+@pytest.mark.cuda
+def test_f_and_g_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
+    x = torch.rand((2, 64, 64), device=card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dfl_decode.dfl_decode(x.half())
+    with pytest.raises(ValueError, match="last dim"):
+        dfl_decode.dfl_decode(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="reg_max"):
+        dfl_decode.dfl_decode(x[..., :32], reg_max=8)
+    valid = torch.ones((2, 64), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        greedy_nms.greedy_nms_keep(x.transpose(1, 2), valid, 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        greedy_nms.greedy_nms_keep(x.half(), valid, 0.5)
+    with pytest.raises(ValueError, match="K="):
+        greedy_nms.greedy_nms_keep(torch.zeros((1, 8200, 8200), device=card), torch.ones((1, 8200), dtype=torch.bool,
+                                                                                          device=card), 0.5)

@@ -10,8 +10,14 @@ host rescale into `Results`. The tails:
   segment  the detect tail, then the masks of the kept rows: sigmoid, crop,
            4x bilinear upsample, threshold, bit-pack (kernel D at full size),
            left on the device until `Results.masks` is read
-  obb      full-grid DFL decode with the angle -> probIoU NMS (kernel C)
+  obb      full-grid DFL decode (kernel F) with the angle -> probIoU NMS
+           (kernel C)
   classify softmax of the logits
+
+With `multi_label=True` (the validation program) detect, pose and segment
+take the full-grid f32 decode (kernel F) and `ops.nms.batched_nms`: the
+per-anchor top-8 classes, an exact top-`pre_topk` pool, the class-offset IoU
+matrix and the greedy keep (kernel G).
 
 The predictor runs on `cuda` unless the caller passes `device="cpu"`; with no
 card and no explicit device it raises instead of falling back to the CPU.
@@ -29,7 +35,13 @@ import torch
 
 from yolo_infer_tpu_torch.models.spec import ModelSpec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, cast_model, fold_model
-from yolo_infer_tpu_torch.ops.decode import decode_keypoints, decode_raw, decode_scores_raw, make_anchors
+from yolo_infer_tpu_torch.ops.decode import (
+    decode_detections,
+    decode_keypoints,
+    decode_raw,
+    decode_scores_raw,
+    make_anchors,
+)
 from yolo_infer_tpu_torch.ops.letterbox import (
     crop_letterbox_slices,
     letterbox,
@@ -38,7 +50,7 @@ from yolo_infer_tpu_torch.ops.letterbox import (
     scale_obb,
 )
 from yolo_infer_tpu_torch.ops.masks import assemble_mask_bits_up, repeat_mask_bits, unpack_mask_bits
-from yolo_infer_tpu_torch.ops.nms import batched_nms_seldec
+from yolo_infer_tpu_torch.ops.nms import _multi_label_topc, batched_nms, batched_nms_seldec
 from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch
 from yolo_infer_tpu_torch.ops.rotated import batched_rotated_nms, dist2rbox
 from yolo_infer_tpu_torch.ops.select import select_anchor_rows
@@ -253,16 +265,20 @@ class Predictor:
 
     @torch.inference_mode()
     def predict_raw(self, images_u8: torch.Tensor, conf: float, iou: float, imgsz: int,
-                    max_det: Optional[int] = None, *, mask_out: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                    max_det: Optional[int] = None, *, multi_label: bool = False, pre_topk: Optional[int] = None,
+                    mask_out: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """(B, H, W, 3) uint8 frames on the device -> the fixed-shape dets
         dict, left on the device: boxes (B, max_det, 4) xyxy, or (B, max_det,
         5) xywhr for obb, in letterboxed pixels; scores, classes, valid, num,
         anchor_idx; plus "kpts" (B, max_det, K, 3) for pose and
         "mask_bits_up" (B, max_det, grid, grid/8) uint8 for segment. Classify
-        gives {"probs": (B, nc)}. `mask_out` overrides `mask_mode`; "none"
-        skips the masks."""
+        gives {"probs": (B, nc)}. `multi_label` takes the validation NMS
+        (`ops.nms.batched_nms`) over the full-grid decode; `pre_topk`
+        overrides the predictor's candidate cap (the validator asks for
+        4096). `mask_out` overrides `mask_mode`; "none" skips the masks."""
         spec = self.spec
         md = max_det or self.max_det
+        pool = pre_topk or self.pre_topk
         x = preprocess_batch(images_u8, out_hw=(imgsz, imgsz), dtype=self.compute_dtype)
         out = self.model(x)
         if spec.task == "classify":
@@ -275,14 +291,20 @@ class Predictor:
             dist, scores, ap, st = decode_raw(feats, spec.nc, spec.reg_max, spec.strides)
             rb = dist2rbox(dist, angle, ap[None]) * st[None]  # (B, A, 4) px
             rboxes = torch.cat([rb, angle[..., None]], dim=-1)
-            return batched_rotated_nms(rboxes, scores, conf, iou, pre_topk=self.pre_topk, max_det=md)
-        best, cls, dist = decode_scores_raw(feats, spec.nc, spec.reg_max)
-        dets = batched_nms_seldec(
-            dist, best, cls, conf, iou,
-            feat_shapes=tuple((f.shape[1], f.shape[2]) for f in feats),
-            strides=tuple(spec.strides), reg_max=spec.reg_max,
-            pre_topk=min(self.pre_topk, SERVE_POOL), max_det=md,
-        )
+            return batched_rotated_nms(rboxes, scores, conf, iou, pre_topk=pool, max_det=md,
+                                       multi_label=multi_label)
+        if multi_label:
+            boxes, scores = decode_detections(feats, spec.nc, spec.reg_max, spec.strides)
+            dets = batched_nms(boxes, scores, conf, iou, pre_topk=pool, max_det=md, multi_label=True,
+                               multi_label_topc=_multi_label_topc())
+        else:
+            best, cls, dist = decode_scores_raw(feats, spec.nc, spec.reg_max)
+            dets = batched_nms_seldec(
+                dist, best, cls, conf, iou,
+                feat_shapes=tuple((f.shape[1], f.shape[2]) for f in feats),
+                strides=tuple(spec.strides), reg_max=spec.reg_max,
+                pre_topk=min(pool, SERVE_POOL), max_det=md,
+            )
         if spec.task == "pose":
             kflat = torch.cat([k.reshape(b, -1, k.shape[-1]) for k in out["kpts"]], dim=1)
             ap, st = make_anchors([(f.shape[1], f.shape[2]) for f in feats], spec.strides, device=kflat.device)
@@ -308,9 +330,11 @@ class Predictor:
         conf: float = 0.25,
         iou: float = 0.45,
         imgsz: int = 640,
+        multi_label: bool = False,
         max_det: Optional[int] = None,
     ) -> List[Results]:
-        """images: uint8 RGB HWC array(s). Returns one Results per image."""
+        """images: uint8 RGB HWC array(s). Returns one Results per image.
+        `multi_label` takes the validation NMS (see `predict_raw`)."""
         if not isinstance(images, np.ndarray) and len(images) == 0:
             return []
         if isinstance(images, np.ndarray) and images.ndim == 3:
@@ -332,7 +356,7 @@ class Predictor:
 
         t0 = time.perf_counter()
         frames = torch.from_numpy(np.ascontiguousarray(batch_np)).to(self.device)
-        dets = self.predict_raw(frames, conf, iou, imgsz, max_det)
+        dets = self.predict_raw(frames, conf, iou, imgsz, max_det, multi_label=multi_label)
         dev_masks = dets.pop("mask_bits_up", None)  # stays on the device (LazyMasks)
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
         dt = (time.perf_counter() - t0) * 1000

@@ -2,8 +2,13 @@
 
 Port of `yolo_infer_tpu/ops/decode.py` (`make_anchors`, `dfl_expectation`,
 `dist2bbox`, `decode_scores_raw`, `anchor_rows_from_idx`, `decode_raw`,
-`decode_keypoints`). Head maps are NHWC, (B, H, W, 4*reg_max + nc), as in
-the JAX package.
+`decode_detections`, `decode_keypoints`). Head maps are NHWC, (B, H, W,
+4*reg_max + nc), as in the JAX package.
+
+The full-grid decode (`decode_raw`: validation and OBB serving) takes its f32
+DFL from kernel F (`ops/kernels/dfl_decode.py`), which reads the head slab's
+logits in place; the select-then-decode serving tail keeps `dfl_expectation`
+in the head's dtype on the selected rows, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -11,6 +16,8 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+
+from yolo_infer_tpu_torch.ops.kernels.dfl_decode import dfl_decode
 
 
 def make_anchors(
@@ -107,16 +114,30 @@ def decode_raw(
     sigmoided, anchor points (A, 2), strides (A, 1)).
 
     The front half of the full-grid box decode; OBB combines the distances
-    with its decoded angle (`ops.rotated.dist2rbox`).
+    with its decoded angle (`ops.rotated.dist2rbox`). The DFL is kernel F
+    (`dfl_decode`) on the card, its plain version on the CPU.
     """
     if feats[0].shape[-1] != 4 * reg_max + nc:
         raise ValueError(f"head channels {feats[0].shape[-1]} != 4*reg_max+nc = {4 * reg_max + nc}")
     anchor_points, strd = make_anchors([(f.shape[1], f.shape[2]) for f in feats], strides, device=feats[0].device)
     b = feats[0].shape[0]
     flat = torch.cat([f.reshape(b, -1, f.shape[-1]) for f in feats], dim=1)
-    dist = dfl_expectation(flat[..., : 4 * reg_max], reg_max)
+    dist = dfl_decode(flat[..., : 4 * reg_max], reg_max)
     scores = torch.sigmoid(flat[..., 4 * reg_max:].float())
     return dist, scores, anchor_points, strd
+
+
+def decode_detections(
+    feats: List[torch.Tensor],
+    nc: int,
+    reg_max: int = 16,
+    strides: Sequence[int] = (8, 16, 32),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-level maps -> (boxes xyxy (B, A, 4) f32 in letterboxed pixels,
+    scores (B, A, nc) f32 sigmoided): the validation program's decode, with
+    the DFL in f32."""
+    dist, scores, anchor_points, strd = decode_raw(feats, nc, reg_max, strides)
+    return dist2bbox(dist, anchor_points[None]) * strd[None], scores
 
 
 def decode_keypoints(

@@ -29,7 +29,7 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", 
 # contraction, so each operation rounds as PyTorch's elementwise kernels do
 _EXTRA_FLAGS: Dict[str, List[str]] = {name: ["--fmad=false"]
                                       for name in ("nms_fused", "rotated_nms_fused", "mask_pack")}
-KERNELS = ("nms_fused", "attention_fused", "rotated_nms_fused", "mask_pack")
+KERNELS = ("nms_fused", "attention_fused", "rotated_nms_fused", "mask_pack", "dfl_decode", "greedy_nms")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -1,8 +1,11 @@
-"""Batched fixed-shape class-aware NMS (the detect serving tail).
+"""Batched fixed-shape class-aware NMS.
 
-Port of `yolo_infer_tpu/ops/nms.py` for the single-label select-then-decode
-path. Candidates are picked by score, sorted descending, offset by class
-(`MAX_WH`) and suppressed greedily; every output has a fixed shape.
+Port of `yolo_infer_tpu/ops/nms.py`: the single-label select-then-decode
+serving tail (`batched_nms_seldec`, keep mask by kernel A) and the full-grid
+NMS of the validation program (`batched_nms`, multi-label or single-label:
+a class-offset IoU matrix in plain torch, keep mask by kernel G). Candidates
+are picked by score, sorted descending, offset by class (`MAX_WH`) and
+suppressed greedily; every output has a fixed shape.
 
 Greedy-equivalence: with candidates sorted by descending score, define
   f(kept)[j] = valid[j] and not any_i (i<j and kept[i] and iou[i,j] > t).
@@ -20,10 +23,14 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+import os
+
 import numpy as np
 import torch
 
 from yolo_infer_tpu_torch.ops.decode import anchor_rows_from_idx, dfl_expectation, dist2bbox
+from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
+from yolo_infer_tpu_torch.ops.kernels.greedy_nms import greedy_nms_keep
 from yolo_infer_tpu_torch.ops.kernels.nms_fused import nms_keep
 
 MAX_WH = 7680.0  # class-offset stride for class-aware suppression
@@ -129,6 +136,81 @@ def batched_nms_seldec(
     cboxes = dist2bbox(dist, ap) * st
     ccls = torch.gather(cls, 1, top_idx)
     return _presel_finish(cboxes, ccls, top_scores, top_idx, iou_thres, max_det=max_det, class_aware=class_aware)
+
+
+def _multi_label_topc() -> int:
+    """Per-anchor class cap of multi-label NMS (the val protocol): 8, or the
+    `YOLO_MULTI_LABEL_TOPC` environment variable (>= nc disables the cap)."""
+    return int(os.environ.get("YOLO_MULTI_LABEL_TOPC", "8"))
+
+
+def _topc_per_anchor(scores: torch.Tensor, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-C (values, indices) along the last axis: C rounds of max/argmax,
+    each masking its pick to -inf. Values descend along C; ties go to the
+    lowest class index (`torch.max` returns the first maximum on both
+    devices), as `lax.top_k` orders them."""
+    cur = scores.clone()  # masked in place below
+    vals, idxs = [], []
+    for _ in range(c):
+        v, i = cur.max(dim=-1)
+        vals.append(v)
+        idxs.append(i)
+        cur.scatter_(-1, i[..., None], float("-inf"))
+    return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+def batched_nms(
+    boxes: torch.Tensor,  # (B, A, 4) xyxy, letterboxed pixels
+    scores: torch.Tensor,  # (B, A, nc) sigmoided
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    *,
+    pre_topk: int = 1024,
+    max_det: int = 300,
+    class_aware: bool = True,
+    multi_label: bool = False,
+    multi_label_topc: int = 8,
+) -> Dict[str, torch.Tensor]:
+    """Class-aware greedy NMS over a batch (the validation program's NMS).
+
+    Multi-label (nc > 1): each anchor's top-`multi_label_topc` classes (all
+    nc when the cap is >= nc) form a pool of (anchor, class) pairs, of which
+    the `pre_topk` best above `conf_thres` are candidates; single-label: each
+    anchor's best class. The class-offset IoU matrix of the K candidates is
+    built in plain torch (as the JAX package builds it) and the keep mask is
+    kernel G (`greedy_nms_keep`). Outputs: boxes (B, max_det, 4), scores,
+    classes, valid, num (B,) int32, anchor_idx; invalid slots are zero / -1.
+    """
+    boxes = boxes.float()
+    scores = scores.float()
+    b, a, nc = scores.shape
+    conf = torch.tensor(conf_thres, dtype=torch.float32)
+    if multi_label and nc > 1:
+        c = multi_label_topc
+        if c < nc:
+            cls_scores, cls_idx = _topc_per_anchor(scores, c)  # (B, A, c)
+            flat = cls_scores.reshape(b, -1)
+            k = min(pre_topk, a * c)
+            top_scores, top_idx = _topk_stable(torch.where(flat > conf, flat, torch.full_like(flat, -1.0)), k)
+            anchor_idx = torch.div(top_idx, c, rounding_mode="floor")
+            cls = torch.gather(cls_idx.reshape(b, -1), 1, top_idx).float()
+        else:
+            flat = scores.reshape(b, -1)
+            k = min(pre_topk, a * nc)
+            top_scores, top_idx = _topk_stable(torch.where(flat > conf, flat, torch.full_like(flat, -1.0)), k)
+            anchor_idx = torch.div(top_idx, nc, rounding_mode="floor")
+            cls = (top_idx % nc).float()
+    else:
+        best, cls_best = scores.max(dim=-1)
+        k = min(pre_topk, a)
+        top_scores, anchor_idx = _topk_stable(torch.where(best > conf, best, torch.full_like(best, -1.0)), k)
+        cls = torch.gather(cls_best, 1, anchor_idx).float()
+    cboxes = torch.gather(boxes, 1, anchor_idx[..., None].expand(-1, -1, 4))
+    valid = top_scores > 0
+    sup_boxes = cboxes + cls[..., None] * MAX_WH if class_aware else cboxes
+    iou = box_iou_matrix(sup_boxes, sup_boxes)
+    kept = greedy_nms_keep(iou, valid, iou_thres)
+    return _keep_layout(kept, cboxes, cls, top_scores, anchor_idx, max_det)
 
 
 def nms_numpy_reference(boxes, scores, iou_thres):
