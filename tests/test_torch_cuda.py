@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (A, B, C, D, F, G) against their plain versions, on the card.
+"""The port's CUDA kernels (A to H) against their plain versions, on the card.
 
 This file imports neither jax nor the JAX package, so it also runs on a host
 that has only torch: `python -m pytest --noconftest tests/test_torch_cuda.py`
@@ -17,6 +17,7 @@ from yolo_infer_tpu_torch.ops.kernels import (
     attention_fused,
     dfl_decode,
     greedy_nms,
+    int8_conv,
     mask_pack,
     nms_fused,
     rotated_nms_fused,
@@ -48,6 +49,14 @@ def test_wrappers_take_the_plain_versions_for_cpu_tensors():
     assert torch.equal(attention_fused.attention_qkv(slab, 1, 32, 64),
                        attention_fused.attention_qkv_reference(slab, 1, 32, 64))
     assert (nms_fused.nms_keep.launches, attention_fused.attention_qkv.launches) == launches
+    x8 = torch.from_numpy(np.random.default_rng(2).integers(-127, 128, (1, 5, 5, 8), dtype=np.int8))
+    w8 = torch.from_numpy(np.random.default_rng(3).integers(-127, 128, (4, 3, 3, 8), dtype=np.int8))
+    before = (int8_conv.int8_conv.launches, attention_fused.attention_packed.launches)
+    args = (x8, w8, torch.full((4,), 1e-4), None, 20.0)
+    assert torch.equal(int8_conv.int8_conv(*args), int8_conv.int8_conv_reference(*args))
+    assert torch.equal(attention_fused.attention_packed(slab[..., :128], 32, 64),
+                       attention_fused.attention_packed_reference(slab[..., :128], 32, 64))
+    assert (int8_conv.int8_conv.launches, attention_fused.attention_packed.launches) == before
 
 
 @pytest.mark.cuda
@@ -206,3 +215,55 @@ def test_f_and_g_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="K="):
         greedy_nms.greedy_nms_keep(torch.zeros((1, 8200, 8200), device=card), torch.ones((1, 8200), dtype=torch.bool,
                                                                                           device=card), 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 20, 20, 128, 128, 3, 1), (2, 17, 15, 64, 96, 3, 2), (3, 9, 11, 256, 40, 1, 1),
+                                   (2, 10, 10, 130, 66, 1, 2), (1, 20, 20, 3, 16, 3, 2)])
+def test_int8_conv_kernel_is_bit_equal_to_the_plain_version(card, shape, epilogue):
+    b, h, w, ci, co, k, stride = shape
+    rng = np.random.default_rng(ci + co)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, ci), dtype=np.int8)).to(card)
+    wq = torch.from_numpy(rng.integers(-127, 128, (co, k, k, ci), dtype=np.int8)).to(card)
+    scale = torch.from_numpy(rng.uniform(1e-5, 3e-5, co).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.normal(0, 0.5, co).astype(np.float32)).to(card)
+    for act, bb in ((True, bias), (False, None)):
+        before = int8_conv.int8_conv.launches
+        got = int8_conv.int8_conv(x, wq, scale, bb, 50.0, stride=stride, act=act, epilogue_dtype=epilogue)
+        assert int8_conv.int8_conv.launches == before + 1
+        want = int8_conv.int8_conv_reference(x, wq, scale, bb, 50.0, stride=stride, act=act, epilogue_dtype=epilogue)
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.bfloat16, 2e-2, 2e-2), (torch.float32, 1e-5, 0.0)])
+def test_packed_attention_kernel_matches_the_plain_version_and_route_b(card, dtype, atol, rtol):
+    slab = torch.from_numpy(np.random.default_rng(9).standard_normal((4, 400, 256)).astype(np.float32)).to(card, dtype)
+    qg = slab.view(4, 400, 2, 128).transpose(1, 2).reshape(8, 400, 128)
+    before = attention_fused.attention_packed.launches
+    got = attention_fused.attention_packed(qg, 32, 64)
+    assert attention_fused.attention_packed.launches == before + 1
+    torch.testing.assert_close(got.float(), attention_fused.attention_packed_reference(qg, 32, 64).float(),
+                               atol=atol, rtol=rtol)
+    via_b = attention_fused.attention_qkv(slab, 2, 32, 64).view(4, 400, 2, 64).transpose(1, 2).reshape(8, 400, 64)
+    torch.testing.assert_close(got, via_b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_static8_path_launches_e_and_the_pallas_route_launches_h(card):
+    from yolo_infer_tpu_torch import YOLO11Model
+    from yolo_infer_tpu_torch.optimization.quantization.quantizers import create_quantizer
+
+    frames = np.random.default_rng(8).integers(0, 256, (2, 640, 640, 3), dtype=np.uint8)
+    q = create_quantizer("ptq", YOLO11Model("yolo11n"), {"imgsz": 640})
+    q.set_calibration_data([frames])
+    qmodel = q.optimize()
+    int8_conv.int8_conv.launches = 0
+    out = qmodel.predict(frames)
+    assert int8_conv.int8_conv.launches > 0 and len(out) == 2
+    model, spec = build_model("detect", "n", seed=0)
+    pred = Predictor(model, spec, attn_impl="pallas")
+    attention_fused.attention_packed.launches = attention_fused.attention_qkv.launches = 0
+    pred.predict(frames)
+    assert attention_fused.attention_packed.launches == 1 and attention_fused.attention_qkv.launches == 0

@@ -4,7 +4,8 @@ A fresh interpreter (`-I`: no PYTHONPATH, no user site) has `jax` and `cv2`
 blocked in `sys.modules`, imports every module of `yolo_infer_tpu_torch`, and
 runs a CPU `Predictor.predict` on two frames of different sizes, which takes
 the host letterbox. A second one also blocks `yaml` and runs
-`YOLO11Validator.validate` on a PNG dataset that the port writes itself.
+`YOLO11Validator.validate` on a PNG dataset that the port writes itself. A
+third builds a `YOLO11Model`, quantizes it with PTQ and serves it in static8.
 """
 
 import subprocess
@@ -66,3 +67,27 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "yolo_infer_t
 
 def test_port_validates_without_jax_opencv_or_yaml():
     subprocess.run([sys.executable, "-I", "-c", _VAL_CODE.format(repo=str(REPO))], check=True, timeout=300)
+
+
+_QUANT_CODE = """
+import sys
+sys.modules["jax"] = sys.modules["cv2"] = None  # any import of either raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from yolo_infer_tpu_torch import YOLO11Model
+from yolo_infer_tpu_torch.optimization.quantization.quantizers import create_quantizer
+model = YOLO11Model("yolo11n", device="cpu", compute_dtype=torch.float32)
+rng = np.random.default_rng(0)
+q = create_quantizer("ptq", model, {{"imgsz": 64}})
+q.set_calibration_data([rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)])
+qmodel = q.optimize()
+out = qmodel.predict(rng.integers(0, 256, (2, 48, 64, 3), dtype=np.uint8), conf=0.0, imgsz=64, max_det=10)
+assert qmodel.quant_act_scales.shape == (72, 2) and [len(r) for r in out] == [10, 10]
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yolo_infer_tpu") for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_quantizes_and_serves_static8_without_jax_or_opencv():
+    """YOLO11Model -> PTQ calibration -> static8 predict, with jax and cv2 blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _QUANT_CODE.format(repo=str(REPO))], check=True, timeout=300)

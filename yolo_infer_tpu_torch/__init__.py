@@ -7,8 +7,9 @@ hand-written CUDA C++ under `csrc/`, built with nvcc at first use
 `yolo_infer_tpu`.
 """
 
+from yolo_infer_tpu_torch.core.model import YOLO11Factory, YOLO11Model
 from yolo_infer_tpu_torch.core.predictor import Predictor, Results
 from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, build_model, fold_model
 
-__all__ = ["Predictor", "Results", "YOLO11", "build_model", "build_spec", "fold_model"]
+__all__ = ["Predictor", "Results", "YOLO11", "YOLO11Factory", "YOLO11Model", "build_model", "build_spec", "fold_model"]

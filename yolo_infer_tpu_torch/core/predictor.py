@@ -19,6 +19,10 @@ take the full-grid f32 decode (kernel F) and `ops.nms.batched_nms`: the
 per-anchor top-8 classes, an exact top-`pre_topk` pool, the class-offset IoU
 matrix and the greedy keep (kernel G).
 
+With PTQ activation scales (`quant_act_scales`, (n, 2)) the forward of a
+quantized model (`models/yolo11.py quantize_model`) runs inside a static8
+`QuantContext`: every eligible conv int8 in, int8 out through kernel E.
+
 The predictor runs on `cuda` unless the caller passes `device="cpu"`; with no
 card and no explicit device it raises instead of falling back to the CPU.
 """
@@ -33,8 +37,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from yolo_infer_tpu_torch.models.blocks import Attention, attn_impl_choice
 from yolo_infer_tpu_torch.models.spec import ModelSpec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, cast_model, fold_model
+from yolo_infer_tpu_torch.nn.quantize import QuantContext, quant_context
 from yolo_infer_tpu_torch.ops.decode import (
     decode_detections,
     decode_keypoints,
@@ -236,6 +242,13 @@ class Predictor:
     tensor. The host-finished modes "q8", "bits" and "exact" (and the JAX
     package's "auto" choice between modes) are not ported (ROADMAP Queue 1
     item 5).
+
+    `quant_act_scales` ((n, 2) PTQ absmax pairs, as
+    `optimization/quantization/quantizers.py` calibrates them) serve a
+    quantized model in static8; `quant_min_channels` overrides the int8
+    eligibility threshold (a value above 1024 keeps every conv float:
+    weight-only int8). `attn_impl` ("auto", "fused", "pallas", "xla") picks
+    the C2PSA attention (`models/blocks.py attn_impl_choice`).
     """
 
     def __init__(
@@ -249,8 +262,12 @@ class Predictor:
         max_det: int = 300,
         names: Optional[Dict[int, str]] = None,
         mask_mode: str = "device",
+        quant_act_scales: Any = None,
+        quant_min_channels: Optional[int] = None,
+        attn_impl: str = "auto",
     ):
         _check_mask_mode(mask_mode)
+        attn_impl_choice(attn_impl)  # raises on an unknown name
         self.device = resolve_device(device)
         self.spec = spec
         self.compute_dtype = compute_dtype
@@ -261,7 +278,24 @@ class Predictor:
         model = cast_model(fold_model(params), compute_dtype).to(self.device).eval()
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
+        for m in model.modules():
+            if isinstance(m, Attention):
+                m.impl = attn_impl
         self.model = model
+        self.quant_act_scales = (None if quant_act_scales is None
+                                 else torch.as_tensor(np.asarray(quant_act_scales), dtype=torch.float32))
+        self.quant_min_channels = quant_min_channels
+
+    def _forward(self, x: torch.Tensor) -> Dict[str, Any]:
+        """The model forward, inside a static8 context when PTQ scales exist."""
+        if self.quant_act_scales is None:
+            return self.model(x)
+        kw = {} if self.quant_min_channels is None else {"int8_min_channels": int(self.quant_min_channels)}
+        with quant_context(QuantContext("static8", act_scales=self.quant_act_scales, **kw)) as ctx:
+            out = self.model(x)
+        if ctx.index != len(self.quant_act_scales):
+            raise ValueError(f"the model ran {ctx.index} quantized convs for {len(self.quant_act_scales)} scale pairs")
+        return out
 
     @torch.inference_mode()
     def predict_raw(self, images_u8: torch.Tensor, conf: float, iou: float, imgsz: int,
@@ -280,7 +314,7 @@ class Predictor:
         md = max_det or self.max_det
         pool = pre_topk or self.pre_topk
         x = preprocess_batch(images_u8, out_hw=(imgsz, imgsz), dtype=self.compute_dtype)
-        out = self.model(x)
+        out = self._forward(x)
         if spec.task == "classify":
             return {"probs": torch.softmax(out["logits"], dim=-1)}
         feats = out["feats"]

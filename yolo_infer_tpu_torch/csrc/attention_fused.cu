@@ -3,7 +3,12 @@
 //
 // Replaces: attention_qkv_fused_pallas (yolo_infer_tpu/ops/pallas/
 // attention_fused.py), the TPU kernel that keeps each batch row's score
-// matrix in VMEM and reads the qkv conv's output slab in place.
+// matrix in VMEM and reads the qkv conv's output slab in place (kernel B,
+// attn_qkv_launch); and attention_fused_pallas in the same file, the older
+// per-(batch*head) kernel on a slab packed head-major beforehand, (G, N,
+// 2kd+hd) with G = batch*heads (kernel H, attn_packed_launch). A packed slab
+// is a qkv slab of one head, so H launches B's body with heads = 1 and G
+// grid rows: the same arithmetic, the same bound (bytes), the same design.
 //
 // Input (B, N, heads*(2kd+hd)), channels [h: q | k | v]; output (B, N,
 // heads*hd), head-major. Products accumulate in f32, the softmax is f32 and
@@ -277,4 +282,11 @@ extern "C" int attn_qkv_launch(const void* qkv, void* out, int B, int N, int hea
   if (dtype == 0) err = launch<float, 32, 64>(qkv, out, B, N, heads, scale, s);
   else if (dtype == 1) err = launch<__nv_bfloat16, 32, 64>(qkv, out, B, N, heads, scale, s);
   return static_cast<int>(err);
+}
+
+// qg (G, N, 2kd+hd) and out (G, N, hd), contiguous, on the current device;
+// dtype as above. Returns the cudaError_t of the launch.
+extern "C" int attn_packed_launch(const void* qg, void* out, int G, int N, int kd, int hd, float scale, int dtype,
+                                  void* stream) {
+  return attn_qkv_launch(qg, out, G, N, 1, kd, hd, scale, dtype, stream);
 }

@@ -7,15 +7,24 @@ Proto), Pose, OBB and Classify. Submodules carry the ultralytics names
 `proto.upsample`, `linear`, ...) so an ultralytics-named state dict loads
 with `load_state_dict` (`models/convert.py`). Activations are NCHW inside the
 blocks.
+
+Under an active `QuantContext` (`nn/quantize.py`) a quantized `Conv` takes
+and gives `QAct` (int8 codes and a scale) and the blocks route them as the
+JAX package's blocks do: max-pool, split, concat and upsample on the codes,
+residual adds in float, every float layer dequantizing its QAct input.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+from yolo_infer_tpu_torch.nn import quantize as Q
 
 from yolo_infer_tpu_torch.nn.layers import (
     BN_EPS,
@@ -27,14 +36,39 @@ from yolo_infer_tpu_torch.nn.layers import (
     max_pool,
     silu,
 )
-from yolo_infer_tpu_torch.ops.kernels.attention_fused import attention_qkv
+from yolo_infer_tpu_torch.ops.kernels.attention_fused import attention_packed, attention_qkv
+from yolo_infer_tpu_torch.ops.kernels.int8_conv import int8_conv
+
+
+def _cast(t, dtype: torch.dtype):
+    return None if t is None else t.to(dtype)
+
+
+def _conv_in_input_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` on `x` with its weights cast to `x`'s dtype (the JAX package
+    casts a conv's weights to its input's dtype: under static8 an f32 model
+    carries the bf16 outputs of exempted convs)."""
+    return F.conv2d(x, conv.weight.to(x.dtype), _cast(conv.bias, x.dtype), conv.stride, conv.padding,
+                    conv.dilation, conv.groups)
+
+
+def _q_maxpool(x, k: int):
+    """Max-pool that stays int8 on a QAct: a per-tensor scale keeps the
+    order, so pooling the codes is exact. torch has no int8 max-pool on the
+    card; the codes are exact in bf16."""
+    if isinstance(x, Q.QAct):
+        return Q.QAct(max_pool(x.q.to(torch.bfloat16), k).to(torch.int8), x.s)
+    return max_pool(x, k)
 
 
 class Conv(nn.Module):
     """Conv2d (k//2 padding, groups) -> batch norm (eval) -> optional SiLU.
 
     `fold()` merges the batch norm into the conv's weight and bias in place
-    (the deploy form); afterwards `bn` is None.
+    (the deploy form); afterwards `bn` is None. `quantize()` turns a folded
+    conv into the int8 deploy form: `conv` becomes None and the buffers
+    `w_q` (int8 weights as (Co, k*k*Ci) rows, the (Co, k, k, Ci) layout of
+    kernel E), `w_scale` (f32 per Co) and `b` (f32 bias) take its place.
     """
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: bool = True):
@@ -42,9 +76,18 @@ class Conv(nn.Module):
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k), groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
+        self.k, self.s, self.g = k, s, g
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
+    @property
+    def quantized(self) -> bool:
+        return self.conv is None
+
+    def forward(self, x):
+        if self.quantized:
+            return self._forward_int8(x)
+        if isinstance(x, Q.QAct):  # float conv fed by an int8 edge
+            x = x.dequant(self.conv.weight.dtype)
+        y = self.conv(x) if x.dtype == self.conv.weight.dtype else _conv_in_input_dtype(self.conv, x)
         if self.bn is not None:
             scale, bias = bn_scale_bias(self.bn.weight, self.bn.bias, self.bn.running_mean, self.bn.running_var)
             y = y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
@@ -59,6 +102,60 @@ class Conv(nn.Module):
         self.conv.weight = nn.Parameter(w)
         self.conv.bias = nn.Parameter(b)
         self.bn = None
+
+    @torch.no_grad()
+    def quantize(self) -> None:
+        """The int8 deploy form, from the folded weights in their current
+        dtype (`nn/quantize.py quantize_weights_per_channel`)."""
+        if self.quantized:
+            return
+        if self.bn is not None or self.g != 1:
+            raise ValueError("only a folded conv with groups 1 quantizes (fold first; depthwise convs stay float)")
+        w_q, w_scale = Q.quantize_weights_per_channel(self.conv.weight)
+        co = w_q.shape[0]
+        self.register_buffer("w_q", w_q.permute(0, 2, 3, 1).reshape(co, -1).contiguous())
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("b", self.conv.bias.detach().float().clone())
+        self.conv = None
+
+    def _dequantized_weights(self, dtype: torch.dtype) -> torch.Tensor:
+        co = self.w_q.shape[0]
+        w_q = self.w_q.view(co, self.k, self.k, -1).permute(0, 3, 1, 2)
+        return Q.dequantize_weights(w_q, self.w_scale, dtype)
+
+    def _float_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on the dequantized weights, in `x`'s dtype."""
+        y = F.conv2d(x, self._dequantized_weights(x.dtype), None, self.s, self.k // 2)
+        y = y + self.b.to(y.dtype)[:, None, None]  # the bias after the conv's rounding, as the JAX package adds it
+        return silu(y) if self.act else y
+
+    def _forward_int8(self, x):
+        """`nn/layers.py conv_block`'s int8 branch: observe8 records the
+        (in, out) absmax of a float conv; static8 takes the next scale pair,
+        then runs exempted convs in float and the rest through kernel E."""
+        ctx = Q.current_context()
+        if ctx is None:
+            raise NotImplementedError(f"an int8 conv outside observe8/static8 (dynamic int8) {Q.UNPORTED}")
+        if ctx.mode == "observe8":
+            x_fp = Q.as_float(x, torch.float32)
+            y = self._float_conv(x_fp)
+            ctx.observe_pair(x_fp, y)
+            return y
+        idx = ctx.index
+        sx, sy = ctx.next_scale_pair()  # taken before the exemption test: exempted convs advance the index too
+        co = self.w_q.shape[0]
+        ci = self.w_q.shape[1] // (self.k * self.k)
+        n, _, h, w = x.shape
+        if ctx.exempt(idx, ci, co, n * h * w):
+            return self._float_conv(Q.as_float(x, torch.bfloat16))
+        if isinstance(x, Q.QAct):
+            xq, sx = x.q, x.s  # an int8 edge: no second rounding
+        else:
+            xq = Q.quantize_act(x, sx).q
+        y = int8_conv(xq.permute(0, 2, 3, 1).contiguous(), self.w_q.view(co, self.k, self.k, ci),
+                      sx * self.w_scale, self.b, (1.0 / sy).item(), stride=self.s, act=self.act,
+                      epilogue_dtype=ctx.epilogue_dtype or torch.bfloat16)
+        return Q.QAct(y.permute(0, 3, 1, 2), sy)
 
 
 class DWConv(Conv):
@@ -76,9 +173,9 @@ class Bottleneck(nn.Module):
         self.cv2 = Conv(c_, c2, k[1])
         self.add = shortcut
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        return Q.q_add(x, y) if self.add else y
 
 
 class C3k(nn.Module):
@@ -90,8 +187,10 @@ class C3k(nn.Module):
         self.cv3 = Conv(2 * c_, c2, 1)
         self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, e=1.0) for _ in range(n)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+    def forward(self, x):
+        a = self.cv1(x)
+        b = self.cv2(x)  # before the bottlenecks: the order of the JAX DAG, which the scale index follows
+        return self.cv3(Q.q_concat([self.m(a), b], 1))
 
 
 class C3k2(nn.Module):
@@ -105,11 +204,11 @@ class C3k2(nn.Module):
             for _ in range(n)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ys = list(self.cv1(x).chunk(2, 1))
+    def forward(self, x):
+        ys = list(Q.q_split2(self.cv1(x), 1))
         for m in self.m:
             ys.append(m(ys[-1]))
-        return self.cv2(torch.cat(ys, 1))
+        return self.cv2(Q.q_concat(ys, 1))
 
 
 class SPPF(nn.Module):
@@ -120,20 +219,38 @@ class SPPF(nn.Module):
         self.cv2 = Conv(c_ * 4, c2, 1)
         self.k = k
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         ys = [self.cv1(x)]
         for _ in range(3):
-            ys.append(max_pool(ys[-1], self.k))
-        return self.cv2(torch.cat(ys, 1))
+            ys.append(_q_maxpool(ys[-1], self.k))
+        return self.cv2(Q.q_concat(ys, 1))
+
+
+ATTN_IMPLS = ("fused", "pallas", "xla")
+
+
+def attn_impl_choice(impl: str = "auto") -> str:
+    """The attention implementation, as `yolo_infer_tpu/models/blocks.py
+    _attn_impl` chooses it: an explicit "fused", "pallas" or "xla" wins;
+    "auto" reads `YOLO_ATTN_IMPL`, then takes "fused"."""
+    if impl in ATTN_IMPLS:
+        return impl
+    if impl != "auto":
+        raise ValueError(f"attn_impl must be 'auto' or one of {ATTN_IMPLS}, got {impl!r}")
+    env = os.environ.get("YOLO_ATTN_IMPL", "")
+    return env if env in ATTN_IMPLS else "fused"
 
 
 class Attention(nn.Module):
     """C2PSA multi-head attention over the P5 grid.
 
-    The qkv conv's channels are head-major, [h: q | k | v]. The attention
-    itself runs on the (B, N, heads*(2kd+hd)) slab, read in place by
-    `attention_qkv` (the hand-written kernel on a CUDA tensor); `pe`, a 3x3
-    depthwise conv, runs on the v channels of every head.
+    The qkv conv's channels are head-major, [h: q | k | v], and `pe`, a 3x3
+    depthwise conv, runs on the v channels of every head. The attention runs
+    as `attn_impl_choice(self.impl)` says (`impl` is set by the Predictor):
+      "fused"  kernel B (`attention_qkv`) on the (B, N, heads*(2kd+hd)) slab, in place
+      "pallas" kernel H (`attention_packed`) on a (B*heads, N, 2kd+hd) head-major copy
+      "xla"    plain batched products, the JAX package's einsum form
+    The wrappers take their plain versions on a CPU tensor.
     """
 
     def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5):
@@ -145,15 +262,35 @@ class Attention(nn.Module):
         self.qkv = Conv(dim, h, 1, act=False)
         self.proj = Conv(dim, dim, 1, act=False)
         self.pe = Conv(dim, dim, 3, g=dim, act=False)
+        self.impl = "auto"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _einsum(self, slab: torch.Tensor) -> torch.Tensor:
+        """(B, N, heads*(2kd+hd)) -> (B, N, heads*hd): per (batch, head) f32
+        products, f32 softmax rounded to the slab dtype, f32 PV, rounded."""
+        b, n, _ = slab.shape
+        heads, kd, hd = self.num_heads, self.key_dim, self.head_dim
+        x = slab.view(b, n, heads, 2 * kd + hd).transpose(1, 2)  # (B, heads, N, step)
+        q, k, v = (x[..., sl].reshape(b * heads, n, -1).float()
+                   for sl in (slice(0, kd), slice(kd, 2 * kd), slice(2 * kd, None)))
+        attn = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * (kd ** -0.5), dim=-1).to(slab.dtype)
+        out = torch.bmm(attn.float(), v).to(slab.dtype)
+        return out.view(b, heads, n, hd).transpose(1, 2).reshape(b, n, heads * hd)
+
+    def forward(self, x) -> torch.Tensor:
         b, c, hh, ww = x.shape
         n = hh * ww
         heads, kd, hd = self.num_heads, self.key_dim, self.head_dim
         qkv = self.qkv(x)
         # NHWC rows of the qkv map; a view when `qkv` is channels_last
         slab = qkv.permute(0, 2, 3, 1).reshape(b, n, -1).contiguous()
-        o = attention_qkv(slab, heads, kd, hd)  # (B, N, heads*hd), head-major
+        impl = attn_impl_choice(self.impl)
+        if impl == "fused":
+            o = attention_qkv(slab, heads, kd, hd)  # (B, N, heads*hd), head-major
+        elif impl == "pallas":
+            qg = slab.view(b, n, heads, 2 * kd + hd).transpose(1, 2).reshape(b * heads, n, 2 * kd + hd)
+            o = attention_packed(qg, kd, hd).view(b, heads, n, hd).transpose(1, 2).reshape(b, n, heads * hd)
+        else:
+            o = self._einsum(slab)
         out = o.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         v_spatial = slab.reshape(b, n, heads, 2 * kd + hd)[..., 2 * kd:].reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.proj(out + self.pe(v_spatial))
@@ -165,9 +302,9 @@ class PSABlock(nn.Module):
         self.attn = Attention(c, num_heads)
         self.ffn = nn.Sequential(Conv(c, c * 2, 1), Conv(c * 2, c, 1, act=False))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(x)
-        return x + self.ffn(x)
+    def forward(self, x) -> torch.Tensor:
+        x = Q.q_add(x, self.attn(x))
+        return Q.q_add(x, self.ffn(x))
 
 
 class C2PSA(nn.Module):
@@ -178,9 +315,18 @@ class C2PSA(nn.Module):
         self.cv2 = Conv(2 * self.c, c1, 1)
         self.m = nn.Sequential(*(PSABlock(self.c, max(self.c // 64, 1)) for _ in range(n)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, b = self.cv1(x).split((self.c, self.c), dim=1)
-        return self.cv2(torch.cat([a, self.m(b)], 1))
+    def forward(self, x):
+        a, b = Q.q_split_at(self.cv1(x), self.c, 1)
+        return self.cv2(Q.q_concat([a, self.m(b)], 1))
+
+
+class HeadConv2d(nn.Conv2d):
+    """A head branch's output projection (plain conv with bias); a QAct
+    input is dequantized to its weight dtype first."""
+
+    def forward(self, x) -> torch.Tensor:
+        x = Q.as_float(x, self.weight.dtype)
+        return super().forward(x) if x.dtype == self.weight.dtype else _conv_in_input_dtype(self, x)
 
 
 def detect_branch_channels(ch: Sequence[int], nc: int, reg_max: int) -> Tuple[int, int]:
@@ -197,13 +343,13 @@ class Detect(nn.Module):
         super().__init__()
         c2, c3 = detect_branch_channels(ch, nc, reg_max)
         self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(c, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for c in ch
+            nn.Sequential(Conv(c, c2, 3), Conv(c2, c2, 3), HeadConv2d(c2, 4 * reg_max, 1)) for c in ch
         )
         self.cv3 = nn.ModuleList(
             nn.Sequential(
                 nn.Sequential(DWConv(c, c, 3), Conv(c, c3, 1)),
                 nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)),
-                nn.Conv2d(c3, nc, 1),
+                HeadConv2d(c3, nc, 1),
             )
             for c in ch
         )
@@ -224,7 +370,7 @@ class _DetectPlus(Detect):
         super().__init__(nc, ch, reg_max)
         c_mid = max(ch[0] // 4, c_out)
         self.cv4 = nn.ModuleList(
-            nn.Sequential(Conv(c, c_mid, 3), Conv(c_mid, c_mid, 3), nn.Conv2d(c_mid, c_out, 1)) for c in ch
+            nn.Sequential(Conv(c, c_mid, 3), Conv(c_mid, c_mid, 3), HeadConv2d(c_mid, c_out, 1)) for c in ch
         )
 
     def forward(self, xs: List[torch.Tensor]) -> Dict[str, Any]:
@@ -244,8 +390,12 @@ class Proto(nn.Module):
         self.cv2 = Conv(c_, c_, 3)
         self.cv3 = Conv(c_, nm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+    def forward(self, x):
+        y = Q.as_float(self.cv1(x), self.upsample.weight.dtype)
+        up = self.upsample
+        y = up(y) if y.dtype == up.weight.dtype else F.conv_transpose2d(
+            y, up.weight.to(y.dtype), _cast(up.bias, y.dtype), up.stride, up.padding)
+        return self.cv3(self.cv2(y))
 
 
 class Segment(_DetectPlus):
@@ -289,5 +439,6 @@ class Classify(nn.Module):
         self.conv = Conv(c1, c_hidden, 1)
         self.linear = nn.Linear(c_hidden, nc)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(adaptive_avg_pool(self.conv(x)).to(self.linear.weight.dtype))
+    def forward(self, x) -> torch.Tensor:
+        y = adaptive_avg_pool(Q.as_float(self.conv(x), self.linear.weight.dtype))
+        return F.linear(y, self.linear.weight.to(y.dtype), _cast(self.linear.bias, y.dtype))

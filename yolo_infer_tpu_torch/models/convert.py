@@ -10,7 +10,10 @@ the naming `yolo_infer_tpu/models/convert.py` maps (`model.{i}.cv1.conv.weight`,
 (folded `{"w", "b"}` nodes, or unfolded `{"w", "gamma", "beta"}` nodes plus
 the `{"mean", "var"}` state tree), renames it to the same keys with HWIO
 kernels transposed to OIHW, and loads it. That is how the tests run one set
-of weights through both packages.
+of weights through both packages. A quantized tree (`quantize_params_tree`:
+`{"w_q", "w_scale", "b"}` nodes) loads into the int8 deploy form
+(`models/yolo11.py quantize_model`), its int8 weights carried as they are:
+the keys `….w_q` ((Co, k*k*Ci) int8 rows), `….w_scale` and `….b`.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from yolo_infer_tpu_torch.models.spec import ModelSpec
-from yolo_infer_tpu_torch.models.yolo11 import YOLO11, fold_model
+from yolo_infer_tpu_torch.models.yolo11 import YOLO11, fold_model, quantize_model
 
 # keys a checkpoint may carry that the port has no use for: BN step counters
 # and the fixed DFL expectation conv (the decode computes it arithmetically)
@@ -32,17 +35,20 @@ def load_state_dict(sd: Mapping[str, Any], spec: ModelSpec) -> YOLO11:
     """Ultralytics-named flat state dict -> `YOLO11` (CPU, f32, eval).
 
     A dict with no batch-norm keys is taken as folded (`….conv.bias` in their
-    place) and yields a folded model. Missing or unexpected keys raise
-    KeyError, a tensor of the wrong shape ValueError.
+    place) and yields a folded model; one with `….w_q` keys, a quantized
+    model (int8 `w_q` kept int8). Missing or unexpected keys raise KeyError,
+    a tensor of the wrong shape ValueError.
     """
     tensors = {
-        k: torch.tensor(np.asarray(v, np.float32))
+        k: torch.tensor(np.asarray(v, np.int8 if k.endswith(".w_q") else np.float32))
         for k, v in sd.items()
         if not any(s in k for s in _IGNORED)
     }
     model = YOLO11(spec)
     if not any(".bn." in k for k in tensors):
         fold_model(model)
+    if any(k.endswith(".w_q") for k in tensors):
+        quantize_model(model)
     own = {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
     missing = sorted(own.keys() - tensors.keys())
     unexpected = sorted(tensors.keys() - own.keys())
@@ -63,7 +69,14 @@ def _oihw(w) -> np.ndarray:
 
 
 def _conv(out: Dict[str, np.ndarray], prefix: str, p, s) -> None:
-    """One Conv(+BN) node: folded {"w","b"} or unfolded {"w","gamma","beta"} + state."""
+    """One Conv(+BN) node: folded {"w","b"}, unfolded {"w","gamma","beta"} +
+    state, or quantized {"w_q","w_scale","b"} (HWIO int8 -> (Co, k*k*Ci) rows)."""
+    if "w_q" in p:
+        w_q = np.asarray(p["w_q"], np.int8)
+        out[f"{prefix}.w_q"] = np.ascontiguousarray(w_q.transpose(3, 0, 1, 2).reshape(w_q.shape[3], -1))
+        out[f"{prefix}.w_scale"] = p["w_scale"]
+        out[f"{prefix}.b"] = p["b"]
+        return
     out[f"{prefix}.conv.weight"] = _oihw(p["w"])
     if "gamma" in p:
         out[f"{prefix}.bn.weight"] = p["gamma"]
@@ -159,6 +172,12 @@ def params_from_jax(params: Mapping[str, Any], spec: ModelSpec, state: Optional[
     `state` is the JAX batch-norm state tree; pass it with unfolded params
     and leave it None for folded ones.
     """
+    return load_state_dict(state_dict_from_jax(params, spec, state), spec)
+
+
+def state_dict_from_jax(params: Mapping[str, Any], spec: ModelSpec,
+                        state: Optional[Mapping[str, Any]] = None) -> Dict[str, np.ndarray]:
+    """JAX parameter tree (numpy leaves) -> the port's state dict (numpy)."""
     sd: Dict[str, np.ndarray] = {}
     for layer in spec.layers:
         key, prefix = str(layer.idx), f"model.{layer.idx}"
@@ -183,4 +202,4 @@ def params_from_jax(params: Mapping[str, Any], spec: ModelSpec, state: Optional[
             _classify(sd, prefix, p, s)
         elif t not in ("Upsample", "Concat"):
             raise NotImplementedError(f"layer type {t} is not ported yet")
-    return load_state_dict(sd, spec)
+    return sd

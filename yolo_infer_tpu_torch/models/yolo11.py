@@ -16,7 +16,18 @@ import torch.nn as nn
 
 from yolo_infer_tpu_torch.models import blocks as B
 from yolo_infer_tpu_torch.models.spec import ModelSpec, build_spec, save_indices
+from yolo_infer_tpu_torch.nn import quantize as Q
 from yolo_infer_tpu_torch.nn.layers import upsample2x
+
+
+def _upsample(x):
+    """Nearest 2x upsample; on a QAct the codes are repeated (exact), NHWC
+    in and out so a channels_last map stays channels_last."""
+    if not isinstance(x, Q.QAct):
+        return upsample2x(x)
+    n, c, h, w = x.q.shape
+    q = x.q.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+    return Q.QAct(q.permute(0, 3, 1, 2), x.s)
 
 
 class YOLO11(nn.Module):
@@ -64,7 +75,8 @@ class YOLO11(nn.Module):
           obb     : + {"angle": [(B, Hi, Wi, ne)] * 3}
           classify: {"logits": (B, nc) f32}
         """
-        x = x.permute(0, 3, 1, 2).to(self.model[0].conv.weight.dtype)
+        dtype = self.compute_dtype
+        x = x.permute(0, 3, 1, 2).to(dtype)
         ys: Dict[int, torch.Tensor] = {}
         prev = x
         for layer in self.spec.layers:
@@ -75,12 +87,14 @@ class YOLO11(nn.Module):
                 inp = prev if layer.frm == layer.idx - 1 or layer.idx == 0 else ys[layer.frm]
             t = layer.typ
             if t == "Upsample":
-                y = upsample2x(inp)
+                y = _upsample(inp)
             elif t == "Concat":
-                y = torch.cat(inp, 1)
+                y = Q.q_concat(inp, 1)
             elif t in ("Detect", "Segment", "Pose", "OBB"):
-                return {k: [f.permute(0, 2, 3, 1) for f in v] if isinstance(v, list) else v.permute(0, 2, 3, 1)
-                        for k, v in m(inp).items()}
+                def nhwc(f):
+                    return Q.as_float(f, dtype).permute(0, 2, 3, 1)
+
+                return {k: [nhwc(f) for f in v] if isinstance(v, list) else nhwc(v) for k, v in m(inp).items()}
             elif t == "Classify":
                 return {"logits": m(inp).float()}
             else:
@@ -89,6 +103,11 @@ class YOLO11(nn.Module):
             if layer.idx in self._keep:
                 ys[layer.idx] = y
         raise ValueError("spec has no head")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype of the float convs' weights (`cast_model` sets it)."""
+        return next(m.weight.dtype for m in self.modules() if isinstance(m, nn.Conv2d))
 
 
 @torch.no_grad()
@@ -131,6 +150,20 @@ def fold_model(model: YOLO11) -> YOLO11:
     for m in model.modules():
         if isinstance(m, B.Conv):
             m.fold()
+    return model
+
+
+def quantize_model(model: YOLO11) -> YOLO11:
+    """Turn every conv that `yolo_infer_tpu/nn/quantize.py quantize_params_tree`
+    quantizes into its int8 deploy form, in place (fold first). That is
+    every `Conv` but the depthwise ones and those inside an `Attention`; the
+    head branches' output projections (`HeadConv2d`, the last node of each
+    branch list there), the prototype upsample and the classifier's linear
+    layer are not `Conv`s and stay float, as there."""
+    skip = {id(c) for m in model.modules() if isinstance(m, B.Attention) for c in m.modules()}
+    for m in list(model.modules()):
+        if isinstance(m, B.Conv) and id(m) not in skip and m.g == 1:
+            m.quantize()
     return model
 
 

@@ -28,8 +28,9 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", 
 # every kernel that must equal its plain version bit for bit: no FMA
 # contraction, so each operation rounds as PyTorch's elementwise kernels do
 _EXTRA_FLAGS: Dict[str, List[str]] = {name: ["--fmad=false"]
-                                      for name in ("nms_fused", "rotated_nms_fused", "mask_pack")}
-KERNELS = ("nms_fused", "attention_fused", "rotated_nms_fused", "mask_pack", "dfl_decode", "greedy_nms")
+                                      for name in ("nms_fused", "rotated_nms_fused", "mask_pack", "int8_conv")}
+KERNELS = ("nms_fused", "attention_fused", "rotated_nms_fused", "mask_pack", "dfl_decode", "greedy_nms",
+           "int8_conv")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

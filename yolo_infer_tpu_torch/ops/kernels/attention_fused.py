@@ -1,5 +1,4 @@
-"""C2PSA attention on the raw qkv slab: the CUDA kernel `csrc/attention_fused.cu`
-and its plain version.
+"""C2PSA attention: the CUDA kernels of `csrc/attention_fused.cu` and their plain versions.
 
 Replaces the TPU kernel `attention_qkv_fused_pallas`
 (`yolo_infer_tpu/ops/pallas/attention_fused.py`). Per batch row and head it
@@ -8,9 +7,14 @@ computes softmax(q·kᵀ·kd^-0.5)·v straight from the qkv conv's output,
 head-major. Products accumulate in f32, the softmax is f32 and exact, and p
 is rounded to the slab's dtype before the PV product, as in the JAX kernel.
 
-`attention_qkv` takes the kernel for a CUDA tensor and the plain version for
-a CPU tensor; anything else raises. `attention_qkv.launches` counts kernel
-launches.
+`attention_packed` (kernel H) replaces `attention_fused_pallas` in the same
+file, the per-(batch·head) kernel behind `YOLO_ATTN_IMPL=pallas`: it takes a
+slab packed head-major beforehand, (G, N, 2kd+hd) with G = batch·heads, and
+returns (G, N, hd), the same arithmetic with one head per row of the grid.
+
+Each wrapper takes its kernel for a CUDA tensor and its plain version for a
+CPU tensor; anything else raises. `attention_qkv.launches` and
+`attention_packed.launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -39,6 +43,15 @@ def attention_qkv_reference(qkv: torch.Tensor, heads: int, kd: int, hd: int) -> 
     return o.permute(0, 2, 1, 3).reshape(b, n, heads * hd)
 
 
+def attention_packed_reference(qg: torch.Tensor, kd: int, hd: int) -> torch.Tensor:
+    """Plain version of H: per row g, f32 dots -> f32 softmax -> round p to
+    the slab dtype -> f32 PV -> round, as `_attn_kernel` computes."""
+    q, k, v = qg[..., :kd].float(), qg[..., kd:2 * kd].float(), qg[..., 2 * kd:].float()
+    s = torch.matmul(q, k.transpose(-1, -2)) * (kd ** -0.5)
+    p = torch.softmax(s, dim=-1).to(qg.dtype)
+    return torch.matmul(p.float(), v).to(qg.dtype)
+
+
 def _launcher():
     fn = load_library("attention_fused").attn_qkv_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -47,20 +60,32 @@ def _launcher():
     return fn
 
 
+def _packed_launcher():
+    fn = load_library("attention_fused").attn_packed_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, slab: torch.Tensor, kd: int, hd: int, width: int) -> None:
+    if slab.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {slab.dtype} not supported (float32, bfloat16)")
+    if (kd, hd) != KERNEL_DIMS:
+        raise ValueError(f"{name}: the kernel takes (kd, hd)={KERNEL_DIMS}, got ({kd}, {hd})")
+    if slab.dim() != 3 or slab.shape[-1] != width:
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} does not have the last dim {width}")
+    if not slab.is_contiguous() or slab.data_ptr() % 16:
+        raise ValueError(f"{name}: slab must be contiguous and 16-byte aligned (read 16 bytes at a time)")
+
+
 def attention_qkv(qkv: torch.Tensor, heads: int, kd: int, hd: int) -> torch.Tensor:
     """(B, N, heads*(2kd+hd)) slab -> (B, N, heads*hd) attention output."""
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, heads, kd, hd)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_qkv: no kernel for device {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODE:
-        raise ValueError(f"attention_qkv: dtype {qkv.dtype} not supported (float32, bfloat16)")
-    if (kd, hd) != KERNEL_DIMS:
-        raise ValueError(f"attention_qkv: the kernel takes (kd, hd)={KERNEL_DIMS}, got ({kd}, {hd})")
-    if qkv.dim() != 3 or qkv.shape[-1] != heads * (2 * kd + hd):
-        raise ValueError(f"attention_qkv: slab {tuple(qkv.shape)} is not (B, N, {heads}*(2*{kd}+{hd}))")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("attention_qkv: slab must be contiguous and 16-byte aligned (read 16 bytes at a time)")
+    _check("attention_qkv", qkv, kd, hd, heads * (2 * kd + hd))
     b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or n == 0:
@@ -75,3 +100,26 @@ def attention_qkv(qkv: torch.Tensor, heads: int, kd: int, hd: int) -> torch.Tens
 
 
 attention_qkv.launches = 0
+
+
+def attention_packed(qg: torch.Tensor, kd: int, hd: int) -> torch.Tensor:
+    """(G, N, 2kd+hd) head-major packed slab -> (G, N, hd) attention output (kernel H)."""
+    if qg.device.type == "cpu":
+        return attention_packed_reference(qg, kd, hd)
+    if qg.device.type != "cuda":
+        raise ValueError(f"attention_packed: no kernel for device {qg.device}")
+    _check("attention_packed", qg, kd, hd, 2 * kd + hd)
+    g, n, _ = qg.shape
+    out = torch.empty((g, n, hd), dtype=qg.dtype, device=qg.device)
+    if g == 0 or n == 0:
+        return out
+    with torch.cuda.device(qg.device):
+        err = _packed_launcher()(qg.data_ptr(), out.data_ptr(), g, n, kd, hd, kd ** -0.5, _DTYPE_CODE[qg.dtype],
+                                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention_packed: CUDA error {err} at launch")
+    attention_packed.launches += 1
+    return out
+
+
+attention_packed.launches = 0

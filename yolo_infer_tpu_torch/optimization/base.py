@@ -1,0 +1,121 @@
+"""Optimization framework: base classes, pipeline, registry.
+
+Port of `yolo_infer_tpu/optimization/base.py`: `BaseOptimizer` (optimize,
+evaluate, get_optimization_info), `QuantizationOptimizer`
+(set_calibration_data), `OptimizationPipeline` and `OptimizationRegistry`.
+Models are the port's `YOLO11Model` wrappers. Saving and loading an
+optimized model needs the checkpoint format (ROADMAP Queue 1 item 6) and
+raises until it exists; so does `compare_models`, which times through
+`YOLO11Model.benchmark` (item 6).
+"""
+
+from __future__ import annotations
+
+import abc
+import logging
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Type, Union
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+_NO_CHECKPOINT = "needs the port's checkpoint format (ROADMAP Queue 1 item 6)"
+
+
+class BaseOptimizer(abc.ABC):
+    """Abstract model optimizer."""
+
+    def __init__(self, model: Any, config: Optional[Dict[str, Any]] = None):
+        self.model = model
+        self.config = config or {}
+        self.optimized_model: Optional[Any] = None
+        self.optimization_info: Dict[str, Any] = {}
+
+    @abc.abstractmethod
+    def optimize(self, *args, **kwargs) -> Any:
+        """Produce and return the optimized model."""
+
+    def evaluate(self, data: Optional[Any] = None, imgsz: int = 640, batch: int = 16) -> Dict[str, Any]:
+        """Accuracy of the optimized model on a dataset, through the port's validator."""
+        if self.optimized_model is None:
+            raise RuntimeError("call optimize() first")
+        if not data:
+            raise NotImplementedError("evaluation without a dataset times the model through "
+                                      "YOLO11Model.benchmark (ROADMAP Queue 1 item 6); pass data=")
+        from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+
+        return YOLO11Validator(model=self.optimized_model).validate(data, imgsz=imgsz, batch=batch, verbose=False)
+
+    def get_optimization_info(self) -> Dict[str, Any]:
+        return dict(self.optimization_info)
+
+    def save_optimized_model(self, path: Union[str, Path]) -> Path:
+        raise NotImplementedError(f"saving an optimized model {_NO_CHECKPOINT}")
+
+    @staticmethod
+    def load_optimized_model(path: Union[str, Path]) -> Any:
+        raise NotImplementedError(f"loading an optimized model {_NO_CHECKPOINT}")
+
+    def compare_models(self, imgsz: int = 640, batch: int = 8, runs: int = 20) -> Dict[str, Any]:
+        raise NotImplementedError("comparing speeds needs YOLO11Model.benchmark (ROADMAP Queue 1 item 6)")
+
+
+class QuantizationOptimizer(BaseOptimizer):
+    """Shared quantization config: int8 only."""
+
+    SUPPORTED_DTYPES = ("int8",)
+
+    def __init__(self, model: Any, config: Optional[Dict[str, Any]] = None):
+        super().__init__(model, config)
+        self.dtype = self.config.get("dtype", "int8")
+        if self.dtype not in self.SUPPORTED_DTYPES:
+            raise ValueError(f"dtype {self.dtype!r} not in {self.SUPPORTED_DTYPES}")
+        self.calibration_data: Optional[Sequence[np.ndarray]] = None
+
+    def set_calibration_data(self, data: Sequence[np.ndarray]) -> None:
+        self.calibration_data = data
+
+
+class OptimizationPipeline:
+    """Chain of optimizers applied in order."""
+
+    def __init__(self, model: Any):
+        self.model = model
+        self.steps: List[BaseOptimizer] = []
+        self.results: List[Dict[str, Any]] = []
+
+    def add_step(self, optimizer: BaseOptimizer) -> "OptimizationPipeline":
+        self.steps.append(optimizer)
+        return self
+
+    def run(self, **kwargs) -> Any:
+        current = self.model
+        for i, step in enumerate(self.steps):
+            step.model = current
+            t0 = time.perf_counter()
+            current = step.optimize(**kwargs)
+            self.results.append({"step": i, "optimizer": type(step).__name__, "time_s": time.perf_counter() - t0,
+                                 "info": step.get_optimization_info()})
+        return current
+
+
+class OptimizationRegistry:
+    """Name -> optimizer class registry."""
+
+    _registry: Dict[str, Type[BaseOptimizer]] = {}
+
+    @classmethod
+    def register(cls, name: str, optimizer_cls: Type[BaseOptimizer]) -> None:
+        cls._registry[name] = optimizer_cls
+
+    @classmethod
+    def get(cls, name: str) -> Type[BaseOptimizer]:
+        if name not in cls._registry:
+            raise KeyError(f"unknown optimizer {name!r}; registered: {sorted(cls._registry)}")
+        return cls._registry[name]
+
+    @classmethod
+    def available(cls) -> List[str]:
+        return sorted(cls._registry)
