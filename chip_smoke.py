@@ -6,14 +6,18 @@ It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
 runs twenty phases, each printing one JSON line:
 
-  1. card    nvidia-smi name and power limit, kernel build times and ptxas info
+  1. card    nvidia-smi name and power limit, kernel build times, ptxas info
+             and each library's tensor-core instructions in its SASS
+             (`cuobjdump -sass`: HMMA, IMMA); B's library must hold HMMA and
+             E's IMMA
   2. nms     kernel A (`nms_keep`) vs its plain version on the card: B=32 random
              candidates at K=384 and K=1024 and the 3-box suppression chain,
              keep masks equal bit for bit
   3. attn    kernel B (`attention_qkv`) vs its plain version on the card: bf16
-             (32, 400, 256) heads=2 and (32, 400, 512) heads=4 within
-             atol = rtol = 2e-2, f32 (32, 400, 256) within atol 1e-5, and a
-             streamed-K/V case at N=1600 (1280 px)
+             (32, 400, 256) heads=2, (32, 400, 512) heads=4, (16, 1024, 256)
+             heads=2 (the OBB shape) and (2, 37, 256) (a ragged key tile)
+             within atol = rtol = 2e-2, f32 (32, 400, 256) and (2, 37, 256)
+             within atol 1e-5, and a streamed-K/V case at N=1600 (1280 px)
   4. fp32    yolo11n fp32 `Predictor.predict` on two 480x640 frames at 640 px,
              on cuda and on cpu (TF32 off): equal num and classes, boxes within
              1e-2 px, scores within 1e-5; both launch counters rise
@@ -52,7 +56,9 @@ runs twenty phases, each printing one JSON line:
  11. obb_bf16  the OBB path: yolo11n-obb (nc 15) bf16 `predict` at batch 16
              on 1024x1024 frames (the OBB models' input size): counters B,
              C and F >= 1 (OBB's full-grid decode runs F), timings as in
-             phase 10, kernel C at the captured K=1024 input
+             phase 10, kernel C at the captured K=1024 input, and kernel B at
+             its captured N=1024 input beside its bound, its plain version and
+             `F.scaled_dot_product_attention`
  12. dfl     kernel F (`dfl_decode`) vs its plain version on the card:
              random (16, 8400, 64) f32 and bf16 logits, contiguous and as
              the strided slice of a (16, 8400, 144) head slab, within 1e-5
@@ -87,16 +93,23 @@ runs twenty phases, each printing one JSON line:
  17. q8_bf16  the static8 path: yolo11s PTQ through `create_quantizer` on
              the card, then static8 `predict` at batch 32 on 640x640 frames,
              once with the counters reset (E must read 48, A and B >= 1) and
-             every E input captured, then timed beside the bf16 yolo11s on
-             the same frames and weights; E at each of its 48 inputs
-             (bit-equal to its plain version; per-launch and summed device
-             times beside their bounds), the device time by kernel, and the
+             every E input captured (channel chunks keep their pixel pitch),
+             then timed beside the bf16 yolo11s on the same frames and
+             weights; E at each of its 48 inputs (bit-equal to its plain
+             version; per-launch and summed device times beside their
+             bounds), the device time by kernel, the copy kernels with the
+             chunks read in place against the same path with every E input
+             copied to a contiguous NHWC tensor first, and the
              fidelity gate: both models validated (single-label, iou 0.45)
              on the frames labelled by the bf16 model's detections at conf
              0.25; static8 mAP50 >= 0.9
  18. int8     kernel E (`int8_conv`) vs its plain version on the card at
              random int8 inputs for each (k, stride) in {1, 3} x {1, 2} and
-             both epilogues, bit-equal (any ±1-code count printed)
+             both epilogues: contiguous (32, 20, 20, 256) -> 128 and (3, 13,
+             11, 130) -> 70, the channel chunk of the first 128 of 256
+             channels (pixel pitch 256) -> 128, and (2, 9, 9, 512) -> 64 of
+             large positive codes (int32 sums of up to ~6e7, which round on
+             their way to f32); bit-equal (any ±1-code count printed)
  19. attn_packed  kernel H (`attention_packed`) vs its plain version on the
              card: bf16 (64, 400, 128) within 2e-2, f32 within 1e-5, bf16 at
              N=1600; and H on a head-major copy vs B on the same slab
@@ -118,6 +131,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -176,6 +190,17 @@ Q8_E_LAUNCHES = 48  # static8 convs of yolo11s at b32/640 under the default elig
 # partner within 1 px and 1e-2)
 Q8_PAIRED = 0.9
 Q8_CLS_SHARE = 2e-4  # (anchor, class) pairs scoring above 0.25 on the calibration frames
+# B and H in bf16 against their plain versions: atol = rtol = 2e-2, as
+# torch.testing.assert_close reads them (one bf16 ulp of an output in [4, 8)
+# is 0.03125: the tensor cores sum p.v in another order than the plain f32
+# product, so an output near a rounding edge may round the other way)
+ATTN_BF16_TOL = 2e-2
+
+
+def attn_tol_excess(got, want) -> float:
+    """max(|got - want| - (atol + rtol * |want|)) at ATTN_BF16_TOL: <= 0 when within it."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - ATTN_BF16_TOL * (1 + w.abs())).max())
 
 
 def emit(obj) -> None:
@@ -220,6 +245,33 @@ def device_ms(fn, iters: int = 20) -> float:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request")
     return total_us / 1e3 / iters
+
+
+def device_ms_each(fns, iters: int = 3):
+    """Device time of each call in `fns` (median of `iters` rounds), by CUDA
+    events around each call. Every launch is queued behind a sleep on the
+    stream first, so the calls run back to back on the card and the host's
+    launch overhead stays outside each event pair."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    marks = [[(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in fns]
+             for _ in range(iters)]
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s of card cycles, longer than queueing the calls below
+    t0 = time.perf_counter()
+    for row in marks:
+        for fn, (start, end) in zip(fns, row):
+            start.record()
+            fn()
+            end.record()
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued_s > 0.4:
+        raise AssertionError(f"queueing the timed calls took {queued_s:.3f} s, longer than the sleep ahead of them")
+    ms = np.array([[start.elapsed_time(end) for start, end in row] for row in marks])
+    return [float(v) for v in np.median(ms, axis=0)]
 
 
 def random_candidates(rng, b: int, k: int):
@@ -401,6 +453,17 @@ def timed_serving(pred, frames, imgsz: int):
             "device_img_per_s": 1e3 * b / device}
 
 
+# the tensor-core instruction each redesigned library must hold in its SASS
+TENSOR_CORE_SASS = {"attention_fused": "HMMA", "int8_conv": "IMMA"}
+
+
+def sass_counts(path: Path, cuobjdump: Path):
+    """Tensor-core instructions (HMMA, IMMA) in a built library's SASS."""
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "IMMA")}
+
+
 def phase_card(report):
     from yolo_infer_tpu_torch.ops.kernels import _build
 
@@ -408,7 +471,14 @@ def phase_card(report):
     t0 = time.perf_counter()
     built = _build.build(list(_build.KERNELS))
     report["card"] = line
-    return {"phase": "card", "card": line, "build_s": time.perf_counter() - t0, "kernels": built}
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = {name: sass_counts(_build.library_path(name), cuobjdump) for name in _build.KERNELS}
+    out = {"phase": "card", "card": line, "build_s": time.perf_counter() - t0, "kernels": built, "sass": sass}
+    missing = {name: op for name, op in TENSOR_CORE_SASS.items() if sass[name][op] < 1}
+    if missing:
+        emit(out)
+        raise AssertionError(f"no tensor-core instructions in {missing}")
+    return out
 
 
 def phase_nms(report):
@@ -446,7 +516,9 @@ def phase_attn(report):
     rng = np.random.default_rng(SEED + 1)
     out = {"phase": "attn", "cases": []}
     cases = [(32, 400, 2, torch.bfloat16, 2e-2, 2e-2), (32, 400, 4, torch.bfloat16, 2e-2, 2e-2),
-             (32, 400, 2, torch.float32, 1e-5, 0.0), (4, 1600, 2, torch.bfloat16, 2e-2, 2e-2)]
+             (16, 1024, 2, torch.bfloat16, 2e-2, 2e-2), (2, 37, 2, torch.bfloat16, 2e-2, 2e-2),
+             (32, 400, 2, torch.float32, 1e-5, 0.0), (2, 37, 2, torch.float32, 1e-5, 0.0),
+             (4, 1600, 2, torch.bfloat16, 2e-2, 2e-2)]
     for b, n, heads, dtype, atol, rtol in cases:
         qkv = torch.from_numpy(rng.standard_normal((b, n, heads * 128)).astype(np.float32)).to("cuda", dtype)
         got = attention_qkv(qkv, heads, 32, 64)
@@ -497,7 +569,6 @@ def phase_fp32(report):
 
 def phase_bf16(report):
     import torch
-    import torch.nn.functional as F
 
     import yolo_infer_tpu_torch.models.blocks as blocks_mod
     import yolo_infer_tpu_torch.ops.nms as nms_ops
@@ -553,28 +624,11 @@ def phase_bf16(report):
 
     kernels = []
     # kernel B at the main path's input
-    slab, heads, kd, hd = seen["attention_qkv"]
-    ref = attn_mod.attention_qkv_reference(slab, heads, kd, hd)
-    err_b = float((attn_mod.attention_qkv(slab, heads, kd, hd).float() - ref.float()).abs().max())
-    b, n, d = slab.shape
-    q, k, v = (slab.view(b, n, heads, 2 * kd + hd)[..., s].transpose(1, 2)
-               for s in (slice(0, kd), slice(kd, 2 * kd), slice(2 * kd, None)))
-    bytes_b = slab.numel() * slab.element_size() + b * n * heads * hd * slab.element_size()
-    flops_b = 2 * b * heads * n * n * (kd + hd)
-    kernel_b = lambda: attn_mod.attention_qkv(slab, heads, kd, hd)  # noqa: E731
-    plain_b = lambda: attn_mod.attention_qkv_reference(slab, heads, kd, hd)  # noqa: E731
-    library_b = lambda: F.scaled_dot_product_attention(q, k, v, scale=kd ** -0.5)  # noqa: E731
+    row_b = attention_b_row(*seen["attention_qkv"])
     kernels.append({
         "name": "attention_qkv", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/attention_fused.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:114", "path": "detect b32 640 bf16",
-        "launches": launches["attention_qkv"],
-        "max_abs_err": err_b,
-        "ms": device_ms(kernel_b), "plain_ms": device_ms(plain_b),
-        "bound_ms": 1e3 * max(bytes_b / H100_BYTES_PER_S, flops_b / H100_BF16_FLOPS),
-        "bound_by": "bytes" if bytes_b / H100_BYTES_PER_S >= flops_b / H100_BF16_FLOPS else "operations",
-        "library_ms": device_ms(library_b),
-        "call_ms": cuda_ms(kernel_b), "plain_call_ms": cuda_ms(plain_b), "library_call_ms": cuda_ms(library_b),
-        "shape": [b, n, d], "dtype": str(slab.dtype),
+        "launches": launches["attention_qkv"], **row_b,
     })
     # kernel A at the main path's input
     cboxes, valid, thr = seen["nms_keep"]
@@ -596,8 +650,9 @@ def phase_bf16(report):
         "library_ms": None,
         "shape": [bk, kk, 4], "valid": int(valid.sum()),
     })
-    if err_a != 0 or err_b > 2e-2:
-        raise AssertionError(f"main-path kernel outputs differ from the plain versions: A {err_a}, B {err_b}")
+    if err_a != 0 or row_b["tol_excess"] > 0:
+        raise AssertionError(f"main-path kernel outputs differ from the plain versions: A {err_a}, "
+                             f"B {row_b['max_abs_err']} (beyond atol = rtol = {ATTN_BF16_TOL} by {row_b['tol_excess']})")
     report["kernels"] = kernels
     report["serving"] = (pred, frames)
     median = times[len(times) // 2]
@@ -606,6 +661,35 @@ def phase_bf16(report):
             "ms_per_batch_min": 1e3 * times[0], "ms_per_batch_max": 1e3 * times[-1],
             "device_ms_per_batch": batch_device_ms, "device_img_per_s": 1e3 * frames.shape[0] / batch_device_ms,
             "launches": launches, "detections_per_image": [min(nums), max(nums)]}
+
+
+def attention_b_row(slab, heads: int, kd: int, hd: int):
+    """Kernel B at one captured slab: its error against the plain version,
+    device times (torch.profiler) beside its bound, the plain version and one
+    `F.scaled_dot_product_attention` call on the same q, k, v (a yardstick
+    only); `*call_ms` time the calls back to back with CUDA events."""
+    import torch.nn.functional as F
+
+    from yolo_infer_tpu_torch.ops.kernels import attention_fused as attn_mod
+
+    ref = attn_mod.attention_qkv_reference(slab, heads, kd, hd)
+    got = attn_mod.attention_qkv(slab, heads, kd, hd)
+    err_b = float((got.float() - ref.float()).abs().max())
+    b, n, d = slab.shape
+    q, k, v = (slab.view(b, n, heads, 2 * kd + hd)[..., s].transpose(1, 2)
+               for s in (slice(0, kd), slice(kd, 2 * kd), slice(2 * kd, None)))
+    bytes_b = slab.numel() * slab.element_size() + b * n * heads * hd * slab.element_size()
+    flops_b = 2 * b * heads * n * n * (kd + hd)
+    kernel_b = lambda: attn_mod.attention_qkv(slab, heads, kd, hd)  # noqa: E731
+    plain_b = lambda: attn_mod.attention_qkv_reference(slab, heads, kd, hd)  # noqa: E731
+    library_b = lambda: F.scaled_dot_product_attention(q, k, v, scale=kd ** -0.5)  # noqa: E731
+    return {"max_abs_err": err_b, "tol_excess": attn_tol_excess(got, ref), "max_abs_out": float(ref.float().abs().max()),
+            "ms": device_ms(kernel_b), "plain_ms": device_ms(plain_b),
+            "bound_ms": 1e3 * max(bytes_b / H100_BYTES_PER_S, flops_b / H100_BF16_FLOPS),
+            "bound_by": "bytes" if bytes_b / H100_BYTES_PER_S >= flops_b / H100_BF16_FLOPS else "operations",
+            "library_ms": device_ms(library_b),
+            "call_ms": cuda_ms(kernel_b), "plain_call_ms": cuda_ms(plain_b), "library_call_ms": cuda_ms(library_b),
+            "shape": [b, n, d], "dtype": str(slab.dtype)}
 
 
 def phase_profile(report):
@@ -832,6 +916,7 @@ def phase_seg_bf16(report):
 def phase_obb_bf16(report):
     import torch
 
+    import yolo_infer_tpu_torch.models.blocks as blocks_mod
     import yolo_infer_tpu_torch.ops.rotated as rot_mod
     from yolo_infer_tpu_torch.core.predictor import Predictor
     from yolo_infer_tpu_torch.ops.kernels import rotated_nms_fused as rn_mod
@@ -844,12 +929,13 @@ def phase_obb_bf16(report):
     torch.cuda.synchronize()
 
     seen = {}
-    restore = capture_inputs(rot_mod, "rotated_nms_keep", seen)
+    restores = [capture_inputs(rot_mod, "rotated_nms_keep", seen), capture_inputs(blocks_mod, "attention_qkv", seen)]
     reset_counters()
     try:
         results = pred.predict(frames, conf=0.25, imgsz=imgsz)
     finally:
-        restore()
+        for restore in restores:
+            restore()
     launches = read_counters()
     if min(launches[k] for k in TASK_KERNELS["obb"]) < 1:
         raise AssertionError(f"a kernel did not run on the OBB path: {launches}")
@@ -880,9 +966,13 @@ def phase_obb_bf16(report):
         "bound_by": "bytes" if bytes_c / H100_BYTES_PER_S >= ops_c / H100_F32_FLOPS else "operations",
         "library_ms": None, "shape": [b, k, 5], "valid": int(valid.sum()),
     })
+    # kernel B at the OBB path's N = 1024 slab
+    row_b = attention_b_row(*seen["attention_qkv"])
+    if row_b["tol_excess"] > 0:
+        raise AssertionError(f"kernel B differs from its plain version on the OBB path by {row_b['max_abs_err']}")
     profile = kernel_profile(lambda: pred.predict(frames, conf=0.25, imgsz=imgsz))
     return {"phase": "obb_bf16", **timing, "launches": launches, "detections_per_image": [min(nums), max(nums)],
-            "profile": profile}
+            "attention_qkv": row_b, "profile": profile}
 
 def phase_dfl(report):
     import torch
@@ -1281,12 +1371,16 @@ def phase_q8_bf16(report):
     bpred.predict(frames, conf=0.25, imgsz=imgsz)
     torch.cuda.synchronize()
 
-    # the static8 path, once, with counters at 0 and every E input captured
+    # the static8 path, once, with counters at 0 and every E input captured;
+    # a channel chunk is copied with its pixel pitch, so E reads it as the path did
     seen = []
     e_fn = blocks_mod.int8_conv
 
+    def keep_layout(t):
+        return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+
     def capture(*args, **kw):
-        seen.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
+        seen.append((tuple(keep_layout(a) if torch.is_tensor(a) else a for a in args), kw))
         return e_fn(*args, **kw)
 
     blocks_mod.int8_conv = capture
@@ -1308,7 +1402,8 @@ def phase_q8_bf16(report):
     # kernel E at each of its 48 inputs on the path
     per, diff_codes, max_err = [], 0, 0
     bytes_e = ops_e = 0
-    for args, kw in seen:
+    e_ms = device_ms_each([lambda a=args, k=kw: e_mod.int8_conv(*a, **k) for args, kw in seen])
+    for (args, kw), ms in zip(seen, e_ms):
         got, want = e_mod.int8_conv(*args, **kw), e_mod.int8_conv_reference(*args, **kw)
         d = (got.int() - want.int()).abs()
         diff_codes += int((d > 0).sum())
@@ -1316,7 +1411,8 @@ def phase_q8_bf16(report):
         nbytes, ops, shape = _e_work(args, kw)
         bytes_e, ops_e = bytes_e + nbytes, ops_e + ops
         per.append({"shape": list(shape), "epilogue": str(kw.get("epilogue_dtype")),
-                    "ms": cuda_ms(lambda: e_mod.int8_conv(*args, **kw), iters=10, warmup=2),
+                    "ms": ms,
+                    "call_ms": cuda_ms(lambda: e_mod.int8_conv(*args, **kw), iters=10, warmup=2),
                     "plain_ms": cuda_ms(lambda: e_mod.int8_conv_reference(*args, **kw), iters=2, warmup=1),
                     "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, ops / H100_INT8_OPS)})
     del got, want, d
@@ -1324,14 +1420,27 @@ def phase_q8_bf16(report):
         raise AssertionError(f"kernel E differs from its plain version on the static8 path: {diff_codes} codes, "
                              f"up to {max_err}")
     own = [p for p in per if p["shape"][5] == 3 and p["shape"][6] == 1]
-    profile = kernel_profile(lambda: qpred.predict(frames, conf=0.25, imgsz=imgsz), named=("int8_conv_kernel",))
+    chunks = [args[0] for args, _ in seen if not args[0].is_contiguous()]
+    profile = kernel_profile(lambda: qpred.predict(frames, conf=0.25, imgsz=imgsz),
+                             named=("int8_conv_kernel", "copy"))
     e_prof = profile["named"]["int8_conv_kernel"]
+    # the same path with every E input copied to a contiguous NHWC tensor first, chunks included
+    nhwc_input = blocks_mod.nhwc_input
+    blocks_mod.nhwc_input = lambda x: x.permute(0, 2, 3, 1).contiguous()
+    try:
+        copied = kernel_profile(lambda: qpred.predict(frames, conf=0.25, imgsz=imgsz),
+                                named=("int8_conv_kernel", "copy"))
+    finally:
+        blocks_mod.nhwc_input = nhwc_input
+    in_place = {"e_inputs_read_in_place": len(chunks), "bytes_not_copied": sum(c.numel() for c in chunks),
+                "copy_kernels_in_place": profile["named"]["copy"], "copy_kernels_copied": copied["named"]["copy"],
+                "kernel_ms_per_predict_copied": copied["kernel_ms_per_predict"]}
     report["kernels"].append({
         "name": "int8_conv", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/int8_conv.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/int8_conv.py:64", "path": f"yolo11s static8 b{batch} {imgsz} bf16",
         "launches": launches["int8_conv"], "max_abs_err": float(max_err), "codes_differing": diff_codes,
         "ms": e_prof["ms"], "plain_ms": sum(p["plain_ms"] for p in per),
-        "call_ms": sum(p["ms"] for p in per),
+        "call_ms": sum(p["call_ms"] for p in per), "per_launch_ms_sum": sum(p["ms"] for p in per),
         "bound_ms": 1e3 * max(bytes_e / H100_BYTES_PER_S, ops_e / H100_INT8_OPS),
         "bound_by": "bytes" if bytes_e / H100_BYTES_PER_S >= ops_e / H100_INT8_OPS else "operations",
         "library_ms": None, "gb": bytes_e / 1e9, "gmac": ops_e / 2e9,
@@ -1358,8 +1467,9 @@ def phase_q8_bf16(report):
            "launches": launches, "detections_per_image": [min(nums), max(nums)],
            "labels_per_image": [min(len(r) for r in labels), max(len(r) for r in labels)],
            "e_device_ms_per_predict": e_prof["ms"], "e_launches_profiled": e_prof["calls"],
-           "e_call_ms_sum": sum(p["ms"] for p in per), "e_bound_ms_sum": report["kernels"][-1]["bound_ms"],
-           "e_own_shape": own, "e_per_launch": per, "fidelity": fid, "profile": profile}
+           "e_call_ms_sum": sum(p["call_ms"] for p in per), "e_bound_ms_sum": report["kernels"][-1]["bound_ms"],
+           "e_own_shape": own, "e_per_launch": per, "e_chunk_inputs": in_place, "fidelity": fid,
+           "profile": profile}
     if not fid["static8"]["mAP50"] >= 0.9:
         emit(out)
         raise AssertionError(f"static8 fidelity mAP50 {fid['static8']['mAP50']} < 0.9 against the bf16 labels")
@@ -1374,17 +1484,24 @@ def phase_int8(report):
     rng = np.random.default_rng(SEED + 15)
     out = {"phase": "int8", "cases": []}
     for k, stride in ((1, 1), (1, 2), (3, 1), (3, 2)):
-        for b, h, w, ci, co in ((32, 20, 20, 256, 128), (3, 13, 11, 130, 70)):
-            x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, ci), dtype=np.int8)).cuda()
-            wq = torch.from_numpy(rng.integers(-127, 128, (co, k, k, ci), dtype=np.int8)).cuda()
-            scale = torch.from_numpy((rng.uniform(0.5, 1.5, co) / (127 * 60 * k * np.sqrt(ci))).astype(np.float32)).cuda()
+        for b, h, w, ci, co, pitch in ((32, 20, 20, 256, 128, 256), (3, 13, 11, 130, 70, 130),
+                                       (32, 20, 20, 128, 128, 256), (2, 9, 9, 512, 64, None)):
+            if pitch is not None:  # the first ci channels of a (b, h, w, pitch) tensor, read in place
+                x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, pitch), dtype=np.int8)).cuda()[..., :ci]
+                wq = torch.from_numpy(rng.integers(-127, 128, (co, k, k, ci), dtype=np.int8)).cuda()
+                scale = rng.uniform(0.5, 1.5, co) / (127 * 60 * k * np.sqrt(ci))
+            else:  # large positive codes: int32 sums in the millions (beyond 2^24 at k = 3: f32 rounds them)
+                x = torch.from_numpy(rng.integers(100, 128, (b, h, w, ci), dtype=np.int8)).cuda()
+                wq = torch.from_numpy(rng.integers(100, 128, (co, k, k, ci), dtype=np.int8)).cuda()
+                scale = rng.uniform(0.5, 1.5, co) / (113.5 ** 2 * k * k * ci)
+            scale = torch.from_numpy(scale.astype(np.float32)).cuda()
             bias = torch.from_numpy(rng.normal(0, 0.5, co).astype(np.float32)).cuda()
             for ed in (torch.float32, torch.bfloat16):
                 got = int8_conv(x, wq, scale, bias, 1 / 0.02, stride=stride, epilogue_dtype=ed)
                 want = int8_conv_reference(x, wq, scale, bias, 1 / 0.02, stride=stride, epilogue_dtype=ed)
                 torch.cuda.synchronize()
                 d = (got.int() - want.int()).abs()
-                case = {"shape": [b, h, w, ci, co], "k": k, "stride": stride, "epilogue": str(ed),
+                case = {"shape": [b, h, w, ci, co], "pitch": pitch, "k": k, "stride": stride, "epilogue": str(ed),
                         "codes_differing": int((d > 0).sum()), "max_code_diff": int(d.max()),
                         "mean_abs_code": float(got.float().abs().mean())}
                 out["cases"].append(case)
@@ -1464,15 +1581,16 @@ def phase_attn_pallas(report):
     plain_h = lambda: attn_mod.attention_packed_reference(qg, kd, hd)  # noqa: E731
     q, k, v = qg[..., :kd], qg[..., kd:2 * kd], qg[..., 2 * kd:]
     library_h = lambda: F.scaled_dot_product_attention(q, k, v, scale=kd ** -0.5)  # noqa: E731
-    err_h = float((kernel_h().float() - plain_h().float()).abs().max())
-    if err_h > 2e-2:
+    got_h, want_h = kernel_h(), plain_h()
+    err_h, excess_h = float((got_h.float() - want_h.float()).abs().max()), attn_tol_excess(got_h, want_h)
+    if excess_h > 0:
         raise AssertionError(f"kernel H differs from its plain version on the pallas route by {err_h}")
     bytes_h = qg.numel() * qg.element_size() + g * n * hd * qg.element_size()
     flops_h = 2 * g * n * n * (kd + hd)
     report["kernels"].append({
         "name": "attention_packed", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/attention_fused.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:192", "path": f"detect b{batch} {imgsz} bf16 YOLO_ATTN_IMPL=pallas",
-        "launches": launches["attention_packed"], "max_abs_err": err_h,
+        "launches": launches["attention_packed"], "max_abs_err": err_h, "tol_excess": excess_h,
         "ms": device_ms(kernel_h), "plain_ms": device_ms(plain_h),
         "bound_ms": 1e3 * max(bytes_h / H100_BYTES_PER_S, flops_h / H100_BF16_FLOPS),
         "bound_by": "bytes" if bytes_h / H100_BYTES_PER_S >= flops_h / H100_BF16_FLOPS else "operations",

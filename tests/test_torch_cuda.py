@@ -71,7 +71,8 @@ def test_keep_kernel_is_bit_equal_to_the_plain_version(card, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,dtype,atol,rtol", [(400, torch.bfloat16, 2e-2, 2e-2), (400, torch.float32, 1e-5, 0.0),
-                                               (1600, torch.bfloat16, 2e-2, 2e-2)])
+                                               (1600, torch.bfloat16, 2e-2, 2e-2), (1024, torch.bfloat16, 2e-2, 2e-2),
+                                               (37, torch.bfloat16, 2e-2, 2e-2), (37, torch.float32, 1e-5, 0.0)])
 def test_attention_kernel_matches_the_plain_version(card, n, dtype, atol, rtol):
     slab = torch.from_numpy(np.random.default_rng(n).standard_normal((4, n, 256)).astype(np.float32)).to(card, dtype)
     before = attention_fused.attention_qkv.launches
@@ -220,7 +221,7 @@ def test_f_and_g_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("epilogue", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 20, 20, 128, 128, 3, 1), (2, 17, 15, 64, 96, 3, 2), (3, 9, 11, 256, 40, 1, 1),
-                                   (2, 10, 10, 130, 66, 1, 2), (1, 20, 20, 3, 16, 3, 2)])
+                                   (2, 10, 10, 130, 66, 1, 2), (1, 20, 20, 3, 16, 3, 2), (2, 13, 11, 96, 70, 3, 1)])
 def test_int8_conv_kernel_is_bit_equal_to_the_plain_version(card, shape, epilogue):
     b, h, w, ci, co, k, stride = shape
     rng = np.random.default_rng(ci + co)
@@ -234,6 +235,56 @@ def test_int8_conv_kernel_is_bit_equal_to_the_plain_version(card, shape, epilogu
         assert int8_conv.int8_conv.launches == before + 1
         want = int8_conv.int8_conv_reference(x, wq, scale, bb, 50.0, stride=stride, act=act, epilogue_dtype=epilogue)
         assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
+def test_int8_conv_kernel_reads_a_channel_chunk_in_place(card, k, stride):
+    """E on the second half of a wider NHWC tensor (pixel pitch 256), as a
+    static8 conv gets a `q_split2` chunk, equals its plain version and its
+    own output on a contiguous copy; Co = 70 masks the ragged channel tile."""
+    rng = np.random.default_rng(10 * k + stride)
+    wide = torch.from_numpy(rng.integers(-127, 128, (2, 15, 13, 256), dtype=np.int8)).to(card)
+    x = wide[..., 128:]
+    wq = torch.from_numpy(rng.integers(-127, 128, (70, k, k, 128), dtype=np.int8)).to(card)
+    scale = torch.from_numpy(rng.uniform(1e-5, 3e-5, 70).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.normal(0, 0.5, 70).astype(np.float32)).to(card)
+    before = int8_conv.int8_conv.launches
+    got = int8_conv.int8_conv(x, wq, scale, bias, 50.0, stride=stride)
+    assert int8_conv.int8_conv.launches == before + 1
+    assert torch.equal(got, int8_conv.int8_conv_reference(x, wq, scale, bias, 50.0, stride=stride))
+    assert torch.equal(got, int8_conv.int8_conv(x.contiguous(), wq, scale, bias, 50.0, stride=stride))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", [torch.float32, torch.bfloat16])
+def test_int8_conv_kernel_is_bit_equal_on_sums_beyond_2_to_the_24(card, epilogue):
+    """Large positive codes: int32 sums of ~6e7, which round on their way to
+    f32 (the plain version's sums are exact in float64, then rounded)."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.integers(100, 128, (2, 9, 9, 512), dtype=np.int8)).to(card)
+    wq = torch.from_numpy(rng.integers(100, 128, (64, 3, 3, 512), dtype=np.int8)).to(card)
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, 64) / (113.5 ** 2 * 9 * 512)).astype(np.float32)).to(card)
+    got = int8_conv.int8_conv(x, wq, scale, None, 50.0, epilogue_dtype=epilogue)
+    assert torch.equal(got, int8_conv.int8_conv_reference(x, wq, scale, None, 50.0, epilogue_dtype=epilogue))
+    assert int(got.abs().min()) < 127  # not every code clipped
+
+
+@pytest.mark.cuda
+def test_b_and_e_wrappers_raise_on_a_pitch_or_pointer_the_16_byte_path_does_not_take(card):
+    wide = torch.zeros((2, 8, 8, 272), dtype=torch.int8, device=card)
+    wq = torch.zeros((16, 3, 3, 128), dtype=torch.int8, device=card)
+    scale = torch.ones(16, device=card)
+    pitch136 = torch.zeros((2, 8, 8, 136), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        int8_conv.int8_conv(pitch136[..., :128], wq, scale, None, 1.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        int8_conv.int8_conv(wide[..., 8:136], wq, scale, None, 1.0)  # first element at byte 8
+    with pytest.raises(ValueError, match="pixel pitch"):
+        int8_conv.int8_conv(wide[..., :128].permute(0, 2, 1, 3), wq, scale, None, 1.0)
+    slab = torch.zeros(2 * 16 * 256 + 1, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_fused.attention_qkv(slab[1:].view(2, 16, 256), 2, 32, 64)
 
 
 @pytest.mark.cuda

@@ -30,12 +30,13 @@ from yolo_infer_tpu.ops.pallas.int8_conv import int8_conv3x3_fused, xla_referenc
 from yolo_infer_tpu.optimization.quantization.quantizers import PostTrainingQuantizer as JaxPTQ
 from yolo_infer_tpu_torch.core.model import YOLO11Model, parse_model_name
 from yolo_infer_tpu_torch.core.predictor import Predictor
+from yolo_infer_tpu_torch.models import blocks as blocks_mod
 from yolo_infer_tpu_torch.models.blocks import Conv
 from yolo_infer_tpu_torch.models.convert import params_from_jax, state_dict_from_jax
 from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.models.yolo11 import build_model, fold_model, quantize_model
 from yolo_infer_tpu_torch.nn import quantize as Q
-from yolo_infer_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_conv_reference
+from yolo_infer_tpu_torch.ops.kernels.int8_conv import int8_conv, int8_conv_reference, nhwc_input, pixel_pitch
 from yolo_infer_tpu_torch.optimization.quantization.quantizers import (
     PostTrainingQuantizer,
     QuantizationUtils,
@@ -218,6 +219,54 @@ def test_int8_conv_wrapper_takes_the_plain_version_on_cpu_only():
     assert int8_conv.launches == before
     with pytest.raises(ValueError):
         int8_conv(*(a.to("meta") if torch.is_tensor(a) else a for a in args))
+
+
+def test_static8_conv_reads_a_channel_chunk_in_place(monkeypatch):
+    """A static8 Conv fed a channel chunk of a wider channels_last QAct (the
+    card's layout), as `q_split2` gives it, hands E's wrapper the strided
+    NHWC view (pixel pitch = the wide C, no copy) and returns the codes of
+    the same conv on a contiguous copy of the chunk."""
+    rng = np.random.default_rng(11)
+    ci, co = 32, 48
+    wq = rng.integers(-20, 21, (3, 3, ci, co)).astype(np.int8)
+    conv = _quantized_conv(wq, rng.uniform(1e-3, 2e-3, co).astype(np.float32),
+                           rng.normal(0, 0.1, co).astype(np.float32), 3, 1)
+    codes = torch.from_numpy(rng.integers(-127, 128, (2, 2 * ci, 9, 7)).astype(np.int8))
+    wide = Q.QAct(codes.contiguous(memory_format=torch.channels_last), torch.tensor(0.02))
+    inputs = []
+
+    def recording_int8_conv(x, *args, **kw):
+        inputs.append(x)
+        return int8_conv(x, *args, **kw)
+
+    monkeypatch.setattr(blocks_mod, "int8_conv", recording_int8_conv)
+    outs = []
+    for chunk in (Q.q_split2(wide, 1)[1], Q.QAct(Q.q_split2(wide, 1)[1].q.contiguous(), wide.s)):
+        with Q.quant_context(Q.QuantContext("static8", act_scales=np.array([[2.5, 3.0]], np.float32),
+                                            int8_min_channels=1)):
+            outs.append(conv(chunk))
+    view, copied = inputs
+    assert not view.is_contiguous() and view.stride() == (9 * 7 * 2 * ci, 7 * 2 * ci, 2 * ci, 1)
+    assert view.data_ptr() == wide.q.data_ptr() + ci and pixel_pitch(view) == 2 * ci
+    assert copied.is_contiguous() and torch.equal(view, copied)
+    assert float(outs[0].s) == float(outs[1].s)
+    assert torch.equal(outs[0].q, outs[1].q)
+
+
+def test_nhwc_input_views_pitched_chunks_and_copies_the_rest():
+    """`nhwc_input` hands kernel E a view where it reads the codes in place
+    (channels_last, or a chunk of it at a 16-byte aligned offset and pitch)
+    and a contiguous copy otherwise (plain NCHW, a 16-channel-multiple chunk
+    at a misaligned offset)."""
+    codes = torch.zeros((2, 64, 5, 5), dtype=torch.int8)
+    cl = codes.contiguous(memory_format=torch.channels_last)
+    assert nhwc_input(cl).data_ptr() == cl.data_ptr() and nhwc_input(cl).is_contiguous()
+    chunk = nhwc_input(cl[:, 32:])
+    assert not chunk.is_contiguous() and pixel_pitch(chunk) == 64 and chunk.data_ptr() == cl.data_ptr() + 32
+    odd = nhwc_input(cl[:, 8:40])  # Ci = 32 takes the 16-byte path, and byte 8 is not 16-byte aligned
+    assert odd.is_contiguous() and odd.data_ptr() != cl.data_ptr() + 8
+    assert nhwc_input(cl[:, 8:11]).data_ptr() == cl.data_ptr() + 8  # Ci = 3 takes the byte path anywhere
+    assert nhwc_input(codes).is_contiguous() and pixel_pitch(codes.permute(0, 2, 3, 1)) is None
 
 
 # ---------------------------------------------------------------- QAct routing and eligibility

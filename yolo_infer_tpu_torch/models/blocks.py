@@ -37,7 +37,7 @@ from yolo_infer_tpu_torch.nn.layers import (
     silu,
 )
 from yolo_infer_tpu_torch.ops.kernels.attention_fused import attention_packed, attention_qkv
-from yolo_infer_tpu_torch.ops.kernels.int8_conv import int8_conv
+from yolo_infer_tpu_torch.ops.kernels.int8_conv import int8_conv, nhwc_input
 
 
 def _cast(t, dtype: torch.dtype):
@@ -152,7 +152,8 @@ class Conv(nn.Module):
             xq, sx = x.q, x.s  # an int8 edge: no second rounding
         else:
             xq = Q.quantize_act(x, sx).q
-        y = int8_conv(xq.permute(0, 2, 3, 1).contiguous(), self.w_q.view(co, self.k, self.k, ci),
+        # a channel chunk (q_split2, q_split_at) goes in as a strided view: E reads it in place
+        y = int8_conv(nhwc_input(xq), self.w_q.view(co, self.k, self.k, ci),
                       sx * self.w_scale, self.b, (1.0 / sy).item(), stride=self.s, act=self.act,
                       epilogue_dtype=ctx.epilogue_dtype or torch.bfloat16)
         return Q.QAct(y.permute(0, 3, 1, 2), sy)

@@ -15,6 +15,11 @@ JAX package's `y * sigmoid(y)` with sigmoid `1 / (1 + exp(-y))`; in bf16
 every one of its operations rounds to bf16 (exp, the sum, the reciprocal,
 the product), as XLA evaluates a bf16 sigmoid on the CPU.
 
+The input may be a channel chunk of a wider NHWC tensor (a pixel pitch P
+greater than Ci, as `q_split2` / `q_split_at` leave it): the kernel reads it
+in place. `nhwc_input` gives a static8 conv's input in that form, copying
+only where the layout or the alignment does not fit.
+
 `int8_conv` takes the kernel for CUDA tensors and the plain version for CPU
 tensors; anything else raises. `int8_conv.launches` counts kernel launches.
 """
@@ -51,9 +56,37 @@ def int8_conv_reference(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tenso
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8).contiguous()
 
 
+def pixel_pitch(x: torch.Tensor) -> Optional[int]:
+    """The pitch P >= Ci at which (B, H, W, Ci) `x` holds element (b, y, x, c)
+    at ((b*H + y)*W + x)*P + c from its first element, or None."""
+    b, h, w, ci = x.shape
+    if x.is_contiguous():
+        return ci
+    p = x.stride(2)
+    want = (h * w * p, w * p, p, 1)
+    if p >= ci and all(n == 1 or s == t for n, s, t in zip(x.shape, x.stride(), want)):
+        return p
+    return None
+
+
+def _vec_ok(x: torch.Tensor, p: int) -> bool:
+    """The 16-byte (cp.async) path's alignment: Ci % 16 == 0 takes it and
+    needs the pitch and the first element 16-byte aligned."""
+    return x.shape[3] % 16 != 0 or (p % 16 == 0 and x.data_ptr() % 16 == 0)
+
+
+def nhwc_input(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) int8 codes -> (B, H, W, C) for `int8_conv`: a view where
+    the kernel reads it in place (channels_last codes, or a channel chunk of
+    them), else a contiguous copy."""
+    v = x.permute(0, 2, 3, 1)
+    p = pixel_pitch(v)
+    return v if p is not None and _vec_ok(v, p) else v.contiguous()
+
+
 def _launcher():
     fn = load_library("int8_conv").int8_conv_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9  # x, w, scale, bias, out; B H W Ci Ho Wo Co k stride
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10  # x, w, scale, bias, out; B H W Ci P Ho Wo Co k stride
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])  # syinv, act, epilogue, stream
     fn.restype = ctypes.c_int
     return fn
@@ -62,8 +95,9 @@ def _launcher():
 def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
               syinv: float, *, stride: int = 1, act: bool = True,
               epilogue_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """x_q (B, H, W, Ci) int8, w_q (Co, k, k, Ci) int8, scale and bias (Co,)
-    f32, syinv the f32 value 1/sy -> (B, Ho, Wo, Co) int8, all contiguous."""
+    """x_q (B, H, W, Ci) int8 (contiguous, or with a pixel pitch: see
+    `pixel_pitch`), w_q (Co, k, k, Ci) int8, scale and bias (Co,) f32, syinv
+    the f32 value 1/sy -> (B, Ho, Wo, Co) int8; all but x_q contiguous."""
     if x_q.device.type == "cpu":
         return int8_conv_reference(x_q, w_q, scale, bias, syinv, stride=stride, act=act,
                                    epilogue_dtype=epilogue_dtype)
@@ -86,8 +120,14 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: O
     tensors = [x_q, w_q, scale] + ([bias] if bias is not None else [])
     if any(t.device != x_q.device for t in tensors):
         raise ValueError("int8_conv: every tensor must be on the input's device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("int8_conv: tensors must be contiguous (x NHWC, w (Co, k, k, Ci))")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("int8_conv: weights, scale and bias must be contiguous")
+    p = pixel_pitch(x_q)
+    if p is None:
+        raise ValueError(f"int8_conv: x {tuple(x_q.shape)} with strides {x_q.stride()} is not NHWC with a pixel pitch")
+    if not _vec_ok(x_q, p) or (x_q.shape[3] % 16 == 0 and w_q.data_ptr() % 16):
+        raise ValueError(f"int8_conv: Ci={x_q.shape[3]} takes the 16-byte path, which needs the pixel pitch ({p}) "
+                         f"and the input and weight pointers 16-byte aligned")
     b, h, w, ci = x_q.shape
     pad = k // 2
     ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
@@ -97,7 +137,7 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: O
     with torch.cuda.device(x_q.device):
         err = _launcher()(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                           bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                          b, h, w, ci, ho, wo, co, k, stride, float(syinv), int(act), _EPILOGUES[epilogue_dtype],
+                          b, h, w, ci, p, ho, wo, co, k, stride, float(syinv), int(act), _EPILOGUES[epilogue_dtype],
                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_conv: CUDA error {err} at launch")
