@@ -34,11 +34,20 @@ runs twenty phases, each printing one JSON line:
              predicts, and the kernels' busy share of the wall time
              (torch.profiler; the run is slower than the untraced one)
   7. rnms    kernel C (`rotated_nms_keep`) vs its plain version on the card:
-             B=16 random oriented candidates at K=1024 and K=160 and a
-             3-box suppression chain, keep masks equal bit for bit
+             B=16 random oriented candidates at K=1024, 37, 160, 2048, 4096
+             and 8192 (15% invalid) and at K=4096 with a valid prefix of
+             300..1500, keep masks equal bit for bit; device time of each
+             split into the probIoU bits pass and the walk (resident in
+             shared memory up to K=1024, strip-staged above); the 3-box
+             suppression chain; K=8193 raises
   8. mpack   kernel D (`upsample4x_threshold_pack`) vs its plain version on
-             the card: random (300, 160, 160) and (37, 24, 40) soft masks,
-             packed bytes equal bit for bit
+             the card, packed bytes equal bit for bit: random (300, 160, 160),
+             (37, 24, 40), (5, 17, 8) and (2, 6, 4096) soft masks (a band cut
+             short, one word per row, a wide row), a dense uniform
+             (9600, 160, 160)
+             (timed beside its bound), and 0.5, nextafter(0.5, 1), -inf,
+             +inf, NaN and negatives over zeros with all-zero instances;
+             each case's share of zero-skipped steps
   9. tasks_fp32  yolo11n segment, obb (nc 15), pose and classify fp32
              `Predictor.predict` on two frames of different sizes (the host
              letterbox) at 640 px, on cuda and on cpu (TF32 off), on weights
@@ -46,17 +55,20 @@ runs twenty phases, each printing one JSON line:
              too): equal counts, detections paired as sets (same class), the
              pairs' boxes, obb and keypoints within 5e-2 px and scores within
              1e-4, mask pixels differing at most 1e-4, probs within 1e-5;
-             each task's kernel counters rise
+             each task's kernel counters rise; OBB again at pre_topk 2048
+             (kernel C at K=2048)
  10. seg_bf16  the segment path: yolo11n-seg bf16 `predict` at batch 32 on
              640x640 frames, mask_mode "device": one call with the counters
              reset (A, B and D must each read >= 1), 20 timed calls and the
              device part as in phase 5, kernel D at the captured input
-             (bit-equal to its plain version; times beside its bound), and
+             (bit-equal to its plain version; times beside its bound, and
+             the share of its steps that take the zero skip), and
              the device time by kernel over three predicts
  11. obb_bf16  the OBB path: yolo11n-obb (nc 15) bf16 `predict` at batch 16
              on 1024x1024 frames (the OBB models' input size): counters B,
              C and F >= 1 (OBB's full-grid decode runs F), timings as in
-             phase 10, kernel C at the captured K=1024 input, and kernel B at
+             phase 10, kernel C at the captured K=1024 input (bits pass and
+             walk timed apart), and kernel B at
              its captured N=1024 input beside its bound, its plain version and
              `F.scaled_dot_product_attention`
  12. dfl     kernel F (`dfl_decode`) vs its plain version on the card:
@@ -145,7 +157,11 @@ import numpy as np
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM part (NVIDIA data sheet)
-H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, an FMA counted as two operations
+# the same units without FMA: one f32 operation per lane and cycle. Kernels
+# A, C and D are built with --fmad=false (each product and sum rounds apart,
+# as the plain versions'), so their operation bounds divide by this rate
+H100_F32_OPS_UNFUSED = H100_F32_FLOPS / 2
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores
 H100_INT8_OPS = 1979e12  # dense int8 tensor cores
 IOU_OPS = 14  # f32 operations for one IoU and its compare (ops/iou.py order)
@@ -203,6 +219,13 @@ def attn_tol_excess(got, want) -> float:
     return float(((g - w).abs() - ATTN_BF16_TOL * (1 + w.abs())).max())
 
 
+def bound(bytes_: float, ops: float, ops_per_s: float):
+    """The least time for the work, in ms: the larger of the bytes over the
+    memory rate and the operations over `ops_per_s`, and which of them it is."""
+    by_bytes, by_ops = bytes_ / H100_BYTES_PER_S, ops / ops_per_s
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -237,14 +260,17 @@ def device_ms(fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request")
-    return total_us / 1e3 / iters
+    for _ in range(3):  # the profiler now and then hands back no device events: trace again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request")
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise AssertionError("torch.profiler recorded no device time in three traces")
 
 
 def device_ms_each(fns, iters: int = 3):
@@ -407,17 +433,22 @@ def kernel_profile(fn, calls: int = 3, named=()):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-    # device-side events only (CPU ops also carry their kernels' time); the
-    # profiler's own buffer requests are not the program's work
-    rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and e.key != "Activity Buffer Request"]
+    for _ in range(3):  # the profiler now and then hands back no device events: trace again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        # device-side events only (CPU ops also carry their kernels' time); the
+        # profiler's own buffer requests are not the program's work
+        rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and e.key != "Activity Buffer Request"]
+        if all(any(sub in k for k, _, _ in rows) for sub in named) and rows:
+            break
+    else:
+        raise AssertionError(f"torch.profiler missed the kernels {list(named)} in three traces")
     rows.sort(key=lambda r: -r[1])
     copy_ms = sum(ms for k, ms, _ in rows if k.startswith(("Memcpy", "Memset")))
     kernel_ms = sum(ms for k, ms, _ in rows if not k.startswith(("Memcpy", "Memset")))
@@ -541,8 +572,8 @@ def phase_fp32(report):
     frames = rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
     model, spec = smoke_weights(frames)
     report["weights"] = (model, spec)
-    on_cpu = Predictor(copy.deepcopy(model), spec, device="cpu", compute_dtype=torch.float32)
-    on_gpu = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.float32)
+    on_cpu = Predictor(model, spec, device="cpu", compute_dtype=torch.float32)
+    on_gpu = Predictor(model, spec, device="cuda", compute_dtype=torch.float32)
     nms_mod.nms_keep.launches = attn_mod.attention_qkv.launches = 0
     torch.backends.cudnn.deterministic = True
     try:
@@ -577,7 +608,7 @@ def phase_bf16(report):
     from yolo_infer_tpu_torch.ops.kernels import nms_fused as nms_mod
 
     model, spec = report["weights"]
-    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16)
+    pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
     rng = np.random.default_rng(SEED + 3)
     frames = rng.integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
     pred.predict(frames, conf=0.25)  # warm-up (cuDNN plans, kernel loads)
@@ -645,8 +676,7 @@ def phase_bf16(report):
         "max_abs_err": err_a,
         "ms": device_ms(kernel_a), "plain_ms": device_ms(plain_a, iters=10),
         "call_ms": cuda_ms(kernel_a), "plain_call_ms": cuda_ms(plain_a, iters=10),
-        "bound_ms": 1e3 * max(bytes_a / H100_BYTES_PER_S, ops_a / H100_F32_FLOPS),
-        "bound_by": "bytes" if bytes_a / H100_BYTES_PER_S >= ops_a / H100_F32_FLOPS else "operations",
+        **bound(bytes_a, ops_a, H100_F32_OPS_UNFUSED),
         "library_ms": None,
         "shape": [bk, kk, 4], "valid": int(valid.sum()),
     })
@@ -685,8 +715,7 @@ def attention_b_row(slab, heads: int, kd: int, hd: int):
     library_b = lambda: F.scaled_dot_product_attention(q, k, v, scale=kd ** -0.5)  # noqa: E731
     return {"max_abs_err": err_b, "tol_excess": attn_tol_excess(got, ref), "max_abs_out": float(ref.float().abs().max()),
             "ms": device_ms(kernel_b), "plain_ms": device_ms(plain_b),
-            "bound_ms": 1e3 * max(bytes_b / H100_BYTES_PER_S, flops_b / H100_BF16_FLOPS),
-            "bound_by": "bytes" if bytes_b / H100_BYTES_PER_S >= flops_b / H100_BF16_FLOPS else "operations",
+            **bound(bytes_b, flops_b, H100_BF16_FLOPS),
             "library_ms": device_ms(library_b),
             "call_ms": cuda_ms(kernel_b), "plain_call_ms": cuda_ms(plain_b), "library_call_ms": cuda_ms(library_b),
             "shape": [b, n, d], "dtype": str(slab.dtype)}
@@ -717,22 +746,66 @@ def phase_rnms(report):
 
     rng = np.random.default_rng(SEED + 4)
     out = {"phase": "rnms", "cases": []}
-    for k in (1024, 160):
+    # (K, valid): random flags, or a prefix of 300..1500 (the serving pool's shape)
+    for k, kind in ((1024, "random"), (37, "random"), (160, "random"), (2048, "random"), (4096, "random"),
+                    (8192, "random"), (4096, "prefix")):
         gauss, valid = random_rotated(rng, 16, k)
+        if kind == "prefix":
+            valid = torch.arange(k, device="cuda")[None] < torch.from_numpy(rng.integers(300, 1500, (16, 1))).cuda()
         got = rotated_nms_keep(gauss, valid, 0.45)
-        want = rotated_nms_keep_reference(gauss, valid, 0.45)
+        # the plain version one image at a time: its (K, K) temporaries are 268 MB each at K = 8192
+        want = torch.cat([rotated_nms_keep_reference(gauss[i:i + 1], valid[i:i + 1], 0.45) for i in range(16)])
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
-        out["cases"].append({"K": k, "B": 16, "kept": int(got.sum()), "equal": ok})
+        out["cases"].append({"K": k, "B": 16, "valid": kind, "valid_count": int(valid.sum()), "kept": int(got.sum()),
+                             "equal": ok, **c_time_split(gauss, valid, 0.45)})
         if not ok:
-            raise AssertionError(f"rotated keep mask differs at K={k}: {int((got != want).sum())} entries")
+            raise AssertionError(f"rotated keep mask differs at K={k} ({kind}): {int((got != want).sum())} entries")
+        del want
     chain = torch.tensor([[[50, 50, 100, 40, 0.3], [90, 50, 100, 40, 0.3], [130, 50, 100, 40, 0.3],
                            [400, 400, 20, 20, 0.0]]], dtype=torch.float32, device="cuda")
     kept = rotated_nms_keep(gauss_terms(chain).contiguous(), torch.tensor([[True, True, True, False]], device="cuda"), 0.3)
     if kept.cpu().tolist() != [[True, False, True, False]]:
         raise AssertionError(f"rotated suppression chain: {kept.cpu().tolist()}")
     out["cases"].append({"chain": True, "equal": True})
+    try:
+        rotated_nms_keep(torch.zeros((1, 8193, 5), device="cuda"), torch.ones((1, 8193), dtype=torch.bool, device="cuda"), 0.45)
+    except ValueError as exc:
+        out["k_8193"] = str(exc)
+    else:
+        raise AssertionError("rotated_nms_keep took K = 8193")
     return out
+
+
+def c_time_split(gauss, valid, thr):
+    """Kernel C's device time per call (torch.profiler over 10 calls), split
+    into its two launches: the probIoU bits pass and the walk (resident for
+    K <= 1024, strip-staged above)."""
+    from yolo_infer_tpu_torch.ops.kernels.rotated_nms_fused import rotated_nms_keep
+
+    named = kernel_profile(lambda: rotated_nms_keep(gauss, valid, thr), calls=10,
+                           named=("probiou_bits_kernel", "_walk_kernel"))["named"]
+    bits_ms, walk_ms = named["probiou_bits_kernel"]["ms"], named["_walk_kernel"]["ms"]
+    return {"ms": bits_ms + walk_ms, "bits_ms": bits_ms, "walk_ms": walk_ms, "walk_share": walk_ms / (bits_ms + walk_ms)}
+
+
+def d_skip_share(soft) -> float:
+    """Share of kernel D's (instance, source row, packed word) steps that take
+    its zero skip: no value above 0.5 in source rows i-1..i+1 and columns
+    8c-1..8c+8, clamped at the edges (a warp computes when any lane does)."""
+    import torch.nn.functional as F
+
+    above = F.pad((soft > 0.5).float()[:, None], (1, 1, 1, 1), mode="replicate")
+    return float(1 - F.max_pool2d(above, (3, 10), stride=(1, 8)).mean())
+
+
+def d_bound(soft, packed):
+    """Kernel D's bound at this input: each soft mask byte read and packed
+    byte written once, against the operations of the steps that do not take
+    the zero skip (the taps of a skipped step are not needed)."""
+    n, h, w = soft.shape
+    dense_ops = n * 4 * h * 4 * w * PACK_OPS_PER_PIXEL + n * 4 * h * w * PACK_OPS_PER_HTAP
+    return bound(soft.numel() * 4 + packed.numel(), dense_ops * (1 - d_skip_share(soft)), H100_F32_OPS_UNFUSED)
 
 
 def phase_mpack(report):
@@ -745,16 +818,38 @@ def phase_mpack(report):
 
     rng = np.random.default_rng(SEED + 5)
     out = {"phase": "mpack", "cases": []}
-    for shape in ((300, 160, 160), (37, 24, 40)):
-        soft = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda()
+
+    def check(case, soft, timed=False):
         got = upsample4x_threshold_pack(soft)
         want = upsample4x_threshold_pack_reference(soft)
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
-        out["cases"].append({"shape": list(shape), "ones_share": float(np.unpackbits(got.cpu().numpy()).mean()),
-                             "equal": ok})
+        popcount = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.uint8, device=got.device)
+        row = {"case": case, "shape": list(soft.shape),
+               "ones_share": float(popcount[got.int()].sum(dtype=torch.int64)) / (8 * got.numel()),
+               "skip_share": d_skip_share(soft), "equal": ok}
+        if timed:
+            row.update(ms=device_ms(lambda: upsample4x_threshold_pack(soft), iters=10), **d_bound(soft, got))
+        out["cases"].append(row)
         if not ok:
-            raise AssertionError(f"packed masks differ at {shape}: {int((got != want).sum())} bytes")
+            raise AssertionError(f"packed masks differ ({case}, {tuple(soft.shape)}): {int((got != want).sum())} bytes")
+        return got
+
+    for shape in ((300, 160, 160), (37, 24, 40), (5, 17, 8), (2, 6, 4096)):
+        check("random", torch.from_numpy(rng.random(shape).astype(np.float32)).cuda())
+    # the segment path's shape, dense: no step skips
+    check("dense", torch.rand((9600, 160, 160), generator=torch.Generator("cuda").manual_seed(SEED), device="cuda"),
+          timed=True)
+    # values at the threshold and beyond it scattered over zeros, all-zero
+    # instances, and 2 x 2 blocks just above 0.5 (a single such value sets no bit)
+    up = np.nextafter(np.float32(0.5), np.float32(1))
+    vals = np.array([0.5, up, -np.inf, np.inf, np.nan, 0.49, 0.75, -3.0], np.float32)
+    soft = np.where(rng.random((64, 24, 40)) < 0.1, vals[rng.integers(0, 8, (64, 24, 40))], 0).astype(np.float32)
+    soft[::4] = 0
+    soft[1::4, 6:8, 8:10] = up
+    got = check("edge values", torch.from_numpy(soft).cuda())
+    if got[::4].any() or not got[1::4].any():
+        raise AssertionError("edge values: an all-zero instance set a bit, or a block above 0.5 set none")
     return out
 
 
@@ -769,6 +864,7 @@ TASK_NC = {"segment": 80, "obb": 15, "pose": 1, "classify": 1000}
 def phase_tasks_fp32(report):
     import torch
 
+    import yolo_infer_tpu_torch.ops.rotated as rot_mod
     from yolo_infer_tpu_torch.core.predictor import Predictor
 
     rng = np.random.default_rng(SEED + 6)
@@ -777,11 +873,16 @@ def phase_tasks_fp32(report):
     out = {"phase": "tasks_fp32", "tasks": {}}
     failures = []
     report["task_weights"] = {}
-    for task in ("segment", "obb", "pose", "classify"):
-        model, spec = smoke_weights(calib, task, TASK_NC[task])
-        report["task_weights"][task] = (model, spec)
-        on_cpu = Predictor(copy.deepcopy(model), spec, device="cpu", compute_dtype=torch.float32)
-        on_gpu = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.float32)
+    # OBB also at pre_topk 2048: kernel C past the 1024 of its one-block form
+    for task, pre_topk in (("segment", 1024), ("obb", 1024), ("obb", 2048), ("pose", 1024), ("classify", 1024)):
+        name = task if pre_topk == 1024 else f"{task} pre_topk {pre_topk}"
+        if task not in report["task_weights"]:
+            report["task_weights"][task] = smoke_weights(calib, task, TASK_NC[task])
+        model, spec = report["task_weights"][task]
+        on_cpu = Predictor(model, spec, device="cpu", compute_dtype=torch.float32, pre_topk=pre_topk)
+        on_gpu = Predictor(model, spec, device="cuda", compute_dtype=torch.float32, pre_topk=pre_topk)
+        seen = {}
+        restore = capture_inputs(rot_mod, "rotated_nms_keep", seen, clone=False)
         torch.backends.cudnn.deterministic = True
         try:
             reset_counters()
@@ -789,10 +890,15 @@ def phase_tasks_fp32(report):
             launches = read_counters()
         finally:
             torch.backends.cudnn.deterministic = False
+            restore()
         want = on_cpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)
         res = {"launches": launches, "images": []}
+        if "rotated_nms_keep" in seen:
+            res["rotated_nms_keep_shape"] = list(seen["rotated_nms_keep"][0].shape)
+            if seen["rotated_nms_keep"][0].shape[1] != pre_topk:
+                failures.append(f"{name}: kernel C ran at {res['rotated_nms_keep_shape']}")
         if min(launches[k] for k in TASK_KERNELS[task]) < 1:
-            failures.append(f"{task}: a kernel did not run: {launches}")
+            failures.append(f"{name}: a kernel did not run: {launches}")
         for g, w in zip(got, want):
             img = {"num_cuda": len(g), "num_cpu": len(w)}
             if task == "classify":
@@ -824,11 +930,11 @@ def phase_tasks_fp32(report):
                 img.update(errs)
                 for key, err in errs.items():
                     if err > (SCORE_TOL if key.startswith("score") else PX_TOL):
-                        failures.append(f"{task}: {key} {err}")
+                        failures.append(f"{name}: {key} {err}")
                 if len(g) != len(w) or img["unmatched"] or len(g) == 0:
-                    failures.append(f"{task}: detections differ ({img})")
+                    failures.append(f"{name}: detections differ ({img})")
             res["images"].append(img)
-        out["tasks"][task] = res
+        out["tasks"][name] = res
     if failures:
         emit(out)
         raise AssertionError("; ".join(failures))
@@ -860,7 +966,7 @@ def phase_seg_bf16(report):
     from yolo_infer_tpu_torch.ops.kernels import mask_pack as mp_mod
 
     model, spec = report["task_weights"]["segment"]
-    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16, mask_mode="device")
+    pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16, mask_mode="device")
     batch, imgsz = SEG_SERVE
     frames = np.random.default_rng(SEED + 7).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
     pred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
@@ -895,17 +1001,14 @@ def phase_seg_bf16(report):
     if err_d:
         raise AssertionError(f"kernel D differs from its plain version on the segment path: {err_d} bytes")
     n, h, w = soft.shape
-    bytes_d = soft.numel() * 4 + got.numel()
-    ops_d = n * 4 * h * 4 * w * PACK_OPS_PER_PIXEL + n * 4 * h * w * PACK_OPS_PER_HTAP
     report["kernels"].append({
         "name": "upsample4x_threshold_pack", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/mask_pack.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/mask_pack.py:92", "path": f"segment b{batch} {imgsz} bf16",
         "launches": launches["upsample4x_threshold_pack"], "max_abs_err": err_d,
         "ms": device_ms(kernel_d), "plain_ms": device_ms(plain_d, iters=5),
         "call_ms": cuda_ms(kernel_d, iters=20), "plain_call_ms": cuda_ms(plain_d, iters=5, warmup=1),
-        "bound_ms": 1e3 * max(bytes_d / H100_BYTES_PER_S, ops_d / H100_F32_FLOPS),
-        "bound_by": "bytes" if bytes_d / H100_BYTES_PER_S >= ops_d / H100_F32_FLOPS else "operations",
-        "library_ms": None, "shape": [n, h, w],
+        **d_bound(soft, got),
+        "library_ms": None, "shape": [n, h, w], "skip_share": d_skip_share(soft),
     })
     del soft, got, want, seen
     profile = kernel_profile(lambda: pred.predict(frames, conf=0.25, imgsz=imgsz))
@@ -922,7 +1025,7 @@ def phase_obb_bf16(report):
     from yolo_infer_tpu_torch.ops.kernels import rotated_nms_fused as rn_mod
 
     model, spec = report["task_weights"]["obb"]
-    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16)
+    pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
     batch, imgsz = OBB_SERVE
     frames = np.random.default_rng(SEED + 8).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
     pred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
@@ -955,15 +1058,16 @@ def phase_obb_bf16(report):
         raise AssertionError(f"kernel C differs from its plain version on the OBB path: {err_c} entries")
     b, k, _ = gauss.shape
     bytes_c = gauss.numel() * 4 + 2 * b * k
-    ops_c = b * k * (k - 1) // 2 * PROBIOU_OPS + b * k * 4
+    # the pairs of valid candidates (the kernel skips every other pair)
+    nv = valid.sum(1).double()
+    ops_c = float((nv * (nv - 1) / 2).sum()) * PROBIOU_OPS + b * k * 4
     report["kernels"].append({
         "name": "rotated_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/rotated_nms_fused.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:149", "path": f"obb b{batch} {imgsz} bf16",
         "launches": launches["rotated_nms_keep"], "max_abs_err": err_c,
-        "ms": device_ms(kernel_c), "plain_ms": device_ms(plain_c, iters=5),
+        **c_time_split(gauss, valid, thr), "plain_ms": device_ms(plain_c, iters=5),
         "call_ms": cuda_ms(kernel_c, iters=20), "plain_call_ms": cuda_ms(plain_c, iters=5, warmup=1),
-        "bound_ms": 1e3 * max(bytes_c / H100_BYTES_PER_S, ops_c / H100_F32_FLOPS),
-        "bound_by": "bytes" if bytes_c / H100_BYTES_PER_S >= ops_c / H100_F32_FLOPS else "operations",
+        **bound(bytes_c, ops_c, H100_F32_OPS_UNFUSED),
         "library_ms": None, "shape": [b, k, 5], "valid": int(valid.sum()),
     })
     # kernel B at the OBB path's N = 1024 slab
@@ -1116,8 +1220,8 @@ def _val_fp32(report, frames, root: Path):
     out = {"phase": "val_fp32", "frames": len(frames), "tasks": {}}
     failures = []
     for task, (model, spec) in (("detect", report["weights"]), ("pose", report["task_weights"]["pose"])):
-        on_cpu = Predictor(copy.deepcopy(model), spec, device="cpu", compute_dtype=torch.float32)
-        on_gpu = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.float32)
+        on_cpu = Predictor(model, spec, device="cpu", compute_dtype=torch.float32)
+        on_gpu = Predictor(model, spec, device="cuda", compute_dtype=torch.float32)
         labels = on_cpu.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=VAL["imgsz"])
         data = write_val_dataset(root / task, frames, labels, task, spec.nc)
         gpu_rec, cpu_rec = _Recorder(on_gpu), _Recorder(on_cpu)
@@ -1161,7 +1265,7 @@ def phase_val_bf16(report):
     from yolo_infer_tpu_torch.core.predictor import Predictor
 
     model, spec = report["weights"]
-    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16)
+    pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
     frames = np.random.default_rng(SEED + 12).integers(0, 256, (VAL_BF16_FRAMES, 480, 640, 3), dtype=np.uint8)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_val_"))
     try:
@@ -1236,8 +1340,7 @@ def _val_bf16(report, pred, spec, frames, root: Path):
         "launches": launches["dfl_decode"], "max_abs_err": err_f,
         "ms": device_ms(kernel_f), "plain_ms": device_ms(plain_f),
         "call_ms": cuda_ms(kernel_f), "plain_call_ms": cuda_ms(plain_f),
-        "bound_ms": 1e3 * max(bytes_f / H100_BYTES_PER_S, ops_f / H100_F32_FLOPS),
-        "bound_by": "bytes" if bytes_f / H100_BYTES_PER_S >= ops_f / H100_F32_FLOPS else "operations",
+        **bound(bytes_f, ops_f, H100_F32_FLOPS),
         "library_ms": None, "shape": [b, a, c], "strides": list(x.stride()), "dtype": str(x.dtype),
     }, {
         "name": "greedy_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/greedy_nms.cu",
@@ -1245,8 +1348,7 @@ def _val_bf16(report, pred, spec, frames, root: Path):
         "launches": launches["greedy_nms_keep"], "max_abs_err": err_g,
         "ms": device_ms(kernel_g), "plain_ms": device_ms(plain_g, iters=3),
         "call_ms": cuda_ms(kernel_g, iters=20), "plain_call_ms": cuda_ms(plain_g, iters=3, warmup=1),
-        "bound_ms": 1e3 * max(bytes_g / H100_BYTES_PER_S, pairs_g / H100_F32_FLOPS),
-        "bound_by": "bytes" if bytes_g / H100_BYTES_PER_S >= pairs_g / H100_F32_FLOPS else "operations",
+        **bound(bytes_g, pairs_g, H100_F32_FLOPS),
         "library_ms": None, "shape": [bk, k, k], "valid": int(valid.sum()),
     }]
     f_row, g_row = report["kernels"][-2:]
@@ -1441,8 +1543,7 @@ def phase_q8_bf16(report):
         "launches": launches["int8_conv"], "max_abs_err": float(max_err), "codes_differing": diff_codes,
         "ms": e_prof["ms"], "plain_ms": sum(p["plain_ms"] for p in per),
         "call_ms": sum(p["call_ms"] for p in per), "per_launch_ms_sum": sum(p["ms"] for p in per),
-        "bound_ms": 1e3 * max(bytes_e / H100_BYTES_PER_S, ops_e / H100_INT8_OPS),
-        "bound_by": "bytes" if bytes_e / H100_BYTES_PER_S >= ops_e / H100_INT8_OPS else "operations",
+        **bound(bytes_e, ops_e, H100_INT8_OPS),
         "library_ms": None, "gb": bytes_e / 1e9, "gmac": ops_e / 2e9,
         "note": "ms, plain_ms and bound_ms are summed over the launches of one predict",
     })
@@ -1550,7 +1651,7 @@ def phase_attn_pallas(report):
     from yolo_infer_tpu_torch.ops.kernels import attention_fused as attn_mod
 
     model, spec = report["weights"]
-    pred = Predictor(copy.deepcopy(model), spec, device="cuda", compute_dtype=torch.bfloat16)
+    pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
     batch, imgsz = ATTN_SERVE
     frames = np.random.default_rng(SEED + 17).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
     want = pred.predict(frames, conf=0.25, imgsz=imgsz)  # the default route (B)
@@ -1592,8 +1693,7 @@ def phase_attn_pallas(report):
         "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:192", "path": f"detect b{batch} {imgsz} bf16 YOLO_ATTN_IMPL=pallas",
         "launches": launches["attention_packed"], "max_abs_err": err_h, "tol_excess": excess_h,
         "ms": device_ms(kernel_h), "plain_ms": device_ms(plain_h),
-        "bound_ms": 1e3 * max(bytes_h / H100_BYTES_PER_S, flops_h / H100_BF16_FLOPS),
-        "bound_by": "bytes" if bytes_h / H100_BYTES_PER_S >= flops_h / H100_BF16_FLOPS else "operations",
+        **bound(bytes_h, flops_h, H100_BF16_FLOPS),
         "library_ms": device_ms(library_h),
         "call_ms": cuda_ms(kernel_h), "plain_call_ms": cuda_ms(plain_h), "library_call_ms": cuda_ms(library_h),
         "shape": [g, n, qg.shape[-1]], "dtype": str(qg.dtype),

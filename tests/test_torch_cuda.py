@@ -41,6 +41,23 @@ def _candidates(seed, b, k):
     return torch.from_numpy(boxes), torch.from_numpy(rng.uniform(0, 1, (b, k)) > 0.15)
 
 
+@pytest.mark.parametrize("name", ["nms_fused", "attention_fused", "rotated_nms_fused", "mask_pack", "dfl_decode",
+                                  "greedy_nms", "int8_conv"])
+def test_kernel_source_keeps_its_header_note(name):
+    """Each kernel source opens with what it replaces, what bounds it on the
+    card and what its design does about that."""
+    from yolo_infer_tpu_torch.ops.kernels import _build
+
+    head = []
+    for line in (_build.CSRC_DIR / f"{name}.cu").read_text().splitlines():
+        if not line.startswith("//"):
+            break
+        head.append(line)
+    note = "\n".join(head)
+    assert "Replaces: " in note and "yolo_infer_tpu/ops/pallas/" in note
+    assert "What bounds it on the H100" in note and "design" in note.lower()
+
+
 def test_wrappers_take_the_plain_versions_for_cpu_tensors():
     boxes, valid = _candidates(0, 2, 50)
     slab = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 16, 128)).astype(np.float32))
@@ -100,19 +117,47 @@ def _rotated_candidates(seed, b, k):
     return gauss_terms(torch.from_numpy(rb)).contiguous(), torch.from_numpy(rng.uniform(0, 1, (b, k)) > 0.15)
 
 
+def _rotated_reference(g, v, thr):
+    """The plain version one image at a time: its (K, K) f32 temporaries
+    take 268 MB each at K = 8192."""
+    return torch.cat([rotated_nms_fused.rotated_nms_keep_reference(g[i:i + 1], v[i:i + 1], thr)
+                      for i in range(g.shape[0])])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [160, 1024])
+@pytest.mark.parametrize("k", [37, 160, 1024, 2048, 4096, 8192])
 def test_rotated_keep_kernel_is_bit_equal_to_the_plain_version(card, k):
     gauss, valid = _rotated_candidates(k, 8, k)
     g, v = gauss.to(card), valid.to(card)
+    v[-1] = False  # an image with no valid candidate
     before = rotated_nms_fused.rotated_nms_keep.launches
     got = rotated_nms_fused.rotated_nms_keep(g, v, 0.45)
     assert rotated_nms_fused.rotated_nms_keep.launches == before + 1
-    assert torch.equal(got, rotated_nms_fused.rotated_nms_keep_reference(g, v, 0.45))
+    assert torch.equal(got, _rotated_reference(g, v, 0.45))
+    assert not got[-1].any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(300, 160, 160), (37, 24, 40)])
+def test_rotated_keep_kernel_on_a_prefix_valid_pool(card):
+    """The serving pool: score-sorted, valid = score > 0, so the valid
+    candidates are a prefix (the bits pass and the walk stop at its end)."""
+    gauss, _ = _rotated_candidates(3, 4, 4096)
+    g = gauss.to(card)
+    v = torch.arange(4096, device=card)[None] < torch.tensor([[700], [4096], [1], [33]], device=card)
+    got = rotated_nms_fused.rotated_nms_keep(g, v, 0.45)
+    assert torch.equal(got, _rotated_reference(g, v, 0.45))
+    assert bool(got[2, 0]) and not got[2, 1:].any()
+
+
+@pytest.mark.cuda
+def test_rotated_keep_wrapper_names_its_limit(card):
+    g = torch.zeros((1, 8193, 5), device=card)
+    with pytest.raises(ValueError, match="MAX_K=8192"):
+        rotated_nms_fused.rotated_nms_keep(g, torch.ones((1, 8193), dtype=torch.bool, device=card), 0.45)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 160, 160), (37, 24, 40), (9600, 160, 160), (5, 17, 8), (2, 6, 4096)])
 def test_mask_pack_kernel_is_bit_equal_to_the_plain_version(card, shape):
     soft = torch.from_numpy(np.random.default_rng(shape[0]).random(shape).astype(np.float32)).to(card)
     before = mask_pack.upsample4x_threshold_pack.launches
@@ -120,6 +165,23 @@ def test_mask_pack_kernel_is_bit_equal_to_the_plain_version(card, shape):
     assert mask_pack.upsample4x_threshold_pack.launches == before + 1
     assert got.shape == (shape[0], 4 * shape[1], shape[2] // 2)
     assert torch.equal(got, mask_pack.upsample4x_threshold_pack_reference(soft))
+
+
+@pytest.mark.cuda
+def test_mask_pack_kernel_is_bit_equal_on_edge_values(card):
+    """0.5, nextafter(0.5, 1), -inf, +inf, NaN and negatives scattered over
+    zeros, all-zero instances, and 2 x 2 blocks just above 0.5: the zero
+    skip must not drop a bit, nor a NaN or an infinity make one."""
+    rng = np.random.default_rng(11)
+    up = float(np.nextafter(np.float32(0.5), np.float32(1)))
+    vals = np.array([0.5, up, -np.inf, np.inf, np.nan, 0.49, 0.75, -3.0], np.float32)
+    soft = np.where(rng.random((64, 24, 40)) < 0.1, vals[rng.integers(0, 8, (64, 24, 40))], 0).astype(np.float32)
+    soft[::4] = 0
+    soft[1::4, 6:8, 8:10] = up
+    x = torch.from_numpy(soft).to(card)
+    got = mask_pack.upsample4x_threshold_pack(x)
+    assert torch.equal(got, mask_pack.upsample4x_threshold_pack_reference(x))
+    assert not got[::4].any() and got[1::4].any()
 
 
 @pytest.mark.cuda

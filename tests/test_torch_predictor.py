@@ -77,3 +77,36 @@ def test_predictor_without_a_device_needs_a_card():
     model, spec = build_model("detect", "n", seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         Predictor(model, spec)
+
+
+def _snapshot(model):
+    return {k: v.clone() for k, v in model.state_dict().items()}, [type(m).__name__ for m in model.modules()]
+
+
+def test_predictor_leaves_the_callers_module_unchanged():
+    """A bf16 Predictor serves a folded, cast copy: the module it was given
+    keeps its dtypes, its parameters bit for bit and its batch norms."""
+    model, spec = build_model("detect", "n", seed=0)
+    state, kinds = _snapshot(model)
+    pred = Predictor(model, spec, device="cpu")
+    assert pred.model is not model
+    assert next(pred.model.parameters()).dtype == torch.bfloat16
+    after, kinds_after = _snapshot(model)
+    assert kinds_after == kinds and "BatchNorm2d" in kinds
+    assert list(after) == list(state)
+    for k, v in state.items():
+        assert after[k].dtype == v.dtype and torch.equal(after[k], v), k
+
+
+def test_fp32_predictor_after_a_bf16_one_serves_the_original_weights():
+    """An fp32 Predictor built on a module that already served a bf16
+    Predictor gives the head outputs of one built on a fresh copy."""
+    model, spec = build_model("detect", "n", seed=0)
+    Predictor(model, spec, device="cpu", compute_dtype=torch.bfloat16)
+    reused = Predictor(model, spec, device="cpu", compute_dtype=torch.float32)
+    fresh = Predictor(build_model("detect", "n", seed=0)[0], spec, device="cpu", compute_dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(11).random((2, 96, 96, 3)).astype(np.float32))
+    with torch.inference_mode():
+        got, want = reused.model(x), fresh.model(x)
+    for g, w in zip(got["feats"], want["feats"]):
+        assert torch.equal(g, w)

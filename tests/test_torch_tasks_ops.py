@@ -80,7 +80,7 @@ def test_rotated_keep_mask_suppression_chain():
     assert got == want == [[True, False, True, False]]
 
 
-@pytest.mark.parametrize("pre_topk,max_det", [(1024, 300), (64, 100)])
+@pytest.mark.parametrize("pre_topk,max_det", [(1024, 300), (64, 100), (2048, 300)])
 def test_batched_rotated_nms_matches_jax(pre_topk, max_det):
     rng = np.random.default_rng(3)
     b, a, nc = 2, 1500, 4
@@ -96,6 +96,51 @@ def test_batched_rotated_nms_matches_jax(pre_topk, max_det):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
     np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), atol=1e-3, rtol=0)
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), atol=1e-6, rtol=0)
+
+
+def _walk(words, valid):
+    """Kernel C's walk (csrc/nms_walk.cuh) in numpy: candidates up to E, one
+    past the last valid one, in rank order; a kept row ORs its words from its
+    own word on into the removed set."""
+    k = valid.shape[0]
+    end = int(np.nonzero(valid)[0].max()) + 1 if valid.any() else 0
+    removed = np.zeros(words.shape[1], np.uint32)
+    keep = np.zeros(k, bool)
+    for i in range(end):
+        if valid[i] and not (removed[i >> 5] >> np.uint32(i & 31)) & 1:
+            keep[i] = True
+            removed[i >> 5:] |= words[i, i >> 5:]
+    return keep
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+def test_greedy_walk_over_the_cleared_probiou_bitmask_gives_the_fixpoint(prefix):
+    """The rule kernel C's bits pass relies on: bits of pairs with an invalid
+    row or column, and of columns at or past E, cleared without their
+    probIoU; rows at or past E and words before a row's own never read (set
+    to ones here). The walk then gives the fixpoint's keep mask."""
+    rng = np.random.default_rng(13)
+    b, k, thr = 3, 200, 0.4
+    rb, scores = _rboxes(rng, b, k)
+    valid = np.arange(k)[None] < np.array([[150], [37], [0]]) if prefix else scores > 0.3
+    valid[2] = False  # an image with no valid candidate
+    gauss = trot.gauss_terms(torch.from_numpy(rb)).contiguous()
+    iou = trot.probiou_gauss_matrix(gauss, gauss).numpy()
+    want = rotated_nms_fused.rotated_nms_keep_reference(gauss, torch.from_numpy(valid), thr).numpy()
+    jwant = np.asarray(jax.vmap(lambda m, v: j_fixpoint(m, v, jnp.float32(thr), max_sweeps=k))(
+        jnp.asarray(iou), jnp.asarray(valid)))
+    np.testing.assert_array_equal(want, jwant)
+    for img in range(b):
+        v = valid[img]
+        end = int(np.nonzero(v)[0].max()) + 1 if v.any() else 0
+        sup = (iou[img] > thr) & np.triu(np.ones((k, k), bool), 1) & v[:, None] & v[None, :]
+        sup[:, end:] = False
+        words = np.packbits(np.pad(sup, ((0, 0), (0, -k % 32))), axis=1, bitorder="little").view("<u4").copy()
+        for i in range(k):
+            words[i, :i >> 5] = 0xFFFFFFFF
+        words[end:] = 0xFFFFFFFF
+        np.testing.assert_array_equal(_walk(words, v), want[img])
+    assert want[0].any() and not want[2].any()
 
 
 def test_multi_label_rotated_nms_is_not_ported():
@@ -130,6 +175,36 @@ def test_mask_pack_plain_version_is_bit_equal_to_the_pallas_kernel():
     got = mask_pack.upsample4x_threshold_pack_reference(torch.from_numpy(soft)).numpy()
     want = np.asarray(j_pack_pallas(jnp.asarray(soft[..., 0::2]), jnp.asarray(soft[..., 1::2]), interpret=True))
     np.testing.assert_array_equal(got, want)
+
+
+def _pack_both(soft):
+    got = mask_pack.upsample4x_threshold_pack_reference(torch.from_numpy(soft)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jmasks._upsample_threshold_pack(jnp.asarray(soft), 4)))
+    return got
+
+
+@pytest.mark.parametrize("fill", [0.5, -np.inf, np.nan, -2.0, 0.0])
+def test_mask_pack_inputs_at_most_half_pack_to_zero(fill):
+    """The rule kernel D's zero skip rests on: soft masks with no value above
+    0.5 (0.5 itself, -inf, NaN, negatives, zeros, mixed) pack to all zeros."""
+    rng = np.random.default_rng(12)
+    soft = np.where(rng.random((6, 16, 24)) < 0.5, np.float32(fill), rng.uniform(-1, 0.5, (6, 16, 24)))
+    assert not _pack_both(soft.astype(np.float32)).any()
+
+
+def test_mask_pack_values_just_above_half_set_bits():
+    """One value nextafter(0.5, 1) in zeros sets no bit (a bilinear tap
+    weighs it at most 7/8 x 7/8), a 2 x 2 block of it sets the 4 x 4 output
+    pixels at its centre: a skip test of `> 0.5` on the inputs keeps both."""
+    up = np.nextafter(np.float32(0.5), np.float32(1))
+    soft = np.zeros((2, 16, 24), np.float32)
+    soft[0, 7, 9] = up
+    soft[1, 6:8, 8:10] = up
+    bits = np.unpackbits(_pack_both(soft), axis=-1)
+    assert not bits[0].any()
+    want = np.zeros((64, 96), np.uint8)
+    want[26:30, 34:38] = 1
+    np.testing.assert_array_equal(bits[1], want)
 
 
 @pytest.mark.parametrize("out_size", [None, 48])
@@ -263,4 +338,4 @@ def test_kernel_build_hashes_the_included_headers(tmp_path, monkeypatch):
     before = {name: _build.library_path(name) for name in _build.KERNELS}
     (tmp_path / "nms_walk.cuh").write_text((tmp_path / "nms_walk.cuh").read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.KERNELS}
-    assert [n for n in _build.KERNELS if before[n] != after[n]] == ["nms_fused", "rotated_nms_fused"]
+    assert [n for n in _build.KERNELS if before[n] != after[n]] == ["nms_fused", "rotated_nms_fused", "greedy_nms"]

@@ -145,7 +145,7 @@ class YOLO11Model:
     def predictor(self) -> Predictor:
         if self._predictor is None:
             self._predictor = Predictor(
-                copy.deepcopy(self.deploy_model), self.spec, device=self.device, compute_dtype=self.compute_dtype,
+                self.deploy_model, self.spec, device=self.device, compute_dtype=self.compute_dtype,
                 names=self.names, mask_mode=self.mask_mode, quant_act_scales=self.quant_act_scales,
                 quant_min_channels=self.quant_min_channels,
             )

@@ -29,6 +29,7 @@ card and no explicit device it raises instead of falling back to the CPU.
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from dataclasses import dataclass, field
@@ -232,8 +233,9 @@ class Predictor:
 
     `params` is the port's `YOLO11` module (from `build_model`,
     `models.convert.load_state_dict` or `params_from_jax`); the predictor
-    folds its batch norms, casts it to `compute_dtype` and moves it to the
-    device, in place.
+    serves a copy of it with the batch norms folded, cast to
+    `compute_dtype` and on the device. The caller's module is left as it
+    was, as the JAX package leaves its `params`.
 
     `mask_mode` (segment): "device" (the default) thresholds the masks at
     full resolution on the device; "device_half" on the imgsz/2 grid, which
@@ -275,7 +277,7 @@ class Predictor:
         self.max_det = max_det
         self.mask_mode = mask_mode
         self.names = names or dict(COCO_NAMES)
-        model = cast_model(fold_model(params), compute_dtype).to(self.device).eval()
+        model = cast_model(fold_model(copy.deepcopy(params)), compute_dtype).to(self.device).eval()
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         for m in model.modules():

@@ -3,9 +3,9 @@
 // Replaces: greedy_nms_pallas (yolo_infer_tpu/ops/pallas/nms_kernel.py),
 // which holds one image's whole (K, K) IoU block in VMEM and scans the
 // score-sorted candidates in order. On the H100 the val pool's 4096^2 f32
-// block (64 MB) cannot sit in a block's 227 KB of shared memory, so the work
-// is two kernels:
+// block (64 MB) cannot sit in a block's 227 KB of shared memory.
 //
+// Design: two kernels.
 //   Bits: a grid over (row tile, image), one warp per candidate row. The
 //   warp reads the row's strict upper triangle once, 32 consecutive columns
 //   per step (one coalesced 128-byte read), and __ballot_sync packs
@@ -14,14 +14,12 @@
 //   candidate's row (never kept, so never ORed by the walk), are written as
 //   0 without reading the IoU. The (B, K, ceil(K/32)) uint32 buffer is 2 MB
 //   per image at K = 4096, 32 MB at the val batch of 16: it stays in L2.
-//   Walk: one block per image. Warp 0 walks the candidates in rank order,
-//   as nms_walk.cuh does for kernels A and C, while the other warps stage
-//   the next 32-row strip of the bitmask (words from the strip's own on; 16
-//   KB at K = 4096) into the second of two shared-memory buffers. The
-//   removed set is ceil(K/32) words, kMaxWordsPerLane per lane at most (K <=
-//   8192): lane l holds words l, l+32, l+64, ... . Candidate i is kept when
-//   it is valid and no kept candidate removed it; its row is then ORed into
-//   the removed set.
+//   Walk: the strip-staged walk of nms_walk.cuh, shared with kernel C: one
+//   block per image; warp 0 walks the candidates in rank order while the
+//   other warps stage the next 32-row strip of the bitmask (words from the
+//   strip's own on; 16 KB at K = 4096) with cp.async. The removed set is up
+//   to 8 words per lane (K <= 8192), and the walk stops one past the last
+//   valid candidate.
 //
 // What bounds it on the H100: bytes, the upper triangle of the valid rows
 // (~0.54 GB at B = 16, K = 4096, all valid). The walk's K dependent
@@ -34,14 +32,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nms_walk.cuh"
+
 namespace {
 
 constexpr int kBitsThreads = 256;
 constexpr int kBitsRowsPerBlock = kBitsThreads / 32;  // one warp per row
 constexpr int kBitsUnroll = 4;                        // words in flight per lane
-constexpr int kWalkThreads = 256;
-constexpr int kMaxWordsPerLane = 8;
-constexpr int kMaxK = 32 * 32 * kMaxWordsPerLane;  // 8192
 
 __global__ void __launch_bounds__(kBitsThreads)
 suppression_bits_kernel(const float* __restrict__ iou, const uint8_t* __restrict__ valid,
@@ -75,78 +72,6 @@ suppression_bits_kernel(const float* __restrict__ iou, const uint8_t* __restrict
   }
 }
 
-// Copy rows i0..i0+nrows-1 of the image's bitmask, words w..W-1, into `dst`
-// (row stride W words), with `nthreads` threads numbered from `t`.
-__device__ __forceinline__ void stage_strip(const uint32_t* __restrict__ src, uint32_t* dst, int i0, int nrows,
-                                            int w, int W, int t, int nthreads) {
-  const int n = W - w;
-  for (int idx = t; idx < nrows * n; idx += nthreads) {
-    const int rr = idx / n;
-    const int c = w + (idx - rr * n);
-    dst[rr * W + c] = src[static_cast<size_t>(i0 + rr) * W + c];
-  }
-}
-
-__global__ void __launch_bounds__(kWalkThreads)
-greedy_walk_kernel(const uint32_t* __restrict__ bits, const uint8_t* __restrict__ valid,
-                   uint8_t* __restrict__ keep, int K, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* strips = reinterpret_cast<uint32_t*>(smem);          // 2 x 32 rows x W words
-  uint8_t* svalid = reinterpret_cast<uint8_t*>(strips + 64 * W);  // K flags
-
-  const int img = blockIdx.x;
-  const uint32_t* mb = bits + static_cast<size_t>(img) * K * W;
-  const uint8_t* vb = valid + static_cast<size_t>(img) * K;
-  uint8_t* kb = keep + static_cast<size_t>(img) * K;
-  for (int i = threadIdx.x; i < K; i += kWalkThreads) svalid[i] = vb[i];
-  stage_strip(mb, strips, 0, min(32, K), 0, W, threadIdx.x, kWalkThreads);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int wpl = (W + 31) >> 5;  // words of the removed set per lane
-  uint32_t removed[kMaxWordsPerLane];
-#pragma unroll
-  for (int g = 0; g < kMaxWordsPerLane; ++g) removed[g] = 0u;
-
-  for (int w = 0; w < W; ++w) {
-    const uint32_t* strip = strips + (w & 1) * 32 * W;
-    const int i0 = w << 5;
-    if (threadIdx.x < 32) {
-      // the word under the walk, from the lane that holds it
-      uint32_t mine = 0u;
-#pragma unroll
-      for (int g = 0; g < kMaxWordsPerLane; ++g)
-        if (g == (w >> 5)) mine = removed[g];
-      uint32_t cur = __shfl_sync(0xffffffffu, mine, w & 31);
-      uint32_t kept_bits = 0u;
-      const int iend = min(i0 + 32, K);
-      for (int i = i0; i < iend; ++i) {
-        const uint32_t* row = strip + (i - i0) * W;
-        const uint32_t row_cur = row[w];
-        uint32_t own[kMaxWordsPerLane];
-#pragma unroll
-        for (int g = 0; g < kMaxWordsPerLane; ++g) {
-          const int c = g * 32 + lane;
-          // words before w were not staged and are never read again
-          own[g] = (g < wpl && c >= w && c < W) ? row[c] : 0u;
-        }
-        const uint32_t bit = 1u << (i - i0);
-        if (svalid[i] && !(cur & bit)) {
-          kept_bits |= bit;
-          cur |= row_cur;
-#pragma unroll
-          for (int g = 0; g < kMaxWordsPerLane; ++g) removed[g] |= own[g];
-        }
-      }
-      if (i0 + lane < K) kb[i0 + lane] = (kept_bits >> lane) & 1u;
-    } else if (w + 1 < W) {
-      stage_strip(mb, strips + ((w + 1) & 1) * 32 * W, i0 + 32, min(32, K - i0 - 32), w + 1, W,
-                  threadIdx.x - 32, kWalkThreads - 32);
-    }
-    __syncthreads();
-  }
-}
-
 }  // namespace
 
 // iou (B, K, K) f32, valid (B, K) bool, keep (B, K) bool, bits (B, K,
@@ -154,7 +79,7 @@ greedy_walk_kernel(const uint32_t* __restrict__ bits, const uint8_t* __restrict_
 // the cudaError_t of the launches.
 extern "C" int greedy_nms_launch(const void* iou, const void* valid, void* keep, void* bits, int B, int K,
                                  float thr, void* stream) {
-  if (B < 1 || B > 65535 || K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || B > 65535 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = (K + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((K + kBitsRowsPerBlock - 1) / kBitsRowsPerBlock, B);
@@ -163,12 +88,7 @@ extern "C" int greedy_nms_launch(const void* iou, const void* valid, void* keep,
                                                         static_cast<uint32_t*>(bits), K, W, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(64) * W * sizeof(uint32_t) + K;
-  err = cudaFuncSetAttribute(greedy_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  greedy_walk_kernel<<<B, kWalkThreads, smem, s>>>(static_cast<const uint32_t*>(bits),
-                                                   static_cast<const uint8_t*>(valid),
-                                                   static_cast<uint8_t*>(keep), K, W);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(nms_walk::launch_greedy_walk(static_cast<const uint32_t*>(bits),
+                                                        static_cast<const uint8_t*>(valid),
+                                                        static_cast<uint8_t*>(keep), B, K, s));
 }

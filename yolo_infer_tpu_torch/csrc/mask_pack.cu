@@ -1,28 +1,48 @@
 // Fused 4x bilinear upsample + 0.5 threshold + MSB-first bit-pack of the
-// segment serving masks.
+// segment serving masks (kernel D).
 //
 // Replaces: upsample4x_threshold_pack (yolo_infer_tpu/ops/pallas/mask_pack.py),
 // the TPU kernel that runs the whole serving mask tail in VMEM per tile of
 // instances, on soft masks pre-split into even and odd columns.
 //
-// What bounds it on the H100: bytes. It reads the (n, Hm, Wm) f32 soft masks
-// and writes the (n, 4Hm, Wm/2) packed bytes (983 MB in and 491 MB out at
-// n = 9600, Hm = Wm = 160), and does ~5 operations per output bit. The
-// (n, 4Hm, 4Wm) upsampled image never exists.
+// What bounds it on the H100: bytes in principle, operations in practice. It
+// reads the (n, Hm, Wm) f32 soft masks and writes the (n, 4Hm, Wm/2) packed
+// bytes: 983 MB in and 491 MB out at n = 9600, Hm = Wm = 160, 0.44 ms at the
+// card's memory rate. Every product and sum must round apart
+// (--fmad=false), so each output bit costs a product, a sum, a compare and
+// the bit's insertion, one instruction each: ~4 x 3.9e9 on a dense input,
+// above the bytes. The (n, 4Hm, 4Wm) upsampled image never exists.
 //
-// Design: the whole batch in one launch; one thread per (instance, source row
-// i, 4-byte chunk c of the packed row). Output byte B of a row covers source
-// columns 2B and 2B+1, so chunk c needs columns 8c-1 .. 8c+8 (clamped at the
-// edges, which crosses column parity: the reason the TPU kernel needed mixed
-// even/odd shifts; unsplit, it is a plain clamp). The thread reads rows i-1,
-// i, i+1 (clamped) as two float4 and two scalars each, computes the four
-// H-phases kh (output rows 4i+kh) of the ten columns, then the eight
-// W-phases of each output byte, and stores each output row's four bytes as
-// one uint32. Consecutive threads take consecutive chunks, so loads and
-// stores coalesce. Rounding follows the plain version (ops/masks.py
-// _upsample_threshold_pack): the H tap wa*a + wb*b with each product
-// rounded, then the W tap on those values the same way, then > 0.5; built
-// with --fmad=false, so the bytes are equal bit for bit.
+// Design: a 2-D grid of (256 (instance, word c) pairs, band of 16 source
+// rows); a thread walks the band's rows for one instance and one 32-bit
+// output word c of the packed row (4 output bytes, source columns 8c .. 8c+7,
+// plus 8c-1 and 8c+8 clamped at the edges). It reads each source row once,
+// two float4 and two halo floats (the neighbours' columns, from L1), and
+// holds rows i-1, i, i+1 in registers with row i+2 already in flight; so
+// every source float comes from device memory once, apart from one halo row
+// above and below each band. Output rows 4i+kh take rows (i-1, i) for phases
+// 0, 1 and (i, i+1) for 2, 3; the weights (3/8, 5/8), (1/8, 7/8), (7/8,
+// 1/8), (5/8, 3/8) mean each product of a source value serves two taps, along
+// H (row i's 5/8 and 7/8 products feed two output rows each) and along W
+// (each H tap's 3/8, 5/8, 1/8, 7/8 products feed two output pixels each), so
+// an output bit costs one product, one sum, one compare and one predicated
+// OR. Consecutive threads store consecutive words of a packed row (4 per
+// source row).
+// Zero skip: when no value of rows i-1..i+1 in the thread's ten columns is
+// above 0.5 (NaN is not), the four words are 0 and no tap is computed. That
+// is exact: rounding is monotone and each weight pair sums to 1, so taps of
+// values <= 0.5 are <= rn(wa/2 + wb/2) = 0.5 along H and again along W, -inf
+// stays below, and a NaN tap compares false. On the segment path most masks
+// are empty slots or cropped to zero outside their box, so most rows skip.
+// Rounding follows the plain version (ops/masks.py _upsample_threshold_pack):
+// the H tap wa*a + wb*b with each product rounded, then the W tap on those
+// values the same way, then > 0.5; the bytes are equal bit for bit.
+// Measured slower on the card and kept out (tests/kernel_variants/
+// mask_pack_variants.cu, timed by tests/torch_kernel_breakdown.py): bands
+// staged in shared memory by 16-byte cp.async with a tile stored 16 bytes at
+// a time (a thread reloads three staged rows per step, where this one keeps
+// them in registers), and H taps computed once per output row and packed by
+// __ballot_sync (a shared-memory round trip per output bit).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,79 +50,125 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBand = 16;  // source rows a thread walks
 
-// phase weights for ratio 4: off_k = (k + 0.5) / 4 - 0.5; phases 0, 1 tap
-// (q-1, q), phases 2, 3 tap (q, q+1)
-__device__ __constant__ float kWa[4] = {0.375f, 0.125f, 0.875f, 0.625f};
-__device__ __constant__ float kWb[4] = {0.625f, 0.875f, 0.125f, 0.375f};
-
-__device__ __forceinline__ float tap(float wa, float a, float wb, float b) {
-  return __fadd_rn(__fmul_rn(wa, a), __fmul_rn(wb, b));
-}
-
-// the ten columns 8c-1 .. 8c+8 of one source row, clamped at the row's edges
-__device__ __forceinline__ void load_cols(const float* row, int c, int W, float v[10]) {
-  const float4 lo = *reinterpret_cast<const float4*>(row + 8 * c);
-  const float4 hi = *reinterpret_cast<const float4*>(row + 8 * c + 4);
-  v[0] = row[max(8 * c - 1, 0)];
+// the ten columns 8c-1 .. 8c+8 of source row r (clamped to the image)
+__device__ __forceinline__ void load_row(const float* __restrict__ base, int r, int H, int W, int c, float v[10]) {
+  const float* row = base + static_cast<size_t>(min(max(r, 0), H - 1)) * W;
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(row + 8 * c));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(row + 8 * c + 4));
+  v[0] = __ldg(row + max(8 * c - 1, 0));
   v[1] = lo.x; v[2] = lo.y; v[3] = lo.z; v[4] = lo.w;
   v[5] = hi.x; v[6] = hi.y; v[7] = hi.z; v[8] = hi.w;
-  v[9] = row[min(8 * c + 8, W - 1)];
+  v[9] = __ldg(row + min(8 * c + 8, W - 1));
+}
+
+// any value above 0.5 (fmaxf drops NaN, which never sets a bit)
+__device__ __forceinline__ bool above_half(const float v[10]) {
+  float m = v[0];
+#pragma unroll
+  for (int k = 1; k < 10; ++k) m = fmaxf(m, v[k]);
+  return m > 0.5f;
+}
+
+// the 32 W phases of an output row from its H taps h[0..9] (columns 8c-1 ..
+// 8c+8): output column m = 4(q-1) + kw of source column q = 1..8 is bit
+// 8(m/8) + 7 - m%8 of the little-endian word (MSB-first bytes)
+__device__ __forceinline__ uint32_t pack_row(const float h[10]) {
+  float a375[10], a125[10], a625[10], a875[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    a375[k] = __fmul_rn(0.375f, h[k]);
+    a125[k] = __fmul_rn(0.125f, h[k]);
+    if (k >= 1 && k <= 8) {
+      a625[k] = __fmul_rn(0.625f, h[k]);
+      a875[k] = __fmul_rn(0.875f, h[k]);
+    }
+  }
+  uint32_t word = 0;
+#pragma unroll
+  for (int q = 1; q <= 8; ++q) {
+    const float x[4] = {__fadd_rn(a375[q - 1], a625[q]), __fadd_rn(a125[q - 1], a875[q]),
+                        __fadd_rn(a875[q], a125[q + 1]), __fadd_rn(a625[q], a375[q + 1])};
+#pragma unroll
+    for (int kw = 0; kw < 4; ++kw) {
+      const int m = 4 * (q - 1) + kw;
+      if (x[kw] > 0.5f) word |= 1u << (8 * (m >> 3) + 7 - (m & 7));  // a compare and a predicated OR
+    }
+  }
+  return word;
 }
 
 __global__ void __launch_bounds__(kThreads)
-mask_pack_kernel(const float* __restrict__ soft, uint32_t* __restrict__ out, int H, int W, long long total) {
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int C = W >> 3;  // 4-byte chunks per packed row
-  const int c = static_cast<int>(t % C);
-  const long long rest = t / C;
-  const int i = static_cast<int>(rest % H);
-  const long long inst = rest / H;
+mask_pack_kernel(const float* __restrict__ soft, uint32_t* __restrict__ out, unsigned tasks, int H, int W) {
+  const int C = W >> 3;  // 32-bit words per packed row
+  const unsigned task = blockIdx.x * kThreads + threadIdx.x;
+  if (task >= tasks) return;
+  const unsigned inst = task / C;
+  const int c = static_cast<int>(task - inst * C);
+  const int i0 = blockIdx.y * kBand;
+  const int i1 = min(i0 + kBand, H);
 
-  const float* base = soft + inst * H * W;
-  float up[10], mid[10], dn[10];
-  load_cols(base + static_cast<long long>(max(i - 1, 0)) * W, c, W, up);
-  load_cols(base + static_cast<long long>(i) * W, c, W, mid);
-  load_cols(base + static_cast<long long>(min(i + 1, H - 1)) * W, c, W, dn);
-
-  // packed row 4i+kh, as words of W/8 per row (W/2 bytes)
-  uint32_t* orow = out + (inst * 4 * H + 4LL * i) * C + c;
+  const float* base = soft + static_cast<size_t>(inst) * H * W;
+  uint32_t* orow = out + (static_cast<size_t>(inst) * 4 * H + 4 * i0) * C + c;
+  float prv[10], cur[10], nxt[10], ahead[10];
+  load_row(base, i0 - 1, H, W, c, prv);
+  load_row(base, i0, H, W, c, cur);
+  load_row(base, i0 + 1, H, W, c, ahead);
+  bool fprv = above_half(prv), fcur = above_half(cur);
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
 #pragma unroll
-  for (int kh = 0; kh < 4; ++kh) {
-    float v[10];
+    for (int k = 0; k < 10; ++k) nxt[k] = ahead[k];
+    load_row(base, i + 2, H, W, c, ahead);  // in flight while row i is computed
+    const bool fnxt = above_half(nxt);
+    uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+    if (fprv || fcur || fnxt) {
+      float c625[10], c875[10], h[10];
 #pragma unroll
-    for (int q = 0; q < 10; ++q) {
-      v[q] = kh < 2 ? tap(kWa[kh], up[q], kWb[kh], mid[q]) : tap(kWa[kh], mid[q], kWb[kh], dn[q]);
-    }
-    uint32_t word = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {  // byte 4c+b: source columns 8c+2b, 8c+2b+1 = v[2b+1], v[2b+2]
-      uint32_t byte = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int q = 2 * b + 1 + (j >> 2);  // v index of the source column of bit j
-        const int kw = j & 3;
-        const float x = kw < 2 ? tap(kWa[kw], v[q - 1], kWb[kw], v[q]) : tap(kWa[kw], v[q], kWb[kw], v[q + 1]);
-        byte |= static_cast<uint32_t>(x > 0.5f) << (7 - j);
+      for (int k = 0; k < 10; ++k) {
+        c625[k] = __fmul_rn(0.625f, cur[k]);
+        c875[k] = __fmul_rn(0.875f, cur[k]);
       }
-      word |= byte << (8 * b);  // little-endian: byte 4c+b at the b-th lowest address
+#pragma unroll
+      for (int k = 0; k < 10; ++k) h[k] = __fadd_rn(__fmul_rn(0.375f, prv[k]), c625[k]);
+      w0 = pack_row(h);
+#pragma unroll
+      for (int k = 0; k < 10; ++k) h[k] = __fadd_rn(__fmul_rn(0.125f, prv[k]), c875[k]);
+      w1 = pack_row(h);
+#pragma unroll
+      for (int k = 0; k < 10; ++k) h[k] = __fadd_rn(c875[k], __fmul_rn(0.125f, nxt[k]));
+      w2 = pack_row(h);
+#pragma unroll
+      for (int k = 0; k < 10; ++k) h[k] = __fadd_rn(c625[k], __fmul_rn(0.375f, nxt[k]));
+      w3 = pack_row(h);
     }
-    orow[static_cast<long long>(kh) * C] = word;
+    orow[0] = w0;
+    orow[C] = w1;
+    orow[2 * C] = w2;
+    orow[3 * C] = w3;
+    orow += 4 * C;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      prv[k] = cur[k];
+      cur[k] = nxt[k];
+    }
+    fprv = fcur;
+    fcur = fnxt;
   }
 }
 
 }  // namespace
 
-// soft (n, H, W) f32 contiguous and 16-byte aligned, W % 8 == 0; out
-// (n, 4H, W/2) uint8 contiguous and 4-byte aligned; both on the current
-// device. Returns the cudaError_t of the launch.
+// soft (n, H, W) f32 contiguous and 16-byte aligned, W % 8 == 0; out (n, 4H,
+// W/2) uint8 contiguous and 4-byte aligned; both on the current device. n *
+// W/8 < 2^32 holds for any input that fits in device memory (32 H bytes of
+// soft mask per task). Returns the cudaError_t of the launch.
 extern "C" int mask_pack_launch(const void* soft, void* out, long long n, int H, int W, void* stream) {
-  if (n < 1 || H < 1 || W < 8 || W % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = n * H * (W / 8);
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  mask_pack_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(soft), static_cast<uint32_t*>(out), H, W, total);
+  const long long tasks = n * (W / 8);
+  if (n < 1 || H < 1 || W < 8 || W % 8 || tasks > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((tasks + kThreads - 1) / kThreads), (H + kBand - 1) / kBand);
+  mask_pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(soft), static_cast<uint32_t*>(out), static_cast<unsigned>(tasks), H, W);
   return static_cast<int>(cudaGetLastError());
 }

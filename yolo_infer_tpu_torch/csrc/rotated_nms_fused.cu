@@ -1,33 +1,43 @@
-// Greedy probIoU-NMS keep mask over score-sorted, class-offset oriented boxes.
+// Greedy probIoU-NMS keep mask over score-sorted, class-offset oriented boxes
+// (kernel C).
 //
 // Replaces: rotated_nms_keep_pallas (yolo_infer_tpu/ops/pallas/nms_fused.py),
 // the TPU kernel that evaluates each image's (K, K) probIoU matrix in VMEM
 // from the candidates' Gaussian terms and sweeps the greedy fixpoint.
 //
-// What bounds it on the H100: operations, and how few SMs hold them. Each
-// pair costs ~38 f32 operations of which a log, an exp, two square roots and
-// two divisions run as multi-instruction sequences; at K = 1024 an image has
-// 523,776 pairs. Bytes are negligible (20 B of terms and 1 B of flag in, 1 B
-// out per candidate). One block per image means only B of the 132 SMs work
-// (16 at OBB serving batch 16); the walk is serial in the candidate rank.
+// What bounds it on the H100: operations. Each pair costs ~38 f32 operations
+// of which a log, an exp, two square roots and two divisions run as
+// multi-instruction sequences: ~10^9 instructions at K = 1024, B = 16, all
+// valid (523,776 pairs per image). Bytes are negligible (20 B of terms and
+// 1 B of flag in, 1 B out per candidate). Then the walk, serial in the
+// candidate rank: about K dependent steps per image, B images at once.
 //
-// Design: one block per image, any K <= 1024, as kernel A (nms_fused.cu).
-//   Phase 0: the Gaussian terms (x, y, a, b, c) go to shared memory as five
-//   arrays, with each candidate's clamped determinant max(ab - c^2, eps).
-//   Phase 1: the strictly upper-triangular suppression bitmask, K rows of
-//   ceil(K/32) words (128 KB at K = 1024, plus 24 KB of terms: the launch
-//   asks for dynamic shared memory above 48 KB). Consecutive threads take
-//   consecutive rows of one word column, so a warp reads the same j at each
-//   step (a broadcast).
-//   Phase 2: one warp walks the candidates (nms_walk.cuh).
+// Design: two launches, kernel G's shape (greedy_nms.cu), for any K <= 8192.
+//   Bits: a grid over (image, row pairs), one warp per pair of candidate rows
+//   p and E-1-p, so every warp takes E-1 columns and the blocks finish
+//   together over the triangle (E is one past the image's last valid
+//   candidate, found by each block from the flags). The lanes take 32
+//   consecutive columns j, compute probIoU(i, j) in place (never stored), and
+//   __ballot_sync packs `> thr` into bit j%32 of word j/32 of row i. The
+//   column terms (x, y, a, b, c and the clamped determinant) and flags are
+//   staged in shared memory in chunks of 512 columns (12.5 KB: several blocks
+//   fit on an SM). A pair with j <= i, j >= E or an invalid j is written 0
+//   without the probIoU, and an invalid row is all 0: it is never kept, so
+//   never ORed in, and its own bit is never consulted, so the keep mask is
+//   exact. With the valid candidates a prefix of V (serving: scores sorted,
+//   valid = score > 0) the work is V^2/2 pairs, on every SM. The (B, K,
+//   ceil(K/32)) uint32 mask is 2 MB at B = 16, K = 1024; 128 MB at K = 8192.
+//   Walk: nms_walk.cuh's, the one kernel G launches: for K <= 1024 the
+//   whole mask resident in shared memory and walked without a sync (the
+//   OBB serving pool), above that staged in 32-row strips.
 // The mask must equal the plain version's (ops/nms.py _nms_fixpoint over
 // ops/rotated.py probiou_gauss_matrix on the card) bit for bit, so the
 // probIoU is written in _probiou_from_terms's order with every operation
 // explicitly rounded (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn: what
-// PyTorch's elementwise kernels compute one operation at a time), the log and
-// exp are the CUDA math library's logf and expf that torch.log and torch.exp
-// call (never __logf / __expf), the clamps pass NaN through as torch.clamp
-// does, and the file is built with --fmad=false.
+// PyTorch's elementwise kernels compute one operation at a time), row i is
+// argument 1, the log and exp are the CUDA math library's logf and expf that
+// torch.log and torch.exp call (never __logf / __expf), the clamps pass NaN
+// through as torch.clamp does, and the file is built with --fmad=false.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,12 +47,18 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kBitsWarps = 4;
+constexpr int kBitsThreads = kBitsWarps * 32;
+constexpr int kChunk = 512;  // columns staged at a time (a multiple of 32)
 constexpr float kEps = 1e-7f;
 
 // torch.clamp keeps a NaN where fmaxf / fminf would drop it
 __device__ __forceinline__ float clamp_min(float v, float lo) { return isnan(v) ? v : fmaxf(v, lo); }
 __device__ __forceinline__ float clamp_max(float v, float hi) { return isnan(v) ? v : fminf(v, hi); }
+
+__device__ __forceinline__ float clamped_det(float a, float b, float c) {
+  return clamp_min(__fsub_rn(__fmul_rn(a, b), __fmul_rn(c, c)), kEps);
+}
 
 // 1 - Hellinger distance of two Gaussians given by their terms and clamped
 // determinants, in ops/rotated.py _probiou_from_terms's order
@@ -64,71 +80,103 @@ __device__ __forceinline__ float probiou(float x1, float y1, float a1, float b1,
   return __fsub_rn(1.f, hd);
 }
 
-__global__ void __launch_bounds__(kThreads)
-rotated_nms_keep_kernel(const float* __restrict__ gauss, const uint8_t* __restrict__ valid,
-                        uint8_t* __restrict__ keep, int K, float thr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int W = (K + 31) >> 5;
-  float* sx = reinterpret_cast<float*>(smem);                 // 6 x K terms
-  float* sy = sx + K;
-  float* sa = sy + K;
-  float* sb = sa + K;
-  float* sc = sb + K;
-  float* sdet = sc + K;
-  uint32_t* mask = reinterpret_cast<uint32_t*>(sdet + K);     // K x W words
-  uint8_t* svalid = reinterpret_cast<uint8_t*>(mask + K * W); // K flags
+__global__ void __launch_bounds__(kBitsThreads)
+probiou_bits_kernel(const float* __restrict__ gauss, const uint8_t* __restrict__ valid,
+                    uint32_t* __restrict__ bits, int K, int W, float thr) {
+  __shared__ float sx[kChunk], sy[kChunk], sa[kChunk], sb[kChunk], sc[kChunk], sdet[kChunk];
+  __shared__ uint8_t sval[kChunk];
+  __shared__ int s_end;
 
   const int img = blockIdx.x;
+  const int lane = threadIdx.x & 31;
   const float* g = gauss + static_cast<size_t>(img) * K * 5;
   const uint8_t* vb = valid + static_cast<size_t>(img) * K;
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    const float a = g[i * 5 + 2], b = g[i * 5 + 3], c = g[i * 5 + 4];
-    sx[i] = g[i * 5];
-    sy[i] = g[i * 5 + 1];
-    sa[i] = a;
-    sb[i] = b;
-    sc[i] = c;
-    sdet[i] = clamp_min(__fsub_rn(__fmul_rn(a, b), __fmul_rn(c, c)), kEps);
-    svalid[i] = vb[i];
-  }
-  __syncthreads();
+  uint32_t* out = bits + static_cast<size_t>(img) * K * W;
 
-  for (int idx = threadIdx.x; idx < K * W; idx += kThreads) {
-    const int w = idx / K;
-    const int i = idx - w * K;
-    const int j0 = w << 5;
-    uint32_t bits = 0;
-    if (j0 + 31 > i) {  // the word holds some j > i
-      const float x1 = sx[i], y1 = sy[i], a1 = sa[i], b1 = sb[i], c1 = sc[i], d1 = sdet[i];
-      const int jend = min(j0 + 32, K);
-      for (int j = max(j0, i + 1); j < jend; ++j) {
-        if (probiou(x1, y1, a1, b1, c1, d1, sx[j], sy[j], sa[j], sb[j], sc[j], sdet[j]) > thr) {
-          bits |= 1u << (j - j0);
+  // E: one past the image's last valid candidate
+  if (threadIdx.x == 0) s_end = 0;
+  __syncthreads();
+  int last = 0;
+  for (int i = threadIdx.x; i < K; i += kBitsThreads)
+    if (vb[i]) last = i + 1;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0) atomicMax(&s_end, last);
+  __syncthreads();
+  const int E = s_end;
+  const int pairs = (E + 1) >> 1;
+  const int p0 = blockIdx.y * kBitsWarps;
+  if (p0 >= pairs) return;  // the whole block: E is the same for all its threads
+  const int We = (E + 31) >> 5;
+
+  // this warp's rows: p and E-1-p (one row where they meet, none past the pairs)
+  const int p = p0 + (threadIdx.x >> 5);
+  int rows[2] = {p < pairs ? p : -1, (p < pairs && E - 1 - p != p) ? E - 1 - p : -1};
+  float rx[2], ry[2], ra[2], rb[2], rc[2], rdet[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int r = rows[s] < 0 ? 0 : rows[s];
+    rx[s] = g[r * 5];
+    ry[s] = g[r * 5 + 1];
+    ra[s] = g[r * 5 + 2];
+    rb[s] = g[r * 5 + 3];
+    rc[s] = g[r * 5 + 4];
+    rdet[s] = clamped_det(ra[s], rb[s], rc[s]);
+    rvalid[s] = rows[s] >= 0 && vb[r];
+  }
+
+  // columns from the block's first row's word on, in chunks
+  for (int cs = (p0 >> 5) << 5; cs < E; cs += kChunk) {
+    const int ce = min(cs + kChunk, E);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int t = threadIdx.x; t < ce - cs; t += kBitsThreads) {
+      const float* gj = g + static_cast<size_t>(cs + t) * 5;
+      const float a = gj[2], b = gj[3], c = gj[4];
+      sx[t] = gj[0];
+      sy[t] = gj[1];
+      sa[t] = a;
+      sb[t] = b;
+      sc[t] = c;
+      sdet[t] = clamped_det(a, b, c);
+      sval[t] = vb[cs + t];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int r = rows[s];
+      if (r < 0) continue;  // the same for the whole warp
+      const int wend = min(We, (ce + 31) >> 5);
+      for (int w = max(r >> 5, cs >> 5); w < wend; ++w) {
+        const int j = (w << 5) + lane;
+        bool hit = false;
+        if (rvalid[s] && j > r && j < E && sval[j - cs]) {
+          const int t = j - cs;
+          hit = probiou(rx[s], ry[s], ra[s], rb[s], rc[s], rdet[s], sx[t], sy[t], sa[t], sb[t], sc[t], sdet[t]) > thr;
         }
+        const uint32_t word = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) out[static_cast<size_t>(r) * W + w] = word;
       }
     }
-    mask[i * W + w] = bits;
   }
-  __syncthreads();
-
-  if (threadIdx.x < 32) greedy_keep_walk(mask, svalid, keep + static_cast<size_t>(img) * K, K, W);
 }
 
 }  // namespace
 
-// gauss (B, K, 5) f32 [x, y, a, b, c], valid (B, K) bool, keep (B, K) bool;
-// all contiguous on the current device. Returns the cudaError_t of the launch.
-extern "C" int rotated_nms_keep_launch(const void* gauss, const void* valid, void* keep, int B, int K,
+// gauss (B, K, 5) f32 [x, y, a, b, c], valid (B, K) bool, keep (B, K) bool,
+// bits (B, K, ceil(K/32)) uint32 scratch; all contiguous on the current
+// device. Returns the cudaError_t of the launches.
+extern "C" int rotated_nms_keep_launch(const void* gauss, const void* valid, void* keep, void* bits, int B, int K,
                                        float thr, void* stream) {
-  if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = (K + 31) / 32;
-  const size_t smem = static_cast<size_t>(K) * 6 * sizeof(float) +
-                      static_cast<size_t>(K) * W * sizeof(uint32_t) + K;
-  cudaError_t err = cudaFuncSetAttribute(rotated_nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps);
+  probiou_bits_kernel<<<grid, kBitsThreads, 0, s>>>(static_cast<const float*>(gauss),
+                                                    static_cast<const uint8_t*>(valid),
+                                                    static_cast<uint32_t*>(bits), K, W, thr);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rotated_nms_keep_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gauss), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), K, thr);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(nms_walk::launch_greedy_walk(static_cast<const uint32_t*>(bits),
+                                                        static_cast<const uint8_t*>(valid),
+                                                        static_cast<uint8_t*>(keep), B, K, s));
 }

@@ -8,6 +8,8 @@ avoided a lane shuffle); output: (n, 4*Hm, Wm/2) uint8 of
 `bilinear_4x(soft) > 0.5` (half-pixel centres, clamped edges), packed
 MSB-first along W, bit-identical to `upsample4x_threshold_pack_reference`.
 
+The kernel skips the taps wherever no input near an output word is above
+0.5, which leaves the bytes exact (`csrc/mask_pack.cu`).
 `upsample4x_threshold_pack` takes the kernel for a CUDA tensor and the plain
 version for a CPU tensor; anything else raises.
 `upsample4x_threshold_pack.launches` counts kernel launches.

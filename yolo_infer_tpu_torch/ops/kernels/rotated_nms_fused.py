@@ -7,9 +7,11 @@ class-offset oriented boxes as their Gaussian terms (x, y, a, b, c) and a
 validity mask; output: the greedy keep mask, bit-identical to the fixpoint
 over the probIoU matrix of those terms (`rotated_nms_keep_reference`).
 
-`rotated_nms_keep` takes the kernel for a CUDA tensor and the plain version
-for a CPU tensor; anything else raises. `rotated_nms_keep.launches` counts
-kernel launches.
+The kernel takes any K up to `MAX_K` (the OBB serving pool is K = 1024,
+`Predictor(pre_topk=...)` raises it). `rotated_nms_keep` takes the kernel for
+a CUDA tensor and the plain version for a CPU tensor; anything else raises.
+`rotated_nms_keep.launches` counts calls that launched the kernel (one per
+call: the probIoU bits pass and the walk).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from yolo_infer_tpu_torch.ops.kernels._build import load_library
 
-MAX_K = 1024  # one block per image; the K x ceil(K/32) bitmask fits shared memory
+MAX_K = 8192  # the walk holds the removed set in at most 8 words per lane
 
 
 def rotated_nms_keep_reference(gauss: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
@@ -33,7 +35,7 @@ def rotated_nms_keep_reference(gauss: torch.Tensor, valid: torch.Tensor, iou_thr
 
 def _launcher():
     fn = load_library("rotated_nms_fused").rotated_nms_keep_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -53,12 +55,13 @@ def rotated_nms_keep(gauss: torch.Tensor, valid: torch.Tensor, iou_thres: float)
     if not (gauss.is_contiguous() and valid.is_contiguous()):
         raise ValueError("rotated_nms_keep: terms and valid must be contiguous")
     if k > MAX_K:
-        raise ValueError(f"rotated_nms_keep: K={k} > {MAX_K}")
+        raise ValueError(f"rotated_nms_keep: K={k} > MAX_K={MAX_K}")
     keep = torch.empty((b, k), dtype=torch.bool, device=gauss.device)
     if b == 0 or k == 0:
         return keep
+    bits = torch.empty((b, k, (k + 31) // 32), dtype=torch.int32, device=gauss.device)
     with torch.cuda.device(gauss.device):
-        err = _launcher()(gauss.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+        err = _launcher()(gauss.data_ptr(), valid.data_ptr(), keep.data_ptr(), bits.data_ptr(),
                           b, k, float(iou_thres), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rotated_nms_keep: CUDA error {err} at launch")

@@ -95,7 +95,7 @@ class PostTrainingQuantizer(QuantizationOptimizer):
         from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch
 
         model = self.model
-        pred = Predictor(copy.deepcopy(qmodel), model.spec, device=model.device, compute_dtype=model.compute_dtype)
+        pred = Predictor(qmodel, model.spec, device=model.device, compute_dtype=model.compute_dtype)
         agg: Optional[np.ndarray] = None
         for batch in self.calibration_data[: self.num_calibration_batches]:
             batch = np.asarray(batch)
