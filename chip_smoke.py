@@ -10,9 +10,13 @@ runs twenty phases, each printing one JSON line:
              and each library's tensor-core instructions in its SASS
              (`cuobjdump -sass`: HMMA, IMMA); B's library must hold HMMA and
              E's IMMA
-  2. nms     kernel A (`nms_keep`) vs its plain version on the card: B=32 random
-             candidates at K=384 and K=1024 and the 3-box suppression chain,
-             keep masks equal bit for bit
+  2. nms     kernel A (`nms_keep`) vs its plain version on the card (and on
+             the cpu up to K=1024), keep masks equal bit for bit: random
+             candidates at B=32 K=384 and 1024, B=4 K=4096 and B=2 K=8192,
+             a valid prefix of 0..384 at K=384, boxes holding NaN, +-inf and
+             zero-area entries at K=384 and 4096, and the 3-box suppression
+             chain; device time of each split into the IoU bits pass and the
+             walk (resident up to K=1024, strip-staged above); K=8193 raises
   3. attn    kernel B (`attention_qkv`) vs its plain version on the card: bf16
              (32, 400, 256) heads=2, (32, 400, 512) heads=4, (16, 1024, 256)
              heads=2 (the OBB shape) and (2, 37, 256) (a ragged key tile)
@@ -76,8 +80,10 @@ runs twenty phases, each printing one JSON line:
              the strided slice of a (16, 8400, 144) head slab, within 1e-5
  13. gnms    kernel G (`greedy_nms_keep`) vs its plain version on the card,
              bit-equal: random sorted candidates' IoU at (16, 4096), K = 1000
-             and 37 (not multiples of 32), an all-invalid image, and a
-             4096-box suppression chain (each box overlaps the next)
+             and 37 (not multiples of 32), an all-invalid image, (2, 8192),
+             (16, 4096) with a valid prefix of 300..3000, and a 4096-box
+             suppression chain (each box overlaps the next); device time of
+             each split into the bits pass and the walk
  14. val_fp32  `YOLO11Validator.validate` of yolo11n detect and pose (fp32,
              640 px, the val defaults: batch 16, conf 0.001, iou 0.6,
              multi-label, pre_topk 4096) on cuda and on cpu over seeded PNG
@@ -519,23 +525,46 @@ def phase_nms(report):
 
     rng = np.random.default_rng(SEED)
     out = {"phase": "nms", "cases": []}
-    for k in (384, 1024):
-        boxes, valid = random_candidates(rng, 32, k)
-        bx, va = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
-        got = nms_keep(bx, va, 0.45)
-        want_dev = nms_keep_reference(bx, va, 0.45)
-        want_cpu = nms_keep_reference(torch.from_numpy(boxes), torch.from_numpy(valid), 0.45)
+
+    def check(case, bx, va, thr=0.45):
+        got = nms_keep(bx, va, thr)
+        # the plain version one image at a time: its (K, K) temporaries are 268 MB each at K = 8192
+        want_dev = torch.cat([nms_keep_reference(bx[i:i + 1], va[i:i + 1], thr) for i in range(bx.shape[0])])
+        want_cpu = nms_keep_reference(bx.cpu(), va.cpu(), thr) if bx.shape[1] <= 1024 else want_dev.cpu()
         torch.cuda.synchronize()
         ok = torch.equal(got, want_dev) and torch.equal(got.cpu(), want_cpu)
-        out["cases"].append({"K": k, "B": 32, "kept": int(got.sum()), "equal": ok})
+        out["cases"].append({"case": case, "B": bx.shape[0], "K": bx.shape[1], "valid": int(va.sum()),
+                             "kept": int(got.sum()), "equal": ok, **a_time_split(bx, va, thr)})
         if not ok:
-            raise AssertionError(f"keep mask differs at K={k}: {int((got != want_dev).sum())} entries")
+            raise AssertionError(f"keep mask differs ({case}, K={bx.shape[1]}): {int((got != want_dev).sum())} entries")
+        return got
+
+    for b, k in ((32, 384), (32, 1024), (4, 4096), (2, 8192)):
+        boxes, valid = random_candidates(rng, b, k)
+        check("random", torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda())
+    # the serving pool's shape: score-sorted, valid = score > 0, a prefix
+    boxes, _ = random_candidates(rng, 32, 384)
+    prefix = torch.arange(384)[None] < torch.tensor([[0], [1], [31], [32], [33], [200], [383], [384]]).repeat(4, 1)
+    check("prefix", torch.from_numpy(boxes).cuda(), prefix.cuda())
+    # NaN, +-inf and zero-area boxes among random ones, at K = 384 and 4096
+    for b, k in ((32, 384), (4, 4096)):
+        boxes, valid = random_candidates(rng, b, k)
+        edge = np.array([np.nan, np.inf, -np.inf, 0.0, 640.0], np.float32)
+        boxes = np.where(rng.uniform(0, 1, boxes.shape) < 0.1, edge[rng.integers(0, 5, boxes.shape)], boxes)
+        boxes[:, ::9, 2:] = boxes[:, ::9, :2]  # zero area
+        check("nan, inf, zero area", torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda())
     chain = torch.tensor([[[0, 0, 100, 100], [40, 0, 140, 100], [80, 0, 180, 100], [500, 500, 510, 510]]],
                          dtype=torch.float32, device="cuda")
     kept = nms_keep(chain, torch.tensor([[True, True, True, False]], device="cuda"), 0.3)
     if kept.cpu().tolist() != [[True, False, True, False]]:
         raise AssertionError(f"suppression chain: {kept.cpu().tolist()}")
     out["cases"].append({"chain": True, "equal": True})
+    try:
+        nms_keep(torch.zeros((1, 8193, 4), device="cuda"), torch.ones((1, 8193), dtype=torch.bool, device="cuda"), 0.45)
+    except ValueError as exc:
+        out["k_8193"] = str(exc)
+    else:
+        raise AssertionError("nms_keep took K = 8193")
     return out
 
 
@@ -674,7 +703,7 @@ def phase_bf16(report):
         "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:86", "path": "detect b32 640 bf16",
         "launches": launches["nms_keep"],
         "max_abs_err": err_a,
-        "ms": device_ms(kernel_a), "plain_ms": device_ms(plain_a, iters=10),
+        **a_time_split(cboxes, valid, thr), "plain_ms": device_ms(plain_a, iters=10),
         "call_ms": cuda_ms(kernel_a), "plain_call_ms": cuda_ms(plain_a, iters=10),
         **bound(bytes_a, ops_a, H100_F32_OPS_UNFUSED),
         "library_ms": None,
@@ -777,16 +806,35 @@ def phase_rnms(report):
     return out
 
 
+def keep_time_split(call, bits_kernel: str):
+    """A keep-mask kernel's device time per call (torch.profiler over 10
+    calls of `call`), split into its two launches: the bits pass (the kernel
+    named `bits_kernel`) and the walk of nms_walk.cuh (resident for K <=
+    1024, strip-staged above)."""
+    named = kernel_profile(call, calls=10, named=(bits_kernel, "_walk_kernel"))["named"]
+    bits_ms, walk_ms = named[bits_kernel]["ms"], named["_walk_kernel"]["ms"]
+    return {"ms": bits_ms + walk_ms, "bits_ms": bits_ms, "walk_ms": walk_ms, "walk_share": walk_ms / (bits_ms + walk_ms)}
+
+
 def c_time_split(gauss, valid, thr):
-    """Kernel C's device time per call (torch.profiler over 10 calls), split
-    into its two launches: the probIoU bits pass and the walk (resident for
-    K <= 1024, strip-staged above)."""
+    """Kernel C's split (`keep_time_split`): the probIoU bits pass and the walk."""
     from yolo_infer_tpu_torch.ops.kernels.rotated_nms_fused import rotated_nms_keep
 
-    named = kernel_profile(lambda: rotated_nms_keep(gauss, valid, thr), calls=10,
-                           named=("probiou_bits_kernel", "_walk_kernel"))["named"]
-    bits_ms, walk_ms = named["probiou_bits_kernel"]["ms"], named["_walk_kernel"]["ms"]
-    return {"ms": bits_ms + walk_ms, "bits_ms": bits_ms, "walk_ms": walk_ms, "walk_share": walk_ms / (bits_ms + walk_ms)}
+    return keep_time_split(lambda: rotated_nms_keep(gauss, valid, thr), "probiou_bits_kernel")
+
+
+def a_time_split(cboxes, valid, thr):
+    """Kernel A's split (`keep_time_split`): the IoU bits pass and the walk."""
+    from yolo_infer_tpu_torch.ops.kernels.nms_fused import nms_keep
+
+    return keep_time_split(lambda: nms_keep(cboxes, valid, thr), "iou_bits_kernel")
+
+
+def g_time_split(iou, valid, thr):
+    """Kernel G's split (`keep_time_split`): the bits pass over the IoU and the walk."""
+    from yolo_infer_tpu_torch.ops.kernels.greedy_nms import greedy_nms_keep
+
+    return keep_time_split(lambda: greedy_nms_keep(iou, valid, thr), "suppression_bits_kernel")
 
 
 def d_skip_share(soft) -> float:
@@ -1111,21 +1159,25 @@ def phase_gnms(report):
 
     def check(case, iou, valid, thr):
         got = greedy_nms_keep(iou, valid, thr)
-        want = greedy_nms_keep_reference(iou, valid, thr)
+        # the plain version one image at a time: its (K, K) temporaries are 268 MB each at K = 8192
+        want = torch.cat([greedy_nms_keep_reference(iou[i:i + 1], valid[i:i + 1], thr) for i in range(iou.shape[0])])
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
         out["cases"].append({"case": case, "B": iou.shape[0], "K": iou.shape[1], "valid": int(valid.sum()),
-                             "kept": int(got.sum()), "equal": ok})
+                             "kept": int(got.sum()), "equal": ok, **g_time_split(iou, valid, thr)})
         if not ok:
             raise AssertionError(f"kernel G differs from its plain version ({case}): {int((got != want).sum())} entries")
         return got
 
-    for b, k in ((16, 4096), (4, 1000), (3, 37)):
+    for b, k, case in ((16, 4096, "random"), (4, 1000, "random"), (3, 37, "random, image 1 all invalid"),
+                       (2, 8192, "random"), (16, 4096, "prefix")):
         boxes, valid = random_candidates(rng, b, k)
         bx, va = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
         if k == 37:
             va[1] = False  # an image with no valid candidate
-        check("random" if k != 37 else "random, image 1 all invalid", box_iou_matrix(bx, bx), va, 0.6)
+        if case == "prefix":  # the pool's shape: score-sorted, valid = score > conf, a prefix of 300..3000
+            va = torch.arange(k, device="cuda")[None] < torch.from_numpy(rng.integers(300, 3000, (b, 1))).cuda()
+        check(case, box_iou_matrix(bx, bx), va, 0.6)
     # box i overlaps box i+1 at IoU 0.5 and box i+2 at 0.2: greedy keeps every other box
     x = torch.arange(4096, dtype=torch.float32, device="cuda")[:, None] * 10
     chain = torch.cat([x, torch.zeros_like(x), x + 30, torch.full_like(x, 10)], 1)[None]
@@ -1346,7 +1398,7 @@ def _val_bf16(report, pred, spec, frames, root: Path):
         "name": "greedy_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/nms_kernel.py:48", "path": val_path,
         "launches": launches["greedy_nms_keep"], "max_abs_err": err_g,
-        "ms": device_ms(kernel_g), "plain_ms": device_ms(plain_g, iters=3),
+        **g_time_split(iou, valid, thr), "plain_ms": device_ms(plain_g, iters=3),
         "call_ms": cuda_ms(kernel_g, iters=20), "plain_call_ms": cuda_ms(plain_g, iters=3, warmup=1),
         **bound(bytes_g, pairs_g, H100_F32_FLOPS),
         "library_ms": None, "shape": [bk, k, k], "valid": int(valid.sum()),

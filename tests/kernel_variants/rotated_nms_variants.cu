@@ -14,6 +14,7 @@
 //       chain per candidate, in place of the register chain of walk_strip)
 
 #include "rotated_nms_fused.cu"
+#include "keep_walk.cuh"
 
 namespace {
 

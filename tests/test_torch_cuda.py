@@ -77,13 +77,32 @@ def test_wrappers_take_the_plain_versions_for_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [384, 1024])
-def test_keep_kernel_is_bit_equal_to_the_plain_version(card, k):
-    boxes, valid = _candidates(k, 8, k)
+@pytest.mark.parametrize("k,kind", [(37, "random"), (384, "random"), (1024, "random"), (4096, "random"),
+                                    (8192, "random"), (384, "prefix"), (4096, "prefix"), (384, "nan_inf"),
+                                    (4096, "nan_inf")])
+def test_keep_kernel_is_bit_equal_to_the_plain_version(card, k, kind):
+    """Random candidates, a valid prefix (the serving pool: the bits pass and
+    the walk stop at its end) and boxes holding NaN, +-inf and zero areas
+    (torch.maximum, torch.minimum and clamp pass NaN through)."""
+    b = 8 if k <= 1024 else 2
+    boxes, valid = _candidates(k, b, k)
+    if kind == "prefix":
+        valid = torch.arange(k)[None] < torch.tensor([[0], [1], [33], [k // 2], [k - 1], [k], [31], [32]])[:b]
+    if kind == "nan_inf":
+        rng = np.random.default_rng(k)
+        edge = torch.tensor([np.nan, np.inf, -np.inf, 0.0, 640.0], dtype=torch.float32)
+        pick = torch.from_numpy(rng.uniform(0, 1, tuple(boxes.shape)) < 0.1)
+        boxes = torch.where(pick, edge[torch.from_numpy(rng.integers(0, 5, tuple(boxes.shape)))], boxes)
+        boxes[:, ::9, 2:] = boxes[:, ::9, :2]
     before = nms_fused.nms_keep.launches
     got = nms_fused.nms_keep(boxes.to(card), valid.to(card), 0.45)
     assert nms_fused.nms_keep.launches == before + 1
-    assert torch.equal(got.cpu(), nms_fused.nms_keep_reference(boxes, valid, 0.45))
+    # the plain version one image at a time on the card: (K, K) temporaries of 268 MB at K = 8192
+    want = torch.cat([nms_fused.nms_keep_reference(boxes[i:i + 1].to(card), valid[i:i + 1].to(card), 0.45)
+                      for i in range(b)])
+    assert torch.equal(got, want)
+    if k <= 1024:
+        assert torch.equal(got.cpu(), nms_fused.nms_keep_reference(boxes, valid, 0.45))
 
 
 @pytest.mark.cuda
@@ -202,6 +221,9 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(card):
         nms_fused.nms_keep(boxes.transpose(0, 1).contiguous().transpose(0, 1), v, 0.45)
     with pytest.raises(ValueError, match="float32"):
         nms_fused.nms_keep(boxes.half(), v, 0.45)
+    with pytest.raises(ValueError, match="MAX_K=8192"):
+        nms_fused.nms_keep(torch.zeros((1, 8193, 4), device=card), torch.ones((1, 8193), dtype=torch.bool,
+                                                                              device=card), 0.45)
 
 
 @pytest.mark.cuda
@@ -237,7 +259,7 @@ def test_dfl_kernel_matches_the_plain_version(card, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(2, 4096), (4, 1000), (3, 37)])
+@pytest.mark.parametrize("b,k", [(2, 4096), (4, 1000), (3, 37), (2, 8192)])
 def test_greedy_keep_kernel_is_bit_equal_to_the_plain_version(card, b, k):
     boxes, valid = _candidates(k + 1, b, k)
     boxes, valid = boxes.to(card), valid.to(card)
@@ -246,7 +268,8 @@ def test_greedy_keep_kernel_is_bit_equal_to_the_plain_version(card, b, k):
     before = greedy_nms.greedy_nms_keep.launches
     got = greedy_nms.greedy_nms_keep(iou, valid, 0.6)
     assert greedy_nms.greedy_nms_keep.launches == before + 1
-    assert torch.equal(got, greedy_nms.greedy_nms_keep_reference(iou, valid, 0.6))
+    want = torch.cat([greedy_nms.greedy_nms_keep_reference(iou[i:i + 1], valid[i:i + 1], 0.6) for i in range(b)])
+    assert torch.equal(got, want)
     assert not got[-1].any()
 
 

@@ -1,9 +1,9 @@
-"""Where kernels B, C, D, E and G spend their time on the card: the breakdown PERF.md cites.
+"""Where kernels A, B, C, D, E and G spend their time on the card: the breakdown PERF.md cites.
 
 Run from the repository root on a machine with an NVIDIA card (no jax
 needed): `python tests/torch_kernel_breakdown.py [int8_conv] [attention_qkv]
-[mask_pack] [rotated_nms] [greedy_nms]` (all five by default), a few
-minutes. It compiles variants of the port's kernels, from patched copies of
+[mask_pack] [rotated_nms] [greedy_nms] [nms_keep]` (all six by default), a
+few minutes. It compiles variants of the port's kernels, from patched copies of
 `csrc/*.cu` and their headers and from the alternative designs in
 `tests/kernel_variants/`, in a temporary directory (the port's sources and
 built libraries are not touched), puts each in place of the port's library
@@ -40,13 +40,39 @@ for the timed calls, and prints one JSON line per kernel and input:
                  C replaced. CUDA events time each call; the kernels as
                  built are also profiled alone (`profiled_*`: the bits pass
                  and the walk)
-  greedy_nms     G at chip_smoke.py's random (16, 4096) and (4, 1000)
-                 inputs: as built, and with the branching walk
+  greedy_nms     G at chip_smoke.py's phase-13 inputs: random (16, 4096),
+                 (4, 1000) and (2, 8192), and (16, 4096) with a valid prefix
+                 of 300..3000: as built (the walk's words staged 16 strips
+                 ahead, the kept rows ORed by the helper warps from global
+                 memory, 4 words a lane at once); with 4 stages; with the
+                 decision as a mask in place of a predicate (chain_mask) or
+                 as PTX (a predicate and ORs under it, chain_ptx); with the
+                 helpers reading 2 words a lane at once (helper_words2);
+                 with warp 0 carrying 2
+                 or 3 words past its own (carry2, carry3); diagnostics,
+                 wrong on purpose: warp 0 alone without helpers
+                 (diag_walk_alone), and that without the decision chain
+                 (diag_walk_alone_no_chain); the ring-staged walk of
+                 tests/kernel_variants/ring_walk.cuh (whole strips staged by
+                 one cp.async.bulk per row, the helpers ORing out of the
+                 ring), the same with warp 0 ORing every word itself
+                 (ring_bulk_single_or) and staged by 16-byte cp.async
+                 (ring_cp_async); this bits pass with the earlier walk (two
+                 strip buffers staged by 4-byte cp.async, a __syncthreads
+                 per strip: two_buffer_walk); the earlier G (a warp per row
+                 with 4-byte loads, then that walk: scalar_bits_two_buffer).
+                 Each also profiled alone (`*_bits_ms`, `*_walk_ms`)
+  nms_keep       A at B = 32 on random candidates (85% valid) at K = 160,
+                 384 and 1024, and on chip_smoke.py's detect path input
+                 (b32/640 bf16, K = 384): as built (the IoU bits pass on
+                 every SM, then the resident walk), against the one-block
+                 kernel it replaced (tests/kernel_variants/nms_fused_variants.cu)
 
 Device times are CUDA events around each call, the calls queued behind a
 sleep (`chip_smoke.device_ms_each`). E's and B's variants compute wrong
-values on purpose; C's, D's and G's variants are exact designs, and every
-one is held to its plain version before it is timed.
+values on purpose, and so do G's `diag_*` variants; A's, C's, D's and G's
+other variants are exact designs, and every one is held to its plain version
+before it is timed.
 """
 
 import copy
@@ -68,6 +94,7 @@ import yolo_infer_tpu_torch.models.blocks as blocks_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import _build  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import attention_fused as attn_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import greedy_nms as g_mod  # noqa: E402
+from yolo_infer_tpu_torch.ops.kernels import nms_fused as a_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import int8_conv as e_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import mask_pack as d_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import rotated_nms_fused as c_mod  # noqa: E402
@@ -105,12 +132,47 @@ C_BRANCHY = [("    const uint32_t take = 0u - ((vbits & ~cur) >> t & 1u);  // al
               "      if (g < wpl && c >= w && c < We) removed[g] |= row[c];")]
 C_STRIP = ("  const bool resident = K <= kNmsMaxK;", "  const bool resident = false;")
 C_VARIANTS = {"as_built": [], "strip_walk": [C_STRIP], "branchy": C_BRANCHY, "strip_walk_branchy": [C_STRIP, *C_BRANCHY]}
-G_VARIANTS = {"as_built": [], "branchy": C_BRANCHY}
+G_STAGES = "constexpr int kWalkStages = 16;"
+# the decision as a mask computed from the bit (shift, and, subtract), ANDed
+# into the ORs, in place of a predicate
+G_CHAIN_MASK = ("        if (!(cur & (1u << t))) {\n          cur |= diag[t];\n#pragma unroll\n"
+                "          for (int d = 0; d < kWalkCarry; ++d) add[d] |= next[d][t];\n        }",
+                "        const uint32_t take = ((cur >> t) & 1u) - 1u;\n        cur |= diag[t] & take;\n#pragma unroll\n"
+                "        for (int d = 0; d < kWalkCarry; ++d) add[d] |= next[d][t] & take;")
+# the decision written in PTX as a bit test setting a predicate and two ORs
+# under it, so no select stands between the test and the OR on the chain
+G_CHAIN_PTX = ("        if (!(cur & (1u << t))) {\n          cur |= diag[t];\n#pragma unroll\n"
+               "          for (int d = 0; d < kWalkCarry; ++d) add[d] |= next[d][t];\n        }",
+               "        asm(\"{\\n.reg .pred p;\\n.reg .b32 b;\\nand.b32 b, %0, %2;\\nsetp.eq.u32 p, b, 0;\\n\"\n"
+               "            \"@p or.b32 %0, %0, %3;\\n@p or.b32 %1, %1, %4;\\n}\\n\"\n"
+               "            : \"+r\"(cur), \"+r\"(add[0]) : \"r\"(1u << t), \"r\"(diag[t]), \"r\"(next[0][t]));")
+G_CARRY = "constexpr int kWalkCarry = 1;"
+G_HELPER_WORDS = "constexpr int kHelperWords = 4;"
+# diagnostics, wrong on purpose (not held to the plain version): warp 0 alone,
+# with no helper warps and no wait on them; and that with no decision chain
+# (so no loads of the strip's words either)
+G_NO_HELPERS = [("      if (helped >= 0) mbar_wait(&ored_bar[helped % kHandoff], (helped / kHandoff) & 1);\n"
+                 "      uint32_t cur = sremoved[w]", "      uint32_t cur = sremoved[w]"),
+                ("  } else {\n    // helpers:", "  } else if (false) {\n    // helpers:")]
+G_NO_CHAIN = ("        if (!(cur & (1u << t))) {", "        if (t < 0) {")
+G_VARIANTS = {"as_built": [], "stages4": [(G_STAGES, G_STAGES.replace("16", "4"))], "chain_mask": [G_CHAIN_MASK],
+              "chain_ptx": [G_CHAIN_PTX], "helper_words2": [(G_HELPER_WORDS, G_HELPER_WORDS.replace("4", "2"))],
+              "carry2": [(G_CARRY, G_CARRY.replace("1", "2"))], "carry3": [(G_CARRY, G_CARRY.replace("1", "3"))],
+              "diag_walk_alone": G_NO_HELPERS, "diag_walk_alone_no_chain": [*G_NO_HELPERS, G_NO_CHAIN]}
+G_DESIGNS = {"ring_bulk": ("greedy_nms_variants.cu", "greedy_nms_ring_bulk_launch"),
+             "ring_bulk_single_or": ("greedy_nms_variants.cu", "greedy_nms_ring_bulk_single_or_launch"),
+             "ring_cp_async": ("greedy_nms_variants.cu", "greedy_nms_ring_cp_async_launch"),
+             "two_buffer_walk": ("greedy_nms_variants.cu", "greedy_nms_two_buffer_walk_launch"),
+             "scalar_bits_two_buffer": ("greedy_nms_variants.cu", "greedy_nms_scalar_bits_launch")}
+# the bits-pass kernel each G build launches (the walks' names end in _walk_kernel)
+G_BITS = {"scalar_bits_two_buffer": "scalar_bits_kernel"}
+A_DESIGNS = {"one_block": ("nms_fused_variants.cu", "nms_keep_one_block_launch")}
 C_DESIGNS = {"keep_walk": ("rotated_nms_variants.cu", "rotated_nms_keep_walk_launch"),
              "one_block": ("rotated_nms_variants.cu", "rotated_nms_one_block_launch")}
 VARIANTS_DIR = Path(__file__).resolve().parent / "kernel_variants"
 ENTRY = {"int8_conv": "int8_conv_launch", "attention_fused": "attn_qkv_launch", "mask_pack": "mask_pack_launch",
-         "rotated_nms_fused": "rotated_nms_keep_launch", "greedy_nms": "greedy_nms_launch"}
+         "rotated_nms_fused": "rotated_nms_keep_launch", "greedy_nms": "greedy_nms_launch",
+         "nms_fused": "nms_keep_launch"}
 
 
 def start_variant(name: str, tag: str, patches, out_dir: Path):
@@ -146,7 +208,7 @@ def launcher(lib, name: str, entry: str = ""):
     types the port's wrapper sets."""
     fn = getattr(lib, entry or ENTRY[name])
     port = {"int8_conv": e_mod, "attention_fused": attn_mod, "mask_pack": d_mod,
-            "rotated_nms_fused": c_mod, "greedy_nms": g_mod}[name]._launcher()
+            "rotated_nms_fused": c_mod, "greedy_nms": g_mod, "nms_fused": a_mod}[name]._launcher()
     fn.argtypes, fn.restype = port.argtypes, port.restype
     return fn
 
@@ -188,12 +250,13 @@ def main() -> int:
         print("torch_kernel_breakdown: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cudnn.allow_tf32 = False
-    wanted = sys.argv[1:] or ["int8_conv", "attention_qkv", "mask_pack", "rotated_nms", "greedy_nms"]
+    wanted = sys.argv[1:] or ["int8_conv", "attention_qkv", "mask_pack", "rotated_nms", "greedy_nms", "nms_keep"]
     print(cs.card_line(), flush=True)
     sources = {"int8_conv": ("int8_conv", E_VARIANTS, {}), "attention_qkv": ("attention_fused", B_VARIANTS, {}),
                "mask_pack": ("mask_pack", D_VARIANTS, D_DESIGNS),
                "rotated_nms": ("rotated_nms_fused", C_VARIANTS, C_DESIGNS),
-               "greedy_nms": ("greedy_nms", G_VARIANTS, {})}
+               "greedy_nms": ("greedy_nms", G_VARIANTS, G_DESIGNS),
+               "nms_keep": ("nms_fused", {"as_built": []}, A_DESIGNS)}
     with tempfile.TemporaryDirectory(prefix="kernel_breakdown_") as tmp:
         builds = {}  # every nvcc at once
         for name, variants, designs in (sources[k] for k in wanted):
@@ -219,6 +282,8 @@ def main() -> int:
             rotated_nms_breakdown(libs)
         if "greedy_nms" in wanted:
             greedy_nms_breakdown(libs)
+        if "nms_keep" in wanted:
+            nms_keep_breakdown(libs)
         if "int8_conv" in wanted:
             int8_conv_breakdown(libs)
         if "attention_qkv" in wanted:
@@ -329,31 +394,83 @@ def rotated_nms_breakdown(libs):
 
 
 def greedy_nms_breakdown(libs):
-    """G (which launches the same walk as C) on chip_smoke.py's phase-13
-    random inputs: IoU of (16, 4096) and (4, 1000) random boxes, 0.6."""
+    """G (which launches the same walk as A and C) on chip_smoke.py's
+    phase-13 inputs: IoU of random boxes at 0.6."""
     from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
 
     rng = np.random.default_rng(cs.SEED + 10)
     port_g, failed = g_mod._launcher, []
     try:
-        for b, k in ((16, 4096), (4, 1000)):
+        for b, k, case in ((16, 4096, "random"), (4, 1000, "random"), (2, 8192, "random"), (16, 4096, "prefix")):
             boxes, valid = (torch.from_numpy(a).cuda() for a in cs.random_candidates(rng, b, k))
+            if case == "prefix":
+                valid = torch.arange(k, device="cuda")[None] < torch.from_numpy(rng.integers(300, 3000, (b, 1))).cuda()
             iou = box_iou_matrix(boxes, boxes)
-            want = g_mod.greedy_nms_keep_reference(iou, valid, 0.6)
-            row = {"kernel": "greedy_nms_keep", "case": f"K={k} random", "shape": list(iou.shape),
+            want = torch.cat([g_mod.greedy_nms_keep_reference(iou[i:i + 1], valid[i:i + 1], 0.6) for i in range(b)])
+            row = {"kernel": "greedy_nms_keep", "case": f"K={k} {case}", "shape": list(iou.shape),
                    "valid": int(valid.sum())}
-            for tag in G_VARIANTS:
+            for tag in [*G_VARIANTS, *G_DESIGNS]:
                 fn = variant_launcher(libs, "greedy_nms", tag)
                 g_mod._launcher = lambda fn=fn: fn
-                if not torch.equal(g_mod.greedy_nms_keep(iou, valid, 0.6), want):
-                    failed.append(f"{tag} (K={k})")
+                if not torch.equal(g_mod.greedy_nms_keep(iou, valid, 0.6), want) and not tag.startswith("diag_"):
+                    failed.append(f"{tag} ({case}, K={k})")
                 row[tag + "_ms"] = float(np.median(cs.device_ms_each([lambda: g_mod.greedy_nms_keep(iou, valid, 0.6)],
                                                                      iters=10)))
+                split = cs.keep_time_split(lambda: g_mod.greedy_nms_keep(iou, valid, 0.6),
+                                           G_BITS.get(tag, "suppression_bits_kernel"))
+                row[tag + "_bits_ms"], row[tag + "_walk_ms"] = split["bits_ms"], split["walk_ms"]
             cs.emit(row)
+            del iou, want
     finally:
         g_mod._launcher = port_g
     if failed:
         raise AssertionError(f"kernel G differs from its plain version: {failed}")
+
+
+def detect_path_boxes():
+    """A's input on chip_smoke.py's detect path (phase 5: yolo11n bf16,
+    b32/640, the phase-4 weights)."""
+    import yolo_infer_tpu_torch.ops.nms as nms_ops
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+
+    calib = np.random.default_rng(cs.SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    model, spec = cs.smoke_weights(calib)
+    frames = np.random.default_rng(cs.SEED + 3).integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
+    pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
+    seen = {}
+    restore = cs.capture_inputs(nms_ops, "nms_keep", seen)
+    try:
+        pred.predict(frames, conf=0.25)
+    finally:
+        restore()
+    return seen["nms_keep"]
+
+
+def nms_keep_breakdown(libs):
+    rng = np.random.default_rng(cs.SEED)
+    cases = [(f"K={k} random", *(torch.from_numpy(a).cuda() for a in cs.random_candidates(rng, 32, k)), 0.45)
+             for k in (160, 384, 1024)]
+    cases.append(("detect path", *detect_path_boxes()))
+    port_a, failed = a_mod._launcher, []
+    try:
+        for case, boxes, valid, thr in cases:
+            want = a_mod.nms_keep_reference(boxes, valid, thr)
+            row = {"kernel": "nms_keep", "case": case, "shape": list(boxes.shape), "valid": int(valid.sum())}
+            for tag in ["as_built", *A_DESIGNS]:
+                fn = variant_launcher(libs, "nms_fused", tag)
+                a_mod._launcher = lambda fn=fn: fn
+                if not torch.equal(a_mod.nms_keep(boxes, valid, thr), want):
+                    failed.append(f"{tag} ({case})")
+                row[tag + "_ms"] = float(np.median(cs.device_ms_each([lambda: a_mod.nms_keep(boxes, valid, thr)],
+                                                                     iters=10)))
+            a_mod._launcher = port_a
+            # the port's kernels alone (torch.profiler): no gap between the two launches
+            row.update({"profiled_" + k: v for k, v in cs.a_time_split(boxes, valid, thr).items()})
+            cs.emit(row)
+    finally:
+        a_mod._launcher = port_a
+    if failed:
+        raise AssertionError(f"kernel A differs from its plain version: {failed}")
 
 
 def int8_conv_breakdown(libs):

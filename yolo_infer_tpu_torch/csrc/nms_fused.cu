@@ -1,114 +1,160 @@
-// Greedy-NMS keep mask over score-sorted, class-offset candidates.
+// Greedy-NMS keep mask over score-sorted, class-offset candidates (kernel A).
 //
 // Replaces: nms_keep_pallas (yolo_infer_tpu/ops/pallas/nms_fused.py), the TPU
 // kernel that builds each image's (K, K) IoU in VMEM and sweeps the greedy
 // fixpoint to stability.
 //
 // What bounds it on the H100: not bytes (16 B of box and 1 B of flag in, 1 B
-// out per candidate) and not arithmetic (K^2/2 IoUs, ~74 k at K = 384), but
-// the greedy walk, which is serial in the candidate rank.
+// out per candidate) and hardly arithmetic (K^2/2 IoUs, ~74 k per image at
+// the serving pool of K = 384), but the greedy walk, serial in the candidate
+// rank, and the latency of each launch. The earlier design, one block per image
+// that built every IoU with a division and then walked the shared-memory mask
+// one candidate at a time, ran on 32 of 132 SMs at the detect batch.
 //
-// Design: one block per image, any K <= 1024.
-//   Phase 1: all threads build the strictly upper-triangular suppression
-//   bitmask in shared memory, K rows of ceil(K/32) 32-bit words (bit j of row
-//   i: i < j and iou(i, j) > thr). 18 KB at K = 384, 128 KB at K = 1024, so
-//   the launch asks for dynamic shared memory above 48 KB.
-//   Phase 2: one warp walks i = 0..K-1 (nms_walk.cuh, shared with kernel C).
-//   Lane w holds word w of the removed set (K <= 1024 means at most 32
-//   words); candidate i is kept when it is valid and not removed, and then
-//   its row is ORed into the removed set. Every lane carries a copy of the
-//   word under the walk, so a decision costs a bit test and two ORs, not a
-//   shuffle.
+// Design: two launches, kernel C's shape (rotated_nms_fused.cu), any K <= 8192.
+//   Bits: a grid over (image, row pairs), one warp per pair of candidate rows
+//   p and E-1-p, so every warp takes E-1 columns and the blocks finish
+//   together over the triangle (E is one past the image's last valid
+//   candidate, found by each block from the flags). The lanes take 32
+//   consecutive columns j, compute IoU(i, j) in place (never stored), and
+//   __ballot_sync packs `> thr` into bit j%32 of word j/32 of row i. Column
+//   boxes, areas and flags are staged in shared memory in chunks of 512
+//   columns. Pairs with j <= i, j >= E or an invalid j are 0 without the IoU,
+//   and so is every pair of a box with a NaN coordinate (its IoU is NaN); an
+//   invalid row is not written (the walk never keeps it, so never reads it).
+//   The (B, K, bits_stride(K)) uint32 scratch is 0.6 MB at K = 384, B = 32.
+//   Walk: nms_walk.cuh's, the one C and G launch: for K <= 1024 the whole
+//   mask resident in shared memory and walked without a sync (the serving
+//   pool of 384), above that strip-staged with helper warps.
 // Sequential greedy is the fixpoint's limit, so the mask is bit-identical to
 // the plain version (ops/nms.py _nms_fixpoint over ops/iou.py
 // box_iou_matrix) as long as every IoU rounds the same way: the IoU is
 // written with explicitly rounded operations in box_iou_matrix's order,
-// inter / (area_i + area_j - inter + eps), and the file is built with
-// --fmad=false so nothing is contracted into an FMA.
+// inter / (area_i + area_j - inter + eps), clamp(min=0) passes NaN through as
+// PyTorch's does (fmaxf would drop it), a NaN coordinate (which makes
+// torch.maximum / torch.minimum NaN) clears every pair of its box, and the
+// file is built with --fmad=false so nothing is contracted into an FMA.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "nms_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBitsWarps = 4;
+constexpr int kBitsThreads = kBitsWarps * 32;
+constexpr int kChunk = 512;  // columns staged at a time (a multiple of 32)
+constexpr float kEps = 1e-7f;
 
-__device__ __forceinline__ float box_area(const float4 b) {
-  return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f), fmaxf(__fsub_rn(b.w, b.y), 0.f));
+// torch.clamp keeps a NaN (inf - inf makes one) where fmaxf would drop it
+__device__ __forceinline__ float clamp_min0(float v) { return isnan(v) ? v : fmaxf(v, 0.f); }
+
+// torch.maximum / torch.minimum return NaN when either side is NaN, so a box
+// with a NaN coordinate has a NaN IoU with every box, and never suppresses
+// nor is suppressed: such boxes are flagged once, and between two boxes
+// without NaN fminf / fmaxf are torch.minimum / torch.maximum (up to the sign
+// of a zero, which no compare below can see)
+__device__ __forceinline__ bool has_nan(const float4 b) {
+  return isnan(b.x) || isnan(b.y) || isnan(b.z) || isnan(b.w);
 }
 
-__global__ void __launch_bounds__(kThreads)
-nms_keep_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid,
-                uint8_t* __restrict__ keep, int K, float thr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int W = (K + 31) >> 5;
-  float4* sbox = reinterpret_cast<float4*>(smem);             // K boxes
-  float* sarea = reinterpret_cast<float*>(sbox + K);          // K areas
-  uint32_t* mask = reinterpret_cast<uint32_t*>(sarea + K);    // K x W words
-  uint8_t* svalid = reinterpret_cast<uint8_t*>(mask + K * W); // K flags
+__device__ __forceinline__ float box_area(const float4 b) {
+  return __fmul_rn(clamp_min0(__fsub_rn(b.z, b.x)), clamp_min0(__fsub_rn(b.w, b.y)));
+}
+
+// `iou(a, c) > thr` in ops/iou.py box_iou_matrix's order, a the row's box;
+// neither box has a NaN coordinate
+__device__ __forceinline__ bool iou_above(const float4 a, float area_a, const float4 c, float area_c, float thr) {
+  const float iw = clamp_min0(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x)));
+  const float ih = clamp_min0(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y)));
+  const float inter = __fmul_rn(iw, ih);
+  const float areas = __fadd_rn(area_a, area_c);
+  // an empty intersection gives 0 / (areas + eps): +0 when the areas are
+  // finite or +inf, NaN when they are NaN; the division only where boxes meet
+  if (inter == 0.f) return !isnan(areas) && 0.f > thr;
+  return __fdiv_rn(inter, __fadd_rn(__fsub_rn(areas, inter), kEps)) > thr;
+}
+
+__global__ void __launch_bounds__(kBitsThreads)
+iou_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid,
+                uint32_t* __restrict__ bits, int K, int W, float thr) {
+  __shared__ float4 sbox[kChunk];
+  __shared__ float sarea[kChunk];
+  __shared__ uint8_t sval[kChunk];  // valid, and no NaN coordinate
 
   const int img = blockIdx.x;
+  const int lane = threadIdx.x & 31;
   const float4* bx = boxes + static_cast<size_t>(img) * K;
   const uint8_t* vb = valid + static_cast<size_t>(img) * K;
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    const float4 b = bx[i];
-    sbox[i] = b;
-    sarea[i] = box_area(b);
-    svalid[i] = vb[i];
-  }
-  __syncthreads();
+  uint32_t* out = bits + static_cast<size_t>(img) * K * W;
 
-  // an empty intersection gives iou = 0 / (area_i + area_j + eps) = +0 exactly
-  // (areas are >= 0), so the division is needed only where boxes meet
-  const bool zero_suppresses = 0.f > thr;
-  // consecutive threads take consecutive rows i of one word column w, so a
-  // warp reads the same box j at each step (a broadcast, not a bank conflict)
-  for (int idx = threadIdx.x; idx < K * W; idx += kThreads) {
-    const int w = idx / K;
-    const int i = idx - w * K;
-    const int j0 = w << 5;
-    uint32_t bits = 0;
-    if (j0 + 31 > i) {  // the word holds some j > i
-      const float4 a = sbox[i];
-      const float area_a = sarea[i];
-      const int jend = min(j0 + 32, K);
-      for (int j = max(j0, i + 1); j < jend; ++j) {
-        const float4 c = sbox[j];
-        const float iw = fmaxf(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x)), 0.f);
-        const float ih = fmaxf(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y)), 0.f);
-        const float inter = __fmul_rn(iw, ih);
-        bool sup = zero_suppresses;
-        if (inter != 0.f) {
-          const float uni = __fsub_rn(__fadd_rn(area_a, sarea[j]), inter);
-          sup = __fdiv_rn(inter, __fadd_rn(uni, 1e-7f)) > thr;
-        }
-        if (sup) bits |= 1u << (j - j0);
+  const int E = nms_walk::valid_end(vb, K);
+  const int pairs = (E + 1) >> 1;
+  const int p0 = blockIdx.y * kBitsWarps;
+  if (p0 >= pairs) return;  // the whole block: E is the same for all its threads
+  const int We = (E + 31) >> 5;
+
+  // this warp's rows: p and E-1-p (one row where they meet, none past the
+  // pairs); an invalid row is skipped, a row with a NaN is all zeros
+  const int p = p0 + (threadIdx.x >> 5);
+  int rows[2] = {p < pairs ? p : -1, (p < pairs && E - 1 - p != p) ? E - 1 - p : -1};
+  float4 rbox[2];
+  float rarea[2];
+  bool rnan[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (rows[s] >= 0 && !vb[rows[s]]) rows[s] = -1;
+    rbox[s] = bx[rows[s] < 0 ? 0 : rows[s]];
+    rarea[s] = box_area(rbox[s]);
+    rnan[s] = has_nan(rbox[s]);
+  }
+
+  // columns from the block's first row's word on, in chunks
+  for (int cs = (p0 >> 5) << 5; cs < E; cs += kChunk) {
+    const int ce = min(cs + kChunk, E);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int t = threadIdx.x; t < ce - cs; t += kBitsThreads) {
+      const float4 b = bx[cs + t];
+      sbox[t] = b;
+      sarea[t] = box_area(b);
+      sval[t] = vb[cs + t] && !has_nan(b);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int r = rows[s];
+      if (r < 0) continue;  // the same for the whole warp
+      const int wend = min(We, (ce + 31) >> 5);
+      for (int w = max(r >> 5, cs >> 5); w < wend; ++w) {
+        const int j = (w << 5) + lane;
+        const int t = j - cs;
+        const bool hit =
+            j > r && j < E && !rnan[s] && sval[t] && iou_above(rbox[s], rarea[s], sbox[t], sarea[t], thr);
+        const uint32_t word = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) out[static_cast<size_t>(r) * W + w] = word;
       }
     }
-    mask[i * W + w] = bits;
   }
-  __syncthreads();
-
-  if (threadIdx.x < 32) greedy_keep_walk(mask, svalid, keep + static_cast<size_t>(img) * K, K, W);
 }
 
 }  // namespace
 
-// boxes (B, K, 4) f32, valid (B, K) bool, keep (B, K) bool; all contiguous on
-// the current device. Returns the cudaError_t of the launch.
-extern "C" int nms_keep_launch(const void* boxes, const void* valid, void* keep, int B, int K,
+// boxes (B, K, 4) f32 (16-byte aligned), valid (B, K) bool, keep (B, K) bool,
+// bits (B, K, bits_stride(K)) uint32 scratch; all contiguous on the current
+// device. Returns the cudaError_t of the launches.
+extern "C" int nms_keep_launch(const void* boxes, const void* valid, void* keep, void* bits, int B, int K,
                                float thr, void* stream) {
-  if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  const int W = (K + 31) / 32;
-  const size_t smem = static_cast<size_t>(K) * (sizeof(float4) + sizeof(float)) +
-                      static_cast<size_t>(K) * W * sizeof(uint32_t) + K;
-  cudaError_t err = cudaFuncSetAttribute(nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  if (B < 1 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  const int W = nms_walk::bits_stride(K);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps);
+  iou_bits_kernel<<<grid, kBitsThreads, 0, s>>>(static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
+                                                static_cast<uint32_t*>(bits), K, W, thr);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_keep_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), K, thr);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(nms_walk::launch_greedy_walk(static_cast<const uint32_t*>(bits),
+                                                        static_cast<const uint8_t*>(valid),
+                                                        static_cast<uint8_t*>(keep), B, K, s));
 }

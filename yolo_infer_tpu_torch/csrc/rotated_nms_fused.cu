@@ -26,10 +26,11 @@
 //   never ORed in, and its own bit is never consulted, so the keep mask is
 //   exact. With the valid candidates a prefix of V (serving: scores sorted,
 //   valid = score > 0) the work is V^2/2 pairs, on every SM. The (B, K,
-//   ceil(K/32)) uint32 mask is 2 MB at B = 16, K = 1024; 128 MB at K = 8192.
-//   Walk: nms_walk.cuh's, the one kernel G launches: for K <= 1024 the
+//   bits_stride(K)) uint32 mask is 2 MB at B = 16, K = 1024; 128 MB at K = 8192.
+//   Walk: nms_walk.cuh's, the one kernels A and G launch: for K <= 1024 the
 //   whole mask resident in shared memory and walked without a sync (the
-//   OBB serving pool), above that staged in 32-row strips.
+//   OBB serving pool), above that strip-staged with the kept rows' OR split
+//   off to helper warps.
 // The mask must equal the plain version's (ops/nms.py _nms_fixpoint over
 // ops/rotated.py probiou_gauss_matrix on the card) bit for bit, so the
 // probIoU is written in _probiou_from_terms's order with every operation
@@ -163,12 +164,12 @@ probiou_bits_kernel(const float* __restrict__ gauss, const uint8_t* __restrict__
 }  // namespace
 
 // gauss (B, K, 5) f32 [x, y, a, b, c], valid (B, K) bool, keep (B, K) bool,
-// bits (B, K, ceil(K/32)) uint32 scratch; all contiguous on the current
+// bits (B, K, bits_stride(K)) uint32 scratch; all contiguous on the current
 // device. Returns the cudaError_t of the launches.
 extern "C" int rotated_nms_keep_launch(const void* gauss, const void* valid, void* keep, void* bits, int B, int K,
                                        float thr, void* stream) {
   if (B < 1 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  const int W = (K + 31) / 32;
+  const int W = nms_walk::bits_stride(K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps);
   probiou_bits_kernel<<<grid, kBitsThreads, 0, s>>>(static_cast<const float*>(gauss),

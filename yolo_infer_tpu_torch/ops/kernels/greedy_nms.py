@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from yolo_infer_tpu_torch.ops.kernels._build import load_library
+from yolo_infer_tpu_torch.ops.kernels.nms_walk import bits_scratch
 
 MAX_K = 8192  # the walk holds the removed set in at most 8 words per lane
 
@@ -51,12 +52,12 @@ def greedy_nms_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) ->
         raise ValueError(f"greedy_nms_keep: valid must be ({b}, {k}) bool on {iou.device}")
     if not (iou.is_contiguous() and valid.is_contiguous()):
         raise ValueError("greedy_nms_keep: iou and valid must be contiguous")
-    if k > MAX_K or b > 65535:
-        raise ValueError(f"greedy_nms_keep: K={k} > {MAX_K} or B={b} > 65535")
+    if k > MAX_K:
+        raise ValueError(f"greedy_nms_keep: K={k} > MAX_K={MAX_K}")
     keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
     if b == 0 or k == 0:
         return keep
-    bits = torch.empty((b, k, (k + 31) // 32), dtype=torch.int32, device=iou.device)
+    bits = bits_scratch(b, k, iou.device)
     with torch.cuda.device(iou.device):
         err = _launcher()(iou.data_ptr(), valid.data_ptr(), keep.data_ptr(), bits.data_ptr(),
                           b, k, float(iou_thres), torch.cuda.current_stream().cuda_stream)

@@ -5,8 +5,10 @@ Input: per image, K score-sorted, class-offset xyxy boxes and a validity
 mask; output: the greedy keep mask, bit-identical to the fixpoint over
 `box_iou_matrix` (`nms_keep_reference`).
 
+The kernel takes any K up to `MAX_K` (the serving pool is K = 384).
 `nms_keep` takes the kernel for a CUDA tensor and the plain version for a
-CPU tensor; anything else raises. `nms_keep.launches` counts kernel launches.
+CPU tensor; anything else raises. `nms_keep.launches` counts calls that
+launched the kernel (one per call: the IoU bits pass and the walk).
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import torch
 
 from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
 from yolo_infer_tpu_torch.ops.kernels._build import load_library
+from yolo_infer_tpu_torch.ops.kernels.nms_walk import bits_scratch
 
-MAX_K = 1024  # one block per image; the K x ceil(K/32) bitmask fits shared memory
+MAX_K = 8192  # the walk holds the removed set in at most 8 words per lane
 
 
 def nms_keep_reference(cboxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
@@ -30,7 +33,7 @@ def nms_keep_reference(cboxes: torch.Tensor, valid: torch.Tensor, iou_thres: flo
 
 def _launcher():
     fn = load_library("nms_fused").nms_keep_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -52,12 +55,13 @@ def nms_keep(cboxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> tor
     if cboxes.data_ptr() % 16:
         raise ValueError("nms_keep: boxes must be 16-byte aligned (read as float4)")
     if k > MAX_K:
-        raise ValueError(f"nms_keep: K={k} > {MAX_K}")
+        raise ValueError(f"nms_keep: K={k} > MAX_K={MAX_K}")
     keep = torch.empty((b, k), dtype=torch.bool, device=cboxes.device)
     if b == 0 or k == 0:
         return keep
+    bits = bits_scratch(b, k, cboxes.device)
     with torch.cuda.device(cboxes.device):
-        err = _launcher()(cboxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+        err = _launcher()(cboxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), bits.data_ptr(),
                           b, k, float(iou_thres), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"nms_keep: CUDA error {err} at launch")

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from yolo_infer_tpu_torch.ops.kernels._build import load_library
+from yolo_infer_tpu_torch.ops.kernels.nms_walk import bits_scratch
 
 MAX_K = 8192  # the walk holds the removed set in at most 8 words per lane
 
@@ -59,7 +60,7 @@ def rotated_nms_keep(gauss: torch.Tensor, valid: torch.Tensor, iou_thres: float)
     keep = torch.empty((b, k), dtype=torch.bool, device=gauss.device)
     if b == 0 or k == 0:
         return keep
-    bits = torch.empty((b, k, (k + 31) // 32), dtype=torch.int32, device=gauss.device)
+    bits = bits_scratch(b, k, gauss.device)
     with torch.cuda.device(gauss.device):
         err = _launcher()(gauss.data_ptr(), valid.data_ptr(), keep.data_ptr(), bits.data_ptr(),
                           b, k, float(iou_thres), torch.cuda.current_stream().cuda_stream)
