@@ -4,7 +4,8 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs twenty phases, each printing one JSON line:
+runs twenty-three phases, each printing one JSON line. Kernels A, C and G are
+timed with L2 flushed before each call (`l2_cold`), as the path finds them:
 
   1. card    nvidia-smi name and power limit, kernel build times, ptxas info
              and each library's tensor-core instructions in its SASS
@@ -12,7 +13,8 @@ runs twenty phases, each printing one JSON line:
              E's IMMA
   2. nms     kernel A (`nms_keep`) vs its plain version on the card (and on
              the cpu up to K=1024), keep masks equal bit for bit: random
-             candidates at B=32 K=384 and 1024, B=4 K=4096 and B=2 K=8192,
+             candidates at B=32 K=384, 512, 1024 and 2048, B=4 K=4096 and
+             B=2 K=8192,
              a valid prefix of 0..384 at K=384, boxes holding NaN, +-inf and
              zero-area entries at K=384 and 4096, and the 3-box suppression
              chain; device time of each split into the IoU bits pass and the
@@ -135,6 +137,39 @@ runs twenty phases, each printing one JSON line:
              at batch 32 on 640x640 frames with the counters reset (H >= 1,
              B 0), Results equal to the default route's, timed as in phase
              5, and H at its captured input beside its bound
+ 21. many    `predict_many` at batch_size 32 over 150 seeded 640x640 frames
+             (five chunks, the last padded) and 40 frames of two sizes,
+             against `predict` on the same padded chunks: equal counts and
+             classes, boxes within 1e-3 px, scores within 1e-5, one A launch
+             per chunk; segment `predict_many` over 64 frames, its masks
+             (held on the host, read through `LazyMasks`) equal to
+             `predict`'s bit for bit; img/s of `predict_many` against a loop
+             of `predict` over the same frames (in turns); the ms of HtoD
+             copy that overlap kernels in a torch.profiler trace of one
+             `predict_many`; `predict_raw` of detect, segment,
+             pose and OBB under `torch.cuda.set_sync_debug_mode("error")`:
+             any host synchronisation fails the phase
+ 22. mask_modes  segment fp32 `predict` on two frames of different sizes,
+             cuda vs cpu, for mask_mode "q8" and "exact" (soft masks within
+             one q8 code, 1/255), "bits" and "auto" (binary, at most 1e-4 of
+             the pixels differing, as phase 9); "auto" at 640 px equal to
+             "device_half" on the card
+ 23. bench   `YOLO11Model("yolo11n").benchmark(imgsz=640, batch=32,
+             runs=20, warmup=3)` with the JAX package's keys;
+             `SpeedBenchmark.benchmark_throughput(duration_s=5)` with
+             `ResourceMonitor` samples holding device memory;
+             `benchmark_quantization(methods=("ptq",), batch=8)` with its
+             speedup; beside the card's name and power limit
+
+Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
+the pairs of valid candidates it must read, with L2 flushed before each call,
+on the path's IoU and on a fresh random one, beside torch's own read of as
+many bytes (a sum) and the whole call timed by CUDA events (`g_read_check`).
+
+Every torch.profiler time comes from a trace whose kernels each launched a
+multiple of its calls (`traced_rows` traces again otherwise: the profiler can
+lose launches, and the time then reads low); a line after the phases lists
+the traces taken again.
 
 Then it prints the card's name and power limit, the per-kernel JSON line (A
 and B measured on the detect path, C on the OBB path, D on the segment path,
@@ -258,25 +293,52 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Mean device time of the kernels one call of `fn` launches (torch.profiler),
-    without the host's launch overhead between calls; copies excluded."""
+RETRACES = []  # traces taken again, and why (printed after the phases)
+LEAD_IN = "spin_kernel"  # torch.cuda._sleep's kernel: the lead-in of every trace, left out of its rows
+
+
+def traced_rows(fn, calls: int, need=()):
+    """[(key, device ms summed over the trace, events)] of each device
+    activity over `calls` calls of `fn` under torch.profiler, and the wall ms
+    per call. The profiler has lost the first ~5 device records of a trace
+    (then 20 calls of a one-kernel function read 15/20 of their time), so
+    eight short sleep kernels lead each trace in. It also now and then hands
+    back no device events. A trace with a kernel whose count is no multiple
+    of `calls`, or without a kernel named in `need`, is taken again (five
+    tries in all)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then hands back no device events: trace again
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request")
-        if total_us > 0:
-            return total_us / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time in three traces")
+            wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        # device-side events only (CPU ops also carry their kernels' time); the
+        # profiler's own buffer requests are not the program's work
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and e.key != "Activity Buffer Request" and LEAD_IN not in e.key]
+        short = [(k[:80], n) for k, _, n in rows if n % calls and not k.startswith(("Memcpy", "Memset"))]
+        missing = [sub for sub in need if not any(sub in k for k, _, _ in rows)]
+        if rows and not short and not missing:
+            return rows, wall_ms
+        RETRACES.append({"calls": calls, "short": short[:4], "missing": missing, "empty": not rows})
+    raise AssertionError(f"torch.profiler lost kernel events in five traces: {RETRACES[-1]}")
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of the kernels one call of `fn` launches (torch.profiler),
+    without the host's launch overhead between calls; copies excluded."""
+    rows, _ = traced_rows(fn, iters)
+    return sum(ms for k, ms, _ in rows if not k.startswith(("Memcpy", "Memset"))) / iters
 
 
 def device_ms_each(fns, iters: int = 3):
@@ -434,27 +496,8 @@ def kernel_profile(fn, calls: int = 3, named=()):
     (torch.profiler), and the kernels' busy share of the wall time; for each
     substring in `named`, the summed time and launches per call of the
     kernels whose names hold it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then hands back no device events: trace again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-        # device-side events only (CPU ops also carry their kernels' time); the
-        # profiler's own buffer requests are not the program's work
-        rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-                and e.key != "Activity Buffer Request"]
-        if all(any(sub in k for k, _, _ in rows) for sub in named) and rows:
-            break
-    else:
-        raise AssertionError(f"torch.profiler missed the kernels {list(named)} in three traces")
+    rows, wall_ms = traced_rows(fn, calls, need=named)
+    rows = [(k, ms / calls, n // calls) for k, ms, n in rows]
     rows.sort(key=lambda r: -r[1])
     copy_ms = sum(ms for k, ms, _ in rows if k.startswith(("Memcpy", "Memset")))
     kernel_ms = sum(ms for k, ms, _ in rows if not k.startswith(("Memcpy", "Memset")))
@@ -539,7 +582,7 @@ def phase_nms(report):
             raise AssertionError(f"keep mask differs ({case}, K={bx.shape[1]}): {int((got != want_dev).sum())} entries")
         return got
 
-    for b, k in ((32, 384), (32, 1024), (4, 4096), (2, 8192)):
+    for b, k in ((32, 384), (32, 512), (32, 1024), (32, 2048), (4, 4096), (2, 8192)):
         boxes, valid = random_candidates(rng, b, k)
         check("random", torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda())
     # the serving pool's shape: score-sorted, valid = score > 0, a prefix
@@ -694,8 +737,7 @@ def phase_bf16(report):
     cboxes, valid, thr = seen["nms_keep"]
     err_a = float((nms_mod.nms_keep(cboxes, valid, thr) != nms_mod.nms_keep_reference(cboxes, valid, thr)).sum())
     bk, kk, _ = cboxes.shape
-    bytes_a = cboxes.numel() * 4 + 2 * bk * kk
-    ops_a = bk * kk * (kk - 1) // 2 * IOU_OPS
+    bytes_a, ops_a = a_work(cboxes, valid)
     kernel_a = lambda: nms_mod.nms_keep(cboxes, valid, thr)  # noqa: E731
     plain_a = lambda: nms_mod.nms_keep_reference(cboxes, valid, thr)  # noqa: E731
     kernels.append({
@@ -806,14 +848,45 @@ def phase_rnms(report):
     return out
 
 
+L2_FLUSH_BYTES = 128 << 20  # written between timed calls: more than the H100's 50 MB L2
+
+
+def l2_cold(call):
+    """`call` preceded by a write of L2_FLUSH_BYTES, so each call finds its
+    inputs in HBM, not in L2, as on the path (a profile that sums named
+    kernels leaves the fill kernel out)."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def run():
+        flush.zero_()
+        return call()
+    return run
+
+
 def keep_time_split(call, bits_kernel: str):
     """A keep-mask kernel's device time per call (torch.profiler over 10
-    calls of `call`), split into its two launches: the bits pass (the kernel
-    named `bits_kernel`) and the walk of nms_walk.cuh (resident for K <=
-    1024, strip-staged above)."""
-    named = kernel_profile(call, calls=10, named=(bits_kernel, "_walk_kernel"))["named"]
+    calls of `call`, L2 flushed before each: `l2_cold`), split into its two
+    launches: the bits pass (the kernel named `bits_kernel`) and the walk of
+    nms_walk.cuh (resident for K <= 1024, strip-staged above)."""
+    named = kernel_profile(l2_cold(call), calls=10, named=(bits_kernel, "_walk_kernel"))["named"]
     bits_ms, walk_ms = named[bits_kernel]["ms"], named["_walk_kernel"]["ms"]
     return {"ms": bits_ms + walk_ms, "bits_ms": bits_ms, "walk_ms": walk_ms, "walk_share": walk_ms / (bits_ms + walk_ms)}
+
+
+def valid_pairs(valid) -> int:
+    """Pairs i < j of one image's candidates that are both valid, summed over
+    the batch: the pairs any keep-mask implementation must compare."""
+    nv = valid.sum(1).double()
+    return int((nv * (nv - 1) / 2).sum())
+
+
+def a_work(cboxes, valid):
+    """Kernel A's bytes (boxes and valid flags read, keep flags written) and
+    operations (an IoU and its compare for each pair of valid candidates)."""
+    bk, kk, _ = cboxes.shape
+    return cboxes.numel() * 4 + 2 * bk * kk, valid_pairs(valid) * IOU_OPS
 
 
 def c_time_split(gauss, valid, thr):
@@ -835,6 +908,41 @@ def g_time_split(iou, valid, thr):
     from yolo_infer_tpu_torch.ops.kernels.greedy_nms import greedy_nms_keep
 
     return keep_time_split(lambda: greedy_nms_keep(iou, valid, thr), "suppression_bits_kernel")
+
+
+def card_memory_clock() -> dict:
+    """The card's memory clocks (nvidia-smi, MHz) and the HBM rate the
+    maximum gives over the H100's 5120-bit bus at two transfers a clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.memory,clocks.mem", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    max_mhz, now_mhz = (float(v) for v in out.stdout.strip().splitlines()[0].split(","))
+    return {"max_mhz": max_mhz, "now_mhz": now_mhz, "bus_tb_per_s": max_mhz * 1e6 * 2 * 5120 / 8 / 1e12}
+
+
+def g_read_check(iou, valid, thr):
+    """G's bits pass against what the card reads, all with L2 flushed before
+    each call: its profiled time on `iou` and on a fresh random IoU of the same
+    shape (a data-dependent rate would show as a gap), the whole call by CUDA
+    events beside the profile (the two clocks), and torch's own read, a sum
+    over as many contiguous bytes as the bits pass must read."""
+    import torch
+
+    from yolo_infer_tpu_torch.ops.kernels.greedy_nms import greedy_nms_keep
+
+    need = 4 * valid_pairs(valid)  # the IoU bytes above the diagonal between valid candidates
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda").zero_
+    fresh = torch.rand(iou.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+    out = {"read_gb": need / 1e9, "memory_clock": card_memory_clock()}
+    for name, m in (("path_iou", iou), ("fresh_random_iou", fresh)):
+        split = g_time_split(m, valid, thr)
+        events_ms = device_ms_each([flush, lambda m=m: greedy_nms_keep(m, valid, thr)], iters=5)[1]
+        out[name] = {**split, "events_ms": events_ms, "bits_read_tb_per_s": need / (split["bits_ms"] * 1e-3) / 1e12}
+    flat = fresh.view(-1)[:need // 4]
+    named = kernel_profile(l2_cold(flat.sum), calls=5, named=("reduce_kernel",))["named"]
+    out["torch_sum"] = {"profile_ms": named["reduce_kernel"]["ms"],
+                        "events_ms": device_ms_each([flush, flat.sum], iters=5)[1],
+                        "read_tb_per_s": need / (named["reduce_kernel"]["ms"] * 1e-3) / 1e12}
+    return out
 
 
 def d_skip_share(soft) -> float:
@@ -1378,11 +1486,12 @@ def _val_bf16(report, pred, spec, frames, root: Path):
     iou_build = lambda: nms_ops.box_iou_matrix(sup, sup)  # noqa: E731
     err_g = float((kernel_g() != plain_g()).sum())
     bk, k, _ = iou.shape
-    # the upper triangle of the valid rows is all G must read (bits of the
-    # other rows are never used), plus the valid flags in and the keep flags out
-    rows = torch.nonzero(valid)[:, 1]
-    pairs_g = int((k - 1 - rows).sum())
+    # what any implementation must read: the IoU of each pair of valid
+    # candidates above the diagonal (a row's IoU with an invalid or lower
+    # candidate is never used), plus the valid flags in and the keep flags out
+    pairs_g = valid_pairs(valid)
     bytes_g = 4 * pairs_g + 2 * bk * k
+    read_check = g_read_check(iou, valid, thr)
     if err_f > 1e-5 or err_g:
         raise AssertionError(f"validation-path kernel outputs differ from the plain versions: F {err_f}, G {err_g}")
     val_path = f"detect val b{VAL['batch']} {VAL['imgsz']} bf16"
@@ -1402,8 +1511,19 @@ def _val_bf16(report, pred, spec, frames, root: Path):
         "call_ms": cuda_ms(kernel_g, iters=20), "plain_call_ms": cuda_ms(plain_g, iters=3, warmup=1),
         **bound(bytes_g, pairs_g, H100_F32_FLOPS),
         "library_ms": None, "shape": [bk, k, k], "valid": int(valid.sum()),
+        "read_check": read_check, "gb": bytes_g / 1e9,
     }]
     f_row, g_row = report["kernels"][-2:]
+    # the bits pass's read rate over the pairs it must read, on the path's IoU
+    # and on a fresh random one, L2 flushed before each call: no reading may
+    # pass the card's HBM rate (traces that had lost their first launches
+    # read 3.35 and 3.9 TB/s)
+    g_row["bits_read_tb_per_s"] = 4 * pairs_g / (g_row["bits_ms"] * 1e-3) / 1e12
+    rates = [g_row["bits_read_tb_per_s"]] + [read_check[k]["bits_read_tb_per_s"]
+                                             for k in ("path_iou", "fresh_random_iou")]
+    if max(rates) > H100_BYTES_PER_S / 1e12:
+        raise AssertionError(f"G's bits pass reads {max(rates):.4f} TB/s, above the card's "
+                             f"{H100_BYTES_PER_S / 1e12} TB/s: {read_check}")
     frames_dev = torch.from_numpy(frames[:VAL["batch"]]).cuda()
     profile = kernel_profile(lambda: pred.predict_raw(frames_dev, VAL["conf"], VAL["iou"], VAL["imgsz"], 300,
                                                       multi_label=True, pre_topk=VAL["pre_topk"]))
@@ -1753,6 +1873,323 @@ def phase_attn_pallas(report):
     return {"phase": "attn_pallas", **timing, "launches": launches, "results_equal_default_route": same,
             "detections_per_image": [min(len(r) for r in got), max(len(r) for r in got)]}
 
+MANY_FRAMES = 150  # predict_many: five chunks of 32, the last padded
+SEG_MANY_FRAMES = 64
+
+
+def htod_overlap(prof):
+    """(ms of host-to-device copies, ms of them during which a kernel ran) in
+    a torch.profiler trace (its chrome trace's `gpu_memcpy` and `kernel` events)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    finally:
+        os.unlink(path)
+    copies = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    busy = []  # the union of kernel intervals
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    overlap = sum(max(0.0, min(t, b) - max(s, a)) for s, t in copies for a, b in busy)
+    return sum(t - s for s, t in copies) / 1e3, overlap / 1e3
+
+
+def host_parts(pred, chunk):
+    """Median host ms (5 tries) of the parts of one chunk of `predict_many`:
+    stacking 32 frames into a reused pinned buffer, enqueueing `predict_raw`
+    (the launches; the card runs behind), and building the Results."""
+    import torch
+
+    buf = torch.empty((len(chunk),) + chunk[0].shape, dtype=torch.uint8, pin_memory=True)
+    frames_dev = buf.cuda()
+    parts = {"stack": [], "launch": [], "results": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.stack(chunk, axis=0, out=buf.numpy())
+        parts["stack"].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = pred.predict_raw(frames_dev, 0.25, 0.45, 640)
+        parts["launch"].append(time.perf_counter() - t0)
+        dets = {k: v.cpu().numpy() for k, v in dets.items()}
+        t0 = time.perf_counter()
+        pred._postprocess(dets, None, [chunk[0].shape[:2]] * len(chunk), None, 640, chunk[0].shape[:2], 1.0)
+        parts["results"].append(time.perf_counter() - t0)
+    return {k: 1e3 * float(np.median(v)) for k, v in parts.items()}
+
+
+def same_results(got, want, box_tol: float = 1e-3, score_tol: float = 1e-5):
+    """Differences between two Results lists: per image, a count or class
+    mismatch, or boxes / scores beyond the tolerances (empty when equal)."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w) or g.orig_shape != w.orig_shape or not np.array_equal(g.classes, w.classes):
+            bad.append(f"image {i}: {len(g)} vs {len(w)} detections")
+        elif len(g) and (np.abs(g.boxes - w.boxes).max() > box_tol or np.abs(g.scores - w.scores).max() > score_tol):
+            bad.append(f"image {i}: boxes off by {np.abs(g.boxes - w.boxes).max()}, "
+                       f"scores by {np.abs(g.scores - w.scores).max()}")
+    if len(got) != len(want):
+        bad.append(f"{len(got)} vs {len(want)} images")
+    return bad
+
+
+def padded_chunks(frames, batch: int):
+    """`frames` in chunks of `batch`, the last padded with its last frame, as `predict_many` pads it."""
+    return [frames[lo:lo + batch] + [frames[min(lo + batch, len(frames)) - 1]] * max(lo + batch - len(frames), 0)
+            for lo in range(0, len(frames), batch)]
+
+
+def phase_many(report):
+    """`predict_many` on the card: Results equal to `predict` on the same
+    chunks (uniform, mixed sizes, segment masks), img/s against a loop of
+    `predict`, the upload's overlap with kernels, and every task's
+    `predict_raw` with no host synchronisation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_infer_tpu_torch.core.predictor import LazyMasks, Predictor
+
+    pred, _ = report["serving"]
+    rng = np.random.default_rng(SEED + 19)
+    frames = list(rng.integers(0, 256, (MANY_FRAMES, 640, 640, 3), dtype=np.uint8))
+    mixed = [rng.integers(0, 256, ((480, 640, 3) if i % 2 else (360, 500, 3)), dtype=np.uint8) for i in range(40)]
+    out = {"phase": "many", "frames": MANY_FRAMES, "batch_size": 32}
+    failures = []
+
+    def loop(fr):
+        return [r for c in padded_chunks(fr, 32) for r in pred.predict(c, conf=0.25)][:len(fr)]
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        pred.predict_many(frames[:64], conf=0.25, batch_size=32)  # warm-up
+        for name, fr in (("uniform", frames), ("mixed", mixed)):
+            reset_counters()
+            got = pred.predict_many(fr, conf=0.25, batch_size=32)
+            launches = read_counters()
+            bad = same_results(got, loop(fr))
+            out[name] = {"images": len(got), "launches": launches, "differences": bad[:5],
+                         "detections": sum(len(r) for r in got)}
+            if bad or launches["nms_keep"] != -(-len(fr) // 32) or launches["attention_qkv"] < 1:
+                failures.append(f"{name}: {bad[:3]}, launches {launches}")
+        # segment: the masks come to the host at drain time, read through LazyMasks
+        model, spec = report["task_weights"]["segment"]
+        seg = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16, mask_mode="device")
+        seg_frames = frames[:SEG_MANY_FRAMES]
+        got = seg.predict_many(seg_frames, conf=0.25, batch_size=32)
+        want = [r for c in padded_chunks(seg_frames, 32) for r in seg.predict(c, conf=0.25)][:len(seg_frames)]
+        LazyMasks.prefetch(want, np.uint8)
+        bad = same_results(got, want)
+        mask_diff = sum(int((g.masks.numpy(np.uint8) != w.masks.numpy(np.uint8)).sum())
+                        for g, w in zip(got, want) if len(g) == len(w) and len(g))
+        host = all(isinstance(r.masks, LazyMasks) and not torch.is_tensor(r.masks._dev) for r in got if len(r))
+        out["segment"] = {"images": len(got), "differences": bad[:5], "mask_pixels_differing": mask_diff,
+                          "masks_held_on_host": host}
+        if bad or mask_diff or not host:
+            failures.append(f"segment: {bad[:3]}, {mask_diff} mask pixels differ, host-held {host}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # img/s: predict_many against a loop of predict over the same frames (turns: loop, many, many, loop)
+    times = {"loop": [], "many": []}
+    for name in ("loop", "many", "many", "loop", "loop", "many"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(frames) if name == "loop" else pred.predict_many(frames, conf=0.25, batch_size=32)
+        times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        out[f"{name}_img_per_s"] = MANY_FRAMES / float(np.median(ts))
+        out[f"{name}_s"] = ts
+    out["many_vs_loop"] = out["many_img_per_s"] / out["loop_img_per_s"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):  # the lead-in of `traced_rows`
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        pred.predict_many(frames, conf=0.25, batch_size=32)
+        torch.cuda.synchronize()
+    htod_ms, overlap_ms = htod_overlap(prof)
+    out.update(htod_ms=htod_ms, htod_overlapping_kernels_ms=overlap_ms,
+               htod_overlap_share=overlap_ms / htod_ms if htod_ms else None)
+    out["host_ms_per_chunk"] = host_parts(pred, frames[:32])
+
+    # no host synchronisation inside predict_raw, on any serving tail
+    syncs = {}
+    frames_dev = torch.from_numpy(np.stack(frames[:8])).cuda()
+    tails = [("detect", pred), ("segment", seg)]
+    for task in ("pose", "obb"):
+        tm, ts = report["task_weights"][task]
+        tails.append((task, Predictor(tm, ts, device="cuda", compute_dtype=torch.bfloat16)))
+    for name, p in tails:
+        p.predict_raw(frames_dev, 0.25, 0.45, 640)  # warm-up outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p.predict_raw(frames_dev, 0.25, 0.45, 640)
+            syncs[name] = None
+        except RuntimeError as exc:
+            syncs[name] = str(exc)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    out["host_syncs"] = syncs
+    failures += [f"{k} synchronises: {v}" for k, v in syncs.items() if v]
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+MASK_TOL = {"bits": 1e-4, "auto": 1e-4}  # share of pixels that may differ, cuda vs cpu (as phase 9)
+# soft masks ("q8", "exact"), cuda vs cpu: one q8 code. A mask logit is a sum
+# of 32 prototype x coefficient products that reach ~1e2 in size, so the two
+# devices' f32 convs, ~1e-5 apart relative to the products, move a logit near
+# 0 by several 1e-3 and its sigmoid by a quarter of that; q8's rounding adds
+# up to one code
+SOFT_MASK_TOL = 1 / 255 + 1e-6
+# "exact": each mask logit (proto @ coefs, the host's input) cuda vs cpu
+# within this share of its instance's scale, the largest sum of product
+# magnitudes sum_k |p_k c_k| over the instance's pixels: f32 head outputs
+# differ by ~1e-5 of their size between the devices, and a bf16 network (a
+# rounding is 2e-3 of the value) fails it
+MASK_LOGIT_RTOL = 5e-4
+
+
+def phase_mask_modes(report):
+    """The host-finished mask modes, segment fp32 `predict` on cuda against
+    the cpu on two frames of different sizes: detections paired as in phase
+    9; of each pair, "bits" and "auto" binary masks differing in at most
+    1e-4 of the pixels (a mask logit within rounding of 0 thresholds either
+    way at prototype resolution), "q8" and "exact" soft masks within one q8
+    code (SOFT_MASK_TOL); "exact"'s mask logits, from the prototypes and
+    coefficients the host assembles them from, within MASK_LOGIT_RTOL of
+    each instance's scale; and "auto" at 640 px equal to
+    "device_half" on the card."""
+    import torch
+
+    import yolo_infer_tpu_torch.core.predictor as pred_mod
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+
+    model, spec = report["task_weights"]["segment"]
+    rng = np.random.default_rng(SEED + 20)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8), rng.integers(0, 256, (360, 500, 3), dtype=np.uint8)]
+    out = {"phase": "mask_modes", "modes": {}}
+    failures = []
+    cuda_auto = None
+    for mode in ("q8", "bits", "exact", "auto"):
+        on_cpu = Predictor(model, spec, device="cpu", compute_dtype=torch.float32, mask_mode=mode)
+        on_gpu = Predictor(model, spec, device="cuda", compute_dtype=torch.float32, mask_mode=mode)
+        hosted = {"cuda": [], "cpu": []}  # "exact": (proto, coefs) of each image, as the host assembles them
+        assemble = pred_mod._assemble_masks
+
+        def capture(side):
+            def run(proto, coefs, *args, **kw):
+                hosted[side].append((proto.astype(np.float64), coefs.astype(np.float64)))
+                return assemble(proto, coefs, *args, **kw)
+            return run
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            pred_mod._assemble_masks = capture("cuda")
+            got = on_gpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)
+            pred_mod._assemble_masks = capture("cpu")
+            want = on_cpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)
+        finally:
+            torch.backends.cudnn.deterministic = False
+            pred_mod._assemble_masks = assemble
+        res = {"images": []}
+        for k, (g, w) in enumerate(zip(got, want)):
+            missing, pairs = match_detections(g, w, 1.0, 1e-3)
+            img = {"num_cuda": len(g), "num_cpu": len(w), "unmatched": missing + len(w) - len(pairs)}
+            if len(g) != len(w) or img["unmatched"] or not len(g):
+                failures.append(f"{mode}: detections differ ({img})")
+            elif pairs:
+                i, j = map(list, zip(*pairs))
+                gm, wm = np.asarray(g.masks)[i], np.asarray(w.masks)[j]
+                img.update(mask_pixels=int(gm.size), max_abs_err=float(np.abs(gm - wm).max()),
+                           mean_abs_err=float(np.abs(gm - wm).mean()), pixels_differing=int((gm != wm).sum()),
+                           mean=float(gm.mean()))
+                if mode in MASK_TOL:
+                    if img["pixels_differing"] > MASK_TOL[mode] * gm.size:
+                        failures.append(f"{mode}: {img['pixels_differing']} of {gm.size} mask pixels differ")
+                elif img["max_abs_err"] > SOFT_MASK_TOL:
+                    failures.append(f"{mode}: masks differ by {img['max_abs_err']}")
+                if mode == "exact":  # the host assembles masks only for images with detections
+                    pg, cg = hosted["cuda"][sum(1 for r in got[:k] if len(r))]
+                    pw, cw = hosted["cpu"][sum(1 for r in want[:k] if len(r))]
+                    lg = pg.reshape(-1, pg.shape[-1]) @ cg[i].T  # (Hm*Wm, pairs)
+                    lw = pw.reshape(-1, pw.shape[-1]) @ cw[j].T
+                    scale = (np.abs(pw.reshape(-1, pw.shape[-1])) @ np.abs(cw[j]).T).max(axis=0)  # per instance
+                    ratio = np.abs(lg - lw) / np.maximum(scale, 1e-30)
+                    img.update(logit_max_abs_err=float(np.abs(lg - lw).max()), logit_abs_max=float(np.abs(lw).max()),
+                               logit_scale_min=float(scale.min()), logit_scale_max=float(scale.max()),
+                               logit_err_share_max=float(ratio.max()), logit_err_share_mean=float(ratio.mean()))
+                    if img["logit_err_share_max"] > MASK_LOGIT_RTOL:
+                        failures.append(f"exact: mask logits differ by {img['logit_err_share_max']} of their "
+                                        f"products' size")
+            res["images"].append(img)
+        out["modes"][mode] = res
+        if mode == "auto":
+            cuda_auto = got
+    half = Predictor(model, spec, device="cuda", compute_dtype=torch.float32, mask_mode="device_half")
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = half.predict(frames, conf=0.25, iou=0.45, imgsz=640)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = not same_results(cuda_auto, want, 0.0, 0.0) and all(
+        np.array_equal(a.masks.numpy(np.uint8), b.masks.numpy(np.uint8)) for a, b in zip(cuda_auto, want) if len(a))
+    out["auto_equals_device_half"] = same
+    if not same:
+        failures.append("auto at 640 px differs from device_half")
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def phase_bench(report):
+    """The speed benchmark on the card: `YOLO11Model.benchmark` (the JAX
+    package's keys), `SpeedBenchmark.benchmark_throughput` with its resource
+    samples, and `benchmark_quantization` with PTQ static8."""
+    import torch
+
+    from yolo_infer_tpu_torch.benchmarks.speed_benchmark import SpeedBenchmark
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+
+    keys = {"imgsz", "batch", "runs", "avg_time_s", "std_time_s", "window_avgs_ms", "min_time_s", "max_time_s",
+            "latency_s", "latency_std_s", "fps", "throughput_imgs_per_s", "compile_time_s"}
+    out = {"phase": "bench", "card": report["card"]}
+    r = YOLO11Model("yolo11n").benchmark(imgsz=640, batch=32, runs=20, warmup=3)
+    out["benchmark"] = r
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_bench_"))
+    try:
+        bench = SpeedBenchmark(output_dir=root, warmup_runs=3, benchmark_runs=20)
+        thr = bench.benchmark_throughput("n", imgsz=640, batch=32, duration_s=5)
+        quant = bench.benchmark_quantization("n", imgsz=640, batch=8, methods=("ptq",))
+        report_text = bench.generate_report()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["throughput"] = thr
+    out["quantization"] = {k: {kk: v.get(kk) for kk in ("avg_time_s", "fps", "speedup", "error")}
+                           for k, v in quant.items()}
+    out["report_lines"] = len(report_text.splitlines())
+    failures = []
+    if not keys <= set(r) or r["device"] != torch.cuda.get_device_name(0) or not r["fps"] > 0:
+        failures.append(f"benchmark keys {sorted(set(r))}")
+    res = thr["resources"]
+    if not (res.get("samples", 0) >= 3 and res.get("max_device_mem_used_gb", 0) > 0):
+        failures.append(f"resource samples without device memory: {res}")
+    if "speedup" not in quant.get("ptq", {}):
+        failures.append(f"ptq: {quant.get('ptq')}")
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
 
 def main() -> int:
     try:
@@ -1777,7 +2214,8 @@ def main() -> int:
     phases = (phase_card, phase_nms, phase_attn, phase_fp32, phase_bf16, phase_profile,
               phase_rnms, phase_mpack, phase_tasks_fp32, phase_seg_bf16, phase_obb_bf16,
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
-              phase_int8, phase_attn_packed, phase_attn_pallas)
+              phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
+              phase_bench)
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -1790,6 +2228,7 @@ def main() -> int:
             traceback.print_exc()
             if phase is phase_card:
                 break
+    emit({"phase": "profiler", "retraces": RETRACES})
     if failed or len(report.get("kernels", ())) != 8:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -403,3 +403,45 @@ def test_static8_path_launches_e_and_the_pallas_route_launches_h(card):
     attention_fused.attention_packed.launches = attention_fused.attention_qkv.launches = 0
     pred.predict(frames)
     assert attention_fused.attention_packed.launches == 1 and attention_fused.attention_qkv.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["detect", "segment"])
+def test_predict_many_on_the_card_equals_predict_per_chunk(card, task):
+    """Nine frames in chunks of 2 at pipeline_depth 1: two pinned staging
+    buffers refilled by the staging thread four times over; the Results (and
+    segment masks, held on the host) equal `predict` on the same padded chunks."""
+    model, spec = build_model(task, "n", seed=0)
+    pred = Predictor(model, spec, compute_dtype=torch.float32)
+    frames = list(np.random.default_rng(6).integers(0, 256, (9, 96, 128, 3), dtype=np.uint8))
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = pred.predict_many(frames, conf=0.0, imgsz=128, max_det=20, batch_size=2, pipeline_depth=1)
+        chunks = [frames[lo:lo + 2] for lo in range(0, 8, 2)] + [[frames[8], frames[8]]]
+        want = [r for c in chunks for r in pred.predict(c, conf=0.0, imgsz=128, max_det=20)][:9]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert len(got) == 9
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 0
+        np.testing.assert_array_equal(g.boxes, w.boxes)
+        np.testing.assert_array_equal(g.scores, w.scores)
+        if task == "segment":
+            assert not torch.is_tensor(g.masks._dev)
+            np.testing.assert_array_equal(g.masks.numpy(), w.masks.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["detect", "segment", "pose", "obb"])
+def test_predict_raw_makes_no_host_synchronisation(card, task):
+    model, spec = build_model(task, "n", seed=0)
+    pred = Predictor(model, spec)
+    frames = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)).cuda()
+    pred.predict_raw(frames, 0.25, 0.45, 128)  # builds and loads outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pred.predict_raw(frames, 0.25, 0.45, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

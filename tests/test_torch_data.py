@@ -83,7 +83,7 @@ def test_save_image_round_trips_and_cv2_reads_it(tmp_path, shape):
 def test_unsupported_and_missing_files_raise(tmp_path):
     img = _picture(np.random.default_rng(0), 16, 16, 3)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
         load_image(tmp_path / "a.jpg")
     with pytest.raises(FileNotFoundError):
         load_image(tmp_path / "missing.png")
@@ -157,5 +157,5 @@ def test_labels_config_and_file_listing_match_jax(tmp_path):
 
 @pytest.mark.parametrize("task", ["segment", "obb"])
 def test_unported_dataset_tasks_raise(tmp_path, task):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tds.YOLODataset(_dataset(tmp_path, "detect"), task=task)

@@ -6,7 +6,13 @@ runs a CPU `Predictor.predict` on two frames of different sizes, which takes
 the host letterbox. A second one also blocks `yaml` and runs
 `YOLO11Validator.validate` on a PNG dataset that the port writes itself. A
 third builds a `YOLO11Model`, quantizes it with PTQ and serves it in static8.
+A fourth also blocks `psutil` and serves `predict_many` (segment, host
+masks), runs `YOLO11Model.benchmark` and a `ResourceMonitor`. Last, every
+"ROADMAP Queue 1 item N" in the port's sources names an item that ROADMAP's
+Queue 1 has.
 """
+
+import re
 
 import subprocess
 import sys
@@ -91,3 +97,64 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yolo_infer_tpu") for
 def test_port_quantizes_and_serves_static8_without_jax_or_opencv():
     """YOLO11Model -> PTQ calibration -> static8 predict, with jax and cv2 blocked."""
     subprocess.run([sys.executable, "-I", "-c", _QUANT_CODE.format(repo=str(REPO))], check=True, timeout=300)
+
+
+_SERVE_CODE = """
+import sys
+sys.modules["jax"] = sys.modules["cv2"] = sys.modules["psutil"] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from yolo_infer_tpu_torch import YOLO11Model
+from yolo_infer_tpu_torch.utils.helpers import ResourceMonitor
+model = YOLO11Model("yolo11n-seg", device="cpu", nc=3, compute_dtype=torch.float32)
+rng = np.random.default_rng(0)
+frames = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8) for _ in range(4)]
+frames.append(rng.integers(0, 256, (64, 40, 3), dtype=np.uint8))
+mon = ResourceMonitor(interval=0.05)
+mon.start()
+out = model.predict(frames, conf=0.0, imgsz=64, max_det=10, batch=2)
+summary = mon.stop()
+assert [r.orig_shape for r in out] == [(48, 64)] * 4 + [(64, 40)]
+assert all(0 < len(r) <= 10 and r.masks.numpy().shape == (len(r),) + r.orig_shape for r in out)
+bench = model.benchmark(imgsz=64, batch=1, runs=1, warmup=0)
+assert bench["fps"] > 0 and summary["samples"] >= 1 and "avg_cpu_percent" in summary
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "psutil", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_serves_many_and_benchmarks_without_jax_opencv_or_psutil():
+    """predict_many (segment, mixed sizes, host masks) and YOLO11Model.benchmark with jax, cv2 and psutil blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _SERVE_CODE.format(repo=str(REPO))], check=True, timeout=300)
+
+
+def _queue1_items():
+    """The numbered items of ROADMAP.md's Queue 1 ("N" and "N.M")."""
+    text = (REPO / "ROADMAP.md").read_text()
+    section = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    items, top = set(), None
+    for line in section.splitlines():
+        m = re.match(r"^(\d+)\. ", line)
+        if m:
+            top = m.group(1)
+            items.add(top)
+            continue
+        m = re.match(r"^ {3}(\d+)\. ", line)
+        if m and top:
+            items.add(f"{top}.{m.group(1)}")
+    return items
+
+
+def test_port_roadmap_pointers_name_queue1_items():
+    items = _queue1_items()
+    assert {"1", "3", "4.1", "4.2", "5", "6", "8"} <= items
+    cited = []
+    for path in sorted((REPO / "yolo_infer_tpu_torch").rglob("*.py")):
+        text = path.read_text()
+        for m in re.finditer(r"Queue\s+1\s+items?\s+([\d.]+(?:\s+and\s+[\d.]+)?)", text):
+            cited += [(path.name, n.rstrip(".")) for n in re.split(r"\s+and\s+", m.group(1))]
+        cited += [(path.name, n) for n in re.findall(r"_NOT_PORTED\.format\((\d+)\)", text)]
+    assert len(cited) >= 10
+    missing = [c for c in cited if c[1] not in items]
+    assert not missing, f"pointers to no item of ROADMAP Queue 1: {missing}"

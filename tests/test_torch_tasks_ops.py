@@ -144,7 +144,7 @@ def test_greedy_walk_over_the_cleared_probiou_bitmask_gives_the_fixpoint(prefix)
 
 
 def test_multi_label_rotated_nms_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4.2"):
         trot.batched_rotated_nms(torch.zeros(1, 8, 5), torch.zeros(1, 8, 2), multi_label=True)
 
 

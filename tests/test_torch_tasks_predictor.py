@@ -88,11 +88,18 @@ def test_lazy_masks_prefetch_shape_and_ndarray_surface():
 
 @pytest.mark.parametrize("mode", ["q8", "bits", "exact", "auto"])
 def test_unported_mask_modes_raise(mode):
+    """The modes that raised before they were ported now serve their
+    artifact (tests/test_torch_mask_modes.py holds them to JAX); an unknown
+    mode raises."""
     from yolo_infer_tpu_torch.models.yolo11 import build_model
 
     model, spec = build_model("segment", "n", nc=3, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Predictor(model, spec, device="cpu", mask_mode=mode)
+    pred = Predictor(model, spec, device="cpu", mask_mode=mode)
+    dets = pred.predict_raw(torch.zeros((1, 64, 64, 3), dtype=torch.uint8), 0.0, 0.45, 64, 5)
+    key = {"q8": "mask_q8", "bits": "mask_bits", "exact": "mask_coefs", "auto": "mask_bits_up"}[mode]
+    assert dets[key].shape[:2] == (1, 5)
+    with pytest.raises(ValueError, match="mask_mode"):
+        Predictor(model, spec, device="cpu", mask_mode=mode + "_x")
 
 
 def test_segment_predict_raw_can_skip_the_masks():

@@ -213,5 +213,5 @@ def test_multi_label_obb_raises():
 
     model, spec = build_model("obb", "n", nc=3, seed=0)
     pred = Predictor(model, spec, device="cpu", compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4.2"):
         pred.predict_raw(torch.zeros((1, 64, 64, 3), dtype=torch.uint8), 0.001, 0.6, 64, multi_label=True)

@@ -168,14 +168,20 @@ def test_cross_validate_matches_the_jax_validator(tmp_path):
 
 
 def test_validator_takes_a_predictor_and_raises_without_a_model_loader(tmp_path):
+    """A Predictor serves as the model; a model name builds the port's
+    YOLO11Model (a checkpoint file still raises: ROADMAP Queue 1 item 5), which
+    `benchmark_speed` times and `compare_models` validates."""
     port = _predictors("detect")[1]
     assert YOLO11Validator(model=port, output_dir=tmp_path).predictor is port
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        YOLO11Validator(model_path="yolo11n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        create_validator("yolo11n")
-    v = YOLO11Validator(model=port, output_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        v.benchmark_speed()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        v.compare_models(["a.pt"], {})
+    ckpt = tmp_path / "yolo11n.pt"
+    ckpt.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        YOLO11Validator(model_path=str(ckpt))
+    v = create_validator("yolo11n", device="cpu", output_dir=tmp_path)
+    assert v.model.task == "detect" and v.predictor.device.type == "cpu"
+    speed = v.benchmark_speed(imgsz_list=(32,), batch_sizes=(1,), runs=1)
+    assert speed["imgsz32_batch1"]["batch"] == 1 and (tmp_path / "speed_benchmark.json").exists()
+    data = _self_labelled_dataset(tmp_path / "data", "detect", port)
+    cmp = YOLO11Validator(model=port, output_dir=tmp_path, device="cpu").compare_models(
+        ["yolo11n", "yolo11n-pose"], data, imgsz=32, batch=4)
+    assert set(cmp["results"]) == {"yolo11n", "yolo11n-pose"} and cmp["best"] in cmp["results"]

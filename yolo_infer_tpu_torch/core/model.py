@@ -1,22 +1,23 @@
 """YOLO11Model, the user-facing model wrapper, and YOLO11Factory.
 
 Port of `yolo_infer_tpu/core/model.py` (`parse_model_name`, `YOLO11Model`:
-build, the cached deploy form, `predictor`, `predict`, `val`,
+build, the cached deploy form, `predictor`, `predict`, `val`, `benchmark`,
 `get_model_info`, `from_params`; `YOLO11Factory`). The network is the
 port's `YOLO11` module, built with the seeded `build_model` or loaded from
 an ultralytics-named state dict; prediction runs through the port's
 `Predictor`, on `cuda` unless `device="cpu"` is passed.
 
-Not ported yet, and raising: loading a checkpoint file, `save`/`load`/
-`export` and `benchmark` (ROADMAP Queue 1 item 6), `train` (item 9), and
-`predict` on more than 64 images or with `batch=` (`predict_many`, item 6).
+Not ported yet, and raising: loading a checkpoint file and `save`/`load`/
+`export` (ROADMAP Queue 1 item 5), and `train` (item 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import re
+import time
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
@@ -29,7 +30,7 @@ from yolo_infer_tpu_torch.models.convert import load_state_dict
 from yolo_infer_tpu_torch.models.spec import SIZES, build_spec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, build_model, cast_model, fold_model
 from yolo_infer_tpu_torch.utils.coco_names import COCO_NAMES
-from yolo_infer_tpu_torch.utils.helpers import calculate_model_size
+from yolo_infer_tpu_torch.utils.helpers import calculate_model_size, device_busy
 
 logger = logging.getLogger(__name__)
 
@@ -77,7 +78,7 @@ class YOLO11Model:
     ):
         self.model_path = str(model_path)
         if Path(model_path).is_file():
-            raise NotImplementedError(f"loading the checkpoint {model_path} {_NOT_PORTED.format(6)}; pass "
+            raise NotImplementedError(f"loading the checkpoint {model_path} {_NOT_PORTED.format(5)}; pass "
                                       "state_dict= (an ultralytics-named state dict) or a model name")
         parsed = parse_model_name(self.model_path)
         if parsed is None:
@@ -166,22 +167,28 @@ class YOLO11Model:
         batch: Optional[int] = None,
         **kw,
     ) -> List[Results]:
-        """Run inference on an image path, a directory, an array or a list of arrays."""
+        """Run inference on an image path, a directory, an array or a list of arrays.
+
+        Lists of more than 64 images, and any call with `batch`, stream
+        through `Predictor.predict_many` (one batch shape, uploads overlapped
+        with compute); `batch` sets the chunk size (default 32).
+        """
         if isinstance(source, (str, Path)):
             p = Path(source)
             images = [load_image(f) for f in list_image_files(p)] if p.is_dir() else load_image(p)
         else:
             images = source
-        n = len(images) if isinstance(images, (list, tuple)) or (isinstance(images, np.ndarray) and images.ndim == 4) else 1
-        if batch is not None or n > 64:
-            raise NotImplementedError(f"chunked prediction (predict_many) {_NOT_PORTED.format(6)}; "
-                                      "pass at most 64 images and no batch=")
+        if isinstance(images, np.ndarray) and images.ndim == 4 and batch is not None:
+            images = list(images)  # a stacked batch with a chunk size: chunked too
+        if isinstance(images, (list, tuple)) and (batch is not None or len(images) > 64):
+            return self.predictor.predict_many(images, conf=conf, iou=iou, imgsz=imgsz, max_det=max_det,
+                                               batch_size=batch or 32, **kw)
         return self.predictor.predict(images, conf=conf, iou=iou, imgsz=imgsz, max_det=max_det, **kw)
 
     # ------------------------------------------------------------- train / val
 
     def train(self, data: str, epochs: int = 100, **kwargs) -> Dict[str, Any]:
-        raise NotImplementedError(f"training {_NOT_PORTED.format(9)}")
+        raise NotImplementedError(f"training {_NOT_PORTED.format(8)}")
 
     def val(self, data, **kwargs) -> Dict[str, Any]:
         from yolo_infer_tpu_torch.core.validator import YOLO11Validator
@@ -191,16 +198,93 @@ class YOLO11Model:
     # ------------------------------------------------------------------ export
 
     def save(self, path, fused: bool = False):
-        raise NotImplementedError(f"saving a checkpoint {_NOT_PORTED.format(6)}")
+        raise NotImplementedError(f"saving a checkpoint {_NOT_PORTED.format(5)}")
 
     def load(self, path):
-        raise NotImplementedError(f"loading a checkpoint {_NOT_PORTED.format(6)}")
+        raise NotImplementedError(f"loading a checkpoint {_NOT_PORTED.format(5)}")
 
     def export(self, path=None, format: str = "msgpack"):
-        raise NotImplementedError(f"export {_NOT_PORTED.format(6)}")
+        raise NotImplementedError(f"export {_NOT_PORTED.format(5)}")
 
-    def benchmark(self, *args, **kwargs):
-        raise NotImplementedError(f"the speed benchmark {_NOT_PORTED.format(6)}")
+    def benchmark(self, imgsz: int = 640, batch: int = 1, runs: int = 100, warmup: int = 10, conf: float = 0.25,
+                  iou: float = 0.45, profile_dir: Optional[str] = None) -> Dict[str, Any]:
+        """Timed end-to-end `predict_raw` on seeded frames already on the
+        device, every time read after a device synchronisation.
+
+        - `compile_time_s`: the first call, which includes building any
+          CUDA kernel with nvcc, loading it, and cuDNN's algorithm search.
+        - Sustained throughput (`avg_time_s`, `fps`): `runs` calls queued
+          back to back and one `torch.cuda.synchronize`, timed by the host
+          clock between two synchronisations; three such windows, the
+          median taken (`window_avgs_ms` lists them, `std_time_s` is their
+          spread).
+        - Per-call latency (`latency_s`, `min_time_s`, `max_time_s`): up to
+          20 calls, each synchronised, host clock.
+        `profile_dir` writes a `torch.profiler` chrome trace of the sustained
+        windows there. The windows count as device-busy time
+        (`utils.helpers.device_busy`).
+        """
+        pred = self.predictor
+        cuda = pred.device.type == "cuda"
+        images = np.random.default_rng(0).integers(0, 255, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+        frames = torch.from_numpy(images).to(pred.device)
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize(pred.device)
+
+        t0 = time.perf_counter()
+        pred.predict_raw(frames, conf, iou, imgsz)
+        sync()
+        compile_s = time.perf_counter() - t0
+        for _ in range(warmup):
+            pred.predict_raw(frames, conf, iou, imgsz)
+        sync()
+
+        n_windows = 3 if runs >= 6 else 1
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+            trace_cm = profile(activities=acts)
+        else:
+            trace_cm = contextlib.nullcontext()
+        windows = []
+        with trace_cm as prof, device_busy():
+            for _ in range(n_windows):
+                t0 = time.perf_counter()
+                for _ in range(runs):
+                    pred.predict_raw(frames, conf, iou, imgsz)
+                sync()
+                windows.append((time.perf_counter() - t0) / runs)
+        if profile_dir:
+            Path(profile_dir).mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(Path(profile_dir) / "benchmark_trace.json"))
+        sustained = float(np.median(windows))
+
+        times = []
+        for _ in range(min(runs, 20)):
+            t0 = time.perf_counter()
+            pred.predict_raw(frames, conf, iou, imgsz)
+            sync()
+            times.append(time.perf_counter() - t0)
+        times_np, windows_np = np.array(times), np.array(windows)
+        return {
+            "imgsz": imgsz,
+            "batch": batch,
+            "runs": n_windows * runs,
+            "avg_time_s": sustained,
+            "std_time_s": float(windows_np.std()),
+            "window_avgs_ms": [round(w * 1e3, 3) for w in windows],
+            "min_time_s": float(times_np.min()),
+            "max_time_s": float(times_np.max()),
+            "latency_s": float(np.median(times_np)),
+            "latency_std_s": float(times_np.std()),
+            "fps": batch / sustained,
+            "throughput_imgs_per_s": batch / sustained,
+            "compile_time_s": compile_s,
+            "device": torch.cuda.get_device_name(pred.device) if cuda else "cpu",
+        }
 
     # ------------------------------------------------------------------- info
 

@@ -1,15 +1,20 @@
 """End-to-end prediction on the card, for every task.
 
 Port of `yolo_infer_tpu/core/predictor.py` (`Predictor.predict`,
-`predict_raw`, `_postprocess`, `Results`, `LazyMasks`): uint8 frames ->
-device letterbox + /255 -> BN-folded YOLO11 forward -> the task's tail ->
-host rescale into `Results`. The tails:
+`predict_many`, `predict_raw`, `_postprocess`, `Results`, `LazyMasks`,
+`_assemble_masks`): uint8 frames -> device letterbox + /255 -> BN-folded
+YOLO11 forward -> the task's tail -> host rescale into `Results`. The tails:
 
-  detect   per-level class max -> select-then-decode NMS (kernel A)
+  detect   per-level class max -> select-then-decode NMS (kernel A) over a
+           pool of min(pre_topk, 384)
   pose     the detect tail, then the keypoints of the kept rows
-  segment  the detect tail, then the masks of the kept rows: sigmoid, crop,
-           4x bilinear upsample, threshold, bit-pack (kernel D at full size),
-           left on the device until `Results.masks` is read
+  segment  the detect tail, then the masks of the kept rows by `mask_mode`:
+           "device" (the default) sigmoid, crop, 4x bilinear upsample,
+           threshold, bit-pack (kernel D at full size), left on the device
+           until `Results.masks` is read; "device_half" the same on the
+           imgsz/2 grid; "q8", "bits" and "exact" stop at prototype
+           resolution and the host finishes them; "auto" takes
+           "device_half" at imgsz >= 512, "device" below
   obb      full-grid DFL decode (kernel F) with the angle -> probIoU NMS
            (kernel C)
   classify softmax of the logits
@@ -23,15 +28,23 @@ With PTQ activation scales (`quant_act_scales`, (n, 2)) the forward of a
 quantized model (`models/yolo11.py quantize_model`) runs inside a static8
 `QuantContext`: every eligible conv int8 in, int8 out through kernel E.
 
+`predict_many` serves a long list in chunks of one batch shape. On the card
+the frames go through pinned staging buffers on an upload stream, the
+forward runs on a compute stream that waits for each chunk's copy, and the
+host drains finished chunks into `Results` while later ones run.
+
 The predictor runs on `cuda` unless the caller passes `device="cpu"`; with no
 card and no explicit device it raises instead of falling back to the CPU.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -50,13 +63,21 @@ from yolo_infer_tpu_torch.ops.decode import (
     make_anchors,
 )
 from yolo_infer_tpu_torch.ops.letterbox import (
+    crop_letterbox_masks,
     crop_letterbox_slices,
     letterbox,
     letterbox_params,
+    resize_linear_f32,
     scale_boxes,
     scale_obb,
 )
-from yolo_infer_tpu_torch.ops.masks import assemble_mask_bits_up, repeat_mask_bits, unpack_mask_bits
+from yolo_infer_tpu_torch.ops.masks import (
+    assemble_mask_bits,
+    assemble_mask_bits_up,
+    assemble_masks_q8,
+    repeat_mask_bits,
+    unpack_mask_bits,
+)
 from yolo_infer_tpu_torch.ops.nms import _multi_label_topc, batched_nms, batched_nms_seldec
 from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch
 from yolo_infer_tpu_torch.ops.rotated import batched_rotated_nms, dist2rbox
@@ -66,8 +87,10 @@ from yolo_infer_tpu_torch.utils.coco_names import COCO_NAMES
 # candidate pool of the select-then-decode tail: the smallest 128-multiple
 # that still honours the max_det=300 output contract (the JAX serve pool)
 SERVE_POOL = 384
-MASK_MODES = ("device", "device_half")
-_UNPORTED_MASK_MODES = ("q8", "bits", "exact", "auto")
+MASK_MODES = ("auto", "device", "device_half", "q8", "bits", "exact")
+# the segment artifacts with one row per detection slot (axis 1), which
+# predict_many copies to the host at drain time cut to the chunk's largest count
+_MASK_ROW_KEYS = ("mask_bits_up", "mask_q8", "mask_bits", "mask_coefs")
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -99,19 +122,22 @@ class Results:
 
 
 class LazyMasks:
-    """Serving masks that stay on the device until read.
+    """Serving masks that stay packed until read.
 
-    Holds image `index` of the batch's bit-packed (B, max_det, grid, grid/8)
-    uint8 tensor (`ops/masks.py assemble_mask_bits_up`; grid is imgsz for
+    Holds image `index` of the batch's bit-packed (B, rows, grid, grid/8)
+    uint8 masks (`ops/masks.py assemble_mask_bits_up`; grid is imgsz for
     `mask_mode="device"`, imgsz/2 for `"device_half"`) and behaves like the
     (n, ch, cw) float32 array of binary {0, 1} masks over the letterbox's
-    content region. The first read copies the content band of the n real
-    rows to the host and unpacks it; `prefetch` does that for many images
-    with one copy per batch tensor.
+    content region. `predict` leaves them on the device: the first read
+    copies the content band of the n real rows to the host and unpacks it,
+    and `prefetch` does that for many images with one copy per batch tensor.
+    `predict_many` hands over a host ndarray already (its rows cut to the
+    chunk's largest count), which is only unpacked on read.
     """
 
-    def __init__(self, packed_dev: torch.Tensor, index: int, n: int, ratio: float, pad, orig_shape, imgsz: int):
-        self._dev: Optional[torch.Tensor] = packed_dev
+    def __init__(self, packed_dev: Union[torch.Tensor, np.ndarray], index: int, n: int, ratio: float, pad,
+                 orig_shape, imgsz: int):
+        self._dev: Union[None, torch.Tensor, np.ndarray] = packed_dev
         self._index = index
         self._n = n
         self._ratio, self._pad, self._orig_shape, self._imgsz = ratio, pad, orig_shape, imgsz
@@ -145,15 +171,15 @@ class LazyMasks:
         m = unpack_mask_bits(repeat_mask_bits(packed, self._scale))
         r0, ch, c0, cw = trim
         self._np = np.ascontiguousarray(m[:, r0: r0 + ch, c0: c0 + cw].astype(dtype, copy=False))
-        self._dev = None  # this image no longer holds the batch tensor
+        self._dev = None  # this image no longer holds the batch's masks
 
     def numpy(self, dtype=np.float32) -> np.ndarray:
         """The (n, ch, cw) masks; `dtype=np.uint8` skips the float32 cast.
         The first read's dtype is kept."""
         if self._np is None:
             gy0, gh, xb0, xb1, trim = self._crop_window()
-            packed = self._dev[self._index, : self._n, gy0: gy0 + gh, xb0:xb1].cpu().numpy()
-            self._finish(packed, trim, dtype)
+            packed = self._dev[self._index, : self._n, gy0: gy0 + gh, xb0:xb1]
+            self._finish(packed.cpu().numpy() if torch.is_tensor(packed) else packed, trim, dtype)
         return self._np
 
     @staticmethod
@@ -161,12 +187,16 @@ class LazyMasks:
         """Materialize many LazyMasks with one device-to-host copy per batch
         tensor: the pending images' rows are gathered on the device over the
         union of their content windows, copied once, and split on the host.
-        `items` may be Results or LazyMasks; read or non-lazy ones are skipped."""
+        `items` may be Results or LazyMasks; read or non-lazy ones are skipped,
+        and masks already on the host are unpacked where they are."""
         groups: Dict[int, List[LazyMasks]] = {}
         for it in items:
             m = it.masks if hasattr(it, "masks") else it
             if isinstance(m, LazyMasks) and m._np is None and m._dev is not None:
-                groups.setdefault(id(m._dev), []).append(m)
+                if torch.is_tensor(m._dev):
+                    groups.setdefault(id(m._dev), []).append(m)
+                else:
+                    m.numpy(dtype)
         for ms in groups.values():
             dev = ms[0]._dev
             wins = [m._crop_window() for m in ms]
@@ -237,13 +267,23 @@ class Predictor:
     `compute_dtype` and on the device. The caller's module is left as it
     was, as the JAX package leaves its `params`.
 
-    `mask_mode` (segment): "device" (the default) thresholds the masks at
-    full resolution on the device; "device_half" on the imgsz/2 grid, which
-    the host nearest-upsamples on read (<= 1 px boundary error, 4x fewer
-    bytes to copy). In both, `Results.masks` is a `LazyMasks` over the device
-    tensor. The host-finished modes "q8", "bits" and "exact" (and the JAX
-    package's "auto" choice between modes) are not ported (ROADMAP Queue 1
-    item 5).
+    `mask_mode` (segment):
+      "device" (the default): sigmoid, crop, bilinear upsample to imgsz and
+        0.5-threshold on the device (ultralytics `process_mask(upsample=True)
+        .gt_(0.5)`), bit-packed; `Results.masks` is a `LazyMasks` over the
+        device tensor;
+      "device_half": the same, thresholded on the imgsz/2 grid, which the
+        host nearest-upsamples on read (<= 1 px boundary error, 4x fewer
+        bytes to copy);
+      "q8": sigmoid and crop on the device, uint8 soft masks; the host
+        upsamples the floats (soft masks within 1/510 of the float order);
+      "bits": threshold at prototype resolution on the device, bit-packed;
+        the host upsamples and thresholds again;
+      "exact": the prototypes and coefficients go to the host, which
+        computes the float masks (the parity oracle);
+      "auto": "device_half" at imgsz >= 512, "device" below.
+    "device", "device_half" and "bits" give binary {0, 1} masks; "q8" and
+    "exact" soft sigmoid values, which the caller thresholds.
 
     `quant_act_scales` ((n, 2) PTQ absmax pairs, as
     `optimization/quantization/quantizers.py` calibrates them) serve a
@@ -287,6 +327,10 @@ class Predictor:
         self.quant_act_scales = (None if quant_act_scales is None
                                  else torch.as_tensor(np.asarray(quant_act_scales), dtype=torch.float32))
         self.quant_min_channels = quant_min_channels
+        # predict_many's upload, compute and download streams, made on first
+        # use and kept: memory the caching allocator holds for one stream is
+        # not handed to a new one, so fresh streams per call would allocate anew
+        self._streams: Optional[Tuple[Any, Any, Any]] = None
 
     def _forward(self, x: torch.Tensor) -> Dict[str, Any]:
         """The model forward, inside a static8 context when PTQ scales exist."""
@@ -306,12 +350,15 @@ class Predictor:
         """(B, H, W, 3) uint8 frames on the device -> the fixed-shape dets
         dict, left on the device: boxes (B, max_det, 4) xyxy, or (B, max_det,
         5) xywhr for obb, in letterboxed pixels; scores, classes, valid, num,
-        anchor_idx; plus "kpts" (B, max_det, K, 3) for pose and
-        "mask_bits_up" (B, max_det, grid, grid/8) uint8 for segment. Classify
-        gives {"probs": (B, nc)}. `multi_label` takes the validation NMS
-        (`ops.nms.batched_nms`) over the full-grid decode; `pre_topk`
-        overrides the predictor's candidate cap (the validator asks for
-        4096). `mask_out` overrides `mask_mode`; "none" skips the masks."""
+        anchor_idx; plus "kpts" (B, max_det, K, 3) for pose and, for segment,
+        by mask mode: "mask_bits_up" (B, max_det, grid, grid/8) uint8,
+        "mask_q8" (B, max_det, Hm, Wm) uint8, "mask_bits" (B, max_det, Hm,
+        Wm/8) uint8, or "mask_coefs" (B, max_det, nm) and "proto" (B, Hm, Wm,
+        nm) f32. Classify gives {"probs": (B, nc)}. `multi_label` takes the
+        validation NMS (`ops.nms.batched_nms`) over the full-grid decode;
+        `pre_topk` overrides the predictor's candidate cap (the validator
+        asks for 4096). `mask_out` overrides `mask_mode`; "none" skips the
+        masks. Nothing here waits for the device."""
         spec = self.spec
         md = max_det or self.max_det
         pool = pre_topk or self.pre_topk
@@ -352,13 +399,35 @@ class Predictor:
             mode = mask_out or self.mask_mode
             if mode != "none":
                 _check_mask_mode(mode)
+                if mode == "auto":
+                    mode = "device_half" if imgsz >= 512 else "device"
                 mc = torch.cat([m.reshape(b, -1, m.shape[-1]) for m in out["mc"]], dim=1)
                 coefs = select_anchor_rows(mc, dets["anchor_idx"])  # (B, max_det, nm)
-                dets["mask_bits_up"] = assemble_mask_bits_up(
-                    out["proto"].float(), coefs, dets["boxes"], imgsz,
-                    out_size=imgsz // 2 if mode == "device_half" else None,
-                )
+                proto = out["proto"].float()
+                if mode in ("device", "device_half"):
+                    dets["mask_bits_up"] = assemble_mask_bits_up(
+                        proto, coefs, dets["boxes"], imgsz, out_size=imgsz // 2 if mode == "device_half" else None)
+                elif mode == "q8":
+                    dets["mask_q8"] = assemble_masks_q8(proto, coefs, dets["boxes"], imgsz)
+                elif mode == "bits":
+                    dets["mask_bits"] = assemble_mask_bits(proto, coefs, dets["boxes"], imgsz)
+                else:  # exact: the host computes the masks
+                    dets["mask_coefs"] = coefs.float()
+                    dets["proto"] = proto
         return dets
+
+    def _batch(self, images, imgsz: int):
+        """(frames (B, H, W, 3) uint8, original (h, w) per image, per-image
+        host letterbox (ratio, pad) or None). Frames of mixed sizes are
+        letterboxed on the host into one square batch; the device letterbox
+        is then an identity pass."""
+        if isinstance(images, np.ndarray):
+            return images, [tuple(images.shape[1:3])] * images.shape[0], None
+        orig_shapes = [tuple(im.shape[:2]) for im in images]
+        if len(set(orig_shapes)) == 1:
+            return images, orig_shapes, None
+        lb = [letterbox(im, imgsz) for im in images]
+        return [l[0] for l in lb], orig_shapes, [(l[1], l[2]) for l in lb]
 
     def predict(
         self,
@@ -375,40 +444,160 @@ class Predictor:
             return []
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = [images]
-        host_lb: Optional[List[Tuple[float, Tuple[float, float]]]] = None
-        if isinstance(images, np.ndarray):
-            batch_np = images
-            orig_shapes = [tuple(images.shape[1:3])] * images.shape[0]
-        else:
-            orig_shapes = [tuple(im.shape[:2]) for im in images]
-            if len(set(orig_shapes)) != 1:
-                # mixed sizes: letterbox on the host into one square batch;
-                # the device letterbox is then an identity pass
-                lb = [letterbox(im, imgsz) for im in images]
-                batch_np = np.stack([l[0] for l in lb], axis=0)
-                host_lb = [(l[1], l[2]) for l in lb]
-            else:
-                batch_np = np.stack(images, axis=0)
+        frames, orig_shapes, host_lb = self._batch(images, imgsz)
+        batch_np = frames if isinstance(frames, np.ndarray) else np.stack(frames, axis=0)
 
         t0 = time.perf_counter()
-        frames = torch.from_numpy(np.ascontiguousarray(batch_np)).to(self.device)
-        dets = self.predict_raw(frames, conf, iou, imgsz, max_det, multi_label=multi_label)
-        dev_masks = dets.pop("mask_bits_up", None)  # stays on the device (LazyMasks)
+        frames_dev = torch.from_numpy(np.ascontiguousarray(batch_np)).to(self.device)
+        dets = self.predict_raw(frames_dev, conf, iou, imgsz, max_det, multi_label=multi_label)
+        packed = dets.pop("mask_bits_up", None)  # stays on the device (LazyMasks)
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
         dt = (time.perf_counter() - t0) * 1000
-        return self._postprocess(dets, dev_masks, orig_shapes, host_lb, imgsz, tuple(batch_np.shape[1:3]), dt)
+        return self._postprocess(dets, packed, orig_shapes, host_lb, imgsz, tuple(batch_np.shape[1:3]), dt)
+
+    def predict_many(
+        self,
+        images: Sequence[np.ndarray],
+        conf: float = 0.25,
+        iou: float = 0.45,
+        imgsz: int = 640,
+        batch_size: int = 32,
+        multi_label: bool = False,
+        max_det: Optional[int] = None,
+        pipeline_depth: int = 2,
+    ) -> List[Results]:
+        """Chunked, pipelined prediction over a long image list.
+
+        One (batch_size, H, W, 3) batch shape serves the whole list: the last
+        chunk is padded by repeating its last frame and the padding is
+        trimmed from the Results. Frames of mixed sizes are letterboxed on
+        the host first. Up to `pipeline_depth` chunks are in flight while
+        the host builds the Results of finished ones.
+
+        A second host thread stacks chunks ahead into their staging buffers
+        while this one launches the current chunk. On the card:
+        `pipeline_depth + 1` pinned staging buffers, refilled only once their
+        last upload has completed; the next chunk is copied on an upload
+        stream just before the current chunk's launch, beside its kernels;
+        the forward runs on a compute stream that waits for its copy's event;
+        the dets go to pinned host tensors without blocking, and the drain
+        waits on that chunk's event alone.
+        Segment masks are copied at drain time in one transfer of the rows
+        the chunk uses, so no device buffer stays held per chunk;
+        `LazyMasks` unpacks them from the host on read.
+
+        `Results.speed["inference"]` is pipelined wall time per image (from
+        dispatch to drain, so it includes waiting behind chunks in flight):
+        a throughput figure; `predict` gives latency.
+        """
+        if len(images) == 0:
+            return []
+        if pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        frames, orig_shapes, host_lb = self._batch(list(images), imgsz)
+        md = max_det or self.max_det
+        n = len(frames)
+        frame_hw = tuple(frames[0].shape[:2])
+        shape = (batch_size,) + tuple(frames[0].shape)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            if self._streams is None:
+                self._streams = tuple(torch.cuda.Stream(self.device) for _ in range(3))
+            upload, compute, download = self._streams
+            compute.wait_stream(torch.cuda.current_stream(self.device))  # the caller's work on the weights
+            staging = [torch.empty(shape, dtype=torch.uint8, pin_memory=True) for _ in range(pipeline_depth + 1)]
+            uploaded: List[Optional[torch.cuda.Event]] = [None] * len(staging)
+        results: List[Results] = []
+        pending: collections.deque = collections.deque()
+
+        def drain_one() -> None:
+            host, masks, done, lo, hi, t0 = pending.popleft()
+            m = hi - lo
+            if done is not None:
+                done.synchronize()
+            dets = {k: v.numpy()[:m].copy() for k, v in host.items()}
+            if masks:
+                # one bounded copy of the rows any real image uses
+                rows = int(dets["num"].max(initial=0))
+                if cuda:
+                    download.wait_event(done)
+                    with torch.cuda.stream(download):
+                        masks = {k: v[:m, :rows].cpu() for k, v in masks.items()}
+                dets.update({k: v[:m, :rows].numpy() for k, v in masks.items()})
+            packed = dets.pop("mask_bits_up", None)
+            dt = (time.perf_counter() - t0) * 1000
+            results.extend(self._postprocess(dets, packed, orig_shapes[lo:hi],
+                                             None if host_lb is None else host_lb[lo:hi], imgsz, frame_hw, dt))
+
+        starts = list(range(0, n, batch_size))
+
+        def stage(i: int) -> np.ndarray:
+            """Chunk i's frames, padded with its last, in its staging buffer
+            (on the card a pinned one, once that buffer's last upload is done)."""
+            lo, hi = starts[i], min(starts[i] + batch_size, n)
+            if cuda:
+                slot = i % len(staging)
+                if uploaded[slot] is not None:
+                    uploaded[slot].synchronize()
+                buf = staging[slot].numpy()
+            else:
+                buf = np.empty(shape, np.uint8)
+            np.stack(frames[lo:hi], axis=0, out=buf[: hi - lo])
+            buf[hi - lo:] = buf[hi - lo - 1]
+            return buf
+
+        def upload_chunk(i: int, buf: np.ndarray) -> torch.Tensor:
+            """Chunk i's frames on the device (on the card: copied from its
+            staging buffer on the upload stream, its event kept)."""
+            if not cuda:
+                return torch.from_numpy(buf)
+            slot = i % len(staging)
+            with torch.cuda.stream(upload):
+                frames_dev = staging[slot].to(self.device, non_blocking=True)
+                uploaded[slot] = upload.record_event()
+            return frames_dev
+
+        # A second thread stacks chunks ahead (numpy copies without the GIL)
+        # while this one launches. Chunk i + 1 is uploaded just before chunk
+        # i's launch, so the copy runs beside chunk i's kernels.
+        with ThreadPoolExecutor(max_workers=1) as stager:
+            next_dev = upload_chunk(0, stage(0))
+            staged = stager.submit(stage, 1) if len(starts) > 1 else None
+            for i, lo in enumerate(starts):
+                hi = min(lo + batch_size, n)
+                t0 = time.perf_counter()
+                frames_dev = next_dev
+                if staged is not None:
+                    next_dev = upload_chunk(i + 1, staged.result())
+                    staged = stager.submit(stage, i + 2) if i + 2 < len(starts) else None
+                if cuda:
+                    compute.wait_event(uploaded[i % len(staging)])
+                    frames_dev.record_stream(compute)
+                with torch.cuda.stream(compute) if cuda else contextlib.nullcontext():
+                    dets = self.predict_raw(frames_dev, conf, iou, imgsz, md, multi_label=multi_label)
+                    masks = {k: dets.pop(k) for k in _MASK_ROW_KEYS if k in dets}
+                    if cuda:  # into pinned host memory without blocking; the drain waits on `done`
+                        dets = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+                                for k, v in dets.items()}
+                    done = compute.record_event() if cuda else None
+                pending.append((dets, masks, done, lo, hi, t0))  # the device runs on while the host drains
+                if len(pending) >= pipeline_depth:
+                    drain_one()
+            while pending:
+                drain_one()
+        return results
 
     def _postprocess(
         self,
         dets: Dict[str, np.ndarray],
-        dev_masks: Optional[torch.Tensor],
+        packed_masks: Union[None, torch.Tensor, np.ndarray],
         orig_shapes: List[Tuple[int, int]],
         host_lb: Optional[List[Tuple[float, Tuple[float, float]]]],
         imgsz: int,
         batch_hw: Tuple[int, int],
         dt: float,
     ) -> List[Results]:
-        """Host-side assembly of Results from the synced fixed-shape dets dict."""
+        """Host-side assembly of Results from the fetched fixed-shape dets dict."""
         batch_n = len(orig_shapes)
         speed = {"inference": dt / batch_n}
         if self.spec.task == "classify":
@@ -433,20 +622,59 @@ class Predictor:
                 kpts = dets["kpts"][i, :n].copy()  # (n, K, 3)
                 kpts[..., 0] = (kpts[..., 0] - pad[0]) / ratio
                 kpts[..., 1] = (kpts[..., 1] - pad[1]) / ratio
-            masks = LazyMasks(dev_masks, i, n, ratio, pad, shape, imgsz) if dev_masks is not None and n else None
+            masks = None
+            if packed_masks is not None and n:
+                masks = LazyMasks(packed_masks, i, n, ratio, pad, shape, imgsz)
+            elif n and ("mask_q8" in dets or "mask_bits" in dets or "mask_coefs" in dets):
+                masks = crop_letterbox_masks(self._host_masks(dets, i, n, imgsz), ratio, pad, shape, downsample=1)
             results.append(Results(
                 boxes=boxes, scores=dets["scores"][i, :n], classes=dets["classes"][i, :n].astype(np.int32),
                 orig_shape=shape, names=self.names, keypoints=kpts, masks=masks, obb=obb, speed=speed,
             ))
         return results
 
+    @staticmethod
+    def _host_masks(dets: Dict[str, np.ndarray], i: int, n: int, imgsz: int) -> np.ndarray:
+        """The host-finished modes' (n, imgsz, imgsz) f32 masks of image i,
+        upsampled in ultralytics' order (the floats first, then any
+        threshold): "q8" soft, "bits" binary, "exact" soft."""
+        if "mask_q8" in dets:
+            soft = dets["mask_q8"][i, :n].astype(np.float32) / 255.0
+            return resize_linear_f32(np.ascontiguousarray(soft.transpose(1, 2, 0)), imgsz, imgsz).transpose(2, 0, 1)
+        if "mask_bits" in dets:
+            binm = unpack_mask_bits(dets["mask_bits"][i, :n]).astype(np.float32)
+            up = resize_linear_f32(np.ascontiguousarray(binm.transpose(1, 2, 0)), imgsz, imgsz)
+            return (up > 0.5).astype(np.float32).transpose(2, 0, 1)
+        return _assemble_masks(dets["proto"][i], dets["mask_coefs"][i, :n], dets["boxes"][i, :n], imgsz,
+                               upsample=True)
+
 
 def _check_mask_mode(mode: str) -> None:
-    if mode in _UNPORTED_MASK_MODES:
-        raise NotImplementedError(f"mask_mode {mode!r} is not ported yet (ROADMAP Queue 1 item 5); "
-                                  f"use one of {MASK_MODES}")
     if mode not in MASK_MODES:
         raise ValueError(f"mask_mode must be one of {MASK_MODES}, got {mode!r}")
+
+
+def _assemble_masks(proto: np.ndarray, coefs: np.ndarray, boxes_letterboxed: np.ndarray, imgsz: int,
+                    upsample: bool = False) -> np.ndarray:
+    """sigmoid(proto @ coefs) cropped to each box at prototype resolution,
+    then optionally bilinearly upsampled to (imgsz, imgsz): ultralytics'
+    `process_mask(upsample=True)` order, on the host for the n kept rows.
+    (Hm, Wm, nm) prototypes, (n, nm) coefficients, (n, 4) letterboxed xyxy
+    boxes -> (n, H, W) f32."""
+    hm, wm, nm = proto.shape
+    logits = proto.reshape(-1, nm).astype(np.float32) @ coefs.astype(np.float32).T  # (Hm*Wm, n)
+    with np.errstate(over="ignore"):  # exp(-logit) is inf below -88: the sigmoid is 0 there, as it should be
+        m = (1.0 / (1.0 + np.exp(-logits))).T.reshape(-1, hm, wm)
+    scale = hm / imgsz
+    ys = np.arange(hm)[None, :, None]
+    xs = np.arange(wm)[None, None, :]
+    b = boxes_letterboxed * scale
+    keep = ((xs >= b[:, 0, None, None]) & (xs < b[:, 2, None, None])
+            & (ys >= b[:, 1, None, None]) & (ys < b[:, 3, None, None]))
+    m = (m * keep).astype(np.float32)
+    if upsample and len(m):
+        m = resize_linear_f32(np.ascontiguousarray(m.transpose(1, 2, 0)), imgsz, imgsz).transpose(2, 0, 1)
+    return m
 
 
 def _obb_to_xyxy(obb: np.ndarray, shape_hw) -> np.ndarray:

@@ -7,10 +7,10 @@ sync; the host then matches the previous batch against its labels while the
 card works, and only then waits for this batch's detections. Box mAP for
 every task, OKS mAP for pose (`core/metrics.py`).
 
-`model` is any object with a `.predictor` (the JAX package's YOLO11Model
-shape), or a port `Predictor` itself. Loading a model by path,
-`benchmark_speed`, `compare_models` and `create_validator` need the port's
-YOLO11Model (ROADMAP Queue 1 item 6) and raise until it exists.
+`model` is any object with a `.predictor` (the port's `YOLO11Model`), or a
+port `Predictor` itself; with none, `model_path` names a seeded
+`YOLO11Model` (a checkpoint file raises until ROADMAP Queue 1 item 5).
+`benchmark_speed` times the model through `YOLO11Model.benchmark`.
 """
 
 from __future__ import annotations
@@ -31,9 +31,6 @@ from yolo_infer_tpu_torch.ops.letterbox import scale_boxes
 
 logger = logging.getLogger(__name__)
 
-_NO_MODEL_LOADER = "needs the port's YOLO11Model (ROADMAP Queue 1 item 6)"
-
-
 def _to_host(dets: Dict[str, torch.Tensor], device: torch.device) -> Dict[str, np.ndarray]:
     """Copy a dets dict to numpy; on the card, the wait for the batch."""
     out = {k: v.cpu().numpy() for k, v in dets.items() if v is not None}
@@ -53,9 +50,11 @@ class YOLO11Validator:
         device: Optional[str] = None,
     ):
         if model is None:
-            raise NotImplementedError(f"loading a model by path ({model_path or 'yolo11n'}) {_NO_MODEL_LOADER}; "
-                                      "pass model=, a Predictor or an object with .predictor")
+            from yolo_infer_tpu_torch.core.model import YOLO11Model
+
+            model = YOLO11Model(model_path or "yolo11n", device=device)
         self.model = model
+        self.device = device  # for the models compare_models builds
         self.output_dir = Path(output_dir)
 
     @property
@@ -166,7 +165,7 @@ class YOLO11Validator:
 
     def _update_task_metrics(self, task_metrics, ds_task, dets_np, i, k, m, imgsz):
         """OKS (pose) matching for image i of a batch, in letterboxed pixels
-        (segment's mask IoU waits with its dataset: ROADMAP Queue 1 item 5)."""
+        (segment's mask IoU waits with its dataset: ROADMAP Queue 1 item 4.1)."""
         scores = dets_np["scores"][i, :k]
         cls = dets_np["classes"][i, :k].astype(np.int32)
         gt_kpts = m.get("keypoints", np.zeros((0, 17, 3), np.float32)).copy()
@@ -180,15 +179,41 @@ class YOLO11Validator:
                      else np.zeros((0, gt_kpts.shape[1] if len(gt_kpts) else 17, 3)))
         task_metrics.update_from_iou(oks_matrix(pred_kpts, gt_kpts, areas), scores, cls, m["classes"])
 
-    # ------------------------------------------------- needs YOLO11Model
+    # ------------------------------------------------- speed and comparison
 
     def benchmark_speed(self, imgsz_list: Sequence[int] = (320, 640, 1280),
                         batch_sizes: Sequence[int] = (1, 8, 16, 32), runs: int = 50) -> Dict[str, Any]:
-        raise NotImplementedError(f"benchmark_speed {_NO_MODEL_LOADER}")
+        """`YOLO11Model.benchmark` over imgsz x batch; a setting that fails
+        (out of memory) is recorded as an error and the sweep goes on."""
+        results: Dict[str, Any] = {}
+        for imgsz in imgsz_list:
+            for b in batch_sizes:
+                key = f"imgsz{imgsz}_batch{b}"
+                try:
+                    results[key] = self.model.benchmark(imgsz=imgsz, batch=b, runs=runs, warmup=5)
+                except Exception as e:  # noqa: BLE001 -- the sweep survives a setting that fails
+                    logger.warning("benchmark %s failed: %s", key, e)
+                    results[key] = {"error": str(e)}
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        (self.output_dir / "speed_benchmark.json").write_text(json.dumps(results, indent=2, default=float))
+        return results
 
     def compare_models(self, model_paths: Sequence[str], data: Union[str, Path, Dict[str, Any]],
                        **val_kw) -> Dict[str, Any]:
-        raise NotImplementedError(f"compare_models {_NO_MODEL_LOADER}")
+        """Validate several models (`YOLO11Model` names) on the same data and rank them by mAP50-95."""
+        from yolo_infer_tpu_torch.core.model import YOLO11Model
+
+        rows = {}
+        for path in model_paths:
+            r = YOLO11Validator(model=YOLO11Model(path, device=self.device), output_dir=self.output_dir).validate(
+                data, verbose=False, **val_kw)
+            rows[str(path)] = {"mAP50-95": r["metrics"]["mAP50-95"], "mAP50": r["metrics"]["mAP50"],
+                               "images_per_s": r["speed"]["images_per_s"]}
+        ranking = sorted(rows, key=lambda k: rows[k]["mAP50-95"], reverse=True)
+        out = {"results": rows, "ranking": ranking, "best": ranking[0] if ranking else None}
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        (self.output_dir / "model_comparison.json").write_text(json.dumps(out, indent=2, default=float))
+        return out
 
     # ------------------------------------------------------------- k-fold
 
@@ -275,4 +300,4 @@ class _SubsetDataset:
 
 
 def create_validator(model_path: str = "yolo11n", **kw) -> YOLO11Validator:
-    raise NotImplementedError(f"create_validator {_NO_MODEL_LOADER}")
+    return YOLO11Validator(model_path=model_path, **kw)

@@ -6,7 +6,7 @@ per-image label files (`cls cx cy w h`, plus keypoint triplets for pose),
 and the host-letterboxed val batches (the port's OpenCV-free `letterbox`).
 Segment ground truth needs a polygon fill and OBB labels a minimum-area
 rectangle, which the JAX package takes from OpenCV; both raise
-`NotImplementedError` here (ROADMAP Queue 1 item 5).
+`NotImplementedError` here (ROADMAP Queue 1 items 4.1 and 4.2).
 """
 
 from __future__ import annotations
@@ -133,7 +133,7 @@ class YOLODataset:
     def __init__(self, data: Union[str, Path, Dict[str, Any]], split: str = "val", task: str = "detect",
                  kpt_shape=(17, 3)):
         if task in _UNPORTED_TASKS:
-            raise NotImplementedError(f"{task} datasets are not ported yet (ROADMAP Queue 1 item 5: "
+            raise NotImplementedError(f"{task} datasets are not ported yet (ROADMAP Queue 1 item 4: "
                                       "segment needs a polygon fill, OBB a minimum-area rectangle)")
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")

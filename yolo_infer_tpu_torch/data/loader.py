@@ -11,7 +11,7 @@ formats it supports itself, with `zlib` and numpy, to the same pixels:
   BMP  24-bit, uncompressed, bottom-up or top-down rows
 
 Any other format raises `NotImplementedError` (JPEG, TIFF and WebP decoding
-are ROADMAP Queue 1 item 5). `save_image` writes PNG (filter 0 on every row).
+are ROADMAP Queue 1 item 4.3). `save_image` writes PNG (filter 0 on every row).
 Images are uint8 HWC, RGB by default.
 """
 
@@ -29,7 +29,7 @@ IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp"}
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel (8-bit)
 _UNSUPPORTED = ("the port reads PNG (8-bit grey, grey + alpha, RGB, RGBA; non-interlaced) and 24-bit BMP; "
-                "other formats are ROADMAP Queue 1 item 5 (JPEG decode)")
+                "other formats are ROADMAP Queue 1 item 4.3 (JPEG decode)")
 
 
 def list_image_files(source: Union[str, Path]) -> List[Path]:

@@ -17,7 +17,7 @@ weights OIHW. Scales are f32 tensors on the host, so reading one costs no
 device sync. `torch.round` rounds half to even, as `jnp.round` does.
 
 The JAX package's "dynamic", legacy 1-D "static" and QAT "fake" modes are
-not ported (ROADMAP Queue 1 item 7) and raise.
+not ported (ROADMAP Queue 1 item 6) and raise.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 INT8_MAX = 127.0
 MODES = ("observe8", "static8")
 _UNPORTED_MODES = ("dynamic", "static", "fake", "observe")
-UNPORTED = "is not ported yet (ROADMAP Queue 1 item 7: dynamic, legacy static and QAT fake-quant int8)"
+UNPORTED = "is not ported yet (ROADMAP Queue 1 item 6: dynamic, legacy static and QAT fake-quant int8)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Segment mask assembly on the device.
 
-Port of `yolo_infer_tpu/ops/masks.py` for the serving modes: the
+Port of `yolo_infer_tpu/ops/masks.py`. The device serving modes take the
 ultralytics `process_mask(upsample=True).gt_(0.5)` order — sigmoid of the
 prototype x coefficient product, cropped to each box at prototype
 resolution, bilinearly upsampled, thresholded at 0.5 — with the binary
@@ -8,7 +8,9 @@ masks bit-packed MSB-first along W, so the device-to-host copy is 32x
 smaller than f32 masks. At full size (ratio 4) the upsample, threshold and
 pack are kernel D (`ops/kernels/mask_pack.py`); the half-size variant
 (`mask_mode="device_half"`, ratio 2) runs the plain version. The host
-unpacks with `np.unpackbits`.
+unpacks with `np.unpackbits`. The host-finished modes stop at prototype
+resolution: `assemble_mask_bits` (thresholded, packed) and
+`assemble_masks_q8` (soft, uint8); the predictor upsamples on the host.
 
 The product runs on the unsplit (n, Hm, Wm) masks in one `torch.bmm`: the
 JAX package's even/odd column split only avoided a TPU lane shuffle.
@@ -26,14 +28,13 @@ from yolo_infer_tpu_torch.ops.kernels.mask_pack import upsample4x_threshold_pack
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # MSB-first
 
 
-def soft_masks(proto: torch.Tensor, coefs: torch.Tensor, boxes_px: torch.Tensor, imgsz: int) -> torch.Tensor:
-    """sigmoid(proto @ coefs) cropped to each box: (B, Hm, Wm, nm) prototypes,
-    (B, max_det, nm) coefficients and (B, max_det, 4) xyxy boxes in
-    letterboxed pixels -> (B, max_det, Hm, Wm) f32.
+def _instance_logits_and_crop(proto: torch.Tensor, coefs: torch.Tensor, boxes_px: torch.Tensor, imgsz: int):
+    """The mask logits (prototypes x coefficients) and the box crop at
+    prototype resolution, shared by every assembly mode: (B, Hm, Wm, nm)
+    prototypes, (B, max_det, nm) coefficients and (B, max_det, 4) xyxy boxes
+    in letterboxed pixels -> ((B, max_det, Hm, Wm) f32 logits, bool crop).
 
-    The crop keeps grid cells with x0 <= x < x1 and y0 <= y < y1 at
-    prototype resolution. The sigmoid and the crop run in place on the
-    product, which is the largest tensor of the segment tail.
+    The crop keeps grid cells with x0 <= x < x1 and y0 <= y < y1.
     """
     b, hm, wm, nm = proto.shape
     scale = hm / imgsz
@@ -44,7 +45,42 @@ def soft_masks(proto: torch.Tensor, coefs: torch.Tensor, boxes_px: torch.Tensor,
     xs = torch.arange(wm, dtype=torch.float32, device=proto.device)[None, :]
     keep = ((xs >= bxs[..., 0, None, None]) & (xs < bxs[..., 2, None, None])
             & (ys >= bxs[..., 1, None, None]) & (ys < bxs[..., 3, None, None]))
+    return logits, keep
+
+
+def soft_masks(proto: torch.Tensor, coefs: torch.Tensor, boxes_px: torch.Tensor, imgsz: int) -> torch.Tensor:
+    """sigmoid(proto @ coefs) cropped to each box -> (B, max_det, Hm, Wm) f32.
+    The sigmoid and the crop run in place on the product, which is the
+    largest tensor of the segment tail."""
+    logits, keep = _instance_logits_and_crop(proto, coefs, boxes_px, imgsz)
     return logits.sigmoid_().mul_(keep)
+
+
+def _bitpack_w(binm: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) bool -> (..., H, W/8) uint8, MSB-first along W."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=binm.device)  # made on the device: no copy
+    grouped = binm.reshape(binm.shape[:-1] + (binm.shape[-1] // 8, 8)).to(torch.int32)
+    return (grouped << shifts).sum(dim=-1).to(torch.uint8)
+
+
+def assemble_mask_bits(proto: torch.Tensor, coefs: torch.Tensor, boxes_px: torch.Tensor, imgsz: int) -> torch.Tensor:
+    """Binary cropped masks at prototype resolution, bit-packed along W:
+    (B, max_det, Hm, Wm/8) uint8 of `sigmoid(logits) > 0.5` (that is,
+    logits > 0) inside each box. The validation comparison's semantic; the
+    host upsamples and thresholds again for `mask_mode="bits"`."""
+    if proto.shape[2] % 8:
+        raise ValueError(f"proto width {proto.shape[2]} not a multiple of 8 (imgsz must be a multiple of 32)")
+    logits, keep = _instance_logits_and_crop(proto, coefs, boxes_px, imgsz)
+    return _bitpack_w((logits > 0) & keep)
+
+
+def assemble_masks_q8(proto: torch.Tensor, coefs: torch.Tensor, boxes_px: torch.Tensor, imgsz: int) -> torch.Tensor:
+    """Soft cropped masks at prototype resolution, quantized to uint8:
+    (B, max_det, Hm, Wm) of round(sigmoid(logits) * 255) inside each box
+    (half to even, as `jnp.round`). The host divides by 255, upsamples the
+    floats and leaves the threshold to the caller (`mask_mode="q8"`)."""
+    logits, keep = _instance_logits_and_crop(proto, coefs, boxes_px, imgsz)
+    return (torch.round(logits.sigmoid_() * 255.0) * keep).to(torch.uint8)
 
 
 def _phase_taps(m: torch.Tensor, r: int, dim: int) -> Iterator[torch.Tensor]:

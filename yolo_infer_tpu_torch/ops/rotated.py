@@ -107,7 +107,7 @@ def batched_rotated_nms(
     (B, max_det, 5) xywhr, scores, classes, valid, num (B,) int32,
     anchor_idx; invalid slots are zero / -1."""
     if multi_label:
-        raise NotImplementedError("multi-label rotated NMS is not ported yet (ROADMAP Queue 1 item 5, validation)")
+        raise NotImplementedError("multi-label rotated NMS is not ported yet (ROADMAP Queue 1 item 4.2, OBB validation)")
     rboxes = rboxes.float()
     scores = scores.float()
     best, cls_best = scores.max(dim=-1)

@@ -4,9 +4,9 @@ Port of `yolo_infer_tpu/optimization/base.py`: `BaseOptimizer` (optimize,
 evaluate, get_optimization_info), `QuantizationOptimizer`
 (set_calibration_data), `OptimizationPipeline` and `OptimizationRegistry`.
 Models are the port's `YOLO11Model` wrappers. Saving and loading an
-optimized model needs the checkpoint format (ROADMAP Queue 1 item 6) and
-raises until it exists; so does `compare_models`, which times through
-`YOLO11Model.benchmark` (item 6).
+optimized model needs the checkpoint format (ROADMAP Queue 1 item 5) and
+raises until it exists. `evaluate` without data and `compare_models` time
+through `YOLO11Model.benchmark`.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-_NO_CHECKPOINT = "needs the port's checkpoint format (ROADMAP Queue 1 item 6)"
+_NO_CHECKPOINT = "needs the port's checkpoint format (ROADMAP Queue 1 item 5)"
 
 
 class BaseOptimizer(abc.ABC):
@@ -38,15 +38,15 @@ class BaseOptimizer(abc.ABC):
         """Produce and return the optimized model."""
 
     def evaluate(self, data: Optional[Any] = None, imgsz: int = 640, batch: int = 16) -> Dict[str, Any]:
-        """Accuracy of the optimized model on a dataset, through the port's validator."""
+        """Accuracy of the optimized model on a dataset (the port's validator),
+        or with no dataset its speed (`YOLO11Model.benchmark`)."""
         if self.optimized_model is None:
             raise RuntimeError("call optimize() first")
-        if not data:
-            raise NotImplementedError("evaluation without a dataset times the model through "
-                                      "YOLO11Model.benchmark (ROADMAP Queue 1 item 6); pass data=")
-        from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+        if data:
+            from yolo_infer_tpu_torch.core.validator import YOLO11Validator
 
-        return YOLO11Validator(model=self.optimized_model).validate(data, imgsz=imgsz, batch=batch, verbose=False)
+            return YOLO11Validator(model=self.optimized_model).validate(data, imgsz=imgsz, batch=batch, verbose=False)
+        return self.optimized_model.benchmark(imgsz=imgsz, batch=batch, runs=20, warmup=5)
 
     def get_optimization_info(self) -> Dict[str, Any]:
         return dict(self.optimization_info)
@@ -59,7 +59,21 @@ class BaseOptimizer(abc.ABC):
         raise NotImplementedError(f"loading an optimized model {_NO_CHECKPOINT}")
 
     def compare_models(self, imgsz: int = 640, batch: int = 8, runs: int = 20) -> Dict[str, Any]:
-        raise NotImplementedError("comparing speeds needs YOLO11Model.benchmark (ROADMAP Queue 1 item 6)")
+        """Original against optimized: time (`YOLO11Model.benchmark`) and size."""
+        if self.optimized_model is None:
+            raise RuntimeError("call optimize() first")
+        from yolo_infer_tpu_torch.utils.helpers import calculate_model_size
+
+        orig = self.model.benchmark(imgsz=imgsz, batch=batch, runs=runs, warmup=5)
+        opt = self.optimized_model.benchmark(imgsz=imgsz, batch=batch, runs=runs, warmup=5)
+        size_orig = calculate_model_size(self.model.deploy_model)
+        size_opt = calculate_model_size(self.optimized_model.deploy_model)
+        return {
+            "original": {"avg_time_s": orig["avg_time_s"], "fps": orig["fps"], "size_mb": size_orig["size_mb"]},
+            "optimized": {"avg_time_s": opt["avg_time_s"], "fps": opt["fps"], "size_mb": size_opt["size_mb"]},
+            "speedup": orig["avg_time_s"] / opt["avg_time_s"],
+            "compression_ratio": size_orig["size_mb"] / max(size_opt["size_mb"], 1e-9),
+        }
 
 
 class QuantizationOptimizer(BaseOptimizer):

@@ -9,7 +9,7 @@ largest (input, output) absmax of each quantized conv: the (n, 2) scales
 that static8 serving consumes in the same order.
 
 `DynamicQuantizer` and `QATQuantizer` are not ported and raise (ROADMAP
-Queue 1 item 7).
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from yolo_infer_tpu_torch.optimization.base import BaseOptimizer, OptimizationRe
 logger = logging.getLogger(__name__)
 
 MAX_CALIBRATION_BATCHES = 100
-_UNPORTED = "is not ported yet (ROADMAP Queue 1 item 7: dynamic and QAT int8)"
+_UNPORTED = "is not ported yet (ROADMAP Queue 1 item 6: dynamic and QAT int8)"
 
 
 def _quantized_clone(model, act_scales=None, qmodel=None):
@@ -125,8 +125,12 @@ class QuantizationUtils:
                 "compression_ratio": a["size_mb"] / max(b["size_mb"], 1e-9)}
 
     @staticmethod
-    def benchmark_inference_speed(original, quantized, imgsz: int = 640, batch: int = 8, runs: int = 20):
-        raise NotImplementedError("timing needs YOLO11Model.benchmark (ROADMAP Queue 1 item 6)")
+    def benchmark_inference_speed(original, quantized, imgsz: int = 640, batch: int = 8,
+                                  runs: int = 20) -> Dict[str, Any]:
+        """`YOLO11Model.benchmark` of both models and the speedup (original / quantized time)."""
+        a = original.benchmark(imgsz=imgsz, batch=batch, runs=runs, warmup=5)
+        b = quantized.benchmark(imgsz=imgsz, batch=batch, runs=runs, warmup=5)
+        return {"original": a, "quantized": b, "speedup": a["avg_time_s"] / b["avg_time_s"]}
 
     @staticmethod
     def is_quantized(model) -> bool:
