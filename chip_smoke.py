@@ -4,13 +4,15 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs twenty-three phases, each printing one JSON line. Kernels A, C and G are
-timed with L2 flushed before each call (`l2_cold`), as the path finds them:
+runs twenty-three phases, each printing one JSON line. Kernels A, C, F and G
+are timed with L2 flushed before each call (`l2_cold`), as the path finds
+them:
 
   1. card    nvidia-smi name and power limit, kernel build times, ptxas info
              and each library's tensor-core instructions in its SASS
              (`cuobjdump -sass`: HMMA, IMMA); B's library must hold HMMA and
-             E's IMMA
+             E's IMMA; kernel F's SASS instructions per logit (each
+             function's static count over the logits a thread decodes)
   2. nms     kernel A (`nms_keep`) vs its plain version on the card (and on
              the cpu up to K=1024), keep masks equal bit for bit: random
              candidates at B=32 K=384, 512, 1024 and 2048, B=4 K=4096 and
@@ -18,7 +20,7 @@ timed with L2 flushed before each call (`l2_cold`), as the path finds them:
              a valid prefix of 0..384 at K=384, boxes holding NaN, +-inf and
              zero-area entries at K=384 and 4096, and the 3-box suppression
              chain; device time of each split into the IoU bits pass and the
-             walk (resident up to K=1024, strip-staged above); K=8193 raises
+             walk; K=8193 raises
   3. attn    kernel B (`attention_qkv`) vs its plain version on the card: bf16
              (32, 400, 256) heads=2, (32, 400, 512) heads=4, (16, 1024, 256)
              heads=2 (the OBB shape) and (2, 37, 256) (a ragged key tile)
@@ -43,8 +45,7 @@ timed with L2 flushed before each call (`l2_cold`), as the path finds them:
              B=16 random oriented candidates at K=1024, 37, 160, 2048, 4096
              and 8192 (15% invalid) and at K=4096 with a valid prefix of
              300..1500, keep masks equal bit for bit; device time of each
-             split into the probIoU bits pass and the walk (resident in
-             shared memory up to K=1024, strip-staged above); the 3-box
+             split into the probIoU bits pass and the walk; the 3-box
              suppression chain; K=8193 raises
   8. mpack   kernel D (`upsample4x_threshold_pack`) vs its plain version on
              the card, packed bytes equal bit for bit: random (300, 160, 160),
@@ -74,12 +75,20 @@ timed with L2 flushed before each call (`l2_cold`), as the path finds them:
              on 1024x1024 frames (the OBB models' input size): counters B,
              C and F >= 1 (OBB's full-grid decode runs F), timings as in
              phase 10, kernel C at the captured K=1024 input (bits pass and
-             walk timed apart), and kernel B at
+             walk timed apart), kernel F at the captured (16, 21504, 64)
+             slice of the 79-channel head slab (2-byte-aligned rows; within
+             1e-5, timed cold beside its bound), and kernel B at
              its captured N=1024 input beside its bound, its plain version and
              `F.scaled_dot_product_attention`
- 12. dfl     kernel F (`dfl_decode`) vs its plain version on the card:
-             random (16, 8400, 64) f32 and bf16 logits, contiguous and as
-             the strided slice of a (16, 8400, 144) head slab, within 1e-5
+ 12. dfl     kernel F (`dfl_decode`) vs its plain version on the card, f32
+             and bf16, within 1e-5, one launch each: random (16, 8400, 64)
+             logits contiguous and as the slice of a (16, 8400, 144) head
+             slab (detect), slices from channel 1, 2 and 4, the slices of
+             (16, 21504, 79) (OBB nc 15) and (16, 8400, 65) (pose nc 1)
+             slabs, a ragged A (8397, 37), and logits from N(0, 8) with one
+             row in four spanning 80 across each side's bins, and B = 70000
+             images (past the grid's y limit); every load width (16, 8, 4,
+             2 bytes) must be taken
  13. gnms    kernel G (`greedy_nms_keep`) vs its plain version on the card,
              bit-equal: random sorted candidates' IoU at (16, 4096), K = 1000
              and 37 (not multiples of 32), an all-invalid image, (2, 8192),
@@ -102,8 +111,8 @@ timed with L2 flushed before each call (`l2_cold`), as the path finds them:
              inference_ms_per_image from the validator, peak device
              memory, kernels F and G and the plain IoU build in front of G
              at the captured inputs (F within 1e-5, G bit-equal; device
-             times beside their bounds), and the device time by kernel over
-             three batches
+             times, L2 flushed before each call, beside their bounds; F warm
+             too), and the device time by kernel over three batches
  16. q8_fp32  yolo11s detect static8 (PTQ on the cpu, f32 compute) `predict`
              on two 480x640 frames at 640 px on cuda and on cpu (TF32 off):
              kernel E's counter rises, and at least Q8_PAIRED of the
@@ -230,6 +239,8 @@ OBB_SERVE = (16, 1024)  # OBB path: batch, imgsz (the OBB models' input size)
 # kernel F per logit: max, subtraction, exp, product and two sums; per side
 # one division (exp counted as one operation)
 DFL_OPS_PER_LOGIT = 6
+# kernel F against its plain version: both sum in f32, in another order
+DFL_TOL = 1e-5
 VAL = dict(imgsz=640, batch=16, conf=0.001, iou=0.6, pre_topk=4096)  # the validator's defaults
 VAL_FP32_FRAMES = 24
 VAL_BF16_FRAMES = 64
@@ -537,11 +548,47 @@ def timed_serving(pred, frames, imgsz: int):
 TENSOR_CORE_SASS = {"attention_fused": "HMMA", "int8_conv": "IMMA"}
 
 
-def sass_counts(path: Path, cuobjdump: Path):
-    """Tensor-core instructions (HMMA, IMMA) in a built library's SASS."""
-    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True, timeout=120,
+def sass_text(path: Path, cuobjdump: Path) -> str:
+    return subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True, timeout=120,
                           check=True).stdout
+
+
+def sass_counts(sass: str):
+    """Tensor-core instructions (HMMA, IMMA) in a built library's SASS."""
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "IMMA")}
+
+
+SASS_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_instructions(sass: str, marker: str):
+    """{function: instructions} of the functions in `cuobjdump -sass` output
+    whose names hold `marker`: the static count (every path of the body,
+    subroutines included), NOPs left out."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            name = name if marker in name else None
+            if name:
+                counts[name] = 0
+        elif name:
+            op = SASS_INSTRUCTION.match(line)
+            if op and op.group(1) != "NOP":
+                counts[name] += 1
+    return counts
+
+
+# kernel F decodes one anchor row with 8 threads, so 8 logits a thread
+DFL_LOGITS_PER_THREAD = 8
+
+
+def dfl_sass(sass: str):
+    """Kernel F's SASS instructions per logit: each function's static count
+    over the logits one thread decodes (the body is straight-line code)."""
+    return {"logits_per_thread": DFL_LOGITS_PER_THREAD,
+            "kernels": {name: {"instructions": n, "per_logit": n / DFL_LOGITS_PER_THREAD}
+                        for name, n in sass_instructions(sass, "dfl_decode_kernel").items()}}
 
 
 def phase_card(report):
@@ -552,8 +599,12 @@ def phase_card(report):
     built = _build.build(list(_build.KERNELS))
     report["card"] = line
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = {name: sass_counts(_build.library_path(name), cuobjdump) for name in _build.KERNELS}
-    out = {"phase": "card", "card": line, "build_s": time.perf_counter() - t0, "kernels": built, "sass": sass}
+    texts = {name: sass_text(_build.library_path(name), cuobjdump) for name in _build.KERNELS}
+    sass = {name: sass_counts(text) for name, text in texts.items()}
+    out = {"phase": "card", "card": line, "build_s": time.perf_counter() - t0, "kernels": built, "sass": sass,
+           "dfl_sass": dfl_sass(texts["dfl_decode"])}
+    if not out["dfl_sass"]["kernels"]:
+        raise AssertionError("no dfl_decode_kernel function in kernel F's SASS")
     missing = {name: op for name, op in TENSOR_CORE_SASS.items() if sass[name][op] < 1}
     if missing:
         emit(out)
@@ -854,7 +905,8 @@ L2_FLUSH_BYTES = 128 << 20  # written between timed calls: more than the H100's 
 def l2_cold(call):
     """`call` preceded by a write of L2_FLUSH_BYTES, so each call finds its
     inputs in HBM, not in L2, as on the path (a profile that sums named
-    kernels leaves the fill kernel out)."""
+    kernels leaves the fill kernel out). The write leaves L2 full of dirty
+    lines, which the call's reads must write back to HBM as they come in."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -869,7 +921,7 @@ def keep_time_split(call, bits_kernel: str):
     """A keep-mask kernel's device time per call (torch.profiler over 10
     calls of `call`, L2 flushed before each: `l2_cold`), split into its two
     launches: the bits pass (the kernel named `bits_kernel`) and the walk of
-    nms_walk.cuh (resident for K <= 1024, strip-staged above)."""
+    nms_walk.cuh."""
     named = kernel_profile(l2_cold(call), calls=10, named=(bits_kernel, "_walk_kernel"))["named"]
     bits_ms, walk_ms = named[bits_kernel]["ms"], named["_walk_kernel"]["ms"]
     return {"ms": bits_ms + walk_ms, "bits_ms": bits_ms, "walk_ms": walk_ms, "walk_share": walk_ms / (bits_ms + walk_ms)}
@@ -908,6 +960,33 @@ def g_time_split(iou, valid, thr):
     from yolo_infer_tpu_torch.ops.kernels.greedy_nms import greedy_nms_keep
 
     return keep_time_split(lambda: greedy_nms_keep(iou, valid, thr), "suppression_bits_kernel")
+
+
+def dfl_row(x, reg_max: int, launches: int, path: str):
+    """Kernel F at a path's captured input (the strided slice of the decode's
+    head slab): its error against the plain version (at most DFL_TOL), its
+    device time with L2 flushed before each call (`l2_cold`: the val input,
+    17 MB, fits in the 50 MB L2, and a warm reading could pass the HBM bound),
+    the warm time beside it, and its bound."""
+    from yolo_infer_tpu_torch.ops.kernels import dfl_decode as f_mod
+
+    kernel_f = lambda: f_mod.dfl_decode(x, reg_max)  # noqa: E731
+    plain_f = lambda: f_mod.dfl_decode_reference(x, reg_max)  # noqa: E731
+    err = float((kernel_f() - plain_f()).abs().max())
+    if not err <= DFL_TOL:
+        raise AssertionError(f"kernel F differs from its plain version by {err} on the {path} path")
+    b, a, c = x.shape
+    bytes_f = b * a * c * x.element_size() + b * a * 4 * 4
+    ops_f = b * a * c * DFL_OPS_PER_LOGIT + b * a * 4
+    cold = kernel_profile(l2_cold(kernel_f), calls=20, named=("dfl_decode_kernel",))["named"]["dfl_decode_kernel"]
+    if cold["calls"] != 1:
+        raise AssertionError(f"kernel F launched {cold['calls']} kernels per call")
+    return {"name": "dfl_decode", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/dfl_decode.cu",
+            "replaces": "yolo_infer_tpu/ops/pallas/dfl_kernel.py:49", "path": path,
+            "launches": launches, "max_abs_err": err, "ms": cold["ms"], "warm_ms": device_ms(kernel_f),
+            "plain_ms": device_ms(plain_f), "call_ms": cuda_ms(kernel_f), "plain_call_ms": cuda_ms(plain_f),
+            **bound(bytes_f, ops_f, H100_F32_FLOPS), "library_ms": None, "shape": [b, a, c],
+            "strides": list(x.stride()), "dtype": str(x.dtype), "vec_bytes": f_mod.vector_bytes(x)}
 
 
 def card_memory_clock() -> dict:
@@ -1176,6 +1255,7 @@ def phase_obb_bf16(report):
     import torch
 
     import yolo_infer_tpu_torch.models.blocks as blocks_mod
+    import yolo_infer_tpu_torch.ops.decode as decode_mod
     import yolo_infer_tpu_torch.ops.rotated as rot_mod
     from yolo_infer_tpu_torch.core.predictor import Predictor
     from yolo_infer_tpu_torch.ops.kernels import rotated_nms_fused as rn_mod
@@ -1188,7 +1268,8 @@ def phase_obb_bf16(report):
     torch.cuda.synchronize()
 
     seen = {}
-    restores = [capture_inputs(rot_mod, "rotated_nms_keep", seen), capture_inputs(blocks_mod, "attention_qkv", seen)]
+    restores = [capture_inputs(rot_mod, "rotated_nms_keep", seen), capture_inputs(blocks_mod, "attention_qkv", seen),
+                capture_inputs(decode_mod, "dfl_decode", seen, clone=False)]
     reset_counters()
     try:
         results = pred.predict(frames, conf=0.25, imgsz=imgsz)
@@ -1230,29 +1311,60 @@ def phase_obb_bf16(report):
     row_b = attention_b_row(*seen["attention_qkv"])
     if row_b["tol_excess"] > 0:
         raise AssertionError(f"kernel B differs from its plain version on the OBB path by {row_b['max_abs_err']}")
+    # kernel F at the OBB path's (16, 21504, 64) slice of the 79-channel head slab
+    row_f = dfl_row(*seen["dfl_decode"], launches["dfl_decode"], f"obb b{batch} {imgsz} bf16")
     profile = kernel_profile(lambda: pred.predict(frames, conf=0.25, imgsz=imgsz))
     return {"phase": "obb_bf16", **timing, "launches": launches, "detections_per_image": [min(nums), max(nums)],
-            "attention_qkv": row_b, "profile": profile}
+            "attention_qkv": row_b, "dfl_decode": row_f, "profile": profile}
+
+def dfl_spread_logits(rng, shape):
+    """Logits drawn from N(0, 8), and in one row in four each side's 16 bins a
+    shuffled ramp from -40 to 40 (a span of 80: exp(x - max) down to ~2e-35)."""
+    x = rng.normal(0, 8, shape).astype(np.float32)
+    sides = x[..., :64].reshape(-1, 4, 16)
+    rows = rng.choice(sides.shape[0], sides.shape[0] // 4, replace=False)
+    ramp = np.linspace(-40, 40, 16, dtype=np.float32)
+    sides[rows] = rng.permuted(np.broadcast_to(ramp, (len(rows), 4, 16)), axis=-1)
+    x[..., :64] = sides.reshape(*shape[:-1], 64)
+    return x
+
 
 def phase_dfl(report):
     import torch
 
-    from yolo_infer_tpu_torch.ops.kernels.dfl_decode import dfl_decode, dfl_decode_reference
+    from yolo_infer_tpu_torch.ops.kernels import dfl_decode as f_mod
 
     rng = np.random.default_rng(SEED + 9)
-    slab = torch.from_numpy(rng.normal(0, 3, (16, 8400, 144)).astype(np.float32)).cuda()
-    out = {"phase": "dfl", "cases": []}
+    slabs = {c: torch.from_numpy(rng.normal(0, 3, (16, a, c)).astype(np.float32)).cuda()
+             for c, a in ((144, 8400), (79, 21504), (65, 8400))}
+    spread = torch.from_numpy(dfl_spread_logits(rng, (16, 2100, 79))).cuda()
+    many = torch.from_numpy(rng.normal(0, 3, (70000, 3, 64)).astype(np.float32)).cuda()
+    cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        typed = slab.to(dtype)
-        for layout, x in (("contiguous", typed[..., :64].contiguous()), ("slab slice", typed[..., :64])):
-            got = dfl_decode(x)
-            want = dfl_decode_reference(x)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            out["cases"].append({"shape": list(x.shape), "dtype": str(dtype), "layout": layout,
-                                 "strides": list(x.stride()), "max_abs_err": err})
-            if not err <= 1e-5:
-                raise AssertionError(f"kernel F differs from its plain version by {err} ({dtype}, {layout})")
+        s144, s79, s65, wide, images = (t.to(dtype) for t in (slabs[144], slabs[79], slabs[65], spread, many))
+        cases += [("144 contiguous", s144[..., :64].contiguous()), ("144 slab slice (detect nc 80)", s144[..., :64]),
+                  ("144 slab from channel 1", s144[..., 1:65]), ("144 slab from channel 2", s144[..., 2:66]),
+                  ("144 slab from channel 4", s144[..., 4:68]), ("79 slab slice (obb nc 15)", s79[..., :64]),
+                  ("65 slab slice (pose nc 1)", s65[..., :64]), ("ragged A 8397", s144[:3, :8397, :64]),
+                  ("ragged A 37", s65[:2, :37, :64].contiguous()), ("wide spread", wide[..., :64].contiguous()),
+                  ("wide spread, 79 slab slice", wide[..., :64]),
+                  ("B 70000, past the grid's y limit", images)]
+    out = {"phase": "dfl", "cases": []}
+    for name, x in cases:
+        before = f_mod.dfl_decode.launches
+        got = f_mod.dfl_decode(x)
+        want = f_mod.dfl_decode_reference(x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        out["cases"].append({"case": name, "shape": list(x.shape), "dtype": str(x.dtype), "strides": list(x.stride()),
+                             "vec_bytes": f_mod.vector_bytes(x), "max_abs_err": err})
+        if f_mod.dfl_decode.launches != before + 1:
+            raise AssertionError(f"kernel F did not launch once for {name} ({x.dtype})")
+        if not err <= DFL_TOL:
+            raise AssertionError(f"kernel F differs from its plain version by {err} ({name}, {x.dtype})")
+    out["vec_bytes_taken"] = sorted({c["vec_bytes"] for c in out["cases"]})
+    if out["vec_bytes_taken"] != [2, 4, 8, 16]:
+        raise AssertionError(f"kernel F's cases took load widths {out['vec_bytes_taken']}, not all of 16, 8, 4, 2")
     return out
 
 
@@ -1440,7 +1552,6 @@ def _val_bf16(report, pred, spec, frames, root: Path):
     import yolo_infer_tpu_torch.ops.decode as decode_mod
     import yolo_infer_tpu_torch.ops.nms as nms_ops
     from yolo_infer_tpu_torch.core.validator import YOLO11Validator
-    from yolo_infer_tpu_torch.ops.kernels import dfl_decode as f_mod
     from yolo_infer_tpu_torch.ops.kernels import greedy_nms as g_mod
 
     labels = pred.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=VAL["imgsz"])
@@ -1470,14 +1581,6 @@ def _val_bf16(report, pred, spec, frames, root: Path):
     timed = validator.validate(data, verbose=False, **VAL)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # kernel F at the path's own input: the strided (16, 8400, 64) slice of the head slab
-    x, reg_max = seen["dfl_decode"]
-    kernel_f = lambda: f_mod.dfl_decode(x, reg_max)  # noqa: E731
-    plain_f = lambda: f_mod.dfl_decode_reference(x, reg_max)  # noqa: E731
-    err_f = float((kernel_f() - plain_f()).abs().max())
-    b, a, c = x.shape
-    bytes_f = b * a * c * x.element_size() + b * a * 4 * 4
-    ops_f = b * a * c * DFL_OPS_PER_LOGIT + b * a * 4
     # kernel G at the path's own input, and the plain IoU build in front of it
     iou, valid, thr = seen["greedy_nms_keep"]
     sup, _ = seen["box_iou_matrix"]
@@ -1492,18 +1595,11 @@ def _val_bf16(report, pred, spec, frames, root: Path):
     pairs_g = valid_pairs(valid)
     bytes_g = 4 * pairs_g + 2 * bk * k
     read_check = g_read_check(iou, valid, thr)
-    if err_f > 1e-5 or err_g:
-        raise AssertionError(f"validation-path kernel outputs differ from the plain versions: F {err_f}, G {err_g}")
+    if err_g:
+        raise AssertionError(f"kernel G differs from its plain version on the validation path: {err_g}")
     val_path = f"detect val b{VAL['batch']} {VAL['imgsz']} bf16"
-    report["kernels"] += [{
-        "name": "dfl_decode", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/dfl_decode.cu",
-        "replaces": "yolo_infer_tpu/ops/pallas/dfl_kernel.py:49", "path": val_path,
-        "launches": launches["dfl_decode"], "max_abs_err": err_f,
-        "ms": device_ms(kernel_f), "plain_ms": device_ms(plain_f),
-        "call_ms": cuda_ms(kernel_f), "plain_call_ms": cuda_ms(plain_f),
-        **bound(bytes_f, ops_f, H100_F32_FLOPS),
-        "library_ms": None, "shape": [b, a, c], "strides": list(x.stride()), "dtype": str(x.dtype),
-    }, {
+    # kernel F at the path's own input: the strided (16, 8400, 64) slice of the head slab
+    report["kernels"] += [dfl_row(*seen["dfl_decode"], launches["dfl_decode"], val_path), {
         "name": "greedy_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/nms_kernel.py:48", "path": val_path,
         "launches": launches["greedy_nms_keep"], "max_abs_err": err_g,

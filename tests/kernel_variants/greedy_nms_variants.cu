@@ -5,7 +5,7 @@
 // -I yolo_infer_tpu_torch/csrc.
 //
 //   greedy_nms_two_buffer_walk_launch  this G's bits pass, then the earlier
-//       strip-staged walk for K > 1024 (the resident walk below): warp 0 walks strip w
+//       strip-staged walk for K > 1024 (resident_walk.cuh's below): warp 0 walks strip w
 //       while the other warps stage strip w+1 (words from its own on) into
 //       the second of two shared-memory buffers with 4-byte cp.async, a
 //       cp.async.wait_all and a __syncthreads per strip; warp 0 ORs every
@@ -16,12 +16,13 @@
 //       two-buffer walk
 //   greedy_nms_ring_bulk_launch, greedy_nms_ring_bulk_single_or_launch,
 //   greedy_nms_ring_cp_async_launch  this G's bits pass, then for K > 1024
-//       the ring-staged walk of ring_walk.cuh: whole strips staged by one
+//       the ring-staged walk of ring_walk.cuh (resident_walk.cuh's below): whole strips staged by one
 //       cp.async.bulk per row, the kept rows ORed by the helper warps out of
 //       the staged strip; the same with warp 0 ORing every word itself; the
 //       same staged by 16-byte cp.async
 
 #include "greedy_nms.cu"
+#include "resident_walk.cuh"
 #include "ring_walk.cuh"
 
 namespace {
@@ -98,7 +99,7 @@ two_buffer_walk_kernel(const uint32_t* __restrict__ bits, const uint8_t* __restr
 int two_buffer_walk(const void* bits, const void* valid, void* keep, int B, int K, cudaStream_t s) {
   const int W = nms_walk::bits_stride(K);
   if (K <= kNmsMaxK)
-    return static_cast<int>(nms_walk::launch_greedy_walk(static_cast<const uint32_t*>(bits),
+    return static_cast<int>(nms_walk::launch_resident_walk(static_cast<const uint32_t*>(bits),
                                                           static_cast<const uint8_t*>(valid),
                                                           static_cast<uint8_t*>(keep), B, K, s));
   const size_t smem = static_cast<size_t>(64) * W * sizeof(uint32_t) + K;
@@ -130,7 +131,7 @@ int ring_launch(const void* iou, const void* valid, void* keep, void* bits, int 
   const auto b = static_cast<const uint32_t*>(bits);
   const auto v = static_cast<const uint8_t*>(valid);
   const auto k = static_cast<uint8_t*>(keep);
-  if (K <= kNmsMaxK) return static_cast<int>(nms_walk::launch_greedy_walk(b, v, k, B, K, s));
+  if (K <= kNmsMaxK) return static_cast<int>(nms_walk::launch_resident_walk(b, v, k, B, K, s));
   return static_cast<int>(ring_walk::launch_ring_walk<kSplit, kBulkStage>(b, v, k, B, K, s));
 }
 

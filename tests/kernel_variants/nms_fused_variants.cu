@@ -7,9 +7,13 @@
 //       image's whole IoU bitmask in shared memory (a thread per (row, word),
 //       a division where boxes meet), then warp 0 runs greedy_keep_walk; the
 //       bits scratch is not used
+//   nms_keep_resident_walk_launch  this kernel A's bits pass, then the
+//       resident walk of resident_walk.cuh (the port's walk up to K = 1024
+//       before the strip-staged walk took every K)
 
 #include "nms_fused.cu"
 #include "keep_walk.cuh"
+#include "resident_walk.cuh"
 
 namespace {
 
@@ -87,4 +91,18 @@ extern "C" int nms_keep_one_block_launch(const void* boxes, const void* valid, v
   one_block_kernel<<<B, kOneBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), K, thr);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nms_keep_resident_walk_launch(const void* boxes, const void* valid, void* keep, void* bits, int B,
+                                             int K, float thr, void* stream) {
+  if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  iou_bits_kernel<<<dim3(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps), kBitsThreads, 0, s>>>(
+      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid), static_cast<uint32_t*>(bits), K,
+      nms_walk::bits_stride(K), thr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(nms_walk::launch_resident_walk(static_cast<const uint32_t*>(bits),
+                                                          static_cast<const uint8_t*>(valid),
+                                                          static_cast<uint8_t*>(keep), B, K, s));
 }

@@ -2,7 +2,7 @@
 // computes the same keep mask as csrc/rotated_nms_fused.cu (held to the plain
 // version in the breakdown) and takes the same arguments as
 // rotated_nms_keep_launch. Built with kernel C's flags and
-// -I yolo_infer_tpu_torch/csrc. Both take K <= 1024 only.
+// -I yolo_infer_tpu_torch/csrc. All take K <= 1024 only.
 //
 //   rotated_nms_one_block_launch  the one-block-per-image kernel C replaced:
 //       512 threads form the image's whole probIoU bitmask in shared memory
@@ -12,9 +12,13 @@
 //       per image stages the mask into shared memory as the resident walk
 //       does and warp 0 runs greedy_keep_walk over it (a shared-memory load
 //       chain per candidate, in place of the register chain of walk_strip)
+//   rotated_nms_resident_walk_launch  this kernel C's bits pass, then the
+//       resident walk of resident_walk.cuh (the port's walk up to K = 1024
+//       before the strip-staged walk took every K)
 
 #include "rotated_nms_fused.cu"
 #include "keep_walk.cuh"
+#include "resident_walk.cuh"
 
 namespace {
 
@@ -119,4 +123,18 @@ extern "C" int rotated_nms_keep_walk_launch(const void* gauss, const void* valid
                                                           static_cast<const uint8_t*>(valid),
                                                           static_cast<uint8_t*>(keep), K, W);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rotated_nms_resident_walk_launch(const void* gauss, const void* valid, void* keep, void* bits, int B,
+                                                int K, float thr, void* stream) {
+  if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  probiou_bits_kernel<<<dim3(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps), kBitsThreads, 0, s>>>(
+      static_cast<const float*>(gauss), static_cast<const uint8_t*>(valid), static_cast<uint32_t*>(bits), K,
+      nms_walk::bits_stride(K), thr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(nms_walk::launch_resident_walk(static_cast<const uint32_t*>(bits),
+                                                          static_cast<const uint8_t*>(valid),
+                                                          static_cast<uint8_t*>(keep), B, K, s));
 }

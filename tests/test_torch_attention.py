@@ -22,6 +22,7 @@ from yolo_infer_tpu_torch.ops.kernels.attention_fused import (
     attention_qkv,
     attention_qkv_reference,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _slab(seed, b, n, heads, kd, hd):

@@ -20,6 +20,7 @@ from yolo_infer_tpu_torch.benchmarks.speed_benchmark import SpeedBenchmark
 from yolo_infer_tpu_torch.core.model import YOLO11Model
 from yolo_infer_tpu_torch.optimization.quantization.quantizers import QuantizationUtils, create_quantizer
 from yolo_infer_tpu_torch.utils import helpers
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parent.parent
 

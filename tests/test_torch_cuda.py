@@ -250,12 +250,30 @@ def test_segment_predict_masks_match_the_plain_path(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dfl_kernel_matches_the_plain_version(card, dtype):
-    slab = torch.from_numpy(np.random.default_rng(6).normal(0, 3, (4, 2100, 144)).astype(np.float32)).to(card, dtype)
-    for x in (slab[..., :64], slab[..., :64].contiguous()):
+    """Every row alignment the paths produce: detect's 144-channel slab,
+    slices from channel 1, 2 and 4, OBB's 79 and pose's 65 channels, a
+    ragged A, logits spread to N(0, 8) with sides that span 80, and more
+    images than the grid's y limit (65535)."""
+    rng = np.random.default_rng(6)
+    slabs = {c: torch.from_numpy(rng.normal(0, 3, (4, 2100, c)).astype(np.float32)).to(card, dtype)
+             for c in (144, 79, 65)}
+    wide = rng.normal(0, 8, (4, 2100, 79)).astype(np.float32)
+    sides = wide[..., :64].reshape(-1, 4, 16)
+    rows = rng.choice(len(sides), len(sides) // 4, replace=False)
+    sides[rows] = rng.permuted(np.broadcast_to(np.linspace(-40, 40, 16, dtype=np.float32), (len(rows), 4, 16)), axis=-1)
+    wide[..., :64] = sides.reshape(4, 2100, 64)
+    wide = torch.from_numpy(wide).to(card, dtype)
+    many = torch.from_numpy(rng.normal(0, 3, (70000, 3, 64)).astype(np.float32)).to(card, dtype)
+    widths = set()
+    for x in (slabs[144][..., :64], slabs[144][..., :64].contiguous(), slabs[144][..., 1:65],
+              slabs[144][..., 2:66], slabs[144][..., 4:68], slabs[79][..., :64], slabs[65][..., :64],
+              slabs[144][:3, :2037, :64], wide[..., :64], wide[..., :64].contiguous(), many):
         before = dfl_decode.dfl_decode.launches
         got = dfl_decode.dfl_decode(x)
         assert dfl_decode.dfl_decode.launches == before + 1
         torch.testing.assert_close(got, dfl_decode.dfl_decode_reference(x), atol=1e-5, rtol=0)
+        widths.add(dfl_decode.vector_bytes(x))
+    assert widths == ({16, 8, 4} if dtype == torch.float32 else {16, 8, 4, 2})
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ import pytest
 from yolo_infer_tpu.data import dataset as jds
 from yolo_infer_tpu_torch.data import dataset as tds
 from yolo_infer_tpu_torch.data.loader import PNG_SIGNATURE, list_image_files, load_image, save_image
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _picture(rng, h, w, c):

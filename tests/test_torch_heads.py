@@ -22,6 +22,7 @@ from yolo_infer_tpu.models.convert import convert_state_dict
 from yolo_infer_tpu_torch.models.convert import load_state_dict, params_from_jax
 from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.models.yolo11 import build_model, cast_model, fold_model
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TASKS = ["segment", "pose", "obb", "classify"]
 _EXTRA = {"segment": ("mc", "proto"), "pose": ("kpts",), "obb": ("angle",), "classify": ()}

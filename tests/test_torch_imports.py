@@ -18,6 +18,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_threads import TORCH_SUBPROCESS_ENV
+
 REPO = Path(__file__).resolve().parent.parent
 
 _CODE = """
@@ -43,7 +45,8 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yolo_infer_tpu") for
 
 
 def test_port_imports_and_serves_mixed_sizes_without_jax_or_opencv():
-    subprocess.run([sys.executable, "-I", "-c", _CODE.format(repo=str(REPO))], check=True, timeout=300)
+    subprocess.run([sys.executable, "-I", "-c", _CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
 
 
 _VAL_CODE = """
@@ -72,7 +75,8 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "yolo_infer_t
 
 
 def test_port_validates_without_jax_opencv_or_yaml():
-    subprocess.run([sys.executable, "-I", "-c", _VAL_CODE.format(repo=str(REPO))], check=True, timeout=300)
+    subprocess.run([sys.executable, "-I", "-c", _VAL_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
 
 
 _QUANT_CODE = """
@@ -96,7 +100,8 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yolo_infer_tpu") for
 
 def test_port_quantizes_and_serves_static8_without_jax_or_opencv():
     """YOLO11Model -> PTQ calibration -> static8 predict, with jax and cv2 blocked."""
-    subprocess.run([sys.executable, "-I", "-c", _QUANT_CODE.format(repo=str(REPO))], check=True, timeout=300)
+    subprocess.run([sys.executable, "-I", "-c", _QUANT_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
 
 
 _SERVE_CODE = """
@@ -126,7 +131,8 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "psutil", "yolo_infer
 
 def test_port_serves_many_and_benchmarks_without_jax_opencv_or_psutil():
     """predict_many (segment, mixed sizes, host masks) and YOLO11Model.benchmark with jax, cv2 and psutil blocked."""
-    subprocess.run([sys.executable, "-I", "-c", _SERVE_CODE.format(repo=str(REPO))], check=True, timeout=300)
+    subprocess.run([sys.executable, "-I", "-c", _SERVE_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
 
 
 def _queue1_items():

@@ -38,6 +38,7 @@ from yolo_infer_tpu_torch.models.convert import load_state_dict
 from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.ops import masks as tmasks
 from yolo_infer_tpu_torch.ops.letterbox import resize_linear_f32
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _CACHE = {}
 

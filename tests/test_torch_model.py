@@ -20,6 +20,7 @@ from yolo_infer_tpu.models import forward as jax_forward
 from yolo_infer_tpu_torch.models.convert import load_state_dict, params_from_jax
 from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.models.yolo11 import build_model, fold_model
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 GOLDEN = Path(__file__).parent / "golden" / f"golden_detect_n_v{GOLDEN_VERSION}.npz"
 

@@ -28,6 +28,7 @@ from yolo_infer_tpu_torch.ops import nms as tnms
 from yolo_infer_tpu_torch.ops.iou import box_iou_matrix as t_iou
 from yolo_infer_tpu_torch.ops.kernels import nms_fused
 from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch as t_preprocess
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -22,6 +22,7 @@ from yolo_infer_tpu_torch.core.predictor import Predictor
 from yolo_infer_tpu_torch.models.convert import load_state_dict
 from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.models.yolo11 import build_model
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 GOLDEN = Path(__file__).parent / "golden" / f"golden_detect_n_v{GOLDEN_VERSION}.npz"
 

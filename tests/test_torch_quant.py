@@ -42,6 +42,7 @@ from yolo_infer_tpu_torch.optimization.quantization.quantizers import (
     QuantizationUtils,
     create_quantizer,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 GOLDEN = Path(__file__).parent / "golden" / f"golden_detect_n_v{GOLDEN_VERSION}.npz"
 IMGSZ = 96

@@ -29,6 +29,7 @@ from yolo_infer_tpu_torch.core.predictor import Predictor
 from yolo_infer_tpu_torch.models.convert import load_state_dict
 from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.ops import nms as tnms
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _CACHE = {}
 

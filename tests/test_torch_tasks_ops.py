@@ -31,6 +31,7 @@ from yolo_infer_tpu_torch.ops import masks as tmasks
 from yolo_infer_tpu_torch.ops import rotated as trot
 from yolo_infer_tpu_torch.ops.kernels import mask_pack, rotated_nms_fused
 from yolo_infer_tpu_torch.ops.select import select_anchor_rows
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _rboxes(rng, b, k):

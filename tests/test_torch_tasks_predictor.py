@@ -22,6 +22,7 @@ from yolo_infer_tpu.models.convert import convert_state_dict
 from yolo_infer_tpu_torch.core.predictor import LazyMasks, Predictor
 from yolo_infer_tpu_torch.models.convert import load_state_dict
 from yolo_infer_tpu_torch.models.spec import build_spec
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _CACHE = {}
 

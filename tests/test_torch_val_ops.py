@@ -34,6 +34,7 @@ from yolo_infer_tpu_torch.models.spec import build_spec
 from yolo_infer_tpu_torch.ops import decode as tdec
 from yolo_infer_tpu_torch.ops import nms as tnms
 from yolo_infer_tpu_torch.ops.kernels import dfl_decode, greedy_nms
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # --- kernel F's plain version -------------------------------------------------
 
@@ -44,6 +45,33 @@ def test_dfl_plain_version_matches_pallas_kernel_and_dfl_expectation():
     kernel = np.asarray(dfl_decode_pallas(jnp.asarray(x), tile=512, interpret=True))
     np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, np.asarray(jdec.dfl_expectation(jnp.asarray(x))), atol=1e-4, rtol=0)
+
+
+def _spread_logits(rng, shape):
+    """N(0, 8) logits, and in one row in four each side's 16 bins a shuffled
+    ramp from -40 to 40 (as chip_smoke.py's phase 12)."""
+    x = rng.normal(0, 8, shape).astype(np.float32)
+    sides = x[..., :64].reshape(-1, 4, 16)
+    rows = rng.choice(sides.shape[0], sides.shape[0] // 4, replace=False)
+    sides[rows] = rng.permuted(np.broadcast_to(np.linspace(-40, 40, 16, dtype=np.float32), (len(rows), 4, 16)), axis=-1)
+    x[..., :64] = sides.reshape(*shape[:-1], 64)
+    return x
+
+
+@pytest.mark.parametrize("case", ["65-channel slab (pose nc 1)", "79-channel slab (obb nc 15)", "wide spread"])
+def test_dfl_plain_version_matches_pallas_kernel_on_the_paths_slab_slices(case):
+    """The slab slices whose rows the kernel reads at 2- and 4-byte alignment,
+    and logits spread far enough that exp(x - max) spans ~1e-35..1."""
+    rng = np.random.default_rng(2)
+    if case == "wide spread":
+        slab = _spread_logits(rng, (2, 300, 79))
+    else:
+        slab = rng.normal(0, 3, (2, 300, 65 if case.startswith("65") else 79)).astype(np.float32)
+    view = torch.from_numpy(slab)[..., :64]
+    assert not view.is_contiguous()
+    got = dfl_decode.dfl_decode_reference(view).numpy()
+    kernel = np.asarray(dfl_decode_pallas(jnp.asarray(slab[..., :64]), tile=512, interpret=True))
+    np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=0)
 
 
 def test_dfl_wrapper_reads_the_head_slab_slice_and_counts_only_kernel_launches():

@@ -39,6 +39,7 @@ from yolo_infer_tpu_torch.core.validator import YOLO11Validator, create_validato
 from yolo_infer_tpu_torch.data.loader import save_image
 from yolo_infer_tpu_torch.models.convert import load_state_dict
 from yolo_infer_tpu_torch.models.spec import build_spec
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 IMGSZ = 96
 SHAPES = [(96, 64), (72, 96), (96, 80), (48, 96), (96, 56), (80, 96)]

@@ -23,6 +23,7 @@ from yolo_infer_tpu.ops.pallas.nms_kernel import greedy_nms_pallas
 from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
 from yolo_infer_tpu_torch.ops.kernels.nms_walk import bits_stride
 from yolo_infer_tpu_torch.ops.nms import _nms_fixpoint
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FULL = 0xFFFFFFFF
 

@@ -1,8 +1,8 @@
-"""Where kernels A, B, C, D, E and G spend their time on the card: the breakdown PERF.md cites.
+"""Where kernels A, B, C, D, E, F and G spend their time on the card: the breakdown PERF.md cites.
 
 Run from the repository root on a machine with an NVIDIA card (no jax
 needed): `python tests/torch_kernel_breakdown.py [int8_conv] [attention_qkv]
-[mask_pack] [rotated_nms] [greedy_nms] [nms_keep]` (all six by default), a
+[mask_pack] [rotated_nms] [greedy_nms] [nms_keep] [dfl_decode]` (all seven by default), a
 few minutes. It compiles variants of the port's kernels, from patched copies of
 `csrc/*.cu` and their headers and from the alternative designs in
 `tests/kernel_variants/`, in a temporary directory (the port's sources and
@@ -32,14 +32,13 @@ for the timed calls, and prints one JSON line per kernel and input:
   rotated_nms    C at B = 16 on random candidates (85% valid) at K = 37,
                  160, 300 and 1024, all valid at K = 1024, and on
                  chip_smoke.py's OBB path input (b16/1024): as built (bits
-                 pass, then the resident walk); with the strip-staged walk;
-                 each of those with the walk's decisions as branches and
-                 its row ORs as a loop over the kept rows (the walk as it
-                 was before it went branch-free); with greedy_keep_walk
-                 over the resident mask; the one-block-per-image kernel that
-                 C replaced. CUDA events time each call; the kernels as
-                 built are also profiled alone (`profiled_*`: the bits pass
-                 and the walk)
+                 pass, then the strip-staged walk); with the resident walk
+                 of tests/kernel_variants/resident_walk.cuh (the whole mask
+                 in shared memory, the port's walk up to K = 1024 until it
+                 measured slower); with greedy_keep_walk over the resident
+                 mask; the one-block-per-image kernel that C replaced. CUDA
+                 events time each call; the kernels as built are also
+                 profiled alone (`profiled_*`: the bits pass and the walk)
   greedy_nms     G at chip_smoke.py's phase-13 inputs: random (16, 4096),
                  (4, 1000) and (2, 8192), and (16, 4096) with a valid prefix
                  of 300..3000: as built (the walk's words staged 16 strips
@@ -65,14 +64,29 @@ for the timed calls, and prints one JSON line per kernel and input:
   nms_keep       A at B = 32 on random candidates (85% valid) at K = 160,
                  384 and 1024, and on chip_smoke.py's detect path input
                  (b32/640 bf16, K = 384): as built (the IoU bits pass on
-                 every SM, then the resident walk), against the one-block
-                 kernel it replaced (tests/kernel_variants/nms_fused_variants.cu)
+                 every SM, then the strip-staged walk), with the resident
+                 walk, and the one-block kernel it replaced
+                 (tests/kernel_variants/nms_fused_variants.cu)
+  dfl_decode     F at chip_smoke.py's validation-path input (b16/640, the
+                 (16, 8400, 64) slice of the 144-channel bf16 slab, 16-byte
+                 loads) and OBB-path input (b16/1024, the slice of the
+                 79-channel slab, 2-byte loads), and the val input copied
+                 contiguous: as built (one row a thread, evict-first loads);
+                 with `__ldg` in place of the evict-first `__ldcs` (ldg); with
+                 expf in place of ex2.approx (expf); with 2-byte loads at every alignment
+                 (loads2); from tests/kernel_variants/dfl_decode_variants.cu,
+                 two and four rows a thread (rows2, rows4) and the first port
+                 (lanes16). Each timed warm, after chip_smoke.py's L2 write
+                 flush (`cold`: L2 then holds ~50 MB of dirty lines) and
+                 after a read flush (`cold_read`), profiled over 20 calls, in
+                 two rounds; and the SASS instructions per logit of each
+                 build's kernels
 
 Device times are CUDA events around each call, the calls queued behind a
-sleep (`chip_smoke.device_ms_each`). E's and B's variants compute wrong
-values on purpose, and so do G's `diag_*` variants; A's, C's, D's and G's
-other variants are exact designs, and every one is held to its plain version
-before it is timed.
+sleep (`chip_smoke.device_ms_each`), except F's (profiled). E's and B's
+variants compute wrong values on purpose, and so do G's `diag_*` variants;
+A's, C's, D's, F's and G's other variants are exact designs (F's within
+1e-5), and every one is held to its plain version before it is timed.
 """
 
 import copy
@@ -93,6 +107,7 @@ import chip_smoke as cs  # noqa: E402
 import yolo_infer_tpu_torch.models.blocks as blocks_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import _build  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import attention_fused as attn_mod  # noqa: E402
+from yolo_infer_tpu_torch.ops.kernels import dfl_decode as f_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import greedy_nms as g_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import nms_fused as a_mod  # noqa: E402
 from yolo_infer_tpu_torch.ops.kernels import int8_conv as e_mod  # noqa: E402
@@ -121,17 +136,7 @@ D_DESIGNS = {"staged": ("mask_pack_variants.cu", "mask_pack_staged_launch"),
              "staged_stores4": ("mask_pack_variants.cu", "mask_pack_staged_stores4_launch"),
              "staged_stages1": ("mask_pack_variants.cu", "mask_pack_staged_stages1_launch"),
              "ballot": ("mask_pack_variants.cu", "mask_pack_ballot_launch")}
-# the walk's two loops as they were before they went branch-free: a branch
-# per decision, and a loop over the kept rows only for the row ORs
-C_BRANCHY = [("    const uint32_t take = 0u - ((vbits & ~cur) >> t & 1u);  // all ones when candidate i0+t is kept\n"
-              "    kept_bits |= take & (1u << t);\n    cur |= diag[t] & take;\n",
-              "    if ((vbits & ~cur) >> t & 1u) {\n      kept_bits |= 1u << t;\n      cur |= diag[t];\n    }\n"),
-             ("#pragma unroll\n  for (int t = 0; t < 32; ++t) {\n    const uint32_t take = 0u - (kept_bits >> t & 1u);\n",
-              "  for (int t = 0; t < n; ++t) {\n    if (!(kept_bits >> t & 1u)) continue;  // the same in every lane\n"),
-             ("      if (g < wpl && c >= w && c < We) removed[g] |= row[c] & take;",
-              "      if (g < wpl && c >= w && c < We) removed[g] |= row[c];")]
-C_STRIP = ("  const bool resident = K <= kNmsMaxK;", "  const bool resident = false;")
-C_VARIANTS = {"as_built": [], "strip_walk": [C_STRIP], "branchy": C_BRANCHY, "strip_walk_branchy": [C_STRIP, *C_BRANCHY]}
+C_VARIANTS = {"as_built": []}
 G_STAGES = "constexpr int kWalkStages = 16;"
 # the decision as a mask computed from the bit (shift, and, subtract), ANDed
 # into the ORs, in place of a predicate
@@ -166,13 +171,26 @@ G_DESIGNS = {"ring_bulk": ("greedy_nms_variants.cu", "greedy_nms_ring_bulk_launc
              "scalar_bits_two_buffer": ("greedy_nms_variants.cu", "greedy_nms_scalar_bits_launch")}
 # the bits-pass kernel each G build launches (the walks' names end in _walk_kernel)
 G_BITS = {"scalar_bits_two_buffer": "scalar_bits_kernel"}
-A_DESIGNS = {"one_block": ("nms_fused_variants.cu", "nms_keep_one_block_launch")}
-C_DESIGNS = {"keep_walk": ("rotated_nms_variants.cu", "rotated_nms_keep_walk_launch"),
+A_VARIANTS = {"as_built": []}
+A_DESIGNS = {"resident_walk": ("nms_fused_variants.cu", "nms_keep_resident_walk_launch"),
+             "one_block": ("nms_fused_variants.cu", "nms_keep_one_block_launch")}
+F_VARIANTS = {"as_built": [], "ldg": [("__ldcs(", "__ldg(")],
+              "expf": [("e[k] = exp2_approx(fmaf(v[k], kLog2e, -mb));", "e[k] = expf(v[k] - m);")],
+              "loads2": [("  switch (vector_bytes(x, sizeof(T), stride_b, stride_a)) {",
+                          "  switch (sizeof(T) == 2 ? 2 : vector_bytes(x, sizeof(T), stride_b, stride_a)) {")]}
+F_DESIGNS = {"rows2": ("dfl_decode_variants.cu", "dfl_decode_rows2_launch"),
+             "rows4": ("dfl_decode_variants.cu", "dfl_decode_rows4_launch"),
+             "lanes16": ("dfl_decode_variants.cu", "dfl_decode_lanes16_launch")}
+# the logits one thread of each F build decodes, and the name of its kernels
+F_SASS = {"rows2": (16, "rows2_dfl_decode_kernel"), "rows4": (32, "rows4_dfl_decode_kernel"),
+          "lanes16": (4, "lanes16_dfl_decode_kernel")}
+C_DESIGNS = {"resident_walk": ("rotated_nms_variants.cu", "rotated_nms_resident_walk_launch"),
+             "keep_walk": ("rotated_nms_variants.cu", "rotated_nms_keep_walk_launch"),
              "one_block": ("rotated_nms_variants.cu", "rotated_nms_one_block_launch")}
 VARIANTS_DIR = Path(__file__).resolve().parent / "kernel_variants"
 ENTRY = {"int8_conv": "int8_conv_launch", "attention_fused": "attn_qkv_launch", "mask_pack": "mask_pack_launch",
          "rotated_nms_fused": "rotated_nms_keep_launch", "greedy_nms": "greedy_nms_launch",
-         "nms_fused": "nms_keep_launch"}
+         "nms_fused": "nms_keep_launch", "dfl_decode": "dfl_decode_launch"}
 
 
 def start_variant(name: str, tag: str, patches, out_dir: Path):
@@ -208,7 +226,7 @@ def launcher(lib, name: str, entry: str = ""):
     types the port's wrapper sets."""
     fn = getattr(lib, entry or ENTRY[name])
     port = {"int8_conv": e_mod, "attention_fused": attn_mod, "mask_pack": d_mod,
-            "rotated_nms_fused": c_mod, "greedy_nms": g_mod, "nms_fused": a_mod}[name]._launcher()
+            "rotated_nms_fused": c_mod, "greedy_nms": g_mod, "nms_fused": a_mod, "dfl_decode": f_mod}[name]._launcher()
     fn.argtypes, fn.restype = port.argtypes, port.restype
     return fn
 
@@ -250,13 +268,15 @@ def main() -> int:
         print("torch_kernel_breakdown: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cudnn.allow_tf32 = False
-    wanted = sys.argv[1:] or ["int8_conv", "attention_qkv", "mask_pack", "rotated_nms", "greedy_nms", "nms_keep"]
+    wanted = sys.argv[1:] or ["int8_conv", "attention_qkv", "mask_pack", "rotated_nms", "greedy_nms", "nms_keep",
+                              "dfl_decode"]
     print(cs.card_line(), flush=True)
     sources = {"int8_conv": ("int8_conv", E_VARIANTS, {}), "attention_qkv": ("attention_fused", B_VARIANTS, {}),
                "mask_pack": ("mask_pack", D_VARIANTS, D_DESIGNS),
                "rotated_nms": ("rotated_nms_fused", C_VARIANTS, C_DESIGNS),
                "greedy_nms": ("greedy_nms", G_VARIANTS, G_DESIGNS),
-               "nms_keep": ("nms_fused", {"as_built": []}, A_DESIGNS)}
+               "nms_keep": ("nms_fused", A_VARIANTS, A_DESIGNS),
+               "dfl_decode": ("dfl_decode", F_VARIANTS, F_DESIGNS)}
     with tempfile.TemporaryDirectory(prefix="kernel_breakdown_") as tmp:
         builds = {}  # every nvcc at once
         for name, variants, designs in (sources[k] for k in wanted):
@@ -284,6 +304,8 @@ def main() -> int:
             greedy_nms_breakdown(libs)
         if "nms_keep" in wanted:
             nms_keep_breakdown(libs)
+        if "dfl_decode" in wanted:
+            dfl_breakdown(libs, Path(tmp))
         if "int8_conv" in wanted:
             int8_conv_breakdown(libs)
         if "attention_qkv" in wanted:
@@ -456,7 +478,7 @@ def nms_keep_breakdown(libs):
         for case, boxes, valid, thr in cases:
             want = a_mod.nms_keep_reference(boxes, valid, thr)
             row = {"kernel": "nms_keep", "case": case, "shape": list(boxes.shape), "valid": int(valid.sum())}
-            for tag in ["as_built", *A_DESIGNS]:
+            for tag in [*A_VARIANTS, *A_DESIGNS]:
                 fn = variant_launcher(libs, "nms_fused", tag)
                 a_mod._launcher = lambda fn=fn: fn
                 if not torch.equal(a_mod.nms_keep(boxes, valid, thr), want):
@@ -471,6 +493,92 @@ def nms_keep_breakdown(libs):
         a_mod._launcher = port_a
     if failed:
         raise AssertionError(f"kernel A differs from its plain version: {failed}")
+
+
+def dfl_path_inputs():
+    """F's inputs on chip_smoke.py's validation path (phase 15: yolo11n detect
+    bf16 at b16/640, multi-label, pre_topk 4096: the (16, 8400, 64) slice of
+    the 144-channel head slab) and OBB path (phase 11: yolo11n-obb bf16 at
+    b16/1024: the (16, 21504, 64) slice of the 79-channel slab), as captured
+    views of the slabs (strides kept)."""
+    import yolo_infer_tpu_torch.ops.decode as decode_mod
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+
+    calib = np.random.default_rng(cs.SEED + 6).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    out = {}
+    for case, task, (batch, imgsz), kw in (
+            ("val path", "detect", (cs.VAL["batch"], cs.VAL["imgsz"]), dict(multi_label=True, pre_topk=cs.VAL["pre_topk"])),
+            ("obb path", "obb", cs.OBB_SERVE, {})):
+        model, spec = cs.smoke_weights(calib, task, cs.TASK_NC.get(task, 80))
+        pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
+        frames = torch.from_numpy(np.random.default_rng(cs.SEED + 8).integers(
+            0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)).cuda()
+        seen = {}
+        restore = cs.capture_inputs(decode_mod, "dfl_decode", seen, clone=False)
+        try:
+            pred.predict_raw(frames, cs.VAL["conf"], cs.VAL["iou"], imgsz, 300, **kw)
+        finally:
+            restore()
+        out[case] = seen["dfl_decode"][0]
+    return out
+
+
+def l2_cold_read(call):
+    """`call` preceded by a read of L2_FLUSH_BYTES (an `amax`), so it finds
+    its inputs in HBM and L2 full of clean lines; chip_smoke.py's `l2_cold`
+    writes them, and leaves dirty lines that the call's reads must write back
+    to HBM first."""
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda").amax
+
+    def run():
+        flush()
+        return call()
+    return run
+
+
+def dfl_breakdown(libs, tmp: Path):
+    """F at its two paths' inputs, for the port's kernel, its variants and
+    the other designs: device time warm, cold (`chip_smoke.l2_cold`, a write
+    flush) and cold after a read flush (`l2_cold_read`), each profiled over 20
+    calls, in two rounds; the SASS instructions per logit of each build's
+    kernels."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = {}
+    for tag in [*F_VARIANTS, *F_DESIGNS]:
+        # a design's library also holds the port's kernels: its own are named apart
+        per_thread, marker = F_SASS.get(tag, (cs.DFL_LOGITS_PER_THREAD, "dfl_decode_kernel"))
+        path = tmp / (f"lib{Path(F_DESIGNS[tag][0]).stem}.so" if tag in F_DESIGNS else f"libdfl_decode_{tag}.so")
+        counts = cs.sass_instructions(cs.sass_text(path, cuobjdump), marker)
+        sass[tag] = {"logits_per_thread": per_thread,
+                     "kernels": {k: {"instructions": n, "per_logit": n / per_thread} for k, n in counts.items()}}
+    cs.emit({"kernel": "dfl_decode", "sass": sass})
+    port_f, failed = f_mod._launcher, []
+    try:
+        inputs = dfl_path_inputs()
+        inputs["val path, contiguous copy"] = inputs["val path"].contiguous()
+        for case, x in inputs.items():
+            want = f_mod.dfl_decode_reference(x)
+            b, a, c = x.shape
+            row = {"kernel": "dfl_decode", "case": case, "shape": [b, a, c], "strides": list(x.stride()),
+                   "dtype": str(x.dtype), "bound_ms": 1e3 * (b * a * (c * x.element_size() + 16)) / cs.H100_BYTES_PER_S}
+            tags = [*F_VARIANTS, *F_DESIGNS]
+            for turn, order in enumerate((tags, tags[::-1])):  # two rounds, in turns
+                for tag in order:
+                    fn = variant_launcher(libs, "dfl_decode", tag)
+                    f_mod._launcher = lambda fn=fn: fn
+                    err = float((f_mod.dfl_decode(x) - want).abs().max())
+                    if not err <= cs.DFL_TOL:
+                        failed.append(f"{tag} ({case}): {err}")
+                    row[tag + "_max_abs_err"] = err
+                    call = lambda: f_mod.dfl_decode(x)  # noqa: E731
+                    for clock, wrap in (("warm", lambda f: f), ("cold", cs.l2_cold), ("cold_read", l2_cold_read)):
+                        named = cs.kernel_profile(wrap(call), calls=20, named=("dfl_decode_kernel",))["named"]
+                        row.setdefault(f"{tag}_{clock}_ms", []).append(named["dfl_decode_kernel"]["ms"])
+            cs.emit(row)
+    finally:
+        f_mod._launcher = port_f
+    if failed:
+        raise AssertionError(f"kernel F differs from its plain version: {failed}")
 
 
 def int8_conv_breakdown(libs):

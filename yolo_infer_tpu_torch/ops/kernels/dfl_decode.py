@@ -7,7 +7,11 @@ head slab in place); output: (B, A, 4) f32, per side
 `sum(exp(x - max) * bin) / sum(exp(x - max))`, the TPU kernel's formula.
 
 `dfl_decode` takes the kernel for a CUDA tensor and the plain version for a
-CPU tensor; anything else raises. `dfl_decode.launches` counts kernel launches.
+CPU tensor; anything else raises. The kernel loads each row as widely as the
+base address and both strides allow (16, 8, 4 or 2 bytes, `vector_bytes`):
+the 144-channel detect slab is read 16 bytes at a time, the 79- and
+65-channel OBB and pose slabs 2 bytes at a time. `dfl_decode.launches` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -36,6 +40,15 @@ def _launcher():
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def vector_bytes(box_dist: torch.Tensor) -> int:
+    """The load width, in bytes, that the kernel takes for these (CUDA) logits:
+    the widest of 16, 8, 4 and 2 that divides the base address and both strides."""
+    fn = load_library("dfl_decode").dfl_decode_vector_bytes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+    fn.restype = ctypes.c_int
+    return fn(box_dist.data_ptr(), _DTYPES[box_dist.dtype], box_dist.stride(0), box_dist.stride(1))
 
 
 def dfl_decode(box_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
