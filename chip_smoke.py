@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs twenty-three phases, each printing one JSON line. Kernels A, C, F and G
+runs twenty-six phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them:
 
@@ -169,6 +169,30 @@ them:
              `ResourceMonitor` samples holding device memory;
              `benchmark_quantization(methods=("ptq",), batch=8)` with its
              speedup; beside the card's name and power limit
+ 24. exported  the exported serving program (`core/exported.py`): yolo11n
+             detect bf16 at b32/640, exported on the card, loaded and
+             captured into one CUDA graph; the replay equal bit for bit to
+             the loaded program's eager run and to live `predict_raw` at
+             two conf/iou pairs, (0.25, 0.45) and (0.10, 0.60), from the one
+             capture (the pairs' detections must differ; where live and
+             replay differ, an f32 artifact is held to phase 4's
+             tolerances); the eager run's launch counts (A, B); at b32 and
+             at b1/640, replay against live `predict_raw`: the host ms until
+             the call returns, host-clock ms per call, CUDA-event ms over
+             back-to-back calls and the kernels' summed device ms; A's and
+             B's kernel functions in a torch.profiler trace of a replay
+ 25. exported_tasks  segment b8/640 (A, B, D; masks read after a later call
+             unchanged), OBB b4/1024 (B, C, F), multi_label detect b8/640
+             (F, G), static8 yolo11s b32/640 (E, 48 launches in the eager run
+             and per replay) and the pallas route b8/640 (H): each artifact
+             exported, loaded, captured, its replay equal bit for bit to its
+             eager run; every kernel A-H by function name in some replay's
+             trace (the Python counters do not tick on a replay)
+ 26. checkpoints  JAX-format `.msgpack` files written by the port from the
+             phase 4 weights, fused bf16 and unfused f32, served on cuda
+             against the same file on the cpu (f32 compute, TF32 off, phase
+             4's tolerances); `save` -> `load` to identical state; a
+             safetensors export read back equal
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -176,20 +200,25 @@ on the path's IoU and on a fresh random one, beside torch's own read of as
 many bytes (a sum) and the whole call timed by CUDA events (`g_read_check`).
 
 Every torch.profiler time comes from a trace whose kernels each launched a
-multiple of its calls (`traced_rows` traces again otherwise: the profiler can
-lose launches, and the time then reads low); a line after the phases lists
-the traces taken again.
+multiple of its calls and that kept some of its lead-in (`traced_rows` traces
+again otherwise: the profiler loses the first records of a trace once a few
+dozen traces have been taken, and the time then reads low); a line after the
+phases lists the traces taken again.
 
 Then it prints the card's name and power limit, the per-kernel JSON line (A
 and B measured on the detect path, C on the OBB path, D on the segment path,
 F and G on the validation path, E on the static8 path, H on the pallas
 route) and, last, {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that last line; so does a host
-without CUDA or a directory without the port.
+without CUDA or a directory without the port. Phase names given as
+arguments (`python3 chip_smoke.py exported checkpoints`) run those phases
+alone, after the card's phase, for a quick check; such a run lacks the
+kernels line and exits non-zero.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import os
@@ -305,43 +334,64 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 RETRACES = []  # traces taken again, and why (printed after the phases)
+HEAD_LOST = collections.Counter()  # lead-in records lost per trace -> traces (printed after the phases)
 LEAD_IN = "spin_kernel"  # torch.cuda._sleep's kernel: the lead-in of every trace, left out of its rows
+LEAD_INS = 64  # lead-in kernels of a trace at first; four times as many after a trace that kept none
+
+
+def lead_in(n: int):
+    """Launch `n` short sleep kernels and wait for them: the head of a trace.
+    The profiler loses the first device records of a trace: none in a fresh
+    process, but once a few dozen traces have been taken in it often 3 to
+    13, now and then more (a lead-in of 8 kernels went whole, trace after
+    trace, and the first kernels of the calls with it). The lead-in takes
+    that loss."""
+    import torch
+
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
 
 
 def traced_rows(fn, calls: int, need=()):
     """[(key, device ms summed over the trace, events)] of each device
     activity over `calls` calls of `fn` under torch.profiler, and the wall ms
-    per call. The profiler has lost the first ~5 device records of a trace
-    (then 20 calls of a one-kernel function read 15/20 of their time), so
-    eight short sleep kernels lead each trace in. It also now and then hands
-    back no device events. A trace with a kernel whose count is no multiple
-    of `calls`, or without a kernel named in `need`, is taken again (five
-    tries in all)."""
+    per call. Each trace starts with a lead-in (`lead_in`), and is kept only
+    if some of its lead-in records survive: the records lost at its head
+    were then all lead-in. The profiler also now and then hands back no
+    device events. A trace that kept no lead-in record (the next lead-in is
+    four times as long), or has a kernel whose count is no multiple of
+    `calls`, or lacks a kernel named in `need`, is taken again (five tries
+    in all)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    lead = LEAD_INS
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            lead_in(lead)
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        lead_kept = sum(e.count for e in device if LEAD_IN in e.key)
+        HEAD_LOST[lead - lead_kept] += 1
         # device-side events only (CPU ops also carry their kernels' time); the
         # profiler's own buffer requests are not the program's work
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-                and e.key != "Activity Buffer Request" and LEAD_IN not in e.key]
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in device
+                if e.self_device_time_total > 0 and e.key != "Activity Buffer Request" and LEAD_IN not in e.key]
         short = [(k[:80], n) for k, _, n in rows if n % calls and not k.startswith(("Memcpy", "Memset"))]
         missing = [sub for sub in need if not any(sub in k for k, _, _ in rows)]
-        if rows and not short and not missing:
+        if rows and lead_kept and not short and not missing:
             return rows, wall_ms
-        RETRACES.append({"calls": calls, "short": short[:4], "missing": missing, "empty": not rows})
+        RETRACES.append({"calls": calls, "lead_in": lead, "lead_in_kept": lead_kept, "short": short[:4],
+                         "missing": missing, "empty": not rows})
+        if not lead_kept:
+            lead *= 4
     raise AssertionError(f"torch.profiler lost kernel events in five traces: {RETRACES[-1]}")
 
 
@@ -2102,9 +2152,7 @@ def phase_many(report):
         out[f"{name}_s"] = ts
     out["many_vs_loop"] = out["many_img_per_s"] / out["loop_img_per_s"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):  # the lead-in of `traced_rows`
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+        lead_in(LEAD_INS)
         pred.predict_many(frames, conf=0.25, batch_size=32)
         torch.cuda.synchronize()
     htod_ms, overlap_ms = htod_overlap(prof)
@@ -2287,6 +2335,368 @@ def phase_bench(report):
     return out
 
 
+# the serving artifacts (core/exported.py): conf/iou pairs one capture serves
+EXPORT_PAIRS = ((0.25, 0.45), (0.10, 0.60))
+EXPORT_SERVE = (32, 640)  # the exported detect artifact: batch, imgsz
+# the other artifacts, at smaller batches so the run keeps its time; static8
+# at the static8 path's b32/640, where its 48 convs run int8 (the C = 64 convs
+# quantize only from 400k input rows, `nn/quantize.py int8_c64_min_rows`)
+EXPORT_TASKS = (("segment", 8, 640), ("obb", 4, 1024), ("multi_label", 8, 640), ("static8", 32, 640),
+                ("pallas", 8, 640))
+# the kernel functions a replay trace must hold for each kernel, and the
+# artifact whose replay shows it (H launches B's function with heads = 1 on
+# the pallas route, where B does not run)
+REPLAY_KERNELS = {"nms_keep": ("detect", ("iou_bits_kernel", "greedy_walk_kernel")),
+                  "attention_qkv": ("detect", ("attn_qkv_mma_kernel",)),
+                  "rotated_nms_keep": ("obb", ("probiou_bits_kernel", "greedy_walk_kernel")),
+                  "upsample4x_threshold_pack": ("segment", ("mask_pack_kernel",)),
+                  "int8_conv": ("static8", ("int8_conv_kernel",)),
+                  "dfl_decode": ("multi_label", ("dfl_decode_kernel",)),
+                  "greedy_nms_keep": ("multi_label", ("suppression_bits_kernel", "greedy_walk_kernel")),
+                  "attention_packed": ("pallas", ("attn_qkv_mma_kernel",))}
+E_LAUNCHES = 48  # kernel E launches of one yolo11s static8 call at b32/640 (phase 17)
+
+
+def dets_equal(a, b) -> bool:
+    return a.keys() == b.keys() and all(torch_equal(a[k], b[k]) for k in a)
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return bool(torch.equal(x, y))
+
+
+def clone_dets(d):
+    return {k: v.clone() for k, v in d.items()}
+
+
+def call_times(fn, calls: int = 20):
+    """Per call of `fn`: the host ms until it returns (the launch work), the
+    host-clock ms until the card is done (median of `calls`, each after a
+    synchronise), the device ms by CUDA events over back-to-back calls, and
+    the kernels' summed device ms (torch.profiler)."""
+    import torch
+
+    host, total = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append(t1 - t0)
+        total.append(time.perf_counter() - t0)
+    return {"host_ms": 1e3 * float(np.median(host)), "ms_per_call": 1e3 * float(np.median(total)),
+            "ms_per_call_min": 1e3 * min(total), "event_ms": cuda_ms(fn, iters=calls),
+            "kernel_ms": device_ms(fn, iters=10)}
+
+
+def replay_names(fn, need):
+    """The kernel functions of a torch.profiler trace of 3 calls of `fn`
+    whose names hold one of `need`, with their launches per call."""
+    rows, _ = traced_rows(fn, 3, need=need)
+    return {sub: sum(n for k, _, n in rows if sub in k) // 3 for sub in need}
+
+
+def phase_exported(report):
+    """The exported detect program (core/exported.py) at b32/640 bf16: export
+    on the card, load, one CUDA-graph capture; the replay equal to the
+    loaded program's eager run bit for bit and to live `predict_raw`, at two
+    conf/iou pairs from the one capture; b32 and b1 timed against live
+    `predict_raw`; the kernels of a replay by name."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.exported import ExportedPredictor, export_predictor
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+
+    model, spec = report["weights"]
+    batch, imgsz = EXPORT_SERVE
+    ym = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False)  # bf16, cuda
+    live = ym.predictor
+    frames = torch.from_numpy(np.random.default_rng(SEED + 21).integers(0, 256, (batch, imgsz, imgsz, 3),
+                                                                         dtype=np.uint8)).cuda()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    out = {"phase": "exported", "card": report["card"], "batch": batch, "imgsz": imgsz}
+    failures = []
+    try:
+        t0 = time.perf_counter()
+        path = export_predictor(ym, root / "detect_b32.pt2", batch=batch, imgsz=imgsz)
+        out["export_s"] = time.perf_counter() - t0
+        out["artifact_mb"] = path.stat().st_size / 2 ** 20
+        t0 = time.perf_counter()
+        ep = ExportedPredictor.load(path)
+        out["load_s"] = time.perf_counter() - t0
+        live.predict_raw(frames, *EXPORT_PAIRS[0], imgsz)  # warm-up of the live path
+        # the loaded program run eagerly: its kernels launch through the wrappers
+        reset_counters()
+        ep.run_eager(frames, *EXPORT_PAIRS[0])
+        torch.cuda.synchronize()
+        out["eager_launches"] = read_counters()
+        if out["eager_launches"]["nms_keep"] < 1 or out["eager_launches"]["attention_qkv"] < 1:
+            failures.append(f"the loaded program did not launch A and B: {out['eager_launches']}")
+        t0 = time.perf_counter()
+        reset_counters()
+        ep.predict_raw(frames, *EXPORT_PAIRS[0])  # warm-up on a side stream, capture, replay
+        torch.cuda.synchronize()
+        out["capture_s"] = time.perf_counter() - t0
+        graph = ep._graph["graph"]
+        reset_counters()
+        pairs = []
+        for conf, iou in EXPORT_PAIRS:
+            rep = clone_dets(ep.predict_raw(frames, conf, iou))
+            eager = ep.run_eager(frames, conf, iou)
+            lv = live.predict_raw(frames, conf, iou, imgsz)
+            torch.cuda.synchronize()
+            pairs.append({"conf": conf, "iou": iou, "detections": int(rep["num"].sum()),
+                          "replay_equals_eager": dets_equal(rep, eager), "replay_equals_live": dets_equal(rep, lv)})
+            if not pairs[-1]["replay_equals_eager"]:
+                failures.append(f"replay differs from the eager program at {conf}, {iou}")
+        out["pairs"] = pairs
+        out["one_capture"] = ep._graph["graph"] is graph
+        out["replay_launches"] = read_counters()  # the counters tick on the eager runs only
+        if pairs[0]["detections"] == pairs[1]["detections"]:
+            failures.append("the two threshold pairs gave the same detections: a threshold is baked in")
+        if not all(p["replay_equals_live"] for p in pairs):
+            out["fp32"] = exported_fp32_check(model, frames[:8], root)
+            failures += out["fp32"]["failures"]
+        out["b32"] = {"replay": call_times(lambda: ep.predict_raw(frames, 0.25, 0.45)),
+                      "live": call_times(lambda: live.predict_raw(frames, 0.25, 0.45, imgsz))}
+        path1 = export_predictor(ym, root / "detect_b1.pt2", batch=1, imgsz=imgsz)
+        ep1 = ExportedPredictor.load(path1)
+        one = frames[:1].contiguous()
+        rep1 = clone_dets(ep1.predict_raw(one, 0.25, 0.45))
+        out["b1_replay_equals_eager"] = dets_equal(rep1, ep1.run_eager(one, 0.25, 0.45))
+        if not out["b1_replay_equals_eager"]:
+            failures.append("b1: replay differs from the eager program")
+        out["b1"] = {"replay": call_times(lambda: ep1.predict_raw(one, 0.25, 0.45)),
+                     "live": call_times(lambda: live.predict_raw(one, 0.25, 0.45, imgsz))}
+        for key in ("b32", "b1"):
+            r, lv = out[key]["replay"], out[key]["live"]
+            out[key]["speedup_ms_per_call"] = lv["ms_per_call"] / r["ms_per_call"]
+            out[key]["host_ms_saved"] = lv["host_ms"] - r["host_ms"]
+        need = sum((REPLAY_KERNELS[k][1] for k in ("nms_keep", "attention_qkv")), ())
+        report.setdefault("replay_kernels", {})["detect"] = replay_names(lambda: ep.predict_raw(frames, 0.25, 0.45),
+                                                                          need)
+        out["replay_kernels"] = report["replay_kernels"]["detect"]
+        results = ep.predict(list(frames[:4].cpu().numpy()), conf=0.25)
+        out["predict_detections"] = [len(r) for r in results]
+        if not all(np.isfinite(r.boxes).all() and len(r) <= 300 for r in results):
+            failures.append("exported predict gave non-finite or oversized detections")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def exported_fp32_check(model, frames, root: Path):
+    """An f32 artifact against f32 live `predict_raw` (TF32 off), held to
+    phase 4's tolerances: the bf16 replay did not equal live bit for bit,
+    so the two differ in how they lay out some tensor; this shows by how much."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.exported import ExportedPredictor, export_predictor
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+
+    ym = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                 compute_dtype=torch.float32)
+    ep = ExportedPredictor.load(export_predictor(ym, root / "detect_f32.pt2", batch=frames.shape[0], imgsz=640))
+    res = {"failures": [], "pairs": []}
+    for conf, iou in EXPORT_PAIRS:
+        rep = clone_dets(ep.predict_raw(frames, conf, iou))
+        lv = ym.predictor.predict_raw(frames, conf, iou, 640)
+        v = lv["valid"]
+        row = {"bit_equal": dets_equal(rep, lv), "num_equal": torch_equal(rep["num"], lv["num"]),
+               "classes_equal": torch_equal(rep["classes"], lv["classes"]),
+               "box_err": float((rep["boxes"] - lv["boxes"])[v].abs().max()) if v.any() else 0.0,
+               "score_err": float((rep["scores"] - lv["scores"])[v].abs().max()) if v.any() else 0.0}
+        res["pairs"].append(row)
+        if not (row["num_equal"] and row["classes_equal"] and row["box_err"] <= 1e-2 and row["score_err"] <= 1e-5):
+            res["failures"].append(f"f32 replay vs live beyond phase 4's tolerances at {conf}, {iou}: {row}")
+    return res
+
+
+def export_artifact_model(report, name: str, imgsz: int):
+    """The YOLO11Model an artifact of phase 25 exports, on the card in bf16
+    (static8: yolo11s PTQ-calibrated at `imgsz`)."""
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.optimization.quantization.quantizers import create_quantizer
+
+    if name in ("segment", "obb"):
+        model, spec = report["task_weights"][name]
+        return YOLO11Model.from_params(copy.deepcopy(model), task=name, size="n", nc=spec.nc, fused=False)
+    if name == "static8":
+        model, _ = report["q8_weights"]
+        base = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="s", fused=False)
+        rng = np.random.default_rng(SEED + 14)
+        ptq = create_quantizer("ptq", base, {"imgsz": imgsz})
+        ptq.set_calibration_data([rng.integers(0, 256, (8, imgsz, imgsz, 3), dtype=np.uint8) for _ in range(2)])
+        return ptq.optimize()
+    model, _ = report["weights"]
+    return YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False)
+
+
+def phase_exported_tasks(report):
+    """The other artifacts: segment (A, B, D), OBB (B, C, F), multi_label
+    detect (F, G), static8 yolo11s (E) and the pallas attention route (H),
+    each exported on the card, loaded and captured: the replay equal to the
+    loaded program's eager run bit for bit, the eager run's launch counts,
+    and its kernels by name in a replay trace. Segment's `LazyMasks` hold a
+    copy, so masks read after a later call are the earlier call's."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.exported import ExportedPredictor, export_predictor
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    out = {"phase": "exported_tasks", "artifacts": {}}
+    failures = []
+    try:
+        for name, batch, imgsz in EXPORT_TASKS:
+            ym = export_artifact_model(report, name, imgsz)
+            frames = torch.from_numpy(np.random.default_rng(SEED + 22).integers(
+                0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)).cuda()
+            row = {"batch": batch, "imgsz": imgsz}
+            if name == "pallas":
+                os.environ["YOLO_ATTN_IMPL"] = "pallas"  # read when the attention is traced
+            try:
+                t0 = time.perf_counter()
+                path = export_predictor(ym, root / f"{name}.pt2", batch=batch, imgsz=imgsz,
+                                        multi_label=name == "multi_label")
+                row["export_s"] = time.perf_counter() - t0
+            finally:
+                os.environ.pop("YOLO_ATTN_IMPL", None)
+            ep = ExportedPredictor.load(path)
+            reset_counters()
+            eager = ep.run_eager(frames, 0.25, 0.45)
+            torch.cuda.synchronize()
+            row["eager_launches"] = {k: v for k, v in read_counters().items() if v}
+            rep = clone_dets(ep.predict_raw(frames, 0.25, 0.45))
+            torch.cuda.synchronize()
+            row["replay_equals_eager"] = dets_equal(rep, eager)
+            row["detections"] = int(rep["num"].sum()) if "num" in rep else None
+            need = sum((subs for k, (art, subs) in REPLAY_KERNELS.items() if art == name), ())
+            row["replay_kernels"] = replay_names(lambda: ep.predict_raw(frames, 0.25, 0.45), need)
+            report.setdefault("replay_kernels", {})[name] = row["replay_kernels"]
+            if not row["replay_equals_eager"]:
+                failures.append(f"{name}: replay differs from the eager program")
+            want = [k for k, (art, _) in REPLAY_KERNELS.items() if art == name]
+            if any(row["eager_launches"].get(k, 0) < 1 for k in want):
+                failures.append(f"{name}: the eager program did not launch {want}: {row['eager_launches']}")
+            if name == "static8":
+                per_call = row["replay_kernels"]["int8_conv_kernel"]
+                if row["eager_launches"].get("int8_conv") != E_LAUNCHES or per_call != E_LAUNCHES:
+                    failures.append(f"static8: {row['eager_launches'].get('int8_conv')} E launches eager and "
+                                    f"{per_call} per replay, not {E_LAUNCHES}")
+            if name == "pallas" and row["eager_launches"].get("attention_qkv"):
+                failures.append("pallas: kernel B ran on the pallas route")
+            if name == "segment":
+                host = frames[:2].cpu().numpy()
+                first = ep.predict(list(host), conf=0.25)
+                ep.predict(list(host[::-1]), conf=0.25)  # overwrites the graph's outputs
+                again = ep.predict(list(host), conf=0.25)
+                row["masks_survive_next_call"] = all(
+                    np.array_equal(a.masks.numpy(np.uint8), b.masks.numpy(np.uint8)) for a, b in zip(first, again)
+                    if len(a))
+                if not row["masks_survive_next_call"] or not any(len(r) for r in first):
+                    failures.append("segment: LazyMasks changed after a later call (or no detections)")
+            out["artifacts"][name] = row
+            del ep
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seen = report.get("replay_kernels", {})
+    out["replay_kernels"] = {k: {sub: seen.get(art, {}).get(sub, 0) for sub in subs}
+                             for k, (art, subs) in REPLAY_KERNELS.items()}
+    missing = [k for k, subs in out["replay_kernels"].items() if min(subs.values()) < 1]
+    if missing:
+        failures.append(f"kernels absent from every replay trace: {missing}")
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def phase_checkpoints(report):
+    """Native checkpoints on the card: a JAX-format `.msgpack` written by the
+    port's writer from seeded weights, fused bf16 and unfused f32, served
+    on cuda equal to the same file served on the cpu (f32 compute, TF32
+    off) within phase 4's tolerances; `save` -> `load` to identical state;
+    a safetensors export read back equal."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.models.convert import params_to_jax
+    from yolo_infer_tpu_torch.utils.safetensors import load_file
+
+    model, _ = report["weights"]
+    rng = np.random.default_rng(SEED + 23)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8), rng.integers(0, 256, (360, 500, 3), dtype=np.uint8)]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    out = {"phase": "checkpoints", "files": {}}
+    failures = []
+    try:
+        for name, dtype, fused in (("fused_bf16", torch.bfloat16, True), ("unfused_f32", torch.float32, False)):
+            src = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                          compute_dtype=dtype, device="cpu")
+            path = src.save(root / f"{name}.msgpack", fused=fused)
+            on_gpu = YOLO11Model(path, compute_dtype=torch.float32)
+            on_cpu = YOLO11Model(path, compute_dtype=torch.float32, device="cpu")
+            torch.backends.cudnn.deterministic = True
+            try:
+                reset_counters()
+                got = on_gpu.predict(frames, conf=0.25, imgsz=640)
+                launches = read_counters()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            want = on_cpu.predict(frames, conf=0.25, imgsz=640)
+            row = {"bytes": path.stat().st_size, "launches": {k: v for k, v in launches.items() if v}, "images": []}
+            for g, w in zip(got, want):
+                img = {"num_cuda": len(g), "num_cpu": len(w), "unmatched": match_detections(g, w, 1e-2, 1e-5)[0],
+                       "classes_equal": bool(np.array_equal(np.sort(g.classes), np.sort(w.classes)))}
+                row["images"].append(img)
+                if img["num_cuda"] != img["num_cpu"] or img["unmatched"] or not img["classes_equal"]:
+                    failures.append(f"{name}: cuda differs from cpu ({img})")
+            if not sum(len(r) for r in got) or launches["nms_keep"] < 1:
+                failures.append(f"{name}: no detections or no kernel A launch")
+            # save -> load: the same state
+            again = YOLO11Model("yolo11n", compute_dtype=dtype).load(on_gpu.save(root / f"{name}_again.msgpack"))
+            a, b = on_gpu.model.state_dict(), again.model.state_dict()
+            row["save_load_identical"] = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+            if not row["save_load_identical"]:
+                failures.append(f"{name}: save -> load changed the state")
+            out["files"][name] = row
+        # safetensors: every deploy weight read back equal, under the JAX package's flat names
+        src = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False, device="cpu")
+        st = src.export(root / "deploy.safetensors", format="safetensors")
+        tensors, meta = load_file(st)
+        want = {}
+
+        def flatten(tree, prefix):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    flatten(v, f"{prefix}.{k}" if prefix else k)
+            elif isinstance(tree, list):
+                for i, v in enumerate(tree):
+                    flatten(v, f"{prefix}.{i}")
+            else:
+                want[prefix] = tree.float().numpy() if torch.is_tensor(tree) else np.asarray(tree, np.float32)
+
+        flatten(params_to_jax(src.deploy_model, src.spec, fused=True)[0], "")
+        out["safetensors"] = {"tensors": len(tensors), "meta": meta, "bytes": st.stat().st_size,
+                              "equal": tensors.keys() == want.keys()
+                              and all(np.array_equal(tensors[k], want[k]) for k in want)}
+        if not out["safetensors"]["equal"] or meta.get("task") != "detect":
+            failures.append(f"safetensors export does not read back: {out['safetensors']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2311,7 +2721,9 @@ def main() -> int:
               phase_rnms, phase_mpack, phase_tasks_fp32, phase_seg_bf16, phase_obb_bf16,
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
-              phase_bench)
+              phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints)
+    if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
+        phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -2324,7 +2736,7 @@ def main() -> int:
             traceback.print_exc()
             if phase is phase_card:
                 break
-    emit({"phase": "profiler", "retraces": RETRACES})
+    emit({"phase": "profiler", "retraces": RETRACES, "lead_in_lost": dict(sorted(HEAD_LOST.items()))})
     if failed or len(report.get("kernels", ())) != 8:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

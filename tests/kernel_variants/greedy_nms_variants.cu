@@ -31,7 +31,8 @@ constexpr int kScalarUnroll = 4;
 
 __global__ void __launch_bounds__(256)
 scalar_bits_kernel(const float* __restrict__ iou, const uint8_t* __restrict__ valid, uint32_t* __restrict__ bits,
-                int K, int W, float thr) {
+                int K, int W, const float* __restrict__ thr_ptr) {
+  const float thr = __ldg(thr_ptr);
   const int img = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -113,17 +114,17 @@ int two_buffer_walk(const void* bits, const void* valid, void* keep, int B, int 
 }
 
 // this G's bits pass, as greedy_nms_launch runs it
-cudaError_t g_bits(const void* iou, const void* valid, void* bits, int B, int K, float thr, cudaStream_t s) {
+cudaError_t g_bits(const void* iou, const void* valid, void* bits, int B, int K, const void* thr, cudaStream_t s) {
   const dim3 grid(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps);
   const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(iou) % 16 == 0;
   const auto kernel = vec ? suppression_bits_kernel<true> : suppression_bits_kernel<false>;
   kernel<<<grid, kBitsThreads, 0, s>>>(static_cast<const float*>(iou), static_cast<const uint8_t*>(valid),
-                                       static_cast<uint32_t*>(bits), K, nms_walk::bits_stride(K), thr);
+                                       static_cast<uint32_t*>(bits), K, nms_walk::bits_stride(K), static_cast<const float*>(thr));
   return cudaGetLastError();
 }
 
 template <bool kSplit, bool kBulkStage>
-int ring_launch(const void* iou, const void* valid, void* keep, void* bits, int B, int K, float thr, void* stream) {
+int ring_launch(const void* iou, const void* valid, void* keep, void* bits, int B, int K, const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = g_bits(iou, valid, bits, B, K, thr, s);
@@ -138,7 +139,7 @@ int ring_launch(const void* iou, const void* valid, void* keep, void* bits, int 
 }  // namespace
 
 extern "C" int greedy_nms_two_buffer_walk_launch(const void* iou, const void* valid, void* keep, void* bits, int B, int K,
-                                          float thr, void* stream) {
+                                          const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = g_bits(iou, valid, bits, B, K, thr, s);
@@ -147,27 +148,27 @@ extern "C" int greedy_nms_two_buffer_walk_launch(const void* iou, const void* va
 }
 
 extern "C" int greedy_nms_ring_bulk_launch(const void* iou, const void* valid, void* keep, void* bits, int B, int K,
-                                           float thr, void* stream) {
+                                           const void* thr, void* stream) {
   return ring_launch<true, true>(iou, valid, keep, bits, B, K, thr, stream);
 }
 
 extern "C" int greedy_nms_ring_bulk_single_or_launch(const void* iou, const void* valid, void* keep, void* bits, int B,
-                                                     int K, float thr, void* stream) {
+                                                     int K, const void* thr, void* stream) {
   return ring_launch<false, true>(iou, valid, keep, bits, B, K, thr, stream);
 }
 
 extern "C" int greedy_nms_ring_cp_async_launch(const void* iou, const void* valid, void* keep, void* bits, int B,
-                                               int K, float thr, void* stream) {
+                                               int K, const void* thr, void* stream) {
   return ring_launch<true, false>(iou, valid, keep, bits, B, K, thr, stream);
 }
 
 extern "C" int greedy_nms_scalar_bits_launch(const void* iou, const void* valid, void* keep, void* bits, int B, int K,
-                                     float thr, void* stream) {
+                                     const void* thr, void* stream) {
   if (B < 1 || B > 65535 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   scalar_bits_kernel<<<dim3((K + 7) / 8, B), 256, 0, s>>>(static_cast<const float*>(iou),
                                                       static_cast<const uint8_t*>(valid),
-                                                      static_cast<uint32_t*>(bits), K, nms_walk::bits_stride(K), thr);
+                                                      static_cast<uint32_t*>(bits), K, nms_walk::bits_stride(K), static_cast<const float*>(thr));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return two_buffer_walk(bits, valid, keep, B, K, s);

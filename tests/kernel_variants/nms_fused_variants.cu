@@ -25,7 +25,8 @@ __device__ __forceinline__ float one_block_area(const float4 b) {
 
 __global__ void __launch_bounds__(kOneBlockThreads)
 one_block_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
-                 int K, float thr) {
+                 int K, const float* __restrict__ thr_ptr) {
+  const float thr = __ldg(thr_ptr);
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = (K + 31) >> 5;
   float4* sbox = reinterpret_cast<float4*>(smem);              // K boxes
@@ -80,7 +81,7 @@ one_block_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ v
 }  // namespace
 
 extern "C" int nms_keep_one_block_launch(const void* boxes, const void* valid, void* keep, void*, int B, int K,
-                                         float thr, void* stream) {
+                                         const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = (K + 31) / 32;
   const size_t smem = static_cast<size_t>(K) * (sizeof(float4) + sizeof(float)) +
@@ -89,17 +90,17 @@ extern "C" int nms_keep_one_block_launch(const void* boxes, const void* valid, v
       cudaFuncSetAttribute(one_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   one_block_kernel<<<B, kOneBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), K, thr);
+      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), K, static_cast<const float*>(thr));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int nms_keep_resident_walk_launch(const void* boxes, const void* valid, void* keep, void* bits, int B,
-                                             int K, float thr, void* stream) {
+                                             int K, const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   iou_bits_kernel<<<dim3(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps), kBitsThreads, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid), static_cast<uint32_t*>(bits), K,
-      nms_walk::bits_stride(K), thr);
+      nms_walk::bits_stride(K), static_cast<const float*>(thr));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(nms_walk::launch_resident_walk(static_cast<const uint32_t*>(bits),

@@ -26,7 +26,8 @@ constexpr int kOneBlockThreads = 512;
 
 __global__ void __launch_bounds__(kOneBlockThreads)
 one_block_kernel(const float* __restrict__ gauss, const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
-                 int K, float thr) {
+                 int K, const float* __restrict__ thr_ptr) {
+  const float thr = __ldg(thr_ptr);
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = (K + 31) >> 5;
   float* sx = reinterpret_cast<float*>(smem);  // 6 x K terms
@@ -95,7 +96,7 @@ keep_walk_kernel(const uint32_t* __restrict__ bits, const uint8_t* __restrict__ 
 }  // namespace
 
 extern "C" int rotated_nms_one_block_launch(const void* gauss, const void* valid, void* keep, void*, int B, int K,
-                                            float thr, void* stream) {
+                                            const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = (K + 31) / 32;
   const size_t smem = static_cast<size_t>(K) * 6 * sizeof(float) + static_cast<size_t>(K) * W * sizeof(uint32_t) + K;
@@ -103,17 +104,17 @@ extern "C" int rotated_nms_one_block_launch(const void* gauss, const void* valid
       cudaFuncSetAttribute(one_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   one_block_kernel<<<B, kOneBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gauss), static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), K, thr);
+      static_cast<const float*>(gauss), static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), K, static_cast<const float*>(thr));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rotated_nms_keep_walk_launch(const void* gauss, const void* valid, void* keep, void* bits, int B,
-                                            int K, float thr, void* stream) {
+                                            int K, const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = (K + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   probiou_bits_kernel<<<dim3(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps), kBitsThreads, 0, s>>>(
-      static_cast<const float*>(gauss), static_cast<const uint8_t*>(valid), static_cast<uint32_t*>(bits), K, W, thr);
+      static_cast<const float*>(gauss), static_cast<const uint8_t*>(valid), static_cast<uint32_t*>(bits), K, W, static_cast<const float*>(thr));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(32) * W * W * sizeof(uint32_t) + K;
@@ -126,12 +127,12 @@ extern "C" int rotated_nms_keep_walk_launch(const void* gauss, const void* valid
 }
 
 extern "C" int rotated_nms_resident_walk_launch(const void* gauss, const void* valid, void* keep, void* bits, int B,
-                                                int K, float thr, void* stream) {
+                                                int K, const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > kNmsMaxK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   probiou_bits_kernel<<<dim3(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps), kBitsThreads, 0, s>>>(
       static_cast<const float*>(gauss), static_cast<const uint8_t*>(valid), static_cast<uint32_t*>(bits), K,
-      nms_walk::bits_stride(K), thr);
+      nms_walk::bits_stride(K), static_cast<const float*>(thr));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(nms_walk::launch_resident_walk(static_cast<const uint32_t*>(bits),

@@ -1,9 +1,11 @@
 """Port hygiene: the whole package imports, serves and validates with neither jax nor OpenCV.
 
-A fresh interpreter (`-I`: no PYTHONPATH, no user site) has `jax` and `cv2`
-blocked in `sys.modules`, imports every module of `yolo_infer_tpu_torch`, and
-runs a CPU `Predictor.predict` on two frames of different sizes, which takes
-the host letterbox. A second one also blocks `yaml` and runs
+A fresh interpreter (`-I`: no PYTHONPATH, no user site) has `jax`, `cv2`,
+`flax`, `msgpack` and `safetensors` blocked in `sys.modules`, imports every
+module of `yolo_infer_tpu_torch`, and runs a CPU `Predictor.predict` on two
+frames of different sizes, which takes the host letterbox. Another exports,
+loads and serves a serving artifact and writes, reads and exports native
+checkpoints with those blocked. A second one also blocks `yaml` and runs
 `YOLO11Validator.validate` on a PNG dataset that the port writes itself. A
 third builds a `YOLO11Model`, quantizes it with PTQ and serves it in static8.
 A fourth also blocks `psutil` and serves `predict_many` (segment, host
@@ -22,9 +24,12 @@ from torch_threads import TORCH_SUBPROCESS_ENV
 
 REPO = Path(__file__).resolve().parent.parent
 
+_BLOCKED = ("jax", "cv2", "flax", "msgpack", "safetensors")
+
 _CODE = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = sys.modules["cv2"] = None  # any import of either raises
+for name in {blocked!r}:
+    sys.modules[name] = None  # any import of these raises
 sys.path.insert(0, {repo!r})
 import numpy as np
 import yolo_infer_tpu_torch
@@ -40,13 +45,53 @@ frames = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8), rng.integers(0, 256
 out = pred.predict(frames, conf=0.0, imgsz=64, max_det=20)
 assert [r.orig_shape for r in out] == [(48, 64), (64, 40)]
 assert all(len(r) > 0 and r.masks.numpy().shape == (len(r),) + r.orig_shape for r in out)
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yolo_infer_tpu") for m in sys.modules if sys.modules[m] is not None)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "flax", "msgpack", "safetensors", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
 """
 
 
 def test_port_imports_and_serves_mixed_sizes_without_jax_or_opencv():
-    subprocess.run([sys.executable, "-I", "-c", _CODE.format(repo=str(REPO))], check=True, timeout=300,
-                   env=TORCH_SUBPROCESS_ENV)
+    subprocess.run([sys.executable, "-I", "-c", _CODE.format(repo=str(REPO), blocked=_BLOCKED)], check=True,
+                   timeout=300, env=TORCH_SUBPROCESS_ENV)
+
+
+_EXPORT_CODE = """
+import sys, tempfile
+from pathlib import Path
+for name in {blocked!r}:
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from yolo_infer_tpu_torch import YOLO11Model
+from yolo_infer_tpu_torch.core.exported import ExportedPredictor, export_predictor
+from yolo_infer_tpu_torch.utils.checkpoint import CheckpointManager
+from yolo_infer_tpu_torch.utils.safetensors import load_file
+root = Path(tempfile.mkdtemp())
+model = YOLO11Model("yolo11n", nc=3, device="cpu", compute_dtype=torch.float32)
+frames = np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+ep = ExportedPredictor.load(export_predictor(model, root / "a.pt2", batch=1, imgsz=64))
+got = ep.predict_raw(frames, 1e-4, 0.45)
+want = model.predictor.predict_raw(torch.from_numpy(frames), 1e-4, 0.45, 64)
+assert all(torch.equal(got[k], want[k]) for k in want) and int(got["num"][0]) > 0
+back = YOLO11Model(model.save(root / "m.msgpack", fused=True), device="cpu", compute_dtype=torch.float32)
+assert back.task == "detect" and back.nc == 3
+tensors, meta = load_file(model.export(root / "m.safetensors", format="safetensors"))
+assert meta["task"] == "detect" and len(tensors) > 100
+mgr = CheckpointManager(root / "ckpt")
+mgr.save_checkpoint({{"w": np.arange(3, dtype=np.float32)}}, epoch=0)
+assert mgr.load_checkpoint()["train_state"]["w"].tolist() == [0.0, 1.0, 2.0]
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "flax", "msgpack", "safetensors", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_exports_and_checkpoints_without_jax_flax_msgpack_or_safetensors():
+    """An artifact exported, loaded and served (equal to live), and native
+    checkpoints, safetensors and CheckpointManager files written and read,
+    with jax, cv2, flax, msgpack and safetensors blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _EXPORT_CODE.format(repo=str(REPO), blocked=_BLOCKED)], check=True,
+                   timeout=300, env=TORCH_SUBPROCESS_ENV)
 
 
 _VAL_CODE = """

@@ -170,14 +170,19 @@ def test_cross_validate_matches_the_jax_validator(tmp_path):
 
 def test_validator_takes_a_predictor_and_raises_without_a_model_loader(tmp_path):
     """A Predictor serves as the model; a model name builds the port's
-    YOLO11Model (a checkpoint file still raises: ROADMAP Queue 1 item 5), which
-    `benchmark_speed` times and `compare_models` validates."""
+    YOLO11Model, and so does a checkpoint file (a native one loads; a file
+    that is no checkpoint raises), which `benchmark_speed` times and
+    `compare_models` validates."""
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+
     port = _predictors("detect")[1]
     assert YOLO11Validator(model=port, output_dir=tmp_path).predictor is port
-    ckpt = tmp_path / "yolo11n.pt"
-    ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        YOLO11Validator(model_path=str(ckpt))
+    ckpt = YOLO11Model("yolo11n", nc=3, device="cpu").save(tmp_path / "yolo11n.msgpack")
+    assert YOLO11Validator(model_path=str(ckpt), device="cpu").model.nc == 3
+    bad = tmp_path / "yolo11n.pt"
+    bad.write_bytes(b"")
+    with pytest.raises(EOFError):  # an empty .pt: the unpickler runs out of input
+        YOLO11Validator(model_path=str(bad))
     v = create_validator("yolo11n", device="cpu", output_dir=tmp_path)
     assert v.model.task == "detect" and v.predictor.device.type == "cpu"
     speed = v.benchmark_speed(imgsz_list=(32,), batch_sizes=(1,), runs=1)

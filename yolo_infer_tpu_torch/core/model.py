@@ -1,14 +1,21 @@
 """YOLO11Model, the user-facing model wrapper, and YOLO11Factory.
 
 Port of `yolo_infer_tpu/core/model.py` (`parse_model_name`, `YOLO11Model`:
-build, the cached deploy form, `predictor`, `predict`, `val`, `benchmark`,
-`get_model_info`, `from_params`; `YOLO11Factory`). The network is the
-port's `YOLO11` module, built with the seeded `build_model` or loaded from
-an ultralytics-named state dict; prediction runs through the port's
-`Predictor`, on `cuda` unless `device="cpu"` is passed.
+build or load, the cached deploy form, `predictor`, `predict`, `val`,
+`save`, `load`, `export`, `benchmark`, `get_model_info`, `from_params`;
+`YOLO11Factory`). The network is the port's `YOLO11` module, built with the
+seeded `build_model`, loaded from an ultralytics-named state dict, an
+ultralytics `.pt` file, or a native checkpoint; prediction runs through the
+port's `Predictor`, on `cuda` unless `device="cpu"` is passed.
 
-Not ported yet, and raising: loading a checkpoint file and `save`/`load`/
-`export` (ROADMAP Queue 1 item 5), and `train` (item 8).
+Native checkpoints are the JAX package's files (`.msgpack`, `.ckpt`): flax's
+msgpack wire format (`utils/msgpack.py`) of {"meta", "params", and "state"
+when unfused, "quant_act_scales" after PTQ}, the params in the JAX package's
+tree layout (`models/convert.py params_from_jax`, `params_to_jax`), so a
+file moves between the two packages as it is. `export(format="safetensors")`
+writes the deploy weights under the JAX package's flat names.
+
+Not ported yet, and raising: `train` (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -26,11 +33,12 @@ import torch
 
 from yolo_infer_tpu_torch.core.predictor import Predictor, Results, resolve_device
 from yolo_infer_tpu_torch.data.loader import list_image_files, load_image
-from yolo_infer_tpu_torch.models.convert import load_state_dict
+from yolo_infer_tpu_torch.models.convert import load_pt_checkpoint, load_state_dict, params_from_jax, params_to_jax
 from yolo_infer_tpu_torch.models.spec import SIZES, build_spec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, build_model, cast_model, fold_model
 from yolo_infer_tpu_torch.utils.coco_names import COCO_NAMES
 from yolo_infer_tpu_torch.utils.helpers import calculate_model_size, device_busy
+from yolo_infer_tpu_torch.utils.msgpack import msgpack_restore, msgpack_serialize
 
 logger = logging.getLogger(__name__)
 
@@ -56,12 +64,29 @@ def _names(nc: int, names) -> Dict[int, str]:
     return {int(k): v for k, v in names.items()} if isinstance(names, dict) else dict(enumerate(names))
 
 
-class YOLO11Model:
-    """YOLO11 model wrapper: build or load, predict, validate.
+def _host_tree(tree: Any) -> Any:
+    """A restored tree with float32 numpy leaves where the file held
+    bfloat16 (read as torch tensors) and numpy arrays as they are."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_host_tree(v) for v in tree]
+    return tree.float().numpy() if torch.is_tensor(tree) else tree
 
-    `model_path` is a `yolo11[nsmlx](-seg|-cls|-pose|-obb)` name; the
-    weights come from `build_model(seed=seed)`, or from `state_dict`, an
-    ultralytics-named flat state dict (`models/convert.py load_state_dict`).
+
+def _has_batch_norms(model: YOLO11) -> bool:
+    return any(m.bn is not None for m in model.modules() if hasattr(m, "bn"))
+
+
+class YOLO11Model:
+    """YOLO11 model wrapper: build or load, predict, validate, save, export.
+
+    `model_path` is a `yolo11[nsmlx](-seg|-cls|-pose|-obb)` name, whose
+    weights come from `build_model(seed=seed)` or from `state_dict`, an
+    ultralytics-named flat state dict (`models/convert.py load_state_dict`);
+    or a checkpoint file: a native `.msgpack`/`.ckpt` (the JAX package's
+    format, fused or unfused, with PTQ scales where it has them) or an
+    ultralytics `.pt`.
     """
 
     def __init__(
@@ -77,9 +102,24 @@ class YOLO11Model:
         state_dict: Optional[Mapping[str, Any]] = None,
     ):
         self.model_path = str(model_path)
-        if Path(model_path).is_file():
-            raise NotImplementedError(f"loading the checkpoint {model_path} {_NOT_PORTED.format(5)}; pass "
-                                      "state_dict= (an ultralytics-named state dict) or a model name")
+        self.device = device
+        self.compute_dtype = compute_dtype
+        self.mask_mode = mask_mode
+        self.quant_act_scales = None  # set by PTQ
+        self.quant_min_channels = None  # static8 eligibility override (see Predictor)
+        self._deploy_model: Optional[YOLO11] = None
+        self._predictor: Optional[Predictor] = None
+        path = Path(model_path)
+        if path.is_file():
+            if path.suffix in (".msgpack", ".ckpt"):
+                self._load_native(path, task_override=task)
+            elif path.suffix == ".pt":
+                self.model, self.spec, meta = load_pt_checkpoint(path)
+                self.task, self.size, self.nc = meta["task"], meta["size"], meta["nc"]
+                self.names = _names(self.nc, meta["names"])
+            else:
+                raise ValueError(f"unsupported checkpoint format {path.suffix!r} (.msgpack, .ckpt, .pt)")
+            return
         parsed = parse_model_name(self.model_path)
         if parsed is None:
             raise ValueError(f"cannot resolve model {model_path!r}: not a yolo11[nsmlx](-seg|-cls|-pose|-obb) name")
@@ -87,18 +127,30 @@ class YOLO11Model:
         self.task = task or parsed_task
         self.nc = nc
         self.names = _names(nc, names)
-        self.device = device
-        self.compute_dtype = compute_dtype
-        self.mask_mode = mask_mode
-        self.quant_act_scales = None  # set by PTQ
-        self.quant_min_channels = None  # static8 eligibility override (see Predictor)
         if state_dict is not None:
             self.spec = build_spec(self.task, self.size, nc)
             self.model = load_state_dict(state_dict, self.spec)
         else:
             self.model, self.spec = build_model(self.task, self.size, nc, seed=seed)
-        self._deploy_model: Optional[YOLO11] = None
-        self._predictor: Optional[Predictor] = None
+
+    def _load_native(self, path: Path, task_override: Optional[str] = None) -> None:
+        """A native checkpoint: the JAX package's `_load_native`. The model
+        is the file's (folded when the file is, int8 where it is quantized),
+        in f32 on the CPU; the predictor casts it."""
+        raw = msgpack_restore(path.read_bytes())
+        meta = raw.get("meta", {})
+        self.task = task_override or meta.get("task", "detect")
+        self.size = meta.get("size", "n")
+        self.nc = int(meta.get("nc", 80))
+        self.names = _names(self.nc, meta.get("names"))
+        self.spec = build_spec(self.task, self.size, self.nc)
+        fused = bool(meta.get("fused", "state" not in raw))
+        state = None if fused else _host_tree(raw["state"])
+        self.model = params_from_jax(_host_tree(raw["params"]), self.spec, state)
+        if "quant_act_scales" in raw:
+            self.quant_act_scales = np.array(_host_tree(raw["quant_act_scales"]), np.float32)
+        self._deploy_model = None
+        logger.info("loaded %s (%s/%s, fused=%s)", path, self.task, self.size, fused)
 
     @classmethod
     def from_params(
@@ -197,14 +249,61 @@ class YOLO11Model:
 
     # ------------------------------------------------------------------ export
 
-    def save(self, path, fused: bool = False):
-        raise NotImplementedError(f"saving a checkpoint {_NOT_PORTED.format(5)}")
+    def save(self, path: Union[str, Path], fused: bool = False) -> Path:
+        """Save a native checkpoint, as the JAX package writes it: the deploy
+        form (folded, in `compute_dtype`, int8 where quantized) when `fused`
+        or when the model has no batch norms left, else the f32 params and
+        their batch-norm state; PTQ scales beside them."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        fused = fused or not _has_batch_norms(self.model)
+        meta = {"task": self.task, "size": self.size, "nc": self.nc,
+                "names": {str(k): v for k, v in self.names.items()}, "fused": fused}
+        payload: Dict[str, Any] = {"meta": meta}
+        if fused:
+            payload["params"], _ = params_to_jax(self.deploy_model, self.spec, fused=True)
+        else:
+            payload["params"], payload["state"] = params_to_jax(self.model, self.spec, fused=False)
+        if self.quant_act_scales is not None:
+            payload["quant_act_scales"] = np.asarray(self.quant_act_scales, np.float32)
+        path.write_bytes(msgpack_serialize(payload))
+        logger.info("saved model to %s", path)
+        return path
 
-    def load(self, path):
-        raise NotImplementedError(f"loading a checkpoint {_NOT_PORTED.format(5)}")
+    def load(self, path: Union[str, Path]) -> "YOLO11Model":
+        """Replace the weights (and task, names, PTQ scales) with a native checkpoint's."""
+        self.quant_act_scales = None
+        self._load_native(Path(path))
+        self.invalidate()
+        return self
 
-    def export(self, path=None, format: str = "msgpack"):
-        raise NotImplementedError(f"export {_NOT_PORTED.format(5)}")
+    def export(self, path: Optional[Union[str, Path]] = None, format: str = "msgpack") -> Path:
+        """Export the fused deploy model: a native msgpack checkpoint, or a
+        safetensors file of its tree flattened to dotted names in f32 (the
+        JAX package's names and metadata)."""
+        path = Path(path or f"{Path(self.model_path).stem}_deploy.{format}")
+        if format == "msgpack":
+            return self.save(path, fused=True)
+        if format == "safetensors":
+            from yolo_infer_tpu_torch.utils.safetensors import save_file
+
+            flat: Dict[str, np.ndarray] = {}
+
+            def walk(tree, prefix):
+                if isinstance(tree, dict):
+                    for k, v in tree.items():
+                        walk(v, f"{prefix}.{k}" if prefix else k)
+                elif isinstance(tree, list):
+                    for i, v in enumerate(tree):
+                        walk(v, f"{prefix}.{i}")
+                else:
+                    flat[prefix] = (tree.float().numpy() if torch.is_tensor(tree)
+                                    else np.asarray(tree).astype(np.float32))
+
+            walk(params_to_jax(self.deploy_model, self.spec, fused=True)[0], "")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            return save_file(flat, path, metadata={"task": self.task, "size": self.size, "nc": str(self.nc)})
+        raise ValueError(f"unsupported export format {format!r}")
 
     def benchmark(self, imgsz: int = 640, batch: int = 1, runs: int = 100, warmup: int = 10, conf: float = 0.25,
                   iou: float = 0.45, profile_dir: Optional[str] = None) -> Dict[str, Any]:

@@ -33,6 +33,11 @@ the frames go through pinned staging buffers on an upload stream, the
 forward runs on a compute stream that waits for each chunk's copy, and the
 host drains finished chunks into `Results` while later ones run.
 
+conf and iou reach the kernels as 0-d f32 tensors on the device
+(`DevScalarCache`, one per value, written once), never as Python numbers
+baked into a launch: an exported program (`core/exported.py`) and a captured
+CUDA graph take them as runtime inputs.
+
 The predictor runs on `cuda` unless the caller passes `device="cpu"`; with no
 card and no explicit device it raises instead of falling back to the CPU.
 """
@@ -54,7 +59,7 @@ import torch
 from yolo_infer_tpu_torch.models.blocks import Attention, attn_impl_choice
 from yolo_infer_tpu_torch.models.spec import ModelSpec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, cast_model, fold_model
-from yolo_infer_tpu_torch.nn.quantize import QuantContext, quant_context
+from yolo_infer_tpu_torch.nn.quantize import QuantContext, out_scale_inverses, quant_context
 from yolo_infer_tpu_torch.ops.decode import (
     decode_detections,
     decode_keypoints,
@@ -78,7 +83,8 @@ from yolo_infer_tpu_torch.ops.masks import (
     repeat_mask_bits,
     unpack_mask_bits,
 )
-from yolo_infer_tpu_torch.ops.nms import _multi_label_topc, batched_nms, batched_nms_seldec
+from yolo_infer_tpu_torch.ops.kernels.nms_walk import threshold_tensor
+from yolo_infer_tpu_torch.ops.nms import Threshold, _multi_label_topc, batched_nms, batched_nms_seldec
 from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch
 from yolo_infer_tpu_torch.ops.rotated import batched_rotated_nms, dist2rbox
 from yolo_infer_tpu_torch.ops.select import select_anchor_rows
@@ -100,6 +106,26 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU explicitly")
         return torch.device("cuda")
     return torch.device(device)
+
+
+class DevScalarCache:
+    """Device-resident threshold scalars, made once per (value, device).
+
+    A Python conf or iou becomes a 0-d f32 tensor on the device, written by
+    `torch.full` (a fill kernel on the card: no host copy, no
+    synchronisation) the first time the value is seen, and reused after.
+    Shared by the live `Predictor` and `core/exported.py ExportedPredictor`."""
+
+    def __init__(self):
+        self._cache: Dict[Tuple[float, str], torch.Tensor] = {}
+
+    def __call__(self, v: Union[float, torch.Tensor], device: torch.device) -> torch.Tensor:
+        if torch.is_tensor(v):
+            return threshold_tensor(v, device)
+        key = (float(v), str(device))
+        if key not in self._cache:
+            self._cache[key] = threshold_tensor(key[0], device)
+        return self._cache[key]
 
 
 @dataclass
@@ -326,25 +352,30 @@ class Predictor:
         self.model = model
         self.quant_act_scales = (None if quant_act_scales is None
                                  else torch.as_tensor(np.asarray(quant_act_scales), dtype=torch.float32))
+        # kernel E's 1/sy arguments, read from the scales once here (an exported
+        # program bakes them in, and cannot read a tensor back to the host)
+        self._quant_syinv = None if self.quant_act_scales is None else out_scale_inverses(self.quant_act_scales)
         self.quant_min_channels = quant_min_channels
         # predict_many's upload, compute and download streams, made on first
         # use and kept: memory the caching allocator holds for one stream is
         # not handed to a new one, so fresh streams per call would allocate anew
         self._streams: Optional[Tuple[Any, Any, Any]] = None
+        self._dev_scalar = DevScalarCache()
 
     def _forward(self, x: torch.Tensor) -> Dict[str, Any]:
         """The model forward, inside a static8 context when PTQ scales exist."""
         if self.quant_act_scales is None:
             return self.model(x)
         kw = {} if self.quant_min_channels is None else {"int8_min_channels": int(self.quant_min_channels)}
-        with quant_context(QuantContext("static8", act_scales=self.quant_act_scales, **kw)) as ctx:
+        with quant_context(QuantContext("static8", act_scales=self.quant_act_scales, syinv=self._quant_syinv,
+                                        **kw)) as ctx:
             out = self.model(x)
         if ctx.index != len(self.quant_act_scales):
             raise ValueError(f"the model ran {ctx.index} quantized convs for {len(self.quant_act_scales)} scale pairs")
         return out
 
     @torch.inference_mode()
-    def predict_raw(self, images_u8: torch.Tensor, conf: float, iou: float, imgsz: int,
+    def predict_raw(self, images_u8: torch.Tensor, conf: Threshold, iou: Threshold, imgsz: int,
                     max_det: Optional[int] = None, *, multi_label: bool = False, pre_topk: Optional[int] = None,
                     mask_out: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """(B, H, W, 3) uint8 frames on the device -> the fixed-shape dets
@@ -358,7 +389,17 @@ class Predictor:
         validation NMS (`ops.nms.batched_nms`) over the full-grid decode;
         `pre_topk` overrides the predictor's candidate cap (the validator
         asks for 4096). `mask_out` overrides `mask_mode`; "none" skips the
-        masks. Nothing here waits for the device."""
+        masks. `conf` and `iou` are Python numbers or 0-d f32 tensors.
+        Nothing here waits for the device."""
+        return self.serve_program(images_u8, self._dev_scalar(conf, self.device), self._dev_scalar(iou, self.device),
+                                  imgsz, max_det, multi_label=multi_label, pre_topk=pre_topk, mask_out=mask_out)
+
+    def serve_program(self, images_u8: torch.Tensor, conf: torch.Tensor, iou: torch.Tensor, imgsz: int,
+                      max_det: Optional[int] = None, *, multi_label: bool = False, pre_topk: Optional[int] = None,
+                      mask_out: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """The body of `predict_raw`, with conf and iou as 0-d f32 tensors on
+        the device and no autograd mode of its own: `core/exported.py`
+        traces it under `torch.no_grad` (inference tensors do not export)."""
         spec = self.spec
         md = max_det or self.max_det
         pool = pre_topk or self.pre_topk

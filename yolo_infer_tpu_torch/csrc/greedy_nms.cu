@@ -101,7 +101,8 @@ __device__ __forceinline__ void row_bits_scalar(const float* __restrict__ row, u
 template <bool kVec>
 __global__ void __launch_bounds__(kBitsThreads)
 suppression_bits_kernel(const float* __restrict__ iou, const uint8_t* __restrict__ valid,
-                        uint32_t* __restrict__ bits, int K, int W, float thr) {
+                        uint32_t* __restrict__ bits, int K, int W, const float* __restrict__ thr_ptr) {
+  const float thr = __ldg(thr_ptr);  // in device memory, so a captured graph reads the current value
   const int img = blockIdx.x;
   const uint8_t* vb = valid + static_cast<size_t>(img) * K;
   const int E = nms_walk::valid_end(vb, K);
@@ -125,10 +126,12 @@ suppression_bits_kernel(const float* __restrict__ iou, const uint8_t* __restrict
 }  // namespace
 
 // iou (B, K, K) f32, valid (B, K) bool, keep (B, K) bool, bits (B, K,
-// bits_stride(K)) uint32 scratch; all contiguous on the current device.
-// Returns the cudaError_t of the launches.
+// bits_stride(K)) uint32 scratch, thr one f32 (the IoU threshold, as the TPU
+// kernel's thr_ref, read by the bits pass at run time so that a captured CUDA
+// graph takes the value current at each replay); all on the current device,
+// contiguous. Returns the cudaError_t of the launches.
 extern "C" int greedy_nms_launch(const void* iou, const void* valid, void* keep, void* bits, int B, int K,
-                                 float thr, void* stream) {
+                                 const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = nms_walk::bits_stride(K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -136,7 +139,7 @@ extern "C" int greedy_nms_launch(const void* iou, const void* valid, void* keep,
   const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(iou) % 16 == 0;
   const auto kernel = vec ? suppression_bits_kernel<true> : suppression_bits_kernel<false>;
   kernel<<<grid, kBitsThreads, 0, s>>>(static_cast<const float*>(iou), static_cast<const uint8_t*>(valid),
-                                       static_cast<uint32_t*>(bits), K, W, thr);
+                                       static_cast<uint32_t*>(bits), K, W, static_cast<const float*>(thr));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(nms_walk::launch_greedy_walk(static_cast<const uint32_t*>(bits),

@@ -79,11 +79,12 @@ __device__ __forceinline__ bool iou_above(const float4 a, float area_a, const fl
 
 __global__ void __launch_bounds__(kBitsThreads)
 iou_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid,
-                uint32_t* __restrict__ bits, int K, int W, float thr) {
+                uint32_t* __restrict__ bits, int K, int W, const float* __restrict__ thr_ptr) {
   __shared__ float4 sbox[kChunk];
   __shared__ float sarea[kChunk];
   __shared__ uint8_t sval[kChunk];  // valid, and no NaN coordinate
 
+  const float thr = __ldg(thr_ptr);  // in device memory, so a captured graph reads the current value
   const int img = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const float4* bx = boxes + static_cast<size_t>(img) * K;
@@ -142,16 +143,19 @@ iou_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ va
 }  // namespace
 
 // boxes (B, K, 4) f32 (16-byte aligned), valid (B, K) bool, keep (B, K) bool,
-// bits (B, K, bits_stride(K)) uint32 scratch; all contiguous on the current
-// device. Returns the cudaError_t of the launches.
+// bits (B, K, bits_stride(K)) uint32 scratch, thr one f32 (the IoU
+// threshold, as the TPU kernel's thr_ref, read by the bits pass at run time so
+// that a captured CUDA graph takes the value current at each replay); all on
+// the current device, contiguous. Returns the cudaError_t of the launches.
 extern "C" int nms_keep_launch(const void* boxes, const void* valid, void* keep, void* bits, int B, int K,
-                               float thr, void* stream) {
+                               const void* thr, void* stream) {
   if (B < 1 || K < 1 || K > nms_walk::kWalkMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const int W = nms_walk::bits_stride(K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, ((K + 1) / 2 + kBitsWarps - 1) / kBitsWarps);
   iou_bits_kernel<<<grid, kBitsThreads, 0, s>>>(static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-                                                static_cast<uint32_t*>(bits), K, W, thr);
+                                                static_cast<uint32_t*>(bits), K, W,
+                                                static_cast<const float*>(thr));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(nms_walk::launch_greedy_walk(static_cast<const uint32_t*>(bits),

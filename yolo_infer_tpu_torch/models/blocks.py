@@ -154,7 +154,7 @@ class Conv(nn.Module):
             xq = Q.quantize_act(x, sx).q
         # a channel chunk (q_split2, q_split_at) goes in as a strided view: E reads it in place
         y = int8_conv(nhwc_input(xq), self.w_q.view(co, self.k, self.k, ci),
-                      sx * self.w_scale, self.b, (1.0 / sy).item(), stride=self.s, act=self.act,
+                      sx * self.w_scale, self.b, ctx.syinv[idx], stride=self.s, act=self.act,
                       epilogue_dtype=ctx.epilogue_dtype or torch.bfloat16)
         return Q.QAct(y.permute(0, 3, 1, 2), sy)
 

@@ -14,17 +14,36 @@ of weights through both packages. A quantized tree (`quantize_params_tree`:
 `{"w_q", "w_scale", "b"}` nodes) loads into the int8 deploy form
 (`models/yolo11.py quantize_model`), its int8 weights carried as they are:
 the keys `….w_q` ((Co, k*k*Ci) int8 rows), `….w_scale` and `….b`.
+
+`params_to_jax` is the way back: a `YOLO11` as the JAX package's parameter
+tree (and batch-norm state tree when unfused), so that a checkpoint the port
+writes (`core/model.py save`) loads in the JAX package.
+
+`.pt` files: a jax-free copy of the JAX package's loader
+(`yolo_infer_tpu/models/convert.py` `_PermissiveUnpickler`,
+`permissive_torch_load`, `extract_state_dict`, `infer_model_meta`) unpickles
+an ultralytics checkpoint without ultralytics and recovers its flat state
+dict, whose names are already the port's (`load_pt_checkpoint`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import copy
+import logging
+import pickle
+import types
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
-from yolo_infer_tpu_torch.models.spec import ModelSpec
+from yolo_infer_tpu_torch.models import blocks as B
+from yolo_infer_tpu_torch.models.spec import ModelSpec, build_spec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, fold_model, quantize_model
+
+logger = logging.getLogger(__name__)
 
 # keys a checkpoint may carry that the port has no use for: BN step counters
 # and the fixed DFL expectation conv (the decode computes it arithmetically)
@@ -203,3 +222,245 @@ def state_dict_from_jax(params: Mapping[str, Any], spec: ModelSpec,
         elif t not in ("Upsample", "Concat"):
             raise NotImplementedError(f"layer type {t} is not ported yet")
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the way back: YOLO11 -> JAX parameter (and state) trees
+# ---------------------------------------------------------------------------
+
+def _leaf(t: torch.Tensor):
+    """A numpy array of `t`; bfloat16 stays a torch tensor (numpy has no
+    bfloat16 without ml_dtypes; `utils/msgpack.py` writes it as flax does)."""
+    t = t.detach().cpu().contiguous()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _hwio(w: torch.Tensor):
+    """OIHW (torch) -> HWIO (JAX)."""
+    return _leaf(w.permute(2, 3, 1, 0))
+
+
+def _conv_tree(m: B.Conv):
+    """One Conv(+BN) as (params, state): unfolded {"w","gamma","beta"} and
+    {"mean","var"}, folded {"w","b"}, or quantized {"w_q","w_scale","b"}
+    (HWIO int8) with the state {} the JAX package has no use for."""
+    if m.quantized:
+        co = m.w_q.shape[0]
+        w_q = m.w_q.view(co, m.k, m.k, -1).permute(1, 2, 3, 0)
+        return {"w_q": _leaf(w_q), "w_scale": _leaf(m.w_scale), "b": _leaf(m.b)}, {}
+    if m.bn is not None:
+        return ({"w": _hwio(m.conv.weight), "gamma": _leaf(m.bn.weight), "beta": _leaf(m.bn.bias)},
+                {"mean": _leaf(m.bn.running_mean), "var": _leaf(m.bn.running_var)})
+    return {"w": _hwio(m.conv.weight), "b": _leaf(m.conv.bias)}, {}
+
+
+def _plain_tree(m: nn.Conv2d):
+    """The head's output projections: {"w","b"}, no state."""
+    return {"w": _hwio(m.weight), "b": _leaf(m.bias)}, {}
+
+
+def _named(pairs):
+    """{name: (params, state)} -> (params dict, state dict)."""
+    return {k: v[0] for k, v in pairs.items()}, {k: v[1] for k, v in pairs.items()}
+
+
+def _listed(pairs):
+    return [p for p, _ in pairs], [s for _, s in pairs]
+
+
+def _bottleneck_tree(m):
+    return _named({"cv1": _conv_tree(m.cv1), "cv2": _conv_tree(m.cv2)})
+
+
+def _c3k2_tree(m: B.C3k2):
+    inner = []
+    for mm in m.m:
+        if isinstance(mm, B.C3k):
+            p, s = _named({"cv1": _conv_tree(mm.cv1), "cv2": _conv_tree(mm.cv2), "cv3": _conv_tree(mm.cv3)})
+            p["m"], s["m"] = _listed([_bottleneck_tree(b) for b in mm.m])
+            inner.append((p, s))
+        else:
+            inner.append(_bottleneck_tree(mm))
+    p, s = _named({"cv1": _conv_tree(m.cv1), "cv2": _conv_tree(m.cv2)})
+    p["m"], s["m"] = _listed(inner)
+    return p, s
+
+
+def _c2psa_tree(m: B.C2PSA):
+    blocks = []
+    for blk in m.m:
+        a = blk.attn
+        attn = _named({"qkv": _conv_tree(a.qkv), "proj": _conv_tree(a.proj), "pe": _conv_tree(a.pe)})
+        blocks.append(_named({"attn": attn, "ffn1": _conv_tree(blk.ffn[0]), "ffn2": _conv_tree(blk.ffn[1])}))
+    p, s = _named({"cv1": _conv_tree(m.cv1), "cv2": _conv_tree(m.cv2)})
+    p["m"], s["m"] = _listed(blocks)
+    return p, s
+
+
+def _detect_tree(m: B.Detect, typ: str):
+    box = [_listed([_conv_tree(br[0]), _conv_tree(br[1]), _plain_tree(br[2])]) for br in m.cv2]
+    cls = [_listed([_conv_tree(br[0][0]), _conv_tree(br[0][1]), _conv_tree(br[1][0]), _conv_tree(br[1][1]),
+                    _plain_tree(br[2])]) for br in m.cv3]
+    p, s = {}, {}
+    p["cv2"], s["cv2"] = _listed(box)
+    p["cv3"], s["cv3"] = _listed(cls)
+    if typ != "Detect":
+        p["cv4"], s["cv4"] = _listed([_listed([_conv_tree(br[0]), _conv_tree(br[1]), _plain_tree(br[2])])
+                                      for br in m.cv4])
+    if typ == "Segment":
+        pr = m.proto
+        pp, ps = _named({"cv1": _conv_tree(pr.cv1), "cv2": _conv_tree(pr.cv2), "cv3": _conv_tree(pr.cv3)})
+        # torch ConvTranspose2d's (I, O, kh, kw) -> the JAX package's (kh, kw, O, I)
+        pp = {"cv1": pp["cv1"], "up": {"wt": _leaf(pr.upsample.weight.permute(2, 3, 1, 0)),
+                                       "b": _leaf(pr.upsample.bias)}, "cv2": pp["cv2"], "cv3": pp["cv3"]}
+        p["proto"], s["proto"] = pp, ps
+    return p, s
+
+
+def _classify_tree(m: B.Classify):
+    cp, cs = _conv_tree(m.conv)
+    return {"conv": cp, "linear": {"w": _leaf(m.linear.weight.t()), "b": _leaf(m.linear.bias)}}, {"conv": cs}
+
+
+def params_to_jax(model: YOLO11, spec: ModelSpec, fused: bool) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+    """`YOLO11` -> (params, state): the JAX package's trees, the inverse of
+    `params_from_jax`. `fused` gives the deploy form (a folded copy where
+    the model still has batch norms) and state None; unfused needs a model
+    with its batch norms and gives their state tree. Leaves are numpy
+    arrays in the model's dtypes (bfloat16 as torch tensors)."""
+    has_bn = any(isinstance(m, B.Conv) and m.bn is not None for m in model.modules())
+    if fused and has_bn:
+        model = fold_model(copy.deepcopy(model))
+    elif not fused and not has_bn:
+        raise ValueError("an unfused tree needs a model with its batch norms; this one is folded")
+    params: Dict[str, Any] = {}
+    state: Dict[str, Any] = {}
+    for layer in spec.layers:
+        m, t, key = model.model[layer.idx], layer.typ, str(layer.idx)
+        if t == "Conv":
+            params[key], state[key] = _conv_tree(m)
+        elif t in ("C3k2",):
+            params[key], state[key] = _c3k2_tree(m)
+        elif t == "SPPF":
+            params[key], state[key] = _bottleneck_tree(m)
+        elif t == "C2PSA":
+            params[key], state[key] = _c2psa_tree(m)
+        elif t in ("Detect", "Segment", "Pose", "OBB"):
+            params[key], state[key] = _detect_tree(m, t)
+        elif t == "Classify":
+            params[key], state[key] = _classify_tree(m)
+        elif t not in ("Upsample", "Concat"):
+            raise NotImplementedError(f"layer type {t} is not ported yet")
+    return params, (None if fused else state)
+
+
+# ---------------------------------------------------------------------------
+# ultralytics .pt files, without ultralytics
+# ---------------------------------------------------------------------------
+
+class _Stub:
+    def __init__(self, *a, **k):  # pickle plumbing
+        pass
+
+
+# Only these module prefixes may resolve to real importable objects while
+# unpickling; anything else (os, subprocess, builtins, shutil, ...) becomes an
+# inert stub, closing the classic pickle gadgets. torch, numpy and collections
+# rebuild the tensors; ultralytics classes become stubs whose module tree is
+# walked structurally. Load checkpoints from trusted sources only all the same.
+_SAFE_MODULE_PREFIXES = ("torch", "numpy", "collections")
+
+
+class _PermissiveUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".", 1)[0] in _SAFE_MODULE_PREFIXES:
+            try:
+                return super().find_class(module, name)
+            except Exception:  # noqa: BLE001 - a missing class becomes a stub
+                pass
+        return type(name, (_Stub,), {"__module__": module})
+
+
+def permissive_torch_load(path: Union[str, Path]) -> Any:
+    """`torch.load` of a checkpoint with its unimportable classes stubbed."""
+    shim = types.ModuleType("permissive_pickle")
+    shim.Unpickler = _PermissiveUnpickler
+    shim.load = lambda f, **k: _PermissiveUnpickler(f).load()
+    return torch.load(str(path), pickle_module=shim, weights_only=False, map_location="cpu")
+
+
+def extract_state_dict(module: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Walk a (possibly stubbed) torch module tree -> flat {name: float32 array}."""
+    out: Dict[str, np.ndarray] = {}
+
+    def _tensor(v):
+        return np.asarray(v.detach().float().numpy()) if hasattr(v, "detach") else np.asarray(v, np.float32)
+
+    d = getattr(module, "__dict__", {})
+    for store in ("_parameters", "_buffers"):
+        for name, v in (d.get(store) or {}).items():
+            if v is not None:
+                out[f"{prefix}{name}"] = _tensor(v)
+    for name, child in (d.get("_modules") or {}).items():
+        if child is not None:
+            out.update(extract_state_dict(child, f"{prefix}{name}."))
+    return out
+
+
+_C0_TO_SIZE = {16: "n", 32: "s", 96: "x"}  # 64 is m or l (told apart by depth)
+
+
+def infer_model_meta(sd: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """(size, task, nc, ...) from tensor shapes alone."""
+    c0 = sd["model.0.conv.weight"].shape[0]
+    if c0 == 64:
+        size = "l" if "model.2.m.1.cv1.conv.weight" in sd else "m"
+    else:
+        size = _C0_TO_SIZE.get(c0)
+    if size is None:
+        raise ValueError(f"cannot infer model size from stem width {c0}")
+    head_idx = max(int(k.split(".")[1]) for k in sd if k.startswith("model."))
+    h = f"model.{head_idx}"
+    meta: Dict[str, Any] = {"size": size, "head_idx": head_idx}
+    if f"{h}.linear.weight" in sd:
+        meta["task"] = "classify"
+        meta["nc"] = sd[f"{h}.linear.weight"].shape[0]
+        return meta
+    meta["nc"] = sd[f"{h}.cv3.0.2.weight"].shape[0]
+    if f"{h}.proto.cv1.conv.weight" in sd:
+        meta["task"] = "segment"
+        meta["nm"] = sd[f"{h}.cv4.0.2.weight"].shape[0]
+    elif f"{h}.cv4.0.2.weight" in sd:
+        c4_out = sd[f"{h}.cv4.0.2.weight"].shape[0]
+        if c4_out == 1:
+            meta["task"] = "obb"
+            meta["ne"] = 1
+        else:
+            meta["task"] = "pose"
+            meta["kpt_shape"] = (c4_out // 3, 3) if c4_out % 3 == 0 else (c4_out, 1)
+    else:
+        meta["task"] = "detect"
+    return meta
+
+
+def load_pt_checkpoint(path: Union[str, Path]) -> Tuple[YOLO11, ModelSpec, Dict[str, Any]]:
+    """An ultralytics `.pt` checkpoint -> (unfolded f32 `YOLO11`, its spec,
+    meta {"task", "size", "nc", "names"}). The EMA weights are taken where
+    the checkpoint has them, as the JAX package takes them."""
+    obj = permissive_torch_load(path)
+    model_obj = None
+    if isinstance(obj, dict):
+        model_obj = obj.get("ema") or obj.get("model")
+    if model_obj is None:
+        model_obj = obj
+    sd = extract_state_dict(model_obj)
+    if not any(k.startswith("model.") for k in sd):  # ultralytics wraps the layer list in `.model`
+        sd = {f"model.{k}": v for k, v in sd.items()}
+    meta = infer_model_meta(sd)
+    spec = build_spec(meta["task"], meta["size"], meta["nc"], **{k: meta[k] for k in ("nm", "kpt_shape", "ne")
+                                                                 if k in meta})
+    model = load_state_dict(sd, spec)
+    raw_names = getattr(model_obj, "__dict__", {}).get("names")
+    names = {int(k): str(v) for k, v in raw_names.items()} if isinstance(raw_names, dict) else None
+    logger.info("loaded %s: %s/%s nc=%d", path, meta["task"], meta["size"], meta["nc"])
+    return model, spec, {"task": meta["task"], "size": meta["size"], "nc": meta["nc"], "names": names}

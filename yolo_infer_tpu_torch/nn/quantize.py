@@ -136,6 +136,10 @@ class QuantContext:
     # C=64 convs quantize when their input rows N*H*W reach this volume
     int8_c64_min_rows: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get("YOLO_INT8_C64_MIN_ROWS", 400_000)))
+    # static8: 1/sy of each pair as a Python float, kernel E's epilogue argument
+    # (`out_scale_inverses`); a caller that traces the forward passes them in,
+    # since a traced program cannot read a tensor back to the host
+    syinv: Optional[List[float]] = None
 
     def __post_init__(self):
         if self.mode in _UNPORTED_MODES:
@@ -146,6 +150,8 @@ class QuantContext:
             self.act_scales = torch.as_tensor(self.act_scales, dtype=torch.float32).cpu()
             if self.act_scales.dim() != 2:
                 raise NotImplementedError(f"1-D (legacy static) activation scales {UNPORTED}")
+            if self.syinv is None:
+                self.syinv = out_scale_inverses(self.act_scales)
 
     def observe_pair(self, x: torch.Tensor, y: torch.Tensor) -> None:
         self.collected.append(torch.stack([x.float().abs().amax(), y.float().abs().amax()]))
@@ -165,6 +171,13 @@ class QuantContext:
         if rows >= self.int8_c64_min_rows and thresh <= 1024:
             thresh = min(thresh, 64)
         return min(ci, co) < thresh or (self.float_convs is not None and idx in self.float_convs)
+
+
+def out_scale_inverses(act_scales: torch.Tensor) -> List[float]:
+    """1/sy of every (in, out) absmax pair, as `next_scale_pair` makes sy
+    (f32: clamp, / 127, then the reciprocal), as Python floats."""
+    sy = torch.clamp(torch.as_tensor(act_scales, dtype=torch.float32), min=1e-6)[:, 1] / INT8_MAX
+    return (1.0 / sy).tolist()
 
 
 _ACTIVE: List[QuantContext] = []

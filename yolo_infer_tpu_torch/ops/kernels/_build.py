@@ -96,6 +96,15 @@ def build(names: Iterable[str]) -> Dict[str, Dict[str, object]]:
     return report
 
 
+def check_device(name: str, t) -> None:
+    """Each wrapper's first check: its op takes the kernel for a CUDA tensor
+    and the plain version for a CPU tensor, and nothing else. (A meta or
+    fake tensor reaches an op's fake implementation instead, which is what
+    tracing needs, so a wrapper refuses it before the op.)"""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
     lib = _LOADED.get(name)

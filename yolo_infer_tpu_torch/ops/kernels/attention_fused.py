@@ -12,9 +12,11 @@ file, the per-(batch·head) kernel behind `YOLO_ATTN_IMPL=pallas`: it takes a
 slab packed head-major beforehand, (G, N, 2kd+hd) with G = batch·heads, and
 returns (G, N, hd), the same arithmetic with one head per row of the grid.
 
-Each wrapper takes its kernel for a CUDA tensor and its plain version for a
-CPU tensor; anything else raises. `attention_qkv.launches` and
-`attention_packed.launches` count kernel launches.
+Each wrapper calls its op (`torch.ops.yolo_port.attention_qkv`,
+`torch.ops.yolo_port.attention_packed`), which takes the kernel for a CUDA
+tensor and the plain version for a CPU tensor; anything else raises.
+`attention_qkv.launches` and `attention_packed.launches` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import ctypes
 
 import torch
 
-from yolo_infer_tpu_torch.ops.kernels._build import load_library
+from yolo_infer_tpu_torch.ops.kernels._build import check_device, load_library
 
 # the (kd, hd) the kernel is built for: every YOLO11 size has head_dim 64, key_dim 32
 KERNEL_DIMS = (32, 64)
@@ -69,23 +71,42 @@ def _packed_launcher():
 
 
 def _check(name: str, slab: torch.Tensor, kd: int, hd: int, width: int) -> None:
+    """The checks that hold on fake tensors too (no data pointers); on the
+    card, the kernel's."""
+    if slab.dim() != 3 or slab.shape[-1] != width:
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} does not have the last dim {width}")
+    if slab.device.type != "cuda":
+        return
     if slab.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {slab.dtype} not supported (float32, bfloat16)")
     if (kd, hd) != KERNEL_DIMS:
         raise ValueError(f"{name}: the kernel takes (kd, hd)={KERNEL_DIMS}, got ({kd}, {hd})")
-    if slab.dim() != 3 or slab.shape[-1] != width:
-        raise ValueError(f"{name}: slab {tuple(slab.shape)} does not have the last dim {width}")
-    if not slab.is_contiguous() or slab.data_ptr() % 16:
+    if not slab.is_contiguous():
+        raise ValueError(f"{name}: slab must be contiguous and 16-byte aligned (read 16 bytes at a time)")
+
+
+def _check_aligned(name: str, slab: torch.Tensor) -> None:
+    if slab.data_ptr() % 16:
         raise ValueError(f"{name}: slab must be contiguous and 16-byte aligned (read 16 bytes at a time)")
 
 
 def attention_qkv(qkv: torch.Tensor, heads: int, kd: int, hd: int) -> torch.Tensor:
     """(B, N, heads*(2kd+hd)) slab -> (B, N, heads*hd) attention output."""
+    check_device("attention_qkv", qkv)
+    return torch.ops.yolo_port.attention_qkv(qkv, heads, kd, hd)
+
+
+attention_qkv.launches = 0
+
+
+@torch.library.custom_op("yolo_port::attention_qkv", mutates_args=())
+def _attention_qkv_op(qkv: torch.Tensor, heads: int, kd: int, hd: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, heads, kd, hd)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_qkv: no kernel for device {qkv.device}")
     _check("attention_qkv", qkv, kd, hd, heads * (2 * kd + hd))
+    _check_aligned("attention_qkv", qkv)
     b, n, _ = qkv.shape
     out = torch.empty((b, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or n == 0:
@@ -99,16 +120,29 @@ def attention_qkv(qkv: torch.Tensor, heads: int, kd: int, hd: int) -> torch.Tens
     return out
 
 
-attention_qkv.launches = 0
+@_attention_qkv_op.register_fake
+def _(qkv, heads, kd, hd):
+    _check("attention_qkv", qkv, kd, hd, heads * (2 * kd + hd))
+    return qkv.new_empty((qkv.shape[0], qkv.shape[1], heads * hd))
 
 
 def attention_packed(qg: torch.Tensor, kd: int, hd: int) -> torch.Tensor:
     """(G, N, 2kd+hd) head-major packed slab -> (G, N, hd) attention output (kernel H)."""
+    check_device("attention_packed", qg)
+    return torch.ops.yolo_port.attention_packed(qg, kd, hd)
+
+
+attention_packed.launches = 0
+
+
+@torch.library.custom_op("yolo_port::attention_packed", mutates_args=())
+def _attention_packed_op(qg: torch.Tensor, kd: int, hd: int) -> torch.Tensor:
     if qg.device.type == "cpu":
         return attention_packed_reference(qg, kd, hd)
     if qg.device.type != "cuda":
         raise ValueError(f"attention_packed: no kernel for device {qg.device}")
     _check("attention_packed", qg, kd, hd, 2 * kd + hd)
+    _check_aligned("attention_packed", qg)
     g, n, _ = qg.shape
     out = torch.empty((g, n, hd), dtype=qg.dtype, device=qg.device)
     if g == 0 or n == 0:
@@ -122,4 +156,7 @@ def attention_packed(qg: torch.Tensor, kd: int, hd: int) -> torch.Tensor:
     return out
 
 
-attention_packed.launches = 0
+@_attention_packed_op.register_fake
+def _(qg, kd, hd):
+    _check("attention_packed", qg, kd, hd, 2 * kd + hd)
+    return qg.new_empty((qg.shape[0], qg.shape[1], hd))

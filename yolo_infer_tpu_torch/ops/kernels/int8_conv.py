@@ -20,8 +20,10 @@ greater than Ci, as `q_split2` / `q_split_at` leave it): the kernel reads it
 in place. `nhwc_input` gives a static8 conv's input in that form, copying
 only where the layout or the alignment does not fit.
 
-`int8_conv` takes the kernel for CUDA tensors and the plain version for CPU
-tensors; anything else raises. `int8_conv.launches` counts kernel launches.
+`int8_conv` calls the op `torch.ops.yolo_port.int8_conv`, which takes the
+kernel for CUDA tensors and the plain version for CPU tensors; anything
+else raises. The op takes the input view as it is (its pixel pitch kept).
+`int8_conv.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from yolo_infer_tpu_torch.ops.kernels._build import load_library
+from yolo_infer_tpu_torch.ops.kernels._build import check_device, load_library
 
 _EPILOGUES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,19 +71,22 @@ def pixel_pitch(x: torch.Tensor) -> Optional[int]:
     return None
 
 
-def _vec_ok(x: torch.Tensor, p: int) -> bool:
+def _vec_ok(x: torch.Tensor, p: int, first_byte: int) -> bool:
     """The 16-byte (cp.async) path's alignment: Ci % 16 == 0 takes it and
-    needs the pitch and the first element 16-byte aligned."""
-    return x.shape[3] % 16 != 0 or (p % 16 == 0 and x.data_ptr() % 16 == 0)
+    needs the pitch and the first element (at `first_byte`) 16-byte aligned."""
+    return x.shape[3] % 16 != 0 or (p % 16 == 0 and first_byte % 16 == 0)
 
 
 def nhwc_input(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) int8 codes -> (B, H, W, C) for `int8_conv`: a view where
     the kernel reads it in place (channels_last codes, or a channel chunk of
-    them), else a contiguous copy."""
+    them), else a contiguous copy. The first element's alignment is read
+    from the view's storage offset (a storage starts 16-byte aligned: the
+    caching allocator's blocks are 512-byte aligned), which a traced
+    program knows too, as it knows no data pointer."""
     v = x.permute(0, 2, 3, 1)
     p = pixel_pitch(v)
-    return v if p is not None and _vec_ok(v, p) else v.contiguous()
+    return v if p is not None and _vec_ok(v, p, v.storage_offset() * v.element_size()) else v.contiguous()
 
 
 def _launcher():
@@ -98,11 +103,45 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: O
     """x_q (B, H, W, Ci) int8 (contiguous, or with a pixel pitch: see
     `pixel_pitch`), w_q (Co, k, k, Ci) int8, scale and bias (Co,) f32, syinv
     the f32 value 1/sy -> (B, Ho, Wo, Co) int8; all but x_q contiguous."""
+    check_device("int8_conv", x_q)
+    return torch.ops.yolo_port.int8_conv(x_q, w_q, scale, bias, float(syinv), stride, act, epilogue_dtype)
+
+
+int8_conv.launches = 0
+
+
+@torch.library.custom_op("yolo_port::int8_conv", mutates_args=())
+def _int8_conv_op(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+                  syinv: float, stride: int, act: bool, epilogue_dtype: torch.dtype) -> torch.Tensor:
     if x_q.device.type == "cpu":
         return int8_conv_reference(x_q, w_q, scale, bias, syinv, stride=stride, act=act,
                                    epilogue_dtype=epilogue_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_conv: no kernel for device {x_q.device}")
+    b, ho, wo, co = _check(x_q, w_q, scale, bias, stride, epilogue_dtype)
+    p = pixel_pitch(x_q)
+    if not _vec_ok(x_q, p, x_q.data_ptr()) or (x_q.shape[3] % 16 == 0 and w_q.data_ptr() % 16):
+        raise ValueError(f"int8_conv: Ci={x_q.shape[3]} takes the 16-byte path, which needs the pixel pitch ({p}) "
+                         f"and the input and weight pointers 16-byte aligned")
+    _, h, w, ci = x_q.shape
+    k = w_q.shape[1]
+    out = torch.empty((b, ho, wo, co), dtype=torch.int8, device=x_q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x_q.device):
+        err = _launcher()(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                          bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                          b, h, w, ci, p, ho, wo, co, k, stride, float(syinv), int(act), _EPILOGUES[epilogue_dtype],
+                          torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_conv: CUDA error {err} at launch")
+    int8_conv.launches += 1
+    return out
+
+
+def _check(x_q, w_q, scale, bias, stride: int, epilogue_dtype: torch.dtype):
+    """The kernel's checks that hold on fake tensors too (no data pointers);
+    returns the output's (B, Ho, Wo, Co)."""
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise ValueError(f"int8_conv: input and weights must be int8, got {x_q.dtype} and {w_q.dtype}")
     if x_q.dim() != 4 or w_q.dim() != 4 or w_q.shape[1] != w_q.shape[2] or w_q.shape[3] != x_q.shape[3]:
@@ -122,27 +161,19 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: O
         raise ValueError("int8_conv: every tensor must be on the input's device")
     if not all(t.is_contiguous() for t in tensors[1:]):
         raise ValueError("int8_conv: weights, scale and bias must be contiguous")
-    p = pixel_pitch(x_q)
-    if p is None:
+    if pixel_pitch(x_q) is None:
         raise ValueError(f"int8_conv: x {tuple(x_q.shape)} with strides {x_q.stride()} is not NHWC with a pixel pitch")
-    if not _vec_ok(x_q, p) or (x_q.shape[3] % 16 == 0 and w_q.data_ptr() % 16):
-        raise ValueError(f"int8_conv: Ci={x_q.shape[3]} takes the 16-byte path, which needs the pixel pitch ({p}) "
-                         f"and the input and weight pointers 16-byte aligned")
-    b, h, w, ci = x_q.shape
+    b, h, w, _ = x_q.shape
     pad = k // 2
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
-    out = torch.empty((b, ho, wo, co), dtype=torch.int8, device=x_q.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(x_q.device):
-        err = _launcher()(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                          bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                          b, h, w, ci, p, ho, wo, co, k, stride, float(syinv), int(act), _EPILOGUES[epilogue_dtype],
-                          torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_conv: CUDA error {err} at launch")
-    int8_conv.launches += 1
-    return out
+    return b, (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1, co
 
 
-int8_conv.launches = 0
+@_int8_conv_op.register_fake
+def _(x_q, w_q, scale, bias, syinv, stride, act, epilogue_dtype):
+    if x_q.device.type == "cpu":  # the plain version takes what F.conv2d takes
+        k = w_q.shape[1]
+        b, h, w, _ = x_q.shape
+        shape = (b, (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1, w_q.shape[0])
+    else:
+        shape = _check(x_q, w_q, scale, bias, stride, epilogue_dtype)
+    return x_q.new_empty(shape, dtype=torch.int8)

@@ -10,8 +10,9 @@ MSB-first along W, bit-identical to `upsample4x_threshold_pack_reference`.
 
 The kernel skips the taps wherever no input near an output word is above
 0.5, which leaves the bytes exact (`csrc/mask_pack.cu`).
-`upsample4x_threshold_pack` takes the kernel for a CUDA tensor and the plain
-version for a CPU tensor; anything else raises.
+`upsample4x_threshold_pack` calls the op
+`torch.ops.yolo_port.upsample4x_threshold_pack`, which takes the kernel for a
+CUDA tensor and the plain version for a CPU tensor; anything else raises.
 `upsample4x_threshold_pack.launches` counts kernel launches.
 """
 
@@ -21,7 +22,7 @@ import ctypes
 
 import torch
 
-from yolo_infer_tpu_torch.ops.kernels._build import load_library
+from yolo_infer_tpu_torch.ops.kernels._build import check_device, load_library
 
 
 def upsample4x_threshold_pack_reference(soft: torch.Tensor) -> torch.Tensor:
@@ -40,19 +41,24 @@ def _launcher():
 
 def upsample4x_threshold_pack(soft: torch.Tensor) -> torch.Tensor:
     """(n, Hm, Wm) f32 soft masks -> (n, 4*Hm, Wm/2) uint8 packed binary masks."""
+    check_device("upsample4x_threshold_pack", soft)
+    return torch.ops.yolo_port.upsample4x_threshold_pack(soft)
+
+
+upsample4x_threshold_pack.launches = 0
+
+
+@torch.library.custom_op("yolo_port::upsample4x_threshold_pack", mutates_args=())
+def _upsample4x_threshold_pack_op(soft: torch.Tensor) -> torch.Tensor:
     if soft.device.type == "cpu":
         return upsample4x_threshold_pack_reference(soft)
     if soft.device.type != "cuda":
         raise ValueError(f"upsample4x_threshold_pack: no kernel for device {soft.device}")
-    if soft.dtype != torch.float32 or soft.dim() != 3:
-        raise ValueError(f"upsample4x_threshold_pack: soft masks must be (n, Hm, Wm) float32, "
-                         f"got {tuple(soft.shape)} {soft.dtype}")
-    n, h, w = soft.shape
-    if w % 8:
-        raise ValueError(f"upsample4x_threshold_pack: Wm={w} is not a multiple of 8")
+    _check(soft)
     if not soft.is_contiguous() or soft.data_ptr() % 16:
         raise ValueError("upsample4x_threshold_pack: soft masks must be contiguous and 16-byte aligned "
                          "(rows are read as float4)")
+    n, h, w = soft.shape
     out = torch.empty((n, 4 * h, w // 2), dtype=torch.uint8, device=soft.device)
     if n == 0 or h == 0:
         return out
@@ -64,4 +70,17 @@ def upsample4x_threshold_pack(soft: torch.Tensor) -> torch.Tensor:
     return out
 
 
-upsample4x_threshold_pack.launches = 0
+def _check(soft: torch.Tensor) -> None:
+    """The checks that hold on fake tensors too (no data pointers)."""
+    if soft.dtype != torch.float32 or soft.dim() != 3:
+        raise ValueError(f"upsample4x_threshold_pack: soft masks must be (n, Hm, Wm) float32, "
+                         f"got {tuple(soft.shape)} {soft.dtype}")
+    if soft.shape[2] % 8:
+        raise ValueError(f"upsample4x_threshold_pack: Wm={soft.shape[2]} is not a multiple of 8")
+
+
+@_upsample4x_threshold_pack_op.register_fake
+def _(soft):
+    _check(soft)
+    n, h, w = soft.shape
+    return soft.new_empty((n, 4 * h, w // 2), dtype=torch.uint8)

@@ -21,7 +21,7 @@ order among equal scores.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import os
 
@@ -32,11 +32,13 @@ from yolo_infer_tpu_torch.ops.decode import anchor_rows_from_idx, dfl_expectatio
 from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
 from yolo_infer_tpu_torch.ops.kernels.greedy_nms import greedy_nms_keep
 from yolo_infer_tpu_torch.ops.kernels.nms_fused import nms_keep
+from yolo_infer_tpu_torch.ops.kernels.nms_walk import threshold_tensor
 
 MAX_WH = 7680.0  # class-offset stride for class-aware suppression
+Threshold = Union[float, torch.Tensor]  # a Python number or a 0-d f32 tensor on the scores' device
 
 
-def _nms_fixpoint(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float, max_sweeps: int) -> torch.Tensor:
+def _nms_fixpoint(iou: torch.Tensor, valid: torch.Tensor, iou_thres: Threshold, max_sweeps: int) -> torch.Tensor:
     """Greedy NMS keep mask over score-sorted candidates via fixpoint sweeps.
 
     iou (..., K, K) f32, valid (..., K) bool -> (..., K) bool. This is the
@@ -44,8 +46,8 @@ def _nms_fixpoint(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float, max_
     """
     k = iou.shape[-1]
     higher = torch.ones((k, k), dtype=torch.bool, device=iou.device).triu(1)  # [i, j]: i outranks j
-    overlap = (iou > torch.tensor(iou_thres, dtype=torch.float32)) & higher
-    kept = valid
+    overlap = (iou > threshold_tensor(iou_thres, iou.device)) & higher
+    kept = valid.clone()  # a new tensor even when no sweep changes it (an op's output may not alias its input)
     for _ in range(max_sweeps):
         suppressed = (overlap & kept[..., :, None]).any(dim=-2)
         new_kept = valid & ~suppressed
@@ -55,7 +57,7 @@ def _nms_fixpoint(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float, max_
     return kept
 
 
-def nms_keep_mask(sup_boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+def nms_keep_mask(sup_boxes: torch.Tensor, valid: torch.Tensor, iou_thres: Threshold) -> torch.Tensor:
     """Greedy-NMS keep mask (B, K) bool over (B, K, 4) score-sorted,
     class-offset candidates: the CUDA kernel for a CUDA tensor, the fixpoint
     for a CPU tensor (`ops.kernels.nms_fused.nms_keep`)."""
@@ -107,8 +109,8 @@ def batched_nms_seldec(
     box_dist: torch.Tensor,  # (B, A, 4*reg_max) RAW head dist logits (any float dtype)
     best: torch.Tensor,  # (B, A) best-class scores (sigmoided)
     cls: torch.Tensor,  # (B, A) best-class ids (float)
-    conf_thres: float = 0.25,
-    iou_thres: float = 0.45,
+    conf_thres: Threshold = 0.25,
+    iou_thres: Threshold = 0.45,
     *,
     feat_shapes: Sequence[Tuple[int, int]],
     strides: Sequence[int] = (8, 16, 32),
@@ -128,7 +130,7 @@ def batched_nms_seldec(
     cls = cls.float()
     a = best.shape[1]
     k = min(pre_topk, a)
-    cand = torch.where(best > torch.tensor(conf_thres, dtype=torch.float32), best, torch.full_like(best, -1.0))
+    cand = torch.where(best > threshold_tensor(conf_thres, best.device), best, torch.full_like(best, -1.0))
     top_scores, top_idx = _topk_stable(cand, k)
     sel_dist = torch.gather(box_dist, 1, top_idx[..., None].expand(-1, -1, box_dist.shape[-1]))
     ap, st = anchor_rows_from_idx(top_idx, feat_shapes, strides)
@@ -162,8 +164,8 @@ def _topc_per_anchor(scores: torch.Tensor, c: int) -> Tuple[torch.Tensor, torch.
 def batched_nms(
     boxes: torch.Tensor,  # (B, A, 4) xyxy, letterboxed pixels
     scores: torch.Tensor,  # (B, A, nc) sigmoided
-    conf_thres: float = 0.25,
-    iou_thres: float = 0.45,
+    conf_thres: Threshold = 0.25,
+    iou_thres: Threshold = 0.45,
     *,
     pre_topk: int = 1024,
     max_det: int = 300,
@@ -184,7 +186,7 @@ def batched_nms(
     boxes = boxes.float()
     scores = scores.float()
     b, a, nc = scores.shape
-    conf = torch.tensor(conf_thres, dtype=torch.float32)
+    conf = threshold_tensor(conf_thres, scores.device)
     if multi_label and nc > 1:
         c = multi_label_topc
         if c < nc:

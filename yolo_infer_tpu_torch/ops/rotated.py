@@ -12,8 +12,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from yolo_infer_tpu_torch.ops.kernels.nms_walk import threshold_tensor
 from yolo_infer_tpu_torch.ops.kernels.rotated_nms_fused import rotated_nms_keep
-from yolo_infer_tpu_torch.ops.nms import MAX_WH, _keep_layout, _topk_stable
+from yolo_infer_tpu_torch.ops.nms import MAX_WH, Threshold, _keep_layout, _topk_stable
 
 EPS = 1e-7
 
@@ -86,7 +87,7 @@ def probiou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = EPS)
     return probiou_gauss_matrix(gauss_terms(boxes1), gauss_terms(boxes2), eps)
 
 
-def rotated_nms_keep_mask(sup: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+def rotated_nms_keep_mask(sup: torch.Tensor, valid: torch.Tensor, iou_thres: Threshold) -> torch.Tensor:
     """Greedy probIoU-NMS keep mask (B, K) bool over (B, K, 5) score-sorted
     candidates: the Gaussian terms are computed here, outside the kernel, as
     the JAX package does, then kernel C (or its plain version on the CPU)."""
@@ -96,8 +97,8 @@ def rotated_nms_keep_mask(sup: torch.Tensor, valid: torch.Tensor, iou_thres: flo
 def batched_rotated_nms(
     rboxes: torch.Tensor,  # (B, A, 5) xywhr, letterboxed pixels
     scores: torch.Tensor,  # (B, A, nc)
-    conf_thres: float = 0.25,
-    iou_thres: float = 0.45,
+    conf_thres: Threshold = 0.25,
+    iou_thres: Threshold = 0.45,
     *,
     pre_topk: int = 1024,
     max_det: int = 300,
@@ -113,7 +114,7 @@ def batched_rotated_nms(
     best, cls_best = scores.max(dim=-1)
     a = best.shape[1]
     k = min(pre_topk, a)
-    cand = torch.where(best > torch.tensor(conf_thres, dtype=torch.float32), best, torch.full_like(best, -1.0))
+    cand = torch.where(best > threshold_tensor(conf_thres, best.device), best, torch.full_like(best, -1.0))
     top_scores, top_idx = _topk_stable(cand, k)
     cls = torch.gather(cls_best.float(), 1, top_idx)
     cb = torch.gather(rboxes, 1, top_idx[..., None].expand(-1, -1, 5))

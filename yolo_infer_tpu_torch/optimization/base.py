@@ -3,15 +3,16 @@
 Port of `yolo_infer_tpu/optimization/base.py`: `BaseOptimizer` (optimize,
 evaluate, get_optimization_info), `QuantizationOptimizer`
 (set_calibration_data), `OptimizationPipeline` and `OptimizationRegistry`.
-Models are the port's `YOLO11Model` wrappers. Saving and loading an
-optimized model needs the checkpoint format (ROADMAP Queue 1 item 5) and
-raises until it exists. `evaluate` without data and `compare_models` time
-through `YOLO11Model.benchmark`.
+Models are the port's `YOLO11Model` wrappers; an optimized model saves as a
+fused native checkpoint with its optimization info beside it in JSON.
+`evaluate` without data and `compare_models` time through
+`YOLO11Model.benchmark`.
 """
 
 from __future__ import annotations
 
 import abc
+import json
 import logging
 import time
 from pathlib import Path
@@ -20,9 +21,6 @@ from typing import Any, Dict, List, Optional, Sequence, Type, Union
 import numpy as np
 
 logger = logging.getLogger(__name__)
-
-_NO_CHECKPOINT = "needs the port's checkpoint format (ROADMAP Queue 1 item 5)"
-
 
 class BaseOptimizer(abc.ABC):
     """Abstract model optimizer."""
@@ -52,11 +50,20 @@ class BaseOptimizer(abc.ABC):
         return dict(self.optimization_info)
 
     def save_optimized_model(self, path: Union[str, Path]) -> Path:
-        raise NotImplementedError(f"saving an optimized model {_NO_CHECKPOINT}")
+        """The optimized model as a fused native checkpoint (PTQ scales
+        included), and `optimization_info` in `<path stem>.info.json`."""
+        if self.optimized_model is None:
+            raise RuntimeError("call optimize() first")
+        path = Path(path)
+        out = self.optimized_model.save(path, fused=True)
+        path.with_suffix(".info.json").write_text(json.dumps(self.optimization_info, indent=2, default=float))
+        return out
 
     @staticmethod
     def load_optimized_model(path: Union[str, Path]) -> Any:
-        raise NotImplementedError(f"loading an optimized model {_NO_CHECKPOINT}")
+        from yolo_infer_tpu_torch.core.model import YOLO11Model
+
+        return YOLO11Model(path)
 
     def compare_models(self, imgsz: int = 640, batch: int = 8, runs: int = 20) -> Dict[str, Any]:
         """Original against optimized: time (`YOLO11Model.benchmark`) and size."""
