@@ -4,9 +4,22 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs twenty-six phases, each printing one JSON line. Kernels A, C, F and G
+runs twenty-seven phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
-them:
+them.
+
+A live `Predictor` captures each serving signature into a CUDA graph on its
+first call and replays it after (`core/graphs.py`); a replay calls no
+kernel wrapper, so no Python launch counter ticks. A path that gives the
+kernels line a row (phases 5, 10, 11, 15, 17, 20) reads its launches as
+the line reports them from its own run: every count set to 0 just before
+its first call (the capture: each kernel once per warm-up call and once
+recorded into the graph) and read just after its last (`path_counters`).
+That count must be (1 + WARMUP_CALLS) times one uncaptured call of the
+predictor's serving body (`Predictor.serve_program`, what the graph
+replays: `eager_run`, which also hands over the kernels' inputs "at the
+path's own inputs"; `path_launches`). Replays show their kernels by name
+in torch.profiler traces in phases 21, 24, 25 and 27:
 
   1. card    nvidia-smi name and power limit, kernel build times, ptxas info
              and each library's tensor-core instructions in its SASS
@@ -30,8 +43,10 @@ them:
              on cuda and on cpu (TF32 off): equal num and classes, boxes within
              1e-2 px, scores within 1e-5; both launch counters rise
   5. bf16    the main path: yolo11n bf16 `Predictor.predict` at batch 32 on
-             640x640 frames, once with the launch counters reset (they must
-             each read >= 1), then timed: 20 calls end to end (host clock,
+             640x640 frames (captured, then replayed) with the launch
+             counters reset just before, its body once uncaptured (A and B
+             each >= 1 per call, the path's run 1 + WARMUP_CALLS times
+             that), then timed: 20 calls end to end (host clock,
              median img/s) and the device part alone (CUDA events, frames
              already on the card); per-kernel device times (torch.profiler)
              at the shapes that run gave each kernel, beside the plain
@@ -65,8 +80,8 @@ them:
              each task's kernel counters rise; OBB again at pre_topk 2048
              (kernel C at K=2048)
  10. seg_bf16  the segment path: yolo11n-seg bf16 `predict` at batch 32 on
-             640x640 frames, mask_mode "device": one call with the counters
-             reset (A, B and D must each read >= 1), 20 timed calls and the
+             640x640 frames, mask_mode "device": its body once uncaptured with
+             the counters reset (A, B and D must each read >= 1), 20 timed calls and the
              device part as in phase 5, kernel D at the captured input
              (bit-equal to its plain version; times beside its bound, and
              the share of its steps that take the zero skip), and
@@ -106,8 +121,9 @@ them:
              rise
  15. val_bf16  the validation path: yolo11n detect bf16 validation at 640
              px, batch 16, conf 0.001, iou 0.6, pre_topk 4096 over 64
-             frames, run twice (counters reset before the first; F and G
-             must each read >= 1), the second timed: images/s and
+             frames, run twice (one graph; one batch's body uncaptured with
+             the counters reset: F and G must each read >= 1), the second
+             timed: images/s and
              inference_ms_per_image from the validator, peak device
              memory, kernels F and G and the plain IoU build in front of G
              at the captured inputs (F within 1e-5, G bit-equal; device
@@ -121,7 +137,8 @@ them:
              pairs' box and score errors are printed
  17. q8_bf16  the static8 path: yolo11s PTQ through `create_quantizer` on
              the card, then static8 `predict` at batch 32 on 640x640 frames,
-             once with the counters reset (E must read 48, A and B >= 1) and
+             its body once uncaptured with the counters reset (E must read 48,
+             A and B >= 1) and
              every E input captured (channel chunks keep their pixel pitch),
              then timed beside the bf16 yolo11s on the same frames and
              weights; E at each of its 48 inputs (bit-equal to its plain
@@ -143,14 +160,17 @@ them:
              card: bf16 (64, 400, 128) within 2e-2, f32 within 1e-5, bf16 at
              N=1600; and H on a head-major copy vs B on the same slab
  20. attn_pallas  the `YOLO_ATTN_IMPL=pallas` route: yolo11n bf16 `predict`
-             at batch 32 on 640x640 frames with the counters reset (H >= 1,
-             B 0), Results equal to the default route's, timed as in phase
+             at batch 32 on 640x640 frames (the knob is part of the cache key:
+             a new capture), its run and its body uncaptured with the
+             counters reset (H >= 1, B 0), Results equal to the default route's, timed as in phase
              5, and H at its captured input beside its bound
  21. many    `predict_many` at batch_size 32 over 150 seeded 640x640 frames
              (five chunks, the last padded) and 40 frames of two sizes,
              against `predict` on the same padded chunks: equal counts and
-             classes, boxes within 1e-3 px, scores within 1e-5, one A launch
-             per chunk; segment `predict_many` over 64 frames, its masks
+             classes, boxes within 1e-3 px, scores within 1e-5, one A and one
+             B per chunk by name in a trace, no Python launch and no new
+             cache entry (phase 5's b32 graph replays every chunk); segment
+             `predict_many` over 64 frames, its masks
              (held on the host, read through `LazyMasks`) equal to
              `predict`'s bit for bit; img/s of `predict_many` against a loop
              of `predict` over the same frames (in turns); the ms of HtoD
@@ -172,15 +192,18 @@ them:
  24. exported  the exported serving program (`core/exported.py`): yolo11n
              detect bf16 at b32/640, exported on the card, loaded and
              captured into one CUDA graph; the replay equal bit for bit to
-             the loaded program's eager run and to live `predict_raw` at
-             two conf/iou pairs, (0.25, 0.45) and (0.10, 0.60), from the one
-             capture (the pairs' detections must differ; where live and
-             replay differ, an f32 artifact is held to phase 4's
-             tolerances); the eager run's launch counts (A, B); at b32 and
-             at b1/640, replay against live `predict_raw`: the host ms until
-             the call returns, host-clock ms per call, CUDA-event ms over
-             back-to-back calls and the kernels' summed device ms; A's and
-             B's kernel functions in a torch.profiler trace of a replay
+             the loaded program's eager run, to the live predictor's eager
+             body (`serve_program`, the yardstick) and to live `predict_raw`
+             (the live predictor's own graph) at two conf/iou pairs, (0.25,
+             0.45) and (0.10, 0.60), from the one capture (the pairs'
+             detections must differ; where live and replay differ, an f32
+             artifact is held to phase 4's tolerances); a replay's result
+             unchanged by the next replay on other frames; the eager run's
+             launch counts (A, B), none from the replays; at b32 and at
+             b1/640, replay, live `predict_raw` and the eager body: the host
+             ms until the call returns, host-clock ms per call, CUDA-event ms
+             over back-to-back calls and the kernels' summed device ms; A's
+             and B's kernel functions in a torch.profiler trace of a replay
  25. exported_tasks  segment b8/640 (A, B, D; masks read after a later call
              unchanged), OBB b4/1024 (B, C, F), multi_label detect b8/640
              (F, G), static8 yolo11s b32/640 (E, 48 launches in the eager run
@@ -193,6 +216,24 @@ them:
              against the same file on the cpu (f32 compute, TF32 off, phase
              4's tolerances); `save` -> `load` to identical state; a
              safetensors export read back equal
+ 27. live_graphs  the live program cache (LIVE_PATHS, bf16): detect b32/640
+             and b1/640, multi_label detect b16/640 (pre_topk 4096), segment
+             b32/640 "device" and b8 "q8", "bits", "exact", pose b16/640,
+             OBB b16/1024, classify b32/224, static8 yolo11s b32/640 and the
+             pallas route b32/640, each captured by its first `predict_raw`
+             (its launches (1 + WARMUP_CALLS) times the eager body's) and
+             replayed at (0.25, 0.45) and (0.10, 0.60): equal bit for bit to
+             the eager body, no Python launch; a result unchanged by the next
+             call (the exported `predict_raw`'s in phase 24);
+             `predict_many` over 150 frames equal to `predict` on the same
+             chunks with one b32 cache entry; A-H by function name in live
+             replay traces, each as often per replay as its path's eager
+             body launches it (E 48); captured against eager
+             (`call_times`) at detect b32 and b1 and static8 b32; capture
+             seconds and reserved device memory per signature; b1 `predict`
+             at 3 * PROGRAM_CACHE_SIZE frame sizes (`bounded_cache`): the
+             cache keeps PROGRAM_CACHE_SIZE programs and the reserved memory
+             stays within one program's share of the full cache's
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -208,7 +249,8 @@ phases lists the traces taken again.
 Then it prints the card's name and power limit, the per-kernel JSON line (A
 and B measured on the detect path, C on the OBB path, D on the segment path,
 F and G on the validation path, E on the static8 path, H on the pallas
-route) and, last, {"ok": true, "device": {...}}.
+route; on each row `launches` from that path's own run and
+`launches_per_call` from its uncaptured body) and, last, {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that last line; so does a host
 without CUDA or a directory without the port. Phase names given as
 arguments (`python3 chip_smoke.py exported checkpoints`) run those phases
@@ -220,6 +262,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import faulthandler
 import json
 import os
 import re
@@ -552,6 +595,74 @@ def read_counters():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def path_counters(run):
+    """The launch counts of one path's own run, as the kernels line reads
+    them: every count set to 0 just before `run()` (the path's calls, its
+    first one capturing the signature) and read just after it."""
+    import torch
+
+    reset_counters()
+    result = run()
+    torch.cuda.synchronize()
+    return read_counters(), result
+
+
+# each kernel's functions in a torch.profiler trace; the first counts its
+# launches (H launches B's function with heads = 1 on the pallas route, where
+# B does not run)
+KERNEL_FUNCTIONS = {"nms_keep": ("iou_bits_kernel", "greedy_walk_kernel"),
+                    "attention_qkv": ("attn_qkv_mma_kernel",),
+                    "rotated_nms_keep": ("probiou_bits_kernel", "greedy_walk_kernel"),
+                    "upsample4x_threshold_pack": ("mask_pack_kernel",),
+                    "int8_conv": ("int8_conv_kernel",),
+                    "dfl_decode": ("dfl_decode_kernel",),
+                    "greedy_nms_keep": ("suppression_bits_kernel", "greedy_walk_kernel"),
+                    "attention_packed": ("attn_qkv_mma_kernel",)}
+
+
+def path_launches(where: str, names, path, body):
+    """Hold one path's launches of each kernel in `names`: the path's own
+    run (`path`, from `path_counters`: its first call runs each kernel once
+    per warm-up call and records it once into the graph; a replay calls no
+    wrapper) counted (1 + WARMUP_CALLS) times the uncaptured body's one call
+    (`body`, >= 1). Returns each kernel's fields for the kernels line; a
+    replay's launches by kernel name are phase 27's to count."""
+    from yolo_infer_tpu_torch.core.graphs import WARMUP_CALLS
+
+    rows = {k: {"launches": path[k], "launches_per_call": body[k]} for k in names}
+    bad = {k: r for k, r in rows.items()
+           if r["launches"] != (1 + WARMUP_CALLS) * r["launches_per_call"] or r["launches_per_call"] < 1}
+    if bad:
+        raise AssertionError(f"{where}: the path's run and one body call do not agree "
+                             f"(warm-up calls {WARMUP_CALLS}): {bad}")
+    return rows
+
+
+def eager_call(pred, frames_dev, imgsz: int, conf: float = 0.25, iou: float = 0.45, **kw):
+    """One uncaptured call of `pred`'s serving body (`Predictor.serve_program`,
+    what each of its CUDA graphs replays) on frames on the card: the eager
+    yardstick of a replay. Does not wait for the card."""
+    import torch
+
+    with torch.inference_mode():
+        return pred.serve_program(frames_dev, pred._dev_scalar(conf, pred.device), pred._dev_scalar(iou, pred.device),
+                                  imgsz, **kw)
+
+
+def eager_run(pred, frames, imgsz: int, conf: float = 0.25, iou: float = 0.45, **kw):
+    """`eager_call` on numpy `frames` (an array, or a list that is
+    host-letterboxed as `predict` does it), synchronised. The kernel
+    wrappers count their launches and see their inputs here; a replay of a
+    captured graph ticks no counter and calls no wrapper."""
+    import torch
+
+    if not isinstance(frames, np.ndarray):
+        frames = np.stack(pred._batch(list(frames), imgsz)[0])
+    out = eager_call(pred, torch.from_numpy(np.ascontiguousarray(frames)).to(pred.device), imgsz, conf, iou, **kw)
+    torch.cuda.synchronize()
+    return out
+
+
 def kernel_profile(fn, calls: int = 3, named=()):
     """Device time by kernel and by copy over `calls` calls of `fn`
     (torch.profiler), and the kernels' busy share of the wall time; for each
@@ -784,10 +895,12 @@ def phase_bf16(report):
     pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
     rng = np.random.default_rng(SEED + 3)
     frames = rng.integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
-    pred.predict(frames, conf=0.25)  # warm-up (cuDNN plans, kernel loads)
-    torch.cuda.synchronize()
+    # the main path: the signature's capture (warm-up, cuDNN plans, kernel
+    # loads), then a replay, with every count at 0 just before
+    path, results = path_counters(lambda: (pred.predict(frames, conf=0.25), pred.predict(frames, conf=0.25))[1])
 
-    # the main path, once, with counters at 0 and the kernels' inputs captured
+    # the main path's body, once, uncaptured, with counters at 0 and the
+    # kernels' inputs captured (a replay calls no wrapper)
     seen = {}
 
     def capture(name, fn):
@@ -798,15 +911,16 @@ def phase_bf16(report):
 
     blocks_mod.attention_qkv = capture("attention_qkv", attn_mod.attention_qkv)
     nms_ops.nms_keep = capture("nms_keep", nms_mod.nms_keep)
-    nms_mod.nms_keep.launches = attn_mod.attention_qkv.launches = 0
+    reset_counters()
     try:
-        results = pred.predict(frames, conf=0.25)
+        eager_run(pred, frames, 640)
     finally:
         blocks_mod.attention_qkv = attn_mod.attention_qkv
         nms_ops.nms_keep = nms_mod.nms_keep
-    launches = {"nms_keep": nms_mod.nms_keep.launches, "attention_qkv": attn_mod.attention_qkv.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+    body = read_counters()
+    frames_dev = torch.from_numpy(frames).cuda()
+    counts = path_launches("main path", ("nms_keep", "attention_qkv"), path, body)
+    launches = {k: r["launches"] for k, r in counts.items()}
     nums = [len(r) for r in results]
     for r in results:
         if not (np.isfinite(r.boxes).all() and np.isfinite(r.scores).all() and len(r) <= 300):
@@ -823,7 +937,6 @@ def phase_bf16(report):
         pred.predict(frames, conf=0.25)
         times.append(time.perf_counter() - t0)
     times.sort()
-    frames_dev = torch.from_numpy(frames).cuda()
     batch_device_ms = cuda_ms(lambda: pred.predict_raw(frames_dev, 0.25, 0.45, 640, 300), iters=20)
 
     kernels = []
@@ -832,7 +945,7 @@ def phase_bf16(report):
     kernels.append({
         "name": "attention_qkv", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/attention_fused.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:114", "path": "detect b32 640 bf16",
-        "launches": launches["attention_qkv"], **row_b,
+        **counts["attention_qkv"], **row_b,
     })
     # kernel A at the main path's input
     cboxes, valid, thr = seen["nms_keep"]
@@ -844,7 +957,7 @@ def phase_bf16(report):
     kernels.append({
         "name": "nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/nms_fused.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:86", "path": "detect b32 640 bf16",
-        "launches": launches["nms_keep"],
+        **counts["nms_keep"],
         "max_abs_err": err_a,
         **a_time_split(cboxes, valid, thr), "plain_ms": device_ms(plain_a, iters=10),
         "call_ms": cuda_ms(kernel_a), "plain_call_ms": cuda_ms(plain_a, iters=10),
@@ -858,11 +971,12 @@ def phase_bf16(report):
     report["kernels"] = kernels
     report["serving"] = (pred, frames)
     median = times[len(times) // 2]
+    report["predict_img_per_s"] = frames.shape[0] / median
     return {"phase": "bf16", "batch": int(frames.shape[0]), "imgsz": 640, "calls": len(times),
             "img_per_s": frames.shape[0] / median, "ms_per_batch_median": 1e3 * median,
             "ms_per_batch_min": 1e3 * times[0], "ms_per_batch_max": 1e3 * times[-1],
             "device_ms_per_batch": batch_device_ms, "device_img_per_s": 1e3 * frames.shape[0] / batch_device_ms,
-            "launches": launches, "detections_per_image": [min(nums), max(nums)]}
+            "launches": launches, "launches_per_call": body, "detections_per_image": [min(nums), max(nums)]}
 
 
 def attention_b_row(slab, heads: int, kd: int, hd: int):
@@ -1167,15 +1281,19 @@ def phase_tasks_fp32(report):
         on_cpu = Predictor(model, spec, device="cpu", compute_dtype=torch.float32, pre_topk=pre_topk)
         on_gpu = Predictor(model, spec, device="cuda", compute_dtype=torch.float32, pre_topk=pre_topk)
         seen = {}
-        restore = capture_inputs(rot_mod, "rotated_nms_keep", seen, clone=False)
         torch.backends.cudnn.deterministic = True
         try:
-            reset_counters()
-            got = on_gpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)
-            launches = read_counters()
+            got = on_gpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)  # captured, then replayed
+            # the launches and C's input from the body the graph replays
+            restore = capture_inputs(rot_mod, "rotated_nms_keep", seen, clone=False)
+            try:
+                reset_counters()
+                eager_run(on_gpu, frames, 640, conf=0.25, iou=0.45)
+                launches = read_counters()
+            finally:
+                restore()
         finally:
             torch.backends.cudnn.deterministic = False
-            restore()
         want = on_cpu.predict(frames, conf=0.25, iou=0.45, imgsz=640)
         res = {"launches": launches, "images": []}
         if "rotated_nms_keep" in seen:
@@ -1254,19 +1372,21 @@ def phase_seg_bf16(report):
     pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16, mask_mode="device")
     batch, imgsz = SEG_SERVE
     frames = np.random.default_rng(SEED + 7).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
-    pred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
-    torch.cuda.synchronize()
+    # the path's run: the signature's capture, then a replay
+    path, results = path_counters(lambda: (pred.predict(frames, conf=0.25, imgsz=imgsz),
+                                           pred.predict(frames, conf=0.25, imgsz=imgsz))[1])
 
+    # the launches per call and D's input from the body the graph replays
     seen = {}
     restore = capture_inputs(masks_mod, "upsample4x_threshold_pack", seen)
     reset_counters()
     try:
-        results = pred.predict(frames, conf=0.25, imgsz=imgsz)
+        eager_run(pred, frames, imgsz)
     finally:
         restore()
-    launches = read_counters()
-    if min(launches[k] for k in TASK_KERNELS["segment"]) < 1:
-        raise AssertionError(f"a kernel did not run on the segment path: {launches}")
+    body = read_counters()
+    counts = path_launches("segment path", TASK_KERNELS["segment"], path, body)
+    launches = {k: r["launches"] for k, r in counts.items()}
     nums = [len(r) for r in results]
     if min(nums) < 1 or max(nums) > 300:
         raise AssertionError(f"segment detections per image out of range: {min(nums)}..{max(nums)}")
@@ -1289,7 +1409,7 @@ def phase_seg_bf16(report):
     report["kernels"].append({
         "name": "upsample4x_threshold_pack", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/mask_pack.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/mask_pack.py:92", "path": f"segment b{batch} {imgsz} bf16",
-        "launches": launches["upsample4x_threshold_pack"], "max_abs_err": err_d,
+        **counts["upsample4x_threshold_pack"], "max_abs_err": err_d,
         "ms": device_ms(kernel_d), "plain_ms": device_ms(plain_d, iters=5),
         "call_ms": cuda_ms(kernel_d, iters=20), "plain_call_ms": cuda_ms(plain_d, iters=5, warmup=1),
         **d_bound(soft, got),
@@ -1297,8 +1417,8 @@ def phase_seg_bf16(report):
     })
     del soft, got, want, seen
     profile = kernel_profile(lambda: pred.predict(frames, conf=0.25, imgsz=imgsz))
-    return {"phase": "seg_bf16", **timing, "launches": launches, "detections_per_image": [min(nums), max(nums)],
-            "mask_ones_share": mask_ones, "profile": profile}
+    return {"phase": "seg_bf16", **timing, "launches": launches, "launches_per_call": body,
+            "detections_per_image": [min(nums), max(nums)], "mask_ones_share": mask_ones, "profile": profile}
 
 
 def phase_obb_bf16(report):
@@ -1314,21 +1434,23 @@ def phase_obb_bf16(report):
     pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
     batch, imgsz = OBB_SERVE
     frames = np.random.default_rng(SEED + 8).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
-    pred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
-    torch.cuda.synchronize()
+    # the path's run: the signature's capture, then a replay
+    path, results = path_counters(lambda: (pred.predict(frames, conf=0.25, imgsz=imgsz),
+                                           pred.predict(frames, conf=0.25, imgsz=imgsz))[1])
 
+    # the launches per call and the kernels' inputs from the body the graph replays
     seen = {}
     restores = [capture_inputs(rot_mod, "rotated_nms_keep", seen), capture_inputs(blocks_mod, "attention_qkv", seen),
                 capture_inputs(decode_mod, "dfl_decode", seen, clone=False)]
     reset_counters()
     try:
-        results = pred.predict(frames, conf=0.25, imgsz=imgsz)
+        eager_run(pred, frames, imgsz)
     finally:
         for restore in restores:
             restore()
-    launches = read_counters()
-    if min(launches[k] for k in TASK_KERNELS["obb"]) < 1:
-        raise AssertionError(f"a kernel did not run on the OBB path: {launches}")
+    body = read_counters()
+    counts = path_launches("OBB path", TASK_KERNELS["obb"], path, body)
+    launches = {k: r["launches"] for k, r in counts.items()}
     nums = [len(r) for r in results]
     if min(nums) < 1:
         raise AssertionError("an image without oriented detections")
@@ -1351,7 +1473,7 @@ def phase_obb_bf16(report):
     report["kernels"].append({
         "name": "rotated_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/rotated_nms_fused.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:149", "path": f"obb b{batch} {imgsz} bf16",
-        "launches": launches["rotated_nms_keep"], "max_abs_err": err_c,
+        **counts["rotated_nms_keep"], "max_abs_err": err_c,
         **c_time_split(gauss, valid, thr), "plain_ms": device_ms(plain_c, iters=5),
         "call_ms": cuda_ms(kernel_c, iters=20), "plain_call_ms": cuda_ms(plain_c, iters=5, warmup=1),
         **bound(bytes_c, ops_c, H100_F32_OPS_UNFUSED),
@@ -1362,10 +1484,12 @@ def phase_obb_bf16(report):
     if row_b["tol_excess"] > 0:
         raise AssertionError(f"kernel B differs from its plain version on the OBB path by {row_b['max_abs_err']}")
     # kernel F at the OBB path's (16, 21504, 64) slice of the 79-channel head slab
-    row_f = dfl_row(*seen["dfl_decode"], launches["dfl_decode"], f"obb b{batch} {imgsz} bf16")
+    row_f = {**dfl_row(*seen["dfl_decode"], launches["dfl_decode"], f"obb b{batch} {imgsz} bf16"),
+             **counts["dfl_decode"]}
     profile = kernel_profile(lambda: pred.predict(frames, conf=0.25, imgsz=imgsz))
-    return {"phase": "obb_bf16", **timing, "launches": launches, "detections_per_image": [min(nums), max(nums)],
-            "attention_qkv": row_b, "dfl_decode": row_f, "profile": profile}
+    return {"phase": "obb_bf16", **timing, "launches": launches, "launches_per_call": body,
+            "detections_per_image": [min(nums), max(nums)], "attention_qkv": row_b, "dfl_decode": row_f,
+            "profile": profile}
 
 def dfl_spread_logits(rng, shape):
     """Logits drawn from N(0, 8), and in one row in four each side's 16 bins a
@@ -1549,9 +1673,12 @@ def _val_fp32(report, frames, root: Path):
         gpu_rec, cpu_rec = _Recorder(on_gpu), _Recorder(on_cpu)
         torch.backends.cudnn.deterministic = True
         try:
-            reset_counters()
             got = YOLO11Validator(model=SimpleNamespace(predictor=gpu_rec), output_dir=root / f"{task}_cuda").validate(
                 data, verbose=False, **VAL)
+            # the launches of one validation batch, from the body the graph replays
+            reset_counters()
+            eager_run(on_gpu, frames[:VAL["batch"]], VAL["imgsz"], VAL["conf"], VAL["iou"], multi_label=True,
+                      pre_topk=VAL["pre_topk"])
             launches = read_counters()
         finally:
             torch.backends.cudnn.deterministic = False
@@ -1603,26 +1730,32 @@ def _val_bf16(report, pred, spec, frames, root: Path):
     import yolo_infer_tpu_torch.ops.nms as nms_ops
     from yolo_infer_tpu_torch.core.validator import YOLO11Validator
     from yolo_infer_tpu_torch.ops.kernels import greedy_nms as g_mod
+    from yolo_infer_tpu_torch.ops.letterbox import letterbox
 
     labels = pred.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=VAL["imgsz"])
     data = write_val_dataset(root / "data", frames, labels, "detect", spec.nc)
     validator = YOLO11Validator(model=pred, output_dir=root / "out")
 
-    # the validation path, once, with counters at 0 and kernel inputs captured
+    # the path's run: the first batch captures the signature, the others
+    # replay it, and the run's end releases it
+    path, first = path_counters(lambda: validator.validate(data, verbose=False, **VAL))
+    # one validation batch through the body the graph replays (the frames
+    # host-letterboxed as the validator does), with counters at 0 and kernel
+    # inputs captured
     seen = {}
     restores = [capture_inputs(decode_mod, "dfl_decode", seen, clone=False),
                 capture_inputs(nms_ops, "box_iou_matrix", seen, clone=False),
                 capture_inputs(nms_ops, "greedy_nms_keep", seen, clone=False)]
     reset_counters()
     try:
-        first = validator.validate(data, verbose=False, **VAL)
+        batch = np.stack([letterbox(f, VAL["imgsz"])[0] for f in frames[:VAL["batch"]]])
+        eager_run(pred, batch, VAL["imgsz"], VAL["conf"], VAL["iou"], multi_label=True, pre_topk=VAL["pre_topk"])
     finally:
         for restore in restores:
             restore()
-    launches = read_counters()
-    batches = -(-VAL_BF16_FRAMES // VAL["batch"])
-    if min(launches[k] for k in ("attention_qkv", "dfl_decode", "greedy_nms_keep")) < 1:
-        raise AssertionError(f"a kernel did not run on the validation path: {launches}")
+    body = read_counters()
+    counts = path_launches("validation path", ("attention_qkv", "dfl_decode", "greedy_nms_keep"), path, body)
+    launches = {k: r["launches"] for k, r in counts.items()}
     if not 0 < first["metrics"]["mAP50"] <= 1 or first["num_images"] != VAL_BF16_FRAMES:
         raise AssertionError(f"validation result out of range: {first['metrics']}, {first['num_images']} images")
 
@@ -1649,10 +1782,11 @@ def _val_bf16(report, pred, spec, frames, root: Path):
         raise AssertionError(f"kernel G differs from its plain version on the validation path: {err_g}")
     val_path = f"detect val b{VAL['batch']} {VAL['imgsz']} bf16"
     # kernel F at the path's own input: the strided (16, 8400, 64) slice of the head slab
-    report["kernels"] += [dfl_row(*seen["dfl_decode"], launches["dfl_decode"], val_path), {
+    report["kernels"] += [{**dfl_row(*seen["dfl_decode"], launches["dfl_decode"], val_path),
+                           **counts["dfl_decode"]}, {
         "name": "greedy_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/nms_kernel.py:48", "path": val_path,
-        "launches": launches["greedy_nms_keep"], "max_abs_err": err_g,
+        **counts["greedy_nms_keep"], "max_abs_err": err_g,
         **g_time_split(iou, valid, thr), "plain_ms": device_ms(plain_g, iters=3),
         "call_ms": cuda_ms(kernel_g, iters=20), "plain_call_ms": cuda_ms(plain_g, iters=3, warmup=1),
         **bound(bytes_g, pairs_g, H100_F32_FLOPS),
@@ -1677,7 +1811,7 @@ def _val_bf16(report, pred, spec, frames, root: Path):
             "images_per_s": timed["speed"]["images_per_s"],
             "inference_ms_per_image": timed["speed"]["inference_ms_per_image"], "total_s": timed["speed"]["total_s"],
             "first_run": first["speed"], "metrics": timed["metrics"], "peak_memory_gb": peak_gb,
-            "launches": launches, "launches_per_batch": {k: v / batches for k, v in launches.items()},
+            "launches": launches, "launches_per_call": body,
             "per_batch_ms": {"dfl_decode": f_row["ms"], "greedy_nms_keep": g_row["ms"],
                              "box_iou_matrix": device_ms(iou_build, iters=5)},
             "bound_ms": {"dfl_decode": f_row["bound_ms"], "greedy_nms_keep": g_row["bound_ms"]},
@@ -1737,8 +1871,9 @@ def phase_q8_fp32(report):
     frames = rng.integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
     torch.backends.cudnn.deterministic = True
     try:
-        reset_counters()
         got = on_gpu.predict(frames, conf=0.25)
+        reset_counters()
+        eager_run(on_gpu.predictor, frames, 640)  # the launches, from the body the graph replays
         launches = read_counters()
     finally:
         torch.backends.cudnn.deterministic = False
@@ -1787,12 +1922,15 @@ def phase_q8_bf16(report):
     torch.cuda.synchronize()
     ptq_s = time.perf_counter() - t0
     qpred, bpred = qmodel.predictor, base.predictor
-    qpred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
-    bpred.predict(frames, conf=0.25, imgsz=imgsz)
+    # the static8 path's run: the signature's capture, then a replay
+    path, results = path_counters(lambda: (qmodel.predict(frames, conf=0.25, imgsz=imgsz),
+                                           qmodel.predict(frames, conf=0.25, imgsz=imgsz))[1])
+    bpred.predict(frames, conf=0.25, imgsz=imgsz)  # the bf16 yardstick's capture
     torch.cuda.synchronize()
 
-    # the static8 path, once, with counters at 0 and every E input captured;
-    # a channel chunk is copied with its pixel pitch, so E reads it as the path did
+    # the static8 path's body (what the graph replays), once, with counters
+    # at 0 and every E input captured; a channel chunk is copied with its
+    # pixel pitch, so E reads it as the path did
     seen = []
     e_fn = blocks_mod.int8_conv
 
@@ -1806,12 +1944,14 @@ def phase_q8_bf16(report):
     blocks_mod.int8_conv = capture
     reset_counters()
     try:
-        results = qmodel.predict(frames, conf=0.25, imgsz=imgsz)
+        eager_run(qpred, frames, imgsz)
     finally:
         blocks_mod.int8_conv = e_fn
-    launches = read_counters()
-    if launches["int8_conv"] != Q8_E_LAUNCHES or min(launches[k] for k in ("nms_keep", "attention_qkv")) < 1:
-        raise AssertionError(f"static8 path launches {launches}, expected {Q8_E_LAUNCHES} of kernel E")
+    body = read_counters()
+    if body["int8_conv"] != Q8_E_LAUNCHES:
+        raise AssertionError(f"static8 body launches {body}, expected {Q8_E_LAUNCHES} of kernel E")
+    counts = path_launches("static8 path", ("int8_conv", "nms_keep", "attention_qkv"), path, body)
+    launches = {k: r["launches"] for k, r in counts.items()}
     nums = [len(r) for r in results]
     for r in results:
         if not (np.isfinite(r.boxes).all() and np.isfinite(r.scores).all() and len(r) <= 300):
@@ -1844,21 +1984,24 @@ def phase_q8_bf16(report):
     profile = kernel_profile(lambda: qpred.predict(frames, conf=0.25, imgsz=imgsz),
                              named=("int8_conv_kernel", "copy"))
     e_prof = profile["named"]["int8_conv_kernel"]
-    # the same path with every E input copied to a contiguous NHWC tensor first, chunks included
+    # the same path with every E input copied to a contiguous NHWC tensor
+    # first, chunks included: captured anew with the copies, and again after
     nhwc_input = blocks_mod.nhwc_input
     blocks_mod.nhwc_input = lambda x: x.permute(0, 2, 3, 1).contiguous()
+    qpred.release_programs()
     try:
         copied = kernel_profile(lambda: qpred.predict(frames, conf=0.25, imgsz=imgsz),
                                 named=("int8_conv_kernel", "copy"))
     finally:
         blocks_mod.nhwc_input = nhwc_input
+        qpred.release_programs()
     in_place = {"e_inputs_read_in_place": len(chunks), "bytes_not_copied": sum(c.numel() for c in chunks),
                 "copy_kernels_in_place": profile["named"]["copy"], "copy_kernels_copied": copied["named"]["copy"],
                 "kernel_ms_per_predict_copied": copied["kernel_ms_per_predict"]}
     report["kernels"].append({
         "name": "int8_conv", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/int8_conv.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/int8_conv.py:64", "path": f"yolo11s static8 b{batch} {imgsz} bf16",
-        "launches": launches["int8_conv"], "max_abs_err": float(max_err), "codes_differing": diff_codes,
+        **counts["int8_conv"], "max_abs_err": float(max_err), "codes_differing": diff_codes,
         "ms": e_prof["ms"], "plain_ms": sum(p["plain_ms"] for p in per),
         "call_ms": sum(p["call_ms"] for p in per), "per_launch_ms_sum": sum(p["ms"] for p in per),
         **bound(bytes_e, ops_e, H100_INT8_OPS),
@@ -1883,7 +2026,7 @@ def phase_q8_bf16(report):
            "calibration_batches": len(calib), "static8": timing_q8, "bf16": timing_bf16,
            "static8_vs_bf16_img_per_s": timing_q8["img_per_s"] / timing_bf16["img_per_s"],
            "static8_vs_bf16_device_ms": timing_q8["device_ms_per_batch"] / timing_bf16["device_ms_per_batch"],
-           "launches": launches, "detections_per_image": [min(nums), max(nums)],
+           "launches": launches, "launches_per_call": body, "detections_per_image": [min(nums), max(nums)],
            "labels_per_image": [min(len(r) for r in labels), max(len(r) for r in labels)],
            "e_device_ms_per_predict": e_prof["ms"], "e_launches_profiled": e_prof["calls"],
            "e_call_ms_sum": sum(p["call_ms"] for p in per), "e_bound_ms_sum": report["kernels"][-1]["bound_ms"],
@@ -1974,22 +2117,26 @@ def phase_attn_pallas(report):
     frames = np.random.default_rng(SEED + 17).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
     want = pred.predict(frames, conf=0.25, imgsz=imgsz)  # the default route (B)
     seen = {}
-    os.environ["YOLO_ATTN_IMPL"] = "pallas"
+    os.environ["YOLO_ATTN_IMPL"] = "pallas"  # part of the program-cache key: a new capture
     try:
-        pred.predict(frames, conf=0.25, imgsz=imgsz)  # warm-up
-        torch.cuda.synchronize()
+        # the route's run: the signature's capture, then a replay
+        path, got = path_counters(lambda: (pred.predict(frames, conf=0.25, imgsz=imgsz),
+                                           pred.predict(frames, conf=0.25, imgsz=imgsz))[1])
+        # the launches per call and H's input from the body the graph replays
         restore = capture_inputs(blocks_mod, "attention_packed", seen)
         reset_counters()
         try:
-            got = pred.predict(frames, conf=0.25, imgsz=imgsz)
+            eager_run(pred, frames, imgsz)
         finally:
             restore()
-        launches = read_counters()
+        body = read_counters()
+        counts = path_launches("pallas route", ("attention_packed", "nms_keep"), path, body)
+        launches = {k: r["launches"] for k, r in counts.items()}
         timing = timed_serving(pred, frames, imgsz)
     finally:
         del os.environ["YOLO_ATTN_IMPL"]
-    if launches["attention_packed"] < 1 or launches["attention_qkv"] != 0 or launches["nms_keep"] < 1:
-        raise AssertionError(f"the pallas route did not run kernel H alone: {launches}")
+    if body["attention_qkv"] != 0 or path["attention_qkv"] != 0:
+        raise AssertionError(f"the pallas route did not run kernel H alone: path {path}, body {body}")
     same = all(np.array_equal(g.boxes, w.boxes) and np.array_equal(g.scores, w.scores)
                and np.array_equal(g.classes, w.classes) for g, w in zip(got, want))
     if not same:
@@ -2009,14 +2156,15 @@ def phase_attn_pallas(report):
     report["kernels"].append({
         "name": "attention_packed", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/attention_fused.cu",
         "replaces": "yolo_infer_tpu/ops/pallas/attention_fused.py:192", "path": f"detect b{batch} {imgsz} bf16 YOLO_ATTN_IMPL=pallas",
-        "launches": launches["attention_packed"], "max_abs_err": err_h, "tol_excess": excess_h,
+        **counts["attention_packed"], "max_abs_err": err_h, "tol_excess": excess_h,
         "ms": device_ms(kernel_h), "plain_ms": device_ms(plain_h),
         **bound(bytes_h, flops_h, H100_BF16_FLOPS),
         "library_ms": device_ms(library_h),
         "call_ms": cuda_ms(kernel_h), "plain_call_ms": cuda_ms(plain_h), "library_call_ms": cuda_ms(library_h),
         "shape": [g, n, qg.shape[-1]], "dtype": str(qg.dtype),
     })
-    return {"phase": "attn_pallas", **timing, "launches": launches, "results_equal_default_route": same,
+    return {"phase": "attn_pallas", **timing, "launches": launches, "launches_per_call": body,
+            "results_equal_default_route": same,
             "detections_per_image": [min(len(r) for r in got), max(len(r) for r in got)]}
 
 MANY_FRAMES = 150  # predict_many: five chunks of 32, the last padded
@@ -2110,18 +2258,27 @@ def phase_many(report):
     def loop(fr):
         return [r for c in padded_chunks(fr, 32) for r in pred.predict(c, conf=0.25)][:len(fr)]
 
+    # every chunk replays the one graph of phase 5's b32 signature: the Python
+    # counters stay at 0, one A and one B per chunk show by name in a trace
     torch.backends.cudnn.deterministic = True
     try:
         pred.predict_many(frames[:64], conf=0.25, batch_size=32)  # warm-up
+        entries = len(pred._cache)
         for name, fr in (("uniform", frames), ("mixed", mixed)):
             reset_counters()
             got = pred.predict_many(fr, conf=0.25, batch_size=32)
             launches = read_counters()
+            per_call = replay_names(lambda fr=fr: pred.predict_many(fr, conf=0.25, batch_size=32),
+                                    ("iou_bits_kernel", "attn_qkv_mma_kernel"))
             bad = same_results(got, loop(fr))
-            out[name] = {"images": len(got), "launches": launches, "differences": bad[:5],
+            chunks = -(-len(fr) // 32)
+            out[name] = {"images": len(got), "python_launches": launches, "replay_kernels": per_call,
+                         "chunks": chunks, "cache_entries": len(pred._cache), "differences": bad[:5],
                          "detections": sum(len(r) for r in got)}
-            if bad or launches["nms_keep"] != -(-len(fr) // 32) or launches["attention_qkv"] < 1:
-                failures.append(f"{name}: {bad[:3]}, launches {launches}")
+            if (bad or any(launches.values()) or per_call["iou_bits_kernel"] != chunks
+                    or per_call["attn_qkv_mma_kernel"] != chunks or len(pred._cache) != entries):
+                failures.append(f"{name}: {bad[:3]}, launches {launches}, per predict_many {per_call}, "
+                                f"cache entries {len(pred._cache)} (was {entries})")
         # segment: the masks come to the host at drain time, read through LazyMasks
         model, spec = report["task_weights"]["segment"]
         seg = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16, mask_mode="device")
@@ -2151,6 +2308,7 @@ def phase_many(report):
         out[f"{name}_img_per_s"] = MANY_FRAMES / float(np.median(ts))
         out[f"{name}_s"] = ts
     out["many_vs_loop"] = out["many_img_per_s"] / out["loop_img_per_s"]
+    report["many_img_per_s"] = out["many_img_per_s"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         lead_in(LEAD_INS)
         pred.predict_many(frames, conf=0.25, batch_size=32)
@@ -2343,17 +2501,11 @@ EXPORT_SERVE = (32, 640)  # the exported detect artifact: batch, imgsz
 # quantize only from 400k input rows, `nn/quantize.py int8_c64_min_rows`)
 EXPORT_TASKS = (("segment", 8, 640), ("obb", 4, 1024), ("multi_label", 8, 640), ("static8", 32, 640),
                 ("pallas", 8, 640))
-# the kernel functions a replay trace must hold for each kernel, and the
-# artifact whose replay shows it (H launches B's function with heads = 1 on
-# the pallas route, where B does not run)
-REPLAY_KERNELS = {"nms_keep": ("detect", ("iou_bits_kernel", "greedy_walk_kernel")),
-                  "attention_qkv": ("detect", ("attn_qkv_mma_kernel",)),
-                  "rotated_nms_keep": ("obb", ("probiou_bits_kernel", "greedy_walk_kernel")),
-                  "upsample4x_threshold_pack": ("segment", ("mask_pack_kernel",)),
-                  "int8_conv": ("static8", ("int8_conv_kernel",)),
-                  "dfl_decode": ("multi_label", ("dfl_decode_kernel",)),
-                  "greedy_nms_keep": ("multi_label", ("suppression_bits_kernel", "greedy_walk_kernel")),
-                  "attention_packed": ("pallas", ("attn_qkv_mma_kernel",))}
+# the artifact whose replay trace must show each kernel's functions (KERNEL_FUNCTIONS)
+REPLAY_KERNELS = {k: (a, KERNEL_FUNCTIONS[k]) for k, a in (
+    ("nms_keep", "detect"), ("attention_qkv", "detect"), ("rotated_nms_keep", "obb"),
+    ("upsample4x_threshold_pack", "segment"), ("int8_conv", "static8"), ("dfl_decode", "multi_label"),
+    ("greedy_nms_keep", "multi_label"), ("attention_packed", "pallas"))}
 E_LAUNCHES = 48  # kernel E launches of one yolo11s static8 call at b32/640 (phase 17)
 
 
@@ -2402,9 +2554,10 @@ def replay_names(fn, need):
 def phase_exported(report):
     """The exported detect program (core/exported.py) at b32/640 bf16: export
     on the card, load, one CUDA-graph capture; the replay equal to the
-    loaded program's eager run bit for bit and to live `predict_raw`, at two
-    conf/iou pairs from the one capture; b32 and b1 timed against live
-    `predict_raw`; the kernels of a replay by name."""
+    loaded program's eager run bit for bit, to the live predictor's eager
+    body (`serve_program`, the yardstick) and to live `predict_raw` (a replay
+    of the live predictor's own graph), at two conf/iou pairs from the one
+    capture; b32 and b1 timed against both; the kernels of a replay by name."""
     import torch
 
     from yolo_infer_tpu_torch.core.exported import ExportedPredictor, export_predictor
@@ -2427,7 +2580,7 @@ def phase_exported(report):
         t0 = time.perf_counter()
         ep = ExportedPredictor.load(path)
         out["load_s"] = time.perf_counter() - t0
-        live.predict_raw(frames, *EXPORT_PAIRS[0], imgsz)  # warm-up of the live path
+        live.predict_raw(frames, *EXPORT_PAIRS[0], imgsz)  # the live signature's capture
         # the loaded program run eagerly: its kernels launch through the wrappers
         reset_counters()
         ep.run_eager(frames, *EXPORT_PAIRS[0])
@@ -2440,41 +2593,58 @@ def phase_exported(report):
         ep.predict_raw(frames, *EXPORT_PAIRS[0])  # warm-up on a side stream, capture, replay
         torch.cuda.synchronize()
         out["capture_s"] = time.perf_counter() - t0
-        graph = ep._graph["graph"]
+        program = ep._program
         reset_counters()
         pairs = []
         for conf, iou in EXPORT_PAIRS:
-            rep = clone_dets(ep.predict_raw(frames, conf, iou))
-            eager = ep.run_eager(frames, conf, iou)
+            rep = ep.predict_raw(frames, conf, iou)
             lv = live.predict_raw(frames, conf, iou, imgsz)
+            replays = read_counters()  # the counters tick on the eager runs below only
+            eager = ep.run_eager(frames, conf, iou)
+            body = eager_call(live, frames, imgsz, conf, iou)
             torch.cuda.synchronize()
             pairs.append({"conf": conf, "iou": iou, "detections": int(rep["num"].sum()),
-                          "replay_equals_eager": dets_equal(rep, eager), "replay_equals_live": dets_equal(rep, lv)})
+                          "replay_equals_eager": dets_equal(rep, eager),
+                          "replay_equals_live_eager": dets_equal(rep, body),
+                          "replay_equals_live": dets_equal(rep, lv), "replays_launched": replays})
             if not pairs[-1]["replay_equals_eager"]:
                 failures.append(f"replay differs from the eager program at {conf}, {iou}")
+            if any(replays.values()):
+                failures.append(f"a replay launched kernels from Python: {replays}")
+            reset_counters()
         out["pairs"] = pairs
-        out["one_capture"] = ep._graph["graph"] is graph
-        out["replay_launches"] = read_counters()  # the counters tick on the eager runs only
+        # a replay's result outlives the next replay, on other frames
+        first = ep.predict_raw(frames, 0.25, 0.45)
+        kept = clone_dets(first)
+        second = ep.predict_raw(frames.roll(1, 0), 0.25, 0.45)
+        torch.cuda.synchronize()
+        out["outlives_next_call"] = dets_equal(first, kept) and not dets_equal(first, second)
+        if not out["outlives_next_call"]:
+            failures.append("a result changed after the next call (or two frame batches gave one result)")
+        out["one_capture"] = ep._program is program
         if pairs[0]["detections"] == pairs[1]["detections"]:
             failures.append("the two threshold pairs gave the same detections: a threshold is baked in")
-        if not all(p["replay_equals_live"] for p in pairs):
+        if not all(p["replay_equals_live"] and p["replay_equals_live_eager"] for p in pairs):
             out["fp32"] = exported_fp32_check(model, frames[:8], root)
             failures += out["fp32"]["failures"]
         out["b32"] = {"replay": call_times(lambda: ep.predict_raw(frames, 0.25, 0.45)),
-                      "live": call_times(lambda: live.predict_raw(frames, 0.25, 0.45, imgsz))}
+                      "live": call_times(lambda: live.predict_raw(frames, 0.25, 0.45, imgsz)),
+                      "eager": call_times(lambda: eager_call(live, frames, imgsz))}
         path1 = export_predictor(ym, root / "detect_b1.pt2", batch=1, imgsz=imgsz)
         ep1 = ExportedPredictor.load(path1)
         one = frames[:1].contiguous()
-        rep1 = clone_dets(ep1.predict_raw(one, 0.25, 0.45))
+        rep1 = ep1.predict_raw(one, 0.25, 0.45)
         out["b1_replay_equals_eager"] = dets_equal(rep1, ep1.run_eager(one, 0.25, 0.45))
         if not out["b1_replay_equals_eager"]:
             failures.append("b1: replay differs from the eager program")
         out["b1"] = {"replay": call_times(lambda: ep1.predict_raw(one, 0.25, 0.45)),
-                     "live": call_times(lambda: live.predict_raw(one, 0.25, 0.45, imgsz))}
+                     "live": call_times(lambda: live.predict_raw(one, 0.25, 0.45, imgsz)),
+                     "eager": call_times(lambda: eager_call(live, one, imgsz))}
         for key in ("b32", "b1"):
-            r, lv = out[key]["replay"], out[key]["live"]
-            out[key]["speedup_ms_per_call"] = lv["ms_per_call"] / r["ms_per_call"]
-            out[key]["host_ms_saved"] = lv["host_ms"] - r["host_ms"]
+            r, lv, eg = out[key]["replay"], out[key]["live"], out[key]["eager"]
+            out[key]["replay_vs_eager_ms_per_call"] = eg["ms_per_call"] / r["ms_per_call"]
+            out[key]["live_vs_eager_ms_per_call"] = eg["ms_per_call"] / lv["ms_per_call"]
+            out[key]["host_ms_saved"] = eg["host_ms"] - r["host_ms"]
         need = sum((REPLAY_KERNELS[k][1] for k in ("nms_keep", "attention_qkv")), ())
         report.setdefault("replay_kernels", {})["detect"] = replay_names(lambda: ep.predict_raw(frames, 0.25, 0.45),
                                                                           need)
@@ -2505,7 +2675,7 @@ def exported_fp32_check(model, frames, root: Path):
     ep = ExportedPredictor.load(export_predictor(ym, root / "detect_f32.pt2", batch=frames.shape[0], imgsz=640))
     res = {"failures": [], "pairs": []}
     for conf, iou in EXPORT_PAIRS:
-        rep = clone_dets(ep.predict_raw(frames, conf, iou))
+        rep = ep.predict_raw(frames, conf, iou)
         lv = ym.predictor.predict_raw(frames, conf, iou, 640)
         v = lv["valid"]
         row = {"bit_equal": dets_equal(rep, lv), "num_equal": torch_equal(rep["num"], lv["num"]),
@@ -2572,7 +2742,7 @@ def phase_exported_tasks(report):
             eager = ep.run_eager(frames, 0.25, 0.45)
             torch.cuda.synchronize()
             row["eager_launches"] = {k: v for k, v in read_counters().items() if v}
-            rep = clone_dets(ep.predict_raw(frames, 0.25, 0.45))
+            rep = ep.predict_raw(frames, 0.25, 0.45)
             torch.cuda.synchronize()
             row["replay_equals_eager"] = dets_equal(rep, eager)
             row["detections"] = int(rep["num"].sum()) if "num" in rep else None
@@ -2612,6 +2782,239 @@ def phase_exported_tasks(report):
     missing = [k for k, subs in out["replay_kernels"].items() if min(subs.values()) < 1]
     if missing:
         failures.append(f"kernels absent from every replay trace: {missing}")
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+# the live predictor's program cache: each path's signature captured into a
+# CUDA graph on its first call; (name, weights, batch, imgsz, predict_raw
+# keywords), grouped by the predictor that serves them
+LIVE_PATHS = (("detect b32", "detect", 32, 640, {}), ("detect b1", "detect", 1, 640, {}),
+              ("multi_label b16", "detect", 16, 640, {"multi_label": True, "pre_topk": 4096}),
+              ("segment b32 device", "segment", 32, 640, {}),
+              ("segment b8 q8", "segment", 8, 640, {"mask_out": "q8"}),
+              ("segment b8 bits", "segment", 8, 640, {"mask_out": "bits"}),
+              ("segment b8 exact", "segment", 8, 640, {"mask_out": "exact"}),
+              ("pose b16", "pose", 16, 640, {}), ("obb b16", "obb", 16, 1024, {}),
+              ("classify b32", "classify", 32, 224, {}), ("static8 b32", "static8", 32, 640, {}),
+              ("pallas b32", "pallas", 32, 640, {}))
+LIVE_TIMED = ("detect b32", "detect b1", "static8 b32")  # captured against eager, by `call_times`
+# the live replay whose trace shows each kernel's functions (KERNEL_FUNCTIONS)
+LIVE_KERNELS = {k: (path, KERNEL_FUNCTIONS[k]) for k, path in (
+    ("nms_keep", "detect b32"), ("attention_qkv", "detect b32"), ("rotated_nms_keep", "obb b16"),
+    ("upsample4x_threshold_pack", "segment b32 device"), ("int8_conv", "static8 b32"),
+    ("dfl_decode", "multi_label b16"), ("greedy_nms_keep", "multi_label b16"), ("attention_packed", "pallas b32"))}
+
+
+def live_predictor(report, weights: str):
+    """The bf16 predictor on the card that serves one group of LIVE_PATHS."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+
+    if weights == "static8":
+        return export_artifact_model(report, "static8", 640).predictor
+    model, spec = report["weights"] if weights in ("detect", "pallas") else report["task_weights"][weights]
+    return Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16,
+                     attn_impl="pallas" if weights == "pallas" else "auto")
+
+
+def dets_diff(a, b):
+    """{key: largest |a - b|} of the keys where two dets dicts differ."""
+    return {k: float((a[k].double() - b[k].double()).abs().max()) for k in a
+            if k in b and not torch_equal(a[k], b[k])}
+
+
+def live_path(pred, name: str, batch: int, imgsz: int, kw, failures):
+    """One signature of the live cache: its first call captures (the
+    launches counted: each kernel once per warm-up call and once into the
+    graph, as the eager body launches it); replays at two conf/iou pairs
+    from the one capture equal the eager body bit for bit and launch nothing
+    from Python; a result outlives the next call on other frames."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.graphs import WARMUP_CALLS
+
+    rng = np.random.default_rng(SEED + 24)
+    frames = [torch.from_numpy(rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)).cuda() for _ in range(2)]
+    row = {"batch": batch, "imgsz": imgsz, **kw}
+    keys = set(pred._cache)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    reset_counters()
+    t0 = time.perf_counter()
+    pred.predict_raw(frames[0], *EXPORT_PAIRS[0], imgsz, **kw)
+    torch.cuda.synchronize()
+    row["first_call_s"] = time.perf_counter() - t0
+    captured = read_counters()
+    new = [k for k in pred._cache if k not in keys]
+    if len(new) != 1:
+        failures.append(f"{name}: the first call made {len(new)} cache entries")
+        return row, frames
+    row["capture_s"] = pred._cache[new[0]].capture_s
+    row["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    row["reserved_added_gb"] = (torch.cuda.memory_reserved() - reserved) / 1e9
+    reset_counters()
+    eager_call(pred, frames[0], imgsz, *EXPORT_PAIRS[0], **kw)
+    torch.cuda.synchronize()
+    eager = read_counters()
+    row["eager_launches"] = {k: v for k, v in eager.items() if v}
+    row["capture_launches"] = {k: v for k, v in captured.items() if v}
+    if not row["eager_launches"] or captured != {k: (1 + WARMUP_CALLS) * v for k, v in eager.items()}:
+        failures.append(f"{name}: the capture launched {row['capture_launches']}, the eager body "
+                        f"{row['eager_launches']} (warm-up calls {WARMUP_CALLS})")
+    row["pairs"] = []
+    reps = []
+    for conf, iou in EXPORT_PAIRS:
+        reset_counters()
+        rep = pred.predict_raw(frames[0], conf, iou, imgsz, **kw)
+        replays = read_counters()
+        body = eager_call(pred, frames[0], imgsz, conf, iou, **kw)
+        torch.cuda.synchronize()
+        diff = dets_diff(rep, body)
+        row["pairs"].append({"conf": conf, "iou": iou, "equal": not diff and rep.keys() == body.keys(),
+                             "differing": diff, "python_launches": sum(replays.values()),
+                             "detections": int(rep["num"].sum()) if "num" in rep else None})
+        reps.append(rep)
+        if diff or rep.keys() != body.keys() or any(replays.values()):
+            failures.append(f"{name}: replay at {conf}, {iou} differs from the eager body {diff} or launched "
+                            f"from Python {replays}")
+    if "probs" not in reps[0] and dets_equal(*reps):
+        failures.append(f"{name}: the two threshold pairs gave the same detections: a threshold is baked in")
+    first = pred.predict_raw(frames[0], *EXPORT_PAIRS[0], imgsz, **kw)
+    kept = clone_dets(first)
+    second = pred.predict_raw(frames[1], *EXPORT_PAIRS[0], imgsz, **kw)
+    torch.cuda.synchronize()
+    row["outlives_next_call"] = dets_equal(first, kept) and not dets_equal(first, second)
+    if not row["outlives_next_call"]:
+        failures.append(f"{name}: a result changed after the next call (or two frame batches gave one result)")
+    return row, frames
+
+
+def bounded_cache(report):
+    """A detect predictor served b1 frames of 3 * PROGRAM_CACHE_SIZE distinct
+    sizes at 640 px (one signature each): the cache keeps PROGRAM_CACHE_SIZE
+    programs, and the reserved device memory stays within one program's
+    share of what the full cache reserved (`full + (full - base) /
+    PROGRAM_CACHE_SIZE`); `release_programs` gives it back down to the same
+    share above `base`."""
+    import gc
+
+    import torch
+
+    from yolo_infer_tpu_torch.core.predictor import PROGRAM_CACHE_SIZE
+
+    pred = live_predictor(report, "detect")
+    rng = np.random.default_rng(SEED + 27)
+    frame = rng.integers(0, 256, (480 + 8 * 3 * PROGRAM_CACHE_SIZE, 640, 3), dtype=np.uint8)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    reserved, failures = [], []
+    for i in range(3 * PROGRAM_CACHE_SIZE):
+        pred.predict(frame[: 480 + 8 * i], conf=0.25)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    full = reserved[PROGRAM_CACHE_SIZE - 1]
+    ceiling = full + (full - base) / PROGRAM_CACHE_SIZE
+    entries = len(pred._cache)
+    pred.release_programs()
+    released = torch.cuda.memory_reserved()
+    out = {"cache_size": PROGRAM_CACHE_SIZE, "signatures": 3 * PROGRAM_CACHE_SIZE, "entries": entries,
+           "base_gb": base / 1e9, "full_gb": full / 1e9, "ceiling_gb": ceiling / 1e9,
+           "max_after_full_gb": max(reserved[PROGRAM_CACHE_SIZE:]) / 1e9, "released_gb": released / 1e9,
+           "reserved_gb": [r / 1e9 for r in reserved], "failures": failures}
+    if entries != PROGRAM_CACHE_SIZE:
+        failures.append(f"{entries} programs cached, not {PROGRAM_CACHE_SIZE}")
+    if max(reserved[PROGRAM_CACHE_SIZE:]) > ceiling:
+        failures.append(f"reserved memory grew past {ceiling / 1e9} GB with the cache full: {out['reserved_gb']}")
+    if released > base + (full - base) / PROGRAM_CACHE_SIZE:
+        failures.append(f"release_programs left {released / 1e9} GB reserved (base {base / 1e9})")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_live_graphs(report):
+    """The live predictor's program cache on the card (`core/graphs.py`,
+    `Predictor._get`): every path of LIVE_PATHS captured by its first
+    `predict_raw` and held to the eager body (`serve_program`) bit for bit
+    at two conf/iou pairs from the one capture; results outlive the next
+    call; `predict_many` over 150 frames equals `predict` on the same chunks
+    through one cache entry; A-H by function name in live replay traces;
+    captured against eager timed at detect b32 and b1 and static8 b32;
+    capture seconds and reserved device memory; the cache's bound."""
+    import gc
+
+    import torch
+
+    from yolo_infer_tpu_torch.core.graphs import WARMUP_CALLS
+
+    out = {"phase": "live_graphs", "card": report["card"], "warmup_calls": WARMUP_CALLS, "paths": {}, "times": {},
+           "replay_kernels": {}}
+    failures = []
+    reserved_max = 0
+    for weights in dict.fromkeys(w for _, w, _, _, _ in LIVE_PATHS):
+        pred = live_predictor(report, weights)
+        for name, w, batch, imgsz, kw in LIVE_PATHS:
+            if w != weights:
+                continue
+            row, frames = live_path(pred, name, batch, imgsz, kw, failures)
+            out["paths"][name] = row
+            reserved_max = max(reserved_max, torch.cuda.memory_reserved())
+            need = sum((subs for k, (path, subs) in LIVE_KERNELS.items() if path == name), ())
+            if need:
+                out["replay_kernels"][name] = replay_names(
+                    lambda: pred.predict_raw(frames[0], *EXPORT_PAIRS[0], imgsz, **kw), need)
+            if name in LIVE_TIMED:
+                t = {"captured": call_times(lambda: pred.predict_raw(frames[0], *EXPORT_PAIRS[0], imgsz, **kw)),
+                     "eager": call_times(lambda: eager_call(pred, frames[0], imgsz, *EXPORT_PAIRS[0], **kw))}
+                t["eager_vs_captured_ms_per_call"] = t["eager"]["ms_per_call"] / t["captured"]["ms_per_call"]
+                out["times"][name] = t
+            del frames
+        if weights == "detect":  # predict_many at b32 over 150 frames: the b32 entry serves every chunk
+            rng = np.random.default_rng(SEED + 25)
+            many_frames = list(rng.integers(0, 256, (MANY_FRAMES, 640, 640, 3), dtype=np.uint8))
+            entries = len(pred._cache)
+            got = pred.predict_many(many_frames, conf=0.25, batch_size=32)
+            want = [r for c in padded_chunks(many_frames, 32) for r in pred.predict(c, conf=0.25)][:MANY_FRAMES]
+            bad = same_results(got, want, 0.0, 0.0)
+            b32 = [k for k in pred._cache if k[0] == 32]
+            out["predict_many"] = {"frames": MANY_FRAMES, "differences": bad[:5], "cache_entries_b32": len(b32),
+                                   "entries_added": len(pred._cache) - entries}
+            if bad or len(b32) != 1 or len(pred._cache) != entries:
+                failures.append(f"predict_many: {bad[:3]}, {len(b32)} b32 entries, "
+                                f"{len(pred._cache) - entries} added")
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["reserved_gb_max"] = reserved_max / 1e9
+
+    out["bounded_cache"] = bounded_cache(report)
+    if out["bounded_cache"]["failures"]:
+        failures += out["bounded_cache"]["failures"]
+
+    seen = {k: {sub: out["replay_kernels"].get(path, {}).get(sub, 0) for sub in subs}
+            for k, (path, subs) in LIVE_KERNELS.items()}
+    out["launches_per_live_replay"] = {k: {"path": LIVE_KERNELS[k][0], "launches": v[LIVE_KERNELS[k][1][0]]}
+                                       for k, v in seen.items()}
+    missing = [k for k, subs in seen.items() if min(subs.values()) < 1]
+    if missing:
+        failures.append(f"kernels absent from every live replay trace: {missing}")
+    # each kernel as often per replay as the path's eager body launches it
+    unequal = {k: (r["launches"], out["paths"].get(r["path"], {}).get("eager_launches", {}).get(k))
+               for k, r in out["launches_per_live_replay"].items()}
+    unequal = {k: v for k, v in unequal.items() if v[0] != v[1]}
+    if unequal:
+        failures.append(f"launches per replay against the eager body's, by kernel: {unequal}")
+    if seen["int8_conv"]["int8_conv_kernel"] != Q8_E_LAUNCHES:
+        failures.append(f"static8: {seen['int8_conv']['int8_conv_kernel']} E launches per replay, not {Q8_E_LAUNCHES}")
+    out["predict_img_per_s"] = report.get("predict_img_per_s")  # phase 5, detect b32/640
+    out["predict_many_img_per_s"] = report.get("many_img_per_s")  # phase 21, 150 frames at b32
     if failures:
         emit(out)
         raise AssertionError("; ".join(failures))
@@ -2698,6 +3101,7 @@ def phase_checkpoints(report):
 
 
 def main() -> int:
+    faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
         import torch
     except ImportError:
@@ -2721,7 +3125,7 @@ def main() -> int:
               phase_rnms, phase_mpack, phase_tasks_fp32, phase_seg_bf16, phase_obb_bf16,
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
-              phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints)
+              phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

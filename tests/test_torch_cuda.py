@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import yolo_infer_tpu_torch.ops.masks as masks_mod
+from yolo_infer_tpu_torch.core.graphs import WARMUP_CALLS
 from yolo_infer_tpu_torch.core.predictor import LazyMasks, Predictor
 from yolo_infer_tpu_torch.models.yolo11 import build_model
 from yolo_infer_tpu_torch.ops.iou import box_iou_matrix
@@ -125,8 +126,10 @@ def test_main_path_launches_both_kernels(card):
     assert pred.device.type == "cuda"
     frames = np.random.default_rng(4).integers(0, 256, (2, 640, 640, 3), dtype=np.uint8)
     nms_fused.nms_keep.launches = attention_fused.attention_qkv.launches = 0
-    pred.predict(frames)
-    assert nms_fused.nms_keep.launches == 1 and attention_fused.attention_qkv.launches == 1
+    pred.predict(frames)  # the signature's capture: each kernel once in the warm-up, once into the graph
+    assert nms_fused.nms_keep.launches == attention_fused.attention_qkv.launches == 1 + WARMUP_CALLS
+    pred.predict(frames)  # a replay: no launch from Python
+    assert nms_fused.nms_keep.launches == attention_fused.attention_qkv.launches == 1 + WARMUP_CALLS
 
 
 def _rotated_candidates(seed, b, k):
@@ -235,8 +238,9 @@ def test_segment_predict_masks_match_the_plain_path(card):
     try:
         before = mask_pack.upsample4x_threshold_pack.launches
         got = pred.predict(frames, conf=0.0, max_det=50)
-        assert mask_pack.upsample4x_threshold_pack.launches == before + 1
+        assert mask_pack.upsample4x_threshold_pack.launches == before + 1 + WARMUP_CALLS  # the capture
         masks_mod.upsample4x_threshold_pack = mask_pack.upsample4x_threshold_pack_reference
+        pred.release_programs()  # captured again, with the plain version in the graph
         want = pred.predict(frames, conf=0.0, max_det=50)
     finally:
         masks_mod.upsample4x_threshold_pack = mask_pack.upsample4x_threshold_pack
@@ -298,7 +302,7 @@ def test_validation_path_launches_f_and_g(card):
     frames = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)).to(card)
     dfl_decode.dfl_decode.launches = greedy_nms.greedy_nms_keep.launches = 0
     dets = pred.predict_raw(frames, 0.001, 0.6, 640, 300, multi_label=True, pre_topk=4096)
-    assert dfl_decode.dfl_decode.launches == 1 and greedy_nms.greedy_nms_keep.launches == 1
+    assert dfl_decode.dfl_decode.launches == greedy_nms.greedy_nms_keep.launches == 1 + WARMUP_CALLS  # the capture
     assert dets["kpts"].shape == (2, 300, 17, 3) and bool(torch.isfinite(dets["boxes"]).all())
 
 
@@ -419,8 +423,9 @@ def test_static8_path_launches_e_and_the_pallas_route_launches_h(card):
     model, spec = build_model("detect", "n", seed=0)
     pred = Predictor(model, spec, attn_impl="pallas")
     attention_fused.attention_packed.launches = attention_fused.attention_qkv.launches = 0
-    pred.predict(frames)
-    assert attention_fused.attention_packed.launches == 1 and attention_fused.attention_qkv.launches == 0
+    pred.predict(frames)  # the capture
+    assert attention_fused.attention_packed.launches == 1 + WARMUP_CALLS
+    assert attention_fused.attention_qkv.launches == 0
 
 
 @pytest.mark.cuda

@@ -138,7 +138,7 @@ class SpeedBenchmark:
             if cuda:
                 torch.cuda.synchronize(predictor.device)
 
-        predictor.predict_raw(images, 0.25, 0.45, imgsz)  # kernel builds, cuDNN's search
+        predictor.predict_raw(images, 0.25, 0.45, imgsz)  # kernel builds, cuDNN's search, the graph's capture
         sync()
         monitor = ResourceMonitor(interval=1.0)
         monitor.start()

@@ -16,12 +16,12 @@ metadata records them); conf and iou stay runtime inputs, 0-d f32 tensors
 that kernels A, C and G read from device memory. The file is a
 `torch.export.save` archive with the metadata as its extra file `meta.json`.
 
-On the card the loaded program is captured once into a CUDA graph (after a
-warm-up on a side stream: first-use builds, kernel attributes and the
-caching allocator's blocks all happen there) with static buffers for the
-frames, conf and iou; `predict_raw` copies into them and replays. A capture
-that fails raises: there is no eager fallback on the card. On the CPU the
-loaded program runs eagerly.
+On the card the loaded program is captured once into a CUDA graph by the
+mechanism the live predictor's program cache uses (`core/graphs.py`: a
+warm-up on a side stream, static buffers for the frames, conf and iou);
+`predict_raw` copies into them, replays, and returns clones of the outputs,
+which the next call leaves alone. A capture that fails raises: there is no
+eager fallback on the card. On the CPU the loaded program runs eagerly.
 
 Device note: `make_anchors` and the program's `torch.arange`s are traced on
 the device they ran on, so an artifact serves on the device it was exported
@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from yolo_infer_tpu_torch.core.graphs import CapturedProgram
 from yolo_infer_tpu_torch.core.predictor import DevScalarCache, Predictor
 # importing the wrappers registers the ops an artifact calls (torch.ops.yolo_port.*)
 from yolo_infer_tpu_torch.ops.kernels import (  # noqa: F401
@@ -55,7 +56,6 @@ from yolo_infer_tpu_torch.ops.nms import Threshold
 
 FORMAT_VERSION = 1
 META_FILE = "meta.json"
-WARMUP_CALLS = 2  # eager calls on a side stream before the capture
 
 
 class _ServeProgram(torch.nn.Module):
@@ -143,7 +143,7 @@ class ExportedPredictor:
         self.spec = _SpecShim(self.task)  # duck-typed so Predictor._postprocess works unchanged
         self._module = program.module()
         self._dev_scalar = DevScalarCache()
-        self._graph: Optional[Dict[str, Any]] = None  # the capture, made by the first predict_raw on the card
+        self._program: Optional[CapturedProgram] = None  # the capture, made by the first predict_raw on the card
 
     @classmethod
     def load(cls, path: Union[str, Path], device: Union[None, str, torch.device] = None) -> "ExportedPredictor":
@@ -181,38 +181,24 @@ class ExportedPredictor:
         """Run the baked program on (batch, imgsz, imgsz, 3) uint8 frames.
 
         On the card: the frames, conf and iou are copied into the graph's
-        static inputs and the graph is replayed; the returned tensors are
-        the graph's static outputs, which the next call overwrites. Nothing
-        here waits for the device."""
+        static inputs, the graph is replayed, and the outputs come back as
+        fresh tensors (clones of the graph's own), which the next call leaves
+        alone, as the JAX artifact's arrays are. Nothing here waits for the
+        device."""
         if self.device.type != "cuda":
             return self.run_eager(images_u8, conf, iou)
-        self._check(images_u8)
-        if self._graph is None:
-            self._graph = self._capture()
-        g = self._graph
-        g["frames"].copy_(torch.as_tensor(images_u8))
-        g["conf"].copy_(self._dev_scalar(conf, self.device))
-        g["iou"].copy_(self._dev_scalar(iou, self.device))
-        g["graph"].replay()
-        return g["out"]
+        return {k: v.clone() for k, v in self._replay(images_u8, conf, iou).items()}
 
-    def _capture(self) -> Dict[str, Any]:
-        """Warm the program up on a side stream, then capture one call."""
-        dev = self.device
-        frames = torch.zeros((self.batch, self.imgsz, self.imgsz, 3), dtype=torch.uint8, device=dev)
-        conf = torch.full((), 0.25, dtype=torch.float32, device=dev)
-        iou = torch.full((), 0.45, dtype=torch.float32, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.no_grad(), torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                self._module(frames, conf, iou)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)  # a fault of the warm-up shows here, not inside the capture
-        graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph):
-            out = self._module(frames, conf, iou)
-        return {"graph": graph, "frames": frames, "conf": conf, "iou": iou, "out": out}
+    def _replay(self, images_u8, conf: Threshold, iou: Threshold) -> Dict[str, torch.Tensor]:
+        """The graph's static outputs after one replay on these inputs
+        (captured on the first call); the next replay overwrites them."""
+        self._check(images_u8)
+        with torch.no_grad():
+            if self._program is None:
+                shape = (self.batch, self.imgsz, self.imgsz, 3)
+                self._program = CapturedProgram(self._module, shape, self.device)
+            return self._program.replay(torch.as_tensor(images_u8), self._dev_scalar(conf, self.device),
+                                        self._dev_scalar(iou, self.device))
 
     # -- convenience: same Results surface as Predictor.predict ---------------
 
@@ -224,9 +210,9 @@ class ExportedPredictor:
         """Host-letterbox `images` to the artifact signature and serve.
 
         Accepts up to `batch` images; the batch is padded with zeros (pad
-        results are dropped). Segment masks stay on the device as
-        `LazyMasks` over a copy of the rows the images use (the graph's own
-        output is overwritten by the next call)."""
+        results are dropped). The graph's outputs are read before the next
+        replay: the dets to the host, and for segment a copy of the mask
+        rows the images use, which stays on the device as `LazyMasks`."""
         single = isinstance(images, np.ndarray) and images.ndim == 3
         imgs = [images] if single else list(images)
         if not imgs:
@@ -239,7 +225,8 @@ class ExportedPredictor:
             batch_np[i] = im
         n = len(imgs)
         t0 = time.perf_counter()
-        dets = dict(self.predict_raw(batch_np, conf, iou))
+        dets = dict(self._replay(batch_np, conf, iou) if self.device.type == "cuda"
+                    else self.run_eager(batch_np, conf, iou))
         packed = dets.pop("mask_bits_up", None)
         dets = {k: v[:n].cpu().numpy() for k, v in dets.items()}  # drop the padding rows
         if packed is not None:

@@ -311,7 +311,9 @@ class YOLO11Model:
         device, every time read after a device synchronisation.
 
         - `compile_time_s`: the first call, which includes building any
-          CUDA kernel with nvcc, loading it, and cuDNN's algorithm search.
+          CUDA kernel with nvcc, loading it, cuDNN's algorithm search and,
+          on the card, the warm-up and capture of the signature's CUDA graph
+          (`core/graphs.py`); every later call replays it.
         - Sustained throughput (`avg_time_s`, `fps`): `runs` calls queued
           back to back and one `torch.cuda.synchronize`, timed by the host
           clock between two synchronisations; three such windows, the

@@ -33,6 +33,18 @@ the frames go through pinned staging buffers on an upload stream, the
 forward runs on a compute stream that waits for each chunk's copy, and the
 host drains finished chunks into `Results` while later ones run.
 
+The predictor caches one program per input signature, as the JAX
+package's caches one jitted program (`_get`, `_build`, `_cache`; the key is
+the JAX key: batch, frame H x W, imgsz, multi_label, max_det, pre_topk,
+mask_out and the environment knobs read while the program is built). On the
+card a program is `serve_program` captured into a CUDA graph on the
+signature's first call (`core/graphs.py`) and replayed by every later call;
+on the CPU it is `serve_program` itself, run op by op. A captured graph
+keeps its call's peak memory while it lives (a jitted executable does not),
+so the cache holds at most `PROGRAM_CACHE_SIZE` programs and releases the
+least recently used one to build another; `release_programs` gives them
+all back, and the validator releases the program of its run when it ends.
+
 conf and iou reach the kernels as 0-d f32 tensors on the device
 (`DevScalarCache`, one per value, written once), never as Python numbers
 baked into a launch: an exported program (`core/exported.py`) and a captured
@@ -47,7 +59,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import math
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -56,6 +70,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from yolo_infer_tpu_torch.core.graphs import CapturedProgram
 from yolo_infer_tpu_torch.models.blocks import Attention, attn_impl_choice
 from yolo_infer_tpu_torch.models.spec import ModelSpec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, cast_model, fold_model
@@ -97,6 +112,24 @@ MASK_MODES = ("auto", "device", "device_half", "q8", "bits", "exact")
 # the segment artifacts with one row per detection slot (axis 1), which
 # predict_many copies to the host at drain time cut to the chunk's largest count
 _MASK_ROW_KEYS = ("mask_bits_up", "mask_q8", "mask_bits", "mask_coefs")
+
+
+# the environment knobs read while a serving program is built: YOLO_MULTI_LABEL_TOPC
+# (`ops/nms.py _multi_label_topc`), YOLO_ATTN_IMPL (`models/blocks.py
+# attn_impl_choice`), YOLO_INT8_C64_MIN_ROWS (`nn/quantize.py QuantContext`)
+TRACE_ENV = ("YOLO_MULTI_LABEL_TOPC", "YOLO_ATTN_IMPL", "YOLO_INT8_C64_MIN_ROWS")
+# the programs a predictor keeps (`Predictor._get`); on the card each holds its
+# call's peak memory, from ~0.1 GB (detect b1/640) to 11 GB (validation
+# b16/640, its (16, 4096, 4096) IoU)
+PROGRAM_CACHE_SIZE = 8
+
+
+def _trace_env_key() -> Tuple[str, ...]:
+    """The values of `TRACE_ENV`, the last part of the program-cache key
+    (`Predictor._get`): a knob changed on a live predictor builds a new
+    program instead of serving the one built under the old value
+    (`yolo_infer_tpu/core/predictor.py _trace_env_key`)."""
+    return tuple(os.environ.get(n, "") for n in TRACE_ENV)
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -361,6 +394,8 @@ class Predictor:
         # not handed to a new one, so fresh streams per call would allocate anew
         self._streams: Optional[Tuple[Any, Any, Any]] = None
         self._dev_scalar = DevScalarCache()
+        # program-cache key -> program (`_get`), least recently used first
+        self._cache: Dict[Tuple, Any] = {}
 
     def _forward(self, x: torch.Tensor) -> Dict[str, Any]:
         """The model forward, inside a static8 context when PTQ scales exist."""
@@ -373,6 +408,67 @@ class Predictor:
         if ctx.index != len(self.quant_act_scales):
             raise ValueError(f"the model ran {ctx.index} quantized convs for {len(self.quant_act_scales)} scale pairs")
         return out
+
+    # -- program cache -------------------------------------------------------
+
+    def _build(self, src_hw: Tuple[int, int], imgsz: int, multi_label: bool, max_det: int, pre_topk: int,
+               mask_out: str, batch: int):
+        """The program of one signature: `serve_program` with the signature's
+        arguments bound, captured into a CUDA graph on the card (warm-up,
+        capture; `core/graphs.py`), run eagerly on the CPU."""
+        fn = functools.partial(self.serve_program, imgsz=imgsz, max_det=max_det, multi_label=multi_label,
+                               pre_topk=pre_topk, mask_out=mask_out)
+        if self.device.type != "cuda":
+            return fn
+        with torch.inference_mode():
+            return CapturedProgram(fn, (batch, *src_hw, 3), self.device)
+
+    def _get(self, batch: int, src_hw: Tuple[int, int], imgsz: int, multi_label: bool, max_det: int,
+             pre_topk: Optional[int] = None, mask_out: Optional[str] = None):
+        """The cached program of a signature, built on its first call. Keyed
+        as the JAX package keys its jitted programs: (batch, src_hw, imgsz,
+        multi_label, max_det, pre_topk, mask_out, trace env), with pre_topk
+        None taken as the predictor's and mask_out None as `mask_mode`, so
+        a default and an explicit equal value share one program. A full
+        cache releases its least recently used program first."""
+        pre_topk = pre_topk or self.pre_topk
+        mask_out = mask_out or self.mask_mode
+        key = (batch, src_hw, imgsz, multi_label, max_det, pre_topk, mask_out, _trace_env_key())
+        program = self._cache.pop(key, None)
+        if program is None:
+            if len(self._cache) >= PROGRAM_CACHE_SIZE:
+                self.release_programs([next(iter(self._cache))])
+            program = self._build(src_hw, imgsz, multi_label, max_det, pre_topk, mask_out, batch)
+        self._cache[key] = program  # the most recently used last
+        return program
+
+    def release_programs(self, keys: Optional[Sequence[Tuple]] = None) -> None:
+        """Drop the cached programs of `keys` (all when None) and give their
+        graphs' memory back to the card; a later call of such a signature
+        captures it again. Results already returned are not affected."""
+        dropped = [self._cache.pop(k) for k in (list(self._cache) if keys is None else keys) if k in self._cache]
+        captured = [p for p in dropped if isinstance(p, CapturedProgram)]
+        for p in captured:
+            p.release()
+        if captured:
+            torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def transient_programs(self):
+        """Release, when the block ends, the programs built inside it (the
+        validator's: its graph holds the multi-label NMS's IoU)."""
+        before = set(self._cache)
+        try:
+            yield
+        finally:
+            self.release_programs([k for k in self._cache if k not in before])
+
+    def _program(self, images_u8: torch.Tensor, imgsz: int, max_det: Optional[int], multi_label: bool,
+                 pre_topk: Optional[int], mask_out: Optional[str]):
+        return self._get(images_u8.shape[0], tuple(images_u8.shape[1:3]), imgsz, multi_label,
+                         max_det or self.max_det, pre_topk, mask_out)
+
+    # -- serving ---------------------------------------------------------------
 
     @torch.inference_mode()
     def predict_raw(self, images_u8: torch.Tensor, conf: Threshold, iou: Threshold, imgsz: int,
@@ -390,16 +486,22 @@ class Predictor:
         `pre_topk` overrides the predictor's candidate cap (the validator
         asks for 4096). `mask_out` overrides `mask_mode`; "none" skips the
         masks. `conf` and `iou` are Python numbers or 0-d f32 tensors.
-        Nothing here waits for the device."""
-        return self.serve_program(images_u8, self._dev_scalar(conf, self.device), self._dev_scalar(iou, self.device),
-                                  imgsz, max_det, multi_label=multi_label, pre_topk=pre_topk, mask_out=mask_out)
+
+        The signature's program (`_get`) runs it: on the card its first call
+        captures a CUDA graph (and waits for the device, as a JAX compile
+        blocks), every later call replays it and returns fresh tensors that
+        the next call leaves alone. Nothing here waits for the device from a
+        signature's second call on."""
+        run = self._program(images_u8, imgsz, max_det, multi_label, pre_topk, mask_out)
+        return run(images_u8, self._dev_scalar(conf, self.device), self._dev_scalar(iou, self.device))
 
     def serve_program(self, images_u8: torch.Tensor, conf: torch.Tensor, iou: torch.Tensor, imgsz: int,
                       max_det: Optional[int] = None, *, multi_label: bool = False, pre_topk: Optional[int] = None,
                       mask_out: Optional[str] = None) -> Dict[str, torch.Tensor]:
-        """The body of `predict_raw`, with conf and iou as 0-d f32 tensors on
-        the device and no autograd mode of its own: `core/exported.py`
-        traces it under `torch.no_grad` (inference tensors do not export)."""
+        """The body of `predict_raw`, uncaptured, with conf and iou as 0-d f32
+        tensors on the device and no autograd mode of its own: each program
+        of the cache captures it (`_build`), and `core/exported.py` traces it
+        under `torch.no_grad` (inference tensors do not export)."""
         spec = self.spec
         md = max_det or self.max_det
         pool = pre_topk or self.pre_topk
@@ -490,9 +592,16 @@ class Predictor:
 
         t0 = time.perf_counter()
         frames_dev = torch.from_numpy(np.ascontiguousarray(batch_np)).to(self.device)
-        dets = self.predict_raw(frames_dev, conf, iou, imgsz, max_det, multi_label=multi_label)
-        packed = dets.pop("mask_bits_up", None)  # stays on the device (LazyMasks)
-        dets = {k: v.cpu().numpy() for k, v in dets.items()}
+        with torch.inference_mode():
+            program = self._program(frames_dev, imgsz, max_det, multi_label, None, None)
+            run = program.replay if isinstance(program, CapturedProgram) else program
+            dets = dict(run(frames_dev, self._dev_scalar(conf, self.device), self._dev_scalar(iou, self.device)))
+            # read before the next replay: the dets to the host, and the mask
+            # rows in use (the graph's own tensors) copied on the same stream
+            packed = dets.pop("mask_bits_up", None)  # stays on the device (LazyMasks)
+            dets = {k: v.cpu().numpy() for k, v in dets.items()}
+            if packed is not None:
+                packed = packed[:, : int(dets["num"].max(initial=0))].clone()
         dt = (time.perf_counter() - t0) * 1000
         return self._postprocess(dets, packed, orig_shapes, host_lb, imgsz, tuple(batch_np.shape[1:3]), dt)
 
@@ -515,14 +624,19 @@ class Predictor:
         the host first. Up to `pipeline_depth` chunks are in flight while
         the host builds the Results of finished ones.
 
-        A second host thread stacks chunks ahead into their staging buffers
-        while this one launches the current chunk. On the card:
-        `pipeline_depth + 1` pinned staging buffers, refilled only once their
-        last upload has completed; the next chunk is copied on an upload
-        stream just before the current chunk's launch, beside its kernels;
-        the forward runs on a compute stream that waits for its copy's event;
-        the dets go to pinned host tensors without blocking, and the drain
-        waits on that chunk's event alone.
+        Every chunk, the padded last one included, runs the one program of
+        the (batch_size, H, W) signature (`_get`), built before the pipeline
+        starts: on the card a capture may not overlap the staging thread's
+        event waits. A second host thread stacks chunks ahead into their
+        staging buffers while this one launches the current chunk. On the
+        card: `pipeline_depth + 1` pinned staging buffers, refilled only once
+        their last upload has completed; the next chunk is copied on an
+        upload stream just before the current chunk's replay, beside its
+        kernels; the graph replays on a compute stream that waits for its
+        copy's event, and its outputs are cloned there (the next chunk's
+        replay overwrites the graph's own); the dets go to pinned host
+        tensors without blocking, and the drain waits on that chunk's event
+        alone.
         Segment masks are copied at drain time in one transfer of the rows
         the chunk uses, so no device buffer stays held per chunk;
         `LazyMasks` unpacks them from the host on read.
@@ -541,6 +655,7 @@ class Predictor:
         frame_hw = tuple(frames[0].shape[:2])
         shape = (batch_size,) + tuple(frames[0].shape)
         cuda = self.device.type == "cuda"
+        self._get(batch_size, frame_hw, imgsz, multi_label, md)  # on the card: captured here, before the stager
         if cuda:
             if self._streams is None:
                 self._streams = tuple(torch.cuda.Stream(self.device) for _ in range(3))

@@ -8,13 +8,18 @@ card works, and only then waits for this batch's detections. Box mAP for
 every task, OKS mAP for pose (`core/metrics.py`).
 
 `model` is any object with a `.predictor` (the port's `YOLO11Model`), or a
-port `Predictor` itself; with none, `model_path` names a seeded
-`YOLO11Model` (a checkpoint file raises until ROADMAP Queue 1 item 5).
+port `Predictor` itself; with none, `model_path` names a `YOLO11Model`: a
+size name ("yolo11n", the seeded init) or a checkpoint file (`.msgpack`,
+`.ckpt`, `.pt`), as `YOLO11Model(path)` loads it. Every batch, the zero-padded
+last one included, has one shape, so the predictor serves the whole run
+from one cached program (on the card one CUDA graph, captured by the first
+batch).
 `benchmark_speed` times the model through `YOLO11Model.benchmark`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
@@ -30,6 +35,14 @@ from yolo_infer_tpu_torch.data.dataset import YOLODataset, iter_letterboxed_batc
 from yolo_infer_tpu_torch.ops.letterbox import scale_boxes
 
 logger = logging.getLogger(__name__)
+
+def _transient_programs(predictor):
+    """`predictor.transient_programs()`: the programs a run builds are
+    released when it ends. A duck-typed predictor without a program cache
+    (anything with `predict_raw`, `spec` and `device`) releases nothing."""
+    scope = getattr(predictor, "transient_programs", None)
+    return contextlib.nullcontext() if scope is None else scope()
+
 
 def _to_host(dets: Dict[str, torch.Tensor], device: torch.device) -> Dict[str, np.ndarray]:
     """Copy a dets dict to numpy; on the card, the wait for the batch."""
@@ -111,18 +124,22 @@ class YOLO11Validator:
                 if task_metrics is not None:
                     self._update_task_metrics(task_metrics, ds_task, dets_np, i, k, m, imgsz)
 
-        for batch_data in ds.iter_val_batches(batch_size=batch, imgsz=imgsz):
-            t0 = time.perf_counter()
-            # pre_topk 4096: at conf 0.001 the multi-label candidate pool
-            # exceeds the serving cap
-            frames = torch.from_numpy(batch_data["images"]).to(predictor.device)
-            dets = predictor.predict_raw(frames, conf, iou, imgsz, max_det, multi_label=multi_label, pre_topk=pre_topk)
-            if pending is not None:
-                drain(*pending)  # the host matches the previous batch while the card runs
-            dets_np = _to_host(dets, predictor.device)
-            infer_time += time.perf_counter() - t0
-            pending = (dets_np, batch_data["metas"], batch_data["n"])
-            n_images += batch_data["n"]
+        # the run's program is released when it ends: its graph holds the
+        # multi-label NMS's (batch, pre_topk, pre_topk) IoU
+        with _transient_programs(predictor):
+            for batch_data in ds.iter_val_batches(batch_size=batch, imgsz=imgsz):
+                t0 = time.perf_counter()
+                # pre_topk 4096: at conf 0.001 the multi-label candidate pool
+                # exceeds the serving cap
+                frames = torch.from_numpy(batch_data["images"]).to(predictor.device)
+                dets = predictor.predict_raw(frames, conf, iou, imgsz, max_det, multi_label=multi_label,
+                                             pre_topk=pre_topk)
+                if pending is not None:
+                    drain(*pending)  # the host matches the previous batch while the card runs
+                dets_np = _to_host(dets, predictor.device)
+                infer_time += time.perf_counter() - t0
+                pending = (dets_np, batch_data["metas"], batch_data["n"])
+                n_images += batch_data["n"]
         if pending is not None:
             drain(*pending)
 
@@ -248,18 +265,19 @@ class YOLO11Validator:
         predictor = predictor or self.predictor
         metrics = DetMetrics(nc=ds.nc)
         n_images = 0
-        for batch_data in ds.iter_val_batches(batch_size=batch, imgsz=imgsz):
-            frames = torch.from_numpy(batch_data["images"]).to(predictor.device)
-            dets = predictor.predict_raw(frames, conf, iou, imgsz, multi_label=True, pre_topk=pre_topk,
-                                         mask_out="none" if predictor.spec.task == "segment" else None)
-            dets_np = _to_host(dets, predictor.device)
-            for i in range(batch_data["n"]):
-                m = batch_data["metas"][i]
-                kk = int(dets_np["num"][i])
-                boxes = scale_boxes(dets_np["boxes"][i, :kk], m["ratio"], m["pad"], m["orig_shape"])
-                metrics.update(boxes, dets_np["scores"][i, :kk], dets_np["classes"][i, :kk].astype(np.int32),
-                               m["boxes"], m["classes"])
-            n_images += batch_data["n"]
+        with _transient_programs(predictor):
+            for batch_data in ds.iter_val_batches(batch_size=batch, imgsz=imgsz):
+                frames = torch.from_numpy(batch_data["images"]).to(predictor.device)
+                dets = predictor.predict_raw(frames, conf, iou, imgsz, multi_label=True, pre_topk=pre_topk,
+                                             mask_out="none" if predictor.spec.task == "segment" else None)
+                dets_np = _to_host(dets, predictor.device)
+                for i in range(batch_data["n"]):
+                    m = batch_data["metas"][i]
+                    kk = int(dets_np["num"][i])
+                    boxes = scale_boxes(dets_np["boxes"][i, :kk], m["ratio"], m["pad"], m["orig_shape"])
+                    metrics.update(boxes, dets_np["scores"][i, :kk],
+                                   dets_np["classes"][i, :kk].astype(np.int32), m["boxes"], m["classes"])
+                n_images += batch_data["n"]
         r = metrics.compute()
         return {"metrics": {"mAP50-95": r["map"], "mAP50": r["map50"], "mAP75": r["map75"],
                             "precision": r["precision"], "recall": r["recall"]}, "num_images": n_images}
