@@ -110,15 +110,23 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              (16, 4096) with a valid prefix of 300..3000, and a 4096-box
              suppression chain (each box overlaps the next); device time of
              each split into the bits pass and the walk
- 14. val_fp32  `YOLO11Validator.validate` of yolo11n detect and pose (fp32,
-             640 px, the val defaults: batch 16, conf 0.001, iou 0.6,
-             multi-label, pre_topk 4096) on cuda and on cpu over seeded PNG
-             datasets of 24 frames of two sizes written with `save_image`
-             and labelled with the cpu predictions at conf 0.25: mAP50-95,
-             mAP50 and pose mAP within 1e-3, and each batch's detections
-             with score >= 0.25 paired as sets (boxes within PX_TOL, scores
-             within SCORE_TOL, keypoints within KPT_TOL); counters F and G
-             rise
+ 14. val_fp32  `YOLO11Validator.validate` of yolo11n detect, segment, pose
+             and OBB (nc 15) (fp32, 640 px, the val defaults: batch 16, conf
+             0.001, iou 0.6, multi-label, pre_topk 4096: OBB's pool is 4096
+             of its (anchor, class) pairs, kernel C at K = 4096) on cuda and
+             on cpu over seeded PNG datasets of 24 frames of two sizes (16,
+             one batch, for segment and OBB) written with `save_image` and
+             labelled with the cpu predictions
+             at conf 0.25 (segment: each box's inscribed octagon as its
+             polygon; OBB: each rotated box's corners): mAP50-95, mAP50 and mask and pose
+             mAP within 1e-3, and (detect and pose; segment and OBB report
+             them) each batch's detections with score >= 0.25 paired as sets
+             (boxes within PX_TOL, scores within SCORE_TOL, keypoints within
+             KPT_TOL); the launches of one batch's body: B,
+             F and G (C for OBB) >= 1; and `evaluate_classifier` of
+             yolo11n-cls (224 px, batch 64) over the same frames in a
+             class-per-directory tree labelled with the cpu ranking (first,
+             third, seventh class): top-1 and top-5 equal on both, B >= 1
  15. val_bf16  the validation path: yolo11n detect bf16 validation at 640
              px, batch 16, conf 0.001, iou 0.6, pre_topk 4096 over 64
              frames, run twice (one graph; one batch's body uncaptured with
@@ -128,7 +136,14 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              memory, kernels F and G and the plain IoU build in front of G
              at the captured inputs (F within 1e-5, G bit-equal; device
              times, L2 flushed before each call, beside their bounds; F warm
-             too), and the device time by kernel over three batches
+             too), and the device time by kernel over three batches; then
+             the same for segment b16/640 and OBB (nc 15) b16/1024 over 32
+             frames each and classify b64/224 over 128 (`VAL_TIMED`):
+             images/s, peak memory, launches (B, F, G; B, F, C; B), the
+             kernels' busy share of one more run under torch.profiler, and
+             the kernels at each path's own inputs: G on the segment path, C at
+             K = 4096 (bit-equal to its plain version; cold, warm, bits pass
+             and walk apart, bound) and F on the OBB path
  16. q8_fp32  yolo11s detect static8 (PTQ on the cpu, f32 compute) `predict`
              on two 480x640 frames at 640 px on cuda and on cpu (TF32 off):
              kernel E's counter rises, and at least Q8_PAIRED of the
@@ -219,7 +234,8 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
  27. live_graphs  the live program cache (LIVE_PATHS, bf16): detect b32/640
              and b1/640, multi_label detect b16/640 (pre_topk 4096), segment
              b32/640 "device" and b8 "q8", "bits", "exact", pose b16/640,
-             OBB b16/1024, classify b32/224, static8 yolo11s b32/640 and the
+             OBB b16/1024 and its multi-label validation signature (pre_topk
+             4096), classify b32/224, static8 yolo11s b32/640 and the
              pallas route b32/640, each captured by its first `predict_raw`
              (its launches (1 + WARMUP_CALLS) times the eager body's) and
              replayed at (0.25, 0.45) and (0.10, 0.60): equal bit for bit to
@@ -315,6 +331,9 @@ DFL_OPS_PER_LOGIT = 6
 DFL_TOL = 1e-5
 VAL = dict(imgsz=640, batch=16, conf=0.001, iou=0.6, pre_topk=4096)  # the validator's defaults
 VAL_FP32_FRAMES = 24
+# segment and OBB validate half of each size's frames (one batch): their cpu
+# runs (the (16, 4096, 4096) IoU or probIoU on the host) set phase 14's time
+VAL_FP32_TASK_FRAMES = {"segment": 16, "obb": 16}
 VAL_BF16_FRAMES = 64
 Q8_SERVE = (32, 640)  # static8 path: yolo11s, batch, imgsz
 ATTN_SERVE = (32, 640)  # YOLO_ATTN_IMPL=pallas route: yolo11n, batch, imgsz
@@ -1593,10 +1612,30 @@ class _Recorder:
         return out
 
 
+def box_octagon(box):
+    """The octagon inscribed in an xyxy box (each corner cut a quarter of the
+    way along its sides): a segment label with the box's extent and slanted
+    edges. (The hull of a predicted mask makes a poor label for seeded
+    weights: their masks are speckled, so the hull's extent misses the box.)"""
+    x1, y1, x2, y2 = box
+    qx, qy = (x2 - x1) / 4, (y2 - y1) / 4
+    return np.array([[x1 + qx, y1], [x2 - qx, y1], [x2, y1 + qy], [x2, y2 - qy],
+                     [x2 - qx, y2], [x1 + qx, y2], [x1, y2 - qy], [x1, y1 + qy]])
+
+
+def obb_corners(cx, cy, w, h, r):
+    """The four corners of a rotated box: an OBB label from a predicted box."""
+    c, s = np.cos(r), np.sin(r)
+    return np.array([[cx + dx * c - dy * s, cy + dx * s + dy * c]
+                     for dx, dy in ((-w / 2, -h / 2), (w / 2, -h / 2), (w / 2, h / 2), (-w / 2, h / 2))])
+
+
 def write_val_dataset(root: Path, frames, results, task: str, nc: int):
     """YOLO-format dataset of `frames` (PNG, `save_image`) labelled with
     `results` (normalized xywh; pose keypoints with visibility 2 where the
-    predicted keypoint confidence exceeds 0.5, else 1), as a dict config."""
+    predicted keypoint confidence exceeds 0.5, else 1; segment each box's
+    inscribed octagon as its polygon; OBB each rotated box's corners;
+    coordinates clipped to the frame), as a dict config."""
     from yolo_infer_tpu_torch.data.loader import save_image
 
     (root / "labels" / "val").mkdir(parents=True, exist_ok=True)
@@ -1605,6 +1644,11 @@ def write_val_dataset(root: Path, frames, results, task: str, nc: int):
         h, w = frame.shape[:2]
         lines = []
         for j in range(len(r)):
+            if task in ("segment", "obb"):
+                pts = box_octagon(r.boxes[j]) if task == "segment" else obb_corners(*r.obb[j])
+                pts = (np.asarray(pts, np.float64) / [w, h]).clip(0, 1)
+                lines.append(f"{r.classes[j]} " + " ".join(f"{v:.6f}" for v in pts.ravel()))
+                continue
             x1, y1, x2, y2 = (r.boxes[j] / [w, h, w, h]).clip(0, 1)
             line = f"{r.classes[j]} {(x1 + x2) / 2:.6f} {(y1 + y2) / 2:.6f} {x2 - x1:.6f} {y2 - y1:.6f}"
             if task == "pose":
@@ -1612,6 +1656,32 @@ def write_val_dataset(root: Path, frames, results, task: str, nc: int):
             lines.append(line)
         (root / "labels" / "val" / f"f{i:03d}.txt").write_text("\n".join(lines) + "\n")
     return {"path": str(root), "val": "images/val", "names": {c: str(c) for c in range(nc)}}
+
+
+def write_classify_tree(root: Path, frames, labels, nc: int):
+    """A class-per-directory tree (val/cNNNN/, one directory per class, most
+    empty) of `frames` (PNG) under their `labels`."""
+    from yolo_infer_tpu_torch.data.loader import save_image
+
+    for c in range(nc):
+        (root / "val" / f"c{c:04d}").mkdir(parents=True, exist_ok=True)
+    for i, (frame, label) in enumerate(zip(frames, labels)):
+        save_image(root / "val" / f"c{label:04d}" / f"f{i:03d}.png", frame, compress_level=1)
+    return root
+
+
+def rank_labels(pred, frames, imgsz: int):
+    """Labels from `pred`'s own ranking of each centre-cropped frame: its
+    first, third and seventh class in turn, so top-1 and top-5 both fall
+    between 0 and 1."""
+    import torch
+
+    from yolo_infer_tpu_torch.data.classify import _resize_center_crop
+
+    crops = np.stack([_resize_center_crop(f, imgsz) for f in frames])
+    probs = pred.predict_raw(torch.from_numpy(crops).to(pred.device), 0.0, 0.0, imgsz)["probs"].float().cpu().numpy()
+    ranks = np.argsort(-probs, axis=-1)
+    return [int(ranks[i, (0, 2, 6)[i % 3]]) for i in range(len(frames))]
 
 
 class _Dets(SimpleNamespace):
@@ -1624,8 +1694,9 @@ class _Dets(SimpleNamespace):
 def pair_val_detections(got, want):
     """Pair each recorded batch's detections with score >= 0.25 as sets, in
     both directions (a partner may sit just below the cut). Returns
-    (unpaired count, largest keypoint error of the pairs, detections seen)."""
-    unpaired, kpt_err, seen = 0, 0.0, 0
+    (unpaired count, largest keypoint error of the pairs, detections seen,
+    up to 4 unpaired as (score, rank among those >= 0.25, class, box))."""
+    unpaired, kpt_err, seen, examples = 0, 0.0, 0, []
     for g, w in zip(got, want):
         for i in range(len(g["num"])):
             def dets(d, lo):
@@ -1639,10 +1710,14 @@ def pair_val_detections(got, want):
                 missing, pairs = match_detections(a, b, PX_TOL, SCORE_TOL)
                 unpaired += missing
                 seen += len(a)
+                if missing and len(examples) < 4:
+                    paired = {p[0] for p in pairs}
+                    examples += [(float(a.scores[j]), j, int(a.classes[j]), a.boxes[j].tolist())
+                                 for j in range(len(a)) if j not in paired][:2]
                 if pairs and a.kpts is not None:
                     ia, ib = map(list, zip(*pairs))
                     kpt_err = max(kpt_err, float(np.abs(a.kpts[ia] - b.kpts[ib]).max()))
-    return unpaired, kpt_err, seen
+    return unpaired, kpt_err, seen, examples
 
 
 def phase_val_fp32(report):
@@ -1657,51 +1732,79 @@ def phase_val_fp32(report):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _val_fp32(report, frames, root: Path):
+VAL_TASK_KERNELS = {"detect": ("attention_qkv", "dfl_decode", "greedy_nms_keep"),
+                    "segment": ("attention_qkv", "dfl_decode", "greedy_nms_keep"),
+                    "pose": ("attention_qkv", "dfl_decode", "greedy_nms_keep"),
+                    "obb": ("attention_qkv", "dfl_decode", "rotated_nms_keep"),
+                    "classify": ("attention_qkv",)}
+CLS_VAL = dict(imgsz=224, batch=64)  # evaluate_classifier's defaults
+
+
+def _val_fp32(report, all_frames, root: Path):
     import torch
 
     from yolo_infer_tpu_torch.core.predictor import Predictor
     from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+    from yolo_infer_tpu_torch.data.classify import ClassifyDataset, _resize_center_crop, evaluate_classifier
 
-    out = {"phase": "val_fp32", "frames": len(frames), "tasks": {}}
+    out = {"phase": "val_fp32", "frames": len(all_frames), "tasks": {}}
     failures = []
-    for task, (model, spec) in (("detect", report["weights"]), ("pose", report["task_weights"]["pose"])):
+    for task in ("detect", "segment", "pose", "obb", "classify"):
+        half, n = len(all_frames) // 2, VAL_FP32_TASK_FRAMES.get(task, len(all_frames)) // 2
+        frames = all_frames[:n] + all_frames[half:half + n]
+        model, spec = report["weights"] if task == "detect" else report["task_weights"][task]
         on_cpu = Predictor(model, spec, device="cpu", compute_dtype=torch.float32)
         on_gpu = Predictor(model, spec, device="cuda", compute_dtype=torch.float32)
-        labels = on_cpu.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=VAL["imgsz"])
-        data = write_val_dataset(root / task, frames, labels, task, spec.nc)
-        gpu_rec, cpu_rec = _Recorder(on_gpu), _Recorder(on_cpu)
         torch.backends.cudnn.deterministic = True
         try:
-            got = YOLO11Validator(model=SimpleNamespace(predictor=gpu_rec), output_dir=root / f"{task}_cuda").validate(
-                data, verbose=False, **VAL)
-            # the launches of one validation batch, from the body the graph replays
-            reset_counters()
-            eager_run(on_gpu, frames[:VAL["batch"]], VAL["imgsz"], VAL["conf"], VAL["iou"], multi_label=True,
-                      pre_topk=VAL["pre_topk"])
+            if task == "classify":
+                data = write_classify_tree(root / task, frames, rank_labels(on_cpu, frames, CLS_VAL["imgsz"]),
+                                           spec.nc)
+                got = evaluate_classifier(None, ClassifyDataset(data, "val"), predictor=on_gpu, **CLS_VAL)
+                batch = np.stack([_resize_center_crop(f, CLS_VAL["imgsz"]) for f in frames[:CLS_VAL["batch"]]])
+                reset_counters()
+                eager_run(on_gpu, batch, CLS_VAL["imgsz"], 0.0, 0.0)
+            else:
+                labels = on_cpu.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=VAL["imgsz"])
+                data = write_val_dataset(root / task, frames, labels, task, spec.nc)
+                gpu_rec, cpu_rec = _Recorder(on_gpu), _Recorder(on_cpu)
+                got = YOLO11Validator(model=SimpleNamespace(predictor=gpu_rec), output_dir=root / f"{task}_cuda"
+                                      ).validate(data, verbose=False, **VAL)
+                # the launches of one validation batch, from the body the graph replays
+                reset_counters()
+                eager_run(on_gpu, frames[:VAL["batch"]], VAL["imgsz"], VAL["conf"], VAL["iou"], multi_label=True,
+                          pre_topk=VAL["pre_topk"], mask_out="bits" if task == "segment" else None)
             launches = read_counters()
         finally:
             torch.backends.cudnn.deterministic = False
+        if min(launches[k] for k in VAL_TASK_KERNELS[task]) < 1:
+            failures.append(f"{task}: a kernel did not run in the cuda validation: {launches}")
+        if task == "classify":
+            want = evaluate_classifier(None, ClassifyDataset(data, "val"), predictor=on_cpu, **CLS_VAL)
+            out["tasks"][task] = {"launches": launches, "cuda": got, "cpu": want}
+            if got != want or not 0 < got["top1"] < got["top5"] < 1:
+                failures.append(f"classify: top-1/top-5 differ between cuda and cpu or are degenerate: {got} {want}")
+            continue
         want = YOLO11Validator(model=SimpleNamespace(predictor=cpu_rec), output_dir=root / f"{task}_cpu").validate(
             data, verbose=False, **VAL)
-        unpaired, kpt_err, seen = pair_val_detections(gpu_rec.dets, cpu_rec.dets)
+        unpaired, kpt_err, seen, examples = pair_val_detections(gpu_rec.dets, cpu_rec.dets)
         metrics = {"cuda": got["metrics"], "cpu": want["metrics"]}
         diffs = {k: abs(got["metrics"][k] - want["metrics"][k]) for k in ("mAP50-95", "mAP50")}
-        if task == "pose":
-            metrics.update(pose_cuda=got["pose_metrics"], pose_cpu=want["pose_metrics"])
-            diffs.update({f"pose {k}": abs(got["pose_metrics"][k] - want["pose_metrics"][k])
-                          for k in ("mAP50-95", "mAP50")})
+        task_key = {"segment": "mask_metrics", "pose": "pose_metrics"}.get(task)
+        if task_key:
+            metrics.update({f"{task_key}_cuda": got[task_key], f"{task_key}_cpu": want[task_key]})
+            diffs.update({f"{task_key} {k}": abs(got[task_key][k] - want[task_key][k]) for k in ("mAP50-95", "mAP50")})
         out["tasks"][task] = {"launches": launches, "metrics": metrics, "max_metric_diff": max(diffs.values()),
-                              "dets_score_ge_0.25": seen, "unpaired": unpaired, "kpts_max_abs_err": kpt_err,
-                              "num_images": got["num_images"]}
-        if min(launches[k] for k in ("attention_qkv", "dfl_decode", "greedy_nms_keep")) < 1:
-            failures.append(f"{task}: a kernel did not run in the cuda validation: {launches}")
+                              "dets_score_ge_0.25": seen, "unpaired": unpaired, "unpaired_examples": examples,
+                              "kpts_max_abs_err": kpt_err, "num_images": got["num_images"], "frames": len(frames)}
         if max(diffs.values()) > 1e-3:
             failures.append(f"{task}: metrics differ between cuda and cpu: {diffs}")
-        if unpaired or seen == 0 or kpt_err > KPT_TOL:
+        # detect and pose are held to their detections as well (segment and
+        # OBB to their metrics only: their unpaired detections are reported)
+        if seen == 0 or kpt_err > KPT_TOL or (unpaired and task in ("detect", "pose")):
             failures.append(f"{task}: {unpaired} of {seen} detections unpaired, keypoints off by {kpt_err}")
-        if not 0 < got["metrics"]["mAP50"] <= 1:
-            failures.append(f"{task}: mAP50 {got['metrics']['mAP50']}")
+        if not 0 < got["metrics"]["mAP50"] <= 1 or (task_key and not 0 < got[task_key]["mAP50"] <= 1):
+            failures.append(f"{task}: mAP50 {got['metrics']['mAP50']}, {got.get(task_key)}")
     if failures:
         emit(out)
         raise AssertionError("; ".join(failures))
@@ -1718,14 +1821,145 @@ def phase_val_bf16(report):
     frames = np.random.default_rng(SEED + 12).integers(0, 256, (VAL_BF16_FRAMES, 480, 640, 3), dtype=np.uint8)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_val_"))
     try:
-        return _val_bf16(report, pred, spec, frames, root)
+        out = _val_bf16(report, pred, spec, frames, root)
+        del pred
+        out["tasks"] = {task: _task_val_bf16(report, task, root / task) for task in VAL_TIMED}
+        return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# the other tasks' validation at full width: batch, imgsz, frames, frame (h, w)
+VAL_TIMED = {"segment": (16, 640, 32, (480, 640)), "obb": (16, 1024, 32, (768, 1024)),
+             "classify": (64, 224, 128, (480, 640))}
+
+
+def _task_val_bf16(report, task: str, root: Path):
+    """One task's validation path in bf16 (`VAL_TIMED`; segment and OBB at
+    the val defaults through `YOLO11Validator.validate`, classify through
+    `evaluate_classifier`) on PNG frames labelled with the model's own
+    predictions: the path's run (its first batch captures the signature)
+    with the counters reset, one batch's uncaptured body, a timed run
+    (images/s, peak device memory), and the kernels at the path's own
+    inputs: C (K = 4096) and F on the OBB path, G and the IoU build in front
+    of it on the segment path."""
+    import gc
+
+    import torch
+
+    import yolo_infer_tpu_torch.ops.decode as decode_mod
+    import yolo_infer_tpu_torch.ops.nms as nms_ops
+    import yolo_infer_tpu_torch.ops.rotated as rot_mod
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+    from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+    from yolo_infer_tpu_torch.data.classify import ClassifyDataset, _resize_center_crop, evaluate_classifier
+    from yolo_infer_tpu_torch.ops.kernels import greedy_nms as g_mod
+    from yolo_infer_tpu_torch.ops.kernels import rotated_nms_fused as rn_mod
+    from yolo_infer_tpu_torch.ops.letterbox import letterbox
+
+    batch, imgsz, n, hw = VAL_TIMED[task]
+    model, spec = report["task_weights"][task]
+    pred = Predictor(model, spec, device="cuda", compute_dtype=torch.bfloat16)
+    frames = np.random.default_rng(SEED + 13).integers(0, 256, (n,) + hw + (3,), dtype=np.uint8)
+    path_name = f"{task} val b{batch} {imgsz} bf16"
+    val = dict(VAL, imgsz=imgsz, batch=batch)
+    if task == "classify":
+        ds = ClassifyDataset(write_classify_tree(root, frames, rank_labels(pred, frames, imgsz), spec.nc), "val")
+        run = lambda: evaluate_classifier(None, ds, imgsz=imgsz, batch=batch, predictor=pred)  # noqa: E731
+    else:
+        labels = pred.predict(frames, conf=0.25, iou=VAL["iou"], imgsz=imgsz)
+        data = write_val_dataset(root, frames, labels, task, spec.nc)
+        validator = YOLO11Validator(model=pred, output_dir=root / "out")
+        run = lambda: validator.validate(data, verbose=False, **val)  # noqa: E731
+    path, first = path_counters(run)
+    seen = {}
+    restores = [capture_inputs(decode_mod, "dfl_decode", seen, clone=False),
+                capture_inputs(nms_ops, "box_iou_matrix", seen, clone=False),
+                capture_inputs(nms_ops, "greedy_nms_keep", seen, clone=False),
+                capture_inputs(rot_mod, "rotated_nms_keep", seen, clone=False)]
+    reset_counters()
+    try:
+        if task == "classify":
+            eager_run(pred, np.stack([_resize_center_crop(f, imgsz) for f in frames[:batch]]), imgsz, 0.0, 0.0)
+        else:
+            lb = np.stack([letterbox(f, imgsz)[0] for f in frames[:batch]])
+            eager_run(pred, lb, imgsz, VAL["conf"], VAL["iou"], multi_label=True, pre_topk=VAL["pre_topk"],
+                      mask_out="bits" if task == "segment" else None)
+    finally:
+        for restore in restores:
+            restore()
+    body = read_counters()
+    counts = path_launches(f"{task} validation path", VAL_TASK_KERNELS[task], path, body)
+    out = {"batch": batch, "imgsz": imgsz, "frames": n, "frame_hw": list(hw),
+           "launches": {k: r["launches"] for k, r in counts.items()}, "launches_per_call": body}
+    if task == "classify":
+        if first["num_images"] != n or not 0 < first["top1"] < first["top5"] < 1:
+            raise AssertionError(f"classify evaluation out of range: {first}")
+    elif first["num_images"] != n or not 0 < first["metrics"]["mAP50"] <= 1:
+        raise AssertionError(f"{task} validation out of range: {first['metrics']}, {first['num_images']} images")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed = run()
+    wall = time.perf_counter() - t0
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # one more run under torch.profiler: the kernels' busy share of its wall time
+    out["run_profile"] = kernel_profile(run, calls=1)
+    if task == "classify":
+        out.update(images_per_s=n / wall, total_s=wall, first_run=first, result=timed)
+        return out
+    out.update(images_per_s=timed["speed"]["images_per_s"], inference_ms_per_image=timed["speed"]["inference_ms_per_image"],
+               total_s=timed["speed"]["total_s"], first_run=first["speed"], metrics=timed["metrics"],
+               mask_metrics=timed.get("mask_metrics"), kernels=[])
+    if task == "obb":
+        gauss, valid, thr = seen["rotated_nms_keep"]
+        kernel_c = lambda: rn_mod.rotated_nms_keep(gauss, valid, thr)  # noqa: E731
+        plain_c = lambda: rn_mod.rotated_nms_keep_reference(gauss, valid, thr)  # noqa: E731
+        err_c = float((kernel_c() != plain_c()).sum())
+        if err_c:
+            raise AssertionError(f"kernel C differs from its plain version on the OBB validation path: {err_c}")
+        b, k, _ = gauss.shape
+        if k != VAL["pre_topk"]:
+            raise AssertionError(f"kernel C ran at K = {k} on the OBB validation path, not {VAL['pre_topk']}")
+        ops_c = valid_pairs(valid) * PROBIOU_OPS + b * k * 4
+        out["kernels"] += [{
+            "name": "rotated_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/rotated_nms_fused.cu",
+            "replaces": "yolo_infer_tpu/ops/pallas/nms_fused.py:149", "path": path_name,
+            **counts["rotated_nms_keep"], "max_abs_err": err_c, **c_time_split(gauss, valid, thr),
+            "warm_ms": device_ms(kernel_c), "plain_ms": device_ms(plain_c, iters=3),
+            "call_ms": cuda_ms(kernel_c, iters=20), "plain_call_ms": cuda_ms(plain_c, iters=3, warmup=1),
+            **bound(gauss.numel() * 4 + 2 * b * k, ops_c, H100_F32_OPS_UNFUSED), "library_ms": None,
+            "shape": [b, k, 5], "valid": int(valid.sum()), "valid_pairs": valid_pairs(valid)},
+            {**dfl_row(*seen["dfl_decode"], counts["dfl_decode"]["launches"], path_name), **counts["dfl_decode"]}]
+    else:
+        iou, valid, thr = seen["greedy_nms_keep"]
+        sup, _ = seen["box_iou_matrix"]
+        kernel_g = lambda: g_mod.greedy_nms_keep(iou, valid, thr)  # noqa: E731
+        plain_g = lambda: g_mod.greedy_nms_keep_reference(iou, valid, thr)  # noqa: E731
+        err_g = float((kernel_g() != plain_g()).sum())
+        if err_g:
+            raise AssertionError(f"kernel G differs from its plain version on the segment validation path: {err_g}")
+        bk, k, _ = iou.shape
+        pairs_g = valid_pairs(valid)
+        out["kernels"] += [{
+            "name": "greedy_nms_keep", "route": "cuda", "source": "yolo_infer_tpu_torch/csrc/greedy_nms.cu",
+            "replaces": "yolo_infer_tpu/ops/pallas/nms_kernel.py:48", "path": path_name,
+            **counts["greedy_nms_keep"], "max_abs_err": err_g, **g_time_split(iou, valid, thr),
+            "plain_ms": device_ms(plain_g, iters=3), "call_ms": cuda_ms(kernel_g, iters=20),
+            "plain_call_ms": cuda_ms(plain_g, iters=3, warmup=1),
+            **bound(4 * pairs_g + 2 * bk * k, pairs_g, H100_F32_FLOPS), "library_ms": None, "shape": [bk, k, k],
+            "valid": int(valid.sum()), "box_iou_matrix_ms": device_ms(lambda: nms_ops.box_iou_matrix(sup, sup), iters=5)}]
+    del seen, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _val_bf16(report, pred, spec, frames, root: Path):
     import torch
 
+    report.setdefault("kernels", [])  # phase 5 starts the list; this phase may run alone
     import yolo_infer_tpu_torch.ops.decode as decode_mod
     import yolo_infer_tpu_torch.ops.nms as nms_ops
     from yolo_infer_tpu_torch.core.validator import YOLO11Validator
@@ -2798,6 +3032,7 @@ LIVE_PATHS = (("detect b32", "detect", 32, 640, {}), ("detect b1", "detect", 1, 
               ("segment b8 bits", "segment", 8, 640, {"mask_out": "bits"}),
               ("segment b8 exact", "segment", 8, 640, {"mask_out": "exact"}),
               ("pose b16", "pose", 16, 640, {}), ("obb b16", "obb", 16, 1024, {}),
+              ("obb val b16", "obb", 16, 1024, {"multi_label": True, "pre_topk": 4096}),
               ("classify b32", "classify", 32, 224, {}), ("static8 b32", "static8", 32, 640, {}),
               ("pallas b32", "pallas", 32, 640, {}))
 LIVE_TIMED = ("detect b32", "detect b1", "static8 b32")  # captured against eager, by `call_times`

@@ -156,7 +156,109 @@ def test_labels_config_and_file_listing_match_jax(tmp_path):
     assert list_image_files(tmp_path / "images") == sorted((tmp_path / "images" / "val").glob("*.png"))
 
 
+def _polygon_dataset(tmp_path, task):
+    """Four PNG frames of three sizes with segment polygons or OBB corners:
+    convex and concave polygons, one touching the far edges (coordinates
+    of 1.0), rotated rectangles and squares, malformed lines the loaders
+    skip (too few values, a class out of range, a coordinate past 1), one
+    frame unlabelled."""
+    rng = np.random.default_rng(8)
+    img_dir, lbl_dir = tmp_path / "images" / "val", tmp_path / "labels" / "val"
+    lbl_dir.mkdir(parents=True)
+    for i, (h, w) in enumerate([(48, 64), (64, 40), (48, 64), (50, 50)]):
+        save_image(img_dir / f"im{i}.png", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        if i == 3:
+            continue
+        lines = []
+        for j in range(i + 2):
+            if task == "segment":
+                ang = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(3, 12))))
+                rad = rng.uniform(0.05, 0.3, len(ang)) * (1 if j % 2 else rng.uniform(0.4, 1, len(ang)))
+                c = rng.uniform(0.3, 0.7, 2)
+                pts = np.clip(np.stack([c[0] + rad * np.cos(ang), c[1] + rad * np.sin(ang)], 1), 0, 1)
+                if j == 0:
+                    pts[0] = 1.0
+            else:
+                cx, cy, bw, bh, a = rng.uniform([0.3, 0.3, 0.05, 0.05, 0], [0.7, 0.7, 0.3, 0.3, np.pi])
+                bh = bw if j % 2 else bh
+                cs, sn = np.cos(a), np.sin(a)
+                pts = np.clip([[cx + dx * cs - dy * sn, cy + dx * sn + dy * cs]
+                               for dx, dy in ((-bw / 2, -bh / 2), (bw / 2, -bh / 2), (bw / 2, bh / 2), (-bw / 2, bh / 2))],
+                              0, 1)
+            lines.append(f"{j % 2} " + " ".join(f"{v:.6f}" for v in np.ravel(pts)))
+        lines += ["5 0.1 0.1 0.2 0.1 0.2 0.2 0.1 0.2", "0 0.1 0.1 0.2 0.1 1.2 0.2 0.1 0.2", "1 0.5 0.5 0.6"]
+        (lbl_dir / f"im{i}.txt").write_text("\n".join(lines) + "\n")
+    return {"path": str(tmp_path), "val": "images/val", "names": ["a", "b"]}
+
+
+def _assert_same(got, want, where=""):
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), where
+        for key in want:
+            _assert_same(got[key], want[key], f"{where}.{key}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), where
+        for g, w in zip(got, want):
+            _assert_same(g, w, where)
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        assert g.dtype == w.dtype, where
+        np.testing.assert_array_equal(g, w, err_msg=where)
+
+
 @pytest.mark.parametrize("task", ["segment", "obb"])
-def test_unported_dataset_tasks_raise(tmp_path, task):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tds.YOLODataset(_dataset(tmp_path, "detect"), task=task)
+def test_polygon_dataset_records_and_batches_match_jax(tmp_path, task):
+    """Records (segment: classes, polygon boxes, polygons; OBB: corners,
+    min-area rotated boxes, envelope boxes), the loaders' skipping rules and
+    the letterboxed batches with their polygons, bit for bit."""
+    cfg = _polygon_dataset(tmp_path, task)
+    got, want = tds.YOLODataset(cfg, task=task), jds.YOLODataset(cfg, task=task)
+    n_labels = 0
+    for i in range(len(want)):
+        _assert_same(got[i], want[i], f"record {i}")
+        n_labels += len(want[i]["classes"])
+    assert n_labels == 2 + 3 + 4
+    loader = tds.load_labels_segments if task == "segment" else tds.load_labels_obb
+    jloader = jds.load_labels_segments if task == "segment" else jds.load_labels_obb
+    for lp in sorted((tmp_path / "labels" / "val").glob("*.txt")):
+        for nc in (None, 2):
+            _assert_same(list(loader(lp, nc)), list(jloader(lp, nc)), str(lp))
+    for g, w in zip(tds.iter_letterboxed_batches(got, 3, 64), jds.iter_letterboxed_batches(want, 3, 64)):
+        _assert_same(g, w)
+
+
+@pytest.mark.parametrize("imgsz", [64, 96])
+def test_instance_masks_and_rasterized_overlap_mask_match_jax(tmp_path, imgsz):
+    """`polygons_to_instance_masks` (the validator's ground truth) and
+    `rasterize_instance_mask` (training's overlap mask: instances by area
+    descending, ties in argsort order) equal the JAX package's (OpenCV's
+    fillPoly and contourArea), bit for bit."""
+    cfg = _polygon_dataset(tmp_path, "segment")
+    ds = tds.YOLODataset(cfg, task="segment")
+    for i in range(len(ds)):
+        rec = ds[i]
+        polys = rec["polygons"] + [rec["polygons"][0].copy()] if rec["polygons"] else []  # a repeated area: a tie
+        ratio, pad = tds.letterbox(rec["image"], imgsz)[1:]
+        got = tds.polygons_to_instance_masks(polys, rec["orig_shape"], ratio, pad, imgsz)
+        want = jds.polygons_to_instance_masks(polys, rec["orig_shape"], ratio, pad, imgsz)
+        _assert_same(got, want, f"masks {i}")
+        assert got.shape == (len(polys), imgsz // 4, imgsz // 4) and (not polys or got.any())
+        for kw in ({}, {"scale": ratio, "pad": pad, "out_hw": (imgsz, imgsz)}, {"scale": 1.5, "downsample": 2}):
+            _assert_same(tds.rasterize_instance_mask(polys, rec["orig_shape"], **kw),
+                         jds.rasterize_instance_mask(polys, rec["orig_shape"], **kw), f"overlap {i} {kw}")
+
+
+def test_corners_to_rbox_matches_jax():
+    """Rotated rectangles, squares (the w < h swap at a tie) and skewed quads."""
+    rng = np.random.default_rng(3)
+    corners = []
+    for k in range(60):
+        cx, cy, w, h, a = rng.uniform([0, 0, 2, 2, 0], [1024, 1024, 400, 400, np.pi])
+        h = w if k % 3 == 0 else h
+        c, s = np.cos(a), np.sin(a)
+        q = np.array([[cx + dx * c - dy * s, cy + dx * s + dy * c]
+                      for dx, dy in ((-w / 2, -h / 2), (w / 2, -h / 2), (w / 2, h / 2), (-w / 2, h / 2))])
+        q = q + rng.normal(0, 3, q.shape) if k % 5 == 1 else q
+        corners.append(np.round(q) if k % 4 == 2 else q)
+    corners = np.asarray(corners, np.float32)
+    _assert_same(tds.corners_to_rbox(corners), jds.corners_to_rbox(corners))

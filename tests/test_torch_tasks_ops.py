@@ -144,9 +144,33 @@ def test_greedy_walk_over_the_cleared_probiou_bitmask_gives_the_fixpoint(prefix)
     assert want[0].any() and not want[2].any()
 
 
-def test_multi_label_rotated_nms_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4.2"):
-        trot.batched_rotated_nms(torch.zeros(1, 8, 5), torch.zeros(1, 8, 2), multi_label=True)
+@pytest.mark.parametrize("nc, pre_topk, max_det", [
+    (15, 4096, 300),  # nc > c: each anchor's top 8 classes; the pool of A * 8 not capped
+    (15, 96, 300),  # ... capped below A * 8 and below max_det: padded before the top-k
+    (4, 4096, 300),  # nc <= c: every (anchor, class) pair
+    (4, 200, 50),  # ... capped, and max_det below the pool
+])
+def test_multi_label_rotated_nms_matches_jax(nc, pre_topk, max_det):
+    """The OBB validation NMS: the same (anchor, class) pool, class offsets
+    and probIoU keep as the JAX package's: counts, classes, valid and
+    anchor_idx exactly, boxes within 1e-3 px, scores within 1e-5."""
+    rng = np.random.default_rng(nc + pre_topk)
+    rb, _ = _rboxes(rng, 2, 160)
+    rb[:, 0:159:3, :2] = rb[:, 1::3, :2] + rng.uniform(-4, 4, rb[:, 1::3, :2].shape)  # overlapping neighbours
+    scores = (rng.uniform(0, 1, (2, 160, nc)) ** 3).astype(np.float32)
+    scores[1, 40:] = 0.0  # an image whose pool is mostly below conf
+    got = trot.batched_rotated_nms(torch.from_numpy(rb), torch.from_numpy(scores), 0.01, 0.3, pre_topk=pre_topk,
+                                   max_det=max_det, multi_label=True, multi_label_topc=8)
+    want = jrot.batched_rotated_nms(jnp.asarray(rb), jnp.asarray(scores), 0.01, 0.3, pre_topk=pre_topk,
+                                    max_det=max_det, multi_label=True, multi_label_topc=8)
+    assert set(got) == set(want)
+    for key in ("num", "valid", "classes", "anchor_idx"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), atol=1e-5, rtol=0)
+    num = got["num"].numpy()
+    assert got["boxes"].shape == (2, max_det, 5) and num.min() > 0
+    assert len(np.unique(got["classes"][0, :num[0]].numpy())) > 1
 
 
 def test_dist2rbox_matches_jax():

@@ -7,8 +7,9 @@ same formula) and within 1e-4 of `dfl_expectation` (softmax first, then the
 dot: the rounding differs, as the JAX kernel's own test allows); G's plain
 version bit-equal to the Pallas kernel; `batched_nms` with exact classes,
 counts, valid and anchor_idx, boxes and scores within 1e-5; the multi-label
-`predict_raw` (pre_topk 4096) on golden weights with exact classes and
-counts, boxes and keypoints within 1e-3 px and scores within 1e-5.
+`predict_raw` (pre_topk 4096) on golden weights, OBB's included, with exact
+classes and counts, boxes and keypoints within 1e-3 px and scores within
+1e-5.
 """
 
 from pathlib import Path
@@ -206,10 +207,12 @@ def _predictors(task):
     return _CACHE[task]
 
 
-@pytest.mark.parametrize("task,topc", [("detect", "8"), ("detect", "2"), ("pose", "8")])
+@pytest.mark.parametrize("task,topc", [("detect", "8"), ("detect", "2"), ("pose", "8"), ("obb", "8"), ("obb", "2")])
 def test_multi_label_predict_raw_matches_jax(task, topc, monkeypatch):
     """conf 0.001 and iou 0.6 as the validator runs it; YOLO_MULTI_LABEL_TOPC=2
-    (< nc = 5) takes the per-anchor top-C pool, 8 the whole (anchor, class) pool."""
+    (< nc = 5) takes the per-anchor top-C pool, 8 the whole (anchor, class)
+    pool. OBB: the rotated NMS's pool of (anchor, class) pairs and its
+    probIoU keep (kernel C's plain version), boxes (B, 300, 5)."""
     monkeypatch.setenv("YOLO_MULTI_LABEL_TOPC", topc)
     jax_pred, port = _predictors(task)
     frames = np.random.default_rng(5).integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
@@ -234,12 +237,3 @@ def test_multi_label_predict_matches_jax_results():
         np.testing.assert_array_equal(g.classes, w.classes)
         np.testing.assert_allclose(g.boxes, w.boxes, atol=1e-3, rtol=0)
         np.testing.assert_allclose(g.scores, w.scores, atol=1e-5, rtol=0)
-
-
-def test_multi_label_obb_raises():
-    from yolo_infer_tpu_torch.models.yolo11 import build_model
-
-    model, spec = build_model("obb", "n", nc=3, seed=0)
-    pred = Predictor(model, spec, device="cpu", compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4.2"):
-        pred.predict_raw(torch.zeros((1, 64, 64, 3), dtype=torch.uint8), 0.001, 0.6, 64, multi_label=True)

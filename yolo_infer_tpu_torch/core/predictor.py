@@ -22,7 +22,9 @@ YOLO11 forward -> the task's tail -> host rescale into `Results`. The tails:
 With `multi_label=True` (the validation program) detect, pose and segment
 take the full-grid f32 decode (kernel F) and `ops.nms.batched_nms`: the
 per-anchor top-8 classes, an exact top-`pre_topk` pool, the class-offset IoU
-matrix and the greedy keep (kernel G).
+matrix and the greedy keep (kernel G). OBB takes the same pool of (anchor,
+class) pairs into `ops.rotated.batched_rotated_nms`, whose keep mask is
+kernel C (probIoU inside its bits pass: no (B, K, K) matrix).
 
 With PTQ activation scales (`quant_act_scales`, (n, 2)) the forward of a
 quantized model (`models/yolo11.py quantize_model`) runs inside a static8
@@ -518,7 +520,7 @@ class Predictor:
             rb = dist2rbox(dist, angle, ap[None]) * st[None]  # (B, A, 4) px
             rboxes = torch.cat([rb, angle[..., None]], dim=-1)
             return batched_rotated_nms(rboxes, scores, conf, iou, pre_topk=pool, max_det=md,
-                                       multi_label=multi_label)
+                                       multi_label=multi_label, multi_label_topc=_multi_label_topc())
         if multi_label:
             boxes, scores = decode_detections(feats, spec.nc, spec.reg_max, spec.strides)
             dets = batched_nms(boxes, scores, conf, iou, pre_topk=pool, max_det=md, multi_label=True,

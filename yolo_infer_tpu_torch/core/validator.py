@@ -1,11 +1,17 @@
 """YOLO11Validator: batched validation with the in-repo mAP computation.
 
-Port of `yolo_infer_tpu/core/validator.py` for detect and pose. Per batch of
-host-letterboxed frames the card runs letterbox -> forward -> full-grid f32
-decode (kernel F) -> multi-label NMS (kernel G), enqueued without a host
-sync; the host then matches the previous batch against its labels while the
-card works, and only then waits for this batch's detections. Box mAP for
-every task, OKS mAP for pose (`core/metrics.py`).
+Port of `yolo_infer_tpu/core/validator.py` for every detection task. Per
+batch of host-letterboxed frames the card runs letterbox -> forward ->
+full-grid f32 decode (kernel F) -> multi-label NMS, enqueued without a host
+sync: the class-offset IoU matrix and greedy keep (kernel G) for detect,
+segment and pose, the probIoU keep (kernel C) for OBB. The host then matches
+the previous batch against its labels while the card works, and only then
+waits for this batch's detections. Box mAP for every task (OBB boxes as
+their axis-aligned envelopes), mask mAP for segment (the kept rows' masks
+bit-packed at prototype resolution on the card, "bits", against the label
+polygons filled at the same resolution) and OKS mAP for pose
+(`core/metrics.py`). Classify models are evaluated by
+`data/classify.py evaluate_classifier`.
 
 `model` is any object with a `.predictor` (the port's `YOLO11Model`), or a
 port `Predictor` itself; with none, `model_path` names a `YOLO11Model`: a
@@ -29,12 +35,22 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from yolo_infer_tpu_torch.core.metrics import ConfusionMatrix, DetMetrics, oks_matrix
-from yolo_infer_tpu_torch.core.predictor import Predictor
-from yolo_infer_tpu_torch.data.dataset import YOLODataset, iter_letterboxed_batches
-from yolo_infer_tpu_torch.ops.letterbox import scale_boxes
+from yolo_infer_tpu_torch.core.metrics import ConfusionMatrix, DetMetrics, mask_iou_matrix, oks_matrix
+from yolo_infer_tpu_torch.core.predictor import Predictor, _assemble_masks, _obb_to_xyxy
+from yolo_infer_tpu_torch.data.dataset import YOLODataset, iter_letterboxed_batches, polygons_to_instance_masks
+from yolo_infer_tpu_torch.ops.letterbox import scale_boxes, scale_obb
+from yolo_infer_tpu_torch.ops.masks import unpack_mask_bits
 
 logger = logging.getLogger(__name__)
+
+
+def _boxes_to_original(raw: np.ndarray, ratio: float, pad, orig_shape) -> np.ndarray:
+    """Map predicted boxes to original-image xyxy; rotated (5-col) boxes are
+    unpadded/unscaled and reduced to axis-aligned envelopes for box metrics."""
+    if raw.shape[-1] == 5:
+        return _obb_to_xyxy(scale_obb(raw, ratio, pad), orig_shape)
+    return scale_boxes(raw, ratio, pad, orig_shape)
+
 
 def _transient_programs(predictor):
     """`predictor.transient_programs()`: the programs a run builds are
@@ -103,7 +119,7 @@ class YOLO11Validator:
         if limit is not None:
             ds.images = ds.images[:limit]
         metrics = DetMetrics(nc=ds.nc)
-        task_metrics = DetMetrics(nc=ds.nc) if ds_task == "pose" else None
+        task_metrics = DetMetrics(nc=ds.nc) if ds_task in ("segment", "pose") else None
         cm = ConfusionMatrix(nc=ds.nc) if confusion_matrix else None
 
         t_start = time.perf_counter()
@@ -115,7 +131,7 @@ class YOLO11Validator:
             for i in range(n):
                 m = metas[i]
                 k = int(dets_np["num"][i])
-                boxes = scale_boxes(dets_np["boxes"][i, :k], m["ratio"], m["pad"], m["orig_shape"])
+                boxes = _boxes_to_original(dets_np["boxes"][i, :k], m["ratio"], m["pad"], m["orig_shape"])
                 metrics.update(boxes, dets_np["scores"][i, :k], dets_np["classes"][i, :k].astype(np.int32),
                                m["boxes"], m["classes"])
                 if cm is not None:
@@ -125,7 +141,8 @@ class YOLO11Validator:
                     self._update_task_metrics(task_metrics, ds_task, dets_np, i, k, m, imgsz)
 
         # the run's program is released when it ends: its graph holds the
-        # multi-label NMS's (batch, pre_topk, pre_topk) IoU
+        # multi-label NMS's (batch, pre_topk, pre_topk) IoU (not OBB's: kernel
+        # C computes probIoU in its bits pass)
         with _transient_programs(predictor):
             for batch_data in ds.iter_val_batches(batch_size=batch, imgsz=imgsz):
                 t0 = time.perf_counter()
@@ -133,7 +150,7 @@ class YOLO11Validator:
                 # exceeds the serving cap
                 frames = torch.from_numpy(batch_data["images"]).to(predictor.device)
                 dets = predictor.predict_raw(frames, conf, iou, imgsz, max_det, multi_label=multi_label,
-                                             pre_topk=pre_topk)
+                                             pre_topk=pre_topk, mask_out="bits" if ds_task == "segment" else None)
                 if pending is not None:
                     drain(*pending)  # the host matches the previous batch while the card runs
                 dets_np = _to_host(dets, predictor.device)
@@ -164,7 +181,7 @@ class YOLO11Validator:
             "config": {"imgsz": imgsz, "batch": batch, "conf": conf, "iou": iou, "split": split},
         }
         if task_results is not None:
-            out["pose_metrics"] = {
+            out["mask_metrics" if ds_task == "segment" else "pose_metrics"] = {
                 "mAP50-95": task_results["map"],
                 "mAP50": task_results["map50"],
                 "mAP75": task_results["map75"],
@@ -181,20 +198,31 @@ class YOLO11Validator:
         return out
 
     def _update_task_metrics(self, task_metrics, ds_task, dets_np, i, k, m, imgsz):
-        """OKS (pose) matching for image i of a batch, in letterboxed pixels
-        (segment's mask IoU waits with its dataset: ROADMAP Queue 1 item 4.1)."""
+        """Mask-IoU (segment) or OKS (pose) matching for image i of a batch."""
         scores = dets_np["scores"][i, :k]
         cls = dets_np["classes"][i, :k].astype(np.int32)
-        gt_kpts = m.get("keypoints", np.zeros((0, 17, 3), np.float32)).copy()
-        if len(gt_kpts):
-            gt_kpts[..., 0] = gt_kpts[..., 0] * m["ratio"] + m["pad"][0]
-            gt_kpts[..., 1] = gt_kpts[..., 1] * m["ratio"] + m["pad"][1]
-        gt_boxes_lb = m["boxes"] * m["ratio"]
-        areas = ((gt_boxes_lb[:, 2] - gt_boxes_lb[:, 0]) * (gt_boxes_lb[:, 3] - gt_boxes_lb[:, 1])
-                 if len(gt_boxes_lb) else np.zeros((0,)))
-        pred_kpts = (dets_np["kpts"][i, :k] if "kpts" in dets_np
-                     else np.zeros((0, gt_kpts.shape[1] if len(gt_kpts) else 17, 3)))
-        task_metrics.update_from_iou(oks_matrix(pred_kpts, gt_kpts, areas), scores, cls, m["classes"])
+        if ds_task == "segment":
+            gt_masks = polygons_to_instance_masks(m.get("polygons", []), m["orig_shape"], m["ratio"], m["pad"], imgsz)
+            if k > 0 and "mask_bits" in dets_np:  # binary masks packed on the device (ops/masks.py)
+                pred_masks = unpack_mask_bits(dets_np["mask_bits"][i, :k])
+            elif k > 0:
+                pred_masks = _assemble_masks(dets_np["proto"][i], dets_np["mask_coefs"][i, :k],
+                                             dets_np["boxes"][i, :k], imgsz) > 0.5
+            else:
+                pred_masks = np.zeros((0,) + gt_masks.shape[1:], bool)
+            iou = mask_iou_matrix(pred_masks, gt_masks)
+        else:  # pose: OKS in letterboxed pixels
+            gt_kpts = m.get("keypoints", np.zeros((0, 17, 3), np.float32)).copy()
+            if len(gt_kpts):
+                gt_kpts[..., 0] = gt_kpts[..., 0] * m["ratio"] + m["pad"][0]
+                gt_kpts[..., 1] = gt_kpts[..., 1] * m["ratio"] + m["pad"][1]
+            gt_boxes_lb = m["boxes"] * m["ratio"]
+            areas = ((gt_boxes_lb[:, 2] - gt_boxes_lb[:, 0]) * (gt_boxes_lb[:, 3] - gt_boxes_lb[:, 1])
+                     if len(gt_boxes_lb) else np.zeros((0,)))
+            pred_kpts = (dets_np["kpts"][i, :k] if "kpts" in dets_np
+                         else np.zeros((0, gt_kpts.shape[1] if len(gt_kpts) else 17, 3)))
+            iou = oks_matrix(pred_kpts, gt_kpts, areas)
+        task_metrics.update_from_iou(iou, scores, cls, m["classes"])
 
     # ------------------------------------------------- speed and comparison
 
@@ -274,7 +302,7 @@ class YOLO11Validator:
                 for i in range(batch_data["n"]):
                     m = batch_data["metas"][i]
                     kk = int(dets_np["num"][i])
-                    boxes = scale_boxes(dets_np["boxes"][i, :kk], m["ratio"], m["pad"], m["orig_shape"])
+                    boxes = _boxes_to_original(dets_np["boxes"][i, :kk], m["ratio"], m["pad"], m["orig_shape"])
                     metrics.update(boxes, dets_np["scores"][i, :kk],
                                    dets_np["classes"][i, :kk].astype(np.int32), m["boxes"], m["classes"])
                 n_images += batch_data["n"]

@@ -1,12 +1,14 @@
-"""YOLO-format dataset (images/ + labels/*.txt with normalized xywh).
+"""YOLO-format dataset (images/ + labels/*.txt with normalized coordinates).
 
-Port of `yolo_infer_tpu/data/dataset.py` for the detect and pose tasks: the
-dataset config (a dict, or a YAML file read with `yaml` on first use), the
-per-image label files (`cls cx cy w h`, plus keypoint triplets for pose),
-and the host-letterboxed val batches (the port's OpenCV-free `letterbox`).
-Segment ground truth needs a polygon fill and OBB labels a minimum-area
-rectangle, which the JAX package takes from OpenCV; both raise
-`NotImplementedError` here (ROADMAP Queue 1 items 4.1 and 4.2).
+Port of `yolo_infer_tpu/data/dataset.py` for every task: the dataset config
+(a dict, or a YAML file read with `yaml` on first use), the per-image label
+files (`cls cx cy w h`; segment polygons `cls x1 y1 x2 y2 ...`; OBB corners
+`cls x1 y1 ... x4 y4`; keypoint triplets for pose), and the
+host-letterboxed val batches (the port's OpenCV-free `letterbox`). The JAX
+package fills polygons and fits minimum-area rectangles with OpenCV; the
+port takes `fill_poly`, `contour_area` and `min_area_rect` from
+`data/polygon.py`, numpy copies of OpenCV's routines that give the same
+masks and rotated boxes.
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ from typing import Any, Dict, Generator, List, Optional, Tuple, Union
 import numpy as np
 
 from yolo_infer_tpu_torch.data.loader import IMAGE_EXTS, load_image
+from yolo_infer_tpu_torch.data.polygon import contour_area, fill_polys, min_area_rect
 from yolo_infer_tpu_torch.ops.letterbox import letterbox
 
-TASKS = ("detect", "pose")
-_UNPORTED_TASKS = ("segment", "obb")
+TASKS = ("detect", "segment", "pose", "obb")
 
 
 def parse_dataset_config(data: Union[str, Path, Dict[str, Any]]) -> Dict[str, Any]:
@@ -80,6 +82,29 @@ def load_labels(label_path: Path, nc: Optional[int] = None) -> Tuple[np.ndarray,
     return np.asarray(cls_list, np.int32), np.asarray(box_list, np.float32)
 
 
+def load_labels_segments(label_path: Path, nc: Optional[int] = None):
+    """Segment labels: `cls x1 y1 x2 y2 ...` normalized polygons.
+
+    Returns (classes (M,), polygons: list of (P_i, 2) arrays in [0,1]).
+    """
+    if not label_path.exists():
+        return np.zeros((0,), np.int32), []
+    cls_list, polys = [], []
+    for line in label_path.read_text().splitlines():
+        parts = line.split()
+        if len(parts) < 7 or (len(parts) - 1) % 2 != 0:  # need >=3 points
+            continue
+        c = int(float(parts[0]))
+        if nc is not None and not (0 <= c < nc):
+            continue
+        coords = np.asarray([float(v) for v in parts[1:]], np.float32).reshape(-1, 2)
+        if coords.min() < 0.0 or coords.max() > 1.0:
+            continue
+        cls_list.append(c)
+        polys.append(coords)
+    return np.asarray(cls_list, np.int32), polys
+
+
 def load_labels_keypoints(label_path: Path, kpt_shape=(17, 3), nc: Optional[int] = None):
     """Pose labels: `cls cx cy w h x1 y1 [v1] ...` normalized.
 
@@ -111,6 +136,88 @@ def load_labels_keypoints(label_path: Path, kpt_shape=(17, 3), nc: Optional[int]
     return np.asarray(cls_list, np.int32), np.asarray(boxes, np.float32), np.stack(kpts)
 
 
+def load_labels_obb(label_path: Path, nc: Optional[int] = None):
+    """OBB labels (DOTA-in-YOLO): `cls x1 y1 x2 y2 x3 y3 x4 y4` normalized corners.
+
+    Returns (classes (M,), corners (M, 4, 2) in [0,1]).
+    """
+    if not label_path.exists():
+        return np.zeros((0,), np.int32), np.zeros((0, 4, 2), np.float32)
+    cls_list, corners = [], []
+    for line in label_path.read_text().splitlines():
+        parts = line.split()
+        if len(parts) != 9:
+            continue
+        c = int(float(parts[0]))
+        if nc is not None and not (0 <= c < nc):
+            continue
+        pts = np.asarray([float(v) for v in parts[1:]], np.float32).reshape(4, 2)
+        if pts.min() < 0.0 or pts.max() > 1.0:
+            continue
+        cls_list.append(c)
+        corners.append(pts)
+    if not cls_list:
+        return np.zeros((0,), np.int32), np.zeros((0, 4, 2), np.float32)
+    return np.asarray(cls_list, np.int32), np.stack(corners)
+
+
+def corners_to_rbox(corners_px: np.ndarray) -> np.ndarray:
+    """(M, 4, 2) pixel corners -> (M, 5) cx, cy, w, h, angle[rad in [-pi/4, 3pi/4))."""
+    out = np.zeros((len(corners_px), 5), np.float32)
+    for i, pts in enumerate(corners_px):
+        (cx, cy), (w, h), deg = min_area_rect(pts.astype(np.float32))
+        rad = np.deg2rad(deg)
+        # canonicalize to the head's angle range
+        if w < h:
+            w, h = h, w
+            rad += np.pi / 2
+        while rad >= 3 * np.pi / 4:
+            rad -= np.pi
+        while rad < -np.pi / 4:
+            rad += np.pi
+        out[i] = [cx, cy, w, h, rad]
+    return out
+
+
+def polygons_to_boxes(polys, w: int, h: int) -> np.ndarray:
+    """Polygon extents -> xyxy pixel boxes."""
+    if not polys:
+        return np.zeros((0, 4), np.float32)
+    out = np.zeros((len(polys), 4), np.float32)
+    for i, poly in enumerate(polys):
+        xs, ys = poly[:, 0] * w, poly[:, 1] * h
+        out[i] = [xs.min(), ys.min(), xs.max(), ys.max()]
+    return out
+
+
+def rasterize_instance_mask(polys, shape_hw, scale: float = 1.0, pad=(0.0, 0.0), out_hw=None,
+                            downsample: int = 4) -> np.ndarray:
+    """Rasterize polygons into one overlap mask with instance ids 1..M.
+
+    Polygons are normalized to the ORIGINAL image (shape_hw); `scale`/`pad`
+    map through the letterbox; the mask is drawn at 1/downsample resolution
+    (the proto grid). Later instances overwrite earlier (ultralytics overlap
+    semantics: sorted by area descending so small objects stay visible).
+    """
+    h, w = shape_hw
+    oh, ow = out_hw if out_hw else (int(h * scale), int(w * scale))
+    mh, mw = oh // downsample, ow // downsample
+    mask = np.zeros((mh, mw), np.int32)
+    areas = []
+    pts_scaled = []
+    for poly in polys:
+        pts = poly.copy()
+        pts[:, 0] = (pts[:, 0] * w * scale + pad[0]) / downsample
+        pts[:, 1] = (pts[:, 1] * h * scale + pad[1]) / downsample
+        pts_i = np.round(pts).astype(np.int32)
+        pts_scaled.append(pts_i)
+        areas.append(contour_area(pts_i))
+    filled = fill_polys((mh, mw), pts_scaled)  # each polygon's pixels, as cv2.fillPoly sets them
+    for idx in np.argsort(-np.asarray(areas)) if areas else []:
+        mask[filled[idx]] = int(idx) + 1
+    return mask
+
+
 def xywhn_to_xyxy(xywhn: np.ndarray, w: int, h: int) -> np.ndarray:
     """Normalized center-format -> absolute xyxy pixels."""
     out = np.empty_like(xywhn)
@@ -127,14 +234,13 @@ class YOLODataset:
     """Image+label pairs for one split of a YOLO-format dataset.
 
     task='detect'   labels: cls cx cy w h
+    task='segment'  labels: cls x1 y1 x2 y2 ... (polygons; boxes derived)
     task='pose'     labels: cls cx cy w h x1 y1 v1 ... (keypoint triplets)
+    task='obb'      labels: cls x1 y1 ... x4 y4 (corners; rotated and envelope boxes derived)
     """
 
     def __init__(self, data: Union[str, Path, Dict[str, Any]], split: str = "val", task: str = "detect",
                  kpt_shape=(17, 3)):
-        if task in _UNPORTED_TASKS:
-            raise NotImplementedError(f"{task} datasets are not ported yet (ROADMAP Queue 1 item 4: "
-                                      "segment needs a polygon fill, OBB a minimum-area rectangle)")
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")
         self.cfg = parse_dataset_config(data)
@@ -158,7 +264,26 @@ class YOLODataset:
         h, w = img.shape[:2]
         lp = label_path_for(path)
         rec: Dict[str, Any] = {"image": img, "path": path, "orig_shape": (h, w)}
-        if self.task == "pose":
+        if self.task == "segment":
+            cls, polys = load_labels_segments(lp, self.nc)
+            rec["classes"] = cls
+            rec["boxes"] = polygons_to_boxes(polys, w, h)
+            rec["polygons"] = polys
+        elif self.task == "obb":
+            cls, corners = load_labels_obb(lp, self.nc)
+            rec["classes"] = cls
+            corners_px = corners.copy()
+            corners_px[..., 0] *= w
+            corners_px[..., 1] *= h
+            rec["corners"] = corners_px
+            rec["rboxes"] = corners_to_rbox(corners_px) if len(cls) else np.zeros((0, 5), np.float32)
+            # axis-aligned envelopes for the box metrics
+            if len(cls):
+                rec["boxes"] = np.stack([corners_px[..., 0].min(1), corners_px[..., 1].min(1),
+                                         corners_px[..., 0].max(1), corners_px[..., 1].max(1)], axis=1)
+            else:
+                rec["boxes"] = np.zeros((0, 4), np.float32)
+        elif self.task == "pose":
             cls, xywhn, kpts = load_labels_keypoints(lp, self.kpt_shape, self.nc)
             rec["classes"] = cls
             rec["boxes"] = xywhn_to_xyxy(xywhn, w, h) if len(cls) else np.zeros((0, 4), np.float32)
@@ -188,8 +313,22 @@ def iter_letterboxed_batches(dataset, batch_size: int, imgsz: int) -> Generator[
             lb, ratio, pad = letterbox(r["image"], imgsz)
             imgs.append(lb)
             metas.append({"ratio": ratio, "pad": pad,
-                          **{k: r[k] for k in ("path", "orig_shape", "classes", "boxes", "keypoints") if k in r}})
+                          **{k: r[k] for k in ("path", "orig_shape", "classes", "boxes", "polygons", "keypoints")
+                             if k in r}})
         n = len(imgs)
         if n < batch_size:  # pad batch to static shape
             imgs.extend([np.zeros_like(imgs[0])] * (batch_size - n))
         yield {"images": np.stack(imgs), "metas": metas, "n": n}
+
+
+def polygons_to_instance_masks(polys, orig_shape_hw, ratio: float, pad, imgsz: int, downsample: int = 4) -> np.ndarray:
+    """Per-instance binary masks at the letterboxed proto grid: (M, S/d, S/d)."""
+    h, w = orig_shape_hw
+    m = imgsz // downsample
+    scaled = []
+    for poly in polys:
+        pts = poly.copy()
+        pts[:, 0] = (pts[:, 0] * w * ratio + pad[0]) / downsample
+        pts[:, 1] = (pts[:, 1] * h * ratio + pad[1]) / downsample
+        scaled.append(np.round(pts).astype(np.int32))
+    return fill_polys((m, m), scaled)

@@ -14,7 +14,7 @@ import torch
 
 from yolo_infer_tpu_torch.ops.kernels.nms_walk import threshold_tensor
 from yolo_infer_tpu_torch.ops.kernels.rotated_nms_fused import rotated_nms_keep
-from yolo_infer_tpu_torch.ops.nms import MAX_WH, Threshold, _keep_layout, _topk_stable
+from yolo_infer_tpu_torch.ops.nms import MAX_WH, Threshold, _keep_layout, _topc_per_anchor, _topk_stable
 
 EPS = 1e-7
 
@@ -103,20 +103,41 @@ def batched_rotated_nms(
     pre_topk: int = 1024,
     max_det: int = 300,
     multi_label: bool = False,
+    multi_label_topc: int = 8,
 ) -> Dict[str, torch.Tensor]:
-    """Single-label rotated NMS with fixed-shape outputs: boxes
-    (B, max_det, 5) xywhr, scores, classes, valid, num (B,) int32,
-    anchor_idx; invalid slots are zero / -1."""
-    if multi_label:
-        raise NotImplementedError("multi-label rotated NMS is not ported yet (ROADMAP Queue 1 item 4.2, OBB validation)")
+    """Rotated NMS with fixed-shape outputs: boxes (B, max_det, 5) xywhr,
+    scores, classes, valid, num (B,) int32, anchor_idx; invalid slots are
+    zero / -1.
+
+    Single-label: each anchor's best class, a pool of min(pre_topk, A).
+    Multi-label (the OBB validation protocol): one candidate per (anchor,
+    class) pair above conf, each anchor's top-`multi_label_topc` classes
+    when that cap is below nc, else all nc; a pool of min(pre_topk, A * c).
+    The class-offset keep mask is kernel C on the card."""
     rboxes = rboxes.float()
     scores = scores.float()
-    best, cls_best = scores.max(dim=-1)
-    a = best.shape[1]
-    k = min(pre_topk, a)
-    cand = torch.where(best > threshold_tensor(conf_thres, best.device), best, torch.full_like(best, -1.0))
-    top_scores, top_idx = _topk_stable(cand, k)
-    cls = torch.gather(cls_best.float(), 1, top_idx)
+    b, a, nc = scores.shape
+    conf = threshold_tensor(conf_thres, scores.device)
+    if multi_label:
+        c = multi_label_topc
+        if c < nc:
+            cls_scores, cls_idx = _topc_per_anchor(scores, c)  # (B, A, c)
+            flat = cls_scores.reshape(b, a * c)
+            k = min(pre_topk, a * c)
+            top_scores, top_pair = _topk_stable(torch.where(flat > conf, flat, torch.full_like(flat, -1.0)), k)
+            top_idx = torch.div(top_pair, c, rounding_mode="floor")
+            cls = torch.gather(cls_idx.reshape(b, a * c), 1, top_pair).float()
+        else:
+            flat = scores.reshape(b, a * nc)
+            k = min(pre_topk, a * nc)
+            top_scores, top_pair = _topk_stable(torch.where(flat > conf, flat, torch.full_like(flat, -1.0)), k)
+            top_idx = torch.div(top_pair, nc, rounding_mode="floor")
+            cls = (top_pair % nc).float()
+    else:
+        best, cls_best = scores.max(dim=-1)
+        k = min(pre_topk, a)
+        top_scores, top_idx = _topk_stable(torch.where(best > conf, best, torch.full_like(best, -1.0)), k)
+        cls = torch.gather(cls_best.float(), 1, top_idx)
     cb = torch.gather(rboxes, 1, top_idx[..., None].expand(-1, -1, 5))
     sup = cb.clone()
     sup[..., 0] += cls * MAX_WH  # class-aware: shift centres apart per class
