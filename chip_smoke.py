@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs twenty-seven phases, each printing one JSON line. Kernels A, C, F and G
+runs twenty-eight phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -250,6 +250,24 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              at 3 * PROGRAM_CACHE_SIZE frame sizes (`bounded_cache`): the
              cache keeps PROGRAM_CACHE_SIZE programs and the reserved memory
              stays within one program's share of the full cache's
+ 28. cli     the command line in process (`cli.YOLO11CLI().run`), yolo11n:
+             the port's JPEG decoder on every fixture of tests/torch_jpeg/
+             (OpenCV's pixel hashes from its manifest) and the decode
+             seconds of assets/sample.jpg (640x480, 4:2:0); the encoder's
+             bytes for the seeded frames `jpeg_frame(0..3)` against OpenCV's
+             hashes and the PSNR of their round trip; then `info`; `demo`
+             on the sample with the phase 4 weights written as a `.msgpack`
+             by the port (bf16), and in f32 on cuda and on cpu (phase 4's
+             tolerances); `demo` on a directory of 8 JPEGs the port's
+             encoder wrote (host seconds per image: decode, predict, draw,
+             encode); `val --batch 16` on 32 seeded JPEG frames labelled
+             with the model's own f32 detections (a dataset YAML written by
+             `create_dataset_config`), its metrics equal to
+             `YOLO11Validator.validate` on the same files; `optimize --method
+             ptq` and `demo` on its output (static8); `benchmark --type sizes`
+             at 640, batch 1 and 32, 20 runs; `train` exits 1 naming ROADMAP
+             Queue 1 item 8 and a missing input exits 2. A, B, E, F and G
+             must each launch in these runs
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -489,6 +507,22 @@ def device_ms_each(fns, iters: int = 3):
         raise AssertionError(f"queueing the timed calls took {queued_s:.3f} s, longer than the sleep ahead of them")
     ms = np.array([[start.elapsed_time(end) for start, end in row] for row in marks])
     return [float(v) for v in np.median(ms, axis=0)]
+
+
+def jpeg_frame(seed: int, h: int = 480, w: int = 640) -> np.ndarray:
+    """A seeded RGB frame with a photo's structure in integer arithmetic
+    only (the same pixels on any host): colour gradients, six flat boxes
+    and noise of +-12. `tests/torch_jpeg/make_fixtures.py` hashes OpenCV's
+    JPEG bytes of these frames into the fixtures' manifest."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([x * 255 // w, y * 255 // h, (x + y) * 255 // (w + h)], axis=-1)
+    for _ in range(6):
+        x0, y0 = int(rng.integers(0, w)), int(rng.integers(0, h))
+        img[y0: y0 + int(rng.integers(1, h // 3 + 2)), x0: x0 + int(rng.integers(1, w // 3 + 2))] = \
+            rng.integers(0, 256, 3)
+    img = img + rng.integers(-12, 13, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def random_candidates(rng, b: int, k: int):
@@ -3335,6 +3369,226 @@ def phase_checkpoints(report):
     return out
 
 
+CLI_DIR_FRAMES = 8  # JPEGs of the directory demo
+CLI_VAL_FRAMES = 32  # JPEG frames of the CLI's detect validation set
+CLI_KERNELS = ("nms_keep", "attention_qkv", "int8_conv", "dfl_decode", "greedy_nms_keep")  # A, B, E, F, G
+
+
+def run_cli(*argv):
+    """`YOLO11CLI().run(argv)` in this process: (exit code, its stdout parsed
+    as JSON where it is, host seconds, the kernel launches of the run, the
+    CLI's error log)."""
+    import contextlib
+    import io
+    import logging
+
+    import torch
+
+    from yolo_infer_tpu_torch.cli import YOLO11CLI
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    cli_log = logging.getLogger("yolo_infer_tpu_torch.cli")
+    keep = Keep(level=logging.ERROR)
+    cli_log.addHandler(keep)
+    buf = io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = YOLO11CLI().run([str(a) for a in argv])
+        torch.cuda.synchronize()
+    finally:
+        cli_log.removeHandler(keep)
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    try:
+        parsed = json.loads(text)
+    except ValueError:
+        parsed = text
+    return rc, parsed, seconds, {k: v for k, v in read_counters().items() if v}, records
+
+
+def _dets(d):
+    """A demo dict's detections as `match_detections` reads them."""
+    return _Dets(boxes=np.asarray(d["boxes"], np.float64).reshape(-1, 4),
+                 scores=np.asarray(d["confidences"], np.float64), classes=np.asarray(d["classes"]))
+
+
+def phase_cli(report):
+    """The command line on the card, in process (`cli.YOLO11CLI().run`):
+    the JPEG decoder against the committed manifest (tests/torch_jpeg/),
+    the encoder against OpenCV's bytes of the same seeded frames, then
+    info, demo, val, optimize, benchmark and the error exits (see the
+    module docstring, phase 28)."""
+    import hashlib
+    from statistics import median
+
+    import torch
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+    from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from yolo_infer_tpu_torch.data.loader import create_dataset_config, load_image, save_image
+
+    here = Path(__file__).resolve().parent
+    out = {"phase": "cli", "card": card_line()}
+    failures = []
+    # --- the decoder: every fixture and the sample, to OpenCV's pixel hashes
+    manifest = json.loads((here / "tests" / "torch_jpeg" / "manifest.json").read_text())
+    mismatched = []
+    for name, entry in manifest["files"].items():
+        img = load_image(here / "tests" / "torch_jpeg" / name, rgb=False)
+        if (list(img.shape) != entry["shape"]
+                or hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() != entry["sha256"]):
+            mismatched.append(name)
+    sample = (here / "assets" / "sample.jpg").read_bytes()
+    decode_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode_jpeg(sample)
+        decode_s.append(time.perf_counter() - t0)
+    out["decode"] = {"files": len(manifest["files"]), "mismatched": mismatched,
+                     "sample_640x480_420_s": median(decode_s), "sample_s_each": decode_s}
+    if mismatched:
+        failures.append(f"the decoder's pixels differ from OpenCV's for {mismatched}")
+    # --- the encoder: OpenCV's bytes for the seeded frames, and the PSNR of a round trip
+    enc = {"bytes_equal_opencv": [], "psnr_db": [], "encode_s": [], "decode_s": []}
+    for seed, digest in enumerate(manifest["encoder"]["sha256"]):
+        frame = jpeg_frame(seed)
+        t0 = time.perf_counter()
+        data = encode_jpeg(frame)
+        t1 = time.perf_counter()
+        back = decode_jpeg(data)
+        t2 = time.perf_counter()
+        mse = float(np.mean((back.astype(np.float64) - frame) ** 2))
+        enc["bytes_equal_opencv"].append(hashlib.sha256(data).hexdigest() == digest)
+        enc["psnr_db"].append(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+        enc["encode_s"].append(t1 - t0)
+        enc["decode_s"].append(t2 - t1)
+    out["encode"] = enc
+    if not all(enc["bytes_equal_opencv"]) or min(enc["psnr_db"]) < 30:
+        failures.append(f"the encoder's bytes differ from OpenCV's or its round trip is poor: {enc}")
+
+    model = report["weights"][0] if "weights" in report else smoke_weights(
+        np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    launches = collections.Counter()
+    runs = {}
+
+    def cli(name, *argv, want_rc=0):
+        rc, parsed, seconds, counts, errors = run_cli(*argv)
+        launches.update(counts)
+        runs[name] = {"rc": rc, "seconds": seconds, "launches": counts}
+        if rc != want_rc:
+            failures.append(f"{name}: exit {rc}, expected {want_rc} ({errors[-1:] or parsed})")
+        return parsed, errors
+
+    try:
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "smoke.msgpack")
+        f32 = root / "f32.yaml"
+        f32.write_text("model:\n  compute_dtype: float32\n")
+        info, _ = cli("info", "info")
+        runs["info"]["card"] = info.get("nvidia_smi") if isinstance(info, dict) else None
+        # --- demo: the sample in bf16, then the same checkpoint in f32 on cuda and on cpu
+        one, _ = cli("demo", "demo", "--input", here / "assets" / "sample.jpg", "--output", root / "out.jpg",
+                     "--model-path", ckpt)
+        if isinstance(one, dict):
+            runs["demo"].update(num_detections=one["num_detections"], inference_time_s=one["inference_time_s"],
+                                annotated=list(load_image(root / "out.jpg").shape))
+        torch.backends.cudnn.deterministic = True
+        try:
+            on_gpu, _ = cli("demo_f32_cuda", "--config", f32, "demo", "--input", here / "assets" / "sample.jpg",
+                            "--model-path", ckpt, "--conf", "0.25")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        on_cpu, _ = cli("demo_f32_cpu", "--config", f32, "demo", "--input", here / "assets" / "sample.jpg",
+                        "--model-path", ckpt, "--conf", "0.25", "--device", "cpu")
+        if isinstance(on_gpu, dict) and isinstance(on_cpu, dict):
+            g, w = _dets(on_gpu), _dets(on_cpu)
+            unmatched = match_detections(g, w, 1e-2, 1e-5)[0] if len(g) == len(w) else None
+            runs["demo_f32_cuda"].update(num_cuda=len(g), num_cpu=len(w), unmatched=unmatched)
+            if not len(g) or unmatched != 0:
+                failures.append(f"f32 demo: cuda differs from cpu ({runs['demo_f32_cuda']})")
+        # --- demo on a directory of JPEGs the port's encoder wrote
+        for i in range(CLI_DIR_FRAMES):
+            save_image(root / "dir" / f"f{i}.jpg", jpeg_frame(100 + i))
+        many, _ = cli("demo_dir", "demo", "--input", root / "dir", "--output", root / "dir_out", "--model-path", ckpt)
+        if isinstance(many, dict):
+            parts = {k: median(im["host_s"][k] for im in many["images"][1:]) for k in many["host_s"]}
+            runs["demo_dir"].update(images=many["num_images"], host_s_per_image_median=parts,
+                                    host_s_first_image=many["images"][0]["host_s"],
+                                    written=len(list((root / "dir_out").iterdir())))
+            if many["num_images"] != CLI_DIR_FRAMES or runs["demo_dir"]["written"] != CLI_DIR_FRAMES:
+                failures.append(f"directory demo: {runs['demo_dir']}")
+        # --- val: a detect set of seeded JPEG frames labelled with the model's own f32 detections
+        # (uniform noise, as in phase 14: the smoke weights' batch norms were set on such frames,
+        # and on structured ones their boxes degenerate)
+        images = root / "val" / "images" / "val"
+        labels = root / "val" / "labels" / "val"
+        labels.mkdir(parents=True)
+        rng = np.random.default_rng(SEED + 28)
+        for i in range(CLI_VAL_FRAMES):
+            save_image(images / f"f{i:02d}.jpg", rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
+        frames = [load_image(images / f"f{i:02d}.jpg") for i in range(CLI_VAL_FRAMES)]
+        torch.backends.cudnn.deterministic = True
+        try:
+            labelled = YOLO11Model(ckpt, compute_dtype=torch.float32).predict(frames, conf=0.25, imgsz=640)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        for i, r in enumerate(labelled):
+            h, w = r.orig_shape
+            rows = [f"{c} {(b[0] + b[2]) / 2 / w:.6f} {(b[1] + b[3]) / 2 / h:.6f} {(b[2] - b[0]) / w:.6f} "
+                    f"{(b[3] - b[1]) / h:.6f}" for b, c in zip(r.boxes.clip(0, [w, h, w, h]), r.classes)]
+            (labels / f"f{i:02d}.txt").write_text("\n".join(rows) + "\n")
+        data = create_dataset_config(root / "val" / "data.yaml", str(images), str(images),
+                                     {c: str(c) for c in range(80)})
+        val, _ = cli("val", "val", "--data", data, "--batch", 16, "--model-path", ckpt, "--output-dir", root / "vout")
+        direct = YOLO11Validator(model=YOLO11Model(ckpt), output_dir=root / "vdirect").validate(
+            str(data), imgsz=640, batch=16, conf=0.001, iou=0.6, verbose=False)
+        if isinstance(val, dict):
+            runs["val"].update(metrics=val["metrics"], direct_metrics=direct["metrics"],
+                               labels=sum(len(r) for r in labelled), images=val["num_images"],
+                               images_per_s=val["speed"]["images_per_s"],
+                               images_per_s_wall=CLI_VAL_FRAMES / runs["val"]["seconds"])
+            if ({k: float(v) for k, v in val["metrics"].items()} != {k: float(v) for k, v in direct["metrics"].items()}
+                    or val["num_images"] != CLI_VAL_FRAMES):
+                failures.append(f"val through the CLI differs from YOLO11Validator.validate: {runs['val']}")
+        # --- optimize --method ptq, then the demo on the static8 model (kernel E)
+        q = root / "q.msgpack"
+        cli("optimize", "optimize", "--method", "ptq", "--model-path", ckpt, "--calibration-batches", 8,
+            "--output", q)
+        q_one, _ = cli("demo_static8", "demo", "--input", here / "assets" / "sample.jpg", "--model-path", q,
+                       "--output", root / "q.jpg")
+        if isinstance(q_one, dict):
+            runs["demo_static8"]["num_detections"] = q_one["num_detections"]
+        # --- benchmark: model sizes at 640, batch 1 and 32
+        cli("benchmark", "benchmark", "--type", "sizes", "--model-sizes", "n", "--image-sizes", 640,
+            "--batch-sizes", 1, 32, "--runs", 20, "--output-dir", root / "bench")
+        sizes = json.loads((root / "bench" / "model_sizes_benchmark.json").read_text())
+        runs["benchmark"]["fps"] = {k: v.get("fps") for k, v in sizes.items()}
+        # --- the exits that are not 0
+        _, errors = cli("train", "train", "--data", data, want_rc=1)
+        if not any("ROADMAP Queue 1 item 8" in e for e in errors):
+            failures.append(f"train: no ROADMAP Queue 1 item 8 message ({errors})")
+        cli("missing_input", "demo", "--input", root / "missing.jpg", "--model-path", ckpt, want_rc=2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["runs"] = runs
+    out["launches"] = {k: launches[k] for k in CLI_KERNELS}
+    if min(out["launches"].values()) < 1:
+        failures.append(f"a kernel of A, B, E, F, G did not run through the CLI: {out['launches']}")
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
@@ -3360,7 +3614,8 @@ def main() -> int:
               phase_rnms, phase_mpack, phase_tasks_fp32, phase_seg_bf16, phase_obb_bf16,
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
-              phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs)
+              phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
+              phase_cli)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -83,13 +83,13 @@ def test_save_image_round_trips_and_cv2_reads_it(tmp_path, shape):
 
 def test_unsupported_and_missing_files_raise(tmp_path):
     img = _picture(np.random.default_rng(0), 16, 16, 3)
-    cv2.imwrite(str(tmp_path / "a.jpg"), img)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
+    cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])  # progressive: not decoded
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         load_image(tmp_path / "a.jpg")
     with pytest.raises(FileNotFoundError):
         load_image(tmp_path / "missing.png")
     with pytest.raises(NotImplementedError):
-        save_image(tmp_path / "b.jpg", img)
+        save_image(tmp_path / "b.tiff", img)
     save_image(tmp_path / "c.png", img)
     broken = bytearray((tmp_path / "c.png").read_bytes())
     broken[40] ^= 0xFF  # inside IDAT: the CRC no longer matches

@@ -11,9 +11,11 @@ a detect, a segment (polygon labels) and an OBB model (corner labels), and
 `evaluate_classifier` on a class-per-directory tree. A
 third builds a `YOLO11Model`, quantizes it with PTQ and serves it in static8.
 A fourth also blocks `psutil` and serves `predict_many` (segment, host
-masks), runs `YOLO11Model.benchmark` and a `ResourceMonitor`. Last, every
-"ROADMAP Queue 1 item N" in the port's sources names an item that ROADMAP's
-Queue 1 has.
+masks), runs `YOLO11Model.benchmark` and a `ResourceMonitor`. A fifth
+blocks `yaml` and `PIL` too and runs the command line (`python -m
+yolo_infer_tpu_torch`): a demo on a JPEG and on a directory, validation
+from a dataset YAML, PTQ and info. Last, every "ROADMAP Queue 1 item N" in
+the port's sources names an item that ROADMAP's Queue 1 has.
 """
 
 import re
@@ -194,6 +196,55 @@ def test_port_serves_many_and_benchmarks_without_jax_opencv_or_psutil():
                    env=TORCH_SUBPROCESS_ENV)
 
 
+_CLI_CODE = """
+import contextlib, io, json, sys, tempfile
+from pathlib import Path
+for name in ("jax", "cv2", "yaml", "PIL", "flax", "msgpack", "safetensors"):
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+from yolo_infer_tpu_torch.cli import YOLO11CLI
+from yolo_infer_tpu_torch.data.loader import create_dataset_config, load_image, save_image
+root = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+for i in range(3):
+    save_image(root / "ds" / "images" / "val" / f"{{i}}.jpg", rng.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+(root / "ds" / "labels" / "val").mkdir(parents=True)
+(root / "ds" / "labels" / "val" / "0.txt").write_text("1 0.5 0.5 0.4 0.3\\n")
+data = create_dataset_config(root / "ds" / "data.yaml", str(root / "ds" / "images" / "val"),
+                             str(root / "ds" / "images" / "val"), [str(c) for c in range(80)])
+
+def run(*argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = YOLO11CLI().run(list(argv) + ["--device", "cpu"])
+    assert rc == 0, (argv, rc)
+    text = out.getvalue()
+    return json.loads(text) if text.lstrip().startswith("{{") else text
+
+image = root / "ds" / "images" / "val" / "0.jpg"
+one = run("demo", "--input", str(image), "--output", str(root / "out.jpg"), "--imgsz", "64", "--conf", "1e-9")
+assert one["num_detections"] > 0 and load_image(root / "out.jpg").shape == (48, 64, 3)
+many = run("demo", "--input", str(image.parent), "--output", str(root / "outdir"), "--imgsz", "64")
+assert many["num_images"] == 3 and len(list((root / "outdir").iterdir())) == 3
+val = run("val", "--data", str(data), "--imgsz", "64", "--batch", "2", "--output-dir", str(root / "val"))
+assert val["num_images"] == 3
+q = run("optimize", "--method", "ptq", "--imgsz", "64", "--calibration-batches", "1",
+        "--output", str(root / "q.msgpack"))
+assert Path(q["saved"]).exists()
+assert not run("info")["dependencies"]["yaml (optional)"]
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_cli_runs_without_jax_opencv_yaml_or_pil():
+    """The command line on JPEGs the port writes, a dataset YAML the port
+    writes, PTQ and info, with jax, cv2, yaml and PIL blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _CLI_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
+
+
 def _queue1_items():
     """The numbered items of ROADMAP.md's Queue 1 ("N" and "N.M")."""
     text = (REPO / "ROADMAP.md").read_text()
@@ -213,7 +264,7 @@ def _queue1_items():
 
 def test_port_roadmap_pointers_name_queue1_items():
     items = _queue1_items()
-    assert {"1", "3", "4.1", "4.2", "5", "6", "8"} <= items
+    assert {"1", "3", "4.1", "4.2", "4.3", "5", "6", "8", "10", "11"} <= items
     cited = []
     for path in sorted((REPO / "yolo_infer_tpu_torch").rglob("*.py")):
         text = path.read_text()

@@ -1,9 +1,10 @@
 """YOLO-format dataset (images/ + labels/*.txt with normalized coordinates).
 
 Port of `yolo_infer_tpu/data/dataset.py` for every task: the dataset config
-(a dict, or a YAML file read with `yaml` on first use), the per-image label
-files (`cls cx cy w h`; segment polygons `cls x1 y1 x2 y2 ...`; OBB corners
-`cls x1 y1 ... x4 y4`; keypoint triplets for pose), and the
+(a dict, or a YAML file read by the port's own `utils/yaml_io.py`: PyYAML
+is not needed), the per-image label files (`cls cx cy w h`; segment
+polygons `cls x1 y1 x2 y2 ...`; OBB corners `cls x1 y1 ... x4 y4`;
+keypoint triplets for pose), and the
 host-letterboxed val batches (the port's OpenCV-free `letterbox`). The JAX
 package fills polygons and fits minimum-area rectangles with OpenCV; the
 port takes `fill_poly`, `contour_area` and `min_area_rect` from
@@ -21,15 +22,16 @@ import numpy as np
 from yolo_infer_tpu_torch.data.loader import IMAGE_EXTS, load_image
 from yolo_infer_tpu_torch.data.polygon import contour_area, fill_polys, min_area_rect
 from yolo_infer_tpu_torch.ops.letterbox import letterbox
+from yolo_infer_tpu_torch.utils import yaml_io
 
 TASKS = ("detect", "segment", "pose", "obb")
 
 
 def parse_dataset_config(data: Union[str, Path, Dict[str, Any]]) -> Dict[str, Any]:
     if isinstance(data, (str, Path)):
-        import yaml
-
-        cfg = yaml.safe_load(Path(data).read_text())
+        cfg = yaml_io.load(data)
+        if not isinstance(cfg, dict):
+            raise ValueError(f"{data}: a dataset config must be a mapping")
         cfg["_base"] = Path(data).parent
     else:
         cfg = dict(data)
@@ -43,9 +45,13 @@ def parse_dataset_config(data: Union[str, Path, Dict[str, Any]]) -> Dict[str, An
 
 
 def _resolve_split_dir(cfg: Dict[str, Any], split: str) -> Path:
-    base = Path(cfg.get("path", cfg["_base"]))
-    if not base.is_absolute():
-        base = Path(cfg["_base"]) / base
+    """A split's directory: absolute as given, else under `path` (itself
+    under the config's directory when relative), else under the config's
+    directory. (The JAX package joins the config's directory twice when
+    `path` is missing and the config was named by a relative path.)"""
+    base = Path(cfg["_base"])
+    if "path" in cfg:
+        base = base / cfg["path"]  # an absolute `path` replaces the base
     p = Path(cfg.get(split, split))
     return p if p.is_absolute() else base / p
 

@@ -1,35 +1,52 @@
-"""Host-side image IO without OpenCV.
+"""Host-side image IO without OpenCV, batching and result export.
 
 Port of `yolo_infer_tpu/data/loader.py` (`IMAGE_EXTS`, `list_image_files`,
-`load_image`, `save_image`). The JAX package reads images with
-`cv2.imread`; the card's machine has no OpenCV, so the port decodes the
-formats it supports itself, with `zlib` and numpy, to the same pixels:
+`load_image`, `save_image`, `load_image_batch`, `DataLoader`,
+`save_predictions_to_file`, `create_dataset_config`). The JAX package reads
+and writes images with OpenCV; the port does not depend on OpenCV, so it
+decodes and encodes the formats it supports itself, with `zlib` and
+numpy, to the same pixels:
 
+  JPEG baseline and extended-sequential Huffman, 8-bit, grey or YCbCr, any
+       sampling, restart intervals, EXIF orientation (`data/jpeg.py`: the
+       pixels of `cv2.imread(path, cv2.IMREAD_COLOR)` bit for bit)
   PNG  8-bit grey, grey + alpha, RGB and RGBA, non-interlaced, all five row
        filters (alpha is dropped and grey replicated, as `cv2.imread(path,
        cv2.IMREAD_COLOR)` does); chunk CRCs are checked
   BMP  24-bit, uncompressed, bottom-up or top-down rows
 
-Any other format raises `NotImplementedError` (JPEG, TIFF and WebP decoding
-are ROADMAP Queue 1 item 4.3). `save_image` writes PNG (filter 0 on every row).
-Images are uint8 HWC, RGB by default.
+Any other format raises `NotImplementedError` (progressive JPEG, TIFF and
+WebP are ROADMAP Queue 1 item 10). `save_image` writes `.jpg`/`.jpeg` as
+`cv2.imwrite` does by default (quality 95, 4:2:0; `data/jpeg.py`, the same
+bytes) and PNG otherwise (filter 0 on every row). Images are uint8 HWC, RGB
+by default. `get_video_info` and `load_video` need a video decoder (the
+JAX package uses OpenCV's VideoCapture) and raise (ROADMAP Queue 1 item
+11). `create_dataset_config` writes its YAML with the port's
+`utils/yaml_io.py`.
 """
 
 from __future__ import annotations
 
+import csv
+import json
+import random
 import struct
 import zlib
 from pathlib import Path
-from typing import List, Union
+from typing import Any, Dict, Generator, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp"}
+VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v"}
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel (8-bit)
-_UNSUPPORTED = ("the port reads PNG (8-bit grey, grey + alpha, RGB, RGBA; non-interlaced) and 24-bit BMP; "
-                "other formats are ROADMAP Queue 1 item 4.3 (JPEG decode)")
+_UNSUPPORTED = ("the port reads baseline JPEG, PNG (8-bit grey, grey + alpha, RGB, RGBA; non-interlaced) and "
+                "24-bit BMP; other formats are ROADMAP Queue 1 item 10")
+_NO_VIDEO = "reading video needs a video decoder, which the port does not have yet (ROADMAP Queue 1 item 11)"
 
 
 def list_image_files(source: Union[str, Path]) -> List[Path]:
@@ -48,7 +65,12 @@ def load_image(path: Union[str, Path], rgb: bool = True) -> np.ndarray:
         data = Path(path).read_bytes()
     except OSError as exc:
         raise FileNotFoundError(f"could not read image: {path}") from exc
-    if data.startswith(PNG_SIGNATURE):
+    if data.startswith(b"\xff\xd8"):
+        try:
+            img = decode_jpeg(data)
+        except NotImplementedError as exc:
+            raise NotImplementedError(f"{path}: {exc}") from exc
+    elif data.startswith(PNG_SIGNATURE):
         img = _decode_png(data, path)
     elif data.startswith(b"BM"):
         img = _decode_bmp(data, path)
@@ -58,13 +80,21 @@ def load_image(path: Union[str, Path], rgb: bool = True) -> np.ndarray:
 
 
 def save_image(path: Union[str, Path], img_rgb: np.ndarray, compress_level: int = 6) -> None:
-    """Write a uint8 (H, W, 3) RGB, (H, W, 4) RGBA or (H, W) grey image as PNG."""
+    """Write a uint8 image: `.jpg`/`.jpeg` as JPEG ((H, W, 3) RGB or (H, W)
+    grey, the bytes `cv2.imwrite` writes by default), anything else as PNG
+    ((H, W, 3) RGB, (H, W, 4) RGBA or (H, W) grey)."""
     path = Path(path)
-    if path.suffix.lower() != ".png":
-        raise NotImplementedError(f"{path}: the port writes PNG only")
+    suffix = path.suffix.lower()
+    if suffix not in (".png", ".jpg", ".jpeg"):
+        raise NotImplementedError(f"{path}: the port writes PNG and JPEG (ROADMAP Queue 1 item 10)")
     img = np.ascontiguousarray(img_rgb)
     if img.dtype != np.uint8:
         raise ValueError(f"save_image: expected uint8, got {img.dtype}")
+    if suffix in (".jpg", ".jpeg"):
+        data = encode_jpeg(img)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+        return
     colour = {2: 0, 3: {1: 0, 3: 2, 4: 6}.get(img.shape[-1])}.get(img.ndim)
     if colour is None:
         raise ValueError(f"save_image: expected (H, W), (H, W, 3) or (H, W, 4), got {img.shape}")
@@ -78,6 +108,114 @@ def save_image(path: Union[str, Path], img_rgb: np.ndarray, compress_level: int 
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
                      + chunk(b"IDAT", zlib.compress(raw, compress_level)) + chunk(b"IEND", b""))
+
+
+def get_video_info(path: Union[str, Path]) -> Dict[str, Any]:
+    raise NotImplementedError(f"{path}: {_NO_VIDEO}")
+
+
+def load_video(path: Union[str, Path], rgb: bool = True,
+               max_frames: Optional[int] = None) -> Generator[np.ndarray, None, None]:
+    raise NotImplementedError(f"{path}: {_NO_VIDEO}")
+
+
+def load_image_batch(paths: Sequence[Union[str, Path]], rgb: bool = True) -> List[np.ndarray]:
+    return [load_image(p, rgb) for p in paths]
+
+
+class DataLoader:
+    """Iterate images from a file, a directory or a list of paths in
+    batches of `batch_size`, optionally shuffled (seeded); yields (paths,
+    images) per batch."""
+
+    def __init__(
+        self,
+        source: Union[str, Path, Sequence[Union[str, Path]]],
+        batch_size: int = 1,
+        shuffle: bool = False,
+        rgb: bool = True,
+        seed: Optional[int] = None,
+    ):
+        if isinstance(source, (str, Path)):
+            self.files = list_image_files(source)
+        else:
+            self.files = [Path(f) for f in source]
+        if not self.files:
+            raise ValueError("DataLoader: empty source")
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rgb = rgb
+        self._rng = random.Random(seed)
+        self._order: List[int] = []
+        self.reset()
+
+    def __len__(self) -> int:
+        return (len(self.files) + self.batch_size - 1) // self.batch_size
+
+    def reset(self) -> None:
+        self._order = list(range(len(self.files)))
+        if self.shuffle:
+            self._rng.shuffle(self._order)
+        self._pos = 0
+
+    def __iter__(self) -> Iterator[Tuple[List[Path], List[np.ndarray]]]:
+        self.reset()
+        return self
+
+    def __next__(self) -> Tuple[List[Path], List[np.ndarray]]:
+        if self._pos >= len(self._order):
+            raise StopIteration
+        idxs = self._order[self._pos: self._pos + self.batch_size]
+        self._pos += len(idxs)
+        paths = [self.files[i] for i in idxs]
+        return paths, [load_image(p, self.rgb) for p in paths]
+
+
+_FIELDS = ["image", "class", "name", "confidence", "x1", "y1", "x2", "y2"]
+
+
+def save_predictions_to_file(results: Sequence[Any], path: Union[str, Path], fmt: str = "json") -> None:
+    """Write Results (one row per detection) as json, csv or txt."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rows = []
+    for i, r in enumerate(results):
+        for b, s, c in zip(r.boxes, r.scores, r.classes):
+            rows.append({"image": i, "class": int(c), "name": r.names.get(int(c), str(int(c))),
+                         "confidence": float(s), "x1": float(b[0]), "y1": float(b[1]), "x2": float(b[2]),
+                         "y2": float(b[3])})
+    if fmt == "json":
+        path.write_text(json.dumps(rows, indent=2))
+    elif fmt == "csv":
+        with path.open("w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=_FIELDS)
+            writer.writeheader()
+            writer.writerows(rows)
+    elif fmt == "txt":
+        with path.open("w") as f:
+            for row in rows:
+                f.write(f"{row['image']} {row['class']} {row['confidence']:.4f} {row['x1']:.1f} {row['y1']:.1f} "
+                        f"{row['x2']:.1f} {row['y2']:.1f}\n")
+    else:
+        raise ValueError(f"unknown format {fmt}")
+
+
+def create_dataset_config(
+    path: Union[str, Path],
+    train: str,
+    val: str,
+    names: Union[Dict[int, str], List[str]],
+    test: Optional[str] = None,
+) -> Path:
+    """Write a YOLO-style dataset YAML (train, val, names, nc, test)."""
+    from yolo_infer_tpu_torch.utils import yaml_io
+
+    if isinstance(names, list):
+        names = {i: n for i, n in enumerate(names)}
+    cfg: Dict[str, Any] = {"train": train, "val": val, "names": names, "nc": len(names)}
+    if test:
+        cfg["test"] = test
+    return yaml_io.save(cfg, path)
 
 
 def _to_rgb(pixels: np.ndarray) -> np.ndarray:

@@ -23,7 +23,8 @@ writes (`core/model.py save`) loads in the JAX package.
 (`yolo_infer_tpu/models/convert.py` `_PermissiveUnpickler`,
 `permissive_torch_load`, `extract_state_dict`, `infer_model_meta`) unpickles
 an ultralytics checkpoint without ultralytics and recovers its flat state
-dict, whose names are already the port's (`load_pt_checkpoint`).
+dict, whose names are already the port's (`load_pt_checkpoint`), and
+`convert_to_file` writes it as a native `.msgpack` checkpoint.
 """
 
 from __future__ import annotations
@@ -464,3 +465,15 @@ def load_pt_checkpoint(path: Union[str, Path]) -> Tuple[YOLO11, ModelSpec, Dict[
     names = {int(k): str(v) for k, v in raw_names.items()} if isinstance(raw_names, dict) else None
     logger.info("loaded %s: %s/%s nc=%d", path, meta["task"], meta["size"], meta["nc"])
     return model, spec, {"task": meta["task"], "size": meta["size"], "nc": meta["nc"], "names": names}
+
+
+def convert_to_file(pt_path: Union[str, Path], out_path: Optional[Union[str, Path]] = None) -> Path:
+    """An ultralytics `.pt` checkpoint -> a native `.msgpack` checkpoint (the
+    unfolded f32 params and their batch-norm state, as the JAX package
+    writes it); `out_path` defaults to the `.pt` path with a `.msgpack` suffix."""
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+
+    model, _, meta = load_pt_checkpoint(pt_path)
+    wrapped = YOLO11Model.from_params(model, task=meta["task"], size=meta["size"], nc=meta["nc"],
+                                      names=meta["names"], fused=False, device="cpu")
+    return wrapped.save(Path(out_path or Path(pt_path).with_suffix(".msgpack")))

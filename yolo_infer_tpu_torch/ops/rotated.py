@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from yolo_infer_tpu_torch.ops.kernels.nms_walk import threshold_tensor
@@ -143,3 +144,15 @@ def batched_rotated_nms(
     sup[..., 0] += cls * MAX_WH  # class-aware: shift centres apart per class
     kept = rotated_nms_keep_mask(sup, top_scores > 0, iou_thres)
     return _keep_layout(kept, cb, cls, top_scores, top_idx, max_det)
+
+
+def xywhr_to_corners(boxes) -> np.ndarray:
+    """(n, 5) rotated boxes (cx, cy, w, h, rad) -> (n, 4, 2) float32 corners, in
+    the order of OpenCV's `cv2.boxPoints` (within f32 rounding of it)."""
+    b = np.asarray(boxes, np.float64).reshape(-1, 5)
+    cx, cy, w, h, rad = b.T
+    bc, a = np.cos(rad) * 0.5, np.sin(rad) * 0.5
+    p0 = np.stack([cx - a * h - bc * w, cy + bc * h - a * w], -1)
+    p1 = np.stack([cx + a * h - bc * w, cy - bc * h - a * w], -1)
+    centre = np.stack([cx, cy], -1)
+    return np.stack([p0, p1, 2 * centre - p0, 2 * centre - p1], axis=1).astype(np.float32)

@@ -3,14 +3,19 @@
 Port of `yolo_infer_tpu/utils/helpers.py` (`get_device_info`,
 `DeviceDutyTracker`/`device_busy`, `ResourceMonitor`, `get_system_info`,
 `calculate_model_size`, `format_time`, `format_bytes`, `device_sync`,
-`Timer`). Device memory comes from `torch.cuda.memory_stats`; host CPU and
-memory from `/proc/stat` and `/proc/meminfo` (Linux), so the port needs no
-`psutil`. Where a source is missing (no card, no `/proc`), the keys it would
-fill are left out.
+`Timer`, the config files `load_config`/`save_config`/`merge_configs`,
+`create_experiment_dir`, `setup_logging`, `ProgressTracker`, the file
+helpers, `validate_model_path` and `check_dependencies`). Device memory
+comes from `torch.cuda.memory_stats`; host CPU and memory from `/proc/stat`
+and `/proc/meminfo` (Linux), so the port needs no `psutil`. Where a source
+is missing (no card, no `/proc`), the keys it would fill are left out. YAML
+configs go through the port's own `utils/yaml_io.py`, not PyYAML.
+`download_file` is not ported: the port runs with no network.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
@@ -365,3 +370,161 @@ class ResourceMonitor:
     def save(self, path: Union[str, Path]):
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         Path(path).write_text(json.dumps({"history": self.history, "summary": self.summary()}, indent=2))
+
+
+# ---------------------------------------------------------------------------
+# Config files (YAML or JSON) and a deep merge
+# ---------------------------------------------------------------------------
+
+def load_config(path: Union[str, Path]) -> Dict[str, Any]:
+    """A `.yaml`/`.yml` (the port's `utils/yaml_io.py`) or `.json` config file."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"config not found: {path}")
+    if path.suffix in (".yaml", ".yml"):
+        from yolo_infer_tpu_torch.utils import yaml_io
+
+        return yaml_io.load(path) or {}
+    if path.suffix == ".json":
+        return json.loads(path.read_text())
+    raise ValueError(f"unsupported config format: {path.suffix}")
+
+
+def save_config(config: Dict[str, Any], path: Union[str, Path]) -> None:
+    path = Path(path)
+    if path.suffix in (".yaml", ".yml"):
+        from yolo_infer_tpu_torch.utils import yaml_io
+
+        yaml_io.save(config, path)
+    elif path.suffix == ".json":
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(config, indent=2, default=str))
+    else:
+        raise ValueError(f"unsupported config format: {path.suffix}")
+
+
+def merge_configs(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
+    """Deep merge: override wins; nested dicts merge recursively."""
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = merge_configs(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def create_experiment_dir(base_dir: Union[str, Path], name: str = "exp") -> Path:
+    stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    path = Path(base_dir) / f"{name}_{stamp}"
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Logging and progress
+# ---------------------------------------------------------------------------
+
+def setup_logging(level: str = "INFO", log_file: Optional[Union[str, Path]] = None,
+                  name: Optional[str] = None) -> logging.Logger:
+    """Set `level` on the root (or `name`d) logger, with one stream handler
+    and, with `log_file`, a file handler."""
+    lg = logging.getLogger(name) if name else logging.getLogger()
+    lg.setLevel(getattr(logging, str(level).upper(), logging.INFO))
+    fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    if not any(isinstance(h, logging.StreamHandler) and not isinstance(h, logging.FileHandler) for h in lg.handlers):
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        lg.addHandler(sh)
+    if log_file:
+        Path(log_file).parent.mkdir(parents=True, exist_ok=True)
+        fh = logging.FileHandler(log_file)
+        fh.setFormatter(fmt)
+        lg.addHandler(fh)
+    return lg
+
+
+class ProgressTracker:
+    """Count, rate and time left of a loop of `total` steps."""
+
+    def __init__(self, total: int, name: str = ""):
+        self.total = total
+        self.name = name
+        self.count = 0
+        self.start = time.perf_counter()
+
+    def update(self, n: int = 1) -> Dict[str, float]:
+        self.count += n
+        elapsed = time.perf_counter() - self.start
+        rate = self.count / elapsed if elapsed > 0 else 0.0
+        remaining = (self.total - self.count) / rate if rate > 0 else float("inf")
+        return {"count": self.count, "total": self.total, "rate": rate, "eta_s": remaining, "elapsed_s": elapsed}
+
+
+# ---------------------------------------------------------------------------
+# Files, model paths and dependencies
+# ---------------------------------------------------------------------------
+
+def get_file_hash(path: Union[str, Path], algorithm: str = "md5", chunk: int = 1 << 20) -> str:
+    h = hashlib.new(algorithm)
+    with open(path, "rb") as f:
+        while True:
+            data = f.read(chunk)
+            if not data:
+                break
+            h.update(data)
+    return h.hexdigest()
+
+
+def compare_files(a: Union[str, Path], b: Union[str, Path]) -> bool:
+    pa, pb = Path(a), Path(b)
+    if pa.stat().st_size != pb.stat().st_size:
+        return False
+    return get_file_hash(pa) == get_file_hash(pb)
+
+
+def backup_file(path: Union[str, Path], backup_dir: Optional[Union[str, Path]] = None) -> Path:
+    src = Path(path)
+    stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    dst_dir = Path(backup_dir) if backup_dir else src.parent / "backups"
+    dst_dir.mkdir(parents=True, exist_ok=True)
+    dst = dst_dir / f"{src.stem}_{stamp}{src.suffix}"
+    shutil.copy2(src, dst)
+    return dst
+
+
+def clean_old_files(directory: Union[str, Path], pattern: str = "*", keep_last: int = 5) -> List[Path]:
+    files = sorted(Path(directory).glob(pattern), key=lambda p: p.stat().st_mtime)
+    removed = files[: max(len(files) - keep_last, 0)]
+    for f in removed:
+        f.unlink(missing_ok=True)
+    return removed
+
+
+def validate_model_path(path: Union[str, Path]) -> bool:
+    """True if `path` is a loadable model reference (a checkpoint file or a yolo11* name)."""
+    p = Path(path)
+    if p.exists():
+        return p.suffix in (".msgpack", ".ckpt", ".pt", ".safetensors")
+    from yolo_infer_tpu_torch.core.model import parse_model_name
+
+    return parse_model_name(str(path)) is not None
+
+
+def check_dependencies() -> Dict[str, bool]:
+    """What the port needs, and whether it is there: torch, numpy, a CUDA
+    card, `nvcc` (the kernels' compiler: `$CUDA_HOME/bin`, `/usr/local/cuda/bin`
+    or the PATH), and PyYAML, which is optional (`utils/yaml_io.py` reads
+    configs without it)."""
+    import importlib.util
+
+    from yolo_infer_tpu_torch.ops.kernels._build import _nvcc
+
+    out = {mod: importlib.util.find_spec(mod) is not None for mod in ("torch", "numpy")}
+    out["cuda"] = torch.cuda.is_available()
+    try:
+        out["nvcc"] = bool(_nvcc())
+    except RuntimeError:
+        out["nvcc"] = False
+    out["yaml (optional)"] = importlib.util.find_spec("yaml") is not None
+    return out
