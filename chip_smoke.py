@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs twenty-eight phases, each printing one JSON line. Kernels A, C, F and G
+runs twenty-nine phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -265,9 +265,31 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              `create_dataset_config`), its metrics equal to
              `YOLO11Validator.validate` on the same files; `optimize --method
              ptq` and `demo` on its output (static8); `benchmark --type sizes`
-             at 640, batch 1 and 32, 20 runs; `train` exits 1 naming ROADMAP
-             Queue 1 item 8 and a missing input exits 2. A, B, E, F and G
-             must each launch in these runs
+             at 640, batch 1 and 32, 20 runs; `train --qat` exits 1 naming
+             ROADMAP Queue 1 item 6 and a missing input exits 2. A, B, E, F
+             and G must each launch in these runs
+ 29. train   detect training on the card (`TRAIN`): `YOLO11CLI().run(["train",
+             "--model-size", "n", ...])` in process, 2 epochs at batch 16 and
+             640 px (bf16, `TrainingConfig`'s defaults, robust) on a seeded
+             PNG dataset of coloured rectangles with exact labels (96
+             training and 32 validation frames of 640x480): exit 0, status
+             "completed", no skipped step; F and G launch in every epoch's
+             validation, B never inside a train step (wrappers around
+             `make_train_step`'s step and `_validate_ema` read the counters);
+             images/s and the loader's wait per step of each epoch and the
+             validation seconds (the run's timing.json); the loader's host
+             seconds per batch with mosaic on (the CLI run's 2 epochs are
+             inside `close_mosaic`); then an fp32 step on
+             the same weights and batch (b2, 640 px) on cuda and on cpu:
+             loss within `TRAIN_LOSS_RTOL`, the parameter update within
+             `TRAIN_UPDATE_RTOL` (norm of the difference over the cpu
+             update's), batch-norm state within `TRAIN_BN_ATOL`; then 40
+             steps on one fixed batch of 16 (no augmentation, no warmup,
+             bf16): the mean loss of the last five below 0.8x the first
+             five's, the median step ms (CUDA events), the peak device
+             memory, and the ten largest kernels of one traced step
+             (torch.profiler) with its kernels' device ms, whose share of the
+             epoch's wall time per step is the device busy share of training
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -3573,9 +3595,9 @@ def phase_cli(report):
         sizes = json.loads((root / "bench" / "model_sizes_benchmark.json").read_text())
         runs["benchmark"]["fps"] = {k: v.get("fps") for k, v in sizes.items()}
         # --- the exits that are not 0
-        _, errors = cli("train", "train", "--data", data, want_rc=1)
-        if not any("ROADMAP Queue 1 item 8" in e for e in errors):
-            failures.append(f"train: no ROADMAP Queue 1 item 8 message ({errors})")
+        _, errors = cli("train_qat", "train", "--data", data, "--qat", want_rc=1)
+        if not any("ROADMAP Queue 1 item 6" in e for e in errors):
+            failures.append(f"train --qat: no ROADMAP Queue 1 item 6 message ({errors})")
         cli("missing_input", "demo", "--input", root / "missing.jpg", "--model-path", ckpt, want_rc=2)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3583,6 +3605,225 @@ def phase_cli(report):
     out["launches"] = {k: launches[k] for k in CLI_KERNELS}
     if min(out["launches"].values()) < 1:
         failures.append(f"a kernel of A, B, E, F, G did not run through the CLI: {out['launches']}")
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+TRAIN = dict(batch=16, imgsz=640, epochs=2)  # the CLI's training run: TrainingConfig's defaults otherwise
+TRAIN_FRAMES = (96, 32)  # training and validation frames of the seeded rectangle dataset
+TRAIN_NC = 3
+TRAIN_COLOURS = ((230, 40, 40), (40, 200, 60), (40, 60, 230))  # one per class
+TRAIN_CHECK = (2, 640)  # the fp32 cuda-vs-cpu step: batch, imgsz
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_UPDATE_RTOL = 1e-3  # |u_cuda - u_cpu| / |u_cpu| over the whole parameter update
+TRAIN_BN_ATOL = 1e-4
+OVERFIT_STEPS = 40
+TRAIN_DEVICE = "cuda"  # the card (a CPU rehearsal of the phase sets "cpu")
+
+
+def write_rect_dataset(root: Path, seed: int) -> Path:
+    """A detect dataset of coloured rectangles on gray, 640x480 PNGs with
+    their exact boxes as labels (a later rectangle may cover part of an
+    earlier one, whose box stays as drawn)."""
+    from yolo_infer_tpu_torch.data.loader import create_dataset_config, save_image
+
+    rng = np.random.default_rng(seed)
+    for split, n in zip(("train", "val"), TRAIN_FRAMES):
+        images, labels = root / "images" / split, root / "labels" / split
+        labels.mkdir(parents=True)
+        for i in range(n):
+            img = np.full((480, 640, 3), int(rng.integers(70, 190)), np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 5))):
+                c = int(rng.integers(0, TRAIN_NC))
+                w, h = int(rng.integers(40, 240)), int(rng.integers(40, 200))
+                x0, y0 = int(rng.integers(0, 640 - w)), int(rng.integers(0, 480 - h))
+                img[y0:y0 + h, x0:x0 + w] = TRAIN_COLOURS[c]
+                rows.append(f"{c} {(x0 + w / 2) / 640:.6f} {(y0 + h / 2) / 480:.6f} {w / 640:.6f} {h / 480:.6f}")
+            save_image(images / f"{i:03d}.png", img)
+            (labels / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    return create_dataset_config(root / "data.yaml", str(root / "images" / "train"), str(root / "images" / "val"),
+                                 {c: f"rect{c}" for c in range(TRAIN_NC)})
+
+
+def train_fp32_check(data: Path):
+    """One fp32 step of the same weights on the same batch on cuda and on cpu."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.train_step import init_train_state, make_optimizer, make_train_step
+    from yolo_infer_tpu_torch.data.dataset import YOLODataset
+    from yolo_infer_tpu_torch.data.train_loader import TrainLoader
+    from yolo_infer_tpu_torch.models.yolo11 import build_model
+
+    b, imgsz = TRAIN_CHECK
+    batch = next(iter(TrainLoader(YOLODataset(data, split="train"), batch_size=b, imgsz=imgsz,
+                                  seed=SEED).epoch_batches(0)))
+    model, spec = build_model("detect", "n", TRAIN_NC, seed=SEED)
+    tx = make_optimizer(0.01, total_steps=10, warmup_steps=0)
+    step = make_train_step(spec, tx, compute_dtype=torch.float32)
+    got = {}
+    for dev in (TRAIN_DEVICE, "cpu"):
+        ts = init_train_state(model, tx, seed=SEED, device=dev)
+        before = ts.params.detach().cpu().clone()
+        ts, m = step(ts, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        got[dev] = (float(m["loss"]), ts.params.detach().cpu() - before, ts.bn_state.detach().cpu(), int(ts.skipped))
+    (lc, uc, bc, sc), (lp, up, bp, sp) = got[TRAIN_DEVICE], got["cpu"]
+    return {"batch": b, "imgsz": imgsz, "loss_cuda": lc, "loss_cpu": lp, "loss_rel": abs(lc - lp) / abs(lp),
+            "update_rel": float((uc - up).norm() / up.norm()), "update_norm_cpu": float(up.norm()),
+            "params_max_abs": float((uc - up).abs().max()), "bn_max_abs": float((bc - bp).abs().max()),
+            "skipped": [sc, sp]}
+
+
+def mosaic_loader_pace(data: Path, batches: int = 3):
+    """Host seconds per batch of the training loader with mosaic on (the
+    default augmentation: a 2-epoch CLI run closes mosaic from its first
+    epoch, `close_mosaic` being 10), b16/640, the trainer's worker threads."""
+    from yolo_infer_tpu_torch.core.trainer import LOADER_WORKERS
+    from yolo_infer_tpu_torch.data.dataset import YOLODataset
+    from yolo_infer_tpu_torch.data.train_loader import TrainLoader
+
+    loader = TrainLoader(YOLODataset(data, split="train"), batch_size=TRAIN["batch"], imgsz=TRAIN["imgsz"],
+                         seed=SEED, workers=LOADER_WORKERS, prefetch=1)
+    it = iter(loader.epoch_batches(0))
+    seconds = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        next(it)
+        seconds.append(time.perf_counter() - t0)
+    it.close()
+    return {"workers": LOADER_WORKERS, "seconds_per_batch": seconds,
+            "images_per_s": TRAIN["batch"] * len(seconds[1:]) / sum(seconds[1:])}
+
+
+def train_overfit(data: Path):
+    """`OVERFIT_STEPS` bf16 steps on one fixed batch of 16 at 640 px (no
+    augmentation, no warmup): losses, step ms (CUDA events), peak memory and
+    one traced step."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.train_step import init_train_state, make_optimizer, make_train_step
+    from yolo_infer_tpu_torch.data.dataset import YOLODataset
+    from yolo_infer_tpu_torch.data.train_loader import TrainLoader
+    from yolo_infer_tpu_torch.models.yolo11 import build_model
+
+    off = dict(hsv_h=0.0, hsv_s=0.0, hsv_v=0.0, degrees=0.0, translate=0.0, scale=0.0, shear=0.0, fliplr=0.0,
+               flipud=0.0, mosaic=0.0, mixup=0.0)
+    loader = TrainLoader(YOLODataset(data, split="train"), batch_size=TRAIN["batch"], imgsz=TRAIN["imgsz"],
+                         hyp=off, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(TRAIN_DEVICE) for k, v in next(iter(loader.epoch_batches(0))).items()}
+    model, spec = build_model("detect", "n", TRAIN_NC, seed=SEED)
+    tx = make_optimizer(0.01, total_steps=OVERFIT_STEPS, warmup_steps=0)
+    step = make_train_step(spec, tx)
+    ts = init_train_state(model, tx, seed=SEED, device=TRAIN_DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, losses = [], []
+    for _ in range(OVERFIT_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ts, m = step(ts, batch)
+        end.record()
+        marks.append((start, end))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    ms = [a.elapsed_time(b) for a, b in marks]
+    prof = kernel_profile(lambda: step(ts, batch), calls=1)
+    return {"losses": losses, "first5": float(np.mean(losses[:5])), "last5": float(np.mean(losses[-5:])),
+            "skipped": int(ts.skipped), "step_ms_each": ms, "step_ms_median": float(np.median(ms[5:])),
+            "peak_memory_gb": peak / 1e9, "traced_step": {k: prof[k] for k in (
+                "wall_ms_per_predict", "kernel_ms_per_predict", "copy_ms_per_predict", "kernel_busy_share")},
+            "top10_kernels": prof["top"][:10]}
+
+
+def phase_train(report):
+    """Detect training on the card through the command line, an fp32 step
+    cuda against cpu, and a fixed-batch run (see the module docstring,
+    phase 29)."""
+    import torch
+
+    import yolo_infer_tpu_torch.core.train_step as train_step
+    import yolo_infer_tpu_torch.core.trainer as trainer
+
+    out = {"phase": "train", "card": card_line()}
+    failures = []
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    steps, vals = [], []
+    real_make, real_val = train_step.make_train_step, trainer.YOLO11Trainer._validate_ema
+
+    def make_counted(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def counted(ts, batch):
+            b0 = counters()["attention_qkv"].launches
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = step(ts, batch)
+            end.record()
+            steps.append((start, end, counters()["attention_qkv"].launches - b0))
+            return result
+        return counted
+
+    def val_counted(self, ts, cfg):
+        before, t0 = read_counters(), time.perf_counter()
+        result = real_val(self, ts, cfg)
+        torch.cuda.synchronize()
+        after = read_counters()
+        vals.append({"seconds": time.perf_counter() - t0, "metrics": result,
+                     "launches": {k: after[k] - before[k] for k in after if after[k] - before[k]}})
+        return result
+
+    try:
+        data = write_rect_dataset(root / "data", SEED + 29)
+        train_step.make_train_step, trainer.YOLO11Trainer._validate_ema = make_counted, val_counted
+        try:
+            rc, parsed, seconds, launches, errors = run_cli(
+                "train", "--model-size", "n", "--data", data, "--epochs", TRAIN["epochs"], "--batch", TRAIN["batch"],
+                "--imgsz", TRAIN["imgsz"], "--project", root / "runs", "--name", "smoke")
+        finally:
+            train_step.make_train_step, trainer.YOLO11Trainer._validate_ema = real_make, real_val
+        step_ms = [a.elapsed_time(b) for a, b, _ in steps]
+        cli = {"rc": rc, "seconds": seconds, "launches": launches, "steps": len(steps),
+               "b_launches_in_steps": sum(n for _, _, n in steps), "step_ms_events": step_ms, "validations": vals}
+        if rc != 0 or not isinstance(parsed, dict):
+            failures.append(f"train: exit {rc} ({errors[-1:] or parsed})")
+        else:
+            cli.update({k: parsed.get(k) for k in ("status", "skipped_steps", "epochs_completed", "best_fitness",
+                                                   "training_time_s")})
+            timing = json.loads((Path(parsed["run_dir"]) / "timing.json").read_text())
+            cli["epochs"] = [{"images_per_s": t["images"] / t["train_s"],
+                              "loader_wait_ms_per_step": 1e3 * t["loader_wait_s"] / t["steps"],
+                              "train_s": t["train_s"], "val_s": t["val_s"], "steps": t["steps"]} for t in timing]
+            if parsed.get("status") != "completed" or parsed.get("skipped_steps") != 0:
+                failures.append(f"train: status {parsed.get('status')}, skipped {parsed.get('skipped_steps')}")
+        want_steps = TRAIN["epochs"] * (TRAIN_FRAMES[0] // TRAIN["batch"])
+        if len(steps) != want_steps or cli["b_launches_in_steps"]:
+            failures.append(f"train: {len(steps)} steps (want {want_steps}), B launched "
+                            f"{cli['b_launches_in_steps']} times inside them")
+        if len(vals) != TRAIN["epochs"] or any(min(v["launches"].get("dfl_decode", 0),
+                                                   v["launches"].get("greedy_nms_keep", 0)) < 1 for v in vals):
+            failures.append(f"train: F and G did not launch in every epoch's validation: "
+                            f"{[v['launches'] for v in vals]}")
+        out["cli"] = cli
+        check = train_fp32_check(data)
+        out["fp32_step"] = check
+        if (check["loss_rel"] > TRAIN_LOSS_RTOL or check["update_rel"] > TRAIN_UPDATE_RTOL
+                or check["bn_max_abs"] > TRAIN_BN_ATOL or any(check["skipped"])):
+            failures.append(f"fp32 step: cuda differs from cpu: {check}")
+        out["mosaic_loader"] = mosaic_loader_pace(data)
+        fit = train_overfit(data)
+        out["overfit"] = fit
+        if not fit["last5"] < 0.8 * fit["first5"] or fit["skipped"]:
+            failures.append(f"overfit: the loss went from {fit['first5']} to {fit['last5']} "
+                            f"(skipped {fit['skipped']})")
+        if "epochs" in cli:
+            kernel_ms = fit["traced_step"]["kernel_ms_per_predict"]
+            out["device_busy_share"] = [kernel_ms * e["steps"] / (1e3 * e["train_s"]) for e in cli["epochs"]]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     if failures:
         emit(out)
         raise AssertionError("; ".join(failures))
@@ -3615,7 +3856,7 @@ def main() -> int:
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
-              phase_cli)
+              phase_cli, phase_train)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -169,7 +169,7 @@ def test_exit_codes_match_the_jax_cli(world, tmp_path, capsys, case):
     assert jax_rc == port_rc == {"missing_input": 2, "unknown_model": 1, "info": 0}[case]
 
 
-@pytest.mark.parametrize("argv", [["train", "--data", "data.yaml"], ["optimize", "--method", "dynamic"],
+@pytest.mark.parametrize("argv", [["train", "--data", "data.yaml", "--qat"], ["optimize", "--method", "dynamic"],
                                   ["optimize", "--method", "qat"], ["optimize", "--method", "prune"],
                                   ["optimize", "--method", "distill"]])
 def test_unported_commands_exit_1_with_a_roadmap_pointer(argv, caplog):

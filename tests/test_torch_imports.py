@@ -14,7 +14,9 @@ A fourth also blocks `psutil` and serves `predict_many` (segment, host
 masks), runs `YOLO11Model.benchmark` and a `ResourceMonitor`. A fifth
 blocks `yaml` and `PIL` too and runs the command line (`python -m
 yolo_infer_tpu_torch`): a demo on a JPEG and on a directory, validation
-from a dataset YAML, PTQ and info. Last, every "ROADMAP Queue 1 item N" in
+from a dataset YAML, PTQ and info. A sixth trains with the same blocks:
+`train` on the command line and `YOLO11Model.train` for a classify model.
+Last, every "ROADMAP Queue 1 item N" in
 the port's sources names an item that ROADMAP's Queue 1 has.
 """
 
@@ -242,6 +244,52 @@ def test_port_cli_runs_without_jax_opencv_yaml_or_pil():
     """The command line on JPEGs the port writes, a dataset YAML the port
     writes, PTQ and info, with jax, cv2, yaml and PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _CLI_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
+
+
+_TRAIN_CODE = """
+import contextlib, io, json, sys, tempfile
+from pathlib import Path
+for name in ("jax", "cv2", "yaml", "PIL", "flax", "msgpack", "safetensors"):
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+from yolo_infer_tpu_torch.cli import YOLO11CLI
+from yolo_infer_tpu_torch.core.model import YOLO11Model
+from yolo_infer_tpu_torch.data.loader import create_dataset_config, save_image
+root = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+for split in ("train", "val"):
+    (root / "ds" / "labels" / split).mkdir(parents=True)
+    for i in range(4):
+        img = np.full((48, 64, 3), 100, np.uint8)
+        img[8:30, 10:40] = (220, 30, 30)
+        save_image(root / "ds" / "images" / split / f"{{i}}.png", img)
+        (root / "ds" / "labels" / split / f"{{i}}.txt").write_text("0 0.390625 0.395833 0.46875 0.458333\\n")
+    for c in ("a", "b"):
+        save_image(root / "cls" / split / c / "0.png", rng.integers(0, 256, (40, 40, 3), dtype=np.uint8))
+        save_image(root / "cls" / split / c / "1.png", rng.integers(0, 256, (40, 40, 3), dtype=np.uint8))
+data = create_dataset_config(root / "ds" / "data.yaml", str(root / "ds" / "images" / "train"),
+                             str(root / "ds" / "images" / "val"), ["box"])
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = YOLO11CLI().run(["train", "--data", str(data), "--epochs", "1", "--batch", "2", "--imgsz", "64",
+                          "--project", str(root / "runs"), "--device", "cpu"])
+result = json.loads(out.getvalue())
+assert rc == 0 and result["status"] == "completed", result
+assert (Path(result["run_dir"]) / "history.json").exists()
+cls = YOLO11Model("yolo11n-cls", device="cpu", nc=2).train(str(root / "cls"), epochs=1, batch=2, imgsz=32,
+                                                          project=str(root / "runs"), name="cls")
+assert cls["status"] == "completed" and "val_top1" in cls["history"][0], cls
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_trains_without_jax_opencv_yaml_or_pil():
+    """`train` on the command line (detect) and `YOLO11Model.train` (classify)
+    on PNG files the port writes, with jax, cv2, yaml and PIL blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _TRAIN_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 
 

@@ -20,12 +20,15 @@ dtype of the models the commands build.
              classify model; `--save-json`
   optimize   `--method ptq`: calibrate on `--data` or on seeded synthetic
              frames, as `main.py` does, and save the static8 model; the
-             other methods exit 1 (dynamic: ROADMAP Queue 1 item 6; qat:
-             items 6 and 8; prune and distill: items 7 and 8)
+             other methods exit 1 (dynamic and qat: ROADMAP Queue 1 item 6;
+             prune and distill: item 7)
   benchmark  `SpeedBenchmark` (sizes, quantization, throughput, all)
   info       the card's name and power limit, system information and the
              port's dependencies
-  train      exits 1: training is ROADMAP Queue 1 item 8
+  train      detect and classify training (`core/trainer.py`), robust by
+             default (`core/robust_trainer.py`; `--no-robust` raises instead);
+             exits 0 only when the run's status starts with "completed";
+             `--qat` exits 1 (ROADMAP Queue 1 item 6)
 """
 
 from __future__ import annotations
@@ -44,11 +47,10 @@ logger = logging.getLogger("yolo_infer_tpu_torch.cli")
 DEFAULT_CONFIG = Path(__file__).resolve().parent.parent / "configs" / "default.yaml"
 _DTYPES = ("bfloat16", "float32")
 _NOT_PORTED = {
-    "train": "training is not ported yet (ROADMAP Queue 1 item 8)",
     "dynamic": "dynamic int8 quantization is not ported yet (ROADMAP Queue 1 item 6)",
-    "qat": "quantization-aware training is not ported yet (ROADMAP Queue 1 items 6 and 8)",
-    "prune": "pruning is not ported yet (ROADMAP Queue 1 items 7 and 8)",
-    "distill": "distillation is not ported yet (ROADMAP Queue 1 items 7 and 8)",
+    "qat": "quantization-aware training is not ported yet (ROADMAP Queue 1 item 6)",
+    "prune": "pruning is not ported yet (ROADMAP Queue 1 item 7)",
+    "distill": "distillation is not ported yet (ROADMAP Queue 1 item 7)",
 }
 
 
@@ -94,7 +96,7 @@ class YOLO11CLI:
         d.add_argument("--batch", type=int, default=None, help="video batch size")
         d.add_argument("--display", action="store_true")
 
-        t = sub.add_parser("train", help="train a model (not ported yet)")
+        t = sub.add_parser("train", help="train a detect or classify model")
         t.add_argument("--data", required=True, help="dataset yaml")
         t.add_argument("--model-size", default=None, choices=list("nsmlx"))
         t.add_argument("--model-path", default=None, help="checkpoint to start from")
@@ -217,7 +219,37 @@ class YOLO11CLI:
         return 0
 
     def run_training(self, args) -> int:
-        raise NotImplementedError(_NOT_PORTED["train"])
+        from yolo_infer_tpu_torch.core.robust_trainer import create_robust_trainer
+        from yolo_infer_tpu_torch.core.trainer import TrainingConfig, create_trainer
+
+        if args.qat:
+            raise NotImplementedError(_NOT_PORTED["qat"])
+        tcfg = self._cfg("training", default={}) or {}
+        cfg = TrainingConfig(
+            data=args.data,
+            epochs=self._pick(args.epochs, tcfg.get("epochs"), 100),
+            batch=self._pick(args.batch, tcfg.get("batch"), 16),
+            imgsz=self._pick(args.imgsz, tcfg.get("imgsz"), 640),
+            lr0=self._pick(args.lr0, tcfg.get("lr0"), 0.01),
+            patience=self._pick(args.patience, tcfg.get("patience"), 50),
+            save_period=self._pick(args.save_period, tcfg.get("save_period"), -1),
+            project=self._pick(args.project, None, "runs/train"),
+            name=self._pick(args.name, None, "exp"),
+            exist_ok=args.exist_ok,
+            resume=args.resume,
+            seed=self._pick(args.seed, tcfg.get("seed"), 0),
+        )
+        model_path = self._model_path(args)
+        model = self._model(args)
+        # robust (error-skipping) by default, as main.py
+        if args.no_robust:
+            trainer = create_trainer(model_path=model_path, config=cfg, model=model)
+        else:
+            trainer = create_robust_trainer(model_path=model_path, config=cfg, skip_errors=True, model=model)
+        result = trainer.train()
+        print(json.dumps({k: v for k, v in result.items() if k not in ("history", "traceback")}, indent=2,
+                         default=str))
+        return 0 if result.get("status", "").startswith("completed") else 1
 
     def run_validation(self, args) -> int:
         vcfg = self._cfg("validation", default={}) or {}

@@ -3,7 +3,7 @@
 Port of `yolo_infer_tpu/core/model.py` (`parse_model_name`, `YOLO11Model`:
 build or load, the cached deploy form, `predictor`, `predict`, `val`,
 `save`, `load`, `export`, `benchmark`, `get_model_info`, `from_params`;
-`YOLO11Factory`). The network is the port's `YOLO11` module, built with the
+`YOLO11Factory`; `train` through `core/trainer.py`). The network is the port's `YOLO11` module, built with the
 seeded `build_model`, loaded from an ultralytics-named state dict, an
 ultralytics `.pt` file, or a native checkpoint; prediction runs through the
 port's `Predictor`, on `cuda` unless `device="cpu"` is passed.
@@ -15,7 +15,9 @@ tree layout (`models/convert.py params_from_jax`, `params_to_jax`), so a
 file moves between the two packages as it is. `export(format="safetensors")`
 writes the deploy weights under the JAX package's flat names.
 
-Not ported yet, and raising: `train` (ROADMAP Queue 1 item 8).
+`train` runs `YOLO11Trainer` over this model (detect and classify; the
+segment, pose and OBB losses are ROADMAP Queue 1 item 8.2) and leaves the
+trained EMA weights in it.
 """
 
 from __future__ import annotations
@@ -47,7 +49,6 @@ MODEL_SIZES = list(SIZES)
 
 _NAME_RE = re.compile(r"yolo11([nsmlx])(?:-(seg|cls|pose|obb))?")
 _SUFFIX_TASK = {"seg": "segment", "cls": "classify", "pose": "pose", "obb": "obb", None: "detect"}
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {})"
 
 
 def parse_model_name(name: str):
@@ -240,7 +241,12 @@ class YOLO11Model:
     # ------------------------------------------------------------- train / val
 
     def train(self, data: str, epochs: int = 100, **kwargs) -> Dict[str, Any]:
-        raise NotImplementedError(f"training {_NOT_PORTED.format(8)}")
+        """Train on a dataset YAML (or a classify folder) with `TrainingConfig`'s
+        fields as keywords; on this model's device."""
+        from yolo_infer_tpu_torch.core.trainer import TrainingConfig, YOLO11Trainer
+
+        cfg = TrainingConfig(data=data, epochs=epochs, **kwargs)
+        return YOLO11Trainer(model=self, config=cfg).train()
 
     def val(self, data, **kwargs) -> Dict[str, Any]:
         from yolo_infer_tpu_torch.core.validator import YOLO11Validator

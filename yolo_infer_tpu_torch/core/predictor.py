@@ -399,6 +399,15 @@ class Predictor:
         # program-cache key -> program (`_get`), least recently used first
         self._cache: Dict[Tuple, Any] = {}
 
+    @torch.no_grad()
+    def load_weights(self, params: YOLO11) -> None:
+        """Serve `params`' weights from now on: folded and cast as `__init__`
+        does, then copied into the served module's tensors in place, so the
+        programs captured over them (CUDA graphs) read the new weights on
+        their next replay. `params` must be a model of this predictor's spec."""
+        src = cast_model(fold_model(copy.deepcopy(params)), self.compute_dtype)
+        self.model.load_state_dict(src.state_dict())
+
     def _forward(self, x: torch.Tensor) -> Dict[str, Any]:
         """The model forward, inside a static8 context when PTQ scales exist."""
         if self.quant_act_scales is None:

@@ -6,17 +6,15 @@ directories straight under root. Each image is resized so its short side is
 `imgsz` and centre-cropped (`_resize_center_crop`, on the port's
 `resize_linear_u8`, bit-equal to `cv2.resize`'s bilinear). `ClassifyLoader`
 builds fixed-shape, optionally flipped uint8 batches on a background thread
-(host only; it serves training). `evaluate_classifier` gives top-1 and top-5
+(host only; it serves training; an exception while building one is raised
+in the consumer). `evaluate_classifier` gives top-1 and top-5
 accuracy over every image once: frames go to the predictor's device, the
 ragged last batch is padded to the static batch and its padding left out.
 """
 
 from __future__ import annotations
 
-import logging
-import queue
 import random
-import threading
 from pathlib import Path
 from typing import Dict, Iterator, List, Tuple, Union
 
@@ -24,9 +22,8 @@ import numpy as np
 import torch
 
 from yolo_infer_tpu_torch.data.loader import IMAGE_EXTS, load_image
+from yolo_infer_tpu_torch.data.train_loader import prefetch
 from yolo_infer_tpu_torch.ops.letterbox import resize_linear_u8
-
-logger = logging.getLogger(__name__)
 
 
 class ClassifyDataset:
@@ -108,23 +105,8 @@ class ClassifyLoader:
         chunks = [c for c in chunks if len(c) == self.batch_size] or chunks[:1]
         if len(chunks[0]) < self.batch_size:
             chunks[0] = (chunks[0] * self.batch_size)[: self.batch_size]
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-
-        def producer():
-            try:
-                for c in chunks:
-                    q.put(self._build(rng, c))
-            except Exception:  # noqa: BLE001 -- the end marker must always arrive or the consumer waits forever
-                logger.exception("classify batch producer failed")
-            finally:
-                q.put(None)
-
-        threading.Thread(target=producer, daemon=True).start()
-        while True:
-            item = q.get()
-            if item is None:
-                return
-            yield item
+        # an exception while building a batch is raised here, in the train loop
+        yield from prefetch(chunks, lambda c: self._build(rng, c), self.prefetch)
 
     def close_mosaic(self) -> None:  # the train loader's interface
         pass

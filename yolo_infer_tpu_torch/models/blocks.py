@@ -62,7 +62,16 @@ def _q_maxpool(x, k: int):
 
 
 class Conv(nn.Module):
-    """Conv2d (k//2 padding, groups) -> batch norm (eval) -> optional SiLU.
+    """Conv2d (k//2 padding, groups) -> batch norm -> optional SiLU.
+
+    In eval mode the batch norm applies its running statistics. In training
+    mode (`module.train()`, the train step's forward) it normalises with the
+    batch's own statistics, as `yolo_infer_tpu/nn/layers.py conv_block` does
+    with `training=True`: mean and biased variance in f32, scale and bias
+    applied in the activation dtype. The running statistics are not touched:
+    the batch's (mean, unbiased variance) are left in `batch_stats` for
+    `YOLO11.forward` to return as values, so that a step the finite guard
+    drops can keep the old ones (`core/train_step.py`).
 
     `fold()` merges the batch norm into the conv's weight and bias in place
     (the deploy form); afterwards `bn` is None. `quantize()` turns a folded
@@ -77,6 +86,7 @@ class Conv(nn.Module):
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
         self.k, self.s, self.g = k, s, g
+        self.batch_stats = None
 
     @property
     def quantized(self) -> bool:
@@ -89,7 +99,13 @@ class Conv(nn.Module):
             x = x.dequant(self.conv.weight.dtype)
         y = self.conv(x) if x.dtype == self.conv.weight.dtype else _conv_in_input_dtype(self.conv, x)
         if self.bn is not None:
-            scale, bias = bn_scale_bias(self.bn.weight, self.bn.bias, self.bn.running_mean, self.bn.running_var)
+            if self.training:
+                var, mean = torch.var_mean(y.float(), dim=(0, 2, 3), correction=0)
+                n = y.numel() // y.shape[1]
+                self.batch_stats = (mean.detach(), var.detach() * (n / max(n - 1, 1)))  # torch's running_var rule
+            else:
+                mean, var = self.bn.running_mean, self.bn.running_var
+            scale, bias = bn_scale_bias(self.bn.weight, self.bn.bias, mean, var)
             y = y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
         return silu(y) if self.act else y
 
@@ -251,7 +267,9 @@ class Attention(nn.Module):
       "fused"  kernel B (`attention_qkv`) on the (B, N, heads*(2kd+hd)) slab, in place
       "pallas" kernel H (`attention_packed`) on a (B*heads, N, 2kd+hd) head-major copy
       "xla"    plain batched products, the JAX package's einsum form
-    The wrappers take their plain versions on a CPU tensor.
+    The wrappers take their plain versions on a CPU tensor. In training mode
+    it is always "xla", as `yolo_infer_tpu/models/blocks.py _attn_impl`
+    chooses: kernel B has no backward.
     """
 
     def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5):
@@ -284,7 +302,7 @@ class Attention(nn.Module):
         qkv = self.qkv(x)
         # NHWC rows of the qkv map; a view when `qkv` is channels_last
         slab = qkv.permute(0, 2, 3, 1).reshape(b, n, -1).contiguous()
-        impl = attn_impl_choice(self.impl)
+        impl = "xla" if self.training else attn_impl_choice(self.impl)
         if impl == "fused":
             o = attention_qkv(slab, heads, kd, hd)  # (B, N, heads*hd), head-major
         elif impl == "pallas":

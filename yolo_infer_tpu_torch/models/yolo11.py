@@ -9,7 +9,7 @@ identical outputs, so they have no counterpart here.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -17,7 +17,7 @@ import torch.nn as nn
 from yolo_infer_tpu_torch.models import blocks as B
 from yolo_infer_tpu_torch.models.spec import ModelSpec, build_spec, save_indices
 from yolo_infer_tpu_torch.nn import quantize as Q
-from yolo_infer_tpu_torch.nn.layers import upsample2x
+from yolo_infer_tpu_torch.nn.layers import BN_MOMENTUM, upsample2x
 
 
 def _upsample(x):
@@ -65,7 +65,7 @@ class YOLO11(nn.Module):
         self.spec = spec
         self._keep = frozenset(save_indices(spec))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
         """`x` is (B, H, W, 3) float in [0, 1], NHWC as the JAX package takes it.
 
         Returns the JAX package's head dict, maps as NHWC views:
@@ -74,9 +74,29 @@ class YOLO11(nn.Module):
           pose    : + {"kpts": [(B, Hi, Wi, K*D)] * 3}
           obb     : + {"angle": [(B, Hi, Wi, ne)] * 3}
           classify: {"logits": (B, nc) f32}
+        The maps are in `compute_dtype` (by default the convs' weight dtype):
+        the input is cast to it and each conv casts its weights to its
+        input's dtype, as the JAX package's forward does with f32 master
+        weights. In training mode (`self.train()`) the batch norms use the
+        batch statistics and the result is (head dict, new batch-norm
+        state): {"<module>.bn.running_mean" | "….running_var": f32 tensor},
+        the running statistics after this batch (momentum `BN_MOMENTUM`),
+        as values; the module's own buffers are left as they are.
         """
-        dtype = self.compute_dtype
-        x = x.permute(0, 3, 1, 2).to(dtype)
+        dtype = compute_dtype or self.compute_dtype
+        out = self._run(x.permute(0, 3, 1, 2).to(dtype), dtype)
+        if not self.training:
+            return out
+        new_bn: Dict[str, torch.Tensor] = {}
+        for name, m in self.named_modules():
+            if isinstance(m, B.Conv) and m.bn is not None and m.batch_stats is not None:
+                mean, var = m.batch_stats
+                m.batch_stats = None
+                new_bn[f"{name}.bn.running_mean"] = (1 - BN_MOMENTUM) * m.bn.running_mean + BN_MOMENTUM * mean
+                new_bn[f"{name}.bn.running_var"] = (1 - BN_MOMENTUM) * m.bn.running_var + BN_MOMENTUM * var
+        return out, new_bn
+
+    def _run(self, x: torch.Tensor, dtype: torch.dtype) -> Dict[str, Any]:
         ys: Dict[int, torch.Tensor] = {}
         prev = x
         for layer in self.spec.layers:
