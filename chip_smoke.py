@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs twenty-nine phases, each printing one JSON line. Kernels A, C, F and G
+runs thirty phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -265,8 +265,9 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              `create_dataset_config`), its metrics equal to
              `YOLO11Validator.validate` on the same files; `optimize --method
              ptq` and `demo` on its output (static8); `benchmark --type sizes`
-             at 640, batch 1 and 32, 20 runs; `train --qat` exits 1 naming
-             ROADMAP Queue 1 item 6 and a missing input exits 2. A, B, E, F
+             at 640, batch 1 and 32, 20 runs; `optimize --method qat`
+             without data exits 1 (as `main.py`) and a missing input exits
+             2. A, B, E, F
              and G must each launch in these runs
  29. train   detect training on the card (`TRAIN`): `YOLO11CLI().run(["train",
              "--model-size", "n", ...])` in process, 2 epochs at batch 16 and
@@ -290,6 +291,32 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              memory, and the ten largest kernels of one traced step
              (torch.profiler) with its kernels' device ms, whose share of the
              epoch's wall time per step is the device busy share of training
+ 30. optimize  every task trains and every optimize method runs (`OPT_*`):
+             yolo11n segment, pose and OBB each `YOLO11Model.train` for one
+             epoch at batch 16 and 640 px (bf16) on a seeded one-class PNG
+             dataset with exact labels (`write_shapes_dataset`: filled
+             hexagons, rectangles with 17 keypoints, filled rotated
+             rectangles; 32 training and 16 validation frames): status
+             "completed", no skipped step, B never inside a step, the
+             epoch's validation launches G (segment, pose) or C and F (OBB),
+             and an fp32 step of each (b2, 640 px) cuda against cpu within
+             phase 29's tolerances; dynamic int8 yolo11n and yolo11s at
+             b32/640 (bf16): the path's launches of E, E's float epilogue
+             bit-equal to its plain version at every input of the path's
+             body (the stem's Ci = 3 among them), its summed times and
+             bound, img/s beside the bf16 and static8 models; yolo11n
+             dynamic fp32 `predict` cuda against cpu (paired as phase 16);
+             a model carrying 1-D (legacy static) scales serves through E;
+             QAT (`create_quantizer("qat", ..., {"epochs": 1})`) trains and
+             its int8 model serves; magnitude masks at 0.5 hit their target
+             on the card, and a masked fine-tune keeps every pinned zero;
+             channel surgery at 0.5: the slim model equals the zeroed one in
+             fp32 within `SLIM_TOL`, its img/s against the dense model's, its
+             exported program smaller than the dense one's and its replay
+             equal to its eager run; distillation of a yolo11s teacher into
+             a yolo11n student for one epoch, B launching inside every step
+             (the teacher's attention). E's kernels-line row gains the
+             dynamic paths' launches, times and bound under "dynamic"
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -3595,9 +3622,9 @@ def phase_cli(report):
         sizes = json.loads((root / "bench" / "model_sizes_benchmark.json").read_text())
         runs["benchmark"]["fps"] = {k: v.get("fps") for k, v in sizes.items()}
         # --- the exits that are not 0
-        _, errors = cli("train_qat", "train", "--data", data, "--qat", want_rc=1)
-        if not any("ROADMAP Queue 1 item 6" in e for e in errors):
-            failures.append(f"train --qat: no ROADMAP Queue 1 item 6 message ({errors})")
+        _, errors = cli("qat_without_data", "optimize", "--method", "qat", "--model-path", ckpt, want_rc=1)
+        if not any("QAT needs a dataset" in e for e in errors):
+            failures.append(f"optimize --method qat without data: no 'QAT needs a dataset' message ({errors})")
         cli("missing_input", "demo", "--input", root / "missing.jpg", "--model-path", ckpt, want_rc=2)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3648,8 +3675,9 @@ def write_rect_dataset(root: Path, seed: int) -> Path:
                                  {c: f"rect{c}" for c in range(TRAIN_NC)})
 
 
-def train_fp32_check(data: Path):
-    """One fp32 step of the same weights on the same batch on cuda and on cpu."""
+def train_fp32_check(data: Path, task: str = "detect", nc: int = TRAIN_NC):
+    """One fp32 step of yolo11n `task` (`TRAIN_CHECK`) on the same weights
+    and batch on cuda and on cpu."""
     import torch
 
     from yolo_infer_tpu_torch.core.train_step import init_train_state, make_optimizer, make_train_step
@@ -3658,9 +3686,9 @@ def train_fp32_check(data: Path):
     from yolo_infer_tpu_torch.models.yolo11 import build_model
 
     b, imgsz = TRAIN_CHECK
-    batch = next(iter(TrainLoader(YOLODataset(data, split="train"), batch_size=b, imgsz=imgsz,
+    batch = next(iter(TrainLoader(YOLODataset(data, split="train", task=task), batch_size=b, imgsz=imgsz,
                                   seed=SEED).epoch_batches(0)))
-    model, spec = build_model("detect", "n", TRAIN_NC, seed=SEED)
+    model, spec = build_model(task, "n", nc, seed=SEED)
     tx = make_optimizer(0.01, total_steps=10, warmup_steps=0)
     step = make_train_step(spec, tx, compute_dtype=torch.float32)
     got = {}
@@ -3739,55 +3767,77 @@ def train_overfit(data: Path):
             "top10_kernels": prof["top"][:10]}
 
 
+class StepWatch:
+    """Wraps `make_train_step`'s steps and `_validate_ema` while a training
+    run goes: each step's CUDA-event ms and kernel B's launches inside it,
+    each validation's seconds and kernel launches."""
+
+    def __init__(self):
+        self.steps, self.vals = [], []
+
+    def __enter__(self):
+        import torch
+
+        import yolo_infer_tpu_torch.core.train_step as train_step
+        import yolo_infer_tpu_torch.core.trainer as trainer
+
+        self._ts, self._tr = train_step, trainer
+        self._make, self._val = train_step.make_train_step, trainer.YOLO11Trainer._validate_ema
+        real_make, real_val, steps, vals = self._make, self._val, self.steps, self.vals
+
+        def make_counted(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def counted(ts, batch):
+                b0 = counters()["attention_qkv"].launches
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                result = step(ts, batch)
+                end.record()
+                steps.append((start, end, counters()["attention_qkv"].launches - b0))
+                return result
+            return counted
+
+        def val_counted(trainer_self, ts, cfg):
+            before, t0 = read_counters(), time.perf_counter()
+            result = real_val(trainer_self, ts, cfg)
+            torch.cuda.synchronize()
+            after = read_counters()
+            vals.append({"seconds": time.perf_counter() - t0, "metrics": result,
+                         "launches": {k: after[k] - before[k] for k in after if after[k] - before[k]}})
+            return result
+
+        train_step.make_train_step, trainer.YOLO11Trainer._validate_ema = make_counted, val_counted
+        return self
+
+    def __exit__(self, *exc):
+        self._ts.make_train_step, self._tr.YOLO11Trainer._validate_ema = self._make, self._val
+        return False
+
+    def summary(self):
+        import torch
+
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b, _ in self.steps]
+        return {"steps": len(ms), "step_ms": ms, "b_launches_in_steps": [n for _, _, n in self.steps],
+                "validations": self.vals}
+
+
 def phase_train(report):
     """Detect training on the card through the command line, an fp32 step
     cuda against cpu, and a fixed-batch run (see the module docstring,
     phase 29)."""
-    import torch
-
-    import yolo_infer_tpu_torch.core.train_step as train_step
-    import yolo_infer_tpu_torch.core.trainer as trainer
-
     out = {"phase": "train", "card": card_line()}
     failures = []
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    steps, vals = [], []
-    real_make, real_val = train_step.make_train_step, trainer.YOLO11Trainer._validate_ema
-
-    def make_counted(*a, **kw):
-        step = real_make(*a, **kw)
-
-        def counted(ts, batch):
-            b0 = counters()["attention_qkv"].launches
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            result = step(ts, batch)
-            end.record()
-            steps.append((start, end, counters()["attention_qkv"].launches - b0))
-            return result
-        return counted
-
-    def val_counted(self, ts, cfg):
-        before, t0 = read_counters(), time.perf_counter()
-        result = real_val(self, ts, cfg)
-        torch.cuda.synchronize()
-        after = read_counters()
-        vals.append({"seconds": time.perf_counter() - t0, "metrics": result,
-                     "launches": {k: after[k] - before[k] for k in after if after[k] - before[k]}})
-        return result
-
     try:
         data = write_rect_dataset(root / "data", SEED + 29)
-        train_step.make_train_step, trainer.YOLO11Trainer._validate_ema = make_counted, val_counted
-        try:
+        with StepWatch() as watch:
             rc, parsed, seconds, launches, errors = run_cli(
                 "train", "--model-size", "n", "--data", data, "--epochs", TRAIN["epochs"], "--batch", TRAIN["batch"],
                 "--imgsz", TRAIN["imgsz"], "--project", root / "runs", "--name", "smoke")
-        finally:
-            train_step.make_train_step, trainer.YOLO11Trainer._validate_ema = real_make, real_val
-        step_ms = [a.elapsed_time(b) for a, b, _ in steps]
-        cli = {"rc": rc, "seconds": seconds, "launches": launches, "steps": len(steps),
-               "b_launches_in_steps": sum(n for _, _, n in steps), "step_ms_events": step_ms, "validations": vals}
+        cli = {"rc": rc, "seconds": seconds, "launches": launches, **watch.summary()}
+        vals = cli["validations"]
         if rc != 0 or not isinstance(parsed, dict):
             failures.append(f"train: exit {rc} ({errors[-1:] or parsed})")
         else:
@@ -3800,8 +3850,8 @@ def phase_train(report):
             if parsed.get("status") != "completed" or parsed.get("skipped_steps") != 0:
                 failures.append(f"train: status {parsed.get('status')}, skipped {parsed.get('skipped_steps')}")
         want_steps = TRAIN["epochs"] * (TRAIN_FRAMES[0] // TRAIN["batch"])
-        if len(steps) != want_steps or cli["b_launches_in_steps"]:
-            failures.append(f"train: {len(steps)} steps (want {want_steps}), B launched "
+        if cli["steps"] != want_steps or any(cli["b_launches_in_steps"]):
+            failures.append(f"train: {cli['steps']} steps (want {want_steps}), B launched "
                             f"{cli['b_launches_in_steps']} times inside them")
         if len(vals) != TRAIN["epochs"] or any(min(v["launches"].get("dfl_decode", 0),
                                                    v["launches"].get("greedy_nms_keep", 0)) < 1 for v in vals):
@@ -3822,6 +3872,324 @@ def phase_train(report):
         if "epochs" in cli:
             kernel_ms = fit["traced_step"]["kernel_ms_per_predict"]
             out["device_busy_share"] = [kernel_ms * e["steps"] / (1e3 * e["train_s"]) for e in cli["epochs"]]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+OPT_TRAIN = dict(batch=16, imgsz=640, epochs=1)  # each training run of phase 30
+OPT_FRAMES = (32, 16)  # training (two steps of 16) and validation frames of each phase-30 dataset
+OPT_TASKS = ("segment", "pose", "obb")
+# the validation kernels each task's per-epoch validation must launch
+OPT_VAL_KERNELS = {"segment": ("dfl_decode", "greedy_nms_keep"), "pose": ("dfl_decode", "greedy_nms_keep"),
+                   "obb": ("dfl_decode", "rotated_nms_keep")}
+OPT_DYN = (32, 640)  # the dynamic int8 paths, yolo11n and yolo11s: batch, imgsz
+SLIM_TOL = 1e-4  # slim against zeroed in fp32, of the largest head value
+PRUNE_SPARSITY = 0.5
+
+
+def write_shapes_dataset(root: Path, task: str, seed: int) -> Path:
+    """A one-class dataset of `OPT_FRAMES` 640x480 PNGs on gray with exact
+    labels: detect and pose rectangles (pose: 17 keypoints on a grid inside
+    each, all visible), segment filled polygons (a hexagon in a box), OBB
+    filled rotated rectangles (their corners)."""
+    from yolo_infer_tpu_torch.data.loader import create_dataset_config, save_image
+    from yolo_infer_tpu_torch.data.polygon import fill_poly
+
+    rng = np.random.default_rng(seed)
+    for split, n in zip(("train", "val"), OPT_FRAMES):
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            img = np.full((480, 640, 3), int(rng.integers(70, 190)), np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 4))):
+                w, h = float(rng.uniform(60, 220)), float(rng.uniform(60, 180))
+                cx, cy = float(rng.uniform(w / 2 + 20, 620 - w / 2)), float(rng.uniform(h / 2 + 20, 460 - h / 2))
+                colour = tuple(int(c) for c in rng.integers(0, 256, 3))
+                if task in ("segment", "obb"):
+                    if task == "obb":
+                        pts = obb_corners(cx, cy, w, h, float(rng.uniform(-np.pi / 2, np.pi / 2)))
+                    else:
+                        a = np.linspace(0, 2 * np.pi, 7)[:6] + float(rng.uniform(0, 1))
+                        pts = np.stack([cx + w / 2 * np.cos(a), cy + h / 2 * np.sin(a)], -1)
+                    pts = np.clip(pts, 0, [639, 479])
+                    for ch in range(3):
+                        fill_poly(img[..., ch], np.round(pts).astype(np.int32), colour[ch])
+                    rows.append("0 " + " ".join(f"{v:.6f}" for v in (pts / [640, 480]).ravel()))
+                    continue
+                x0, y0 = int(cx - w / 2), int(cy - h / 2)
+                img[y0:y0 + int(h), x0:x0 + int(w)] = colour
+                row = f"0 {cx / 640:.6f} {cy / 480:.6f} {int(w) / 640:.6f} {int(h) / 480:.6f}"
+                if task == "pose":
+                    gx, gy = np.meshgrid(np.linspace(0.15, 0.85, 5), np.linspace(0.15, 0.85, 4))
+                    kx, ky = x0 + gx.ravel()[:17] * int(w), y0 + gy.ravel()[:17] * int(h)
+                    row += "".join(f" {x / 640:.6f} {y / 480:.6f} 2" for x, y in zip(kx, ky))
+                rows.append(row)
+            save_image(root / "images" / split / f"{i:03d}.png", img, compress_level=1)
+            (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    return create_dataset_config(root / "data.yaml", str(root / "images" / "train"), str(root / "images" / "val"),
+                                 {0: "shape"})
+
+
+def _epoch_rates(run_dir):
+    timing = json.loads((Path(run_dir) / "timing.json").read_text())
+    return [{"images_per_s": t["images"] / t["train_s"], "train_s": t["train_s"], "val_s": t["val_s"],
+             "steps": t["steps"]} for t in timing]
+
+
+def _float_e_work(args, kw):
+    """Bytes and int8 operations of one float-epilogue launch of kernel E
+    (the output written once in the epilogue's dtype)."""
+    x, w_q, scale, bias = args[:4]
+    b, h, w, ci = x.shape
+    co, k = w_q.shape[0], w_q.shape[1]
+    s = kw.get("stride", 1)
+    ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+    out_bytes = 4 if str(kw.get("epilogue_dtype")) == "torch.float32" else 2
+    nbytes = x.numel() + w_q.numel() + 4 * co * (2 if bias is not None else 1) + b * ho * wo * co * out_bytes
+    return nbytes, 2 * b * ho * wo * co * ci * k * k, (b, h, w, ci, co, k, s)
+
+
+def dynamic_path(size: str, frames, calib):
+    """yolo11`size` dynamic int8 at `OPT_DYN`: the path's launches (its run
+    and one uncaptured body), kernel E's float epilogue at every input of the
+    body against its plain version, its times and bound, and img/s beside
+    bf16 and static8 (PTQ on `calib`)."""
+    import torch
+
+    import yolo_infer_tpu_torch.nn.quantize as quant_mod
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.ops.kernels import int8_conv as e_mod
+    from yolo_infer_tpu_torch.optimization.quantization.quantizers import create_quantizer
+
+    batch, imgsz = OPT_DYN
+    model, _ = smoke_weights(calib, size=size, calibrate_bn=False)
+    base = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size=size, fused=False)  # bf16, cuda
+    dyn = create_quantizer("dynamic", base).optimize()
+    pred = dyn.predictor
+    path, results = path_counters(lambda: (dyn.predict(frames, conf=0.25, imgsz=imgsz),
+                                           dyn.predict(frames, conf=0.25, imgsz=imgsz))[1])
+    seen = []
+    e_fn = quant_mod.int8_conv
+
+    def capture(*args, **kw):
+        seen.append((tuple(torch.empty_strided(a.size(), a.stride(), dtype=a.dtype, device=a.device).copy_(a)
+                           if torch.is_tensor(a) else a for a in args), kw))
+        return e_fn(*args, **kw)
+
+    quant_mod.int8_conv = capture  # `quantized_conv2d`'s launch of E
+    reset_counters()
+    try:
+        eager_run(pred, frames, imgsz)
+    finally:
+        quant_mod.int8_conv = e_fn
+    body = read_counters()
+    counts = path_launches(f"dynamic yolo11{size}", ("int8_conv",), path, body)
+    mism, err, per, bytes_e, ops_e = 0, 0.0, [], 0, 0
+    e_ms = device_ms_each([lambda a=args, k=kw: e_mod.int8_conv(*a, **k) for args, kw in seen])
+    for (args, kw), ms in zip(seen, e_ms):
+        got, want = e_mod.int8_conv(*args, **kw), e_mod.int8_conv_reference(*args, **kw)
+        mism += int(not torch.equal(got, want))
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        nbytes, ops, shape = _float_e_work(args, kw)
+        bytes_e, ops_e = bytes_e + nbytes, ops_e + ops
+        per.append({"shape": list(shape), "ms": ms,
+                    "plain_ms": cuda_ms(lambda: e_mod.int8_conv_reference(*args, **kw), iters=1, warmup=1)})
+    shapes = sorted({tuple(p["shape"][3:]) for p in per})
+    ptq = create_quantizer("ptq", base, {"imgsz": imgsz})
+    ptq.set_calibration_data([calib])
+    static8 = ptq.optimize()
+    finite = all(np.isfinite(r.boxes).all() and np.isfinite(r.scores).all() for r in results)
+    return {"size": size, "launches": counts["int8_conv"], "e_inputs": len(seen), "e_mismatches": mism,
+            "e_max_abs_err": err,
+            "e_shapes_ci_co_k_s": [list(s) for s in shapes], "stem_ci3": any(s[0] == 3 for s in shapes),
+            "e_ms_sum": sum(p["ms"] for p in per), "e_plain_ms_sum": sum(p["plain_ms"] for p in per),
+            **{f"e_{k}": v for k, v in bound(bytes_e, ops_e, H100_INT8_OPS).items()},
+            "finite": finite, "detections_per_image": [len(r) for r in results][:4],
+            "dynamic": timed_serving(pred, frames, imgsz), "bf16": timed_serving(base.predictor, frames, imgsz),
+            "static8": timed_serving(static8.predictor, frames, imgsz), "ptq_scales": static8.quant_act_scales}
+
+
+def dynamic_fp32_check(frames, calib):
+    """yolo11n dynamic int8 fp32 `predict` on cuda and on cpu: detections
+    paired as phase 16 pairs static8's (`pair_share`)."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.optimization.quantization.quantizers import create_quantizer
+
+    model, _ = smoke_weights(calib, size="n", calibrate_bn=False)
+    base = YOLO11Model.from_params(model, task="detect", size="n", fused=False, compute_dtype=torch.float32,
+                                   device="cpu")
+    on_cpu = create_quantizer("dynamic", base).optimize()
+    on_gpu = YOLO11Model.from_params(copy.deepcopy(on_cpu.deploy_model), task="detect", size="n", fused=True,
+                                     compute_dtype=torch.float32)
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = on_gpu.predict(frames, conf=0.25)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return pair_share(got, on_cpu.predict(frames, conf=0.25))
+
+
+def phase_optimize(report):
+    """Every task trains and every optimize method runs on the card (see
+    the module docstring, phase 30)."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.exported import ExportedPredictor, export_predictor
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.optimization.distillation import create_distiller
+    from yolo_infer_tpu_torch.optimization.pruning import apply_masks, create_pruner, magnitude_masks, sparsity_report
+    from yolo_infer_tpu_torch.optimization.quantization.quantizers import create_quantizer
+    from yolo_infer_tpu_torch.optimization.surgery import slim_model, zero_removed
+
+    out = {"phase": "optimize", "card": card_line()}
+    failures = []
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_optimize_"))
+    kw = dict(OPT_TRAIN, project=str(root / "runs"))
+    try:
+        # --- segment, pose and OBB training through YOLO11Model.train
+        tasks = {}
+        for i, task in enumerate(OPT_TASKS):
+            data = write_shapes_dataset(root / task, task, SEED + 30 + i)
+            model = YOLO11Model(f"yolo11n-{ {'segment': 'seg'}.get(task, task)}", nc=1)
+            t0 = time.perf_counter()
+            with StepWatch() as watch:
+                res = model.train(str(data), name=task, **kw)
+            row = {"seconds": time.perf_counter() - t0, "status": res["status"],
+                   "skipped_steps": res["skipped_steps"], **watch.summary(),
+                   "epochs": _epoch_rates(res["run_dir"]), "loss": res["history"][-1].get("loss")}
+            row["fp32_step"] = check = train_fp32_check(data, task, nc=1)
+            tasks[task] = row
+            if res["status"] != "completed" or res["skipped_steps"]:
+                failures.append(f"{task} training: {res['status']}, skipped {res['skipped_steps']}")
+            if row["steps"] != OPT_FRAMES[0] // OPT_TRAIN["batch"] or any(row["b_launches_in_steps"]):
+                failures.append(f"{task} training: {row['steps']} steps, B inside them {row['b_launches_in_steps']}")
+            if len(row["validations"]) != 1 or any(row["validations"][0]["launches"].get(k, 0) < 1
+                                                   for k in OPT_VAL_KERNELS[task]):
+                failures.append(f"{task} validation did not launch {OPT_VAL_KERNELS[task]}: {row['validations']}")
+            if (check["loss_rel"] > TRAIN_LOSS_RTOL or check["update_rel"] > TRAIN_UPDATE_RTOL
+                    or check["bn_max_abs"] > TRAIN_BN_ATOL or any(check["skipped"])):
+                failures.append(f"{task} fp32 step: cuda differs from cpu: {check}")
+        out["tasks"] = tasks
+
+        # --- dynamic int8 (kernel E's float epilogue), legacy static
+        batch, imgsz = OPT_DYN
+        rng = np.random.default_rng(SEED + 30)
+        calib = rng.integers(0, 256, (2, imgsz, imgsz, 3), dtype=np.uint8)
+        frames = rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+        dyn = {}
+        for size in ("n", "s"):
+            d = dynamic_path(size, frames, calib)
+            scales = d.pop("ptq_scales")
+            dyn[size] = d
+            if d["e_mismatches"] or not d["stem_ci3"] or not d["finite"]:
+                failures.append(f"dynamic yolo11{size}: E float epilogue differs at {d['e_mismatches']} of "
+                                f"{d['e_inputs']} inputs (stem Ci=3 seen: {d['stem_ci3']}), finite {d['finite']}")
+        out["dynamic"] = dyn
+        out["dynamic_fp32"] = pairs = dynamic_fp32_check(frames[:2, :480], calib)
+        if pairs["seen"] == 0 or pairs["share"] < Q8_PAIRED:
+            failures.append(f"dynamic fp32 predict: cuda differs from cpu {pairs}")
+        e_row = next((k for k in report.get("kernels", ()) if k["name"] == "int8_conv"), None)
+        dyn_row = {"path": f"dynamic yolo11n + yolo11s b{batch}/{imgsz} bf16 (float epilogue)",
+                   "launches": sum(d["launches"]["launches"] for d in dyn.values()),
+                   "launches_per_call": {s: d["launches"]["launches_per_call"] for s, d in dyn.items()},
+                   "ms": sum(d["e_ms_sum"] for d in dyn.values()),
+                   "plain_ms": sum(d["e_plain_ms_sum"] for d in dyn.values()),
+                   "bound_ms": sum(d["e_bound_ms"] for d in dyn.values()),
+                   "max_abs_err": max(d["e_max_abs_err"] for d in dyn.values()),
+                   "bound_by": sorted({d["e_bound_by"] for d in dyn.values()})}
+        out["e_dynamic_row"] = dyn_row
+        if e_row is not None:
+            e_row["dynamic"] = dyn_row
+        # legacy static: the yolo11n dynamic model serving PTQ's input absmax as 1-D scales
+        n_base, _ = smoke_weights(calib, size="n", calibrate_bn=False)
+        nq = create_quantizer("dynamic", YOLO11Model.from_params(n_base, task="detect", size="n",
+                                                                 fused=False)).optimize()
+        ptq = create_quantizer("ptq", YOLO11Model.from_params(copy.deepcopy(n_base), task="detect", size="n",
+                                                              fused=False), {"imgsz": imgsz})
+        ptq.set_calibration_data([calib])
+        legacy = YOLO11Model.from_params(nq.deploy_model, task="detect", size="n", fused=True,
+                                         quant_act_scales=np.asarray(ptq.optimize().quant_act_scales)[:, 0])
+        path, res = path_counters(lambda: legacy.predict(frames[:8], conf=0.25, imgsz=imgsz))
+        out["legacy_static"] = {"mode": legacy.predictor.quant_mode, "launches": path["int8_conv"],
+                                "finite": all(np.isfinite(r.boxes).all() for r in res),
+                                "img_per_s": timed_serving(legacy.predictor, frames, imgsz)["img_per_s"]}
+        if legacy.predictor.quant_mode != "static" or path["int8_conv"] < 1 or not out["legacy_static"]["finite"]:
+            failures.append(f"legacy static: {out['legacy_static']}")
+
+        # --- QAT, pruning and distillation on the detect shapes
+        data = write_shapes_dataset(root / "detect", "detect", SEED + 33)
+        with StepWatch() as watch:
+            q = create_quantizer("qat", YOLO11Model("yolo11n", nc=1), {"epochs": 1})
+            qmodel = q.optimize(data=str(data), **{k: v for k, v in kw.items() if k != "epochs"})
+        path, res = path_counters(lambda: qmodel.predict(frames[:8], conf=0.25, imgsz=imgsz))
+        out["qat"] = {**q.get_optimization_info(), **watch.summary(), "serve_mode": qmodel.predictor.quant_mode,
+                      "serve_e_launches": path["int8_conv"]}
+        if out["qat"]["train_status"] != "completed" or path["int8_conv"] < 1:
+            failures.append(f"qat: {out['qat']['train_status']}, E launches serving {path['int8_conv']}")
+
+        dense = YOLO11Model("yolo11n", nc=1)
+        card_model = copy.deepcopy(dense.model).cuda()
+        masks = magnitude_masks(card_model, PRUNE_SPARSITY)
+        rep = sparsity_report(apply_masks(card_model, masks))
+        want = int(PRUNE_SPARSITY * rep["prunable_params"]) / rep["prunable_params"]
+        pruner = create_pruner(dense, {"method": "magnitude", "sparsity": PRUNE_SPARSITY})
+        with StepWatch() as watch:
+            pruner.optimize(data=str(data), name="prune", **kw)
+        info = pruner.get_optimization_info()
+        out["prune"] = {"masks_on_card": rep, "target": want, "after_fine_tune": info["after"],
+                        "fine_tune": info["fine_tune"], **watch.summary()}
+        if rep["prunable_sparsity"] != want or info["after"]["prunable_sparsity"] < want:
+            failures.append(f"pruning: sparsity {rep['prunable_sparsity']} on the card, "
+                            f"{info['after']['prunable_sparsity']} after the fine-tune (want {want})")
+
+        # physical surgery: slim == zeroed in fp32, slim against dense img/s, the slim export
+        calibrated, _ = smoke_weights(calib, size="n")
+        slim, plan, srep = slim_model(calibrated, keep_frac=1 - PRUNE_SPARSITY)
+        zeroed = zero_removed(calibrated, plan)
+        x = torch.from_numpy(calib[:2].astype(np.float32) / 255).cuda()
+        with torch.no_grad():
+            a, z = slim.float().cuda().eval()(x), zeroed.float().cuda().eval()(x)
+        slim_err = max(float((u - v).abs().max() / v.abs().max()) for u, v in zip(a["feats"], z["feats"]))
+        slim_m = YOLO11Model.from_params(slim.cpu(), task="detect", size="n", fused=False)
+        dense_m = YOLO11Model.from_params(copy.deepcopy(calibrated), task="detect", size="n", fused=False)
+        eb = min(8, batch)
+        ep_path = export_predictor(slim_m, root / "slim.pt2", batch=eb, imgsz=imgsz)
+        dense_path = export_predictor(dense_m, root / "dense.pt2", batch=eb, imgsz=imgsz)
+        ep = ExportedPredictor.load(ep_path)
+        fd = torch.from_numpy(frames[:eb]).cuda()
+        rep_out = clone_dets(ep.predict_raw(fd, 0.25, 0.45))
+        rep_out = clone_dets(ep.predict_raw(fd, 0.25, 0.45))  # a replay of the captured graph
+        eager = ep.run_eager(fd, 0.25, 0.45)
+        out["surgery"] = {**srep, "slim_vs_zeroed_rel": slim_err, "slim_export_bytes": ep_path.stat().st_size,
+                          "dense_export_bytes": dense_path.stat().st_size,
+                          "export_replay_equals_eager": dets_equal(rep_out, eager),
+                          "slim": timed_serving(slim_m.predictor, frames, imgsz),
+                          "dense": timed_serving(dense_m.predictor, frames, imgsz)}
+        out["surgery"]["slim_vs_dense_img_per_s"] = (out["surgery"]["slim"]["img_per_s"]
+                                                     / out["surgery"]["dense"]["img_per_s"])
+        if (slim_err > SLIM_TOL or not out["surgery"]["export_replay_equals_eager"]
+                or out["surgery"]["slim_export_bytes"] >= out["surgery"]["dense_export_bytes"]):
+            failures.append(f"surgery: slim vs zeroed {slim_err}, export replay equals eager "
+                            f"{out['surgery']['export_replay_equals_eager']}, bytes "
+                            f"{out['surgery']['slim_export_bytes']} vs {out['surgery']['dense_export_bytes']}")
+
+        # distillation: a yolo11s teacher inside the yolo11n student's steps
+        student, teacher = YOLO11Model("yolo11n", nc=1), YOLO11Model("yolo11s", nc=1, seed=SEED + 1)
+        d = create_distiller(student, {"teacher": teacher})
+        with StepWatch() as watch:
+            d.optimize(str(data), name="distill", **kw)
+        out["distill"] = {**d.get_optimization_info(), **watch.summary()}
+        if out["distill"]["epochs_completed"] != 1 or not all(out["distill"]["b_launches_in_steps"]):
+            failures.append(f"distillation: B launches inside the steps {out['distill']['b_launches_in_steps']}")
+    except Exception:
+        emit(out)  # what ran before the error
+        raise
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if failures:
@@ -3856,7 +4224,7 @@ def main() -> int:
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
-              phase_cli, phase_train)
+              phase_cli, phase_train, phase_optimize)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -345,6 +345,29 @@ def test_int8_conv_kernel_is_bit_equal_to_the_plain_version(card, shape, epilogu
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 20, 20, 3, 16, 3, 2), (2, 17, 15, 16, 32, 3, 1), (2, 9, 11, 32, 64, 1, 1),
+                                   (2, 10, 10, 64, 64, 3, 2), (2, 13, 11, 130, 70, 1, 1), (1, 9, 7, 96, 33, 3, 1)])
+def test_int8_conv_float_epilogue_is_bit_equal_to_the_plain_version(card, shape, epilogue):
+    """E's float epilogue (the dynamic and legacy static modes) at the stem's
+    Ci = 3, the 16/32/64 widths, an odd Ci and an odd Co (single stores)."""
+    b, h, w, ci, co, k, stride = shape
+    rng = np.random.default_rng(ci * 7 + co)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, ci), dtype=np.int8)).to(card)
+    wq = torch.from_numpy(rng.integers(-127, 128, (co, k, k, ci), dtype=np.int8)).to(card)
+    scale = torch.from_numpy(rng.uniform(1e-5, 3e-5, co).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.normal(0, 0.5, co).astype(np.float32)).to(card)
+    for act, bb in ((True, bias), (False, None)):
+        before = int8_conv.int8_conv.launches
+        got = int8_conv.int8_conv(x, wq, scale, bb, 1.0, stride=stride, act=act, epilogue_dtype=epilogue,
+                                  requant=False)
+        assert int8_conv.int8_conv.launches == before + 1 and got.dtype == epilogue
+        want = int8_conv.int8_conv_reference(x, wq, scale, bb, 1.0, stride=stride, act=act, epilogue_dtype=epilogue,
+                                             requant=False)
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
 def test_int8_conv_kernel_reads_a_channel_chunk_in_place(card, k, stride):
     """E on the second half of a wider NHWC tensor (pixel pitch 256), as a

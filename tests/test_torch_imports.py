@@ -16,7 +16,9 @@ blocks `yaml` and `PIL` too and runs the command line (`python -m
 yolo_infer_tpu_torch`): a demo on a JPEG and on a directory, validation
 from a dataset YAML, PTQ and info. A sixth trains with the same blocks:
 `train` on the command line and `YOLO11Model.train` for a classify model.
-Last, every "ROADMAP Queue 1 item N" in
+A seventh runs every optimize method with those blocks: dynamic int8,
+magnitude and physical pruning, distillation, QAT and segment, pose and OBB
+training. Last, every "ROADMAP Queue 1 item N" in
 the port's sources names an item that ROADMAP's Queue 1 has.
 """
 
@@ -290,6 +292,54 @@ def test_port_trains_without_jax_opencv_yaml_or_pil():
     """`train` on the command line (detect) and `YOLO11Model.train` (classify)
     on PNG files the port writes, with jax, cv2, yaml and PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _TRAIN_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
+
+
+_OPTIMIZE_CODE = """
+import sys, tempfile
+from pathlib import Path
+for name in ("jax", "cv2", "yaml", "PIL", "flax", "msgpack", "safetensors"):
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from yolo_infer_tpu_torch import YOLO11Model
+from yolo_infer_tpu_torch.data.loader import create_dataset_config, save_image
+from yolo_infer_tpu_torch.optimization import create_distiller, create_pruner, create_quantizer
+root = Path(tempfile.mkdtemp())
+for split in ("train", "val"):
+    (root / "labels" / split).mkdir(parents=True)
+    for i in range(2):
+        img = np.full((48, 64, 3), 100, np.uint8)
+        img[8:30, 10:40] = (220, 30, 30)
+        save_image(root / "images" / split / f"{{i}}.png", img)
+        kp = " ".join("0.39 0.39 2" for _ in range(17))
+        (root / "labels" / split / f"{{i}}.txt").write_text(f"0 0.390625 0.395833 0.46875 0.458333 {{kp}}\\n")
+data = str(create_dataset_config(root / "data.yaml", str(root / "images" / "train"), str(root / "images" / "val"),
+                                 ["box"]))
+kw = dict(batch=2, imgsz=64, project=str(root / "runs"), val=False)
+frame = np.full((48, 64, 3), 100, np.uint8)
+model = YOLO11Model("yolo11n", device="cpu", nc=1, compute_dtype=torch.float32)
+assert create_quantizer("dynamic", model).optimize().predict(frame, imgsz=64, conf=0.0)[0] is not None
+assert create_pruner(model, {{"sparsity": 0.5}}).optimize().predict(frame, imgsz=64, conf=0.0)[0] is not None
+slim = create_pruner(model, {{"method": "structured", "physical": True}}).optimize()
+assert sum(p.numel() for p in slim.model.parameters()) < sum(p.numel() for p in model.model.parameters())
+assert create_distiller(model, {{"teacher": YOLO11Model("yolo11n", device="cpu", nc=1, seed=1,
+                                                          compute_dtype=torch.float32)}}).optimize(data, epochs=1, name="kd",
+                                                                                                  **kw)
+assert create_quantizer("qat", model, {{"epochs": 1}}).optimize(data=data, **kw).predictor.quant_mode == "dynamic"
+for name in ("yolo11n-seg", "yolo11n-pose", "yolo11n-obb"):
+    out = YOLO11Model(name, device="cpu", nc=1).train(data, epochs=1, name=name, **kw)
+    assert out["status"] == "completed" and out["skipped_steps"] == 0, out
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_optimizes_and_trains_every_task_without_jax_opencv_yaml_or_pil():
+    """Dynamic int8, magnitude and physical pruning, distillation, QAT and
+    segment, pose and OBB training, with jax, cv2, yaml and PIL blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _OPTIMIZE_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 
 

@@ -143,5 +143,30 @@ def test_classification_loss_matches_jax():
 @pytest.mark.parametrize("name,item", [("obb_loss", "8.2"), ("segmentation_loss", "8.2"), ("pose_loss", "8.2"),
                                        ("distill_classify_loss", "7"), ("distill_detect_loss", "7")])
 def test_unported_losses_raise_with_a_roadmap_pointer(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        getattr(PL, name)()
+    """These losses raised, citing ROADMAP Queue 1 item 8.2 or 7, until they
+    were ported; now each gives a finite loss with a finite gradient on a
+    tiny input (`test_torch_train_tasks.py` holds them to the JAX package's)."""
+    rng = np.random.default_rng(0)
+    maps = [torch.from_numpy(rng.normal(size=(B, 32 // s, 32 // s, 64 + NC)).astype(np.float32)).requires_grad_()
+            for s in (8, 16, 32)]
+    gt = {k: torch.from_numpy(v) for k, v in gt_batch(rng, 32, empty_image=False).items()}
+    if name == "distill_classify_loss":
+        s_logits = torch.from_numpy(rng.normal(size=(4, 7)).astype(np.float32)).requires_grad_()
+        loss, leaves = PL.distill_classify_loss(s_logits, torch.zeros(4, 7)), [s_logits]
+    elif name == "distill_detect_loss":
+        loss, leaves = PL.distill_detect_loss(maps, [m.detach() * 0.5 for m in maps], nc=NC)[0], maps
+    else:
+        extra = {"obb_loss": ("angle", 1), "segmentation_loss": ("mc", 4), "pose_loss": ("kpts", 6)}[name]
+        out = {"feats": maps, extra[0]: [torch.zeros(B, 32 // s, 32 // s, extra[1]) for s in (8, 16, 32)]}
+        if name == "obb_loss":
+            xyxy = gt["boxes"]
+            gt["boxes"] = torch.cat([(xyxy[..., :2] + xyxy[..., 2:]) / 2, xyxy[..., 2:] - xyxy[..., :2],
+                                     torch.zeros(B, M, 1)], -1)
+        elif name == "segmentation_loss":
+            out["proto"] = torch.zeros(B, 8, 8, 4)
+            gt["masks"] = torch.ones(B, 8, 8, dtype=torch.int32)
+        else:
+            gt["kpts"] = torch.full((B, M, 2, 3), 10.0)
+        loss, leaves = getattr(PL, name)(out, gt, nc=NC)[0], maps
+    loss.backward()
+    assert item in ("7", "8.2") and torch.isfinite(loss) and all(torch.isfinite(t.grad).all() for t in leaves)

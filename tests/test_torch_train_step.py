@@ -196,7 +196,25 @@ def test_train_state_carries_a_jax_tree_both_ways(jax_start):
 
 @pytest.mark.parametrize("kw,item", [({"qat": True}, "6"), ({"param_mask": {"0": 1}}, "7"),
                                      ({"distill": {"alpha": 0.7}}, "7")])
-def test_unported_step_options_raise(kw, item):
-    spec = build_spec("detect", "n", NC)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        PT.make_train_step(spec, PT.make_optimizer(), **kw)
+def test_unported_step_options_raise(jax_start, kw, item):
+    """The step options that raised, citing ROADMAP Queue 1 item 6 or 7,
+    until they were ported now each take a finite step (against the JAX
+    package's steps in `test_torch_prune_distill.py`): QAT, a pruning mask
+    (here the magnitude masks at 0.5; the zeros stay zero) and a teacher."""
+    from yolo_infer_tpu_torch.optimization.pruning import magnitude_masks
+
+    ptx = PT.make_optimizer(0.01, total_steps=10, warmup_steps=2)
+    pts = port_state(jax_start, ptx)
+    if "param_mask" in kw:
+        kw = {"param_mask": magnitude_masks(pts.model_from(pts.params), 0.5)}
+        pts.params.mul_(pts.param_layout.flatten(kw["param_mask"], "cpu"))
+    elif "distill" in kw:
+        kw = {"distill": {**kw["distill"], "model": pts.model_from(pts.params)}}
+    step = PT.make_train_step(pts.spec, ptx, compute_dtype=torch.float32, **kw)
+    pts, metrics = step(pts, {k: torch.from_numpy(v) for k, v in batches(1)[0].items()})
+    assert item in ("6", "7") and int(metrics["step_skipped"]) == 0 and torch.isfinite(metrics["loss"])
+    if "param_mask" in kw:
+        zero = pts.param_layout.flatten(kw["param_mask"], "cpu") == 0
+        assert zero.any() and not pts.params[zero].any() and not pts.ema_params[zero].any()
+    if "distill" in kw:
+        assert torch.isfinite(metrics["loss_kd"])

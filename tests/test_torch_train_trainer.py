@@ -174,10 +174,13 @@ def test_the_trainer_needs_a_card_unless_told_cpu(monkeypatch):
 
 
 def test_segment_training_raises_with_a_roadmap_pointer(data, tmp_path):
-    """The loader builds a segment batch (instance masks); the loss is item 8.2."""
+    """Segment training raised, citing ROADMAP Queue 1 item 8.2, until the
+    segment loss was ported: the loader builds a segment batch (instance
+    masks from the rectangles' polygons) and the step now trains on it."""
     model = YOLO11Model("yolo11n-seg", device="cpu", compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8.2"):
-        model.train(str(data), epochs=1, batch=2, imgsz=64, project=str(tmp_path), val=False)
+    out = model.train(str(data), epochs=1, batch=2, imgsz=64, project=str(tmp_path), val=False)
+    assert out["status"] == "completed" and out["skipped_steps"] == 0
+    assert np.isfinite(out["history"][0]["loss_mask"]) and model.task == "segment"
 
 
 def test_multi_card_training_raises_with_a_roadmap_pointer():

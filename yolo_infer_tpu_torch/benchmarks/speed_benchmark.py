@@ -89,8 +89,9 @@ class SpeedBenchmark:
     ) -> Dict[str, Any]:
         """The model in its compute dtype against its int8 variants, with the
         speedup of each. "ptq" calibrates on 8 seeded batches and serves
-        static8 (kernel E on the card); a method that fails ("dynamic" is not
-        ported) is recorded as an error entry."""
+        static8 (kernel E on the card); "dynamic" serves every quantized conv
+        through kernel E's float epilogue. A method that fails is recorded as
+        an error entry."""
         from yolo_infer_tpu_torch.optimization.quantization.quantizers import create_quantizer
 
         model = YOLO11Model(f"yolo11{model_size}", device=self.device)

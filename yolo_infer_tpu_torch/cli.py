@@ -18,17 +18,19 @@ dtype of the models the commands build.
   val        `YOLO11Validator.validate` (detect, segment, pose, OBB), or
              `evaluate_classifier` on a class-per-directory tree for a
              classify model; `--save-json`
-  optimize   `--method ptq`: calibrate on `--data` or on seeded synthetic
-             frames, as `main.py` does, and save the static8 model; the
-             other methods exit 1 (dynamic and qat: ROADMAP Queue 1 item 6;
-             prune and distill: item 7)
+  optimize   `--method ptq` (calibrate on `--data` or on seeded synthetic
+             frames, as `main.py` does; the static8 model), `dynamic`,
+             `qat` (trains on `--data`), `prune` (`--prune-method`,
+             `--sparsity`, `--physical` for channel surgery, a fine-tune on
+             `--data` when given) and `distill` (`--teacher`, `--data`;
+             without data it exits 2, as `main.py`); each saves its model
   benchmark  `SpeedBenchmark` (sizes, quantization, throughput, all)
   info       the card's name and power limit, system information and the
              port's dependencies
-  train      detect and classify training (`core/trainer.py`), robust by
+  train      training of every task (`core/trainer.py`), robust by
              default (`core/robust_trainer.py`; `--no-robust` raises instead);
-             exits 0 only when the run's status starts with "completed";
-             `--qat` exits 1 (ROADMAP Queue 1 item 6)
+             `--qat` trains with fake-quant; exits 0 only when the run's
+             status starts with "completed"
 """
 
 from __future__ import annotations
@@ -46,12 +48,6 @@ logger = logging.getLogger("yolo_infer_tpu_torch.cli")
 
 DEFAULT_CONFIG = Path(__file__).resolve().parent.parent / "configs" / "default.yaml"
 _DTYPES = ("bfloat16", "float32")
-_NOT_PORTED = {
-    "dynamic": "dynamic int8 quantization is not ported yet (ROADMAP Queue 1 item 6)",
-    "qat": "quantization-aware training is not ported yet (ROADMAP Queue 1 item 6)",
-    "prune": "pruning is not ported yet (ROADMAP Queue 1 item 7)",
-    "distill": "distillation is not ported yet (ROADMAP Queue 1 item 7)",
-}
 
 
 def card_info() -> Dict[str, str]:
@@ -125,7 +121,7 @@ class YOLO11CLI:
         v.add_argument("--save-json", action="store_true")
         v.add_argument("--output-dir", default=None)
 
-        o = sub.add_parser("optimize", help="quantize a model (PTQ)")
+        o = sub.add_parser("optimize", help="quantize / prune / distill a model")
         o.add_argument("--model-path", default=None)
         o.add_argument("--model-size", default=None, choices=list("nsmlx"))
         o.add_argument("--method", default=None, choices=["dynamic", "ptq", "qat", "prune", "distill"])
@@ -135,7 +131,8 @@ class YOLO11CLI:
         o.add_argument("--calibration-batches", type=int, default=None)
         o.add_argument("--sparsity", type=float, default=None, help="prune: target sparsity")
         o.add_argument("--prune-method", default=None, choices=["magnitude", "structured", "unstructured", "gradual"])
-        o.add_argument("--physical", action="store_true", help="prune: channel surgery")
+        o.add_argument("--physical", action="store_true",
+                       help="prune: channel surgery (physically smaller+faster model; implies structured)")
         o.add_argument("--teacher", default=None, help="distill: teacher model name/path")
         o.add_argument("--epochs", type=int, default=None, help="prune fine-tune / distill epochs")
 
@@ -222,8 +219,6 @@ class YOLO11CLI:
         from yolo_infer_tpu_torch.core.robust_trainer import create_robust_trainer
         from yolo_infer_tpu_torch.core.trainer import TrainingConfig, create_trainer
 
-        if args.qat:
-            raise NotImplementedError(_NOT_PORTED["qat"])
         tcfg = self._cfg("training", default={}) or {}
         cfg = TrainingConfig(
             data=args.data,
@@ -237,6 +232,7 @@ class YOLO11CLI:
             name=self._pick(args.name, None, "exp"),
             exist_ok=args.exist_ok,
             resume=args.resume,
+            qat=args.qat,
             seed=self._pick(args.seed, tcfg.get("seed"), 0),
         )
         model_path = self._model_path(args)
@@ -285,18 +281,50 @@ class YOLO11CLI:
 
         qcfg = self._cfg("optimization", "quantization", default={}) or {}
         method = self._pick(args.method, qcfg.get("method"), "ptq")
-        if method != "ptq":
-            raise NotImplementedError(_NOT_PORTED[method])
         model_path = self._model_path(args)
         imgsz = self._pick(args.imgsz, self._cfg("inference", "imgsz"), 640)
         model = self._model(args)
-        quantizer = create_quantizer(method, model, {"imgsz": imgsz, "data": args.data})
-        n_batches = self._pick(args.calibration_batches, qcfg.get("num_calibration_batches"), 100)
-        quantizer.set_calibration_data(self._calibration_batches(args.data, imgsz, n_batches))
-        quantizer.optimize()
-        out = args.output or f"{Path(model_path).stem}_{method}.msgpack"
-        path = quantizer.save_optimized_model(out)
-        print(json.dumps({"saved": str(path), **quantizer.get_optimization_info()}, indent=2, default=float))
+        if method == "prune":
+            from yolo_infer_tpu_torch.optimization.pruning import create_pruner
+
+            pcfg = self._cfg("optimization", "pruning", default={}) or {}
+            physical = args.physical or bool(pcfg.get("physical", False))
+            optimizer = create_pruner(model, {
+                # physical surgery implies structured, from the flag or the config key
+                "method": "structured" if physical else self._pick(args.prune_method, pcfg.get("method"),
+                                                                   "magnitude"),
+                "sparsity": self._pick(args.sparsity, pcfg.get("sparsity"), 0.5),
+                "physical": physical,
+            })
+            optimizer.optimize(data=args.data, **({"epochs": args.epochs} if args.epochs else {}))
+            out = args.output or f"{Path(model_path).stem}_pruned.msgpack"
+        elif method == "distill":
+            from yolo_infer_tpu_torch.optimization.distillation import create_distiller
+
+            if not args.data:
+                print("distill requires --data", file=sys.stderr)
+                return 2
+            dcfg = self._cfg("optimization", "distillation", default={}) or {}
+            optimizer = create_distiller(model, {
+                "teacher": args.teacher or dcfg.get("teacher"),
+                "temperature": dcfg.get("temperature", 4.0),
+                "alpha": dcfg.get("alpha", 0.7),
+            })
+            optimizer.optimize(data=args.data, epochs=args.epochs or 10, imgsz=imgsz)
+            out = args.output or f"{Path(model_path).stem}_distilled.msgpack"
+        else:
+            optimizer = create_quantizer(method, model, {"imgsz": imgsz, "data": args.data})
+            if method == "ptq":
+                n_batches = self._pick(args.calibration_batches, qcfg.get("num_calibration_batches"), 100)
+                optimizer.set_calibration_data(self._calibration_batches(args.data, imgsz, n_batches))
+                optimizer.optimize()
+            elif method == "qat":
+                optimizer.optimize(data=args.data)
+            else:
+                optimizer.optimize()
+            out = args.output or f"{Path(model_path).stem}_{method}.msgpack"
+        path = optimizer.save_optimized_model(out)
+        print(json.dumps({"saved": str(path), **optimizer.get_optimization_info()}, indent=2, default=float))
         return 0
 
     def _calibration_batches(self, data: Optional[str], imgsz: int, n: int) -> List:

@@ -15,12 +15,19 @@ anchor), and no matmul that TF32 or bf16 could round. The assigner never
 builds a (B, M, A, nc) tensor: at b16, M = 120, A = 8400 one (B, M, A) f32
 tensor is 64.5 MB.
 
-Not ported yet, and raising: the OBB, segment and pose losses (ROADMAP
-Queue 1 item 8.2) and the distillation losses (ROADMAP Queue 1 item 7).
+The task losses (`obb_loss`, `segmentation_loss`, `pose_loss`) and the
+distillation losses (`distill_classify_loss`, `_binary_kl_from_logits`,
+`distill_detect_loss`) follow the JAX package term for term. The OBB
+assigner's (B, M, A) probIoU broadcasts (B, M, 1) gt terms against (B, 1, A)
+prediction terms: no (B, M, A, 5) copy of either. The segment loss takes its
+`mask_fg_cap` anchors by a stable sort (value, then lower index: the order
+`lax.top_k` gives ties on the CPU), and crops the (B, F, Hm, Wm) mask logits
+to their boxes by a product with the in-box indicator, not a gather.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -28,6 +35,8 @@ import torch.nn.functional as F
 
 from yolo_infer_tpu_torch.ops.decode import dist2bbox, make_anchors
 from yolo_infer_tpu_torch.ops.iou import bbox_iou_aligned
+from yolo_infer_tpu_torch.ops.nms import _topk_stable
+from yolo_infer_tpu_torch.ops.rotated import dist2rbox, probiou_pairs
 
 # hyperparameters (the reference's configs/default.yaml:48-50)
 DEFAULT_HYP = {
@@ -202,16 +211,190 @@ def detection_loss(
     return total, metrics
 
 
-def obb_loss(*args, **kw):
-    raise NotImplementedError("the OBB loss is not ported yet (ROADMAP Queue 1 item 8.2)")
+def _flat_levels(maps: List[torch.Tensor]) -> torch.Tensor:
+    """Per-level (B, Hi, Wi, C) maps -> (B, A, C) f32."""
+    return torch.cat([m.reshape(m.shape[0], -1, m.shape[-1]) for m in maps], dim=1).float()
 
 
-def segmentation_loss(*args, **kw):
-    raise NotImplementedError("the segmentation loss is not ported yet (ROADMAP Queue 1 item 8.2)")
+def _dist_ltrb(flat: torch.Tensor, reg_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DFL logits (B, A, 4, reg_max) of a flat head map and their expected
+    distances (B, A, 4)."""
+    b, a = flat.shape[:2]
+    dist = flat[..., : 4 * reg_max].reshape(b, a, 4, reg_max)
+    bins = torch.arange(reg_max, dtype=torch.float32, device=flat.device)
+    return dist, (torch.softmax(dist, dim=-1) * bins).sum(-1)
 
 
-def pose_loss(*args, **kw):
-    raise NotImplementedError("the pose loss is not ported yet (ROADMAP Queue 1 item 8.2)")
+def obb_loss(
+    out: Dict[str, List[torch.Tensor]],  # {"feats", "angle"}
+    batch: Dict[str, torch.Tensor],  # boxes (B, M, 5) cx, cy, w, h, rad px | classes | mask
+    *,
+    nc: int,
+    reg_max: int = 16,
+    strides: Sequence[int] = (8, 16, 32),
+    hyp: Dict[str, float] = DEFAULT_HYP,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Oriented-box loss: TAL assignment under probIoU, probIoU box loss,
+    DFL on rotated-frame distances, BCE cls."""
+    feats = out["feats"]
+    b = feats[0].shape[0]
+    device = feats[0].device
+    anchor_points, strd = make_anchors([(f.shape[1], f.shape[2]) for f in feats], strides, device=device)
+    flat = _flat_levels(feats)
+    cls_logits = flat[..., 4 * reg_max:]
+    angle = (torch.sigmoid(_flat_levels(out["angle"])[..., 0]) - 0.25) * math.pi  # (B, A)
+    dist, ltrb = _dist_ltrb(flat, reg_max)
+    rb_grid = dist2rbox(ltrb, angle, anchor_points[None])  # (B, A, 4) grid units
+    pred_rbox_px = torch.cat([rb_grid * strd[None], angle[..., None]], dim=-1)  # (B, A, 5)
+
+    gt = batch["boxes"].float()  # (B, M, 5)
+    gt_cls = batch["classes"].long()
+    mask_gt = batch["mask"].bool()
+    with torch.no_grad():  # the detached assigner
+        pd_scores = torch.sigmoid(cls_logits)
+        anc_px = anchor_points * strd  # (A, 2)
+        # anchors inside the rotated gt: the anchor rotated into the gt's frame
+        dx = anc_px[None, None, :, 0] - gt[:, :, None, 0]  # (B, M, A)
+        dy = anc_px[None, None, :, 1] - gt[:, :, None, 1]
+        cos = torch.cos(gt[:, :, None, 4])
+        sin = torch.sin(gt[:, :, None, 4])
+        lx = dx * cos + dy * sin
+        ly = -dx * sin + dy * cos
+        mask_in = (lx.abs() < gt[:, :, None, 2] / 2) & (ly.abs() < gt[:, :, None, 3] / 2)
+        overlaps = probiou_pairs(gt[:, :, None, :], pred_rbox_px[:, None, :, :]).clamp(min=0)  # (B, M, A)
+        idx = gt_cls.clamp(min=0)[:, :, None].expand(-1, -1, pd_scores.shape[1])
+        cls_scores = torch.gather(pd_scores.transpose(1, 2), 1, idx)
+        align = cls_scores.pow(hyp.get("tal_alpha", 0.5)) * overlaps.pow(hyp.get("tal_beta", 6.0))
+        # background anchors read zero rboxes: probIoU's determinant clamps keep
+        # those backward-finite, and the box loss weight is 0 there
+        tgt_rbox, tgt_scores, fg, _ = _assign_from_align(align, overlaps, mask_in & mask_gt[:, :, None], gt_cls, gt,
+                                                         nc, int(hyp.get("tal_topk", 10)))
+    tss = torch.clamp(tgt_scores.sum(), min=1.0)
+
+    loss_cls = optax_sigmoid_bce(cls_logits, tgt_scores).sum() / tss
+    weight = tgt_scores.sum(-1) * fg
+    loss_box = ((1.0 - probiou_pairs(pred_rbox_px, tgt_rbox)) * weight).sum() / tss
+
+    # DFL target: anchor-to-edge distances in the gt's rotated frame
+    tgt_grid = torch.cat([tgt_rbox[..., :4] / strd[None], tgt_rbox[..., 4:]], dim=-1)
+    dxa = anchor_points[None, :, 0] - tgt_grid[..., 0]
+    dya = anchor_points[None, :, 1] - tgt_grid[..., 1]
+    cos_a = torch.cos(tgt_rbox[..., 4])
+    sin_a = torch.sin(tgt_rbox[..., 4])
+    lxa = dxa * cos_a + dya * sin_a
+    lya = -dxa * sin_a + dya * cos_a
+    half_w = tgt_grid[..., 2] / 2
+    half_h = tgt_grid[..., 3] / 2
+    tgt_ltrb = torch.stack([half_w + lxa, half_h + lya, half_w - lxa, half_h - lya], dim=-1).clamp(0, reg_max - 1 - 0.01)
+    loss_dfl = (_dfl_loss(dist, tgt_ltrb, reg_max) * weight).sum() / tss
+
+    total = (hyp["box"] * loss_box + hyp["cls"] * loss_cls + hyp["dfl"] * loss_dfl) * b
+    return total, {
+        "loss": total,
+        "loss_box": loss_box,
+        "loss_cls": loss_cls,
+        "loss_dfl": loss_dfl,
+        "num_fg": fg.sum().to(torch.int32),
+    }
+
+
+# COCO-17 keypoint sigmas (the OKS constants)
+KPT_SIGMAS = (0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
+              0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089)
+
+
+def segmentation_loss(
+    out: Dict[str, List[torch.Tensor]],  # {"feats", "mc", "proto"}
+    batch: Dict[str, torch.Tensor],  # + masks (B, Hm, Wm) int32 instance ids
+    *,
+    nc: int,
+    reg_max: int = 16,
+    strides: Sequence[int] = (8, 16, 32),
+    hyp: Dict[str, float] = DEFAULT_HYP,
+    mask_fg_cap: int = 160,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Detection losses + per-instance mask BCE (the overlap-mask form).
+
+    Per image the `mask_fg_cap` anchors of largest weight (ties: lower index
+    first) give a mask loss: sigmoid(proto @ coefs) against (mask ==
+    instance id), cropped to the target box on the stride-4 grid and
+    normalised by the box's area there."""
+    det_total, metrics, aux = detection_loss(out["feats"], batch, nc=nc, reg_max=reg_max, strides=strides, hyp=hyp,
+                                             return_aux=True)
+    proto = out["proto"].float()  # (B, Hm, Wm, nm)
+    _, hm, wm, _ = proto.shape
+    mc = _flat_levels(out["mc"])  # (B, A, nm)
+    f = min(mask_fg_cap, mc.shape[1])
+
+    top_w, top_idx = _topk_stable(aux["weight"], f)  # (B, F)
+    coefs = torch.gather(mc, 1, top_idx[..., None].expand(-1, -1, mc.shape[-1]))  # (B, F, nm)
+    pred = torch.einsum("bhwn,bfn->bfhw", proto, coefs)  # (B, F, Hm, Wm) logits
+    gid = torch.gather(aux["target_gt_idx"], 1, top_idx) + 1  # (B, F)
+    gt = (batch["masks"][:, None, :, :] == gid[:, :, None, None]).float()
+
+    # crop to the target box (letterbox px -> the stride-4 mask grid)
+    tb_m = torch.gather(aux["tgt_bboxes_px"], 1, top_idx[..., None].expand(-1, -1, 4)) / 4.0  # (B, F, 4)
+    ys = torch.arange(hm, dtype=torch.float32, device=proto.device)[None, None, :, None]
+    xs = torch.arange(wm, dtype=torch.float32, device=proto.device)[None, None, None, :]
+    in_box = ((xs >= tb_m[..., 0, None, None]) & (xs < tb_m[..., 2, None, None])
+              & (ys >= tb_m[..., 1, None, None]) & (ys < tb_m[..., 3, None, None])).float()
+
+    bce = optax_sigmoid_bce(pred, gt) * in_box  # (B, F, Hm, Wm)
+    area = torch.clamp((tb_m[..., 2] - tb_m[..., 0]) * (tb_m[..., 3] - tb_m[..., 1]), min=1.0)
+    per_anchor = bce.sum((2, 3)) / area  # (B, F)
+    valid = (top_w > 0).float()
+    loss_mask = (per_anchor * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+    total = det_total + hyp["box"] * loss_mask * out["feats"][0].shape[0]
+    metrics = dict(metrics)
+    metrics["loss_mask"] = loss_mask
+    metrics["loss"] = total
+    return total, metrics
+
+
+def pose_loss(
+    out: Dict[str, List[torch.Tensor]],  # {"feats", "kpts"}
+    batch: Dict[str, torch.Tensor],  # + kpts (B, M, K, 3) letterboxed px
+    *,
+    nc: int,
+    reg_max: int = 16,
+    strides: Sequence[int] = (8, 16, 32),
+    hyp: Dict[str, float] = DEFAULT_HYP,
+    pose_weight: float = 12.0,
+    kobj_weight: float = 1.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Detection losses + the OKS-style keypoint location loss + visibility BCE."""
+    det_total, metrics, aux = detection_loss(out["feats"], batch, nc=nc, reg_max=reg_max, strides=strides, hyp=hyp,
+                                             return_aux=True)
+    b_sz = out["feats"][0].shape[0]
+    kraw = _flat_levels(out["kpts"])  # (B, A, K*3)
+    a = kraw.shape[1]
+    k = batch["kpts"].shape[2]
+    kraw = kraw.reshape(b_sz, a, k, 3)
+    ap, strd = aux["anchor_points"], aux["strd"]  # grid units, (A, 1)
+    pred_xy = (kraw[..., :2] * 2.0 + (ap[None, :, None, :] - 0.5)) * strd[None, :, None, :]
+    pred_conf = kraw[..., 2]
+
+    kp = batch["kpts"].float()
+    tgt = torch.gather(kp, 1, aux["target_gt_idx"][:, :, None, None].expand(-1, -1, k, 3))  # (B, A, K, 3)
+    vis = (tgt[..., 2] > 0).float()  # (B, A, K)
+    fg = aux["fg_mask"].float()[:, :, None]
+
+    tb = aux["tgt_bboxes_px"]
+    area = torch.clamp((tb[..., 2] - tb[..., 0]) * (tb[..., 3] - tb[..., 1]), min=1.0)[:, :, None]  # (B, A, 1)
+    d2 = ((pred_xy - tgt[..., :2]) ** 2).sum(-1)  # (B, A, K)
+    sig = torch.tensor(KPT_SIGMAS[:k], dtype=torch.float32, device=kraw.device)[None, None, :]
+    e = d2 / (8.0 * (sig ** 2) * area + 1e-9)
+    w = vis * fg
+    loss_kpt = ((1.0 - torch.exp(-e)) * w).sum() / torch.clamp(w.sum(), min=1.0)
+    loss_kobj = (optax_sigmoid_bce(pred_conf, vis) * fg).sum() / torch.clamp(fg.sum() * k, min=1.0)
+
+    total = det_total + (pose_weight * loss_kpt + kobj_weight * loss_kobj) * b_sz
+    metrics = dict(metrics)
+    metrics["loss_kpt"] = loss_kpt
+    metrics["loss_kobj"] = loss_kobj
+    metrics["loss"] = total
+    return total, metrics
 
 
 def optax_sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -227,9 +410,57 @@ def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[tor
     return loss, {"loss": loss, "accuracy": acc}
 
 
-def distill_classify_loss(*args, **kw):
-    raise NotImplementedError("the distillation losses are not ported yet (ROADMAP Queue 1 item 7)")
+# ------------------------------------------------------------- distillation
+# soft (teacher -> student) losses of `optimization/distillation.py`; the
+# reference declares alpha 0.7 and temperature 4.0 (reference
+# optimization/base.py:290-314)
 
 
-def distill_detect_loss(*args, **kw):
-    raise NotImplementedError("the distillation losses are not ported yet (ROADMAP Queue 1 item 7)")
+def distill_classify_loss(s_logits: torch.Tensor, t_logits: torch.Tensor, temperature: float = 4.0) -> torch.Tensor:
+    """Hinton KD: T^2 * KL(softmax(t/T) || softmax(s/T)), mean over the batch."""
+    t = torch.softmax(t_logits / temperature, dim=-1)
+    logp_t = torch.log_softmax(t_logits / temperature, dim=-1)
+    logp_s = torch.log_softmax(s_logits / temperature, dim=-1)
+    return temperature ** 2 * (t * (logp_t - logp_s)).sum(-1).mean()
+
+
+def _binary_kl_from_logits(t_logits: torch.Tensor, s_logits: torch.Tensor) -> torch.Tensor:
+    """KL(sigmoid(t) || sigmoid(s)) per element, by the BCE identity
+    KL(p || q) = H(p, q) - H(p) with H(p, sigmoid(l)) = BCE(l, p)."""
+    p = torch.sigmoid(t_logits)
+    return optax_sigmoid_bce(s_logits, p) - optax_sigmoid_bce(t_logits, p)
+
+
+def distill_detect_loss(
+    s_feats: List[torch.Tensor],
+    t_feats: List[torch.Tensor],
+    *,
+    nc: int,
+    reg_max: int = 16,
+    temperature: float = 4.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Soft KD loss between the student's and the teacher's raw detect-head
+    maps, which align per anchor at every YOLO11 size:
+
+      cls  the temperature-scaled binary KL between per-class sigmoids over
+           every anchor;
+      box  the KL between the DFL bin distributions, weighted by the
+           teacher's per-anchor confidence (its largest class sigmoid).
+
+    Both carry the T^2 gradient rescale."""
+    s_flat, t_flat = _flat_levels(s_feats), _flat_levels(t_feats)
+    b = s_flat.shape[0]
+    s_cls, t_cls = s_flat[..., 4 * reg_max:], t_flat[..., 4 * reg_max:]
+    s_box = s_flat[..., : 4 * reg_max].reshape(b, -1, 4, reg_max)
+    t_box = t_flat[..., : 4 * reg_max].reshape(b, -1, 4, reg_max)
+
+    kd_cls = temperature ** 2 * _binary_kl_from_logits(t_cls / temperature, s_cls / temperature).sum(-1).mean()
+
+    w = torch.sigmoid(t_cls).amax(-1)  # (B, A): the teacher's objectness proxy
+    w = w / torch.clamp(w.sum(), min=1e-6)
+    p_t = torch.softmax(t_box / temperature, dim=-1)
+    logp_t = torch.log_softmax(t_box / temperature, dim=-1)
+    logp_s = torch.log_softmax(s_box / temperature, dim=-1)
+    kl_box = (p_t * (logp_t - logp_s)).sum(-1).mean(-1)  # (B, A)
+    kd_box = temperature ** 2 * (kl_box * w).sum()
+    return kd_cls + kd_box, {"kd_cls": kd_cls, "kd_box": kd_box}

@@ -15,9 +15,9 @@ tree layout (`models/convert.py params_from_jax`, `params_to_jax`), so a
 file moves between the two packages as it is. `export(format="safetensors")`
 writes the deploy weights under the JAX package's flat names.
 
-`train` runs `YOLO11Trainer` over this model (detect and classify; the
-segment, pose and OBB losses are ROADMAP Queue 1 item 8.2) and leaves the
-trained EMA weights in it.
+`train` runs `YOLO11Trainer` over this model (every task) and leaves the
+trained EMA weights in it. A model narrower than its spec (a slim model of
+`optimization/surgery.py`) saves and loads with its own shapes.
 """
 
 from __future__ import annotations

@@ -29,6 +29,9 @@ kernel C (probIoU inside its bits pass: no (B, K, K) matrix).
 With PTQ activation scales (`quant_act_scales`, (n, 2)) the forward of a
 quantized model (`models/yolo11.py quantize_model`) runs inside a static8
 `QuantContext`: every eligible conv int8 in, int8 out through kernel E.
+With 1-D scales it runs the legacy "static" mode, and with none the
+"dynamic" one: every quantized conv float in, float out through kernel E's
+float epilogue (`nn/quantize.py quantized_conv2d`).
 
 `predict_many` serves a long list in chunks of one batch shape. On the card
 the frames go through pinned staging buffers on an upload stream, the
@@ -38,7 +41,8 @@ host drains finished chunks into `Results` while later ones run.
 The predictor caches one program per input signature, as the JAX
 package's caches one jitted program (`_get`, `_build`, `_cache`; the key is
 the JAX key: batch, frame H x W, imgsz, multi_label, max_det, pre_topk,
-mask_out and the environment knobs read while the program is built). On the
+mask_out, the environment knobs read while the program is built, and the
+quantization mode). On the
 card a program is `serve_program` captured into a CUDA graph on the
 signature's first call (`core/graphs.py`) and replayed by every later call;
 on the CPU it is `serve_program` itself, run op by op. A captured graph
@@ -73,7 +77,7 @@ import numpy as np
 import torch
 
 from yolo_infer_tpu_torch.core.graphs import CapturedProgram
-from yolo_infer_tpu_torch.models.blocks import Attention, attn_impl_choice
+from yolo_infer_tpu_torch.models.blocks import Attention, Conv, attn_impl_choice
 from yolo_infer_tpu_torch.models.spec import ModelSpec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, cast_model, fold_model
 from yolo_infer_tpu_torch.nn.quantize import QuantContext, out_scale_inverses, quant_context
@@ -389,8 +393,15 @@ class Predictor:
                                  else torch.as_tensor(np.asarray(quant_act_scales), dtype=torch.float32))
         # kernel E's 1/sy arguments, read from the scales once here (an exported
         # program bakes them in, and cannot read a tensor back to the host)
-        self._quant_syinv = None if self.quant_act_scales is None else out_scale_inverses(self.quant_act_scales)
+        self._quant_syinv = (out_scale_inverses(self.quant_act_scales)
+                             if self.quant_act_scales is not None and self.quant_act_scales.dim() == 2 else None)
         self.quant_min_channels = quant_min_channels
+        # "static8" ((n, 2) scales), "static" ((n,) scales), "dynamic" (a
+        # quantized model without scales) or None (float)
+        if self.quant_act_scales is not None:
+            self.quant_mode = "static8" if self.quant_act_scales.dim() == 2 else "static"
+        else:
+            self.quant_mode = "dynamic" if any(isinstance(m, Conv) and m.quantized for m in model.modules()) else None
         # predict_many's upload, compute and download streams, made on first
         # use and kept: memory the caching allocator holds for one stream is
         # not handed to a new one, so fresh streams per call would allocate anew
@@ -409,11 +420,13 @@ class Predictor:
         self.model.load_state_dict(src.state_dict())
 
     def _forward(self, x: torch.Tensor) -> Dict[str, Any]:
-        """The model forward, inside a static8 context when PTQ scales exist."""
+        """The model forward, inside a static8 or static context when PTQ scales exist."""
         if self.quant_act_scales is None:
             return self.model(x)
-        kw = {} if self.quant_min_channels is None else {"int8_min_channels": int(self.quant_min_channels)}
-        with quant_context(QuantContext("static8", act_scales=self.quant_act_scales, syinv=self._quant_syinv,
+        mode = self.quant_mode
+        kw = {} if self.quant_min_channels is None or mode != "static8" else {
+            "int8_min_channels": int(self.quant_min_channels)}
+        with quant_context(QuantContext(mode, act_scales=self.quant_act_scales, syinv=self._quant_syinv,
                                         **kw)) as ctx:
             out = self.model(x)
         if ctx.index != len(self.quant_act_scales):
@@ -438,13 +451,13 @@ class Predictor:
              pre_topk: Optional[int] = None, mask_out: Optional[str] = None):
         """The cached program of a signature, built on its first call. Keyed
         as the JAX package keys its jitted programs: (batch, src_hw, imgsz,
-        multi_label, max_det, pre_topk, mask_out, trace env), with pre_topk
+        multi_label, max_det, pre_topk, mask_out, trace env, quant_mode), with pre_topk
         None taken as the predictor's and mask_out None as `mask_mode`, so
         a default and an explicit equal value share one program. A full
         cache releases its least recently used program first."""
         pre_topk = pre_topk or self.pre_topk
         mask_out = mask_out or self.mask_mode
-        key = (batch, src_hw, imgsz, multi_label, max_det, pre_topk, mask_out, _trace_env_key())
+        key = (batch, src_hw, imgsz, multi_label, max_det, pre_topk, mask_out, _trace_env_key(), self.quant_mode)
         program = self._cache.pop(key, None)
         if program is None:
             if len(self._cache) >= PROGRAM_CACHE_SIZE:

@@ -37,6 +37,20 @@ Choices the port makes (each as the JAX step has it):
   their momentum still accumulates.
 - The lr and momentum of a step are computed on the device from the count in
   f32, as the jitted schedule is, so no step reads a value back to the host.
+
+Options of the step, as the JAX package's `make_train_step` has them:
+- `qat`: the training forward runs under a "fake" `QuantContext`
+  (`nn/quantize.py`): every conv's weights and input fake-quantized with
+  straight-through gradients.
+- `param_mask`: {parameter name: {0, 1} tensor} (`optimization/pruning.py`
+  masks), flattened into the params' layout; after the finite guard it
+  multiplies the params and then the EMA, so pruned weights cannot regrow
+  through momentum or weight decay.
+- `distill`: {"model": the teacher, a folded deploy `YOLO11` in eval mode,
+  "temperature", "alpha"}: the teacher runs inside the step under
+  `torch.no_grad` (its attention through kernel B on the card), and the loss
+  becomes alpha * soft + (1 - alpha) * hard, the soft detect term scaled by
+  the batch size as the hard losses are.
 """
 
 from __future__ import annotations
@@ -49,16 +63,21 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from yolo_infer_tpu_torch.core.losses import DEFAULT_HYP, classification_loss, detection_loss
+from yolo_infer_tpu_torch.core.losses import (
+    DEFAULT_HYP,
+    classification_loss,
+    detection_loss,
+    distill_classify_loss,
+    distill_detect_loss,
+    obb_loss,
+    pose_loss,
+    segmentation_loss,
+)
 from yolo_infer_tpu_torch.models.spec import ModelSpec
-from yolo_infer_tpu_torch.models.yolo11 import YOLO11
+from yolo_infer_tpu_torch.models.yolo11 import YOLO11, reshape_like
+from yolo_infer_tpu_torch.nn.quantize import QuantContext, quant_context
 
 GRAD_CLIP_NORM = 10.0
-_UNPORTED_STEP = {
-    "qat": "quantization-aware training is not ported yet (ROADMAP Queue 1 item 6)",
-    "param_mask": "training under a pruning mask is not ported yet (ROADMAP Queue 1 item 7)",
-    "distill": "distillation is not ported yet (ROADMAP Queue 1 item 7)",
-}
 
 
 @dataclasses.dataclass
@@ -242,9 +261,10 @@ class TrainState:
         return self
 
     def model_from(self, params: torch.Tensor) -> YOLO11:
-        """A new CPU `YOLO11` (unfolded, f32, eval mode) holding the flat
-        `params` (the live params or the EMA) and the batch-norm state."""
-        model = YOLO11(self.spec)
+        """A new CPU `YOLO11` (unfolded, f32, eval mode, of the training
+        module's shapes: a slim model's too) holding the flat `params` (the
+        live params or the EMA) and the batch-norm state."""
+        model = reshape_like(YOLO11(self.spec), dict(zip(self.param_layout.names, self.param_layout.shapes)))
         sd = {**self.param_layout.views(params), **self.bn_layout.views(self.bn_state)}
         missing, unexpected = model.load_state_dict({k: v.detach().cpu() for k, v in sd.items()}, strict=False)
         if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
@@ -306,37 +326,54 @@ def make_train_step(
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The step function `step(ts, batch) -> (ts, metrics)`. Batch (detect):
     images (B, H, W, 3) uint8 (normalised /255 here) or f32 in [0, 1] |
-    boxes (B, M, 4) xyxy px | classes (B, M) | mask (B, M); classify: images,
-    labels (B,); all on the state's device. The state's buffers are updated
-    in place and the same state is returned; metrics are device tensors."""
-    for name, value in (("qat", qat), ("param_mask", param_mask), ("distill", distill)):
-        if value:
-            raise NotImplementedError(_UNPORTED_STEP[name])
+    boxes (B, M, 4) xyxy px | classes (B, M) | mask (B, M); segment adds
+    masks (B, H/4, W/4), pose kpts (B, M, K, 3), OBB has boxes (B, M, 5);
+    classify: images, labels (B,); all on the state's device. The state's
+    buffers are updated in place and the same state is returned; metrics are
+    device tensors. `qat`, `param_mask` and `distill`: see the module
+    docstring."""
+    flat_mask: Dict[Any, torch.Tensor] = {}  # (device) -> the mask in the params' layout, made at the first step
 
     def loss_fn(out, batch):
         kw = dict(nc=spec.nc, reg_max=spec.reg_max, strides=spec.strides, hyp=hyp)
         if spec.task == "classify":
             return classification_loss(out["logits"], batch["labels"])
         if spec.task == "segment" and "masks" in batch:
-            from yolo_infer_tpu_torch.core.losses import segmentation_loss
-
             return segmentation_loss(out, batch, **kw)
         if spec.task == "pose" and "kpts" in batch:
-            from yolo_infer_tpu_torch.core.losses import pose_loss
-
             return pose_loss(out, batch, **kw)
         if spec.task == "obb" and batch["boxes"].shape[-1] == 5:
-            from yolo_infer_tpu_torch.core.losses import obb_loss
-
             return obb_loss(out, batch, **kw)
         return detection_loss(out["feats"], batch, **kw)
+
+    def distill_loss(out, images, loss, metrics):
+        with torch.no_grad():
+            t_out = distill["model"](images, compute_dtype)
+        temperature = float(distill.get("temperature", 4.0))
+        alpha = float(distill.get("alpha", 0.7))
+        if spec.task == "classify":
+            soft = distill_classify_loss(out["logits"], t_out["logits"], temperature)
+            kd_metrics = {"loss_kd": soft}
+        else:
+            soft, kd = distill_detect_loss(out["feats"], t_out["feats"], nc=spec.nc, reg_max=spec.reg_max,
+                                           temperature=temperature)
+            soft = soft * images.shape[0]  # as the hard losses: alpha means the same at any batch
+            kd_metrics = {"loss_kd": soft, **kd}
+        loss = (1.0 - alpha) * loss + alpha * soft
+        return loss, {**metrics, **kd_metrics, "loss": loss}
 
     def step_fn(ts: TrainState, batch: Dict[str, torch.Tensor]):
         images = batch["images"]
         if images.dtype == torch.uint8:  # loaders ship uint8
             images = images.float() * (1.0 / 255.0)
-        out, new_bn = ts.module(images, compute_dtype)
+        if qat:
+            with quant_context(QuantContext("fake")):
+                out, new_bn = ts.module(images, compute_dtype)
+        else:
+            out, new_bn = ts.module(images, compute_dtype)
         loss, metrics = loss_fn(out, batch)
+        if distill is not None:
+            loss, metrics = distill_loss(out, images, loss, metrics)
         grads = torch.autograd.grad(loss, list(ts.module.parameters()))
         with torch.no_grad():
             g = torch.cat([x.reshape(-1) for x in grads])
@@ -351,9 +388,16 @@ def make_train_step(
             ts.opt_state["mom"].copy_(torch.where(finite, new_opt["mom"], ts.opt_state["mom"]))
             ts.opt_state["count"].copy_(torch.where(finite, new_opt["count"], ts.opt_state["count"]))
             ts.bn_state.copy_(torch.where(finite, new_bn_flat, ts.bn_state))
+            if param_mask is not None:  # pruning: pinned zeros survive the update
+                dev = ts.params.device
+                if dev not in flat_mask:
+                    flat_mask[dev] = ts.param_layout.flatten(param_mask, dev)
+                ts.params.mul_(flat_mask[dev])
             ts.step.add_(1)
             d = ema_decay * (1.0 - torch.exp(-ts.step.float() / ema_ramp))
             ts.ema_params.copy_(torch.where(finite, ts.ema_params * d + ts.params * (1.0 - d), ts.ema_params))
+            if param_mask is not None:
+                ts.ema_params.mul_(flat_mask[ts.params.device])
             ts.skipped.add_((~finite).to(torch.int32))
             ts.rng[1] += 1
         metrics = {k: v.detach() for k, v in metrics.items()}

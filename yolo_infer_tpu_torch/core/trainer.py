@@ -1,4 +1,4 @@
-"""YOLO11Trainer: training orchestration for detect and classify models.
+"""YOLO11Trainer: training orchestration for every task.
 
 Port of `yolo_infer_tpu/core/trainer.py` (`TrainingConfig`,
 `TrainingCallbacks`, `YOLO11Trainer.train`, `fine_tune`, `transfer_learn`,
@@ -21,14 +21,19 @@ training_summary.txt, history.json) the run directory gets timing.json:
 per epoch the steps, images, wall seconds, the seconds the loop waited for
 the loader and the validation seconds.
 
+Three hooks change the step (`core/train_step.py`): `TrainingConfig.qat`
+(fake-quant training, `QATQuantizer`), `trainer.param_mask` (pruning masks
+held in the step, `PruningOptimizer`) and `trainer.distill` (a teacher
+inside the step, `DistillationOptimizer`: {"model": a `YOLO11`,
+"temperature", "alpha"}; its folded copy runs on the trainer's device).
+
 Not ported yet, and raising: `MultiChipTrainer` and the mesh (ROADMAP Queue 1
-item 9), quantization-aware training (item 6), pruning masks and
-distillation in the step (item 7), and the segment, pose and OBB losses
-(item 8.2).
+item 9).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import logging
@@ -71,7 +76,7 @@ class TrainingConfig:
     resume: bool = False
     val: bool = True
     close_mosaic: int = 10
-    qat: bool = False  # quantization-aware training (not ported: ROADMAP Queue 1 item 6)
+    qat: bool = False  # quantization-aware training (fake-quant in the step)
     # loss weights
     box: float = 7.5
     cls: float = 0.5
@@ -178,7 +183,7 @@ class YOLO11Trainer:
         self.run_dir = run_dir
         self.callbacks = callbacks or TrainingCallbacks()
         self._freeze: Optional[Union[int, Sequence[str]]] = self.config.freeze
-        # optimizer hooks of pruning and distillation (ROADMAP Queue 1 item 7): a set value raises in the step
+        # optimizer hooks of pruning and distillation (optimization/pruning.py, optimization/distillation.py)
         self.param_mask: Any = None
         self.distill: Optional[Dict[str, Any]] = None
         self.timing: List[Dict[str, float]] = []
@@ -226,8 +231,14 @@ class YOLO11Trainer:
         tx = make_optimizer(cfg.lr0, lrf=cfg.lrf, total_steps=total_steps, warmup_steps=warmup_steps,
                             momentum=cfg.momentum, weight_decay=cfg.weight_decay, cos_lr=cfg.cos_lr,
                             freeze=self._freeze_predicate())
+        distill = None
+        if self.distill is not None:  # the teacher's deploy form on this device
+            from yolo_infer_tpu_torch.models.yolo11 import fold_model
+
+            teacher = fold_model(copy.deepcopy(self.distill["model"])).to(self.device).eval()
+            distill = {**self.distill, "model": teacher}
         step_fn = make_train_step(model.spec, tx, hyp=cfg.loss_hyp(), compute_dtype=model.compute_dtype,
-                                  qat=cfg.qat, param_mask=self.param_mask, distill=self.distill)
+                                  qat=cfg.qat, param_mask=self.param_mask, distill=distill)
         ts = init_train_state(model.model, tx, seed=cfg.seed, device=self.device)
 
         ckpt_mgr = CheckpointManager(self.run_dir / "checkpoints")

@@ -24,6 +24,15 @@
 // every operation rounds as PyTorch's elementwise kernels do and the plain
 // version on the card gives the same codes.
 //
+// The float epilogue (epilogues 2 and 3) serves the dynamic and legacy
+// static int8 modes, whose JAX conv (yolo_infer_tpu/nn/quantize.py
+// quantized_conv2d and nn/layers.py conv_block's fp-in/fp-out branch) is
+// XLA's s8 convolution outside any Pallas kernel: the same exact int32 sum,
+// then per output y = cast(acc*scale) to the activation dtype, + cast(bias),
+// SiLU, written as that float (f32 or bf16, NHWC) with no requantize. That
+// is the JAX order of rounding; the outputs go straight from the registers
+// to global memory (a pair of channels per store where Co is even).
+//
 // What bounds it on the H100: at yolo11s, batch 32, 640 px the 48 static8
 // convs do 236 GMAC over 1.47 GB of int8 traffic, 0.44 ms by bytes and 0.24
 // ms at the int8 tensor-core peak, so the products must run on the tensor
@@ -72,11 +81,15 @@ __device__ __forceinline__ int8_t to_code(float y) {
   return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(y), -127.0f), 127.0f)));
 }
 
-// the f32 epilogue of one output
-__device__ __forceinline__ int8_t requant_f32(int acc, float scale, float bias, int act, float syinv) {
+// the f32 epilogue of one output, up to the requantize
+__device__ __forceinline__ float epi_f32(int acc, float scale, float bias, int act) {
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
   if (act) y = __fmul_rn(y, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y))));
-  return to_code(__fmul_rn(y, syinv));
+  return y;
+}
+
+__device__ __forceinline__ int8_t requant_f32(int acc, float scale, float bias, int act, float syinv) {
+  return to_code(__fmul_rn(epi_f32(acc, scale, bias, act), syinv));
 }
 
 // the bf16 epilogue of two outputs of one pixel (channels co, co + 1):
@@ -86,8 +99,8 @@ __device__ __forceinline__ int8_t requant_f32(int acc, float scale, float bias, 
 // rounding the exact result once; that equals rounding the f32 result to
 // bf16, since f32 carries 24 >= 2*8 + 2 significand bits. exp and the
 // reciprocal run in f32 and round to bf16, as PyTorch's bf16 ops do.
-__device__ __forceinline__ char2 requant2_bf16(int a0, int a1, float s0, float s1, __nv_bfloat162 bias2, bool has_bias,
-                                               int act, __nv_bfloat162 syinv2) {
+__device__ __forceinline__ __nv_bfloat162 epi2_bf16(int a0, int a1, float s0, float s1, __nv_bfloat162 bias2,
+                                                   bool has_bias, int act) {
   __nv_bfloat162 y = __floats2bfloat162_rn(__fmul_rn(__int2float_rn(a0), s0), __fmul_rn(__int2float_rn(a1), s1));
   if (has_bias) y = __hadd2(y, bias2);
   if (act) {
@@ -96,6 +109,12 @@ __device__ __forceinline__ char2 requant2_bf16(int a0, int a1, float s0, float s
     const float2 df = __bfloat1622float2(d);
     y = __hmul2(y, __floats2bfloat162_rn(__fdiv_rn(1.0f, df.x), __fdiv_rn(1.0f, df.y)));
   }
+  return y;
+}
+
+__device__ __forceinline__ char2 requant2_bf16(int a0, int a1, float s0, float s1, __nv_bfloat162 bias2, bool has_bias,
+                                               int act, __nv_bfloat162 syinv2) {
+  const __nv_bfloat162 y = epi2_bf16(a0, a1, s0, s1, bias2, has_bias, act);
   const float2 q = __bfloat1622float2(__hmul2(y, syinv2));
   char2 c;
   c.x = to_code(q.x);
@@ -145,10 +164,11 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// kEpi: 0 f32 and 1 bf16 requantizing (int8 out), 2 f32 and 3 bf16 float out
 template <int kBN, bool kVec, int kEpi>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
-                 const float* __restrict__ bias, int8_t* __restrict__ out, Geometry g, float syinv, int act) {
+                 const float* __restrict__ bias, void* __restrict__ out, Geometry g, float syinv, int act) {
   constexpr int kWarpsM = kBN == 128 ? 2 : 4;
   constexpr int kWarpsN = 8 / kWarpsM;
   constexpr int kWM = kBM / kWarpsM;  // pixels per warp: 64 or 32
@@ -264,9 +284,54 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, con
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();  // the ring is free: it becomes the output tile
 
+  const int g8 = lane >> 2, t4 = lane & 3;
+  if constexpr (kEpi >= 2) {
+    // float epilogue: each thread's channel pairs go straight to global memory
+    const bool pairs = (g.Co & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < kNI; ++j) {
+      const int co = c0 + wn * kWN + 8 * j + 2 * t4;
+      if (co >= g.Co) continue;
+      const bool two = co + 1 < g.Co;
+      const float s0 = scale[co], s1 = two ? scale[co + 1] : 0.f;
+      const float b0 = bias != nullptr ? bias[co] : 0.f;
+      const float b1 = bias != nullptr && two ? bias[co + 1] : 0.f;
+      const __nv_bfloat162 bias2 = __floats2bfloat162_rn(b0, b1);
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long m = m0 + wm * kWM + 16 * i + g8 + 8 * r;
+          if (m >= M) continue;
+          const int a0 = acc[i][j][2 * r], a1 = acc[i][j][2 * r + 1];
+          const long long o = m * g.Co + co;
+          if constexpr (kEpi == 2) {
+            float* dst = static_cast<float*>(out) + o;
+            const float y0 = epi_f32(a0, s0, b0, act), y1 = epi_f32(a1, s1, b1, act);
+            if (pairs) {
+              *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+            } else {
+              dst[0] = y0;
+              if (two) dst[1] = y1;
+            }
+          } else {
+            __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + o;
+            const __nv_bfloat162 y = epi2_bf16(a0, a1, s0, s1, bias2, bias != nullptr, act);
+            if (pairs) {
+              *reinterpret_cast<__nv_bfloat162*>(dst) = y;
+            } else {
+              dst[0] = __low2bfloat16(y);
+              if (two) dst[1] = __high2bfloat16(y);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
   // epilogue: requantize in registers, stage the int8 tile, store 16 bytes per thread
   // (channels past Co compute with scale and bias 0 and are not stored)
-  const int g8 = lane >> 2, t4 = lane & 3;
   unsigned char* Os = smem;
   const __nv_bfloat162 syinv2 = __float2bfloat162_rn(syinv);
 #pragma unroll
@@ -301,7 +366,7 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, con
     const long long m = m0 + r;
     const int co = c0 + 16 * cc;
     if (m >= M || co >= g.Co) continue;
-    int8_t* dst = out + m * g.Co + co;
+    int8_t* dst = static_cast<int8_t*>(out) + m * g.Co + co;
     const unsigned char* src = Os + r * kOS + 16 * cc;
     if ((g.Co & 15) == 0) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -312,7 +377,7 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, con
 }
 
 template <int kBN, bool kVec, int kEpi>
-cudaError_t launch(const int8_t* x, const int8_t* w, const float* scale, const float* bias, int8_t* out,
+cudaError_t launch(const int8_t* x, const int8_t* w, const float* scale, const float* bias, void* out,
                    const Geometry& g, float syinv, int act, cudaStream_t stream) {
   const long long M = static_cast<long long>(g.B) * g.Ho * g.Wo;
   const long long blocks = (M + kBM - 1) / kBM;
@@ -328,9 +393,13 @@ cudaError_t launch(const int8_t* x, const int8_t* w, const float* scale, const f
 
 template <int kBN, bool kVec>
 cudaError_t launch_epi(int epilogue, const int8_t* x, const int8_t* w, const float* scale, const float* bias,
-                       int8_t* out, const Geometry& g, float syinv, int act, cudaStream_t stream) {
-  return epilogue == 0 ? launch<kBN, kVec, 0>(x, w, scale, bias, out, g, syinv, act, stream)
-                       : launch<kBN, kVec, 1>(x, w, scale, bias, out, g, syinv, act, stream);
+                       void* out, const Geometry& g, float syinv, int act, cudaStream_t stream) {
+  switch (epilogue) {
+    case 0: return launch<kBN, kVec, 0>(x, w, scale, bias, out, g, syinv, act, stream);
+    case 1: return launch<kBN, kVec, 1>(x, w, scale, bias, out, g, syinv, act, stream);
+    case 2: return launch<kBN, kVec, 2>(x, w, scale, bias, out, g, syinv, act, stream);
+    default: return launch<kBN, kVec, 3>(x, w, scale, bias, out, g, syinv, act, stream);
+  }
 }
 
 }  // namespace
@@ -339,13 +408,14 @@ cudaError_t launch_epi(int epilogue, const int8_t* x, const int8_t* w, const flo
 // Ci), w (Co, k, k, Ci) contiguous, out (B, Ho, Wo, Co) contiguous int8, and
 // scale, bias (Co,) f32 (bias may be null), on the current device. Ci % 16
 // == 0 takes the cp.async path and needs P, x and w 16-byte aligned; other
-// Ci the byte path. epilogue 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch.
+// Ci the byte path. epilogue 0 = float32, 1 = bfloat16 (out int8); 2 =
+// float32, 3 = bfloat16 float epilogue (out (B, Ho, Wo, Co) of that type,
+// syinv unused). Returns the cudaError_t of the launch.
 extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale, const void* bias, void* out,
                                 int B, int H, int W, int Ci, int P, int Ho, int Wo, int Co, int k, int stride,
                                 float syinv, int act, int epilogue, void* stream) {
   if (B < 1 || H < 1 || W < 1 || Ci < 1 || P < Ci || Co < 1 || (k != 1 && k != 3) || (stride != 1 && stride != 2) ||
-      Co > 65535 * 64 || (epilogue != 0 && epilogue != 1)) {
+      Co > 65535 * 64 || epilogue < 0 || epilogue > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool vec = Ci % 16 == 0;
@@ -357,7 +427,7 @@ extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale,
   const auto* ws = static_cast<const int8_t*>(w);
   const auto* sc = static_cast<const float*>(scale);
   const auto* bs = static_cast<const float*>(bias);
-  auto* os = static_cast<int8_t*>(out);
+  void* os = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (Co > 64) {

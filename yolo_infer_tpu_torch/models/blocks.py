@@ -97,7 +97,13 @@ class Conv(nn.Module):
             return self._forward_int8(x)
         if isinstance(x, Q.QAct):  # float conv fed by an int8 edge
             x = x.dequant(self.conv.weight.dtype)
-        y = self.conv(x) if x.dtype == self.conv.weight.dtype else _conv_in_input_dtype(self.conv, x)
+        ctx = Q.current_context()
+        if ctx is not None and ctx.mode == "observe":
+            ctx.observe(x)
+        if ctx is not None and ctx.mode == "fake":
+            y = self._fake_quant_conv(x, ctx)
+        else:
+            y = self.conv(x) if x.dtype == self.conv.weight.dtype else _conv_in_input_dtype(self.conv, x)
         if self.bn is not None:
             if self.training:
                 var, mean = torch.var_mean(y.float(), dim=(0, 2, 3), correction=0)
@@ -108,6 +114,18 @@ class Conv(nn.Module):
             scale, bias = bn_scale_bias(self.bn.weight, self.bn.bias, mean, var)
             y = y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
         return silu(y) if self.act else y
+
+    def _fake_quant_conv(self, x: torch.Tensor, ctx: Q.QuantContext) -> torch.Tensor:
+        """QAT: the conv on fake-quantized weights (per output channel,
+        scale max(|w|, 1e-12) / 127) and input (the context's static scale,
+        else the dynamic one), both with straight-through gradients."""
+        c = self.conv
+        wf = c.weight.float()
+        w_scale = torch.clamp(wf.detach().abs().amax(dim=(1, 2, 3)), min=1e-12) / Q.INT8_MAX
+        w = Q.fake_quantize(wf, w_scale[:, None, None, None]).to(x.dtype)
+        s = ctx.next_scale() if ctx.act_scales is not None else Q.dynamic_act_scale(x)
+        x = Q.fake_quantize(x.float(), s).to(x.dtype)
+        return F.conv2d(x, w, _cast(c.bias, x.dtype), c.stride, c.padding, c.dilation, c.groups)
 
     @torch.no_grad()
     def fold(self) -> None:
@@ -148,10 +166,17 @@ class Conv(nn.Module):
     def _forward_int8(self, x):
         """`nn/layers.py conv_block`'s int8 branch: observe8 records the
         (in, out) absmax of a float conv; static8 takes the next scale pair,
-        then runs exempted convs in float and the rest through kernel E."""
+        then runs exempted convs in float and the rest through kernel E. With
+        no context (dynamic) or in the legacy static mode the conv takes and
+        gives float, through kernel E's float epilogue (`Q.quantized_conv2d`):
+        every quantized conv, none exempted."""
         ctx = Q.current_context()
-        if ctx is None:
-            raise NotImplementedError(f"an int8 conv outside observe8/static8 (dynamic int8) {Q.UNPORTED}")
+        if ctx is None or ctx.mode not in ("observe8", "static8"):
+            x = Q.as_float(x, torch.bfloat16)
+            co = self.w_q.shape[0]
+            x_scale = ctx.next_scale() if ctx is not None and ctx.mode == "static" else None
+            return Q.quantized_conv2d(x, self.w_q.view(co, self.k, self.k, -1), self.w_scale, self.b, stride=self.s,
+                                      act=self.act, x_scale=x_scale)
         if ctx.mode == "observe8":
             x_fp = Q.as_float(x, torch.float32)
             y = self._float_conv(x_fp)

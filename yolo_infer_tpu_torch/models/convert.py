@@ -42,7 +42,7 @@ import torch.nn as nn
 
 from yolo_infer_tpu_torch.models import blocks as B
 from yolo_infer_tpu_torch.models.spec import ModelSpec, build_spec
-from yolo_infer_tpu_torch.models.yolo11 import YOLO11, fold_model, quantize_model
+from yolo_infer_tpu_torch.models.yolo11 import YOLO11, fold_model, quantize_model, reshape_like
 
 logger = logging.getLogger(__name__)
 
@@ -56,8 +56,12 @@ def load_state_dict(sd: Mapping[str, Any], spec: ModelSpec) -> YOLO11:
 
     A dict with no batch-norm keys is taken as folded (`….conv.bias` in their
     place) and yields a folded model; one with `….w_q` keys, a quantized
-    model (int8 `w_q` kept int8). Missing or unexpected keys raise KeyError,
-    a tensor of the wrong shape ValueError.
+    model (int8 `w_q` kept int8). A tensor narrower than the spec's in some
+    dimension (a slim model's, `optimization/surgery.py`) rebuilds its layer
+    to the tensor's shape (`models/yolo11.py reshape_like`). Missing or
+    unexpected keys raise KeyError; a tensor of another rank, wider than the
+    spec's, or of another shape in a plain Conv layer (whose output is an
+    interface between layers, which surgery keeps) ValueError.
     """
     tensors = {
         k: torch.tensor(np.asarray(v, np.int8 if k.endswith(".w_q") else np.float32))
@@ -75,7 +79,16 @@ def load_state_dict(sd: Mapping[str, Any], spec: ModelSpec) -> YOLO11:
     if missing or unexpected:
         raise KeyError(f"state dict does not fit the {spec.size}/{spec.task} spec: "
                        f"missing {missing[:5]}, unexpected {unexpected[:5]}")
-    wrong = [k for k, v in own.items() if v.shape != tensors[k].shape]
+    # surgery narrows layers inside blocks only: a plain Conv layer's output is
+    # an inter-layer interface, so one of another shape is another model
+    plain = tuple(f"model.{layer.idx}." for layer in spec.layers if layer.typ == "Conv")
+    wrong = [k for k, v in own.items() if v.dim() != tensors[k].dim()
+             or any(a > b for a, b in zip(tensors[k].shape, v.shape))
+             or (k.startswith(plain) and v.shape != tensors[k].shape)]
+    if not wrong:
+        reshape_like(model, {k: tuple(v.shape) for k, v in tensors.items()})
+        own = {k: v for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+        wrong = [k for k, v in own.items() if v.shape != tensors[k].shape]
     if wrong:
         raise ValueError(f"state dict does not fit the {spec.size}/{spec.task} spec: "
                          f"{wrong[0]} is {tuple(tensors[wrong[0]].shape)}, expected {tuple(own[wrong[0]].shape)}")

@@ -187,6 +187,52 @@ def quantize_model(model: YOLO11) -> YOLO11:
     return model
 
 
+def reshape_like(model: YOLO11, shapes: Dict[str, Tuple[int, ...]]) -> YOLO11:
+    """Rebuild, in place, every conv, transposed conv, batch norm and linear
+    layer (and int8 conv buffers) whose tensors in `shapes` ({state-dict
+    name: shape}) differ from the model's: a slim model's narrower layers
+    (`optimization/surgery.py`), which the blocks' forwards take as they
+    are, since they read every width from the tensors. A depthwise conv
+    stays depthwise. New layers hold uninitialised values: load the state
+    dict next."""
+    def differs(key: str, t) -> bool:
+        return key in shapes and tuple(shapes[key]) != tuple(t.shape)
+
+    for name, m in list(model.named_modules()):
+        if not name:
+            continue
+        parent_name, _, attr = name.rpartition(".")
+        parent = model.get_submodule(parent_name)
+        new = None
+        if isinstance(m, nn.ConvTranspose2d):
+            if differs(f"{name}.weight", m.weight):
+                ci, co = shapes[f"{name}.weight"][:2]
+                new = nn.ConvTranspose2d(ci, co, m.kernel_size, m.stride, m.padding, bias=m.bias is not None)
+        elif isinstance(m, nn.Conv2d):
+            if differs(f"{name}.weight", m.weight):
+                co, ci_g = shapes[f"{name}.weight"][:2]
+                depthwise = m.groups > 1 and m.groups == m.in_channels == m.out_channels
+                g = co if depthwise else m.groups
+                new = type(m)(ci_g * g, co, m.kernel_size, m.stride, m.padding, groups=g, bias=m.bias is not None)
+                if depthwise and isinstance(parent, B.Conv):
+                    parent.g = g
+        elif isinstance(m, nn.BatchNorm2d):
+            if differs(f"{name}.weight", m.weight):
+                new = nn.BatchNorm2d(shapes[f"{name}.weight"][0], eps=m.eps, momentum=m.momentum)
+        elif isinstance(m, nn.Linear):
+            if differs(f"{name}.weight", m.weight):
+                co, ci = shapes[f"{name}.weight"]
+                new = nn.Linear(ci, co, bias=m.bias is not None)
+        elif isinstance(m, B.Conv) and m.quantized and differs(f"{name}.w_q", m.w_q):
+            co, rows = shapes[f"{name}.w_q"]
+            m.w_q = torch.zeros((co, rows), dtype=torch.int8)
+            m.w_scale = torch.zeros(co)
+            m.b = torch.zeros(co)
+        if new is not None:
+            setattr(parent, attr, new)
+    return model
+
+
 def cast_model(model: YOLO11, dtype: torch.dtype) -> YOLO11:
     """Cast conv, transposed-conv and linear weights and biases to `dtype` in
     place. Batch-norm statistics of an unfolded model stay f32, as the JAX

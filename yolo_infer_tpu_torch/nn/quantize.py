@@ -1,12 +1,21 @@
-"""int8 quantization primitives and the calibration / static8 context.
+"""int8 quantization primitives and the quantization context.
 
-Port of `yolo_infer_tpu/nn/quantize.py` for the post-training static8 path:
-weights int8 per output channel, activations int8 per tensor with scales
-calibrated offline, and every quantized conv int8 in, int8 out (kernel E,
-`ops/kernels/int8_conv.py`), its epilogue rescaling, adding the bias,
-applying SiLU and requantizing. Structural ops (concat, max-pool, upsample,
-split) run on the int8 codes; adds and attention stay float and re-enter
-int8 at the next conv through its calibrated input scale.
+Port of `yolo_infer_tpu/nn/quantize.py`: weights int8 per output channel,
+activations int8 per tensor. The post-training static8 path keeps every
+quantized conv int8 in, int8 out (kernel E, `ops/kernels/int8_conv.py`), its
+epilogue rescaling, adding the bias, applying SiLU and requantizing.
+Structural ops (concat, max-pool, upsample, split) run on the int8 codes;
+adds and attention stay float and re-enter int8 at the next conv through
+its calibrated input scale.
+
+The other modes take float in and give float out at each quantized conv
+(`quantized_conv2d`: the input quantized per tensor, kernel E's float
+epilogue): "dynamic" (no context: the scale is the input's absmax, a device
+scalar, never read back to the host, so a captured CUDA graph holds it) and
+the legacy "static" (one calibrated input scale per conv, a 1-D
+`act_scales`). "observe" records the input absmax of every float conv, and
+"fake" fake-quantizes the weights and input of every float conv in the
+training forward (QAT) with a straight-through gradient.
 
 Calibration is matched to serving by ORDER: an "observe8" forward records
 (input absmax, output absmax) at each quantized conv in execution order,
@@ -15,9 +24,6 @@ and a "static8" forward consumes the scale pairs by the same index.
 Layouts follow the port: activations NCHW (channels_last on the card),
 weights OIHW. Scales are f32 tensors on the host, so reading one costs no
 device sync. `torch.round` rounds half to even, as `jnp.round` does.
-
-The JAX package's "dynamic", legacy 1-D "static" and QAT "fake" modes are
-not ported (ROADMAP Queue 1 item 6) and raise.
 """
 
 from __future__ import annotations
@@ -28,10 +34,10 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from yolo_infer_tpu_torch.ops.kernels.int8_conv import int8_conv, nhwc_input
+
 INT8_MAX = 127.0
-MODES = ("observe8", "static8")
-_UNPORTED_MODES = ("dynamic", "static", "fake", "observe")
-UNPORTED = "is not ported yet (ROADMAP Queue 1 item 6: dynamic, legacy static and QAT fake-quant int8)"
+MODES = ("observe8", "static8", "observe", "static", "fake")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +120,35 @@ def dequantize_weights(w_q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtyp
     return (w_q.float() * scale[:, None, None, None]).to(dtype)
 
 
+def fake_quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize with the straight-through estimator (QAT): the
+    value of q * scale, the gradient of the identity."""
+    q = torch.clamp(torch.round(x / scale), -INT8_MAX, INT8_MAX) * scale
+    return x + (q - x).detach()
+
+
+def dynamic_act_scale(x: torch.Tensor) -> torch.Tensor:
+    """The per-tensor scale max(|x|, 1e-6) / 127, a 0-d f32 tensor on x's device."""
+    return torch.clamp(x.detach().float().abs().amax(), min=1e-6) / INT8_MAX
+
+
+def quantized_conv2d(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, bias: Optional[torch.Tensor], *,
+                     stride: int = 1, act: bool = True, x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 conv of the dynamic and legacy static modes: x (B, Ci, H, W)
+    float is quantized per tensor (the dynamic scale when `x_scale` is None),
+    the conv sums int8 x int8 exactly, and kernel E's float epilogue gives
+    cast(acc * x_scale * w_scale) to x's dtype, + bias, SiLU: (B, Co, Ho,
+    Wo) in x's dtype (an NHWC tensor seen as NCHW). w_q is (Co, k, k, Ci)
+    int8. The JAX package's `quantized_conv2d` and the fp-in/fp-out branch of
+    `nn/layers.py conv_block`."""
+    if x_scale is None:
+        x_scale = dynamic_act_scale(x)
+    xq = quantize_act(x, x_scale).q
+    y = int8_conv(nhwc_input(xq), w_q, x_scale * w_scale, bias, 1.0, stride=stride, act=act,
+                  epilogue_dtype=x.dtype, requant=False)
+    return y.permute(0, 3, 1, 2)
+
+
 @dataclasses.dataclass
 class QuantContext:
     """Active during one forward of a quantized model.
@@ -124,11 +159,18 @@ class QuantContext:
       "static8"  - int8 residency: consume (in, out) scale pairs (an (n, 2)
                    tensor of absmax values) in order; eligible convs take and
                    give QAct through kernel E
+      "observe"  - record the input absmax of every float conv, in order
+      "static"   - legacy: consume one input absmax per quantized conv (an
+                   (n,) tensor) in order; float in, float out
+      "fake"     - QAT: fake-quantize the weights (per output channel) and
+                   the input (the static scale when `act_scales` is given,
+                   else the dynamic one) of every float conv
+    A quantized model with no context runs "dynamic".
     """
 
     mode: str
     collected: List[torch.Tensor] = dataclasses.field(default_factory=list)
-    act_scales: Optional[torch.Tensor] = None  # (n, 2) f32 on the host (static8)
+    act_scales: Optional[torch.Tensor] = None  # (n, 2) static8 | (n,) static and fake, f32 on the host
     index: int = 0
     epilogue_dtype: Optional[torch.dtype] = None  # static8 epilogue dtype (None: bf16)
     float_convs: Optional[set] = None  # static8: conv indices forced to run dequantized-float
@@ -142,19 +184,27 @@ class QuantContext:
     syinv: Optional[List[float]] = None
 
     def __post_init__(self):
-        if self.mode in _UNPORTED_MODES:
-            raise NotImplementedError(f"quantization mode {self.mode!r} {UNPORTED}")
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
         if self.act_scales is not None:
             self.act_scales = torch.as_tensor(self.act_scales, dtype=torch.float32).cpu()
-            if self.act_scales.dim() != 2:
-                raise NotImplementedError(f"1-D (legacy static) activation scales {UNPORTED}")
-            if self.syinv is None:
+            want = 2 if self.mode == "static8" else 1
+            if self.act_scales.dim() != want:
+                raise ValueError(f"mode {self.mode!r} takes {want}-D activation scales, "
+                                 f"got shape {tuple(self.act_scales.shape)}")
+            if self.mode == "static8" and self.syinv is None:
                 self.syinv = out_scale_inverses(self.act_scales)
+
+    def observe(self, x: torch.Tensor) -> None:
+        self.collected.append(x.detach().float().abs().amax())
 
     def observe_pair(self, x: torch.Tensor, y: torch.Tensor) -> None:
         self.collected.append(torch.stack([x.float().abs().amax(), y.float().abs().amax()]))
+
+    def next_scale(self) -> torch.Tensor:
+        i = self.index
+        self.index += 1
+        return torch.clamp(self.act_scales[i], min=1e-6) / INT8_MAX
 
     def next_scale_pair(self) -> Tuple[torch.Tensor, torch.Tensor]:
         i = self.index

@@ -1,4 +1,4 @@
-"""Static8 int8 convolution: the CUDA kernel `csrc/int8_conv.cu` (kernel E) and its plain version.
+"""int8 convolution: the CUDA kernel `csrc/int8_conv.cu` (kernel E) and its plain version.
 
 Replaces the TPU kernel `int8_conv3x3_fused` (`yolo_infer_tpu/ops/pallas/int8_conv.py`),
 whose arithmetic is that of the JAX static8 conv (`yolo_infer_tpu/nn/layers.py
@@ -14,6 +14,14 @@ each round to bf16, as the static8 path computes by default. SiLU is the
 JAX package's `y * sigmoid(y)` with sigmoid `1 / (1 + exp(-y))`; in bf16
 every one of its operations rounds to bf16 (exp, the sum, the reciprocal,
 the product), as XLA evaluates a bf16 sigmoid on the CPU.
+
+With `requant=False` (the float epilogue of the dynamic and legacy static
+modes: `nn/quantize.py quantized_conv2d`) the epilogue stops before the
+requantize: `acc * scale` cast to `epilogue_dtype`, `+ bias` in that dtype,
+SiLU, and the (B, Ho, Wo, Co) float tensor is the output. That is the JAX
+package's order of rounding for those modes (`nn/layers.py conv_block`),
+whose conv is XLA's s8 convolution; a float conv on dequantized values
+would not do, since its sums round once 9 * Ci * 127^2 passes 2^24.
 
 The input may be a channel chunk of a wider NHWC tensor (a pixel pitch P
 greater than Ci, as `q_split2` / `q_split_at` leave it): the kernel reads it
@@ -39,21 +47,29 @@ from yolo_infer_tpu_torch.ops.kernels._build import check_device, load_library
 _EPILOGUES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def int8_conv_sums(x_q: torch.Tensor, w_q: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The exact sums of the int8 conv, (B, Ho, Wo, Co) float64: F.conv2d in
+    float64 on the int8 values, exact since the largest sum, 127² · 9 · 1024,
+    is far below 2⁵³."""
+    k = w_q.shape[1]
+    return F.conv2d(x_q.permute(0, 3, 1, 2).double(), w_q.permute(0, 3, 1, 2).double(),
+                    stride=stride, padding=k // 2).permute(0, 2, 3, 1)
+
+
 def int8_conv_reference(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
                         syinv: float, *, stride: int = 1, act: bool = True,
-                        epilogue_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Plain version. The conv is F.conv2d in float64 on the int8 values,
-    which is exact (the largest sum, 127² · 9 · 1024, is far below 2⁵³);
-    the epilogue follows in the kernel's order of operations."""
-    k = w_q.shape[1]
-    acc = F.conv2d(x_q.permute(0, 3, 1, 2).double(), w_q.permute(0, 3, 1, 2).double(),
-                   stride=stride, padding=k // 2).permute(0, 2, 3, 1)
+                        epilogue_dtype: torch.dtype = torch.bfloat16, requant: bool = True) -> torch.Tensor:
+    """Plain version: the exact sums (`int8_conv_sums`), then the epilogue in
+    the kernel's order of operations."""
+    acc = int8_conv_sums(x_q, w_q, stride)
     ed = epilogue_dtype
     y = (acc.float() * scale).to(ed)
     if bias is not None:
         y = y + bias.to(ed)
     if act:
         y = y * torch.reciprocal(1.0 + torch.exp(-y))
+    if not requant:
+        return y.contiguous()
     y = y * torch.tensor(syinv, dtype=torch.float32, device=y.device).to(ed)
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8).contiguous()
 
@@ -92,19 +108,21 @@ def nhwc_input(x: torch.Tensor) -> torch.Tensor:
 def _launcher():
     fn = load_library("int8_conv").int8_conv_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10  # x, w, scale, bias, out; B H W Ci P Ho Wo Co k stride
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])  # syinv, act, epilogue, stream
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])  # syinv, act, epilogue (0-3), stream
     fn.restype = ctypes.c_int
     return fn
 
 
 def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
               syinv: float, *, stride: int = 1, act: bool = True,
-              epilogue_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              epilogue_dtype: torch.dtype = torch.bfloat16, requant: bool = True) -> torch.Tensor:
     """x_q (B, H, W, Ci) int8 (contiguous, or with a pixel pitch: see
     `pixel_pitch`), w_q (Co, k, k, Ci) int8, scale and bias (Co,) f32, syinv
-    the f32 value 1/sy -> (B, Ho, Wo, Co) int8; all but x_q contiguous."""
+    the f32 value 1/sy -> (B, Ho, Wo, Co) int8; all but x_q contiguous. With
+    `requant=False` the output is (B, Ho, Wo, Co) in `epilogue_dtype` and
+    `syinv` is not read."""
     check_device("int8_conv", x_q)
-    return torch.ops.yolo_port.int8_conv(x_q, w_q, scale, bias, float(syinv), stride, act, epilogue_dtype)
+    return torch.ops.yolo_port.int8_conv(x_q, w_q, scale, bias, float(syinv), stride, act, epilogue_dtype, requant)
 
 
 int8_conv.launches = 0
@@ -112,10 +130,10 @@ int8_conv.launches = 0
 
 @torch.library.custom_op("yolo_port::int8_conv", mutates_args=())
 def _int8_conv_op(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-                  syinv: float, stride: int, act: bool, epilogue_dtype: torch.dtype) -> torch.Tensor:
+                  syinv: float, stride: int, act: bool, epilogue_dtype: torch.dtype, requant: bool = True) -> torch.Tensor:
     if x_q.device.type == "cpu":
         return int8_conv_reference(x_q, w_q, scale, bias, syinv, stride=stride, act=act,
-                                   epilogue_dtype=epilogue_dtype)
+                                   epilogue_dtype=epilogue_dtype, requant=requant)
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_conv: no kernel for device {x_q.device}")
     b, ho, wo, co = _check(x_q, w_q, scale, bias, stride, epilogue_dtype)
@@ -125,13 +143,14 @@ def _int8_conv_op(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bia
                          f"and the input and weight pointers 16-byte aligned")
     _, h, w, ci = x_q.shape
     k = w_q.shape[1]
-    out = torch.empty((b, ho, wo, co), dtype=torch.int8, device=x_q.device)
+    out = torch.empty((b, ho, wo, co), dtype=torch.int8 if requant else epilogue_dtype, device=x_q.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x_q.device):
         err = _launcher()(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                           bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                          b, h, w, ci, p, ho, wo, co, k, stride, float(syinv), int(act), _EPILOGUES[epilogue_dtype],
+                          b, h, w, ci, p, ho, wo, co, k, stride, float(syinv), int(act),
+                          _EPILOGUES[epilogue_dtype] + (0 if requant else 2),
                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_conv: CUDA error {err} at launch")
@@ -169,11 +188,11 @@ def _check(x_q, w_q, scale, bias, stride: int, epilogue_dtype: torch.dtype):
 
 
 @_int8_conv_op.register_fake
-def _(x_q, w_q, scale, bias, syinv, stride, act, epilogue_dtype):
+def _(x_q, w_q, scale, bias, syinv, stride, act, epilogue_dtype, requant=True):
     if x_q.device.type == "cpu":  # the plain version takes what F.conv2d takes
         k = w_q.shape[1]
         b, h, w, _ = x_q.shape
         shape = (b, (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1, w_q.shape[0])
     else:
         shape = _check(x_q, w_q, scale, bias, stride, epilogue_dtype)
-    return x_q.new_empty(shape, dtype=torch.int8)
+    return x_q.new_empty(shape, dtype=torch.int8 if requant else epilogue_dtype)

@@ -88,6 +88,16 @@ def probiou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = EPS)
     return probiou_gauss_matrix(gauss_terms(boxes1), gauss_terms(boxes2), eps)
 
 
+def probiou_pairs(b1: torch.Tensor, b2: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Element-aligned probIoU of rotated boxes (..., 5) and (..., 5), the
+    two broadcast against each other (a (B, M, 1, 5) and a (B, 1, A, 5) give
+    (B, M, A) without copying either): the JAX package's `probiou_pairs`,
+    on the same `_probiou_from_terms` as `probiou_matrix`."""
+    a1, bb1, c1 = _cov(b1)
+    a2, bb2, c2 = _cov(b2)
+    return _probiou_from_terms(a1, bb1, c1, b1[..., 0], b1[..., 1], a2, bb2, c2, b2[..., 0], b2[..., 1], eps)
+
+
 def rotated_nms_keep_mask(sup: torch.Tensor, valid: torch.Tensor, iou_thres: Threshold) -> torch.Tensor:
     """Greedy probIoU-NMS keep mask (B, K) bool over (B, K, 5) score-sorted
     candidates: the Gaussian terms are computed here, outside the kernel, as

@@ -1,15 +1,16 @@
-"""Quantizers: post-training static int8 (static8).
+"""Quantizers: dynamic int8, post-training static int8 (static8), QAT.
 
 Port of `yolo_infer_tpu/optimization/quantization/quantizers.py`
-(`PostTrainingQuantizer`, `_quantized_clone`, `QuantizationUtils`,
-`create_quantizer`). PTQ quantizes the deploy model's convs per output
-channel (`models/yolo11.py quantize_model`), then runs "observe8" forwards
-of the quantized model over at most 100 calibration batches and keeps the
-largest (input, output) absmax of each quantized conv: the (n, 2) scales
-that static8 serving consumes in the same order.
-
-`DynamicQuantizer` and `QATQuantizer` are not ported and raise (ROADMAP
-Queue 1 item 6).
+(`DynamicQuantizer`, `PostTrainingQuantizer`, `QATQuantizer`,
+`_quantized_clone`, `QuantizationUtils`, `create_quantizer`). Each quantizes
+the deploy model's convs per output channel (`models/yolo11.py
+quantize_model`). PTQ then runs "observe8" forwards of the quantized model
+over at most 100 calibration batches and keeps the largest (input, output)
+absmax of each quantized conv: the (n, 2) scales that static8 serving
+consumes in the same order. The dynamic model has no scales: its activation
+scales are taken on the device at every call. QAT trains the model with
+fake-quant in the step (`TrainingConfig.qat`), then quantizes it as the
+dynamic quantizer does.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from yolo_infer_tpu_torch.optimization.base import BaseOptimizer, OptimizationRe
 logger = logging.getLogger(__name__)
 
 MAX_CALIBRATION_BATCHES = 100
-_UNPORTED = "is not ported yet (ROADMAP Queue 1 item 6: dynamic and QAT int8)"
 
 
 def _quantized_clone(model, act_scales=None, qmodel=None):
@@ -46,13 +46,54 @@ def _quantized_clone(model, act_scales=None, qmodel=None):
 
 
 class DynamicQuantizer(QuantizationOptimizer):
+    """Weights int8 offline; activation scales computed on the device at every call."""
+
     def optimize(self) -> Any:
-        raise NotImplementedError(f"dynamic int8 quantization {_UNPORTED}")
+        t0 = time.perf_counter()
+        self.optimized_model = _quantized_clone(self.model)
+        self.optimization_info = {
+            "method": "dynamic",
+            "dtype": self.dtype,
+            "activation_scales": "dynamic (per-tensor absmax, on-device)",
+            "weight_scales": "per-output-channel",
+            "time_s": time.perf_counter() - t0,
+        }
+        logger.info("dynamic int8 quantization done in %.1fs", self.optimization_info["time_s"])
+        return self.optimized_model
 
 
 class QATQuantizer(QuantizationOptimizer):
-    def optimize(self, *args, **kwargs) -> Any:
-        raise NotImplementedError(f"quantization-aware training {_UNPORTED}")
+    """Quantization-aware training: fake-quant (straight-through) inside the
+    real training step and loss, then int8 conversion of the trained EMA
+    weights. Config keys: epochs (10), lr (1e-4), data."""
+
+    def __init__(self, model: Any, config: Optional[Dict[str, Any]] = None):
+        super().__init__(model, config)
+        self.epochs = int(self.config.get("epochs", 10))
+        self.lr = float(self.config.get("lr", 1e-4))
+
+    def optimize(self, data: Optional[str] = None, resume: bool = False, checkpoint_period: int = 1,
+                 **train_kw) -> Any:
+        data = data or self.config.get("data")
+        if not data:
+            raise RuntimeError("QAT needs a dataset: pass data=... (YOLO yaml)")
+        from yolo_infer_tpu_torch.core.trainer import TrainingConfig, YOLO11Trainer
+
+        t0 = time.perf_counter()
+        kw = {"mosaic": 0.0, "name": "qat"}  # defaults the caller may override
+        kw.update(train_kw)
+        cfg = TrainingConfig(data=str(data), epochs=self.epochs, lr0=self.lr, cos_lr=True,
+                             save_period=checkpoint_period, resume=resume, qat=True, **kw)
+        train_result = YOLO11Trainer(model=self.model, config=cfg).train()
+        self.optimized_model = _quantized_clone(self.model)
+        self.optimization_info = {
+            "method": "qat",
+            "dtype": self.dtype,
+            "epochs": self.epochs,
+            "train_status": train_result.get("status"),
+            "time_s": time.perf_counter() - t0,
+        }
+        return self.optimized_model
 
 
 class PostTrainingQuantizer(QuantizationOptimizer):
@@ -143,7 +184,7 @@ OptimizationRegistry.register("qat", QATQuantizer)
 
 
 def create_quantizer(method: str, model: Any, config: Optional[Dict[str, Any]] = None) -> BaseOptimizer:
-    """'ptq' -> PostTrainingQuantizer ('dynamic' and 'qat' construct, and raise on optimize)."""
+    """'ptq' | 'dynamic' | 'qat' -> the quantizer."""
     mapping = {"ptq": PostTrainingQuantizer, "dynamic": DynamicQuantizer, "qat": QATQuantizer}
     if method not in mapping:
         raise ValueError(f"unknown quantization method {method!r}; expected one of {sorted(mapping)}")
