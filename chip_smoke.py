@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs thirty phases, each printing one JSON line. Kernels A, C, F and G
+runs thirty-one phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -317,6 +317,36 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              a yolo11n student for one epoch, B launching inside every step
              (the teacher's attention). E's kernels-line row gains the
              dynamic paths' launches, times and bound under "dynamic"
+ 31. parallel  multi-device training and serving on torch.distributed
+             (`yolo_infer_tpu_torch/parallel/`), ~60-90 s. (a) NCCL, a world
+             of one on cuda:0 (a `FileStore` rendezvous, in this process):
+             `MultiChipTrainer(device_ids=[0])` trains yolo11n (nc 3) for one
+             epoch at b16/640 bf16 on phase 29's seeded PNGs (6 steps, each
+             timed by CUDA events); an fp32 b2/640 meshed step against the
+             unmeshed step from the same state (loss within 1e-5 relative,
+             the update within `PAR_UPDATE_RTOL` of its norm, batch-norm state
+             within 1e-5) with its count of all_reduce, all_gather and
+             broadcast calls, and the unmeshed step on the batch's images
+             swapped beside it (f32 rounding alone); bf16 b16/640 step ms,
+             meshed against unmeshed, in turns, then one torch.profiler
+             trace of each (kernels' device ms and launches, each op's self
+             host ms, and the ops that hold the meshed step's extra host
+             time); a meshed bf16 `Predictor` (phase 4's weights) at
+             b32/640: A and B launched by its run, A's input (32, 384, 4)
+             in an eager call (the one-process tail on the rank's slice),
+             img/s beside the unmeshed predictor's in turns, and fp32
+             meshed against unmeshed `predict` on two frames (counts
+             equal, detections paired within 1e-2 px and 1e-5). (b) two gloo processes, both on cuda:0
+             (`parallel/distributed.py launch`, a join limit: a rank that
+             fails or hangs fails the phase and the other is killed): the
+             fp32 DP step at 2 x 1 images of 640 px against the one-process
+             step on both (as in (a); the ranks' states equal bit for bit),
+             meshed fp32 `predict` at b32 (16 per rank), equal on both ranks
+             and paired with the one-process result, a 1-epoch b16/640
+             training run with validation whose run directory only rank 0
+             writes (each rank's writers counted), and `dryrun_multichip(2)`
+             (tp = 2) with its loss. gloo stages CUDA tensors through the
+             host: (b)'s seconds time correctness plumbing, not NCCL
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -4198,6 +4228,417 @@ def phase_optimize(report):
     return out
 
 
+PAR_TRAIN = dict(batch=16, imgsz=640, epochs=1)  # MultiChipTrainer(device_ids=[0]) over phase 29's dataset: 6 steps
+PAR_CHECK = (2, 640)  # the fp32 step, meshed against unmeshed: batch, imgsz (2 x 1 images over two ranks)
+PAR_STEP = (16, 640)  # the timed bf16 steps: batch, imgsz
+PAR_STEPS = 10  # timed steps of each form per turn (two turns: unmeshed, meshed, meshed, unmeshed)
+PAR_SERVE = (32, 640)  # the meshed bf16 predict: batch, imgsz
+PAR_LOSS_RTOL = 1e-5
+# the update's bound: phase 29's cuda-vs-cpu one, for the same f32 step summed
+# in other orders. An f32 step is not exact to 1e-5 of its update (its gradient
+# differs from the f64 one by 7.0e-5 of its norm, tests/test_torch_parallel_train.py,
+# where the meshed step equals the one-process step to 1e-12 in f64). On the
+# CPU the meshed update differed from the one-process one by 5e-5 to 6e-4 of
+# its norm over three batches (64-160 px), 4-7 times as much as the
+# one-process step with its batch's images swapped, which the phase prints
+# beside it (`swap_update_rel`)
+PAR_UPDATE_RTOL = TRAIN_UPDATE_RTOL
+PAR_BN_ATOL = 1e-5
+PAR_RANKS = 2  # (b): gloo processes, both on cuda:0
+PAR_RANK_TIMEOUT_S = 300  # the launch of (b): a rank that fails or hangs fails it, the other is killed
+PAR_DEVICE, PAR_BACKEND = "cuda:0", "nccl"  # (a)'s card and backend (a CPU rehearsal of the phase sets "cpu", "gloo")
+
+
+def fixed_batch(data: Path, batch: int, imgsz: int):
+    """The first batch of the training loader with augmentation off (numpy)."""
+    from yolo_infer_tpu_torch.data.dataset import YOLODataset
+    from yolo_infer_tpu_torch.data.train_loader import TrainLoader
+
+    off = dict(hsv_h=0.0, hsv_s=0.0, hsv_v=0.0, degrees=0.0, translate=0.0, scale=0.0, shear=0.0, fliplr=0.0,
+               flipud=0.0, mosaic=0.0, mixup=0.0)
+    loader = TrainLoader(YOLODataset(data, split="train"), batch_size=batch, imgsz=imgsz, hyp=off, seed=SEED)
+    return next(iter(loader.epoch_batches(0)))
+
+
+def step_result(model, spec, batch_np, device, mesh):
+    """One fp32 step from `model` on `batch_np` (this rank's slice under a
+    mesh): loss, the params' update and the batch-norm state (on the host),
+    skipped."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.train_step import init_train_state, make_optimizer, make_train_step
+    from yolo_infer_tpu_torch.parallel.mesh import shard_batch
+
+    tx = make_optimizer(0.01, total_steps=10, warmup_steps=0)
+    ts = init_train_state(model, tx, seed=SEED, device=device)
+    before = ts.params.detach().clone()
+    step = make_train_step(spec, tx, compute_dtype=torch.float32, mesh=mesh)
+    local = batch_np if mesh is None else shard_batch(batch_np, mesh)
+    ts, m = step(ts, {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in local.items()})
+    return float(m["loss"]), (ts.params - before).cpu(), ts.bn_state.cpu(), int(ts.skipped)
+
+
+def step_diff(got, want):
+    (lg, ug, bg, sg), (lw, uw, bw, sw) = got, want
+    return {"loss": lg, "loss_ref": lw, "loss_rel": abs(lg - lw) / abs(lw),
+            "update_rel": float((ug - uw).norm() / uw.norm()), "update_norm": float(uw.norm()),
+            "bn_max_abs": float((bg - bw).abs().max()), "skipped": [sg, sw]}
+
+
+def step_close(d) -> bool:
+    return (d["loss_rel"] <= PAR_LOSS_RTOL and d["update_rel"] <= PAR_UPDATE_RTOL and d["bn_max_abs"] <= PAR_BN_ATOL
+            and not any(d["skipped"]))
+
+
+class CollectiveCount:
+    """Counts the calls of `torch.distributed`'s all_reduce, all_gather and
+    broadcast while it is entered (the port calls them through the module)."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as td
+
+        self.counts = collections.Counter()
+        self._td, self._real = td, {n: getattr(td, n) for n in self.NAMES}
+        for n, fn in self._real.items():
+            def counted(*a, _n=n, _fn=fn, **kw):
+                self.counts[_n] += 1
+                return _fn(*a, **kw)
+            setattr(td, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._real.items():
+            setattr(self._td, n, fn)
+        return False
+
+
+def step_profile(fn, calls: int = 2):
+    """`calls` calls of `fn` under torch.profiler, per call: the wall ms (the
+    profiler's own cost included), the kernels' device ms and launches, and
+    each op's self host ms and calls ({key: [ms, calls]}). A trace with no
+    device events is taken again (three tries), as `traced_rows` does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0 and e.key != "Activity Buffer Request"
+                   and not e.key.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            break
+    host = {e.key: [e.self_cpu_time_total / 1e3 / calls, e.count / calls] for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return {"wall_ms": wall_ms, "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+            "kernel_launches": sum(e.count for e in kernels) / calls,
+            "host_self_ms": sum(ms for ms, _ in host.values()), "host_ops": host}
+
+
+def step_gap_profile(fns, top: int = 14):
+    """One trace of each step in `fns` ({"unmeshed": fn, "meshed": fn}), and
+    the ops whose self host ms per step grew most from the unmeshed step to
+    the meshed one: where the meshed step's extra time goes."""
+    prof = {k: step_profile(fn) for k, fn in fns.items()}
+    a, b = prof["unmeshed"]["host_ops"], prof["meshed"]["host_ops"]
+    gap = sorted(((k, b.get(k, [0.0, 0])[0] - a.get(k, [0.0, 0])[0], a.get(k, [0.0, 0])[1], b.get(k, [0.0, 0])[1])
+                  for k in set(a) | set(b)), key=lambda r: -r[1])
+    out = {k: {f: v for f, v in p.items() if f != "host_ops"} for k, p in prof.items()}
+    out["host_ms_gap_by_op"] = [{"op": k, "ms": ms, "calls": [ca, cb]} for k, ms, ca, cb in gap[:top]]
+    out["unmeshed_top_host_ops"] = sorted(([k, *v] for k, v in a.items()), key=lambda r: -r[1])[:top]
+    return out
+
+
+def par_results(results):
+    return [{"boxes": r.boxes, "scores": r.scores, "classes": r.classes} for r in results]
+
+
+class _Dets(SimpleNamespace):
+    def __len__(self) -> int:
+        return len(self.scores)
+
+
+def paired(got, want, box_tol: float, score_tol: float):
+    """Per image: counts equal and every detection paired (same class, box and score within tolerance)."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = _Dets(**g), _Dets(**w)
+        if len(g) != len(w) or match_detections(g, w, box_tol, score_tol)[0]:
+            bad.append(i)
+    return bad
+
+
+def parallel_world_one(data: Path, root: Path, weights, failures):
+    """(a) NCCL, a world of one: the trainer, the fp32 step and the step ms,
+    the meshed predictor (see the module docstring, phase 31)."""
+    import torch
+
+    import yolo_infer_tpu_torch.ops.nms as nms_ops
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.core.predictor import SERVE_POOL, Predictor
+    from yolo_infer_tpu_torch.core.train_step import init_train_state, make_optimizer, make_train_step
+    from yolo_infer_tpu_torch.core.trainer import MultiChipTrainer, TrainingConfig
+    from yolo_infer_tpu_torch.models.yolo11 import build_model
+    from yolo_infer_tpu_torch.parallel.mesh import create_mesh
+
+    out = {}
+    dev = PAR_DEVICE
+    mesh = create_mesh()
+    cfg = TrainingConfig(data=str(data), project=str(root / "runs"), name="mc", val=False, **PAR_TRAIN)
+    with StepWatch() as watch:
+        trainer = MultiChipTrainer(model=YOLO11Model("yolo11n", nc=TRAIN_NC, device=dev), config=cfg,
+                                   device=dev.split(":")[0], device_ids=[0])
+        result = trainer.train()
+    w = watch.summary()
+    out["trainer"] = {"status": result["status"], "skipped_steps": result["skipped_steps"], "steps": w["steps"],
+                      "step_ms": w["step_ms"], "b_launches_in_steps": w["b_launches_in_steps"],
+                      "mesh": dict(trainer._mesh.shape), "loss": result["history"][-1].get("loss")}
+    want_steps = TRAIN_FRAMES[0] // PAR_TRAIN["batch"]
+    if result["status"] != "completed" or result["skipped_steps"] or w["steps"] != want_steps:
+        failures.append(f"nccl: MultiChipTrainer(device_ids=[0]): {out['trainer']}")
+
+    model, spec = build_model("detect", "n", TRAIN_NC, seed=SEED)
+    batch2 = fixed_batch(data, *PAR_CHECK)
+    with CollectiveCount() as cc:
+        meshed = step_result(model, spec, batch2, dev, mesh)
+    plain = step_result(model, spec, batch2, dev, None)
+    check = step_diff(meshed, plain)
+    check["collectives_per_step"] = dict(cc.counts)
+    swapped = step_result(model, spec, {k: np.ascontiguousarray(v[::-1]) for k, v in batch2.items()}, dev, None)
+    check["swap_update_rel"] = step_diff(swapped, plain)["update_rel"]  # f32 rounding alone, for scale
+    out["fp32_step"] = check
+    if not step_close(check):
+        failures.append(f"nccl: the meshed fp32 step differs from the unmeshed one: {check}")
+
+    batch16 = {k: torch.from_numpy(v).to(dev) for k, v in fixed_batch(data, *PAR_STEP).items()}
+    runs = {}
+    for name, m in (("unmeshed", None), ("meshed", mesh)):
+        tx = make_optimizer(0.01, total_steps=100, warmup_steps=0)
+        runs[name] = (init_train_state(model, tx, seed=SEED, device=dev), make_train_step(spec, tx, mesh=m))
+        for _ in range(2):  # warm-up
+            runs[name][1](runs[name][0], batch16)
+    marks = {"unmeshed": [], "meshed": []}
+    for name in ("unmeshed", "meshed", "meshed", "unmeshed"):
+        ts, step = runs[name]
+        for _ in range(PAR_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(ts, batch16)
+            end.record()
+            marks[name].append((start, end))
+    torch.cuda.synchronize()
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in marks.items()}
+    out["bf16_step_ms"] = {"batch": PAR_STEP[0], "imgsz": PAR_STEP[1], "each": ms,
+                           **{f"{k}_median": float(np.median(v)) for k, v in ms.items()}}
+    out["bf16_step_ms"]["meshed_over_unmeshed"] = (out["bf16_step_ms"]["meshed_median"]
+                                                   / out["bf16_step_ms"]["unmeshed_median"])
+    # what the step's all-reduces cost alone: as many calls on a 256-float tensor, back to back
+    n = sum(cc.counts.values())
+    t = torch.zeros(256, device=dev)
+    for _ in range(3):
+        torch.distributed.all_reduce(t, group=mesh.data_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        torch.distributed.all_reduce(t, group=mesh.data_group)
+    end.record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out["bf16_step_ms"]["all_reduces_alone"] = {"calls": n, "host_ms": host_ms, "event_ms": start.elapsed_time(end)}
+    out["bf16_step_profile"] = step_gap_profile({k: (lambda ts=ts, step=step: step(ts, batch16))
+                                                 for k, (ts, step) in runs.items()})
+
+    wmodel, wspec = weights
+    b, imgsz = PAR_SERVE
+    frames = np.random.default_rng(SEED + 31).integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8)
+    pm = Predictor(wmodel, wspec, device=dev, mesh=mesh)
+    ps = Predictor(wmodel, wspec, device=dev)
+    launches, _ = path_counters(lambda: pm.predict(frames, conf=0.25, imgsz=imgsz))
+    shapes, real_keep = [], nms_ops.nms_keep
+
+    def seen(sup_boxes, *a, **kw):
+        shapes.append(list(sup_boxes.shape))
+        return real_keep(sup_boxes, *a, **kw)
+
+    nms_ops.nms_keep = seen
+    try:
+        eager_run(pm, frames, imgsz)
+    finally:
+        nms_ops.nms_keep = real_keep
+    times = {"meshed": [], "unmeshed": []}
+    for name in ("meshed", "unmeshed", "unmeshed", "meshed"):
+        pred = pm if name == "meshed" else ps
+        pred.predict(frames, conf=0.25, imgsz=imgsz)  # the signature's capture (first turn) or a warm call
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict(frames, conf=0.25, imgsz=imgsz)
+            times[name].append(time.perf_counter() - t0)
+    img_s = {k: b / float(np.median(v)) for k, v in times.items()}
+    out["predict_bf16"] = {"batch": b, "imgsz": imgsz, "launches": {k: v for k, v in launches.items() if v},
+                           "nms_keep_inputs": shapes, "img_per_s": img_s,
+                           "meshed_over_unmeshed": img_s["meshed"] / img_s["unmeshed"]}
+    if launches["nms_keep"] < 1 or launches["attention_qkv"] < 1 or shapes != [[b, SERVE_POOL, 4]]:
+        failures.append(f"nccl: the meshed predict did not run A at K={SERVE_POOL} and B: {out['predict_bf16']}")
+
+    f2 = np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8)
+    got = par_results(Predictor(wmodel, wspec, device=dev, compute_dtype=torch.float32, mesh=mesh).predict(
+        list(f2), conf=0.001, iou=0.45, imgsz=PAR_CHECK[1]))
+    want = par_results(Predictor(wmodel, wspec, device=dev, compute_dtype=torch.float32).predict(
+        list(f2), conf=0.001, iou=0.45, imgsz=PAR_CHECK[1]))
+    bad = paired(got, want, 1e-2, 1e-5)
+    out["predict_fp32"] = {"num_meshed": [len(r["scores"]) for r in got], "num": [len(r["scores"]) for r in want],
+                           "images_unpaired": bad}
+    if bad or not sum(out["predict_fp32"]["num"]):
+        failures.append(f"nccl: the meshed fp32 predict differs from the unmeshed one: {out['predict_fp32']}")
+    return out
+
+
+def parallel_rank(data: str, root: str, wmodel, device: str, sizes):
+    """One of (b)'s gloo processes on `device` (cuda:0): the DP step at
+    `sizes["check"]`, the meshed predict at `sizes["serve"]`, a 1-epoch
+    training run at `sizes["train"]` and the dry run (see the module
+    docstring, phase 31). The sizes come from the launching process (a
+    spawned process imports this script anew)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.core.predictor import Predictor
+    from yolo_infer_tpu_torch.core.trainer import TrainingConfig, YOLO11Trainer
+    from yolo_infer_tpu_torch.models.yolo11 import build_model
+    from yolo_infer_tpu_torch.parallel import distributed as dist
+    from yolo_infer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from yolo_infer_tpu_torch.parallel.mesh import create_mesh
+    from yolo_infer_tpu_torch.utils.checkpoint import CheckpointManager
+
+    rank, device = dist.process_index(), torch.device(device)
+    mesh = create_mesh()
+    out, seconds = {"rank": rank}, {}
+    t0 = time.perf_counter()
+    model, spec = build_model("detect", "n", TRAIN_NC, seed=SEED)
+    batch2 = fixed_batch(Path(data), *sizes["check"])
+    loss, update, bn, skipped = step_result(model, spec, batch2, device, mesh)
+    out["dp_step"] = (loss, update, bn, skipped)
+    if rank == 0:
+        out["whole_step"] = step_result(model, spec, batch2, device, None)
+    seconds["dp_step"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    b, imgsz = sizes["serve"]
+    frames = np.random.default_rng(SEED + 32).integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8)
+    kw = dict(device=device, compute_dtype=torch.float32)
+    out["meshed_predict"] = par_results(Predictor(wmodel, wmodel.spec, mesh=mesh, **kw).predict(
+        frames, conf=0.25, imgsz=imgsz))
+    if rank == 0:
+        out["single_predict"] = par_results(Predictor(wmodel, wmodel.spec, **kw).predict(frames, conf=0.25,
+                                                                                         imgsz=imgsz))
+    seconds["predict"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    writes = []
+    spied = [(CheckpointManager, "save_checkpoint"), (YOLO11Trainer, "_write_summary"), (TrainingConfig, "save")]
+    real = [getattr(owner, name) for owner, name in spied]
+    for (owner, name), fn in zip(spied, real):
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            writes.append(_name)
+            return _fn(*a, **kw)
+        setattr(owner, name, wrapped)
+    try:
+        cfg = TrainingConfig(data=data, epochs=1, batch=sizes["train"]["batch"], imgsz=sizes["train"]["imgsz"],
+                             project=str(Path(root) / f"rank{rank}"), name="run")
+        trainer = YOLO11Trainer(model=YOLO11Model("yolo11n", nc=TRAIN_NC, device=str(device)), config=cfg,
+                                device=str(device))
+        result = trainer.train()
+    finally:
+        for (owner, name), fn in zip(spied, real):
+            setattr(owner, name, fn)
+    out["train"] = {"status": result["status"], "skipped_steps": result["skipped_steps"], "writes": writes,
+                    "run_dir": str(trainer.run_dir), "mesh": dict(trainer._mesh.shape),
+                    "val": {k: v for k, v in result["history"][-1].items() if k.startswith("val_")}}
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun_loss"] = dryrun_multichip(PAR_RANKS, device=device.type)
+    seconds["dryrun"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def parallel_two_ranks(data: Path, root: Path, weights, failures):
+    """(b) two gloo processes on cuda:0 (see the module docstring, phase 31)."""
+    from yolo_infer_tpu_torch.parallel.distributed import launch
+
+    t0 = time.perf_counter()
+    sizes = {"check": PAR_CHECK, "serve": PAR_SERVE, "train": TRAIN}
+    r0, r1 = launch(parallel_rank, PAR_RANKS, backend="gloo", devices=[PAR_DEVICE] * PAR_RANKS,
+                    args=(str(data), str(root), weights[0], PAR_DEVICE, sizes), timeout_s=PAR_RANK_TIMEOUT_S)
+    out = {"launch_seconds": time.perf_counter() - t0, "rank_seconds": [r0["seconds"], r1["seconds"]]}
+    step = step_diff(r0["dp_step"], r0["whole_step"])
+    step["ranks_equal"] = bool(r0["dp_step"][1].equal(r1["dp_step"][1]) and r0["dp_step"][2].equal(r1["dp_step"][2]))
+    out["dp_step"] = step
+    if not step_close(step) or not step["ranks_equal"]:
+        failures.append(f"gloo: the 2-rank fp32 step differs from the one-process step: {step}")
+    same = all(all(np.array_equal(a[k], b[k]) for k in a) for a, b in zip(r0["meshed_predict"], r1["meshed_predict"]))
+    bad = paired(r0["meshed_predict"], r0["single_predict"], 1e-2, 1e-5)
+    out["predict"] = {"ranks_equal": same, "num": [len(r["scores"]) for r in r0["meshed_predict"]],
+                      "images_unpaired": bad}
+    if not same or bad or len(r0["meshed_predict"]) != PAR_SERVE[0] or not sum(out["predict"]["num"]):
+        failures.append(f"gloo: the meshed predict: {out['predict']}")
+    out["train"] = [r0["train"], r1["train"]]
+    written = set(r0["train"]["writes"])
+    if (r0["train"]["status"] != "completed" or r1["train"]["status"] != "completed" or r1["train"]["writes"]
+            or not {"save", "save_checkpoint", "_write_summary"} <= written
+            or r0["train"]["val"] != r1["train"]["val"] or (root / "rank1").exists()):
+        failures.append(f"gloo: the 2-rank training run: {out['train']}")
+    out["dryrun_loss"] = [r0["dryrun_loss"], r1["dryrun_loss"]]
+    if not np.isfinite(r0["dryrun_loss"]) or r0["dryrun_loss"] != r1["dryrun_loss"]:
+        failures.append(f"gloo: dryrun_multichip(2): {out['dryrun_loss']}")
+    return out
+
+
+def phase_parallel(report):
+    """Multi-device training and serving on torch.distributed (see the
+    module docstring, phase 31)."""
+    import datetime
+
+    import torch.distributed as td
+
+    out = {"phase": "parallel", "card": card_line()}
+    failures = []
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        data = write_rect_dataset(root / "data", SEED + 29)
+        weights = report["weights"] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))
+        t0 = time.perf_counter()
+        td.init_process_group(PAR_BACKEND, store=td.FileStore(str(root / "nccl_store"), 1), rank=0, world_size=1,
+                              timeout=datetime.timedelta(seconds=120))
+        try:
+            out["nccl"] = parallel_world_one(data, root, weights, failures)
+        finally:
+            td.destroy_process_group()
+        out["nccl"]["seconds"] = time.perf_counter() - t0
+        out["gloo"] = parallel_two_ranks(data, root / "runs2", weights, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
@@ -4224,7 +4665,7 @@ def main() -> int:
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
-              phase_cli, phase_train, phase_optimize)
+              phase_cli, phase_train, phase_optimize, phase_parallel)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

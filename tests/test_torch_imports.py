@@ -18,7 +18,9 @@ from a dataset YAML, PTQ and info. A sixth trains with the same blocks:
 `train` on the command line and `YOLO11Model.train` for a classify model.
 A seventh runs every optimize method with those blocks: dynamic int8,
 magnitude and physical pruning, distillation, QAT and segment, pose and OBB
-training. Last, every "ROADMAP Queue 1 item N" in
+training. An eighth runs `yolo_infer_tpu_torch.parallel` (a meshed step,
+predictor and dry run in a gloo group of one) with jax and `yolo_infer_tpu`
+blocked. Last, every "ROADMAP Queue 1 item N" in
 the port's sources names an item that ROADMAP's Queue 1 has.
 """
 
@@ -340,6 +342,51 @@ def test_port_optimizes_and_trains_every_task_without_jax_opencv_yaml_or_pil():
     """Dynamic int8, magnitude and physical pruning, distillation, QAT and
     segment, pose and OBB training, with jax, cv2, yaml and PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _OPTIMIZE_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
+
+
+_PARALLEL_CODE = """
+import datetime, sys, tempfile
+for name in ("jax", "yolo_infer_tpu", "cv2", "yaml", "PIL"):
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import torch.distributed as td
+import yolo_infer_tpu_torch.parallel
+from yolo_infer_tpu_torch.core.predictor import Predictor
+from yolo_infer_tpu_torch.core.train_step import init_train_state, make_optimizer, make_train_step
+from yolo_infer_tpu_torch.core.trainer import MultiChipTrainer, create_trainer
+from yolo_infer_tpu_torch.models.yolo11 import build_model
+from yolo_infer_tpu_torch.parallel.dryrun import dryrun_multichip
+from yolo_infer_tpu_torch.parallel.mesh import create_mesh, shard_batch
+assert isinstance(create_trainer("yolo11n", multi_gpu=True, device="cpu", device_ids=[0]), MultiChipTrainer)
+td.init_process_group("gloo", store=td.FileStore(tempfile.mkdtemp() + "/store", 1), rank=0, world_size=1,
+                      timeout=datetime.timedelta(seconds=120))
+mesh = create_mesh()
+model, spec = build_model("detect", "n", 2, seed=0)
+tx = make_optimizer(0.01, total_steps=2, warmup_steps=0)
+rng = np.random.default_rng(0)
+batch = {{"images": torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)),
+         "boxes": torch.tensor([[[4.0, 4.0, 20.0, 24.0]]] * 2), "classes": torch.zeros((2, 1), dtype=torch.int32),
+         "mask": torch.ones((2, 1), dtype=torch.bool)}}
+ts, m = make_train_step(spec, tx, compute_dtype=torch.float32, mesh=mesh)(init_train_state(model, tx),
+                                                                          shard_batch(batch, mesh))
+assert np.isfinite(float(m["loss"])) and int(ts.skipped) == 0
+out = Predictor(model, spec, device="cpu", mesh=mesh).predict_raw(batch["images"], 0.0, 0.5, 32)
+assert out["num"].shape == (2,)
+assert np.isfinite(dryrun_multichip(1, device="cpu"))
+td.destroy_process_group()
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_parallel_runs_without_jax_or_the_jax_package():
+    """`yolo_infer_tpu_torch.parallel` and the meshed trainer, step, predictor
+    and dry run in a gloo group of one, with jax, yolo_infer_tpu, cv2, yaml
+    and PIL blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _PARALLEL_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 
 

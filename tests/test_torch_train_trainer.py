@@ -18,40 +18,21 @@ import numpy as np
 import pytest
 import torch
 
+from torch_dist import write_rect_dataset
 from torch_threads import one_torch_thread  # noqa: F401
 from yolo_infer_tpu.core.trainer import TrainingConfig as JaxTrainingConfig
 from yolo_infer_tpu_torch.core.model import YOLO11Model
 from yolo_infer_tpu_torch.core.trainer import (
+    MultiChipTrainer,
     TrainingCallbacks,
     TrainingConfig,
     YOLO11Trainer,
     create_trainer,
 )
-from yolo_infer_tpu_torch.data.loader import create_dataset_config, save_image
 from yolo_infer_tpu_torch.models.yolo11 import cast_model, fold_model
 from yolo_infer_tpu_torch.utils.checkpoint import CheckpointManager
 
 JAX_FILES = {"config.json", "history.json", "training_summary.txt", "checkpoints"}
-
-
-def write_rect_dataset(root, n_train=8, n_val=4, seed=0):
-    """Coloured rectangles on gray (64x80 PNGs), two classes, exact labels."""
-    rng = np.random.default_rng(seed)
-    for split, n in (("train", n_train), ("val", n_val)):
-        (root / "labels" / split).mkdir(parents=True)
-        for i in range(n):
-            img = np.full((64, 80, 3), 100, np.uint8)
-            rows = []
-            for _ in range(2):
-                c = int(rng.integers(0, 2))
-                w, h = int(rng.integers(12, 30)), int(rng.integers(12, 30))
-                x0, y0 = int(rng.integers(0, 80 - w)), int(rng.integers(0, 64 - h))
-                img[y0:y0 + h, x0:x0 + w] = (230, 40, 40) if c == 0 else (40, 40, 230)
-                rows.append(f"{c} {(x0 + w / 2) / 80:.6f} {(y0 + h / 2) / 64:.6f} {w / 80:.6f} {h / 64:.6f}")
-            save_image(root / "images" / split / f"{i}.png", img)
-            (root / "labels" / split / f"{i}.txt").write_text("\n".join(rows) + "\n")
-    return create_dataset_config(root / "data.yaml", str(root / "images" / "train"), str(root / "images" / "val"),
-                                 ["red", "blue"])
 
 
 @pytest.fixture(scope="module")
@@ -184,5 +165,10 @@ def test_segment_training_raises_with_a_roadmap_pointer(data, tmp_path):
 
 
 def test_multi_card_training_raises_with_a_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        create_trainer("yolo11n", multi_gpu=True, device="cpu")
+    """`create_trainer(multi_gpu=True)` raised, citing ROADMAP Queue 1 item
+    9, until multi-device training was ported: it now returns a
+    `MultiChipTrainer` (its runs over process groups are in
+    `test_torch_parallel_trainer.py`)."""
+    trainer = create_trainer("yolo11n", multi_gpu=True, device="cpu", device_ids=[0, 1])
+    assert isinstance(trainer, MultiChipTrainer) and trainer.device_ids == [0, 1]
+    assert trainer._select_devices() == [torch.device("cpu")] * 2

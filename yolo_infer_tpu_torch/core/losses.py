@@ -23,6 +23,15 @@ prediction terms: no (B, M, A, 5) copy of either. The segment loss takes its
 `mask_fg_cap` anchors by a stable sort (value, then lower index: the order
 `lax.top_k` gives ties on the CPU), and crops the (B, F, Hm, Wm) mask logits
 to their boxes by a product with the in-box indicator, not a gather.
+
+In a meshed training step (`parallel/mesh.py data_parallel`) each rank
+computes the losses of its slice of the batch, with every normalizer and the
+batch factor of the global batch, as GSPMD computes them over a sharded
+batch: the target-score sums (clamped to >= 1 after the sum), the segment
+and pose denominators, the batch size and the classify and distillation
+means (`data_sum`, `global_batch`, `_global_mean`). The normalizers are
+detached sums (the JAX package's are constants of the backward too), so the
+ranks' losses and gradients sum to the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from yolo_infer_tpu_torch.ops.decode import dist2bbox, make_anchors
 from yolo_infer_tpu_torch.ops.iou import bbox_iou_aligned
 from yolo_infer_tpu_torch.ops.nms import _topk_stable
 from yolo_infer_tpu_torch.ops.rotated import dist2rbox, probiou_pairs
+from yolo_infer_tpu_torch.parallel.mesh import current_mesh, data_sum, global_batch
 
 # hyperparameters (the reference's configs/default.yaml:48-50)
 DEFAULT_HYP = {
@@ -176,7 +186,7 @@ def detection_loss(
         alpha=float(hyp.get("tal_alpha", 0.5)),
         beta=float(hyp.get("tal_beta", 6.0)),
     )
-    tgt_scores_sum = torch.clamp(tgt_scores.sum(), min=1.0)
+    tgt_scores_sum = torch.clamp(data_sum(tgt_scores.sum()), min=1.0)
 
     loss_cls = optax_sigmoid_bce(cls_logits, tgt_scores).sum() / tgt_scores_sum
 
@@ -189,7 +199,7 @@ def detection_loss(
                          dim=-1).clamp(0, reg_max - 1 - 0.01)
     loss_dfl = (_dfl_loss(dist, tgt_ltrb, reg_max) * weight).sum() / tgt_scores_sum
 
-    total = (hyp["box"] * loss_box + hyp["cls"] * loss_cls + hyp["dfl"] * loss_dfl) * b
+    total = (hyp["box"] * loss_box + hyp["cls"] * loss_cls + hyp["dfl"] * loss_dfl) * global_batch(b)
     metrics = {
         "loss": total,
         "loss_box": loss_box,
@@ -269,7 +279,7 @@ def obb_loss(
         # those backward-finite, and the box loss weight is 0 there
         tgt_rbox, tgt_scores, fg, _ = _assign_from_align(align, overlaps, mask_in & mask_gt[:, :, None], gt_cls, gt,
                                                          nc, int(hyp.get("tal_topk", 10)))
-    tss = torch.clamp(tgt_scores.sum(), min=1.0)
+    tss = torch.clamp(data_sum(tgt_scores.sum()), min=1.0)
 
     loss_cls = optax_sigmoid_bce(cls_logits, tgt_scores).sum() / tss
     weight = tgt_scores.sum(-1) * fg
@@ -288,7 +298,7 @@ def obb_loss(
     tgt_ltrb = torch.stack([half_w + lxa, half_h + lya, half_w - lxa, half_h - lya], dim=-1).clamp(0, reg_max - 1 - 0.01)
     loss_dfl = (_dfl_loss(dist, tgt_ltrb, reg_max) * weight).sum() / tss
 
-    total = (hyp["box"] * loss_box + hyp["cls"] * loss_cls + hyp["dfl"] * loss_dfl) * b
+    total = (hyp["box"] * loss_box + hyp["cls"] * loss_cls + hyp["dfl"] * loss_dfl) * global_batch(b)
     return total, {
         "loss": total,
         "loss_box": loss_box,
@@ -343,9 +353,9 @@ def segmentation_loss(
     area = torch.clamp((tb_m[..., 2] - tb_m[..., 0]) * (tb_m[..., 3] - tb_m[..., 1]), min=1.0)
     per_anchor = bce.sum((2, 3)) / area  # (B, F)
     valid = (top_w > 0).float()
-    loss_mask = (per_anchor * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    loss_mask = (per_anchor * valid).sum() / torch.clamp(data_sum(valid.sum()), min=1.0)
 
-    total = det_total + hyp["box"] * loss_mask * out["feats"][0].shape[0]
+    total = det_total + hyp["box"] * loss_mask * global_batch(out["feats"][0].shape[0])
     metrics = dict(metrics)
     metrics["loss_mask"] = loss_mask
     metrics["loss"] = total
@@ -386,15 +396,22 @@ def pose_loss(
     sig = torch.tensor(KPT_SIGMAS[:k], dtype=torch.float32, device=kraw.device)[None, None, :]
     e = d2 / (8.0 * (sig ** 2) * area + 1e-9)
     w = vis * fg
-    loss_kpt = ((1.0 - torch.exp(-e)) * w).sum() / torch.clamp(w.sum(), min=1.0)
-    loss_kobj = (optax_sigmoid_bce(pred_conf, vis) * fg).sum() / torch.clamp(fg.sum() * k, min=1.0)
+    loss_kpt = ((1.0 - torch.exp(-e)) * w).sum() / torch.clamp(data_sum(w.sum()), min=1.0)
+    loss_kobj = (optax_sigmoid_bce(pred_conf, vis) * fg).sum() / torch.clamp(data_sum(fg.sum()) * k, min=1.0)
 
-    total = det_total + (pose_weight * loss_kpt + kobj_weight * loss_kobj) * b_sz
+    total = det_total + (pose_weight * loss_kpt + kobj_weight * loss_kobj) * global_batch(b_sz)
     metrics = dict(metrics)
     metrics["loss_kpt"] = loss_kpt
     metrics["loss_kobj"] = loss_kobj
     metrics["loss"] = total
     return total, metrics
+
+
+def _global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of `x` over the global batch: in a meshed step this rank's
+    sum over the global element count, so that the ranks' values sum to it."""
+    mesh = current_mesh()
+    return x.mean() if mesh is None else x.sum() / (x.numel() * mesh.shape["data"])
 
 
 def optax_sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -405,8 +422,8 @@ def optax_sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tens
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Softmax cross-entropy of the classify task, and its top-1 accuracy."""
     logp = torch.log_softmax(logits, dim=-1)
-    loss = -torch.gather(logp, -1, labels.long()[:, None])[:, 0].mean()
-    acc = (torch.argmax(logits, -1) == labels).float().mean()
+    loss = -_global_mean(torch.gather(logp, -1, labels.long()[:, None])[:, 0])
+    acc = _global_mean((torch.argmax(logits, -1) == labels).float())
     return loss, {"loss": loss, "accuracy": acc}
 
 
@@ -421,7 +438,7 @@ def distill_classify_loss(s_logits: torch.Tensor, t_logits: torch.Tensor, temper
     t = torch.softmax(t_logits / temperature, dim=-1)
     logp_t = torch.log_softmax(t_logits / temperature, dim=-1)
     logp_s = torch.log_softmax(s_logits / temperature, dim=-1)
-    return temperature ** 2 * (t * (logp_t - logp_s)).sum(-1).mean()
+    return temperature ** 2 * _global_mean((t * (logp_t - logp_s)).sum(-1))
 
 
 def _binary_kl_from_logits(t_logits: torch.Tensor, s_logits: torch.Tensor) -> torch.Tensor:
@@ -454,10 +471,10 @@ def distill_detect_loss(
     s_box = s_flat[..., : 4 * reg_max].reshape(b, -1, 4, reg_max)
     t_box = t_flat[..., : 4 * reg_max].reshape(b, -1, 4, reg_max)
 
-    kd_cls = temperature ** 2 * _binary_kl_from_logits(t_cls / temperature, s_cls / temperature).sum(-1).mean()
+    kd_cls = temperature ** 2 * _global_mean(_binary_kl_from_logits(t_cls / temperature, s_cls / temperature).sum(-1))
 
     w = torch.sigmoid(t_cls).amax(-1)  # (B, A): the teacher's objectness proxy
-    w = w / torch.clamp(w.sum(), min=1e-6)
+    w = w / torch.clamp(data_sum(w.sum()), min=1e-6)
     p_t = torch.softmax(t_box / temperature, dim=-1)
     logp_t = torch.log_softmax(t_box / temperature, dim=-1)
     logp_s = torch.log_softmax(s_box / temperature, dim=-1)

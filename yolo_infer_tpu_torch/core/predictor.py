@@ -58,6 +58,21 @@ CUDA graph take them as runtime inputs.
 
 The predictor runs on `cuda` unless the caller passes `device="cpu"`; with no
 card and no explicit device it raises instead of falling back to the CPU.
+
+With `mesh=` (`parallel/mesh.py create_mesh`, inside an initialized process
+group) the predictor serves the JAX meshed predictor's way: each process
+holds the whole model on its own device, runs its data rank's contiguous
+slice of every batch through its own program (captured per signature as
+above), and the slices' results are gathered after the program, outside any
+graph (one `all_gather` of their bytes), so `predict`, `predict_raw` and
+`predict_many` return the whole batch on every process. A batch that the
+data axis does not divide raises `ValueError`, as `jax.device_put` does with
+`P("data")`. Each slice goes through the same program as an unmeshed
+batch: the select-then-decode tail over min(pre_topk, 384) (kernel A) and
+kernel B's attention. The JAX meshed predictor takes the full-grid presel
+tail and the "xla" attention instead only because GSPMD partitions those
+and not the row select or the Pallas kernels; each process here runs its
+own unsharded program, so it keeps one tail.
 """
 
 from __future__ import annotations
@@ -109,6 +124,7 @@ from yolo_infer_tpu_torch.ops.nms import Threshold, _multi_label_topc, batched_n
 from yolo_infer_tpu_torch.ops.preprocess import preprocess_batch
 from yolo_infer_tpu_torch.ops.rotated import batched_rotated_nms, dist2rbox
 from yolo_infer_tpu_torch.ops.select import select_anchor_rows
+from yolo_infer_tpu_torch.parallel.mesh import Mesh, gather_batch, shard_batch
 from yolo_infer_tpu_torch.utils.coco_names import COCO_NAMES
 
 # candidate pool of the select-then-decode tail: the smallest 128-multiple
@@ -355,7 +371,8 @@ class Predictor:
     quantized model in static8; `quant_min_channels` overrides the int8
     eligibility threshold (a value above 1024 keeps every conv float:
     weight-only int8). `attn_impl` ("auto", "fused", "pallas", "xla") picks
-    the C2PSA attention (`models/blocks.py attn_impl_choice`).
+    the C2PSA attention (`models/blocks.py attn_impl_choice`). `mesh` serves
+    over the data axis of a process group (see the module docstring).
     """
 
     def __init__(
@@ -372,8 +389,12 @@ class Predictor:
         quant_act_scales: Any = None,
         quant_min_channels: Optional[int] = None,
         attn_impl: str = "auto",
+        mesh: Optional[Mesh] = None,
     ):
         _check_mask_mode(mask_mode)
+        if mesh is not None:
+            mesh.require_groups("a meshed Predictor")
+        self.mesh = mesh
         attn_impl_choice(attn_impl)  # raises on an unknown name
         self.device = resolve_device(device)
         self.spec = spec
@@ -516,8 +537,11 @@ class Predictor:
         blocks), every later call replays it and returns fresh tensors that
         the next call leaves alone. Nothing here waits for the device from a
         signature's second call on."""
+        if self.mesh is not None:
+            images_u8 = shard_batch(images_u8, self.mesh)
         run = self._program(images_u8, imgsz, max_det, multi_label, pre_topk, mask_out)
-        return run(images_u8, self._dev_scalar(conf, self.device), self._dev_scalar(iou, self.device))
+        dets = run(images_u8, self._dev_scalar(conf, self.device), self._dev_scalar(iou, self.device))
+        return dets if self.mesh is None else gather_batch(dets, self.mesh)
 
     def serve_program(self, images_u8: torch.Tensor, conf: torch.Tensor, iou: torch.Tensor, imgsz: int,
                       max_det: Optional[int] = None, *, multi_label: bool = False, pre_topk: Optional[int] = None,
@@ -615,11 +639,16 @@ class Predictor:
         batch_np = frames if isinstance(frames, np.ndarray) else np.stack(frames, axis=0)
 
         t0 = time.perf_counter()
-        frames_dev = torch.from_numpy(np.ascontiguousarray(batch_np)).to(self.device)
+        batch_np = np.ascontiguousarray(batch_np)
+        if self.mesh is not None:  # this data rank's slice, cut on the host
+            batch_np = shard_batch(batch_np, self.mesh)
+        frames_dev = torch.from_numpy(batch_np).to(self.device)
         with torch.inference_mode():
             program = self._program(frames_dev, imgsz, max_det, multi_label, None, None)
             run = program.replay if isinstance(program, CapturedProgram) else program
             dets = dict(run(frames_dev, self._dev_scalar(conf, self.device), self._dev_scalar(iou, self.device)))
+            if self.mesh is not None:  # every slice's results, outside the graph
+                dets = gather_batch(dets, self.mesh)
             # read before the next replay: the dets to the host, and the mask
             # rows in use (the graph's own tensors) copied on the same stream
             packed = dets.pop("mask_bits_up", None)  # stays on the device (LazyMasks)
@@ -679,7 +708,10 @@ class Predictor:
         frame_hw = tuple(frames[0].shape[:2])
         shape = (batch_size,) + tuple(frames[0].shape)
         cuda = self.device.type == "cuda"
-        self._get(batch_size, frame_hw, imgsz, multi_label, md)  # on the card: captured here, before the stager
+        if self.mesh is not None and batch_size % self.mesh.shape["data"]:
+            raise ValueError(f"batch_size {batch_size} is not divisible by the data axis ({self.mesh.shape['data']})")
+        local = batch_size if self.mesh is None else batch_size // self.mesh.shape["data"]  # a data rank's slice
+        self._get(local, frame_hw, imgsz, multi_label, md)  # on the card: captured here, before the stager
         if cuda:
             if self._streams is None:
                 self._streams = tuple(torch.cuda.Stream(self.device) for _ in range(3))

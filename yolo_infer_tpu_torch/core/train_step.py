@@ -51,6 +51,18 @@ Options of the step, as the JAX package's `make_train_step` has them:
   `torch.no_grad` (its attention through kernel B on the card), and the loss
   becomes alpha * soft + (1 - alpha) * hard, the soft detect term scaled by
   the batch size as the hard losses are.
+- `mesh` (`parallel/mesh.py create_mesh`, inside an initialized process
+  group): the step of one rank of a data-parallel (and tensor-parallel)
+  step. GSPMD makes the JAX step's reductions global; here the rank's
+  forward and loss run under `data_parallel(mesh)`, so batch-norm
+  statistics and loss normalizers are those of the global batch and the
+  ranks' losses and gradients sum to the JAX package's. The flat gradient
+  (this rank's slices of sharded leaves) is then summed over the data axis
+  in one all-reduce, and so are the metrics (the loss among them): the clip
+  norm (the sharded leaves' squares summed over the model axis, the
+  replicated ones counted once) and the finite guard see the global values,
+  so every rank keeps or drops the same step and the data ranks' states
+  stay equal bit for bit. The collectives run at a world of one too.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from yolo_infer_tpu_torch.core.losses import (
     DEFAULT_HYP,
@@ -76,6 +89,7 @@ from yolo_infer_tpu_torch.core.losses import (
 from yolo_infer_tpu_torch.models.spec import ModelSpec
 from yolo_infer_tpu_torch.models.yolo11 import YOLO11, reshape_like
 from yolo_infer_tpu_torch.nn.quantize import QuantContext, quant_context
+from yolo_infer_tpu_torch.parallel.mesh import Mesh, data_parallel, global_batch
 
 GRAD_CLIP_NORM = 10.0
 
@@ -323,6 +337,7 @@ def make_train_step(
     qat: bool = False,
     param_mask: Any = None,
     distill: Optional[Dict[str, Any]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The step function `step(ts, batch) -> (ts, metrics)`. Batch (detect):
     images (B, H, W, 3) uint8 (normalised /255 here) or f32 in [0, 1] |
@@ -330,9 +345,13 @@ def make_train_step(
     masks (B, H/4, W/4), pose kpts (B, M, K, 3), OBB has boxes (B, M, 5);
     classify: images, labels (B,); all on the state's device. The state's
     buffers are updated in place and the same state is returned; metrics are
-    device tensors. `qat`, `param_mask` and `distill`: see the module
-    docstring."""
+    device tensors. `qat`, `param_mask`, `distill` and `mesh`: see the
+    module docstring; under a mesh the batch is this rank's slice
+    (`parallel/mesh.py shard_batch`) and the metrics are global."""
     flat_mask: Dict[Any, torch.Tensor] = {}  # (device) -> the mask in the params' layout, made at the first step
+    tp_mask: Dict[Any, torch.Tensor] = {}  # (device) -> the params sharded over the model axis, flat
+    if mesh is not None:
+        mesh.require_groups("a meshed training step")
 
     def loss_fn(out, batch):
         kw = dict(nc=spec.nc, reg_max=spec.reg_max, strides=spec.strides, hyp=hyp)
@@ -357,7 +376,7 @@ def make_train_step(
         else:
             soft, kd = distill_detect_loss(out["feats"], t_out["feats"], nc=spec.nc, reg_max=spec.reg_max,
                                            temperature=temperature)
-            soft = soft * images.shape[0]  # as the hard losses: alpha means the same at any batch
+            soft = soft * global_batch(images.shape[0])  # as the hard losses: alpha means the same at any batch
             kd_metrics = {"loss_kd": soft, **kd}
         loss = (1.0 - alpha) * loss + alpha * soft
         return loss, {**metrics, **kd_metrics, "loss": loss}
@@ -366,21 +385,32 @@ def make_train_step(
         images = batch["images"]
         if images.dtype == torch.uint8:  # loaders ship uint8
             images = images.float() * (1.0 / 255.0)
-        if qat:
-            with quant_context(QuantContext("fake")):
+        with data_parallel(mesh):
+            if qat:
+                with quant_context(QuantContext("fake")):
+                    out, new_bn = ts.module(images, compute_dtype)
+            else:
                 out, new_bn = ts.module(images, compute_dtype)
-        else:
-            out, new_bn = ts.module(images, compute_dtype)
-        loss, metrics = loss_fn(out, batch)
-        if distill is not None:
-            loss, metrics = distill_loss(out, images, loss, metrics)
+            loss, metrics = loss_fn(out, batch)
+            if distill is not None:
+                loss, metrics = distill_loss(out, images, loss, metrics)
         grads = torch.autograd.grad(loss, list(ts.module.parameters()))
         with torch.no_grad():
             g = torch.cat([x.reshape(-1) for x in grads])
+            if mesh is not None:  # this rank's parts -> the global loss, metrics and gradient
+                metrics = _sum_over(metrics, mesh.data_group)
+                loss = metrics["loss"]
+                dist.all_reduce(g, group=mesh.data_group)
             # guard on the gradient too: a finite loss can have inf/NaN grads.
             # optax's global norm, sqrt of the sum of squares: torch's CPU
             # `vector_norm` accumulates 2.6M squares to 4e-5 relative error
-            gnorm = torch.sqrt(torch.sum(g * g))
+            if mesh is not None and mesh.shape["model"] > 1:
+                dev = g.device
+                if dev not in tp_mask:
+                    tp_mask[dev] = _sharded_mask(ts, dev)
+                gnorm = _global_norm_tp(g, tp_mask[dev], mesh.model_group)
+            else:
+                gnorm = torch.sqrt(torch.sum(g * g))
             finite = torch.isfinite(loss) & torch.isfinite(gnorm)
             new_params, new_opt = ts.tx.update(g, gnorm, ts.opt_state, ts.params, ts.masks)
             new_bn_flat = torch.cat([new_bn[k].reshape(-1) for k in ts.bn_layout.names])
@@ -405,6 +435,35 @@ def make_train_step(
         return ts, metrics
 
     return step_fn
+
+
+def _sum_over(metrics: Dict[str, torch.Tensor], group: Any) -> Dict[str, torch.Tensor]:
+    """Every metric summed over `group` in one all-reduce (each rank's losses
+    are its parts of the global ones), in its own dtype."""
+    keys = sorted(metrics)
+    vec = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+    dist.all_reduce(vec, group=group)
+    return {k: vec[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
+
+
+def _sharded_mask(ts: TrainState, device) -> torch.Tensor:
+    """Flat bool over the params: the leaves sharded over the model axis
+    (`parallel/mesh.py shard_params`)."""
+    sharded = {f"{name}.{leaf}" for name, m in ts.module.named_modules() if getattr(m, "tp", None) is not None
+               for leaf in m.tp.leaves}
+    return torch.cat([torch.full((math.prod(s),), n in sharded, device=device)
+                      for n, s in zip(ts.param_layout.names, ts.param_layout.shapes)])
+
+
+def _global_norm_tp(g: torch.Tensor, sharded: torch.Tensor, model_group: Any) -> torch.Tensor:
+    """The global norm of a gradient whose sharded leaves hold this rank's
+    slices: their squares summed over the model axis, the replicated leaves'
+    (equal on every rank of it) counted once."""
+    sq = g * g
+    zero = torch.zeros((), dtype=sq.dtype, device=sq.device)
+    shard_sq = torch.sum(torch.where(sharded, sq, zero)).reshape(1)
+    dist.all_reduce(shard_sq, group=model_group)
+    return torch.sqrt(shard_sq[0] + torch.sum(torch.where(sharded, zero, sq)))
 
 
 # ---------------------------------------------------------------------------

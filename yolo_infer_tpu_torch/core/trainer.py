@@ -4,11 +4,33 @@ Port of `yolo_infer_tpu/core/trainer.py` (`TrainingConfig`,
 `TrainingCallbacks`, `YOLO11Trainer.train`, `fine_tune`, `transfer_learn`,
 `resume_training`, `validate`, `_freeze_predicate`, `_adapt_head_nc`,
 `_validate_ema`, `_sync_model_from_state`, `_write_summary`,
-`create_trainer`). One process, one card: the step is `core/train_step.py`
-on the state's device, the batches come from `data/train_loader.py` (or
-`data/classify.py ClassifyLoader`), built on host threads ahead of the
-steps. The trainer runs on `cuda` unless the model or the caller says
-`device="cpu"`; with no card it raises.
+`create_trainer`, `MultiChipTrainer`, `_select_devices`, `_build_mesh`).
+The step is `core/train_step.py` on the state's device, the batches come
+from `data/train_loader.py` (or `data/classify.py ClassifyLoader`), built on
+host threads ahead of the steps. The trainer runs on `cuda` unless the model
+or the caller says `device="cpu"`; with no card it raises.
+
+Several devices. The JAX trainer spans every device of its program through a
+('data', 'model') mesh; the port spans every process of an initialized
+`torch.distributed` group (`torchrun --nproc_per_node=N -m
+yolo_infer_tpu_torch train ...`), one device each: an index-free "cuda" is
+card r for process r. `_build_mesh` takes the JAX rule (the data axis is the
+largest count of devices that divides both the batch and the devices) over
+the whole world, and each process runs `make_train_step(..., mesh=)` on its
+slice of the global batch `config.batch`: the loader builds this process's
+own batches of batch / dp images (`shard=(process_index, process_count)`;
+classify, whose loader has no shard, builds the global batch and keeps its
+slice). Only the main process writes the run directory, config.json, the
+checkpoints and the summary; the early-stop decision is rank 0's
+(`broadcast_scalar`); rank 0's starting state is broadcast to the others;
+per-epoch validation serves on the training mesh (a meshed `Predictor`: each
+process its slice of every batch, the whole batch's detections on every
+process, equal metrics everywhere). `MultiChipTrainer(device_ids=...)`
+trains on the named cards: inside a group process r takes card
+`device_ids[r]`; outside one, `train()` starts the group itself
+(`parallel/distributed.py launch`: one process per card of the mesh, a
+`FileStore` rendezvous, NCCL on cards and gloo for `device="cpu"`) and takes
+the trained model back from rank 0.
 
 After every epoch the EMA weights are validated (`YOLO11Validator`'s
 multi-label NMS: kernels F and G on the card; classify through
@@ -27,8 +49,6 @@ held in the step, `PruningOptimizer`) and `trainer.distill` (a teacher
 inside the step, `DistillationOptimizer`: {"model": a `YOLO11`,
 "temperature", "alpha"}; its folded copy runs on the trainer's device).
 
-Not ported yet, and raising: `MultiChipTrainer` and the mesh (ROADMAP Queue 1
-item 9).
 """
 
 from __future__ import annotations
@@ -188,6 +208,7 @@ class YOLO11Trainer:
         self.distill: Optional[Dict[str, Any]] = None
         self.timing: List[Dict[str, float]] = []
         self._val_predictor = None
+        self._mesh = None  # the training mesh of the last `train` (None: one device)
 
     # ------------------------------------------------------------------ train
 
@@ -195,26 +216,43 @@ class YOLO11Trainer:
         from yolo_infer_tpu_torch.core.train_step import init_train_state, make_optimizer, make_train_step
         from yolo_infer_tpu_torch.data.dataset import YOLODataset
         from yolo_infer_tpu_torch.data.train_loader import TrainLoader
+        from yolo_infer_tpu_torch.parallel import distributed as dist
+        from yolo_infer_tpu_torch.parallel.mesh import shard_batch
         from yolo_infer_tpu_torch.utils.checkpoint import CheckpointManager
         from yolo_infer_tpu_torch.utils.helpers import device_busy
 
         cfg = dataclasses.replace(self.config, **overrides) if overrides else self.config
         if resume is not None:
             cfg = dataclasses.replace(cfg, resume=resume)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
-        cfg.save(self.run_dir / "config.json")
+        mesh = self._build_mesh(cfg)
+        self._mesh = mesh
+        dp = 1
+        if mesh is not None:
+            dp = mesh.shape["data"]
+            self.device = self._select_devices()[dist.process_index()]
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self.run_dir = Path(_from_rank0(str(self.run_dir)))  # the name rank 0 chose
+        # one writer: the reference's `RANK in {-1, 0}` gates
+        main = dist.is_main_process()
+        if main:
+            self.run_dir.mkdir(parents=True, exist_ok=True)
+            cfg.save(self.run_dir / "config.json")
         log = logging.getLogger("yolo_infer_tpu_torch.train")
 
+        slice_batch = False  # classify: every process builds the global batch and keeps its slice
         if self.model.task == "classify":
             from yolo_infer_tpu_torch.data.classify import ClassifyDataset, ClassifyLoader
 
             train_ds = ClassifyDataset(cfg.data, split="train")
             loader = ClassifyLoader(train_ds, batch_size=cfg.batch, imgsz=cfg.imgsz, seed=cfg.seed)
+            slice_batch = mesh is not None
         else:
             ds_task = self.model.task if self.model.task in ("segment", "pose", "obb") else "detect"
             train_ds = YOLODataset(cfg.data, split="train", task=ds_task)
-            loader = TrainLoader(train_ds, batch_size=cfg.batch, imgsz=cfg.imgsz, max_boxes=cfg.max_boxes,
-                                 hyp=cfg.aug_hyp(), seed=cfg.seed, workers=LOADER_WORKERS)
+            loader = TrainLoader(train_ds, batch_size=cfg.batch // dp, imgsz=cfg.imgsz, max_boxes=cfg.max_boxes,
+                                 hyp=cfg.aug_hyp(), seed=cfg.seed, workers=LOADER_WORKERS,
+                                 shard=(dist.process_index(), dist.process_count()))
         steps_per_epoch = len(loader)
         total_steps = steps_per_epoch * cfg.epochs
         # the reference's warmup window, max(round(warmup_epochs * nb), 100)
@@ -238,7 +276,7 @@ class YOLO11Trainer:
             teacher = fold_model(copy.deepcopy(self.distill["model"])).to(self.device).eval()
             distill = {**self.distill, "model": teacher}
         step_fn = make_train_step(model.spec, tx, hyp=cfg.loss_hyp(), compute_dtype=model.compute_dtype,
-                                  qat=cfg.qat, param_mask=self.param_mask, distill=distill)
+                                  qat=cfg.qat, param_mask=self.param_mask, distill=distill, mesh=mesh)
         ts = init_train_state(model.model, tx, seed=cfg.seed, device=self.device)
 
         ckpt_mgr = CheckpointManager(self.run_dir / "checkpoints")
@@ -252,6 +290,10 @@ class YOLO11Trainer:
                 log.info("resumed from %s (epoch %d)", latest, start_epoch)
             else:
                 log.info("resume requested but no checkpoint found; starting fresh")
+        if mesh is not None:  # every process starts from rank 0's state
+            for t in (ts.params, ts.bn_state, ts.ema_params, ts.opt_state["mom"], ts.opt_state["count"], ts.step,
+                      ts.skipped):
+                torch.distributed.broadcast(t, src=0)
 
         best_fitness = -1.0
         epochs_without_improvement = 0
@@ -278,6 +320,8 @@ class YOLO11Trainer:
                 if batch is None:
                     break
                 self.callbacks.fire("on_batch_start", epoch=epoch, batch=bi)
+                if slice_batch:
+                    batch = shard_batch(batch, mesh)
                 # the loader's wait stays outside the busy window; the metric
                 # read every 50 steps waits for the queued steps to finish
                 with device_busy():
@@ -315,7 +359,8 @@ class YOLO11Trainer:
                 if fitness > best_fitness:
                     best_fitness = fitness
                     epochs_without_improvement = 0
-                    ckpt_mgr.save_checkpoint(ts.tree(), epoch=epoch, metrics=row, is_best=True)
+                    if main:
+                        ckpt_mgr.save_checkpoint(ts.tree(), epoch=epoch, metrics=row, is_best=True)
                     self.callbacks.fire("on_checkpoint_save", epoch=epoch, best=True)
                 else:
                     epochs_without_improvement += 1
@@ -324,17 +369,22 @@ class YOLO11Trainer:
             self.callbacks.fire("on_epoch_end", epoch=epoch, metrics=row)
 
             if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0:
-                ckpt_mgr.save_checkpoint(ts.tree(), epoch=epoch, metrics=row)
+                if main:
+                    ckpt_mgr.save_checkpoint(ts.tree(), epoch=epoch, metrics=row)
                 self.callbacks.fire("on_checkpoint_save", epoch=epoch, best=False)
 
-            if cfg.patience > 0 and epochs_without_improvement >= cfg.patience:
+            # the stop decision agreed across processes (the reference's
+            # broadcast_object_list stop flag)
+            should_stop = 1.0 if (cfg.patience > 0 and epochs_without_improvement >= cfg.patience) else 0.0
+            if dist.broadcast_scalar(should_stop) > 0.5:
                 log.info("early stopping at epoch %d (patience %d)", epoch + 1, cfg.patience)
                 break
 
         self._sync_model_from_state(ts)
         total_time = time.perf_counter() - t_start
-        ckpt_mgr.save_checkpoint(ts.tree(), epoch=final_epoch, metrics=history[-1] if history else {})
-        self._write_summary(history, total_time)
+        if main:
+            ckpt_mgr.save_checkpoint(ts.tree(), epoch=final_epoch, metrics=history[-1] if history else {})
+            self._write_summary(history, total_time)
         self.callbacks.fire("on_train_end", history=history)
         return {
             "status": "completed",
@@ -380,6 +430,39 @@ class YOLO11Trainer:
 
     # ---------------------------------------------------------------- helpers
 
+    def _select_devices(self) -> List[torch.device]:
+        """The devices the training mesh spans, one per process: with no
+        process group this trainer's device alone; inside one, a device per
+        rank (an index-free "cuda" is card r % cards for rank r, the local
+        rank of `torchrun` on one host; an explicit device or the CPU serves
+        every rank). Overridden by `MultiChipTrainer`."""
+        from yolo_infer_tpu_torch.parallel import distributed as dist
+
+        world = dist.process_count()
+        if self.device.type == "cuda" and self.device.index is None and dist.initialized():
+            cards = torch.cuda.device_count()
+            return [torch.device("cuda", r % cards) for r in range(world)]
+        return [self.device] * world
+
+    def _build_mesh(self, cfg):
+        """The ('data', 'model') mesh: the data axis is the largest count of
+        the selected devices that divides both the batch and the devices (the
+        JAX rule), model 1. None with no process group (one device, the
+        unmeshed step). Every process must be on the data axis: each is one
+        device, and one off the mesh would have no step to run."""
+        from yolo_infer_tpu_torch.parallel import distributed as dist
+        from yolo_infer_tpu_torch.parallel.mesh import create_mesh
+
+        devices = self._select_devices()
+        if not dist.initialized():
+            return None
+        n_dev = len(devices)
+        dp = _data_axis(cfg.batch, n_dev)
+        if dp != n_dev:
+            raise ValueError(f"the batch {cfg.batch} and the {n_dev} processes share only a data axis of {dp}: "
+                             f"each process is one device, so the batch must be divisible by the world size")
+        return create_mesh(n_devices=dp, devices=devices[:dp])
+
     def _freeze_predicate(self) -> Optional[Callable[[str], bool]]:
         freeze = self._freeze
         if freeze is None:
@@ -398,9 +481,9 @@ class YOLO11Trainer:
         from yolo_infer_tpu_torch.data.dataset import YOLODataset
 
         ema = ts.ema_model()
-        if self._val_predictor is None:
+        if self._val_predictor is None:  # on the training mesh: each process serves its slice of every batch
             self._val_predictor = Predictor(ema, ts.spec, device=self.device, compute_dtype=self.model.compute_dtype,
-                                            names=self.model.names)
+                                            names=self.model.names, mesh=self._mesh)
         else:
             self._val_predictor.load_weights(ema)
         predictor = self._val_predictor
@@ -457,10 +540,84 @@ def _adapt_head_nc(model, nc: int, names, seed: int = 0) -> None:
 
 
 class MultiChipTrainer(YOLO11Trainer):
-    """Data-parallel training over several cards: not ported yet (ROADMAP Queue 1 item 9)."""
+    """Data-parallel training over chosen cards (the reference's
+    MultiGPUTrainer device string). `device_ids` name cards by index:
+    `_select_devices` raises `ValueError` for one that names no card (on
+    the CPU, `device="cpu"`, each id is one more CPU process and must be >=
+    0). Inside an initialized process group, process r trains on card
+    `device_ids[r]`, and the caller's group is used as it is (two gloo
+    processes may share one card). Outside one, `train()` starts the group:
+    one process per device of the mesh (`parallel/distributed.py launch`,
+    NCCL on cards, gloo on the CPU, a `FileStore` rendezvous), trains there
+    and takes the trained model back from rank 0 into `self.model`.
+    Callbacks registered on the trainer do not fire then: they would run in
+    the other processes."""
 
     def __init__(self, *args, device_ids: Optional[Sequence[int]] = None, **kw):
-        raise NotImplementedError("multi-card training and the mesh are not ported yet (ROADMAP Queue 1 item 9)")
+        super().__init__(*args, **kw)
+        self.device_ids = None if device_ids is None else [int(i) for i in device_ids]
+
+    def _select_devices(self) -> List[torch.device]:
+        """Exactly the devices of `device_ids`, in their order."""
+        if self.device_ids is None:
+            return super()._select_devices()
+        if self.device.type != "cuda":
+            bad = [i for i in self.device_ids if i < 0]
+            if bad:
+                raise ValueError(f"requested device ids {bad} are negative")
+            return [self.device] * len(self.device_ids)
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        missing = [i for i in self.device_ids if not 0 <= i < cards]
+        if missing:
+            raise ValueError(f"requested device ids {missing} not available (have {list(range(cards))})")
+        return [torch.device("cuda", i) for i in self.device_ids]
+
+    def train(self, resume: Optional[bool] = None, **overrides) -> Dict[str, Any]:
+        from yolo_infer_tpu_torch.core.model import YOLO11Model
+        from yolo_infer_tpu_torch.parallel import distributed as dist
+
+        if self.device_ids is None or dist.initialized():
+            return super().train(resume=resume, **overrides)
+        devices = self._select_devices()
+        cfg = dataclasses.replace(self.config, **overrides) if overrides else self.config
+        dp = _data_axis(cfg.batch, len(devices))
+        m = self.model
+        model = YOLO11Model.from_params(copy.deepcopy(m.model).cpu(), task=m.task, size=m.size, nc=m.nc, names=m.names,
+                                        fused=False, compute_dtype=m.compute_dtype, device=str(self.device))
+        spec = (model, self.config, str(self.run_dir), str(self.device), self.device_ids[:dp], self._freeze,
+                self.param_mask, self.distill, resume, overrides)
+        backend = "nccl" if devices[0].type == "cuda" else "gloo"
+        out = dist.launch(_train_rank, dp, backend=backend, devices=devices[:dp], args=spec, timeout_s=24 * 3600)[0]
+        m.model, m.spec, m.nc, m.names = out["model"], out["model"].spec, out["nc"], out["names"]
+        m.invalidate()
+        return out["result"]
+
+
+def _data_axis(batch: int, n_devices: int) -> int:
+    """The JAX trainer's data axis: the largest count of devices that divides
+    both the batch and the devices."""
+    return max(d for d in range(1, n_devices + 1) if batch % d == 0 and n_devices % d == 0)
+
+
+def _from_rank0(value: Any) -> Any:
+    """Rank 0's `value` on every process (a picklable object)."""
+    box = [value]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _train_rank(model, config, run_dir, device, device_ids, freeze, param_mask, distill, resume, overrides):
+    """One process of `MultiChipTrainer.train`'s own group: the trainer
+    rebuilt here, trained; rank 0 hands back the result and the model."""
+    from yolo_infer_tpu_torch.parallel import distributed as dist
+
+    trainer = MultiChipTrainer(model=model, config=config, device=device, device_ids=device_ids)
+    trainer.run_dir = Path(run_dir)
+    trainer._freeze, trainer.param_mask, trainer.distill = freeze, param_mask, distill
+    result = trainer.train(resume=resume, **overrides)
+    if not dist.is_main_process():
+        return None
+    return {"result": result, "model": trainer.model.model, "nc": trainer.model.nc, "names": trainer.model.names}
 
 
 def create_trainer(
@@ -469,7 +626,8 @@ def create_trainer(
     multi_gpu: bool = False,
     **kw,
 ) -> YOLO11Trainer:
-    """Factory: a `YOLO11Trainer` (`multi_gpu` raises: ROADMAP Queue 1 item 9)."""
+    """Factory: a `MultiChipTrainer` with `multi_gpu` (pass `device_ids=`),
+    else a `YOLO11Trainer`."""
     if isinstance(config, dict):
         config = TrainingConfig.from_dict(config)
     cls = MultiChipTrainer if multi_gpu else YOLO11Trainer

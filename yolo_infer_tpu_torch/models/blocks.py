@@ -38,6 +38,8 @@ from yolo_infer_tpu_torch.nn.layers import (
 )
 from yolo_infer_tpu_torch.ops.kernels.attention_fused import attention_packed, attention_qkv
 from yolo_infer_tpu_torch.ops.kernels.int8_conv import int8_conv, nhwc_input
+from yolo_infer_tpu_torch.parallel.distributed import copy_to_group, gather_channels
+from yolo_infer_tpu_torch.parallel.mesh import data_mean_var
 
 
 def _cast(t, dtype: torch.dtype):
@@ -68,10 +70,13 @@ class Conv(nn.Module):
     mode (`module.train()`, the train step's forward) it normalises with the
     batch's own statistics, as `yolo_infer_tpu/nn/layers.py conv_block` does
     with `training=True`: mean and biased variance in f32, scale and bias
-    applied in the activation dtype. The running statistics are not touched:
-    the batch's (mean, unbiased variance) are left in `batch_stats` for
-    `YOLO11.forward` to return as values, so that a step the finite guard
-    drops can keep the old ones (`core/train_step.py`).
+    applied in the activation dtype; in a meshed step the statistics are
+    those of the global batch (`parallel/mesh.py data_mean_var`). The
+    running statistics are not touched: the batch's (mean, unbiased
+    variance) are left in `batch_stats` for `YOLO11.forward` to return as
+    values, so that a step the finite guard drops can keep the old ones
+    (`core/train_step.py`). A conv that `parallel/mesh.py shard_params` sharded
+    over its output channels (`tp` set) runs `_forward_tp`.
 
     `fold()` merges the batch norm into the conv's weight and bias in place
     (the deploy form); afterwards `bn` is None. `quantize()` turns a folded
@@ -87,6 +92,7 @@ class Conv(nn.Module):
         self.act = act
         self.k, self.s, self.g = k, s, g
         self.batch_stats = None
+        self.tp = None  # this rank's place on the model axis when its output channels are sharded
 
     @property
     def quantized(self) -> bool:
@@ -95,6 +101,8 @@ class Conv(nn.Module):
     def forward(self, x):
         if self.quantized:
             return self._forward_int8(x)
+        if self.tp is not None:
+            return self._forward_tp(x)
         if isinstance(x, Q.QAct):  # float conv fed by an int8 edge
             x = x.dequant(self.conv.weight.dtype)
         ctx = Q.current_context()
@@ -105,15 +113,38 @@ class Conv(nn.Module):
         else:
             y = self.conv(x) if x.dtype == self.conv.weight.dtype else _conv_in_input_dtype(self.conv, x)
         if self.bn is not None:
-            if self.training:
-                var, mean = torch.var_mean(y.float(), dim=(0, 2, 3), correction=0)
-                n = y.numel() // y.shape[1]
-                self.batch_stats = (mean.detach(), var.detach() * (n / max(n - 1, 1)))  # torch's running_var rule
-            else:
-                mean, var = self.bn.running_mean, self.bn.running_var
-            scale, bias = bn_scale_bias(self.bn.weight, self.bn.bias, mean, var)
-            y = y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
+            y = self._batch_norm(y)
         return silu(y) if self.act else y
+
+    def _batch_norm(self, y: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            # over the batch, and over the data axis of a meshed training step
+            mean, var, n = data_mean_var(y.float(), (0, 2, 3))
+            self.batch_stats = (mean.detach(), var.detach() * (n / max(n - 1, 1)))  # torch's running_var rule
+        else:
+            mean, var = self.bn.running_mean, self.bn.running_var
+        scale, bias = bn_scale_bias(self.bn.weight, self.bn.bias, mean, var)
+        return y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
+
+    def _forward_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """The output-channel-sharded form (`parallel/mesh.py shard_params`):
+        the conv, batch norm and SiLU of this rank's channels (a depthwise
+        conv reads only its own input channels), then the channels of every
+        rank of the model axis gathered in rank order. The input's gradient
+        is summed over the model axis (each rank holds its channels' part of
+        it); the gathered map's gradient is cut back to this rank's channels."""
+        if Q.current_context() is not None:
+            raise NotImplementedError("tensor parallelism under a quantization context")
+        tp = self.tp
+        x = copy_to_group(x, tp.group)
+        groups = 1
+        if self.g != 1:  # depthwise
+            groups = x.shape[1] // tp.size
+            x = x[:, tp.index * groups: (tp.index + 1) * groups]
+        c = self.conv
+        y = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding, c.dilation, groups)
+        y = self._batch_norm(y)
+        return gather_channels(silu(y) if self.act else y, tp.group)
 
     def _fake_quant_conv(self, x: torch.Tensor, ctx: Q.QuantContext) -> torch.Tensor:
         """QAT: the conv on fake-quantized weights (per output channel,
@@ -366,10 +397,19 @@ class C2PSA(nn.Module):
 
 class HeadConv2d(nn.Conv2d):
     """A head branch's output projection (plain conv with bias); a QAct
-    input is dequantized to its weight dtype first."""
+    input is dequantized to its weight dtype first. Sharded over its output
+    channels (`tp` set by `parallel/mesh.py shard_params`: a head of 256 or
+    more classes) it computes its slice and gathers the channels, as
+    `Conv._forward_tp` does."""
+
+    tp = None
 
     def forward(self, x) -> torch.Tensor:
         x = Q.as_float(x, self.weight.dtype)
+        if self.tp is not None:
+            y = F.conv2d(copy_to_group(x, self.tp.group), self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+                         self.stride, self.padding, self.dilation, self.groups)
+            return gather_channels(y, self.tp.group)
         return super().forward(x) if x.dtype == self.weight.dtype else _conv_in_input_dtype(self, x)
 
 
@@ -476,7 +516,9 @@ class OBB(_DetectPlus):
 
 
 class Classify(nn.Module):
-    """Conv 1 to `c_hidden` -> global average pool -> linear -> (B, nc) logits."""
+    """Conv 1 to `c_hidden` -> global average pool -> linear -> (B, nc) logits.
+    With the linear layer's bias sharded (`parallel/mesh.py shard_params`:
+    256 classes or more) the bias is gathered where it is added."""
 
     def __init__(self, c1: int, nc: int, c_hidden: int = 1280):
         super().__init__()
@@ -485,4 +527,7 @@ class Classify(nn.Module):
 
     def forward(self, x) -> torch.Tensor:
         y = adaptive_avg_pool(Q.as_float(self.conv(x), self.linear.weight.dtype))
-        return F.linear(y, self.linear.weight.to(y.dtype), _cast(self.linear.bias, y.dtype))
+        bias, tp = self.linear.bias, getattr(self.linear, "tp", None)
+        if tp is not None:
+            bias = gather_channels(bias, tp.group, dim=0)
+        return F.linear(y, self.linear.weight.to(y.dtype), _cast(bias, y.dtype))

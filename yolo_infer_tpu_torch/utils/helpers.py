@@ -30,6 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
+from yolo_infer_tpu_torch.parallel.distributed import process_index
+
 logger = logging.getLogger(__name__)
 
 _STATE = ("running_mean", "running_var", "num_batches_tracked")  # batch-norm state, not parameters
@@ -146,7 +148,9 @@ def get_device_info() -> Dict[str, Any]:
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
     info["device_count"] = count
     info["cuda_available"] = count > 0
-    info["devices"] = [{"id": i, "kind": torch.cuda.get_device_name(i), "platform": "gpu"} for i in range(count)]
+    process = process_index()  # this process's rank in a process group (0 without one)
+    info["devices"] = [{"id": i, "kind": torch.cuda.get_device_name(i), "platform": "gpu", "process": process}
+                       for i in range(count)]
     mem_dev = _device_memory_stats()
     if mem_dev:
         info["device_memory"] = mem_dev
