@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs thirty-one phases, each printing one JSON line. Kernels A, C, F and G
+runs thirty-two phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -347,6 +347,27 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              writes (each rank's writers counted), and `dryrun_multichip(2)`
              (tp = 2) with its loss. gloo stages CUDA tensors through the
              host: (b)'s seconds time correctness plumbing, not NCCL
+ 32. video   the batched video demo (`DetectionDemo.detect_video`), ~40 s:
+             the port's writer makes a motion-JPEG AVI of 45 seeded 640x480
+             frames at 30 fps (no OpenCV on the card's machine); phase 4's
+             weights, written as a `.msgpack`, run it at b8/640 bf16 with an
+             output AVI. The path's run (its first batch captures the b8/640
+             signature) counts A and B at (1 + WARMUP_CALLS) times one
+             uncaptured body call; 45 frames out, every frame's detections
+             (the boxes and scores drawn) equal to the same predictor's
+             `predict_raw` on the frames the demo decoded (the first equal to
+             the port's reader's), letterboxed on the host and batched as the
+             demo batches them (counts and classes equal, boxes within 1e-3
+             px, scores within 1e-5); the output read back by the port with 45 frames of 640x480, its
+             first frame bit-equal to `decode_jpeg(encode_jpeg(...))` of the
+             first annotated frame. A second run under torch.profiler: A and
+             B once per batch by name, frames/s, the host seconds per frame
+             by part (decode, letterbox, device wait, the rest of the
+             pipeline, draw, encode; `DetectionDemo.last_timing`) and the
+             kernels' busy share of its wall time, each on a line of its own
+             beside the card's name and power limit. Then segment video
+             frame by frame over 4 frames (`predict` and `draw_results` per
+             frame): A, B and D launched
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -4639,6 +4660,172 @@ def phase_parallel(report):
     return out
 
 
+VIDEO_FRAMES = 45  # the video phase's input: seeded 640x480 frames at 30 fps, MJPEG AVI written by the port
+VIDEO_SIZE = (480, 640)
+VIDEO_SERVE = (8, 640)  # detect_video: batch, imgsz
+VIDEO_SEG_FRAMES = 4  # the segment video, frame by frame
+VIDEO_KERNELS = ("nms_keep", "attention_qkv")  # A, B on the batched detect path
+VIDEO_SEG_KERNELS = ("nms_keep", "attention_qkv", "upsample4x_threshold_pack")  # A, B, D on the segment path
+
+
+def video_source(root: Path) -> Path:
+    """The phase's input video, written by the port's own writer."""
+    from yolo_infer_tpu_torch.utils.visualization import create_video_writer
+
+    h, w = VIDEO_SIZE
+    writer = create_video_writer(root / "in.avi", 30, (w, h))
+    try:
+        for i in range(VIDEO_FRAMES):
+            writer.write(jpeg_frame(300 + i, h, w)[..., ::-1])
+    finally:
+        writer.release()
+    return root / "in.avi"
+
+
+def video_reference(pred, frames, conf: float, iou: float):
+    """Each frame's (boxes, scores, classes) from `pred.predict_raw` (the
+    demo's captured program) on the decoded RGB `frames`, letterboxed on the
+    host and batched as the demo batches them."""
+    import torch
+
+    from yolo_infer_tpu_torch.ops.letterbox import letterbox, letterbox_params, scale_boxes
+
+    batch, imgsz = VIDEO_SERVE
+    ratio, pad, _ = letterbox_params(frames[0].shape[:2], imgsz)
+    lbs = [letterbox(f, imgsz)[0] for f in frames]
+    out = []
+    for chunk in padded_chunks(lbs, batch):
+        with torch.inference_mode():
+            dets = pred.predict_raw(torch.from_numpy(np.stack(chunk)).to(pred.device), conf, iou, imgsz)
+        dets = {k: v.cpu().numpy() for k, v in dets.items()}
+        for i in range(min(batch, len(frames) - len(out))):
+            k = int(dets["num"][i])
+            out.append((scale_boxes(dets["boxes"][i, :k], ratio, pad, frames[0].shape[:2]), dets["scores"][i, :k],
+                        dets["classes"][i, :k].astype(np.int32)))
+    return out, lbs
+
+
+def phase_video(report):
+    """The batched video demo on the card (phase 32): a port-written MJPEG
+    AVI through `DetectionDemo.detect_video` at b8/640 bf16 (A, B), its
+    detections against `predict_raw`, the output read back, segment video
+    frame by frame (A, B, D), and where a run's time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.data.avi import AviReader
+    from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
+
+    out = {"phase": "video", "card": card_line(), "frames": VIDEO_FRAMES, "size_hw": list(VIDEO_SIZE),
+           "batch": VIDEO_SERVE[0], "imgsz": VIDEO_SERVE[1]}
+    failures = []
+    model = report["weights"][0] if "weights" in report else smoke_weights(
+        np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+    seg_model = (report.get("task_weights") or {}).get("segment", (None,))[0]
+    if seg_model is None:
+        seg_model = smoke_weights(np.random.default_rng(SEED + 6).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8),
+                                  "segment", TASK_NC["segment"])[0]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_video_"))
+    drawn = []
+    real_draw = demo_mod.draw_detections
+
+    def record(frame, boxes, scores, classes, names=None):
+        annotated = real_draw(frame, boxes, scores, classes, names)
+        drawn.append((boxes, scores, classes, annotated if not drawn else None, frame))
+        return annotated
+
+    try:
+        t0 = time.perf_counter()
+        src = video_source(root)
+        out["write_input_s"] = time.perf_counter() - t0
+        out["input"] = AviReader(src).info()
+        ckpts = {task: YOLO11Model.from_params(copy.deepcopy(m), task=task, size="n", fused=False,
+                                               device="cpu").save(root / f"{task}.msgpack")
+                 for task, m in (("detect", model), ("segment", seg_model))}
+        batch, imgsz = VIDEO_SERVE
+        demo = demo_mod.DetectionDemo(model_path=str(ckpts["detect"]), imgsz=imgsz)
+        pred = demo.model.predictor
+        # --- run 1: the path's own run (its first batch captures the b8/640 signature), checked
+        demo_mod.draw_detections = record
+        torch.backends.cudnn.deterministic = True
+        try:
+            counts, first = path_counters(lambda: demo.detect_video(src, root / "out.avi", batch_size=batch))
+            # the frames the demo drew on are the ones it decoded: the reference
+            # letterboxes and batches them itself
+            want, lbs = video_reference(pred, [d[4] for d in drawn], demo.conf_threshold, demo.iou_threshold)
+        finally:
+            demo_mod.draw_detections = real_draw
+            torch.backends.cudnn.deterministic = False
+        reset_counters()
+        eager_run(pred, np.stack(lbs[:batch]), imgsz, demo.conf_threshold, demo.iou_threshold)
+        body = read_counters()
+        out["run1"] = {k: first[k] for k in ("total_frames", "total_detections", "processing_time_s", "fps")}
+        out["launches"] = path_launches("video", VIDEO_KERNELS, counts, body)
+        bad = [i for i, ((b, s, c, _, _), (wb, ws, wc)) in enumerate(zip(drawn, want))
+               if len(b) != len(wb) or not np.array_equal(c, wc)
+               or (len(b) and (np.abs(b - wb).max() > 1e-3 or np.abs(s - ws).max() > 1e-5))]
+        out["frames_differing_from_predict_raw"] = bad
+        out["max_box_diff_px"] = max((float(np.abs(b - wb).max()) for (b, _, _, _, _), (wb, _, _) in zip(drawn, want)
+                                      if len(b) == len(wb) and len(b)), default=0.0)
+        if first["total_frames"] != VIDEO_FRAMES or len(drawn) != VIDEO_FRAMES or bad:
+            failures.append(f"detect_video: {first['total_frames']} frames, {len(drawn)} drawn, frames {bad[:5]} "
+                            "differ from predict_raw")
+        if first["total_detections"] != sum(len(w[0]) for w in want) or not first["total_detections"]:
+            failures.append(f"detect_video found {first['total_detections']} detections, predict_raw "
+                            f"{sum(len(w[0]) for w in want)}")
+        back = AviReader(root / "out.avi")
+        n_back = sum(1 for _ in back.frames())
+        first_back = next(back.read())
+        out["first_frame_decoded_equal"] = bool(np.array_equal(drawn[0][4], next(AviReader(src).read())))
+        out["output"] = {**back.info(), "frames_read": n_back,
+                         "first_frame_equal": bool(np.array_equal(first_back, decode_jpeg(encode_jpeg(drawn[0][3]))))}
+        if (n_back, back.frame_count, back.width, back.height) != (VIDEO_FRAMES, VIDEO_FRAMES, VIDEO_SIZE[1],
+                                                                    VIDEO_SIZE[0]) \
+                or not out["output"]["first_frame_equal"] or not out["first_frame_decoded_equal"]:
+            failures.append(f"the output video read back: {out['output']}")
+        # --- run 2: the same video again (its graph replays), traced: where the time goes
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lead_in(LEAD_INS)
+            t0 = time.perf_counter()
+            second = demo.detect_video(src, root / "out2.avi", batch_size=batch)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in device if e.self_device_time_total > 0 and LEAD_IN not in e.key
+                   and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request"]
+        kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        chunks = -(-VIDEO_FRAMES // batch)
+        by_name = {f: sum(e.count for e in kernels if f in e.key) for f in ("iou_bits_kernel", "attn_qkv_mma_kernel")}
+        host = {k: v / VIDEO_FRAMES for k, v in demo.last_timing.items()}
+        out["run2"] = {"frames_per_s": second["fps"], "processing_time_s": second["processing_time_s"],
+                       "traced_wall_ms": wall_ms, "kernel_ms": kernel_ms, "device_busy_share": kernel_ms / wall_ms,
+                       "kernels_by_name": by_name, "batches": chunks, "host_s_per_frame": host,
+                       "lead_in_kept": sum(e.count for e in device if LEAD_IN in e.key)}
+        if any(v != chunks for v in by_name.values()):
+            failures.append(f"the traced run launched A and B {by_name}, not once per batch ({chunks})")
+        emit({"video_frames_per_s": second["fps"], "card": out["card"]})
+        emit({"video_host_s_per_frame": host, "card": out["card"]})
+        emit({"video_device_busy_share": kernel_ms / wall_ms, "card": out["card"]})
+        # --- segment, frame by frame (predict and draw_results on each)
+        seg = demo_mod.DetectionDemo(model_path=str(ckpts["segment"]), imgsz=imgsz)
+        seg_counts, seg_run = path_counters(lambda: seg.detect_video(src, root / "seg.avi",
+                                                                     max_frames=VIDEO_SEG_FRAMES))
+        out["segment"] = {"frames": seg_run["total_frames"], "detections": seg_run["total_detections"],
+                          "fps": seg_run["fps"], "launches": {k: seg_counts[k] for k in VIDEO_SEG_KERNELS},
+                          "written": AviReader(root / "seg.avi").frame_count}
+        if (seg_run["total_frames"] != VIDEO_SEG_FRAMES or out["segment"]["written"] != VIDEO_SEG_FRAMES
+                or min(out["segment"]["launches"].values()) < 1):
+            failures.append(f"segment video: {out['segment']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
@@ -4665,7 +4852,7 @@ def main() -> int:
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
-              phase_cli, phase_train, phase_optimize, phase_parallel)
+              phase_cli, phase_train, phase_optimize, phase_parallel, phase_video)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -16,7 +16,10 @@ blocks `yaml` and `PIL` too and runs the command line (`python -m
 yolo_infer_tpu_torch`): a demo on a JPEG and on a directory, validation
 from a dataset YAML, PTQ and info. A sixth trains with the same blocks:
 `train` on the command line and `YOLO11Model.train` for a classify model.
-A seventh runs every optimize method with those blocks: dynamic int8,
+Another writes a motion-JPEG AVI with the port's writer, reads it back
+and runs the video demo on it through the command line (the batched detect
+pipeline, an `.avi` out) with jax, `yolo_infer_tpu`, cv2, yaml and PIL
+blocked. A seventh runs every optimize method with those blocks: dynamic int8,
 magnitude and physical pruning, distillation, QAT and segment, pose and OBB
 training. An eighth runs `yolo_infer_tpu_torch.parallel` (a meshed step,
 predictor and dry run in a gloo group of one) with jax and `yolo_infer_tpu`
@@ -248,6 +251,48 @@ def test_port_cli_runs_without_jax_opencv_yaml_or_pil():
     """The command line on JPEGs the port writes, a dataset YAML the port
     writes, PTQ and info, with jax, cv2, yaml and PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _CLI_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
+
+
+_VIDEO_CODE = """
+import contextlib, io, json, sys, tempfile
+from pathlib import Path
+for name in ("jax", "yolo_infer_tpu", "cv2", "yaml", "PIL", "flax", "msgpack", "safetensors"):
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+from yolo_infer_tpu_torch.cli import YOLO11CLI
+from yolo_infer_tpu_torch.data.loader import get_video_info, load_video
+from yolo_infer_tpu_torch.utils.visualization import create_video_writer
+root = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+grad = np.add.outer(np.arange(48), np.arange(64))[..., None] * np.array([1, 2, 3]) % 256
+frames = [np.clip(grad + rng.integers(-8, 9, (48, 64, 3)), 0, 255).astype(np.uint8) for _ in range(5)]
+writer = create_video_writer(root / "v.avi", 29.97, (64, 48))
+for f in frames:
+    writer.write(f)
+writer.release()
+assert get_video_info(root / "v.avi") == {{"width": 64, "height": 48, "fps": 29.97, "frame_count": 5,
+                                          "duration_s": 5 / 29.97}}
+back = list(load_video(root / "v.avi", rgb=False))
+assert len(back) == 5 and all(b.shape == (48, 64, 3) for b in back)
+assert np.abs(back[0].astype(int) - frames[0]).mean() < 20
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = YOLO11CLI().run(["demo", "--input", str(root / "v.avi"), "--output", str(root / "o.avi"), "--imgsz", "64",
+                          "--batch", "2", "--conf", "1e-9", "--device", "cpu"])
+summary = json.loads(out.getvalue())
+assert rc == 0 and summary["total_frames"] == 5 and summary["total_detections"] > 0, summary
+assert get_video_info(root / "o.avi")["frame_count"] == 5 and len(list(load_video(root / "o.avi"))) == 5
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_video_runs_without_jax_opencv_yaml_or_pil():
+    """A motion-JPEG AVI written, read and run through the video demo on the
+    command line, with jax, yolo_infer_tpu, cv2, yaml and PIL blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _VIDEO_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 
 

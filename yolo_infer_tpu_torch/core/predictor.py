@@ -36,7 +36,9 @@ float epilogue (`nn/quantize.py quantized_conv2d`).
 `predict_many` serves a long list in chunks of one batch shape. On the card
 the frames go through pinned staging buffers on an upload stream, the
 forward runs on a compute stream that waits for each chunk's copy, and the
-host drains finished chunks into `Results` while later ones run.
+host drains finished chunks into `Results` while later ones run. The same
+pipeline (`_serve_stream`) takes a stream of chunks: the video demo feeds it
+frames as its decode thread letterboxes them.
 
 The predictor caches one program per input signature, as the JAX
 package's caches one jitted program (`_get`, `_build`, `_cache`; the key is
@@ -86,7 +88,7 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -692,7 +694,8 @@ class Predictor:
         alone.
         Segment masks are copied at drain time in one transfer of the rows
         the chunk uses, so no device buffer stays held per chunk;
-        `LazyMasks` unpacks them from the host on read.
+        `LazyMasks` unpacks them from the host on read. The pipeline is
+        `_serve_stream`, which the video demo runs over decoded frames too.
 
         `Results.speed["inference"]` is pipelined wall time per image (from
         dispatch to drain, so it includes waiting behind chunks in flight):
@@ -700,18 +703,42 @@ class Predictor:
         """
         if len(images) == 0:
             return []
-        if pipeline_depth < 1:
-            raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         frames, orig_shapes, host_lb = self._batch(list(images), imgsz)
-        md = max_det or self.max_det
         n = len(frames)
         frame_hw = tuple(frames[0].shape[:2])
-        shape = (batch_size,) + tuple(frames[0].shape)
+        chunks = ((frames[lo:lo + batch_size], (lo, min(lo + batch_size, n))) for lo in range(0, n, batch_size))
+        results: List[Results] = []
+        for dets, (lo, hi), t0, _ in self._serve_stream(chunks, (batch_size,) + tuple(frames[0].shape), conf, iou,
+                                                        imgsz, max_det, multi_label, pipeline_depth):
+            packed = dets.pop("mask_bits_up", None)
+            dt = (time.perf_counter() - t0) * 1000
+            results.extend(self._postprocess(dets, packed, orig_shapes[lo:hi],
+                                             None if host_lb is None else host_lb[lo:hi], imgsz, frame_hw, dt))
+        return results
+
+    def _serve_stream(self, chunks: Iterable[Tuple[Sequence[np.ndarray], Any]], shape: Tuple[int, ...], conf, iou,
+                      imgsz: int, max_det: Optional[int], multi_label: bool,
+                      pipeline_depth: int) -> Iterator[Tuple[Dict[str, np.ndarray], Any, float, float]]:
+        """The pipeline of `predict_many` over a stream of host chunks.
+
+        `chunks` yields (frames, tag): 1 to `shape[0]` uint8 frames of
+        `shape[1:]` and anything the caller wants back with their results.
+        Every chunk runs the one program of `shape` at `imgsz`, padded by
+        repeating its last frame. Yields, in order, (dets of the chunk's own
+        frames on the host, its tag, the host clock at its launch, the host
+        seconds its drain waited for the device). The stager thread pulls
+        `chunks` one chunk ahead of the launches, so a chunk source that
+        blocks (a decoder) blocks there.
+        """
+        if pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        batch_size = shape[0]
+        md = max_det or self.max_det
         cuda = self.device.type == "cuda"
         if self.mesh is not None and batch_size % self.mesh.shape["data"]:
             raise ValueError(f"batch_size {batch_size} is not divisible by the data axis ({self.mesh.shape['data']})")
         local = batch_size if self.mesh is None else batch_size // self.mesh.shape["data"]  # a data rank's slice
-        self._get(local, frame_hw, imgsz, multi_label, md)  # on the card: captured here, before the stager
+        self._get(local, tuple(shape[1:3]), imgsz, multi_label, md)  # on the card: captured here, before the stager
         if cuda:
             if self._streams is None:
                 self._streams = tuple(torch.cuda.Stream(self.device) for _ in range(3))
@@ -719,14 +746,15 @@ class Predictor:
             compute.wait_stream(torch.cuda.current_stream(self.device))  # the caller's work on the weights
             staging = [torch.empty(shape, dtype=torch.uint8, pin_memory=True) for _ in range(pipeline_depth + 1)]
             uploaded: List[Optional[torch.cuda.Event]] = [None] * len(staging)
-        results: List[Results] = []
         pending: collections.deque = collections.deque()
+        source = iter(chunks)
 
-        def drain_one() -> None:
-            host, masks, done, lo, hi, t0 = pending.popleft()
-            m = hi - lo
+        def drain_one():
+            host, masks, done, m, tag, t0 = pending.popleft()
+            t1 = time.perf_counter()
             if done is not None:
                 done.synchronize()
+            waited = time.perf_counter() - t1
             dets = {k: v.numpy()[:m].copy() for k, v in host.items()}
             if masks:
                 # one bounded copy of the rows any real image uses
@@ -736,17 +764,19 @@ class Predictor:
                     with torch.cuda.stream(download):
                         masks = {k: v[:m, :rows].cpu() for k, v in masks.items()}
                 dets.update({k: v[:m, :rows].numpy() for k, v in masks.items()})
-            packed = dets.pop("mask_bits_up", None)
-            dt = (time.perf_counter() - t0) * 1000
-            results.extend(self._postprocess(dets, packed, orig_shapes[lo:hi],
-                                             None if host_lb is None else host_lb[lo:hi], imgsz, frame_hw, dt))
+            return dets, tag, t0, waited
 
-        starts = list(range(0, n, batch_size))
-
-        def stage(i: int) -> np.ndarray:
-            """Chunk i's frames, padded with its last, in its staging buffer
-            (on the card a pinned one, once that buffer's last upload is done)."""
-            lo, hi = starts[i], min(starts[i] + batch_size, n)
+        def stage(i: int):
+            """The next chunk's frames, padded with its last, in chunk i's
+            staging buffer (on the card a pinned one, once that buffer's last
+            upload is done): (buffer, frames, tag), or None at the end."""
+            item = next(source, None)
+            if item is None:
+                return None
+            frames, tag = item
+            m = len(frames)
+            if not 0 < m <= batch_size:
+                raise ValueError(f"a chunk of {m} frames; the stream's batch is {batch_size}")
             if cuda:
                 slot = i % len(staging)
                 if uploaded[slot] is not None:
@@ -754,9 +784,9 @@ class Predictor:
                 buf = staging[slot].numpy()
             else:
                 buf = np.empty(shape, np.uint8)
-            np.stack(frames[lo:hi], axis=0, out=buf[: hi - lo])
-            buf[hi - lo:] = buf[hi - lo - 1]
-            return buf
+            np.stack(frames, axis=0, out=buf[:m])
+            buf[m:] = buf[m - 1]
+            return buf, m, tag
 
         def upload_chunk(i: int, buf: np.ndarray) -> torch.Tensor:
             """Chunk i's frames on the device (on the card: copied from its
@@ -773,15 +803,20 @@ class Predictor:
         # while this one launches. Chunk i + 1 is uploaded just before chunk
         # i's launch, so the copy runs beside chunk i's kernels.
         with ThreadPoolExecutor(max_workers=1) as stager:
-            next_dev = upload_chunk(0, stage(0))
-            staged = stager.submit(stage, 1) if len(starts) > 1 else None
-            for i, lo in enumerate(starts):
-                hi = min(lo + batch_size, n)
+            cur = stage(0)
+            if cur is None:
+                return
+            next_dev = upload_chunk(0, cur[0])
+            staged = stager.submit(stage, 1)
+            i = 0
+            while cur is not None:
+                _, m, tag = cur
                 t0 = time.perf_counter()
                 frames_dev = next_dev
-                if staged is not None:
-                    next_dev = upload_chunk(i + 1, staged.result())
-                    staged = stager.submit(stage, i + 2) if i + 2 < len(starts) else None
+                nxt = staged.result()
+                if nxt is not None:
+                    next_dev = upload_chunk(i + 1, nxt[0])
+                    staged = stager.submit(stage, i + 2)
                 if cuda:
                     compute.wait_event(uploaded[i % len(staging)])
                     frames_dev.record_stream(compute)
@@ -792,12 +827,12 @@ class Predictor:
                         dets = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
                                 for k, v in dets.items()}
                     done = compute.record_event() if cuda else None
-                pending.append((dets, masks, done, lo, hi, t0))  # the device runs on while the host drains
+                pending.append((dets, masks, done, m, tag, t0))  # the device runs on while the host drains
                 if len(pending) >= pipeline_depth:
-                    drain_one()
+                    yield drain_one()
+                cur, i = nxt, i + 1
             while pending:
-                drain_one()
-        return results
+                yield drain_one()
 
     def _postprocess(
         self,

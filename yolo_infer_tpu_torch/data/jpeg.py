@@ -8,7 +8,8 @@ decode (`decode_jpeg`): SOF0 and SOF1 frames of 8-bit samples with Huffman
   coding, 1 or 3 components, any sampling factors whose ratios are integers
   (444, 422, 420, 440, 411, ...), interleaved or one-component scans, DRI
   restart intervals, `FF00` byte stuffing and fill bytes, any width and
-  height. The entropy decoder is a Python loop over 9-bit lookup tables (a
+  height; a file without a DHT segment (motion-JPEG frames) takes the Annex
+  K.3 Huffman tables, as libjpeg-turbo does. The entropy decoder is a Python loop over 9-bit lookup tables (a
   code of up to 9 bits, and its magnitude bits where they fit, in one look);
   everything after it is numpy over all blocks at once:
     - the ISLOW integer inverse DCT (`jidctint.c`: 13-bit constants, two
@@ -38,6 +39,7 @@ malformed data raises `ValueError`.
 
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Dict, List, Sequence, Tuple
 
@@ -146,6 +148,17 @@ class _HuffTable:
             if code <= self.maxcode[length]:
                 return self.symbols[self.valptr[length] + code - self.mincode[length]], length
         raise ValueError("corrupt JPEG data: bad Huffman code")
+
+
+_STD_SLOTS = {(0, 0): "dc_luma", (1, 0): "ac_luma", (0, 1): "dc_chroma", (1, 1): "ac_chroma"}
+
+
+@functools.lru_cache(maxsize=1)
+def _std_tables() -> Dict[Tuple[int, int], _HuffTable]:
+    """The Annex K.3 tables in slots 0 and 1 of each class (`STD_HUFFMAN`),
+    built once; a decoder only reads them."""
+    return {slot: _HuffTable(*(bytes.fromhex(s) for s in STD_HUFFMAN[key]), ac=bool(slot[0]))
+            for slot, key in _STD_SLOTS.items()}
 
 
 def _parse_dht(body: bytes, tables: Dict[Tuple[int, int], _HuffTable]) -> None:
@@ -448,7 +461,10 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("not a JPEG file (no SOI marker)")
     qts: Dict[int, np.ndarray] = {}
-    hts: Dict[Tuple[int, int], _HuffTable] = {}
+    # slots 0 and 1 start with the Annex K.3 tables, as libjpeg-turbo's
+    # std_huff_tables fills every table no DHT defines: motion-JPEG frames
+    # (AVI1) carry no DHT segment; a DHT, before or between scans, replaces them
+    hts: Dict[Tuple[int, int], _HuffTable] = dict(_std_tables())
     comps: List[_Component] = []
     frame = None
     restart = 0

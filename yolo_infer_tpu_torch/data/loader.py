@@ -19,9 +19,10 @@ Any other format raises `NotImplementedError` (progressive JPEG, TIFF and
 WebP are ROADMAP Queue 1 item 10). `save_image` writes `.jpg`/`.jpeg` as
 `cv2.imwrite` does by default (quality 95, 4:2:0; `data/jpeg.py`, the same
 bytes) and PNG otherwise (filter 0 on every row). Images are uint8 HWC, RGB
-by default. `get_video_info` and `load_video` need a video decoder (the
-JAX package uses OpenCV's VideoCapture) and raise (ROADMAP Queue 1 item
-11). `create_dataset_config` writes its YAML with the port's
+by default. `get_video_info` and `load_video` read motion JPEG in AVI
+(`data/avi.py`; the frames of OpenCV's own MJPEG backend, bit for bit);
+other containers and codecs raise before any frame is read (ROADMAP Queue
+1 item 11.2). `create_dataset_config` writes its YAML with the port's
 `utils/yaml_io.py`.
 """
 
@@ -33,10 +34,11 @@ import random
 import struct
 import zlib
 from pathlib import Path
-from typing import Any, Dict, Generator, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from yolo_infer_tpu_torch.data.avi import AviReader
 from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp"}
@@ -46,7 +48,6 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel (8-bit)
 _UNSUPPORTED = ("the port reads baseline JPEG, PNG (8-bit grey, grey + alpha, RGB, RGBA; non-interlaced) and "
                 "24-bit BMP; other formats are ROADMAP Queue 1 item 10")
-_NO_VIDEO = "reading video needs a video decoder, which the port does not have yet (ROADMAP Queue 1 item 11)"
 
 
 def list_image_files(source: Union[str, Path]) -> List[Path]:
@@ -111,12 +112,23 @@ def save_image(path: Union[str, Path], img_rgb: np.ndarray, compress_level: int 
 
 
 def get_video_info(path: Union[str, Path]) -> Dict[str, Any]:
-    raise NotImplementedError(f"{path}: {_NO_VIDEO}")
+    """width, height, fps, frame_count and duration_s of a motion-JPEG AVI."""
+    return AviReader(path).info()
 
 
-def load_video(path: Union[str, Path], rgb: bool = True,
-               max_frames: Optional[int] = None) -> Generator[np.ndarray, None, None]:
-    raise NotImplementedError(f"{path}: {_NO_VIDEO}")
+def load_video(path: Union[str, Path], rgb: bool = True, max_frames: Optional[int] = None) -> Iterator[np.ndarray]:
+    """The frames of a motion-JPEG AVI as uint8 (H, W, 3), RGB by default (BGR
+    with `rgb=False`), at most `max_frames` (None: all). The file's headers
+    are read, and an unsupported file raises, before this returns."""
+    reader = AviReader(path)
+
+    def frames() -> Iterator[np.ndarray]:
+        for n, frame in enumerate(reader.read(rgb), 1):
+            yield frame
+            if max_frames is not None and n >= max_frames:
+                break
+
+    return frames()
 
 
 def load_image_batch(paths: Sequence[Union[str, Path]], rgb: bool = True) -> List[np.ndarray]:

@@ -1,26 +1,41 @@
-"""DetectionDemo: the image and directory demos.
+"""DetectionDemo: the image, directory and video demos.
 
 Port of `yolo_infer_tpu/demos/detection_demo.py` (`DetectionDemo` with its
 signature and defaults, conf 0.5 and iou 0.45; `detect_image` and its
-result dict; the standalone `main`). An image runs through
-`YOLO11Model.predict` on the card (or the CPU with `device="cpu"`), is drawn
-by `utils/visualization.py draw_results` and, with an output path, written
-by `data/loader.py save_image` (JPEG through the port's own encoder). A
-directory runs every image in it through `detect_image`
-(`detect_directory`). `last_timing` holds the host seconds of the last
-image's parts: decode, predict, draw and encode.
+result dict; `detect_video` and its summary; the standalone `main`). An
+image runs through `YOLO11Model.predict` on the card (or the CPU with
+`device="cpu"`), is drawn by `utils/visualization.py draw_results` and, with
+an output path, written by `data/loader.py save_image` (JPEG through the
+port's own encoder). A directory runs every image in it through
+`detect_image` (`detect_directory`). `last_timing` holds the host seconds of
+the last image's parts: decode, predict, draw and encode.
 
-Video and webcam sources need a video decoder and encoder, which the port
-does not have yet (the JAX package uses OpenCV's VideoCapture and
-VideoWriter): `detect_video` and `detect_webcam` raise (ROADMAP Queue 1
-item 11). There is no window toolkit either: `display=True` logs
-that the display is unavailable and goes on, as the JAX package does on a
-headless host.
+A video is motion JPEG in AVI (`data/avi.py`; other containers and codecs
+raise before any frame is read, ROADMAP Queue 1 item 11.2), written back as
+one (`create_video_writer`). For detect, `detect_video` is the JAX demo's
+batched pipeline: a decode thread reads and letterboxes frames on the host
+into batches of `batch_size` (the last one padded with its last frame), the
+predictor's staging pipeline (`Predictor._serve_stream`, the one
+`predict_many` runs) keeps up to `pipeline_depth` batches in flight through
+`predict_raw` at `imgsz`, and this thread draws and encodes each drained
+batch. A failure of the decode thread is raised here. `last_timing` then
+holds the run's host seconds by part: decode and letterbox (the decode
+thread), device_wait (drains waiting for the device), pipeline (the rest of
+this thread's time in the pipeline: launches, staging, waiting for decoded
+batches), draw and encode. The other tasks run each frame through
+`YOLO11Model.predict` and `draw_results` (`_video_per_frame`). Webcam input
+needs a camera reader, which the port does not have (`detect_webcam`
+raises, ROADMAP Queue 1 item 11.3). There is no window toolkit either:
+`display=True` logs that the display is unavailable and goes on, as the JAX
+package does on a headless host.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import queue
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
@@ -29,12 +44,20 @@ import numpy as np
 import torch
 
 from yolo_infer_tpu_torch.core.model import SUPPORTED_TASKS, YOLO11Model
-from yolo_infer_tpu_torch.data.loader import VIDEO_EXTS, list_image_files, load_image, save_image
-from yolo_infer_tpu_torch.utils.visualization import draw_results
+from yolo_infer_tpu_torch.data.loader import (
+    VIDEO_EXTS,
+    get_video_info,
+    list_image_files,
+    load_image,
+    load_video,
+    save_image,
+)
+from yolo_infer_tpu_torch.ops.letterbox import letterbox, letterbox_params, scale_boxes
+from yolo_infer_tpu_torch.utils.visualization import create_video_writer, draw_detections, draw_results
 
 logger = logging.getLogger(__name__)
 
-_NO_VIDEO = "needs a video decoder, which the port does not have yet (ROADMAP Queue 1 item 11)"
+_END = object()  # the decode thread's last item
 
 
 class DetectionDemo:
@@ -146,11 +169,167 @@ class DetectionDemo:
     def detect_video(self, video_path: Union[str, Path], output_path: Optional[Union[str, Path]] = None,
                      display: bool = False, batch_size: int = 8, pipeline_depth: int = 2,
                      max_frames: Optional[int] = None, progress_every: int = 30) -> Dict[str, Any]:
-        raise NotImplementedError(f"video input {_NO_VIDEO}")
+        """Batched video inference with decode, device and draw/encode
+        overlapped (detect; the other tasks go frame by frame). Returns
+        total_frames, total_detections, processing_time_s, fps, video_info
+        and output_path."""
+        if self.task != "detect":
+            return self._video_per_frame(video_path, output_path, display, max_frames)
+        info = get_video_info(video_path)
+        frames = load_video(video_path)
+        writer = create_video_writer(output_path, info["fps"] or 30.0, (info["width"], info["height"])) \
+            if output_path else None
+        timing = dict.fromkeys(("decode", "letterbox", "device_wait", "pipeline", "draw", "encode"), 0.0)
+        batch_q: "queue.Queue" = queue.Queue(maxsize=pipeline_depth + 1)
+        stop = threading.Event()
+
+        def put(item) -> None:
+            while not stop.is_set():
+                try:
+                    batch_q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+        def decode() -> None:
+            """Read and letterbox frames into batches of (letterboxed, original)."""
+            lbs: List[np.ndarray] = []
+            rgbs: List[np.ndarray] = []
+            try:
+                n = 0
+                while not stop.is_set() and not (max_frames and n >= max_frames):
+                    t0 = time.perf_counter()
+                    rgb = next(frames, None)
+                    t1 = time.perf_counter()
+                    if rgb is None:
+                        break
+                    lbs.append(letterbox(rgb, self.imgsz)[0])
+                    rgbs.append(rgb)
+                    timing["decode"] += t1 - t0
+                    timing["letterbox"] += time.perf_counter() - t1
+                    n += 1
+                    if len(rgbs) == batch_size:
+                        put((lbs, rgbs))
+                        lbs, rgbs = [], []
+                if rgbs:
+                    put((lbs, rgbs))
+                put(_END)
+            except BaseException as exc:  # noqa: BLE001 -- handed to the consumer, which raises it
+                put(exc)
+            finally:
+                frames.close()
+
+        def batches():
+            """The decode thread's batches; its failure raised here."""
+            while True:
+                try:
+                    item = batch_q.get(timeout=0.1)
+                except queue.Empty:
+                    if stop.is_set():
+                        return
+                    continue
+                if item is _END:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+
+        decoder = threading.Thread(target=decode, name="video-decode", daemon=True)
+        decoder.start()
+        predictor = self.model.predictor
+        ratio, pad, _ = letterbox_params((info["height"], info["width"]), self.imgsz)
+        total_frames = total_dets = n_batches = 0
+        t_start = time.perf_counter()
+        stream = None
+        try:
+            source = batches()
+            first = next(source, None)
+            if first is not None:
+                shape = (batch_size,) + first[0][0].shape
+                stream = predictor._serve_stream(itertools.chain([first], source), shape, self.conf_threshold,
+                                                 self.iou_threshold, self.imgsz, None, False, pipeline_depth)
+                t_pipe = time.perf_counter()
+                for dets, rgbs, _, waited in stream:
+                    t0 = time.perf_counter()
+                    timing["device_wait"] += waited
+                    timing["pipeline"] += t0 - t_pipe - waited
+                    for i, frame in enumerate(rgbs):
+                        k = int(dets["num"][i])
+                        boxes = scale_boxes(dets["boxes"][i, :k], ratio, pad, frame.shape[:2])
+                        total_dets += k
+                        t1 = time.perf_counter()
+                        annotated = draw_detections(frame, boxes, dets["scores"][i, :k],
+                                                    dets["classes"][i, :k].astype(np.int32), self.model.names)
+                        t2 = time.perf_counter()
+                        if writer is not None:
+                            writer.write(annotated[..., ::-1])
+                        timing["draw"] += t2 - t1
+                        timing["encode"] += time.perf_counter() - t2
+                    total_frames += len(rgbs)
+                    n_batches += 1
+                    if progress_every and n_batches % progress_every == 0:
+                        logger.info("processed %d frames", total_frames)
+                    t_pipe = time.perf_counter()
+        finally:
+            stop.set()
+            if stream is not None:
+                stream.close()
+            decoder.join()
+            if writer is not None:
+                writer.release()
+        if display:
+            logger.warning("display unavailable (no window toolkit); skipping it")
+        elapsed = time.perf_counter() - t_start
+        self.last_timing = timing
+        summary = {
+            "total_frames": total_frames,
+            "total_detections": total_dets,
+            "processing_time_s": elapsed,
+            "fps": total_frames / elapsed if elapsed > 0 else 0.0,
+            "video_info": info,
+            "output_path": str(output_path) if output_path else None,
+        }
+        logger.info("video done: %d frames in %.1fs (%.1f fps)", total_frames, elapsed, summary["fps"])
+        return summary
+
+    def _video_per_frame(self, video_path, output_path, display, max_frames) -> Dict[str, Any]:
+        """Every frame through `YOLO11Model.predict` and `draw_results` (the
+        tasks other than detect)."""
+        info = get_video_info(video_path)
+        frames = load_video(video_path)
+        writer = create_video_writer(output_path, info["fps"] or 30.0, (info["width"], info["height"])) \
+            if output_path else None
+        n, total_dets = 0, 0
+        t0 = time.perf_counter()
+        try:
+            for rgb in frames:
+                if max_frames and n >= max_frames:
+                    break
+                result = self.model.predict(rgb, conf=self.conf_threshold, iou=self.iou_threshold, imgsz=self.imgsz)[0]
+                annotated = draw_results(rgb, result)
+                total_dets += len(result)
+                n += 1
+                if writer is not None:
+                    writer.write(annotated[..., ::-1])
+        finally:
+            if writer is not None:
+                writer.release()
+        if display:
+            logger.warning("display unavailable (no window toolkit); skipping it")
+        elapsed = time.perf_counter() - t0
+        return {
+            "total_frames": n,
+            "total_detections": total_dets,
+            "processing_time_s": elapsed,
+            "fps": n / elapsed if elapsed > 0 else 0.0,
+            "video_info": info,
+            "output_path": str(output_path) if output_path else None,
+        }
 
     def detect_webcam(self, camera_id: int = 0, display: bool = True,
                       max_frames: Optional[int] = None) -> Dict[str, Any]:
-        raise NotImplementedError(f"webcam input {_NO_VIDEO}")
+        raise NotImplementedError("webcam input needs a camera reader, which the port does not have "
+                                  "(ROADMAP Queue 1 item 11.3)")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -159,7 +338,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     p = argparse.ArgumentParser(description="YOLO11 detection demo (the PyTorch port)")
     p.add_argument("--input", required=True, help="image path, directory, video path or camera index")
-    p.add_argument("--output", default=None, help="annotated image (or directory, for a directory input)")
+    p.add_argument("--output", default=None, help="annotated image, directory (for a directory input) or .avi video")
     p.add_argument("--model-size", default="n", choices=list("nsmlx"))
     p.add_argument("--model-path", default=None)
     p.add_argument("--task", default="detect", choices=["detect", "segment", "classify", "pose", "obb"])
