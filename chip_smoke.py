@@ -368,6 +368,22 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              beside the card's name and power limit. Then segment video
              frame by frame over 4 frames (`predict` and `draw_results` per
              frame): A, B and D launched
+ 33. formats every still-image format on the card's host, ~40 s: each
+             fixture of `tests/torch_formats/` decodes to its manifest's
+             hash of OpenCV's pixels and shape, and each refused file raises
+             as listed; a seeded 480x640 frame written as `.bmp`, `.tiff`
+             and `.webp` by the port reads back bit for bit; the host
+             seconds to decode one 480x640 frame in each format (median of
+             3) on a line beside the card's name and power limit; `val`
+             through the CLI (yolo11n detect, b16/640 bf16, phase 4's
+             weights) over 32 seeded frames stored as progressive JPEG,
+             palette PNG, 16-bit PNG, LZW TIFF, lossless WebP and 8-bit BMP
+             (written here: no OpenCV on the card's machine), labelled with
+             the model's own detections, then over the same frames as the
+             port decoded them, saved as PNG: every metric equal, F and G
+             launched; the demo on a progressive JPEG and on a WebP of one
+             frame: detections equal to the demo's on the PNG copy of each
+             decode (1e-3 px, 1e-5; bit equality reported), A and B launched
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -401,11 +417,13 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import traceback
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -4826,6 +4844,327 @@ def phase_video(report):
     return out
 
 
+FORMATS_FRAMES = 32  # the mixed-format validation set: seeded 480x640 frames
+FORMATS_SIZE = (480, 640)
+FORMATS_SERVE = (16, 640)  # val: batch, imgsz (the demo at imgsz)
+FORMATS_LEVELS = 6  # levels per channel of the frames' noise: 216 colours, so a palette holds them
+FORMATS_KINDS = ("progressive.jpg", "palette.png", "rgb16.png", "lzw.tif", "lossless.webp", "palette8.bmp")
+FORMATS_VAL_KERNELS = ("dfl_decode", "greedy_nms_keep")  # F, G
+FORMATS_DEMO_KERNELS = ("nms_keep", "attention_qkv")  # A, B
+
+
+def formats_frame(seed: int) -> np.ndarray:
+    """Uniform noise of FORMATS_LEVELS levels a channel (the smoke weights'
+    batch norms were set on noise, as in phase 28), 480x640 RGB."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, FORMATS_LEVELS, FORMATS_SIZE + (3,)) * (255 // (FORMATS_LEVELS - 1))).astype(np.uint8)
+
+
+def _packed_scan(codes, lengths) -> bytes:
+    """Huffman-coded emits (code, bit length), most significant bit first,
+    padded with 1 bits and byte-stuffed."""
+    from yolo_infer_tpu_torch.data.jpeg import pack_msb_first, stuffed
+
+    return stuffed(pack_msb_first(np.concatenate(codes), np.concatenate(lengths), pad_bit=1))
+
+
+def progressive_jpeg(rgb: np.ndarray) -> bytes:
+    """A progressive (SOF2) 4:2:0 JPEG of an RGB frame whose sides are
+    multiples of 16: the port's encoder's quantised coefficients (quality
+    95), sent as a DC first scan of the three components at Al = 1, its
+    refine scan, and one AC scan (1..63) per component, with the Annex K
+    tables. The card's machine has no OpenCV to write one."""
+    from yolo_infer_tpu_torch.data import jpeg as J
+
+    h, w = rgb.shape[:2]
+    assert h % 16 == 0 and w % 16 == 0, (h, w)
+    planes = J._rgb_to_ycc(rgb)
+    coefs = []
+    for i, (plane, qt) in enumerate(zip(planes, (J.LUMA_QT, J.CHROMA_QT, J.CHROMA_QT))):
+        ds = J._downsample(plane, 1 if i == 0 else 2, w // (1 if i == 0 else 2))
+        bh, bw = ds.shape[0] // 8, ds.shape[1] // 8
+        blocks = (ds - 128).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+        coefs.append(J._quantize(J._fdct_islow(blocks), qt).reshape(bh, bw, 64)[..., J.ZIGZAG])
+    tabs = {k: J._code_table(k) for k in J.STD_HUFFMAN}
+    mcuy, mcux = h // 16, w // 16
+    # MCU order: four luma blocks (2x2), then Cb, then Cr
+    y = coefs[0].reshape(mcuy, 2, mcux, 2, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, 4, 64)
+    order = np.concatenate([y, coefs[1].reshape(-1, 1, 64), coefs[2].reshape(-1, 1, 64)], axis=1)
+    comp = np.array([0, 0, 0, 0, 1, 2])
+    dc = order[..., 0]
+    scans = []
+    # DC first, Al = 1: differences of dc >> 1 within each component, in MCU order
+    first = dc >> 1
+    codes, lengths = [], []
+    diffs = np.empty_like(first)
+    for c in range(3):
+        seq = first[:, comp == c].reshape(-1)
+        diffs[:, comp == c] = np.diff(seq, prepend=0).reshape(-1, int((comp == c).sum()))
+    diffs = diffs.reshape(-1)
+    size = J._bits_of(diffs)
+    keys = np.tile(np.where(comp == 0, 0, 1), mcuy * mcux)
+    dc_codes = np.where(keys == 0, tabs["dc_luma"][0][size], tabs["dc_chroma"][0][size])
+    dc_lens = np.where(keys == 0, tabs["dc_luma"][1][size], tabs["dc_chroma"][1][size])
+    codes.append((dc_codes << size) | ((diffs - (diffs < 0)) & ((1 << size) - 1)))
+    lengths.append(dc_lens + size)
+    scans.append((bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 0, 0x01]), _packed_scan(codes, lengths)))
+    # DC refine, Ah = 1, Al = 0: the low bit of every DC, in MCU order
+    low = (dc.reshape(-1) & 1).astype(np.int64)
+    scans.append((bytes([3, 1, 0x00, 2, 0x00, 3, 0x00, 0, 0, 0x10]), _packed_scan([low], [np.ones_like(low)])))
+    # AC first, 1..63, Al = 0, one component a scan in its own raster order: EOB0 ends a block
+    for c, key in enumerate(("ac_luma", "ac_chroma", "ac_chroma")):
+        zz = coefs[c].reshape(-1, 64)
+        cd, ln = tabs[key]
+        blk_e, slot_e, code_e, len_e = [], [], [], []
+        b_idx, k_idx = np.nonzero(zz[:, 1:])
+        k_idx = k_idx + 1
+        vals = zz[b_idx, k_idx]
+        start = np.ones(len(b_idx), bool)
+        start[1:] = b_idx[1:] != b_idx[:-1]
+        run = k_idx - np.where(start, 0, np.concatenate([[0], k_idx[:-1]])) - 1
+        zrl = run // 16
+        owner = np.repeat(np.arange(len(b_idx)), zrl)
+        blk_e.append(b_idx[owner])
+        slot_e.append(2 * k_idx[owner])
+        code_e.append(np.full(len(owner), cd[0xF0]))
+        len_e.append(np.full(len(owner), ln[0xF0]))
+        size = J._bits_of(vals)
+        sym = ((run % 16) << 4) | size
+        blk_e.append(b_idx)
+        slot_e.append(2 * k_idx + 1)
+        code_e.append((cd[sym] << size) | ((vals - (vals < 0)) & ((1 << size) - 1)))
+        len_e.append(ln[sym] + size)
+        last = np.zeros(len(zz), np.int64)
+        np.maximum.at(last, b_idx, k_idx)
+        eob = np.flatnonzero(last < 63)
+        blk_e.append(eob)
+        slot_e.append(np.full(len(eob), 130))
+        code_e.append(np.full(len(eob), cd[0x00]))
+        len_e.append(np.full(len(eob), ln[0x00]))
+        at = np.argsort(np.concatenate(blk_e) * 256 + np.concatenate(slot_e), kind="stable")
+        scans.append((bytes([1, c + 1, 0x00 if c == 0 else 0x11, 1, 63, 0]),
+                      _packed_scan([np.concatenate(code_e)[at]], [np.concatenate(len_e)[at]])))
+    out = [b"\xff\xd8", J._segment(0xE0, b"JFIF\0" + bytes([1, 1, 0, 0, 1, 0, 1, 0, 0]))]
+    for tq, qt in enumerate((J.LUMA_QT, J.CHROMA_QT)):
+        out.append(J._segment(0xDB, bytes([tq]) + bytes(qt[J.ZIGZAG].astype(np.uint8).tolist())))
+    sof = struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])
+    out.append(J._segment(0xC2, sof))
+    for tc, key in ((0x00, "dc_luma"), (0x10, "ac_luma"), (0x01, "dc_chroma"), (0x11, "ac_chroma")):
+        counts, symbols = J.STD_HUFFMAN[key]
+        out.append(J._segment(0xC4, bytes([tc]) + bytes.fromhex(counts) + bytes.fromhex(symbols)))
+    for header, data in scans:
+        out += [J._segment(0xDA, header), data]
+    return b"".join(out + [b"\xff\xd9"])
+
+
+def palette_of(rgb: np.ndarray):
+    """(colours (n, 3), index of each pixel) of a frame of at most 256 colours."""
+    packed = (rgb[..., 0].astype(np.int64) << 16) | (rgb[..., 1].astype(np.int64) << 8) | rgb[..., 2]
+    keys, index = np.unique(packed.reshape(-1), return_inverse=True)
+    assert len(keys) <= 256, len(keys)
+    return np.stack([keys >> 16, (keys >> 8) & 255, keys & 255], axis=-1).astype(np.uint8), index
+
+
+def palette_png(rgb: np.ndarray, depth16: bool = False) -> bytes:
+    """An 8-bit palette PNG of a frame of at most 256 colours, or (with
+    `depth16`) a 16-bit RGB PNG whose samples are v * 257 (read as v)."""
+    from yolo_infer_tpu_torch.data.png import PNG_SIGNATURE, png_chunk
+
+    h, w = rgb.shape[:2]
+    if depth16:
+        rows = (rgb.astype(np.uint16) * 257).astype(">u2").view(np.uint8).reshape(h, -1)
+        head, extra = struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0), b""
+    else:
+        colours, index = palette_of(rgb)
+        rows = index.reshape(h, w).astype(np.uint8)
+        head, extra = struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0), png_chunk(b"PLTE", colours.tobytes())
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    return (PNG_SIGNATURE + png_chunk(b"IHDR", head) + extra + png_chunk(b"IDAT", zlib.compress(raw, 6))
+            + png_chunk(b"IEND", b""))
+
+
+def palette_bmp(rgb: np.ndarray) -> bytes:
+    """An 8-bit palette BMP (BITMAPINFOHEADER, bottom-up) of a frame of at most 256 colours."""
+    h, w = rgb.shape[:2]
+    colours, index = palette_of(rgb)
+    palette = np.zeros((len(colours), 4), np.uint8)
+    palette[:, :3] = colours[:, ::-1]
+    step = (w + 3) & ~3
+    rows = np.zeros((h, step), np.uint8)
+    rows[:, :w] = index.reshape(h, w)
+    offset = 14 + 40 + palette.size
+    return (b"BM" + struct.pack("<III", offset + rows.size, 0, offset)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, rows.size, 0, 0, len(colours), 0)
+            + palette.tobytes() + rows[::-1].tobytes())
+
+
+def write_formats(path: Path, kind: str, rgb: np.ndarray) -> None:
+    from yolo_infer_tpu_torch.data.loader import save_image
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if kind == "progressive.jpg":
+        path.write_bytes(progressive_jpeg(rgb))
+    elif kind in ("palette.png", "rgb16.png"):
+        path.write_bytes(palette_png(rgb, depth16=kind == "rgb16.png"))
+    elif kind == "palette8.bmp":
+        path.write_bytes(palette_bmp(rgb))
+    else:
+        save_image(path, rgb)  # the port's writers: LZW TIFF, lossless WebP
+
+
+def phase_formats(report):
+    """Every still-image format on the card's host (phase 33): the fixtures'
+    manifest, the writers' round trips, `val` on a mixed-format dataset
+    against its PNG copy (F, G) and the demo on progressive JPEG and WebP
+    against their PNG copies (A, B); the decoders' host seconds."""
+    import hashlib
+    from statistics import median
+
+    import torch
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.data.loader import create_dataset_config, load_image, save_image
+
+    here = Path(__file__).resolve().parent
+    out = {"phase": "formats", "card": card_line()}
+    failures = []
+    # --- the decoders: every committed fixture to OpenCV's pixel hashes, and the refused kinds
+    fixtures = here / "tests" / "torch_formats"
+    manifest = json.loads((fixtures / "manifest.json").read_text())
+    mismatched, wrong_error = [], []
+    for name, entry in manifest["files"].items():
+        img = load_image(fixtures / name, rgb=False)
+        if (list(img.shape) != entry["shape"]
+                or hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest() != entry["sha256"]):
+            mismatched.append(name)
+    for name, entry in manifest["raises"].items():
+        try:
+            load_image(fixtures / name)
+            wrong_error.append((name, None))
+        except (NotImplementedError, FileNotFoundError) as exc:
+            if type(exc).__name__ != entry["error"]:
+                wrong_error.append((name, type(exc).__name__))
+    out["fixtures"] = {"files": len(manifest["files"]), "mismatched": mismatched, "refused": len(manifest["raises"]),
+                       "wrong_error": wrong_error}
+    if mismatched or wrong_error or len(manifest["files"]) < 60:
+        failures.append(f"fixtures: {out['fixtures']}")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_formats_"))
+    launches = collections.Counter()
+    runs = {}
+
+    def cli(name, *argv):
+        rc, parsed, seconds, counts, errors = run_cli(*argv)
+        launches.update(counts)
+        runs[name] = {"rc": rc, "seconds": seconds, "launches": counts}
+        if rc != 0:
+            failures.append(f"{name}: exit {rc} ({errors[-1:] or parsed})")
+        return parsed
+
+    try:
+        # --- the writers: a seeded frame through .bmp, .tiff and .webp and back
+        frame = formats_frame(SEED + 33)
+        out["writers"] = {}
+        for suffix in (".bmp", ".tiff", ".webp"):
+            t0 = time.perf_counter()
+            save_image(root / f"w{suffix}", frame)
+            t1 = time.perf_counter()
+            back = load_image(root / f"w{suffix}")
+            out["writers"][suffix] = {"equal": bool(np.array_equal(back, frame)), "bytes": (root / f"w{suffix}").stat(
+            ).st_size, "write_s": t1 - t0, "read_s": time.perf_counter() - t1}
+        if not all(v["equal"] for v in out["writers"].values()):
+            failures.append(f"writers' round trips: {out['writers']}")
+        # --- decode times: one 480x640 frame in each format, median of 3
+        decode_s = {}
+        for kind in FORMATS_KINDS + ("baseline.jpg",):
+            path = root / "timing" / f"f.{kind}"
+            write_formats(path, kind, frame) if kind != "baseline.jpg" else save_image(path, frame)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                load_image(path)
+                times.append(time.perf_counter() - t0)
+            decode_s[kind] = median(times)
+        out["decode_s_480x640"] = decode_s
+        emit({"formats_decode_s_480x640": decode_s, "card": out["card"]})
+        # --- val: 32 frames in six formats, then the same frames as the port decoded them, saved as PNG
+        model = report["weights"][0] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "smoke.msgpack")
+        mixed, copy_dir = root / "mixed" / "images" / "val", root / "png" / "images" / "val"
+        t0 = time.perf_counter()
+        decoded, kinds = [], collections.Counter()
+        for i in range(FORMATS_FRAMES):
+            kind = FORMATS_KINDS[i % len(FORMATS_KINDS)]
+            path = mixed / f"f{i:02d}{Path(kind).suffix}"
+            write_formats(path, kind, formats_frame(SEED + 3300 + i))
+            kinds[kind] += 1
+        out["write_dataset_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for path in sorted(mixed.iterdir()):
+            img = load_image(path)
+            decoded.append(img)
+            save_image(copy_dir / f"{path.stem}.png", img, compress_level=1)
+        out["decode_and_copy_s"] = time.perf_counter() - t0
+        labelled = YOLO11Model(ckpt).predict(decoded, conf=0.25, imgsz=FORMATS_SERVE[1])
+        for sub in ("mixed", "png"):
+            labels = root / sub / "labels" / "val"
+            labels.mkdir(parents=True)
+            for path, r in zip(sorted(mixed.iterdir()), labelled):
+                h, w = r.orig_shape
+                rows = [f"{c} {(b[0] + b[2]) / 2 / w:.6f} {(b[1] + b[3]) / 2 / h:.6f} {(b[2] - b[0]) / w:.6f} "
+                        f"{(b[3] - b[1]) / h:.6f}" for b, c in zip(r.boxes.clip(0, [w, h, w, h]), r.classes)]
+                (labels / f"{path.stem}.txt").write_text("\n".join(rows) + "\n")
+        vals = {}
+        for sub in ("mixed", "png"):
+            images = root / sub / "images" / "val"
+            data = create_dataset_config(root / sub / "data.yaml", str(images), str(images),
+                                         {c: str(c) for c in range(80)})
+            vals[sub] = cli(f"val_{sub}", "val", "--data", data, "--batch", FORMATS_SERVE[0], "--imgsz",
+                            FORMATS_SERVE[1], "--model-path", ckpt, "--output-dir", root / f"vout_{sub}")
+        if all(isinstance(v, dict) for v in vals.values()):
+            m, p = ({k: float(x) for k, x in vals[s]["metrics"].items()} for s in ("mixed", "png"))
+            out["val"] = {"images": {s: vals[s]["num_images"] for s in vals}, "kinds": dict(kinds),
+                          "labels": sum(len(r) for r in labelled), "metrics_mixed": m, "metrics_png": p,
+                          "images_per_s_wall": {s: FORMATS_FRAMES / runs[f"val_{s}"]["seconds"] for s in vals},
+                          "launches": {s: {k: runs[f"val_{s}"]["launches"].get(k, 0) for k in FORMATS_VAL_KERNELS}
+                                       for s in vals}}
+            if m != p or any(n != FORMATS_FRAMES for n in out["val"]["images"].values()):
+                failures.append(f"val over the mixed formats differs from val over their PNG copies: {out['val']}")
+            if min(out["val"]["launches"]["mixed"].values()) < 1:
+                failures.append(f"val over the mixed formats launched F or G no time: {out['val']['launches']}")
+        # --- demo: a progressive JPEG and a WebP of one frame, each against the PNG copy of its decode
+        demo_frame = formats_frame(SEED + 3399)
+        out["demo"] = {}
+        for kind in ("progressive.jpg", "lossless.webp"):
+            src = root / "demo" / f"d.{kind}"
+            write_formats(src, kind, demo_frame)
+            save_image(root / "demo" / f"{kind}.png", load_image(src))
+            got = cli(f"demo_{kind}", "demo", "--input", src, "--model-path", ckpt, "--imgsz", FORMATS_SERVE[1])
+            want = cli(f"demo_{kind}_png", "demo", "--input", root / "demo" / f"{kind}.png", "--model-path", ckpt,
+                       "--imgsz", FORMATS_SERVE[1])
+            if isinstance(got, dict) and isinstance(want, dict):
+                g, w = _dets(got), _dets(want)
+                equal = len(g) == len(w) and bool(np.array_equal(g.boxes, w.boxes) and np.array_equal(
+                    g.scores, w.scores) and np.array_equal(g.classes, w.classes))
+                out["demo"][kind] = {"detections": len(g), "png_detections": len(w), "bit_equal": equal,
+                                     "launches": {k: runs[f"demo_{kind}"]["launches"].get(k, 0)
+                                                  for k in FORMATS_DEMO_KERNELS}}
+                unmatched = match_detections(g, w, 1e-3, 1e-5)[0] if len(g) == len(w) else None
+                if not len(g) or unmatched != 0:
+                    failures.append(f"demo on {kind} differs from the demo on its PNG copy: {out['demo'][kind]}")
+                if min(out["demo"][kind]["launches"].values()) < 1:
+                    failures.append(f"demo on {kind} launched A or B no time: {out['demo'][kind]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["runs"] = runs
+    out["launches"] = {k: launches[k] for k in FORMATS_VAL_KERNELS + FORMATS_DEMO_KERNELS}
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
@@ -4852,7 +5191,7 @@ def main() -> int:
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
-              phase_cli, phase_train, phase_optimize, phase_parallel, phase_video)
+              phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -83,13 +83,16 @@ def test_save_image_round_trips_and_cv2_reads_it(tmp_path, shape):
 
 def test_unsupported_and_missing_files_raise(tmp_path):
     img = _picture(np.random.default_rng(0), 16, 16, 3)
-    cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])  # progressive: not decoded
+    cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])  # progressive: decoded as cv2 does
+    np.testing.assert_array_equal(load_image(tmp_path / "a.jpg", rgb=False), cv2.imread(str(tmp_path / "a.jpg")))
+    cv2.imwrite(str(tmp_path / "lossy.webp"), img, [cv2.IMWRITE_WEBP_QUALITY, 80])  # lossy WebP: still refused
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        load_image(tmp_path / "a.jpg")
+        load_image(tmp_path / "lossy.webp")
     with pytest.raises(FileNotFoundError):
         load_image(tmp_path / "missing.png")
-    with pytest.raises(NotImplementedError):
-        save_image(tmp_path / "b.tiff", img)
+    save_image(tmp_path / "b.tiff", img[..., ::-1])  # TIFF: written, and read back by cv2 and the port
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "b.tiff")), img)
+    np.testing.assert_array_equal(load_image(tmp_path / "b.tiff", rgb=False), img)
     save_image(tmp_path / "c.png", img)
     broken = bytearray((tmp_path / "c.png").read_bytes())
     broken[40] ^= 0xFF  # inside IDAT: the CRC no longer matches

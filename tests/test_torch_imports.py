@@ -23,7 +23,9 @@ blocked. A seventh runs every optimize method with those blocks: dynamic int8,
 magnitude and physical pruning, distillation, QAT and segment, pose and OBB
 training. An eighth runs `yolo_infer_tpu_torch.parallel` (a meshed step,
 predictor and dry run in a gloo group of one) with jax and `yolo_infer_tpu`
-blocked. Last, every "ROADMAP Queue 1 item N" in
+blocked. A ninth reads every image fixture to its manifest's hash and
+round-trips every writer with jax, cv2, PIL and `yolo_infer_tpu` blocked.
+Last, every "ROADMAP Queue 1 item N" in
 the port's sources names an item that ROADMAP's Queue 1 has.
 """
 
@@ -432,6 +434,38 @@ def test_port_parallel_runs_without_jax_or_the_jax_package():
     and dry run in a gloo group of one, with jax, yolo_infer_tpu, cv2, yaml
     and PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _PARALLEL_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
+
+
+_FORMATS_CODE = """
+import hashlib, json, sys, tempfile
+from pathlib import Path
+for name in ("jax", "cv2", "PIL", "yolo_infer_tpu"):
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+import numpy as np
+from yolo_infer_tpu_torch.data.loader import load_image, save_image
+fixtures = Path({repo!r}) / "tests" / "torch_formats"
+manifest = json.loads((fixtures / "manifest.json").read_text())
+for name, entry in manifest["files"].items():
+    img = load_image(fixtures / name, rgb=False)
+    assert hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"], name
+frame = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+with tempfile.TemporaryDirectory() as tmp:
+    for suffix in (".bmp", ".tif", ".webp", ".jpg", ".png"):
+        save_image(Path(tmp) / ("f" + suffix), frame)
+        back = load_image(Path(tmp) / ("f" + suffix))
+        assert back.shape == frame.shape and (suffix == ".jpg" or np.array_equal(back, frame)), suffix
+assert not any(m.split(".")[0] in ("jax", "cv2", "PIL", "yolo_infer_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+"""
+
+
+def test_port_reads_and_writes_every_image_format_without_opencv_or_pil():
+    """Every committed fixture of `tests/torch_formats/` decodes to its
+    manifest's hash, and the port's writers round-trip, with jax, cv2, PIL
+    and the JAX package blocked."""
+    subprocess.run([sys.executable, "-I", "-c", _FORMATS_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 
 

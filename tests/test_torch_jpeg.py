@@ -6,7 +6,8 @@ encodes what `cv2.imwrite(".jpg")` writes (its `save_image`). Held here bit
 for bit, RGB and BGR, over qualities 50, 75, 95 and 100, the five samplings
 OpenCV writes (444, 422, 420, 440, 411), grey, restart intervals, sizes
 1x1, 17x33 and 97x129, the eight EXIF orientations and `assets/sample.jpg`;
-unsupported kinds raise with a ROADMAP pointer; the committed fixtures'
+arithmetic and 12-bit files raise with a ROADMAP pointer (progressive,
+CMYK, TIFF and WebP, which raised before, decode to OpenCV's pixels); the committed fixtures'
 manifest (`tests/torch_jpeg/`, which the card's check reads) matches OpenCV.
 """
 
@@ -116,6 +117,9 @@ def test_decode_sample_image():
 
 
 def test_decode_unsupported_kinds_raise_with_a_roadmap_pointer(tmp_path):
+    """Arithmetic-coded and 12-bit JPEG still raise citing the roadmap; the
+    kinds this test once expected to raise (progressive, CMYK, TIFF and
+    WebP written by cv2) now decode to OpenCV's pixels."""
     img = frame(0, 24, 32)
     progressive = write(tmp_path, "p.jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     base = cv2.imencode(".jpg", img)[1].tobytes()
@@ -124,15 +128,16 @@ def test_decode_unsupported_kinds_raise_with_a_roadmap_pointer(tmp_path):
     arithmetic.write_bytes(base[:sof] + b"\xff\xc9" + base[sof + 2:])
     twelve_bit = tmp_path / "t.jpg"
     twelve_bit.write_bytes(base[:sof + 4] + b"\x0c" + base[sof + 5:])
-    # a CMYK frame: four components after an Adobe APP14 segment (transform 0)
-    h, w = 24, 32
-    sof4 = struct.pack(">BHHB", 8, h, w, 4) + b"".join(bytes([i + 1, 0x11, 0]) for i in range(4))
-    adobe = b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 0)
+    # a CMYK frame: four components after an Adobe APP14 segment (transform 0), written by Pillow
+    from PIL import Image
+
     cmyk = tmp_path / "c.jpg"
-    cmyk.write_bytes(b"\xff\xd8" + struct.pack(">BBH", 0xFF, 0xEE, len(adobe) + 2) + adobe
-                     + struct.pack(">BBH", 0xFF, 0xC0, len(sof4) + 2) + sof4 + b"\xff\xd9")
+    Image.fromarray(np.concatenate([img, img[..., :1]], -1), "CMYK").save(cmyk, "JPEG")
+    assert b"Adobe" in cmyk.read_bytes()
     tiff, webp = write(tmp_path, "x.tiff", img), write(tmp_path, "x.webp", img)
-    for path in (progressive, arithmetic, twelve_bit, cmyk, tiff, webp):
+    for path in (progressive, cmyk, tiff, webp):
+        assert_decodes_as_opencv(path)
+    for path in (arithmetic, twelve_bit):
         with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 10"):
             load_image(path)
     with pytest.raises(FileNotFoundError):

@@ -4,12 +4,16 @@ The JAX package reads and writes JPEG through OpenCV (`cv2.imread`,
 `cv2.imwrite`), which calls libjpeg-turbo with its defaults. The port does
 not depend on OpenCV, so it does the same arithmetic itself:
 
-decode (`decode_jpeg`): SOF0 and SOF1 frames of 8-bit samples with Huffman
-  coding, 1 or 3 components, any sampling factors whose ratios are integers
-  (444, 422, 420, 440, 411, ...), interleaved or one-component scans, DRI
-  restart intervals, `FF00` byte stuffing and fill bytes, any width and
-  height; a file without a DHT segment (motion-JPEG frames) takes the Annex
-  K.3 Huffman tables, as libjpeg-turbo does. The entropy decoder is a Python loop over 9-bit lookup tables (a
+decode (`decode_jpeg`): SOF0, SOF1 and SOF2 (progressive) frames of 8-bit
+  samples with Huffman coding, 1, 3 or 4 components, any sampling factors
+  whose ratios are integers (444, 422, 420, 440, 411, ...), interleaved or
+  one-component scans, DRI restart intervals, `FF00` byte stuffing and fill
+  bytes, any width and height; a file without a DHT segment (motion-JPEG
+  frames) takes the Annex K.3 Huffman tables, as libjpeg-turbo does.
+  Progressive scans are the four kinds of ITU T.81 G.1.2 (`jdphuff.c`): DC
+  first and refine, AC first with its end-of-band runs, AC refine with its
+  correction bits; coefficients build up across scans in each component's
+  array. The entropy decoder is a Python loop over 9-bit lookup tables (a
   code of up to 9 bits, and its magnitude bits where they fit, in one look);
   everything after it is numpy over all blocks at once:
     - the ISLOW integer inverse DCT (`jidctint.c`: 13-bit constants, two
@@ -19,7 +23,12 @@ decode (`decode_jpeg`): SOF0 and SOF1 frames of 8-bit samples with Huffman
       with its 3/4-1/4 passes and +8/+7 biases, edge samples replicated at
       the component's own downsampled size; a component of width 2 or less,
       and every other ratio (411), replicated;
-    - YCbCr -> RGB with `jdcolor.c`'s 16-bit fixed-point tables;
+    - the colour space as `jdapimin.c` guesses it (JFIF, then the Adobe
+      marker's transform, then the component ids): YCbCr -> RGB with
+      `jdcolor.c`'s 16-bit fixed-point tables; RGB (Adobe transform 0)
+      as stored; four components as CMYK (Adobe transform 0 or no Adobe
+      marker) or YCCK (`ycck_cmyk_convert`), then to BGR by OpenCV's
+      `icvCvt_CMYK2BGR_8u_C4C3R` (k - ((255 - c) * k >> 8));
     - the EXIF Orientation tag (APP1, values 1-8), applied as `cv2.imread`
       with IMREAD_COLOR applies it (transpose and flips).
   Grey files are replicated to three channels.
@@ -32,9 +41,12 @@ encode (`encode_jpeg`): what `cv2.imwrite(".jpg")` writes by default, byte
   image edge as `jccoefct.c` makes them. The encoder is numpy throughout,
   the Huffman bit packing included.
 
-Progressive (SOF2), lossless, arithmetic-coded and 12-bit files, CMYK and
-Adobe RGB files raise `NotImplementedError` (ROADMAP Queue 1 item 10);
-malformed data raises `ValueError`.
+Lossless (SOF3), hierarchical, arithmetic-coded and 12-bit files, a
+height given by a DNL marker, and a progressive file whose scans stop
+before AC1-AC9 of every component are complete (libjpeg-turbo smooths its
+blocks, `jdcoefct.c decompress_smooth_data`, which is not ported) raise
+`NotImplementedError` (ROADMAP Queue 1 item 10); malformed data raises
+`ValueError`.
 """
 
 from __future__ import annotations
@@ -45,8 +57,9 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-_UNSUPPORTED = ("the port decodes baseline and extended-sequential Huffman JPEG of 8-bit samples with 1 or 3 "
-                "(YCbCr) components; {} is ROADMAP Queue 1 item 10")
+_UNSUPPORTED = ("the port decodes baseline, extended-sequential and progressive Huffman JPEG of 8-bit samples "
+                "(grey, YCbCr, RGB, CMYK, YCCK) whose progressive scans complete AC1-AC9; {} is ROADMAP Queue 1 "
+                "item 10")
 
 # the natural (row-major) index of the k-th coefficient in zigzag order; 16
 # extra entries of 63 absorb a corrupt run past the block, as libjpeg's
@@ -369,6 +382,145 @@ def _decode_scan(segments: List[bytes], comps: List[_Component], scomps: List[Tu
                 raise ValueError("corrupt JPEG data: the scan ends early")
 
 
+def _decode_progressive_scan(segments: List[bytes], scomps: List[Tuple[_Component, _HuffTable, _HuffTable]],
+                             mcux: int, mcuy: int, restart: int, ss: int, se: int, ah: int, al: int) -> None:
+    """Entropy-decode one progressive scan (`jdphuff.c`) into each component's
+    `coef` list: DC first (the prediction shifted left by Al) and refine (one
+    bit per block), AC first over Ss..Se with end-of-band runs, AC refine
+    with its correction bits on the coefficients already nonzero."""
+    zz = _ZZ_SAFE
+    if len(scomps) == 1:
+        c = scomps[0][0]
+        nx, ny = -(-c.dw // 8), -(-c.dh // 8)
+        plan = [(0, 0, 0)]
+    else:
+        nx, ny = mcux, mcuy
+        plan = [(si, dy, dx) for si, (c, _, _) in enumerate(scomps) for dy in range(c.v) for dx in range(c.h)]
+    coefs = [c.coef for c, _, _ in scomps]
+    geom = [(c.h, c.v, c.bw) if len(scomps) > 1 else (1, 1, c.bw) for c, _, _ in scomps]
+    tables = [t for _, t, _ in scomps] if ss == 0 else [t for _, _, t in scomps]
+    p1, m1 = 1 << al, -1 << al
+    seg_i = 0
+    win = _windows(segments[0]) if segments else [0] * 8
+    limit = len(win) - 4
+    p = 0
+    pred = [0] * len(scomps)
+    eobrun = 0
+
+    def symbol(t: _HuffTable) -> int:
+        nonlocal p
+        w = win[p >> 3]
+        off = p & 7
+        e = t.lut[(w >> (23 - off)) & 511]
+        if e:
+            p += e >> 8
+            return e & 255
+        s, length = t.slow(w, off)
+        p += length
+        return s
+
+    def bits(n: int) -> int:
+        nonlocal p
+        v = (win[p >> 3] >> (32 - (p & 7) - n)) & ((1 << n) - 1)
+        p += n
+        return v
+
+    for m in range(nx * ny):
+        if restart and m and m % restart == 0:
+            seg_i += 1
+            win = _windows(segments[seg_i]) if seg_i < len(segments) else [0] * 8
+            limit = len(win) - 4
+            p = 0
+            pred = [0] * len(scomps)
+            eobrun = 0
+        my, mx = divmod(m, nx)
+        for si, dy, dx in plan:
+            if p >> 3 >= limit:
+                raise ValueError("corrupt JPEG data: the scan ends early")
+            h, v, bw = geom[si]
+            blk = coefs[si]
+            base = ((my * v + dy) * bw + mx * h + dx) * 64
+            if ss == 0:
+                if ah:  # DC refine: one bit
+                    if (win[p >> 3] >> (31 - (p & 7))) & 1:
+                        blk[base] |= p1
+                    p += 1
+                else:  # DC first
+                    s = symbol(tables[si])
+                    if s:
+                        b = bits(s)
+                        pred[si] += b if b >> (s - 1) else b - (1 << s) + 1
+                    blk[base] = pred[si] << al
+                continue
+            t = tables[si]
+            if not ah:  # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    w = win[p >> 3]
+                    idx = (w >> (23 - (p & 7))) & 511
+                    e = t.fast[idx]
+                    if e is not None:
+                        p += e[0]
+                        k += e[1]
+                        blk[base + zz[k]] = e[2] << al
+                        k += 1
+                        continue
+                    rs = symbol(t)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        b = bits(s)
+                        blk[base + zz[k]] = (b if b >> (s - 1) else b - (1 << s) + 1) << al
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                        break
+                    k += 1
+                continue
+            # AC refine
+            k = ss
+            if not eobrun:
+                while k <= se:
+                    rs = symbol(t)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        s = p1 if bits(1) else m1
+                    elif r != 15:
+                        eobrun = (1 << r) + (bits(r) if r else 0)
+                        break
+                    while k <= se:  # pass r zero coefficients, correcting the nonzero ones on the way
+                        at = base + zz[k]
+                        cur = blk[at]
+                        if cur:
+                            if (win[p >> 3] >> (31 - (p & 7))) & 1 and not cur & p1:
+                                blk[at] = cur + (p1 if cur >= 0 else m1)
+                            p += 1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s:
+                        blk[base + zz[k]] = s
+                    k += 1
+            if eobrun:
+                while k <= se:
+                    at = base + zz[k]
+                    cur = blk[at]
+                    if cur:
+                        if (win[p >> 3] >> (31 - (p & 7))) & 1 and not cur & p1:
+                            blk[at] = cur + (p1 if cur >= 0 else m1)
+                        p += 1
+                    k += 1
+                eobrun -= 1
+        if p >> 3 >= limit:
+            raise ValueError("corrupt JPEG data: the scan ends early")
+
+
 def _idct_islow(coef: np.ndarray) -> np.ndarray:
     """(N, 8, 8) dequantised coefficients -> (N, 8, 8) uint8 samples: libjpeg's
     jpeg_idct_islow, output clamped to 0..255 after the level shift."""
@@ -467,6 +619,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     hts: Dict[Tuple[int, int], _HuffTable] = dict(_std_tables())
     comps: List[_Component] = []
     frame = None
+    progressive = False
+    coef_bits: List[List[int]] = []  # per component, the Al each zigzag coefficient was last sent at (-1: never)
     restart = 0
     orientation = 1
     adobe_transform = None
@@ -491,11 +645,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if len(body) != length - 2:
             raise ValueError("corrupt JPEG: truncated segment")
         pos += length
-        if marker == 0xE0 and body.startswith(b"JFIF\0"):
+        if marker == 0xE0 and body.startswith(b"JFIF\0") and len(body) >= 14:  # jdmarker.c examine_app0
             jfif = True
         elif marker == 0xE1 and body.startswith(b"Exif\0\0") and orientation == 1:
             orientation = exif_orientation(body)
-        elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
+        elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:  # examine_app14
             adobe_transform = body[11]
         elif marker == 0xDB:
             _parse_dqt(body, qts)
@@ -503,14 +657,15 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             _parse_dht(body, hts)
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise ValueError("corrupt JPEG: two frames")
+            progressive = marker == 0xC2
             precision, height, width, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise NotImplementedError(_UNSUPPORTED.format(f"a {precision}-bit JPEG"))
-            if nc not in (1, 3):
-                raise NotImplementedError(_UNSUPPORTED.format(f"a JPEG of {nc} components (CMYK)"))
+            if nc not in (1, 3, 4):
+                raise NotImplementedError(_UNSUPPORTED.format(f"a JPEG of {nc} components"))
             if height == 0:
                 raise NotImplementedError(_UNSUPPORTED.format("a JPEG whose height comes in a DNL marker"))
             if width == 0 or width * height > 1 << 30:  # OpenCV's limit on the pixels of an image
@@ -529,10 +684,10 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c.dw, c.dh = -(-width * c.h // hmax), -(-height * c.v // vmax)
                 c.bw, c.bh = mcux * c.h, mcuy * c.v
                 c.coef = [0] * (c.bw * c.bh * 64)
-        elif marker in (0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
-            kind = {0xC2: "a progressive JPEG (SOF2)", 0xC3: "a lossless JPEG (SOF3)",
-                    0xC6: "a progressive JPEG (SOF6)"}.get(marker, f"a JPEG frame of type SOF{marker - 0xC0} "
-                                                                   "(hierarchical or arithmetic-coded)")
+            coef_bits = [[-1] * 64 for _ in comps]
+        elif marker in (0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
+            kind = {0xC3: "a lossless JPEG (SOF3)"}.get(
+                marker, f"a JPEG frame of type SOF{marker - 0xC0} (hierarchical or arithmetic-coded)")
             raise NotImplementedError(_UNSUPPORTED.format(kind))
         elif marker == 0xCC:
             raise NotImplementedError(_UNSUPPORTED.format("an arithmetic-coded JPEG"))
@@ -540,23 +695,35 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if frame is None:
                 raise ValueError("corrupt JPEG: a scan before the frame header")
             ns = body[0]
+            ss, se, ahal = body[1 + 2 * ns: 4 + 2 * ns]
+            ah, al = ahal >> 4, ahal & 15
+            if progressive:
+                if (ss == 0) != (se == 0) or se > 63 or ss > se or al > 13 or (ss and ns != 1):
+                    raise ValueError("corrupt JPEG: bad progressive scan parameters")
+            elif (ss, se, ahal) != (0, 63, 0):
+                raise ValueError("corrupt JPEG: a sequential scan with spectral selection")
             scomps = []
             for i in range(ns):
                 cid, tables = body[1 + 2 * i: 3 + 2 * i]
                 c = next((c for c in comps if c.cid == cid), None)
-                if c is None or (0, tables >> 4) not in hts or (1, tables & 15) not in hts:
+                dc_needed = not progressive or (ss == 0 and ah == 0)
+                ac_needed = not progressive or ss > 0
+                if (c is None or (dc_needed and (0, tables >> 4) not in hts)
+                        or (ac_needed and (1, tables & 15) not in hts)):
                     raise ValueError("corrupt JPEG: a scan names an unknown component or table")
                 if c.qt is None:  # libjpeg latches a component's table at its first scan
                     if c.tq not in qts:
                         raise ValueError("corrupt JPEG: a component's quantisation table is missing")
                     c.qt = qts[c.tq].copy()
-                scomps.append((c, hts[(0, tables >> 4)], hts[(1, tables & 15)]))
-            ss, se, ahal = body[1 + 2 * ns: 4 + 2 * ns]
-            if (ss, se, ahal) != (0, 63, 0):
-                raise NotImplementedError(_UNSUPPORTED.format("a JPEG scan with spectral selection"))
+                scomps.append((c, hts.get((0, tables >> 4)), hts.get((1, tables & 15))))
+                for k in range(ss, se + 1):
+                    coef_bits[comps.index(c)][k] = al
             segments, pos = _entropy_segments(data, pos)
             try:
-                _decode_scan(segments, comps, scomps, mcux, mcuy, restart)
+                if progressive:
+                    _decode_progressive_scan(segments, scomps, mcux, mcuy, restart, ss, se, ah, al)
+                else:
+                    _decode_scan(segments, comps, scomps, mcux, mcuy, restart)
             except IndexError as exc:  # a code or run past the data or the block
                 raise ValueError("corrupt JPEG data: the scan runs past its data") from exc
         elif marker == 0xDC:
@@ -564,9 +731,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         # APPn, COM and other segments are skipped
     if frame is None or any(c.qt is None for c in comps):
         raise ValueError("corrupt JPEG: no frame or no scan")
-    if len(comps) == 3 and (adobe_transform == 0 or (adobe_transform is None and not jfif
-                                                     and [c.cid for c in comps] == [82, 71, 66])):
-        raise NotImplementedError(_UNSUPPORTED.format("an RGB (Adobe, untransformed) JPEG"))
+    # jdcoefct.c smoothing_ok: with every DC known, a coefficient of AC1-AC9
+    # not sent to its last bit makes libjpeg-turbo smooth the blocks
+    if progressive and all(b[0] >= 0 for b in coef_bits) and any(any(b[1:10]) for b in coef_bits):
+        raise NotImplementedError(_UNSUPPORTED.format(
+            "a progressive JPEG whose scans stop before AC1-AC9 are complete (block smoothing)"))
     height, width = frame
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     planes = []
@@ -577,8 +746,18 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         planes.append(pix[:height, :width])
     if len(planes) == 1:
         img = np.repeat(planes[0][..., None], 3, axis=-1)
+    elif len(planes) == 3:
+        # jdapimin.c default_decompress_parms: JFIF, then Adobe's transform, then the ids 'R', 'G', 'B'
+        rgb = not jfif and (adobe_transform == 0 if adobe_transform is not None
+                            else [c.cid for c in comps] == [82, 71, 66])
+        img = np.stack(planes, axis=-1) if rgb else _ycc_to_rgb(*planes)
     else:
-        img = _ycc_to_rgb(*planes)
+        if adobe_transform is not None and adobe_transform != 0:  # YCCK: jdcolor.c ycck_cmyk_convert
+            cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int32)
+        else:
+            cmy = np.stack(planes[:3], axis=-1).astype(np.int32)
+        k = planes[3].astype(np.int32)[..., None]
+        img = (k - (((255 - cmy) * k) >> 8)).astype(np.uint8)  # OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, in RGB order
     return apply_orientation(img, orientation)
 
 
@@ -769,19 +948,22 @@ def _huffman_encode(zz: np.ndarray, table: np.ndarray, keys: Sequence[Tuple[str,
     add(eob, np.full(len(eob), 130, np.int64), np.zeros(len(eob), np.int64), np.zeros(len(eob), np.int64),
         np.zeros(len(eob), np.int64), 1)
     order = np.argsort(np.concatenate(blk_e) * 256 + np.concatenate(slot_e), kind="stable")
-    codes = np.concatenate(code_e)[order]
-    lens = np.concatenate(len_e)[order]
-    # pack the bits: each emit's bits, most significant first
+    return stuffed(pack_msb_first(np.concatenate(code_e)[order], np.concatenate(len_e)[order], pad_bit=1))
+
+
+def pack_msb_first(codes: np.ndarray, lens: np.ndarray, pad_bit: int = 0) -> np.ndarray:
+    """Codes of `lens` bits each, most significant bit first, into bytes
+    (uint8), the last byte padded with `pad_bit`."""
     total = int(lens.sum())
-    pad = -total % 8
     owner = np.repeat(np.arange(len(lens)), lens)
-    end = np.cumsum(lens)
-    shift = end[owner] - 1 - np.arange(total)
+    shift = np.cumsum(lens)[owner] - 1 - np.arange(total)
     bits = ((codes[owner] >> shift) & 1).astype(np.uint8)
-    bits = np.concatenate([bits, np.ones(pad, np.uint8)])
-    out = np.packbits(bits)
-    ff = np.flatnonzero(out == 0xFF)
-    return np.insert(out, ff + 1, 0).tobytes()  # byte stuffing
+    return np.packbits(np.concatenate([bits, np.full(-total % 8, pad_bit, np.uint8)]))
+
+
+def stuffed(entropy: np.ndarray) -> bytes:
+    """Entropy-coded bytes with a 0 after every 0xFF (byte stuffing)."""
+    return np.insert(entropy, np.flatnonzero(entropy == 0xFF) + 1, 0).tobytes()
 
 
 def _segment(marker: int, body: bytes) -> bytes:

@@ -3,27 +3,43 @@
 Port of `yolo_infer_tpu/data/loader.py` (`IMAGE_EXTS`, `list_image_files`,
 `load_image`, `save_image`, `load_image_batch`, `DataLoader`,
 `save_predictions_to_file`, `create_dataset_config`). The JAX package reads
-and writes images with OpenCV; the port does not depend on OpenCV, so it
-decodes and encodes the formats it supports itself, with `zlib` and
-numpy, to the same pixels:
+and writes images with OpenCV (`cv2.imread(path, cv2.IMREAD_COLOR)`,
+`cv2.imwrite`); the port does not depend on OpenCV, so it decodes and
+encodes every format of `IMAGE_EXTS` itself, with `zlib`, `struct` and
+numpy, to the same pixels. `load_image` picks the decoder by the file's
+signature, not its name:
 
-  JPEG baseline and extended-sequential Huffman, 8-bit, grey or YCbCr, any
-       sampling, restart intervals, EXIF orientation (`data/jpeg.py`: the
-       pixels of `cv2.imread(path, cv2.IMREAD_COLOR)` bit for bit)
-  PNG  8-bit grey, grey + alpha, RGB and RGBA, non-interlaced, all five row
-       filters (alpha is dropped and grey replicated, as `cv2.imread(path,
-       cv2.IMREAD_COLOR)` does); chunk CRCs are checked
-  BMP  24-bit, uncompressed, bottom-up or top-down rows
+  JPEG  baseline, extended-sequential and progressive Huffman, 8-bit; grey,
+        YCbCr, RGB, CMYK and YCCK; any sampling, restart intervals, EXIF
+        orientation (`data/jpeg.py`)
+  PNG   every colour type and bit depth, palette, Adam7, `eXIf`
+        orientation (`data/png.py`)
+  BMP   1-, 4-, 8-bit palette, RLE4, RLE8, 16-, 24- and 32-bit, OS/2 core
+        header, either row order (`data/bmp.py`)
+  TIFF  the first page: strips or tiles, either byte order and planar
+        configuration, none, LZW, Deflate and PackBits, predictor 2, 8- or
+        16-bit grey, RGB and palette (`data/tiff.py`)
+  WebP  lossless (VP8L), simple or extended, EXIF orientation
+        (`data/webp.py`)
 
-Any other format raises `NotImplementedError` (progressive JPEG, TIFF and
-WebP are ROADMAP Queue 1 item 10). `save_image` writes `.jpg`/`.jpeg` as
-`cv2.imwrite` does by default (quality 95, 4:2:0; `data/jpeg.py`, the same
-bytes) and PNG otherwise (filter 0 on every row). Images are uint8 HWC, RGB
-by default. `get_video_info` and `load_video` read motion JPEG in AVI
-(`data/avi.py`; the frames of OpenCV's own MJPEG backend, bit for bit);
-other containers and codecs raise before any frame is read (ROADMAP Queue
-1 item 11.2). `create_dataset_config` writes its YAML with the port's
-`utils/yaml_io.py`.
+Still raising `NotImplementedError` (ROADMAP Queue 1 item 10): arithmetic-
+coded, lossless (SOF3), hierarchical and 12-bit JPEG, and a progressive JPEG
+cut before its AC1-AC9 are complete (libjpeg-turbo's block smoothing);
+lossy and animated WebP; JPEG-in-TIFF (compressions 6 and 7), CCITT and
+other TIFF compressions, BigTIFF, float samples and other TIFF kinds. A
+TIFF whose Orientation transposes (5 to 8) raises `FileNotFoundError`, as
+the JAX package does when `cv2.imread` returns None for it.
+
+`save_image` writes by suffix what `cv2.imwrite` writes by default: `.jpg`
+and `.jpeg` the same bytes (quality 95, 4:2:0), `.bmp` the same bytes
+(24-bit, or 8-bit with a grey palette), `.tif`/`.tiff` LZW with predictor
+2, `.webp` lossless VP8L, and PNG otherwise (filter 0 on every row); for
+TIFF, WebP and PNG the pixels, not the bytes, are OpenCV's. Images are
+uint8 HWC, RGB by default. `get_video_info` and `load_video` read motion
+JPEG in AVI (`data/avi.py`; the frames of OpenCV's own MJPEG backend, bit
+for bit); other containers and codecs raise before any frame is read
+(ROADMAP Queue 1 item 11.2). `create_dataset_config` writes its YAML with
+the port's `utils/yaml_io.py`.
 """
 
 from __future__ import annotations
@@ -31,23 +47,25 @@ from __future__ import annotations
 import csv
 import json
 import random
-import struct
-import zlib
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from yolo_infer_tpu_torch.data.avi import AviReader
+from yolo_infer_tpu_torch.data.bmp import decode_bmp, encode_bmp
 from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+from yolo_infer_tpu_torch.data.png import PNG_SIGNATURE, decode_png, encode_png
+from yolo_infer_tpu_torch.data.tiff import decode_tiff, encode_tiff
+from yolo_infer_tpu_torch.data.webp import decode_webp, encode_webp
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp"}
 VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v"}
 
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel (8-bit)
-_UNSUPPORTED = ("the port reads baseline JPEG, PNG (8-bit grey, grey + alpha, RGB, RGBA; non-interlaced) and "
-                "24-bit BMP; other formats are ROADMAP Queue 1 item 10")
+_UNSUPPORTED = ("the port reads JPEG, PNG, BMP, TIFF and WebP files (by their signature); other formats, and "
+                "the kinds of those the module docstring lists, are ROADMAP Queue 1 item 10")
+_WRITERS = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp": encode_bmp, ".tif": encode_tiff,
+            ".tiff": encode_tiff, ".webp": encode_webp}
 
 
 def list_image_files(source: Union[str, Path]) -> List[Path]:
@@ -67,48 +85,37 @@ def load_image(path: Union[str, Path], rgb: bool = True) -> np.ndarray:
     except OSError as exc:
         raise FileNotFoundError(f"could not read image: {path}") from exc
     if data.startswith(b"\xff\xd8"):
-        try:
-            img = decode_jpeg(data)
-        except NotImplementedError as exc:
-            raise NotImplementedError(f"{path}: {exc}") from exc
+        decoder = decode_jpeg
     elif data.startswith(PNG_SIGNATURE):
-        img = _decode_png(data, path)
+        decoder = decode_png
     elif data.startswith(b"BM"):
-        img = _decode_bmp(data, path)
+        decoder = decode_bmp
+    elif data.startswith((b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")):
+        decoder = decode_tiff
+    elif data.startswith(b"RIFF") and data[8:12] == b"WEBP":
+        decoder = decode_webp
     else:
         raise NotImplementedError(f"{path}: {_UNSUPPORTED}")
+    try:
+        img = decoder(data)
+    except (NotImplementedError, ValueError, FileNotFoundError) as exc:
+        raise type(exc)(f"{path}: {exc}") from exc
     return img if rgb else np.ascontiguousarray(img[..., ::-1])
 
 
 def save_image(path: Union[str, Path], img_rgb: np.ndarray, compress_level: int = 6) -> None:
-    """Write a uint8 image: `.jpg`/`.jpeg` as JPEG ((H, W, 3) RGB or (H, W)
-    grey, the bytes `cv2.imwrite` writes by default), anything else as PNG
-    ((H, W, 3) RGB, (H, W, 4) RGBA or (H, W) grey)."""
+    """Write a uint8 image ((H, W, 3) RGB, (H, W) grey, or (H, W, 4) RGBA
+    but for JPEG) by its suffix: `.jpg`/`.jpeg` and `.bmp` the bytes
+    `cv2.imwrite` writes by default, `.tif`/`.tiff` LZW with predictor 2,
+    `.webp` lossless, anything else PNG."""
     path = Path(path)
-    suffix = path.suffix.lower()
-    if suffix not in (".png", ".jpg", ".jpeg"):
-        raise NotImplementedError(f"{path}: the port writes PNG and JPEG (ROADMAP Queue 1 item 10)")
     img = np.ascontiguousarray(img_rgb)
     if img.dtype != np.uint8:
         raise ValueError(f"save_image: expected uint8, got {img.dtype}")
-    if suffix in (".jpg", ".jpeg"):
-        data = encode_jpeg(img)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_bytes(data)
-        return
-    colour = {2: 0, 3: {1: 0, 3: 2, 4: 6}.get(img.shape[-1])}.get(img.ndim)
-    if colour is None:
-        raise ValueError(f"save_image: expected (H, W), (H, W, 3) or (H, W, 4), got {img.shape}")
-    h, w = img.shape[:2]
-    rows = img.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()  # filter 0 per row
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
+    writer = _WRITERS.get(path.suffix.lower())
+    data = writer(img) if writer is not None else encode_png(img, compress_level)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
-                     + chunk(b"IDAT", zlib.compress(raw, compress_level)) + chunk(b"IEND", b""))
+    path.write_bytes(data)
 
 
 def get_video_info(path: Union[str, Path]) -> Dict[str, Any]:
@@ -228,111 +235,3 @@ def create_dataset_config(
     if test:
         cfg["test"] = test
     return yaml_io.save(cfg, path)
-
-
-def _to_rgb(pixels: np.ndarray) -> np.ndarray:
-    """(H, W, 1|2|3|4) samples -> (H, W, 3): grey replicated, alpha dropped."""
-    c = pixels.shape[-1]
-    if c in (1, 2):
-        return np.ascontiguousarray(np.repeat(pixels[..., :1], 3, axis=-1))
-    return np.ascontiguousarray(pixels[..., :3])
-
-
-def _decode_png(data: bytes, path) -> np.ndarray:
-    pos, header, idat = len(PNG_SIGNATURE), None, []
-    while True:
-        if pos + 12 > len(data):
-            raise ValueError(f"{path}: truncated PNG")
-        (length,) = struct.unpack(">I", data[pos: pos + 4])
-        kind = data[pos + 4: pos + 8]
-        body = data[pos + 8: pos + 8 + length]
-        (crc,) = struct.unpack(">I", data[pos + 8 + length: pos + 12 + length])
-        if len(body) != length or zlib.crc32(kind + body) != crc:
-            raise ValueError(f"{path}: corrupt PNG chunk {kind!r}")
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        elif not kind[0] & 0x20:  # an unknown critical chunk (PLTE included)
-            raise NotImplementedError(f"{path}: PNG chunk {kind!r}; {_UNSUPPORTED}")
-    if header is None or not idat:
-        raise ValueError(f"{path}: PNG without IHDR or IDAT")
-    w, h, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in _PNG_CHANNELS or interlace:
-        raise NotImplementedError(f"{path}: PNG bit depth {depth}, colour type {colour}, "
-                                  f"interlace {interlace}; {_UNSUPPORTED}")
-    bpp = _PNG_CHANNELS[colour]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp, path)
-    return _to_rgb(pixels.reshape(h, w, bpp))
-
-
-def _unfilter(raw: bytes, h: int, w: int, bpp: int, path) -> np.ndarray:
-    """Undo the per-row PNG filters: (h, w*bpp) uint8. None, Sub and Up are
-    numpy passes over a row (uint8 arithmetic wraps mod 256, as the filters
-    do); Average and Paeth depend on the byte just decoded to their left,
-    so they loop over the row's bytes."""
-    stride = w * bpp
-    buf = np.frombuffer(raw, np.uint8)
-    if buf.size < h * (stride + 1):
-        raise ValueError(f"{path}: PNG image data is truncated")
-    rows = buf[: h * (stride + 1)].reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, line = int(rows[y, 0]), rows[y, 1:]
-        if kind == 0:
-            out[y] = line
-        elif kind == 1:  # Sub
-            out[y] = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            out[y] = line + prev
-        elif kind == 3:
-            out[y] = _unfilter_average(line.tobytes(), prev.tobytes(), bpp)
-        elif kind == 4:
-            out[y] = _unfilter_paeth(line.tobytes(), prev.tobytes(), bpp)
-        else:
-            raise ValueError(f"{path}: PNG row filter {kind}")
-        prev = out[y]
-    return out
-
-
-def _unfilter_average(line: bytes, prev: bytes, bpp: int) -> np.ndarray:
-    cur = bytearray(line)
-    for i in range(bpp):
-        cur[i] = (cur[i] + (prev[i] >> 1)) & 0xFF
-    for i in range(bpp, len(cur)):
-        cur[i] = (cur[i] + ((cur[i - bpp] + prev[i]) >> 1)) & 0xFF
-    return np.frombuffer(bytes(cur), np.uint8)
-
-
-def _unfilter_paeth(line: bytes, prev: bytes, bpp: int) -> np.ndarray:
-    cur = bytearray(line)
-    for i in range(bpp):  # a = c = 0: the predictor is b
-        cur[i] = (cur[i] + prev[i]) & 0xFF
-    for i in range(bpp, len(cur)):
-        a, b, c = cur[i - bpp], prev[i], prev[i - bpp]
-        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        cur[i] = (cur[i] + pred) & 0xFF
-    return np.frombuffer(bytes(cur), np.uint8)
-
-
-def _decode_bmp(data: bytes, path) -> np.ndarray:
-    if len(data) < 54:
-        raise ValueError(f"{path}: truncated BMP")
-    (offset,) = struct.unpack("<I", data[10:14])
-    dib, width, height, _, bits, compression = struct.unpack("<IiiHHI", data[14:34])
-    if dib < 40 or bits != 24 or compression != 0:
-        raise NotImplementedError(f"{path}: BMP of {bits} bits, compression {compression}; {_UNSUPPORTED}")
-    h, w = abs(height), width
-    stride = (w * 3 + 3) & ~3  # rows pad to 4 bytes
-    if w <= 0 or len(data) < offset + stride * h:
-        raise ValueError(f"{path}: truncated BMP")
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)[:, : w * 3]
-    bgr = rows.reshape(h, w, 3)
-    if height > 0:  # bottom-up
-        bgr = bgr[::-1]
-    return np.ascontiguousarray(bgr[..., ::-1])
