@@ -384,6 +384,26 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              launched; the demo on a progressive JPEG and on a WebP of one
              frame: detections equal to the demo's on the PNG copy of each
              decode (1e-3 px, 1e-5; bit equality reported), A and B launched
+ 34. mpeg4   MPEG-4 Part 2 video on the card's host, ~60 s: each fixture of
+             `tests/torch_video/` (OpenCV-written MP4, MOV, Matroska and
+             XVID/FMP4/DIVX AVI with I- and P-VOPs, port-written files with
+             AC prediction) decodes to its manifest's sha256 of every frame
+             OpenCV decodes, and its info; each refused file (VP8 WebM, an
+             `avc1` MP4, VOLs announcing B-VOPs, quarter-pel, interlace or
+             MPEG quantisation, a truncated MP4) raises as listed; phase 32's
+             45 seeded 640x480 frames written to `.mp4` by the port read back
+             bit-equal to the encoder's reconstruction; `detect_video`
+             (yolo11n, b8/640 bf16, phase 4's weights) over the committed
+             24-frame 640x480 fixture with `.mp4` output: every frame's
+             detections equal to `predict_raw` on the frames the demo decoded
+             (boxes within 1e-3 px, scores within 1e-5), A and B launched,
+             the output read back by the port (its first frame bit-equal to
+             the encoder's reconstruction of the first annotated frame); a
+             second run under torch.profiler: A and B once per batch by
+             name, frames/s, host seconds per frame by part and the kernels'
+             busy share; and the host seconds to decode one 640x480 I-VOP
+             and one P-VOP and to encode one frame (median of 3), each on a
+             line beside the card's name and power limit
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -4723,14 +4743,91 @@ def video_reference(pred, frames, conf: float, iou: float):
     return out, lbs
 
 
+def check_video_demo(demo, src: Path, root: Path, suffix: str, n: int, where: str, prefix: str, failures: list):
+    """The batched detect video demo over `src` (`n` frames), as phases 32
+    and 34 check it: run 1, the path's own (counted; its first batch captures
+    the b8/640 signature), writes `root/out{suffix}`, and every frame's
+    detections must equal `predict_raw` on the frames the demo drew on;
+    run 2, traced, writes `root/out2{suffix}` and shows where the time goes
+    (A and B once per batch by name) and emits `{prefix}_frames_per_s`,
+    `{prefix}_host_s_per_frame` and `{prefix}_device_busy_share`. Returns
+    the record and what was drawn: (boxes, scores, classes, the first
+    annotated frame, the decoded RGB frame) per frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
+
+    batch, imgsz = VIDEO_SERVE
+    pred = demo.model.predictor
+    drawn = []
+    real_draw = demo_mod.draw_detections
+
+    def record(frame, boxes, scores, classes, names=None):
+        annotated = real_draw(frame, boxes, scores, classes, names)
+        drawn.append((boxes, scores, classes, annotated if not drawn else None, frame))
+        return annotated
+
+    out = {}
+    demo_mod.draw_detections = record
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts, first = path_counters(lambda: demo.detect_video(src, root / f"out{suffix}", batch_size=batch))
+        # the frames the demo drew on are the ones it decoded: the reference
+        # letterboxes and batches them itself
+        want, lbs = video_reference(pred, [d[4] for d in drawn], demo.conf_threshold, demo.iou_threshold)
+    finally:
+        demo_mod.draw_detections = real_draw
+        torch.backends.cudnn.deterministic = False
+    reset_counters()
+    eager_run(pred, np.stack(lbs[:batch]), imgsz, demo.conf_threshold, demo.iou_threshold)
+    body = read_counters()
+    out["run1"] = {k: first[k] for k in ("total_frames", "total_detections", "processing_time_s", "fps")}
+    out["launches"] = path_launches(where, VIDEO_KERNELS, counts, body)
+    bad = [i for i, ((b, s, c, _, _), (wb, ws, wc)) in enumerate(zip(drawn, want))
+           if len(b) != len(wb) or not np.array_equal(c, wc)
+           or (len(b) and (np.abs(b - wb).max() > 1e-3 or np.abs(s - ws).max() > 1e-5))]
+    out["frames_differing_from_predict_raw"] = bad
+    out["max_box_diff_px"] = max((float(np.abs(b - wb).max()) for (b, _, _, _, _), (wb, _, _) in zip(drawn, want)
+                                  if len(b) == len(wb) and len(b)), default=0.0)
+    if first["total_frames"] != n or len(drawn) != n or bad:
+        failures.append(f"detect_video: {first['total_frames']} frames, {len(drawn)} drawn, frames {bad[:5]} "
+                        "differ from predict_raw")
+    if first["total_detections"] != sum(len(w[0]) for w in want) or not first["total_detections"]:
+        failures.append(f"detect_video found {first['total_detections']} detections, predict_raw "
+                        f"{sum(len(w[0]) for w in want)}")
+    # --- run 2: the same video again (its graph replays), traced: where the time goes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead_in(LEAD_INS)
+        t0 = time.perf_counter()
+        second = demo.detect_video(src, root / f"out2{suffix}", batch_size=batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if e.self_device_time_total > 0 and LEAD_IN not in e.key
+               and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request"]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    chunks = -(-n // batch)
+    by_name = {f: sum(e.count for e in kernels if f in e.key) for f in ("iou_bits_kernel", "attn_qkv_mma_kernel")}
+    host = {k: v / n for k, v in demo.last_timing.items()}
+    out["run2"] = {"frames_per_s": second["fps"], "processing_time_s": second["processing_time_s"],
+                   "traced_wall_ms": wall_ms, "kernel_ms": kernel_ms, "device_busy_share": kernel_ms / wall_ms,
+                   "kernels_by_name": by_name, "batches": chunks, "host_s_per_frame": host,
+                   "lead_in_kept": sum(e.count for e in device if LEAD_IN in e.key)}
+    if any(v != chunks for v in by_name.values()):
+        failures.append(f"the traced run launched A and B {by_name}, not once per batch ({chunks})")
+    card = card_line()
+    emit({f"{prefix}_frames_per_s": second["fps"], "card": card})
+    emit({f"{prefix}_host_s_per_frame": host, "card": card})
+    emit({f"{prefix}_device_busy_share": kernel_ms / wall_ms, "card": card})
+    return out, drawn
+
+
 def phase_video(report):
     """The batched video demo on the card (phase 32): a port-written MJPEG
     AVI through `DetectionDemo.detect_video` at b8/640 bf16 (A, B), its
     detections against `predict_raw`, the output read back, segment video
     frame by frame (A, B, D), and where a run's time goes."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from yolo_infer_tpu_torch.core.model import YOLO11Model
     from yolo_infer_tpu_torch.data.avi import AviReader
     from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
@@ -4746,14 +4843,6 @@ def phase_video(report):
         seg_model = smoke_weights(np.random.default_rng(SEED + 6).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8),
                                   "segment", TASK_NC["segment"])[0]
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_video_"))
-    drawn = []
-    real_draw = demo_mod.draw_detections
-
-    def record(frame, boxes, scores, classes, names=None):
-        annotated = real_draw(frame, boxes, scores, classes, names)
-        drawn.append((boxes, scores, classes, annotated if not drawn else None, frame))
-        return annotated
-
     try:
         t0 = time.perf_counter()
         src = video_source(root)
@@ -4762,39 +4851,12 @@ def phase_video(report):
         ckpts = {task: YOLO11Model.from_params(copy.deepcopy(m), task=task, size="n", fused=False,
                                                device="cpu").save(root / f"{task}.msgpack")
                  for task, m in (("detect", model), ("segment", seg_model))}
-        batch, imgsz = VIDEO_SERVE
+        imgsz = VIDEO_SERVE[1]
         demo = demo_mod.DetectionDemo(model_path=str(ckpts["detect"]), imgsz=imgsz)
-        pred = demo.model.predictor
-        # --- run 1: the path's own run (its first batch captures the b8/640 signature), checked
-        demo_mod.draw_detections = record
-        torch.backends.cudnn.deterministic = True
-        try:
-            counts, first = path_counters(lambda: demo.detect_video(src, root / "out.avi", batch_size=batch))
-            # the frames the demo drew on are the ones it decoded: the reference
-            # letterboxes and batches them itself
-            want, lbs = video_reference(pred, [d[4] for d in drawn], demo.conf_threshold, demo.iou_threshold)
-        finally:
-            demo_mod.draw_detections = real_draw
-            torch.backends.cudnn.deterministic = False
-        reset_counters()
-        eager_run(pred, np.stack(lbs[:batch]), imgsz, demo.conf_threshold, demo.iou_threshold)
-        body = read_counters()
-        out["run1"] = {k: first[k] for k in ("total_frames", "total_detections", "processing_time_s", "fps")}
-        out["launches"] = path_launches("video", VIDEO_KERNELS, counts, body)
-        bad = [i for i, ((b, s, c, _, _), (wb, ws, wc)) in enumerate(zip(drawn, want))
-               if len(b) != len(wb) or not np.array_equal(c, wc)
-               or (len(b) and (np.abs(b - wb).max() > 1e-3 or np.abs(s - ws).max() > 1e-5))]
-        out["frames_differing_from_predict_raw"] = bad
-        out["max_box_diff_px"] = max((float(np.abs(b - wb).max()) for (b, _, _, _, _), (wb, _, _) in zip(drawn, want)
-                                      if len(b) == len(wb) and len(b)), default=0.0)
-        if first["total_frames"] != VIDEO_FRAMES or len(drawn) != VIDEO_FRAMES or bad:
-            failures.append(f"detect_video: {first['total_frames']} frames, {len(drawn)} drawn, frames {bad[:5]} "
-                            "differ from predict_raw")
-        if first["total_detections"] != sum(len(w[0]) for w in want) or not first["total_detections"]:
-            failures.append(f"detect_video found {first['total_detections']} detections, predict_raw "
-                            f"{sum(len(w[0]) for w in want)}")
+        ran, drawn = check_video_demo(demo, src, root, ".avi", VIDEO_FRAMES, "video", "video", failures)
+        out.update(ran)
         back = AviReader(root / "out.avi")
-        n_back = sum(1 for _ in back.frames())
+        n_back = sum(1 for _ in back.packets())
         first_back = next(back.read())
         out["first_frame_decoded_equal"] = bool(np.array_equal(drawn[0][4], next(AviReader(src).read())))
         out["output"] = {**back.info(), "frames_read": n_back,
@@ -4803,29 +4865,6 @@ def phase_video(report):
                                                                     VIDEO_SIZE[0]) \
                 or not out["output"]["first_frame_equal"] or not out["first_frame_decoded_equal"]:
             failures.append(f"the output video read back: {out['output']}")
-        # --- run 2: the same video again (its graph replays), traced: where the time goes
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            lead_in(LEAD_INS)
-            t0 = time.perf_counter()
-            second = demo.detect_video(src, root / "out2.avi", batch_size=batch)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        kernels = [e for e in device if e.self_device_time_total > 0 and LEAD_IN not in e.key
-                   and not e.key.startswith(("Memcpy", "Memset")) and e.key != "Activity Buffer Request"]
-        kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        chunks = -(-VIDEO_FRAMES // batch)
-        by_name = {f: sum(e.count for e in kernels if f in e.key) for f in ("iou_bits_kernel", "attn_qkv_mma_kernel")}
-        host = {k: v / VIDEO_FRAMES for k, v in demo.last_timing.items()}
-        out["run2"] = {"frames_per_s": second["fps"], "processing_time_s": second["processing_time_s"],
-                       "traced_wall_ms": wall_ms, "kernel_ms": kernel_ms, "device_busy_share": kernel_ms / wall_ms,
-                       "kernels_by_name": by_name, "batches": chunks, "host_s_per_frame": host,
-                       "lead_in_kept": sum(e.count for e in device if LEAD_IN in e.key)}
-        if any(v != chunks for v in by_name.values()):
-            failures.append(f"the traced run launched A and B {by_name}, not once per batch ({chunks})")
-        emit({"video_frames_per_s": second["fps"], "card": out["card"]})
-        emit({"video_host_s_per_frame": host, "card": out["card"]})
-        emit({"video_device_busy_share": kernel_ms / wall_ms, "card": out["card"]})
         # --- segment, frame by frame (predict and draw_results on each)
         seg = demo_mod.DetectionDemo(model_path=str(ckpts["segment"]), imgsz=imgsz)
         seg_counts, seg_run = path_counters(lambda: seg.detect_video(src, root / "seg.avi",
@@ -5165,6 +5204,121 @@ def phase_formats(report):
     return out
 
 
+MPEG4_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_video"
+MPEG4_DEMO = "mp4v_640x480_30.mp4"  # the committed 640x480 I- and P-VOP fixture the demo runs over
+MPEG4_ROUND_TRIP = 45  # phase 32's seeded 640x480 frames, written to .mp4 by the port and read back
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """Median host seconds of `fn()` over `reps` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_mpeg4(report):
+    """MPEG-4 Part 2 video on the card's host (phase 34): the committed
+    fixtures against their manifest, the refused files, a port-written
+    round trip, the batched detect video demo over a committed P-VOP file
+    (A, B) with MP4 output, and the host's decode and encode seconds."""
+    import hashlib
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.data.loader import get_video_info, load_video
+    from yolo_infer_tpu_torch.data.mp4 import Mp4Reader
+    from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, Mpeg4Encoder
+    from yolo_infer_tpu_torch.data.video import open_video
+    from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
+    from yolo_infer_tpu_torch.utils.visualization import create_video_writer
+
+    out = {"phase": "mpeg4", "card": card_line()}
+    failures = []
+    manifest = json.loads((MPEG4_FIXTURES / "manifest.json").read_text())
+    # --- the fixtures and the refused files
+    t0 = time.perf_counter()
+    for name, want in manifest["files"].items():
+        reader = open_video(MPEG4_FIXTURES / name)
+        hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader.read(rgb=False)]
+        if hashes != want["frames"] or reader.info() != want["info"]:
+            failures.append(f"{name}: {sum(a != b for a, b in zip(hashes, want['frames']))} frames differ, "
+                            f"{len(hashes)} decoded of {len(want['frames'])}, info {reader.info()}")
+    for name, want in manifest["raises"].items():
+        for read in (get_video_info, load_video):
+            try:
+                read(MPEG4_FIXTURES / name)
+                failures.append(f"{name}: {read.__name__} did not raise")
+            except Exception as exc:  # noqa: BLE001 -- the manifest names the type
+                if type(exc).__name__ != want["error"] or not re.search(want["match"], str(exc)):
+                    failures.append(f"{name}: {read.__name__} raised {exc!r}, not {want['error']} "
+                                    f"/{want['match']}/")
+    out["fixtures"] = {"videos": len(manifest["files"]), "refused": len(manifest["raises"]),
+                       "seconds": time.perf_counter() - t0}
+    # --- the host's decode and encode seconds at 640x480 (median of 3)
+    demo_src = MPEG4_FIXTURES / MPEG4_DEMO
+    reader = Mp4Reader(demo_src)
+    first_two = list(reader.packets())[:2]
+    times = {"i_vop": [], "p_vop": []}
+    for _ in range(3):
+        decoder = Mpeg4Decoder(reader.config)
+        for kind, packet in zip(("i_vop", "p_vop"), first_two):
+            t0 = time.perf_counter()
+            decoder.decode(packet)
+            times[kind].append(time.perf_counter() - t0)
+    decode_s = {k: sorted(v)[1] for k, v in times.items()}
+    frame = jpeg_frame(300, 480, 640)[..., ::-1].copy()
+    encoder = Mpeg4Encoder(640, 480, 30)
+    encode_s = median_s(lambda: encoder.encode(frame))
+    out["host_s"] = {"decode_640x480": decode_s, "encode_640x480": encode_s}
+    emit({"mpeg4_decode_s_640x480": decode_s, "card": out["card"]})
+    emit({"mpeg4_encode_s_640x480": encode_s, "card": out["card"]})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mpeg4_"))
+    try:
+        # --- the round trip: the port writes .mp4, the port reads it back
+        t0 = time.perf_counter()
+        writer = create_video_writer(root / "rt.mp4", 30, (640, 480))
+        recon = []
+        for i in range(MPEG4_ROUND_TRIP):
+            writer.write(jpeg_frame(300 + i, 480, 640)[..., ::-1])
+            recon.append(writer.encoder.reconstruction)
+        writer.release()
+        back = list(load_video(root / "rt.mp4", rgb=False))
+        differ = [i for i, (a, b) in enumerate(zip(back, recon)) if not np.array_equal(a, b)]
+        out["round_trip"] = {**get_video_info(root / "rt.mp4"), "frames_read": len(back), "frames_differing": differ,
+                             "bytes": (root / "rt.mp4").stat().st_size, "seconds": time.perf_counter() - t0}
+        if differ or len(back) != MPEG4_ROUND_TRIP or out["round_trip"]["frame_count"] != MPEG4_ROUND_TRIP:
+            failures.append(f"round trip: {out['round_trip']}")
+        # --- the demo over the committed fixture, .mp4 out
+        model = report["weights"][0] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "detect.msgpack")
+        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+        n = manifest["files"][MPEG4_DEMO]["info"]["frame_count"]
+        ran, drawn = check_video_demo(demo, demo_src, root, ".mp4", n, "mpeg4", "mpeg4_video", failures)
+        out.update(ran)
+        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+        out["decoded_as_manifest"] = hashes == manifest["files"][MPEG4_DEMO]["frames"]
+        reencode = Mpeg4Encoder(640, 480, 30)
+        reencode.encode(np.ascontiguousarray(drawn[0][3][..., ::-1]))
+        written = open_video(root / "out.mp4")
+        out["output"] = {**written.info(), "frames_read": sum(1 for _ in written.read()),
+                         "first_frame_equal": bool(np.array_equal(next(written.read(rgb=False)),
+                                                                  reencode.reconstruction))}
+        if (out["output"]["frames_read"], written.frame_count, written.width, written.height) != (n, n, 640, 480) \
+                or not out["output"]["first_frame_equal"] or not out["decoded_as_manifest"]:
+            failures.append(f"the output video read back: {out['output']}; decoded as the manifest: "
+                            f"{out['decoded_as_manifest']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
@@ -5191,7 +5345,7 @@ def main() -> int:
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
-              phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats)
+              phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats, phase_mpeg4)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -286,14 +286,36 @@ with contextlib.redirect_stdout(out):
 summary = json.loads(out.getvalue())
 assert rc == 0 and summary["total_frames"] == 5 and summary["total_detections"] > 0, summary
 assert get_video_info(root / "o.avi")["frame_count"] == 5 and len(list(load_video(root / "o.avi"))) == 5
+# MPEG-4 Part 2: written to MP4, read from every container the fixtures hold, and through the demo
+import hashlib
+from yolo_infer_tpu_torch.data import mkv, mp4, mpeg4, video  # noqa: F401
+writer = create_video_writer(root / "v.mp4", 25, (64, 48))
+recon = []
+for f in frames:
+    writer.write(f)
+    recon.append(writer.encoder.reconstruction)
+writer.release()
+assert all(np.array_equal(a, b) for a, b in zip(load_video(root / "v.mp4", rgb=False), recon))
+fixtures = Path({repo!r}) / "tests" / "torch_video"
+manifest = json.loads((fixtures / "manifest.json").read_text())
+for name in ("mp4v_100x60_25.mov", "mp4v_64x48_30.mkv", "xvid_100x60_30.avi", "acpred_dcac_100x60_25.mp4"):
+    hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in load_video(fixtures / name, rgb=False)]
+    assert hashes == manifest["files"][name]["frames"] and get_video_info(fixtures / name) == \
+        manifest["files"][name]["info"], name
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = YOLO11CLI().run(["demo", "--input", str(fixtures / "mp4v_64x48_30.mkv"), "--output", str(root / "o.mp4"),
+                          "--imgsz", "64", "--batch", "4", "--conf", "1e-9", "--device", "cpu"])
+assert rc == 0 and get_video_info(root / "o.mp4")["frame_count"] == 13 == len(list(load_video(root / "o.mp4")))
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_infer_tpu")
                for m in sys.modules if sys.modules[m] is not None)
 """
 
 
 def test_port_video_runs_without_jax_opencv_yaml_or_pil():
-    """A motion-JPEG AVI written, read and run through the video demo on the
-    command line, with jax, yolo_infer_tpu, cv2, yaml and PIL blocked."""
+    """Motion-JPEG AVI and MPEG-4 Part 2 video (MP4 written; MOV, Matroska,
+    AVI and MP4 fixtures read to their manifest's hashes) run through the
+    readers, the writers and the video demo on the command line, with jax,
+    yolo_infer_tpu, cv2, yaml and PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _VIDEO_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 

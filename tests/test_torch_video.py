@@ -21,6 +21,7 @@ exactly its package's drawing.
 """
 
 import logging
+import shutil
 import struct
 import sys
 from pathlib import Path
@@ -51,6 +52,7 @@ from yolo_infer_tpu_torch.demos import detection_demo as port_demo_module  # noq
 from yolo_infer_tpu_torch.utils.visualization import create_video_writer  # noqa: E402
 
 IMGSZ = 64
+AVC1_MP4 = REPO / "tests" / "torch_video" / "avc1_entry_64x48.mp4"  # an MP4 whose sample entry says H.264
 _VideoCapture = cv2.VideoCapture
 
 
@@ -199,19 +201,23 @@ def test_get_video_info_equals_the_jax_package(videos, name):
 
 
 def test_unsupported_containers_and_codecs_raise_with_a_roadmap_pointer(tmp_path):
+    """What the port still does not read or write: VP8 in WebM, an MP4 whose
+    track is H.264 (`avc1`), Matroska and WebM output."""
     frames = seeded_frames(2, 48, 64, seed=9)
-    for name, fourcc in (("v.mp4", "mp4v"), ("x.avi", "XVID")):
-        writer = cv2.VideoWriter(str(tmp_path / name), cv2.VideoWriter_fourcc(*fourcc), 25, (64, 48))
-        for f in frames:
-            writer.write(f)
-        writer.release()
+    writer = cv2.VideoWriter(str(tmp_path / "v.webm"), cv2.VideoWriter_fourcc(*"VP80"), 25, (64, 48))
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    shutil.copyfile(AVC1_MP4, tmp_path / "h.mp4")
+    for name, what in (("v.webm", "WebM"), ("h.mp4", "avc1")):
         for read in (get_video_info, load_video):
             with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 11\.2"):
                 read(tmp_path / name)
-    with pytest.raises(NotImplementedError, match="MP4"):
-        get_video_info(tmp_path / "v.mp4")
-    with pytest.raises(NotImplementedError, match="XVID"):
-        get_video_info(tmp_path / "x.avi")
+        with pytest.raises(NotImplementedError, match=what):
+            get_video_info(tmp_path / name)
+    for suffix in (".mkv", ".webm"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 11\.2"):
+            create_video_writer(tmp_path / f"o{suffix}", 25, (64, 48))
     with pytest.raises(FileNotFoundError):
         get_video_info(tmp_path / "missing.avi")
 
@@ -411,18 +417,20 @@ def test_decode_failure_reaches_the_caller(world, tmp_path):
 @pytest.mark.parametrize("container", ["avi", "mp4"])
 def test_cli_video_demo_exits_as_the_jax_cli(world, tmp_path, capsys, caplog, monkeypatch, container):
     """`demo --input v.avi --output o.avi` exits 0 in both CLIs and writes a
-    video cv2 reads; an `.mp4` input exits 1 in the port, as a failing demo
-    exits in `main.py`, citing ROADMAP Queue 1 item 11.2."""
+    video cv2 reads; an `.mp4` whose track is H.264 (`avc1`) exits 1 in the
+    port, as a failing demo exits in `main.py`, citing ROADMAP Queue 1 item
+    11.2, and so does a camera index, citing item 11.3."""
     monkeypatch.setattr(jax_demo_module, "YOLO11Model", _JaxF32Model)
     if container == "mp4":
         video = tmp_path / "v.mp4"
-        writer = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"mp4v"), 25, (64, 48))
-        writer.write(seeded_frames(1, 48, 64, seed=8)[0])
-        writer.release()
-        with caplog.at_level(logging.ERROR):
-            rc = port_cli.YOLO11CLI().run(["demo", "--input", str(video), "--model-path",
-                                           str(world["ckpts"]["detect"]), "--imgsz", str(IMGSZ), "--device", "cpu"])
-        assert rc == 1 and any("item 11.2" in r.getMessage() for r in caplog.records)
+        shutil.copyfile(AVC1_MP4, video)
+        for source, item in ((str(video), "item 11.2"), ("0", "item 11.3")):
+            caplog.clear()
+            with caplog.at_level(logging.ERROR):
+                rc = port_cli.YOLO11CLI().run(["demo", "--input", source, "--model-path",
+                                               str(world["ckpts"]["detect"]), "--imgsz", str(IMGSZ), "--device",
+                                               "cpu"])
+            assert rc == 1 and any(item in r.getMessage() for r in caplog.records), source
         return
     argv = ["demo", "--input", str(world["video"]), "--model-path", str(world["ckpts"]["detect"]), "--imgsz",
             str(IMGSZ), "--conf", "0.25", "--batch", "4"]

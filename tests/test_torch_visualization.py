@@ -185,8 +185,12 @@ def test_result_files_equal_the_jax_package(tmp_path, fmt):
 
 
 def test_video_writer_raises_with_a_roadmap_pointer(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        vis.create_video_writer(tmp_path / "v.mp4", 30.0, (64, 48))
+    """`.mp4`, `.m4v`, `.mov` (MPEG-4 Part 2) and `.avi` (motion JPEG) are
+    written; Matroska and WebM output raise before anything is written."""
+    for suffix in (".mkv", ".webm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+            vis.create_video_writer(tmp_path / f"v{suffix}", 30.0, (64, 48))
+        assert not (tmp_path / f"v{suffix}").exists()
 
 
 @pytest.mark.parametrize("seed", range(4))

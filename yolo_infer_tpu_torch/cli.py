@@ -13,9 +13,11 @@ Each subcommand also takes `--device`: the card (`cuda`) unless it says
 `model.compute_dtype` (bfloat16 by default, or float32) sets the compute
 dtype of the models the commands build.
 
-  demo       an image, a directory of images or a motion-JPEG AVI video
+  demo       an image, a directory of images or a video: MPEG-4 Part 2 in
+             MP4, MOV, Matroska or AVI, or motion JPEG in AVI
              (`demos/detection_demo.py`; `--batch` frames a batch, `--output`
-             an `.avi`); other video containers and codecs exit 1 (ROADMAP
+             an `.mp4`, `.m4v` or `.mov` (MPEG-4 Part 2) or an `.avi` (motion
+             JPEG)); other video containers and codecs exit 1 (ROADMAP
              Queue 1 item 11.2), and so does a camera index (item 11.3)
   val        `YOLO11Validator.validate` (detect, segment, pose, OBB), or
              `evaluate_classifier` on a class-per-directory tree for a
@@ -84,7 +86,9 @@ class YOLO11CLI:
 
         d = sub.add_parser("demo", help="run the detection demo on an image, a directory or a video")
         d.add_argument("--input", required=True, help="image path, directory, video path or camera index")
-        d.add_argument("--output", default=None, help="annotated image, directory (for a directory input) or .avi video")
+        d.add_argument("--output", default=None,
+                       help="annotated image, directory (for a directory input) or video (.mp4, .m4v, .mov: MPEG-4 "
+                            "Part 2; .avi: motion JPEG)")
         d.add_argument("--task", default="detect", choices=["detect", "segment", "classify", "pose", "obb"])
         d.add_argument("--model-size", default=None, choices=list("nsmlx"))
         d.add_argument("--model-path", default=None)

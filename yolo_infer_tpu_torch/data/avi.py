@@ -1,20 +1,26 @@
-"""Motion-JPEG AVI files without OpenCV: a reader and a writer, in numpy and `struct`.
+"""AVI files without OpenCV: a motion-JPEG and MPEG-4 Part 2 reader and a motion-JPEG writer, in numpy and `struct`.
 
 The JAX package reads and writes video through OpenCV (`cv2.VideoCapture`,
-`cv2.VideoWriter`). The port reads and writes the one kind of video whose
-frames its own JPEG codec (`data/jpeg.py`) handles: motion JPEG in an AVI
-(RIFF) file.
+`cv2.VideoWriter`). In an AVI (RIFF) file the port reads the two codecs
+that its own decoders handle: motion JPEG (`data/jpeg.py`) and MPEG-4
+Part 2 (`data/mpeg4.py`), which OpenCV's FFmpeg writer puts in an AVI under
+the fourccs `XVID`, `FMP4` and `DIVX`; it writes motion JPEG.
 
 `AviReader` takes the first `vids` stream whose handler or compression is
-motion JPEG (`MJPEG_CODECS`). Its size comes from the stream format
-(`strf`), its fps is the stream header's dwRate / dwScale and its frame
-count the OpenDML `dmlh` total where the file has one, else the stream
-header's dwLength (what OpenCV reports for the same files). `frames()`
+motion JPEG (`MJPEG_CODECS`) or MPEG-4 Part 2 (`data/mpeg4.py
+MPEG4_FOURCCS`). Its size comes from the stream format (`strf`; for MPEG-4
+the video object layer header, in band or in the bytes after `strf`'s
+BITMAPINFOHEADER), its fps is the stream header's dwRate / dwScale and its
+frame count the OpenDML `dmlh` total where the file has one, else the
+stream header's dwLength (what OpenCV reports for the same files). `packets()`
 walks every `LIST movi` in file order, the first RIFF's and those of any
 OpenDML `RIFF AVIX` parts after it: it descends into `LIST rec `, skips the
 other streams' chunks (audio `01wb`), `JUNK` and the `ix##` indexes, and
 honours the pad byte after an odd-sized chunk. Each `##dc` / `##db` chunk
-of the stream is a JPEG, decoded by `decode_jpeg`: the pixels of
+of the stream is one packet. An MPEG-4 packet goes to `Mpeg4Decoder`, with
+the `strf` extra bytes as its configuration and the compression as its
+fourcc: OpenCV's FFmpeg backend's frames, bit for bit. A motion-JPEG packet
+is a JPEG, decoded by `decode_jpeg`: the pixels of
 `cv2.imdecode`, and so of OpenCV's own MJPEG backend
 (`cv2.VideoCapture(path, cv2.CAP_OPENCV_MJPEG)`), not of its FFmpeg backend,
 whose MJPEG decoder rounds differently.
@@ -33,10 +39,10 @@ a movie list, an `idx1`) and reads frames through `idx1` alone, so each
 AVIX part also carries a copy of the header list and an `idx1` of its own
 frames (OpenDML readers skip both). The counts are fixed on `release()`.
 
-Other containers (MP4, MOV, Matroska, WebM) and AVI files of other codecs
-(H.264, MPEG-4 Part 2, ...) raise `NotImplementedError` naming what was
-found (ROADMAP Queue 1 item 11.2); a malformed or truncated file raises
-`ValueError`.
+Other containers are read by `data/video.py`; AVI files of other codecs
+(H.264, ...) raise `NotImplementedError` naming what was found (ROADMAP
+Queue 1 item 11.2), and so do the MPEG-4 kinds `data/mpeg4.py` lists; a
+malformed or truncated file raises `ValueError`.
 """
 
 from __future__ import annotations
@@ -45,17 +51,19 @@ import os
 import struct
 from fractions import Fraction
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
 from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Track
 
 MJPEG_CODECS = (b"MJPG", b"mjpg", b"AVDJ", b"dmb1")  # stream handlers and compressions read as motion JPEG
 RIFF_LIMIT = 1 << 30  # bytes of one RIFF part; the writer goes on in an OpenDML `RIFF AVIX` part past it
 SUPER_INDEX_ENTRIES = 256  # room in the writer's `indx` super index: the RIFF parts a file may have
 
-_NOT_MJPEG_AVI = "the port reads motion JPEG in AVI only; other codecs and containers are ROADMAP Queue 1 item 11.2"
+_NOT_READ_AVI = ("the port reads motion JPEG and MPEG-4 Part 2 in AVI; other codecs are ROADMAP Queue 1 item "
+                 "11.2")
 
 # the writer's header list: LIST hdrl, avih, LIST strl (strh, strf, the super
 # index or JUNK in its place), LIST odml (dmlh)
@@ -90,10 +98,11 @@ def _chunks(data: bytes, pos: int, end: int) -> Iterator[Tuple[bytes, int, int]]
         pos += 8 + size + (size & 1)
 
 
-class AviReader:
-    """The first motion-JPEG video stream of an AVI file: `width`, `height`,
-    `fps`, `frame_count`, `info()`, the frames' JPEG bytes (`frames()`) and
-    the decoded frames (`read()`)."""
+class AviReader(Mpeg4Track):
+    """The first motion-JPEG or MPEG-4 video stream of an AVI file: `width`,
+    `height`, `fps`, `frame_count`, `info()`, the frames' packets
+    (`packets()`: JPEGs or MPEG-4 VOPs, `codec` says which) and the decoded
+    frames (`read()`)."""
 
     def __init__(self, path: Union[str, Path]):
         self.path = Path(path)
@@ -103,7 +112,7 @@ class AviReader:
                 head = f.read(12)
                 other = _container_of(head) or (None if head[:4] == b"RIFF" else "not an AVI file (no RIFF header)")
                 if other is not None:
-                    raise NotImplementedError(f"{path}: {other}; {_NOT_MJPEG_AVI}")
+                    raise NotImplementedError(f"{path}: {other}; {_NOT_READ_AVI}")
                 self._movi = self._scan(f, size)
         except OSError as exc:
             raise FileNotFoundError(f"could not open video: {path}") from exc
@@ -131,6 +140,7 @@ class AviReader:
             pos += 8 + riff_size + (riff_size & 1)
         if hdrl is None or not movi:
             raise ValueError(f"corrupt AVI {self.path}: no header list or no movie list")
+        self._movi = movi
         self._parse_hdrl(hdrl)
         return movi
 
@@ -148,28 +158,30 @@ class AviReader:
         videos = [(i, h, f) for i, (h, f) in enumerate(streams) if len(h) >= 48 and h[:4] == b"vids"]
         if not videos:
             raise ValueError(f"corrupt AVI {self.path}: no video stream")
-        mjpeg = [(i, h, f) for i, h, f in videos if h[4:8] in MJPEG_CODECS or f[16:20] in MJPEG_CODECS]
-        if not mjpeg:
+        known = [(i, h, f) for i, h, f in videos
+                 if {h[4:8], f[16:20]} & set(MJPEG_CODECS + MPEG4_FOURCCS)]
+        if not known:
             _, h, f = videos[0]
             raise NotImplementedError(f"{self.path}: an AVI whose video is {_fourcc(h[4:8])!r} (compression "
-                                      f"{_fourcc(f[16:20])!r}); {_NOT_MJPEG_AVI}")
-        index, strh, strf = mjpeg[0]
+                                      f"{_fourcc(f[16:20])!r}); {_NOT_READ_AVI}")
+        index, strh, strf = known[0]
         if len(strf) < 40:
             raise ValueError(f"corrupt AVI {self.path}: a video stream format of {len(strf)} bytes")
+        self.codec = "mjpeg" if {strh[4:8], strf[16:20]} & set(MJPEG_CODECS) else "mpeg4"
+        self.fourcc = _fourcc(strf[16:20] if strf[16:20] in MPEG4_FOURCCS else strh[4:8])
+        self.config = strf[40:]
         scale, rate, _, length = struct.unpack("<4I", strh[20:36])
         _, width, height = struct.unpack("<Iii", strf[:12])
         self.width, self.height = width, abs(height)
         self.fps = rate / scale if scale else 0.0
         self.frame_count = length if total is None else total
         self._ids = (b"%02ddc" % index, b"%02ddb" % index)
+        if self.codec == "mpeg4":
+            vol = self._vol()
+            self.width, self.height = vol.width, vol.height
 
-    def info(self) -> Dict[str, float]:
-        """The JAX package's `get_video_info` keys."""
-        return {"width": self.width, "height": self.height, "fps": self.fps, "frame_count": self.frame_count,
-                "duration_s": self.frame_count / self.fps if self.fps else 0.0}
-
-    def frames(self) -> Iterator[bytes]:
-        """Each frame's JPEG bytes, in file order."""
+    def packets(self) -> Iterator[bytes]:
+        """Each frame's packet (a JPEG or an MPEG-4 VOP), in file order."""
         with open(self.path, "rb") as f:
             for start, end in self._movi:
                 yield from self._walk(f, start, end)
@@ -190,7 +202,10 @@ class AviReader:
 
     def read(self, rgb: bool = True) -> Iterator[np.ndarray]:
         """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
-        for data in self.frames():
+        if self.codec == "mpeg4":
+            yield from super().read(rgb)
+            return
+        for data in self.packets():
             img = decode_jpeg(data)
             yield img if rgb else np.ascontiguousarray(img[..., ::-1])
 

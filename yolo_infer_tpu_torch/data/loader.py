@@ -35,10 +35,12 @@ and `.jpeg` the same bytes (quality 95, 4:2:0), `.bmp` the same bytes
 (24-bit, or 8-bit with a grey palette), `.tif`/`.tiff` LZW with predictor
 2, `.webp` lossless VP8L, and PNG otherwise (filter 0 on every row); for
 TIFF, WebP and PNG the pixels, not the bytes, are OpenCV's. Images are
-uint8 HWC, RGB by default. `get_video_info` and `load_video` read motion
-JPEG in AVI (`data/avi.py`; the frames of OpenCV's own MJPEG backend, bit
-for bit); other containers and codecs raise before any frame is read
-(ROADMAP Queue 1 item 11.2). `create_dataset_config` writes its YAML with
+uint8 HWC, RGB by default. `get_video_info` and `load_video` open a video
+by its signature (`data/video.py`): motion JPEG in AVI (`data/avi.py`; the
+frames of OpenCV's own MJPEG backend, bit for bit) and MPEG-4 Part 2 in
+MP4, MOV, Matroska and AVI (`data/mpeg4.py`; the frames of OpenCV's FFmpeg
+backend, bit for bit); other containers and codecs raise before any frame
+is read (ROADMAP Queue 1 item 11.2). `create_dataset_config` writes its YAML with
 the port's `utils/yaml_io.py`.
 """
 
@@ -52,11 +54,11 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from yolo_infer_tpu_torch.data.avi import AviReader
 from yolo_infer_tpu_torch.data.bmp import decode_bmp, encode_bmp
 from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 from yolo_infer_tpu_torch.data.png import PNG_SIGNATURE, decode_png, encode_png
 from yolo_infer_tpu_torch.data.tiff import decode_tiff, encode_tiff
+from yolo_infer_tpu_torch.data.video import open_video
 from yolo_infer_tpu_torch.data.webp import decode_webp, encode_webp
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp"}
@@ -119,15 +121,15 @@ def save_image(path: Union[str, Path], img_rgb: np.ndarray, compress_level: int 
 
 
 def get_video_info(path: Union[str, Path]) -> Dict[str, Any]:
-    """width, height, fps, frame_count and duration_s of a motion-JPEG AVI."""
-    return AviReader(path).info()
+    """width, height, fps, frame_count and duration_s of a video file."""
+    return open_video(path).info()
 
 
 def load_video(path: Union[str, Path], rgb: bool = True, max_frames: Optional[int] = None) -> Iterator[np.ndarray]:
-    """The frames of a motion-JPEG AVI as uint8 (H, W, 3), RGB by default (BGR
+    """The frames of a video file as uint8 (H, W, 3), RGB by default (BGR
     with `rgb=False`), at most `max_frames` (None: all). The file's headers
     are read, and an unsupported file raises, before this returns."""
-    reader = AviReader(path)
+    reader = open_video(path)
 
     def frames() -> Iterator[np.ndarray]:
         for n, frame in enumerate(reader.read(rgb), 1):

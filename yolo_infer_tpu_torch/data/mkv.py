@@ -1,0 +1,237 @@
+"""Matroska video without OpenCV: a demuxer for MPEG-4 Part 2 tracks, in `struct`.
+
+`MkvReader` walks a Matroska file's EBML elements: the EBML header (whose
+DocType must be `matroska`), the Segment's Info (TimestampScale, Duration),
+its Tracks and its Clusters. It takes the first video TrackEntry
+(TrackType 1), which must be MPEG-4 Part 2: a CodecID of
+`V_MPEG4/ISO/SP`, `V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose
+CodecPrivate is the decoder configuration (the video object layer header),
+or `V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER with an
+MPEG-4 fourcc (`data/mpeg4.py MPEG4_FOURCCS`) and the configuration after it.
+Its SimpleBlocks, and the Blocks of its BlockGroups, are the packets for
+`data/mpeg4.py`, in file order.
+
+`fps` and `frame_count` are what OpenCV reports for the same file: the
+average frame rate libavformat derives from DefaultDuration (10^9 /
+DefaultDuration reduced to terms of at most 30000, `av_reduce`), and, as a
+Matroska file counts no frames, the Segment's duration times that rate,
+rounded. Without a DefaultDuration the rate is the blocks' count over their
+time span.
+
+WebM (DocType `webm`), other codecs, laced blocks and elements of unknown
+size raise `NotImplementedError` naming what was found (ROADMAP Queue 1
+item 11.2), before any frame is read; a malformed or truncated file
+raises `ValueError`.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import struct
+from pathlib import Path
+from typing import Dict, Iterator, List, Tuple, Union
+
+
+from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Track
+
+_ROADMAP = "ROADMAP Queue 1 item 11.2"
+MPEG4_CODEC_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
+
+EBML, DOCTYPE = 0x1A45DFA3, 0x4282
+SEGMENT, INFO, TRACKS, CLUSTER = 0x18538067, 0x1549A966, 0x1654AE6B, 0x1F43B675
+TIMESTAMP_SCALE, DURATION = 0x2AD7B1, 0x4489
+TRACK_ENTRY, TRACK_NUMBER, TRACK_TYPE, CODEC_ID, CODEC_PRIVATE = 0xAE, 0xD7, 0x83, 0x86, 0x63A2
+DEFAULT_DURATION = 0x23E383
+CLUSTER_TIMESTAMP, SIMPLE_BLOCK, BLOCK_GROUP, BLOCK = 0xE7, 0xA3, 0xA0, 0xA1
+
+
+def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
+    """libavutil's `av_reduce`: the nearest fraction to num/den whose terms
+    are at most `limit` (continued fractions, as libavformat computes rates)."""
+    g = math.gcd(num, den)
+    if g:
+        num, den = num // g, den // g
+    a0n, a0d, a1n, a1d = 0, 1, 1, 0
+    if num <= limit and den <= limit:
+        return num, den
+    while den:
+        x = num // den
+        nxt = num - den * x
+        a2n, a2d = x * a1n + a0n, x * a1d + a0d
+        if a2n > limit or a2d > limit:
+            if a1n:
+                x = (limit - a0n) // a1n
+            if a1d:
+                x = min(x, (limit - a0d) // a1d)
+            if den * (2 * x * a1d + a0d) > num * a1d:
+                a1n, a1d = x * a1n + a0n, x * a1d + a0d
+            break
+        a0n, a0d, a1n, a1d = a1n, a1d, a2n, a2d
+        num, den = den, nxt
+    return a1n, a1d
+
+
+class _File:
+    """EBML element headers read from a file by seeking."""
+
+    def __init__(self, f, size: int, path: Path):
+        self.f, self.size, self.path = f, size, path
+
+    def _vint(self, pos: int, keep_marker: bool) -> Tuple[int, int, bool]:
+        self.f.seek(pos)
+        head = self.f.read(8)
+        if not head or head[0] == 0:
+            raise ValueError(f"corrupt Matroska {self.path}: a bad element header at {pos}")
+        n = 9 - head[0].bit_length()
+        if len(head) < n:
+            raise ValueError(f"corrupt Matroska {self.path}: truncated at {pos}")
+        value = int.from_bytes(head[:n], "big")
+        unknown = value == (1 << (7 * n)) - 1 + (1 << (7 * n))  # all value bits set
+        return (value if keep_marker else value & ((1 << (7 * n)) - 1)), pos + n, unknown
+
+    def elements(self, pos: int, end: int) -> Iterator[Tuple[int, int, int]]:
+        """(id, body start, body end) of each element in [pos, end)."""
+        while pos < end:
+            eid, at, _ = self._vint(pos, True)
+            size, body, unknown = self._vint(at, False)
+            if unknown:
+                raise NotImplementedError(f"{self.path}: a Matroska element (0x{eid:X}) of unknown size (a live "
+                                          f"stream); the port reads sized elements only ({_ROADMAP})")
+            if body + size > end:
+                raise ValueError(f"corrupt Matroska {self.path}: element 0x{eid:X} runs past its parent "
+                                 "(a truncated file?)")
+            yield eid, body, body + size
+            pos = body + size
+
+    def read(self, start: int, end: int) -> bytes:
+        self.f.seek(start)
+        data = self.f.read(end - start)
+        if len(data) != end - start:
+            raise ValueError(f"corrupt Matroska {self.path}: truncated")
+        return data
+
+    def uint(self, start: int, end: int) -> int:
+        return int.from_bytes(self.read(start, end), "big")
+
+    def float(self, start: int, end: int) -> float:
+        data = self.read(start, end)
+        return struct.unpack(">f" if len(data) == 4 else ">d", data)[0] if data else 0.0
+
+
+class MkvReader(Mpeg4Track):
+    """The first video track of a Matroska file: `width`, `height`, `fps`,
+    `frame_count`, `info()`, the blocks' frames (`packets()`) and the decoded
+    frames (`read()`)."""
+
+    def __init__(self, path: Union[str, Path]):
+        self.path = Path(path)
+        try:
+            with open(self.path, "rb") as f:
+                self._scan(_File(f, os.fstat(f.fileno()).st_size, self.path))
+        except OSError as exc:
+            raise FileNotFoundError(f"could not open video: {path}") from exc
+
+    def _scan(self, ebml: _File) -> None:
+        top = list(ebml.elements(0, ebml.size))
+        if not top or top[0][0] != EBML:
+            raise ValueError(f"corrupt Matroska {self.path}: no EBML header")
+        doctype = next((ebml.read(s, e).rstrip(b"\0") for i, s, e in ebml.elements(*top[0][1:]) if i == DOCTYPE),
+                       b"matroska")
+        if doctype != b"matroska":
+            raise NotImplementedError(f"{self.path}: a {doctype.decode('latin-1')!r} file (WebM); the port reads "
+                                      f"MPEG-4 Part 2 video in Matroska only ({_ROADMAP})")
+        segment = next(((s, e) for i, s, e in top if i == SEGMENT), None)
+        if segment is None:
+            raise ValueError(f"corrupt Matroska {self.path}: no Segment")
+        scale, duration, track, self._clusters = 1_000_000, None, None, []
+        for eid, start, end in ebml.elements(*segment):
+            if eid == INFO:
+                for i, s, e in ebml.elements(start, end):
+                    if i == TIMESTAMP_SCALE:
+                        scale = ebml.uint(s, e)
+                    elif i == DURATION:
+                        duration = ebml.float(s, e)
+            elif eid == TRACKS and track is None:
+                track = self._track(ebml, start, end)
+            elif eid == CLUSTER:
+                self._clusters.append((start, end))
+        if track is None:
+            raise ValueError(f"corrupt Matroska {self.path}: no video track")
+        self.number, self.config, default_duration, self.fourcc = track
+        self._blocks = self._index(ebml)
+        if default_duration:
+            num, den = av_reduce(1_000_000_000, default_duration, 30000)
+        else:
+            stamps = [t for t, _, _ in self._blocks]
+            num, den = (len(stamps) - 1) * 1_000_000_000, (max(stamps) - min(stamps)) * scale if stamps else 0
+        self.fps = num / den if num and den else 0.0
+        if duration:
+            micros = int(duration * scale * 1000 / 1_000_000)  # libavformat's AVFormatContext.duration
+            self.frame_count = math.floor(micros / 1_000_000 * self.fps + 0.5)
+        else:
+            self.frame_count = len(self._blocks)
+        vol = self._vol()
+        self.width, self.height = vol.width, vol.height
+
+    def _track(self, ebml: _File, start: int, end: int):
+        for eid, s, e in ebml.elements(start, end):
+            if eid != TRACK_ENTRY:
+                continue
+            fields: Dict[int, Tuple[int, int]] = {i: (a, b) for i, a, b in ebml.elements(s, e)}
+            if TRACK_TYPE not in fields or ebml.uint(*fields[TRACK_TYPE]) != 1:
+                continue
+            codec = ebml.read(*fields[CODEC_ID]).rstrip(b"\0").decode("latin-1") if CODEC_ID in fields else ""
+            private = ebml.read(*fields[CODEC_PRIVATE]) if CODEC_PRIVATE in fields else b""
+            fourcc = ""
+            if codec == "V_MS/VFW/FOURCC" and len(private) >= 40:
+                fourcc = private[16:20].decode("latin-1")
+                if private[16:20] not in MPEG4_FOURCCS:
+                    raise NotImplementedError(f"{self.path}: a Matroska video track of VFW fourcc {fourcc!r}; the "
+                                              f"port reads MPEG-4 Part 2 video only ({_ROADMAP})")
+                private = private[40:]
+            elif codec not in MPEG4_CODEC_IDS:
+                raise NotImplementedError(f"{self.path}: a Matroska video track of codec {codec!r}; the port reads "
+                                          f"MPEG-4 Part 2 video only ({_ROADMAP})")
+            if TRACK_NUMBER not in fields:
+                raise ValueError(f"corrupt Matroska {self.path}: a track without a number")
+            default = ebml.uint(*fields[DEFAULT_DURATION]) if DEFAULT_DURATION in fields else 0
+            return ebml.uint(*fields[TRACK_NUMBER]), private, default, fourcc
+        return None
+
+    def _index(self, ebml: _File) -> List[Tuple[int, int, int]]:
+        """(cluster timestamp + block offset, body start, body end) of the track's blocks."""
+        blocks = []
+        for start, end in self._clusters:
+            base = 0
+            for eid, s, e in ebml.elements(start, end):
+                if eid == CLUSTER_TIMESTAMP:
+                    base = ebml.uint(s, e)
+                elif eid == SIMPLE_BLOCK:
+                    blocks.extend(self._block(ebml, base, s, e))
+                elif eid == BLOCK_GROUP:
+                    for i, bs, be in ebml.elements(s, e):
+                        if i == BLOCK:
+                            blocks.extend(self._block(ebml, base, bs, be))
+        return blocks
+
+    def _block(self, ebml: _File, base: int, start: int, end: int):
+        track, at, _ = ebml._vint(start, False)
+        if track != self.number:
+            return []
+        head = ebml.read(at, at + 3)
+        stamp, flags = struct.unpack(">hB", head)
+        if flags & 0x06:
+            raise NotImplementedError(f"{self.path}: a laced Matroska block; the port reads unlaced blocks only "
+                                      f"({_ROADMAP})")
+        return [(base + stamp, at + 3, end)]
+
+    def packets(self) -> Iterator[bytes]:
+        """Each block's frame, in file order."""
+        with open(self.path, "rb") as f:
+            for _, start, end in self._blocks:
+                f.seek(start)
+                data = f.read(end - start)
+                if len(data) != end - start:
+                    raise ValueError(f"corrupt Matroska {self.path}: a block is truncated")
+                yield data

@@ -10,9 +10,12 @@ port's own encoder). A directory runs every image in it through
 `detect_image` (`detect_directory`). `last_timing` holds the host seconds of
 the last image's parts: decode, predict, draw and encode.
 
-A video is motion JPEG in AVI (`data/avi.py`; other containers and codecs
-raise before any frame is read, ROADMAP Queue 1 item 11.2), written back as
-one (`create_video_writer`). For detect, `detect_video` is the JAX demo's
+A video is read by its signature (`data/loader.py load_video`,
+`data/video.py`): MPEG-4 Part 2 in MP4, MOV, Matroska or AVI, or motion
+JPEG in AVI; other containers and codecs raise before any frame is read
+(ROADMAP Queue 1 item 11.2). The output's suffix picks its writer
+(`create_video_writer`): MPEG-4 Part 2 for `.mp4`, `.m4v` and `.mov`,
+motion JPEG for `.avi`. For detect, `detect_video` is the JAX demo's
 batched pipeline: a decode thread reads and letterboxes frames on the host
 into batches of `batch_size` (the last one padded with its last frame), the
 predictor's staging pipeline (`Predictor._serve_stream`, the one
@@ -338,7 +341,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     p = argparse.ArgumentParser(description="YOLO11 detection demo (the PyTorch port)")
     p.add_argument("--input", required=True, help="image path, directory, video path or camera index")
-    p.add_argument("--output", default=None, help="annotated image, directory (for a directory input) or .avi video")
+    p.add_argument("--output", default=None, help="annotated image, directory (for a directory input) or video (.mp4, .m4v, .mov: MPEG-4 Part 2; .avi: "
+                        "motion JPEG)")
     p.add_argument("--model-size", default="n", choices=list("nsmlx"))
     p.add_argument("--model-path", default=None)
     p.add_argument("--task", default="detect", choices=["detect", "segment", "classify", "pose", "obb"])

@@ -23,9 +23,11 @@ blends them, and grid cells with its uint8 one (`resize_linear_u8`), so
 those two give the JAX package's pixels. Oriented boxes take their corners
 from `ops/rotated.py xywhr_to_corners`. Images are RGB uint8 (H, W, 3).
 
-`create_video_writer` writes motion JPEG in AVI (`data/avi.py AviWriter`);
-any other container raises before anything is written (ROADMAP Queue 1
-item 11.2).
+`create_video_writer` writes MPEG-4 Part 2 in MP4 or QuickTime for
+`.mp4`, `.m4v` and `.mov` (`data/mp4.py Mp4Writer`, I-VOPs only) and motion
+JPEG for `.avi` (`data/avi.py AviWriter`); any other container (`.mkv`,
+`.webm`, ...) raises before anything is written (ROADMAP Queue 1 item
+11.2).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from yolo_infer_tpu_torch.data.avi import AviWriter
+from yolo_infer_tpu_torch.data.mp4 import Mp4Writer
 from yolo_infer_tpu_torch.ops.letterbox import resize_linear_f32, resize_linear_u8
 from yolo_infer_tpu_torch.ops.rotated import xywhr_to_corners
 
@@ -334,14 +337,16 @@ def draw_obb(
 
 
 def create_video_writer(path: Union[str, Path], fps: float, frame_size: Tuple[int, int]):
-    """A writer of BGR uint8 frames of `frame_size` (w, h) into `path`, which
-    must be an `.avi` (motion JPEG, `data/avi.py AviWriter`)."""
+    """A writer of BGR uint8 frames of `frame_size` (w, h) into `path`: MPEG-4
+    Part 2 for `.mp4`, `.m4v` and `.mov` (`data/mp4.py Mp4Writer`), motion
+    JPEG for `.avi` (`data/avi.py AviWriter`)."""
     path = Path(path)
-    if path.suffix.lower() != ".avi":
-        raise NotImplementedError(f"{path}: the port writes motion JPEG in AVI (.avi) only; other containers and "
-                                  "codecs are ROADMAP Queue 1 item 11.2")
+    writer = {".mp4": Mp4Writer, ".m4v": Mp4Writer, ".mov": Mp4Writer, ".avi": AviWriter}.get(path.suffix.lower())
+    if writer is None:
+        raise NotImplementedError(f"{path}: the port writes MPEG-4 Part 2 in .mp4, .m4v and .mov and motion JPEG in "
+                                  ".avi; other containers and codecs are ROADMAP Queue 1 item 11.2")
     path.parent.mkdir(parents=True, exist_ok=True)
-    return AviWriter(path, fps, frame_size)
+    return writer(path, fps, frame_size)
 
 
 def create_grid_visualization(
