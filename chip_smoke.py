@@ -377,12 +377,14 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              3) on a line beside the card's name and power limit; `val`
              through the CLI (yolo11n detect, b16/640 bf16, phase 4's
              weights) over 32 seeded frames stored as progressive JPEG,
-             palette PNG, 16-bit PNG, LZW TIFF, lossless WebP and 8-bit BMP
-             (written here: no OpenCV on the card's machine), labelled with
+             palette PNG, 16-bit PNG, LZW TIFF, lossless WebP, lossy WebP
+             and 8-bit BMP (written here: no OpenCV on the card's machine;
+             the lossy files are the key frames of phase 35's WebM in a
+             RIFF), labelled with
              the model's own detections, then over the same frames as the
              port decoded them, saved as PNG: every metric equal, F and G
-             launched; the demo on a progressive JPEG and on a WebP of one
-             frame: detections equal to the demo's on the PNG copy of each
+             launched; the demo on a progressive JPEG, a lossless and a
+             lossy WebP of one frame: detections equal to the demo's on the PNG copy of each
              decode (1e-3 px, 1e-5; bit equality reported), A and B launched
  34. mpeg4   MPEG-4 Part 2 video on the card's host, ~60 s: each fixture of
              `tests/torch_video/` (OpenCV-written MP4, MOV, Matroska and
@@ -390,7 +392,8 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              AC prediction) decodes to its manifest's sha256 of every frame
              OpenCV decodes, and its info; each refused file (VP8 WebM, an
              `avc1` MP4, VOLs announcing B-VOPs, quarter-pel, interlace or
-             MPEG quantisation, a truncated MP4) raises as listed; phase 32's
+             MPEG quantisation, a truncated MP4) raises as listed (its VP8
+             WebM from OpenCV's writer now decodes to its hashes too); phase 32's
              45 seeded 640x480 frames written to `.mp4` by the port read back
              bit-equal to the encoder's reconstruction; `detect_video`
              (yolo11n, b8/640 bf16, phase 4's weights) over the committed
@@ -404,6 +407,22 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              busy share; and the host seconds to decode one 640x480 I-VOP
              and one P-VOP and to encode one frame (median of 3), each on a
              line beside the card's name and power limit
+ 35. vp8     VP8 on the card's host, ~40 s: each WebM fixture of
+             `tests/torch_vp8/` (OpenCV's `VP80` writer, 176x144 and the
+             24-frame 640x480 demo file; libvpx's versions 1-3, 8 token
+             partitions, error resilience, sharpness, an altref with hidden
+             frames, an odd width) decodes to its manifest's sha256 of every
+             frame OpenCV decodes, and its info; each refused file (an odd
+             height, VP9, a truncated WebM) raises as listed; the host
+             seconds to decode the demo file's key frame, its first inter
+             frame and a 480x640 lossy WebP (that key frame in a RIFF, as the
+             port has no VP8 encoder; median of 3); `detect_video` (yolo11n,
+             b8/640 bf16) over the 640x480 WebM with `.mp4` output, checked
+             as phase 34 checks its demo (`check_video_demo`: every frame's
+             detections equal to `predict_raw`, A and B launched, and once
+             per batch by name in a traced second run; frames/s, host
+             seconds per frame by part, the kernels' busy share), the frames
+             it drew on equal to the manifest's, the output read back
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -4887,7 +4906,8 @@ FORMATS_FRAMES = 32  # the mixed-format validation set: seeded 480x640 frames
 FORMATS_SIZE = (480, 640)
 FORMATS_SERVE = (16, 640)  # val: batch, imgsz (the demo at imgsz)
 FORMATS_LEVELS = 6  # levels per channel of the frames' noise: 216 colours, so a palette holds them
-FORMATS_KINDS = ("progressive.jpg", "palette.png", "rgb16.png", "lzw.tif", "lossless.webp", "palette8.bmp")
+FORMATS_KINDS = ("progressive.jpg", "palette.png", "rgb16.png", "lzw.tif", "lossless.webp", "lossy.webp",
+                 "palette8.bmp")
 FORMATS_VAL_KERNELS = ("dfl_decode", "greedy_nms_keep")  # F, G
 FORMATS_DEMO_KERNELS = ("nms_keep", "attention_qkv")  # A, B
 
@@ -5037,11 +5057,26 @@ def palette_bmp(rgb: np.ndarray) -> bytes:
             + palette.tobytes() + rows[::-1].tobytes())
 
 
-def write_formats(path: Path, kind: str, rgb: np.ndarray) -> None:
+def vp8_key_webp(index: int) -> bytes:
+    """A lossy 480x640 WebP: key frame `index` (of 3, cyclically) of phase
+    35's committed 640x480 WebM in a RIFF `VP8 ` chunk (the port has no VP8
+    encoder, and the card's machine no OpenCV)."""
+    from yolo_infer_tpu_torch.data.mkv import MkvReader
+
+    keys = [p for p in MkvReader(VP8_FIXTURES / VP8_DEMO).packets() if not p[0] & 1]
+    frame = keys[index % len(keys)]
+    chunk = b"VP8 " + struct.pack("<I", len(frame)) + frame + b"\0" * (len(frame) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def write_formats(path: Path, kind: str, rgb: np.ndarray, index: int = 0) -> None:
+    """`rgb` in the format `kind`; a lossy WebP is `vp8_key_webp(index)`."""
     from yolo_infer_tpu_torch.data.loader import save_image
 
     path.parent.mkdir(parents=True, exist_ok=True)
-    if kind == "progressive.jpg":
+    if kind == "lossy.webp":
+        path.write_bytes(vp8_key_webp(index))
+    elif kind == "progressive.jpg":
         path.write_bytes(progressive_jpeg(rgb))
     elif kind in ("palette.png", "rgb16.png"):
         path.write_bytes(palette_png(rgb, depth16=kind == "rgb16.png"))
@@ -5054,8 +5089,9 @@ def write_formats(path: Path, kind: str, rgb: np.ndarray) -> None:
 def phase_formats(report):
     """Every still-image format on the card's host (phase 33): the fixtures'
     manifest, the writers' round trips, `val` on a mixed-format dataset
-    against its PNG copy (F, G) and the demo on progressive JPEG and WebP
-    against their PNG copies (A, B); the decoders' host seconds."""
+    against its PNG copy (F, G) and the demo on progressive JPEG and
+    lossless and lossy WebP against their PNG copies (A, B); the decoders'
+    host seconds."""
     import hashlib
     from statistics import median
 
@@ -5125,7 +5161,7 @@ def phase_formats(report):
             decode_s[kind] = median(times)
         out["decode_s_480x640"] = decode_s
         emit({"formats_decode_s_480x640": decode_s, "card": out["card"]})
-        # --- val: 32 frames in six formats, then the same frames as the port decoded them, saved as PNG
+        # --- val: 32 frames in seven formats, then the same frames as the port decoded them, saved as PNG
         model = report["weights"][0] if "weights" in report else smoke_weights(
             np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
         ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
@@ -5136,7 +5172,7 @@ def phase_formats(report):
         for i in range(FORMATS_FRAMES):
             kind = FORMATS_KINDS[i % len(FORMATS_KINDS)]
             path = mixed / f"f{i:02d}{Path(kind).suffix}"
-            write_formats(path, kind, formats_frame(SEED + 3300 + i))
+            write_formats(path, kind, formats_frame(SEED + 3300 + i), index=i)
             kinds[kind] += 1
         out["write_dataset_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -5172,10 +5208,11 @@ def phase_formats(report):
                 failures.append(f"val over the mixed formats differs from val over their PNG copies: {out['val']}")
             if min(out["val"]["launches"]["mixed"].values()) < 1:
                 failures.append(f"val over the mixed formats launched F or G no time: {out['val']['launches']}")
-        # --- demo: a progressive JPEG and a WebP of one frame, each against the PNG copy of its decode
+        # --- demo: a progressive JPEG and a lossless and a lossy WebP of one frame, each against the PNG copy
+        # of its decode
         demo_frame = formats_frame(SEED + 3399)
         out["demo"] = {}
-        for kind in ("progressive.jpg", "lossless.webp"):
+        for kind in ("progressive.jpg", "lossless.webp", "lossy.webp"):
             src = root / "demo" / f"d.{kind}"
             write_formats(src, kind, demo_frame)
             save_image(root / "demo" / f"{kind}.png", load_image(src))
@@ -5319,6 +5356,97 @@ def phase_mpeg4(report):
     return out
 
 
+VP8_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_vp8"
+VP8_DEMO = "vp8_640x480_30.webm"  # the committed 640x480 WebM the demo runs over (key frames 0, 12, 21)
+
+
+def phase_vp8(report):
+    """VP8 on the card's host (phase 35): the WebM fixtures against their
+    manifest, the refused files, the host's decode seconds of a 640x480 key
+    frame, an inter frame and a lossy WebP, and the batched detect video
+    demo over the committed 640x480 WebM (A, B) with MP4 output."""
+    import hashlib
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.data.loader import get_video_info, load_video
+    from yolo_infer_tpu_torch.data.mkv import MkvReader
+    from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Encoder
+    from yolo_infer_tpu_torch.data.video import open_video
+    from yolo_infer_tpu_torch.data.vp8 import Vp8Decoder
+    from yolo_infer_tpu_torch.data.webp import decode_webp
+    from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
+
+    out = {"phase": "vp8", "card": card_line()}
+    failures = []
+    manifest = json.loads((VP8_FIXTURES / "manifest.json").read_text())
+    # --- the fixtures (the demo file decoded whole too) and the refused files
+    out["fixtures"] = {}
+    for name, want in manifest["files"].items():
+        t0 = time.perf_counter()
+        reader = open_video(VP8_FIXTURES / name)
+        hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader.read(rgb=False)]
+        seconds = time.perf_counter() - t0
+        out["fixtures"][name] = {"frames": len(hashes), "seconds": seconds, "frames_per_s": len(hashes) / seconds}
+        if hashes != want["frames"] or reader.info() != want["info"]:
+            failures.append(f"{name}: {sum(a != b for a, b in zip(hashes, want['frames']))} frames differ, "
+                            f"{len(hashes)} decoded of {len(want['frames'])}, info {reader.info()}")
+    for name, want in manifest["raises"].items():
+        for read in (get_video_info, load_video):
+            try:
+                read(VP8_FIXTURES / name)
+                failures.append(f"{name}: {read.__name__} did not raise")
+            except Exception as exc:  # noqa: BLE001 -- the manifest names the type
+                if type(exc).__name__ != want["error"] or not re.search(want["match"], str(exc)):
+                    failures.append(f"{name}: {read.__name__} raised {exc!r}, not {want['error']} "
+                                    f"/{want['match']}/")
+    out["refused"] = len(manifest["raises"])
+    emit({"vp8_demo_file_decode_frames_per_s": out["fixtures"][VP8_DEMO]["frames_per_s"], "card": out["card"]})
+    # --- the host's decode seconds at 640x480 (median of 3)
+    demo_src = VP8_FIXTURES / VP8_DEMO
+    first_two = list(MkvReader(demo_src).packets())[:2]
+    times = {"key_frame": [], "inter_frame": []}
+    for _ in range(3):
+        decoder = Vp8Decoder()
+        for kind, packet in zip(times, first_two):
+            t0 = time.perf_counter()
+            decoder.decode(packet)
+            times[kind].append(time.perf_counter() - t0)
+    decode_s = {k: sorted(v)[1] for k, v in times.items()}
+    lossy = vp8_key_webp(0)
+    decode_s["lossy_webp_480x640"] = median_s(lambda: decode_webp(lossy))
+    out["host_s"] = {"decode_640x480": decode_s}
+    emit({"vp8_decode_s_640x480": decode_s, "card": out["card"]})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_vp8_"))
+    try:
+        # --- the demo over the committed 640x480 WebM, .mp4 out
+        model = report["weights"][0] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "detect.msgpack")
+        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+        n = manifest["files"][VP8_DEMO]["info"]["frame_count"]
+        ran, drawn = check_video_demo(demo, demo_src, root, ".mp4", n, "vp8", "vp8_video", failures)
+        out.update(ran)
+        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+        out["decoded_as_manifest"] = hashes == manifest["files"][VP8_DEMO]["frames"]
+        reencode = Mpeg4Encoder(640, 480, 30)
+        reencode.encode(np.ascontiguousarray(drawn[0][3][..., ::-1]))
+        written = open_video(root / "out.mp4")
+        out["output"] = {**written.info(), "frames_read": sum(1 for _ in written.read()),
+                         "first_frame_equal": bool(np.array_equal(next(written.read(rgb=False)),
+                                                                  reencode.reconstruction))}
+        if (out["output"]["frames_read"], written.frame_count, written.width, written.height) != (n, n, 640, 480) \
+                or not out["output"]["first_frame_equal"] or not out["decoded_as_manifest"]:
+            failures.append(f"the output video read back: {out['output']}; decoded as the manifest: "
+                            f"{out['decoded_as_manifest']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
@@ -5345,7 +5473,8 @@ def main() -> int:
               phase_dfl, phase_gnms, phase_val_fp32, phase_val_bf16, phase_q8_fp32, phase_q8_bf16,
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
-              phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats, phase_mpeg4)
+              phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats, phase_mpeg4,
+              phase_vp8)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -85,9 +85,15 @@ def test_unsupported_and_missing_files_raise(tmp_path):
     img = _picture(np.random.default_rng(0), 16, 16, 3)
     cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])  # progressive: decoded as cv2 does
     np.testing.assert_array_equal(load_image(tmp_path / "a.jpg", rgb=False), cv2.imread(str(tmp_path / "a.jpg")))
-    cv2.imwrite(str(tmp_path / "lossy.webp"), img, [cv2.IMWRITE_WEBP_QUALITY, 80])  # lossy WebP: still refused
+    cv2.imwrite(str(tmp_path / "lossy.webp"), img, [cv2.IMWRITE_WEBP_QUALITY, 80])  # lossy WebP: decoded as cv2 does
+    lossy = tmp_path / "lossy.webp"
+    np.testing.assert_array_equal(load_image(lossy, rgb=False), cv2.imread(str(lossy)))
+    cv2.imwrite(str(tmp_path / "base.jpg"), img)
+    data = (tmp_path / "base.jpg").read_bytes()
+    sof = data.index(b"\xff\xc0")
+    (tmp_path / "arith.jpg").write_bytes(data[:sof] + b"\xff\xc9" + data[sof + 2:])  # arithmetic coding: still refused
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        load_image(tmp_path / "lossy.webp")
+        load_image(tmp_path / "arith.jpg")
     with pytest.raises(FileNotFoundError):
         load_image(tmp_path / "missing.png")
     save_image(tmp_path / "b.tiff", img[..., ::-1])  # TIFF: written, and read back by cv2 and the port

@@ -79,7 +79,8 @@ def test_fixtures_cover_every_kind_and_stay_small():
             "pal1_", "pal2_", "pal4_", "grey1_", "grey2_", "grey4_", "grey16_", "rgb16_", "adam7_", "exif6_37x53.png",
             "bw1_", "pal4_31", "pal8_31", "rle4_", "rle8_", "rgb555_", "rgb565_", "bgr24_", "bitfields32_", "topdown",
             "os2_", "none_", "lzw_pred2", "deflate_", "packbits_", "tiled_", "planar2_", "bigendian_", "pal8_lzw",
-            "miniswhite", "vp8l_m", "vp8l_pal", "vp8x_exif"]
+            "miniswhite", "vp8l_m", "vp8l_pal", "vp8x_exif", "vp8_lossy", "vp8_alpha", "vp8_cv2_q", "vp8_m",
+            "vp8_1x1", "vp8x_exif6_lossy", "vp8_anim", "vp8_anmf_offset"]
     missing = [w for w in want if not any(n.startswith(w) for n in names)]
     assert not missing, missing
     assert {Path(n).suffix for n in names} | {".jpeg", ".tiff"} == IMAGE_EXTS
@@ -92,8 +93,8 @@ def test_fixtures_cover_every_kind_and_stay_small():
 @pytest.mark.parametrize("name", sorted(MANIFEST["raises"]))
 def test_refused_kinds_raise(name):
     """Arithmetic, lossless and 12-bit JPEG, a progressive JPEG cut before its
-    AC1-AC9 are complete (libjpeg-turbo would smooth its blocks), lossy WebP
-    and JPEG-in-TIFF raise citing the roadmap; a TIFF whose orientation
+    AC1-AC9 are complete (libjpeg-turbo would smooth its blocks) and
+    JPEG-in-TIFF raise citing the roadmap; a TIFF whose orientation
     OpenCV cannot read raises what the JAX package raises."""
     path, error = FIXTURES / name, MANIFEST["raises"][name]["error"]
     if error == "FileNotFoundError":

@@ -298,10 +298,17 @@ writer.release()
 assert all(np.array_equal(a, b) for a, b in zip(load_video(root / "v.mp4", rgb=False), recon))
 fixtures = Path({repo!r}) / "tests" / "torch_video"
 manifest = json.loads((fixtures / "manifest.json").read_text())
-for name in ("mp4v_100x60_25.mov", "mp4v_64x48_30.mkv", "xvid_100x60_30.avi", "acpred_dcac_100x60_25.mp4"):
+for name in ("mp4v_100x60_25.mov", "mp4v_64x48_30.mkv", "xvid_100x60_30.avi", "acpred_dcac_100x60_25.mp4",
+             "vp8_64x48.webm"):
     hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in load_video(fixtures / name, rgb=False)]
     assert hashes == manifest["files"][name]["frames"] and get_video_info(fixtures / name) == \
         manifest["files"][name]["info"], name
+vp8_fixtures = Path({repo!r}) / "tests" / "torch_vp8"
+vp8_manifest = json.loads((vp8_fixtures / "manifest.json").read_text())
+for name in ("vp8_altref_64x48.webm", "vp8_version1_64x48.webm"):
+    hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in load_video(vp8_fixtures / name, rgb=False)]
+    assert hashes == vp8_manifest["files"][name]["frames"] and get_video_info(vp8_fixtures / name) == \
+        vp8_manifest["files"][name]["info"], name
 with contextlib.redirect_stdout(io.StringIO()):
     rc = YOLO11CLI().run(["demo", "--input", str(fixtures / "mp4v_64x48_30.mkv"), "--output", str(root / "o.mp4"),
                           "--imgsz", "64", "--batch", "4", "--conf", "1e-9", "--device", "cpu"])
@@ -312,10 +319,11 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_
 
 
 def test_port_video_runs_without_jax_opencv_yaml_or_pil():
-    """Motion-JPEG AVI and MPEG-4 Part 2 video (MP4 written; MOV, Matroska,
-    AVI and MP4 fixtures read to their manifest's hashes) run through the
-    readers, the writers and the video demo on the command line, with jax,
-    yolo_infer_tpu, cv2, yaml and PIL blocked."""
+    """Motion-JPEG AVI, MPEG-4 Part 2 (MP4 written; MOV, Matroska, AVI and
+    MP4 fixtures read to their manifest's hashes) and VP8 video (WebM
+    fixtures from OpenCV's writer and libvpx, hidden frames included, read to
+    theirs) run through the readers, the writers and the video demo on the
+    command line, with jax, yolo_infer_tpu, cv2, yaml and PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _VIDEO_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 
@@ -484,9 +492,9 @@ assert not any(m.split(".")[0] in ("jax", "cv2", "PIL", "yolo_infer_tpu") for m 
 
 
 def test_port_reads_and_writes_every_image_format_without_opencv_or_pil():
-    """Every committed fixture of `tests/torch_formats/` decodes to its
-    manifest's hash, and the port's writers round-trip, with jax, cv2, PIL
-    and the JAX package blocked."""
+    """Every committed fixture of `tests/torch_formats/` (lossy, alpha and
+    animated WebP among them) decodes to its manifest's hash, and the port's
+    writers round-trip, with jax, cv2, PIL and the JAX package blocked."""
     subprocess.run([sys.executable, "-I", "-c", _FORMATS_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 

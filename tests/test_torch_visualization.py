@@ -185,12 +185,18 @@ def test_result_files_equal_the_jax_package(tmp_path, fmt):
 
 
 def test_video_writer_raises_with_a_roadmap_pointer(tmp_path):
-    """`.mp4`, `.m4v`, `.mov` (MPEG-4 Part 2) and `.avi` (motion JPEG) are
-    written; Matroska and WebM output raise before anything is written."""
-    for suffix in (".mkv", ".webm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-            vis.create_video_writer(tmp_path / f"v{suffix}", 30.0, (64, 48))
-        assert not (tmp_path / f"v{suffix}").exists()
+    """`.mp4`, `.m4v`, `.mov`, `.mkv` (MPEG-4 Part 2) and `.avi` (motion
+    JPEG) are written; `.webm` raises the JAX package's RuntimeError and
+    other containers (`.mpg`) raise with the roadmap pointer, both before
+    anything is written."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+        vis.create_video_writer(tmp_path / "v.mpg", 30.0, (64, 48))
+    with pytest.raises(RuntimeError, match="no working codec"):
+        vis.create_video_writer(tmp_path / "v.webm", 30.0, (64, 48))
+    assert not (tmp_path / "v.mpg").exists() and not (tmp_path / "v.webm").exists()
+    writer = vis.create_video_writer(tmp_path / "v.mkv", 30.0, (64, 48))
+    writer.release()
+    assert (tmp_path / "v.mkv").read_bytes()[:4] == b"\x1a\x45\xdf\xa3"
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -7,16 +7,19 @@ script, and `manifest.json`: for each file the tool that made it and the
 sha256 and shape of `cv2.imread(path, cv2.IMREAD_COLOR)`'s pixels (BGR);
 under "raises", the files the port refuses and what it raises. The tools:
 
-  cv2      `cv2.imencode` (progressive JPEG, TIFF compressions, BMP)
+  cv2      `cv2.imencode` (progressive JPEG, TIFF compressions, BMP, lossy
+           WebP at two qualities)
   PIL      Pillow (CMYK and Adobe-RGB JPEG, palette, low-depth and 16-bit
-           PNG, lossless WebP at several methods and palette sizes, TIFF
-           palette and alpha, BMP 1-bit)
+           PNG, lossless WebP at several methods and palette sizes, lossy
+           WebP at methods 0 and 6, with alpha, EXIF and as an animation,
+           TIFF palette and alpha, BMP 1-bit)
   hand     bytes written here with `struct`, `zlib` and numpy: Adam7 PNG,
            RLE4/RLE8, 4-, 16- and 32-bit, top-down and OS/2 BMP, tiled,
            planar, big-endian and min-is-white TIFF (LZW strips and tiles
            by the port's `tiff._lzw_encode`), a YCCK JPEG (a CMYK file's
            Adobe transform set to 2), a progressive JPEG cut after its
-           third scan, and the headers of the kinds still refused
+           third scan, an animated WebP whose first frame is smaller than
+           its canvas, and the headers of the kinds still refused
 
 `tests/test_torch_formats.py` holds the manifest to OpenCV and the port to
 both; `chip_smoke.py formats` holds the port to the manifest on the card's
@@ -402,9 +405,22 @@ def make() -> dict:
     add("vp8l_rgba_37x53.webp", pil(Image.fromarray(np.concatenate([f, f[..., :1]], -1)), "WEBP", lossless=True),
         "PIL")
     add("vp8x_exif6_37x53.webp", pil(Image.fromarray(f), "WEBP", lossless=True, exif=exif), "PIL")
-    raises["vp8_lossy_37x53.webp"] = (pil(Image.fromarray(f), "WEBP", quality=80), "PIL", "NotImplementedError")
-    raises["vp8_alpha_37x53.webp"] = (pil(Image.fromarray(np.concatenate([f, f[..., :1]], -1)), "WEBP", quality=80),
-                                      "PIL", "NotImplementedError")
+    # --- lossy WebP (VP8, libwebp through PIL and cv2; alpha and animations)
+    add("vp8_lossy_37x53.webp", pil(Image.fromarray(f), "WEBP", quality=80), "PIL")
+    add("vp8_alpha_37x53.webp", pil(Image.fromarray(np.concatenate([f, f[..., :1]], -1)), "WEBP", quality=80), "PIL")
+    for quality in (90, 10):
+        add(f"vp8_cv2_q{quality}_48x64.webp", cv2_bytes(".webp", frame(52, 48, 64), [cv2.IMWRITE_WEBP_QUALITY, quality]),
+            "cv2")
+    for method in (0, 6):
+        add(f"vp8_m{method}_37x53.webp", pil(Image.fromarray(frame(53, 37, 53)), "WEBP", quality=75, method=method),
+            "PIL")
+    for h, w in ((1, 1), (17, 33)):
+        add(f"vp8_{h}x{w}.webp", pil(Image.fromarray(frame(54, h, w)), "WEBP", quality=80), "PIL")
+    add("vp8x_exif6_lossy_37x53.webp", pil(Image.fromarray(f), "WEBP", quality=80, exif=exif), "PIL")
+    anim = [Image.fromarray(frame(55 + k, 40, 48)) for k in range(3)]
+    add("vp8_anim_40x48.webp", pil(anim[0], "WEBP", save_all=True, append_images=anim[1:], quality=70, duration=100),
+        "PIL")
+    add("vp8_anmf_offset_40x48.webp", anmf_offset(), "hand")
     # --- JPEG kinds still refused: headers made from a baseline file
     base = cv2_bytes(".jpg", frame(60, 24, 32))
     sof = base.index(b"\xff\xc0")
@@ -412,6 +428,25 @@ def make() -> dict:
     raises["lossless_sof3_24x32.jpg"] = (base[:sof] + b"\xff\xc3" + base[sof + 2:], "hand", "NotImplementedError")
     raises["twelve_bit_24x32.jpg"] = (base[:sof + 4] + b"\x0c" + base[sof + 5:], "hand", "NotImplementedError")
     return files, raises
+
+
+def riff_chunk(kind: bytes, body: bytes) -> bytes:
+    return kind + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+def anmf_offset() -> bytes:
+    """A two-frame animated WebP on a 48x40 canvas whose first frame, lossy
+    20x16, sits at (6, 4); the second covers the canvas (lossless)."""
+    def frame_chunks(data: bytes) -> bytes:
+        return data[12:]  # the chunks of a simple-format file
+    small = frame_chunks(pil(Image.fromarray(frame(58, 16, 20)), "WEBP", quality=80))
+    full = frame_chunks(pil(Image.fromarray(frame(59, 40, 48)), "WEBP", lossless=True))
+    body = riff_chunk(b"VP8X", bytes([0x02, 0, 0, 0]) + (47).to_bytes(3, "little") + (39).to_bytes(3, "little"))
+    body += riff_chunk(b"ANIM", bytes(4) + struct.pack("<H", 0))
+    for (x, y, w, h), chunks in (((6, 4, 20, 16), small), ((0, 0, 48, 40), full)):
+        head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, 100)) + b"\0"
+        body += riff_chunk(b"ANMF", head + chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
 
 
 def pixels_entry(path: Path) -> dict:

@@ -12,7 +12,7 @@ tools:
   cv2    `cv2.VideoWriter` (OpenCV's FFmpeg backend, libavcodec's MPEG-4
          encoder under rate control: I-VOPs every 12 frames, P-VOPs between
          them) into `.mp4` and `.mov` (fourcc `mp4v`), `.mkv`, and `.avi`
-         under `XVID`, `FMP4` and `DIVX`; a VP8 WebM (refused)
+         under `XVID`, `FMP4` and `DIVX`; a VP8 WebM (`VP80`)
   port   the port's `Mp4Writer` (AC prediction, which libavcodec's encoder
          does not use; the DC coded as an AC coefficient; quantiser 9),
          read back by OpenCV for the hashes; an MP4 whose sample entry says
@@ -171,16 +171,19 @@ def relabel_sample_entry(path: Path, kind: bytes) -> None:
     path.write_bytes(bytes(data))
 
 
+def write_vp8() -> None:
+    """A VP8 WebM from OpenCV's writer (`tests/torch_vp8/` holds the VP8 decoder's own fixtures)."""
+    writer = cv2.VideoWriter(str(HERE / "vp8_64x48.webm"), cv2.VideoWriter_fourcc(*"VP80"), 25, (64, 48))
+    assert writer.isOpened()
+    for f in scene(4, 48, 64, 90):
+        writer.write(f)
+    writer.release()
+
+
 def write_refused():
     """The refused files: {name: (exception, regex)}."""
     raises = {}
     frames = scene(4, 48, 64, 90)
-    writer = cv2.VideoWriter(str(HERE / "vp8_64x48.webm"), cv2.VideoWriter_fourcc(*"VP80"), 25, (64, 48))
-    assert writer.isOpened()
-    for f in frames:
-        writer.write(f)
-    writer.release()
-    raises["vp8_64x48.webm"] = ("NotImplementedError", f"WebM.*{ROADMAP}")
     writer = Mp4Writer(HERE / "avc1_entry_64x48.mp4", 25, (64, 48))
     for f in frames:
         writer.write(f)
@@ -214,12 +217,14 @@ def write_refused():
 
 def main() -> None:
     files = {}
-    for seed, name in enumerate(VIDEOS):
-        write_video(name, seed)
+    write_vp8()
+    for seed, name in enumerate(list(VIDEOS) + ["vp8_64x48.webm"]):
+        if name in VIDEOS:
+            write_video(name, seed)
         frames = cv2_frames(HERE / name)
         info = get_video_info(HERE / name)
-        assert len(frames) == info["frame_count"] == VIDEOS[name][4], (name, len(frames), info)
-        files[name] = {"tool": VIDEOS[name][0], "info": info, "shape": list(frames[0].shape),
+        assert len(frames) == info["frame_count"] == VIDEOS.get(name, (0,) * 4 + (4,))[4], (name, len(frames), info)
+        files[name] = {"tool": VIDEOS[name][0] if name in VIDEOS else "cv2", "info": info, "shape": list(frames[0].shape),
                        "frames": [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]}
     raises = write_refused()
     manifest = {"files": files, "raises": {k: {"error": e, "match": m} for k, (e, m) in raises.items()}}

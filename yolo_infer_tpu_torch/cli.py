@@ -14,11 +14,13 @@ Each subcommand also takes `--device`: the card (`cuda`) unless it says
 dtype of the models the commands build.
 
   demo       an image, a directory of images or a video: MPEG-4 Part 2 in
-             MP4, MOV, Matroska or AVI, or motion JPEG in AVI
+             MP4, MOV, Matroska or AVI, VP8 in WebM, or motion JPEG in AVI
              (`demos/detection_demo.py`; `--batch` frames a batch, `--output`
-             an `.mp4`, `.m4v` or `.mov` (MPEG-4 Part 2) or an `.avi` (motion
-             JPEG)); other video containers and codecs exit 1 (ROADMAP
-             Queue 1 item 11.2), and so does a camera index (item 11.3)
+             an `.mp4`, `.m4v`, `.mov` or `.mkv` (MPEG-4 Part 2) or an `.avi`
+             (motion JPEG)); other video containers and codecs exit 1
+             (ROADMAP Queue 1 item 11.2), `.webm` output exits 1 as the JAX
+             CLI does (no codec of its chain goes into WebM), and so does a
+             camera index (item 11.3)
   val        `YOLO11Validator.validate` (detect, segment, pose, OBB), or
              `evaluate_classifier` on a class-per-directory tree for a
              classify model; `--save-json`

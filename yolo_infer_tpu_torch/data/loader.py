@@ -19,13 +19,15 @@ signature, not its name:
   TIFF  the first page: strips or tiles, either byte order and planar
         configuration, none, LZW, Deflate and PackBits, predictor 2, 8- or
         16-bit grey, RGB and palette (`data/tiff.py`)
-  WebP  lossless (VP8L), simple or extended, EXIF orientation
+  WebP  lossless (VP8L) and lossy (VP8, `data/vp8.py`, with libwebp's
+        fancy upsampling), simple or extended, alpha (dropped), EXIF
+        orientation, an animation's first frame on its canvas
         (`data/webp.py`)
 
 Still raising `NotImplementedError` (ROADMAP Queue 1 item 10): arithmetic-
 coded, lossless (SOF3), hierarchical and 12-bit JPEG, and a progressive JPEG
 cut before its AC1-AC9 are complete (libjpeg-turbo's block smoothing);
-lossy and animated WebP; JPEG-in-TIFF (compressions 6 and 7), CCITT and
+JPEG-in-TIFF (compressions 6 and 7), CCITT and
 other TIFF compressions, BigTIFF, float samples and other TIFF kinds. A
 TIFF whose Orientation transposes (5 to 8) raises `FileNotFoundError`, as
 the JAX package does when `cv2.imread` returns None for it.
@@ -37,10 +39,10 @@ and `.jpeg` the same bytes (quality 95, 4:2:0), `.bmp` the same bytes
 TIFF, WebP and PNG the pixels, not the bytes, are OpenCV's. Images are
 uint8 HWC, RGB by default. `get_video_info` and `load_video` open a video
 by its signature (`data/video.py`): motion JPEG in AVI (`data/avi.py`; the
-frames of OpenCV's own MJPEG backend, bit for bit) and MPEG-4 Part 2 in
-MP4, MOV, Matroska and AVI (`data/mpeg4.py`; the frames of OpenCV's FFmpeg
-backend, bit for bit); other containers and codecs raise before any frame
-is read (ROADMAP Queue 1 item 11.2). `create_dataset_config` writes its YAML with
+frames of OpenCV's own MJPEG backend, bit for bit), MPEG-4 Part 2 in
+MP4, MOV, Matroska and AVI (`data/mpeg4.py`) and VP8 in WebM (`data/vp8.py`),
+both the frames of OpenCV's FFmpeg backend, bit for bit; other containers
+and codecs raise before any frame is read (ROADMAP Queue 1 item 11.2). `create_dataset_config` writes its YAML with
 the port's `utils/yaml_io.py`.
 """
 

@@ -1,15 +1,16 @@
-"""Matroska video without OpenCV: a demuxer for MPEG-4 Part 2 tracks, in `struct`.
+"""Matroska and WebM video without OpenCV: a demuxer for MPEG-4 Part 2 and VP8 tracks and an MPEG-4 muxer, in `struct`.
 
 `MkvReader` walks a Matroska file's EBML elements: the EBML header (whose
-DocType must be `matroska`), the Segment's Info (TimestampScale, Duration),
-its Tracks and its Clusters. It takes the first video TrackEntry
-(TrackType 1), which must be MPEG-4 Part 2: a CodecID of
+DocType must be `matroska` or `webm`), the Segment's Info (TimestampScale,
+Duration), its Tracks and its Clusters. It takes the first video
+TrackEntry (TrackType 1), which must be MPEG-4 Part 2 or VP8: a CodecID of
 `V_MPEG4/ISO/SP`, `V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose
 CodecPrivate is the decoder configuration (the video object layer header),
-or `V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER with an
-MPEG-4 fourcc (`data/mpeg4.py MPEG4_FOURCCS`) and the configuration after it.
-Its SimpleBlocks, and the Blocks of its BlockGroups, are the packets for
-`data/mpeg4.py`, in file order.
+`V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER with an
+MPEG-4 fourcc (`data/mpeg4.py MPEG4_FOURCCS`) and the configuration after
+it, or `V_VP8` (`data/vp8.py`; the first key frame gives the size). Its
+SimpleBlocks, and the Blocks of its BlockGroups, are the packets for the
+decoder, in file order.
 
 `fps` and `frame_count` are what OpenCV reports for the same file: the
 average frame rate libavformat derives from DefaultDuration (10^9 /
@@ -18,10 +19,16 @@ Matroska file counts no frames, the Segment's duration times that rate,
 rounded. Without a DefaultDuration the rate is the blocks' count over their
 time span.
 
-WebM (DocType `webm`), other codecs, laced blocks and elements of unknown
+Other codecs (VP9, AV1, H.264, ...), laced blocks and elements of unknown
 size raise `NotImplementedError` naming what was found (ROADMAP Queue 1
 item 11.2), before any frame is read; a malformed or truncated file
 raises `ValueError`.
+
+`MkvWriter` writes `Mpeg4Encoder`'s I-VOPs into Matroska (CodecID
+`V_MPEG4/ISO/ASP`, the headers as CodecPrivate), as OpenCV's FFmpeg
+writer lays out its `.mkv` files, through `MatroskaWriter`, which muxes
+compressed frames of any codec into one video track (the fixtures put
+VP8 frames into WebM with it).
 """
 
 from __future__ import annotations
@@ -30,13 +37,18 @@ import math
 import os
 import struct
 from pathlib import Path
-from typing import Dict, Iterator, List, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 
-from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Track
+import numpy as np
+
+from yolo_infer_tpu_torch.data.avi import fps_ratio
+from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Encoder, Mpeg4Track
+from yolo_infer_tpu_torch.data.vp8 import Vp8Track
 
 _ROADMAP = "ROADMAP Queue 1 item 11.2"
 MPEG4_CODEC_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
+VP8_CODEC_ID = "V_VP8"
 
 EBML, DOCTYPE = 0x1A45DFA3, 0x4282
 SEGMENT, INFO, TRACKS, CLUSTER = 0x18538067, 0x1549A966, 0x1654AE6B, 0x1F43B675
@@ -44,6 +56,7 @@ TIMESTAMP_SCALE, DURATION = 0x2AD7B1, 0x4489
 TRACK_ENTRY, TRACK_NUMBER, TRACK_TYPE, CODEC_ID, CODEC_PRIVATE = 0xAE, 0xD7, 0x83, 0x86, 0x63A2
 DEFAULT_DURATION = 0x23E383
 CLUSTER_TIMESTAMP, SIMPLE_BLOCK, BLOCK_GROUP, BLOCK = 0xE7, 0xA3, 0xA0, 0xA1
+VIDEO, PIXEL_WIDTH, PIXEL_HEIGHT, TRACK_UID, MUXING_APP, WRITING_APP = 0xE0, 0xB0, 0xBA, 0x73C5, 0x4D80, 0x5741
 
 
 def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
@@ -120,9 +133,9 @@ class _File:
 
 
 class MkvReader(Mpeg4Track):
-    """The first video track of a Matroska file: `width`, `height`, `fps`,
-    `frame_count`, `info()`, the blocks' frames (`packets()`) and the decoded
-    frames (`read()`)."""
+    """The first video track of a Matroska or WebM file: `width`, `height`,
+    `fps`, `frame_count`, `info()`, the blocks' frames (`packets()`) and the
+    decoded frames (`read()`)."""
 
     def __init__(self, path: Union[str, Path]):
         self.path = Path(path)
@@ -138,9 +151,9 @@ class MkvReader(Mpeg4Track):
             raise ValueError(f"corrupt Matroska {self.path}: no EBML header")
         doctype = next((ebml.read(s, e).rstrip(b"\0") for i, s, e in ebml.elements(*top[0][1:]) if i == DOCTYPE),
                        b"matroska")
-        if doctype != b"matroska":
-            raise NotImplementedError(f"{self.path}: a {doctype.decode('latin-1')!r} file (WebM); the port reads "
-                                      f"MPEG-4 Part 2 video in Matroska only ({_ROADMAP})")
+        if doctype not in (b"matroska", b"webm"):
+            raise NotImplementedError(f"{self.path}: a Matroska file of DocType {doctype.decode('latin-1')!r}; the "
+                                      f"port reads 'matroska' and 'webm' ({_ROADMAP})")
         segment = next(((s, e) for i, s, e in top if i == SEGMENT), None)
         if segment is None:
             raise ValueError(f"corrupt Matroska {self.path}: no Segment")
@@ -158,7 +171,7 @@ class MkvReader(Mpeg4Track):
                 self._clusters.append((start, end))
         if track is None:
             raise ValueError(f"corrupt Matroska {self.path}: no video track")
-        self.number, self.config, default_duration, self.fourcc = track
+        self.number, self.config, default_duration, self.fourcc, self.codec = track
         self._blocks = self._index(ebml)
         if default_duration:
             num, den = av_reduce(1_000_000_000, default_duration, 30000)
@@ -171,8 +184,16 @@ class MkvReader(Mpeg4Track):
             self.frame_count = math.floor(micros / 1_000_000 * self.fps + 0.5)
         else:
             self.frame_count = len(self._blocks)
-        vol = self._vol()
-        self.width, self.height = vol.width, vol.height
+        if self.codec == VP8_CODEC_ID:
+            self.width, self.height = Vp8Track.size(self)
+        else:
+            vol = self._vol()
+            self.width, self.height = vol.width, vol.height
+
+    def read(self, rgb: bool = True) -> Iterator[np.ndarray]:
+        """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
+        track = Vp8Track if self.codec == VP8_CODEC_ID else Mpeg4Track
+        return track.read(self, rgb)
 
     def _track(self, ebml: _File, start: int, end: int):
         for eid, s, e in ebml.elements(start, end):
@@ -190,13 +211,13 @@ class MkvReader(Mpeg4Track):
                     raise NotImplementedError(f"{self.path}: a Matroska video track of VFW fourcc {fourcc!r}; the "
                                               f"port reads MPEG-4 Part 2 video only ({_ROADMAP})")
                 private = private[40:]
-            elif codec not in MPEG4_CODEC_IDS:
+            elif codec not in MPEG4_CODEC_IDS and codec != VP8_CODEC_ID:
                 raise NotImplementedError(f"{self.path}: a Matroska video track of codec {codec!r}; the port reads "
-                                          f"MPEG-4 Part 2 video only ({_ROADMAP})")
+                                          f"MPEG-4 Part 2 and VP8 video only ({_ROADMAP})")
             if TRACK_NUMBER not in fields:
                 raise ValueError(f"corrupt Matroska {self.path}: a track without a number")
             default = ebml.uint(*fields[DEFAULT_DURATION]) if DEFAULT_DURATION in fields else 0
-            return ebml.uint(*fields[TRACK_NUMBER]), private, default, fourcc
+            return ebml.uint(*fields[TRACK_NUMBER]), private, default, fourcc, codec
         return None
 
     def _index(self, ebml: _File) -> List[Tuple[int, int, int]]:
@@ -235,3 +256,124 @@ class MkvReader(Mpeg4Track):
                 if len(data) != end - start:
                     raise ValueError(f"corrupt Matroska {self.path}: a block is truncated")
                 yield data
+
+
+# ---------------------------------------------------------------- the muxer
+
+
+def _vint_size(n: int) -> bytes:
+    """An EBML size of 8 bytes (the form the writer patches in place)."""
+    return bytes([1]) + n.to_bytes(7, "big")
+
+
+def _el(eid: int, body: bytes) -> bytes:
+    size = len(body)
+    n = next(k for k in range(1, 9) if size < (1 << (7 * k)) - 1)
+    return eid.to_bytes((eid.bit_length() + 7) // 8, "big") + ((1 << (7 * n)) | size).to_bytes(n, "big") + body
+
+
+def _uint(eid: int, v: int) -> bytes:
+    return _el(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big"))
+
+
+def _matroska_head(doctype: str, codec: str, private: bytes, width: int, height: int, fps: float) -> bytes:
+    """The EBML header, then the opening of a Segment of unknown size and its
+    Info and Tracks (one video track, number 1); Duration is a placeholder
+    that `MatroskaWriter` patches."""
+    rate, scale = fps_ratio(fps)
+    head = _el(EBML, _uint(0x4286, 1) + _uint(0x42F7, 1) + _uint(0x42F2, 4) + _uint(0x42F3, 8)
+               + _el(DOCTYPE, doctype.encode()) + _uint(0x4287, 4 if doctype == "matroska" else 2) + _uint(0x4285, 2))
+    video = _el(VIDEO, _uint(PIXEL_WIDTH, width) + _uint(PIXEL_HEIGHT, height))
+    entry = (_uint(TRACK_NUMBER, 1) + _uint(TRACK_UID, 1) + _uint(TRACK_TYPE, 1) + _el(CODEC_ID, codec.encode())
+             + _uint(DEFAULT_DURATION, round(1_000_000_000 * scale / rate)) + video)
+    if private:
+        entry += _el(CODEC_PRIVATE, private)
+    info = _uint(TIMESTAMP_SCALE, 1_000_000) + _el(MUXING_APP, b"yolo_infer_tpu_torch") + _el(
+        WRITING_APP, b"yolo_infer_tpu_torch") + _el(DURATION, struct.pack(">d", 0.0))
+    return head + SEGMENT.to_bytes(4, "big") + _vint_size(0) + _el(INFO, info) + _el(TRACKS, _el(TRACK_ENTRY, entry))
+
+
+def _cluster(stamp_ms: int, frames: List[Tuple[int, bytes, bool]]) -> bytes:
+    """A Cluster at `stamp_ms` of SimpleBlocks (relative ms, data, key)."""
+    body = _uint(CLUSTER_TIMESTAMP, stamp_ms)
+    for rel, data, key in frames:
+        body += _el(SIMPLE_BLOCK, b"\x81" + struct.pack(">hB", rel, 0x80 if key else 0) + data)
+    return _el(CLUSTER, body)
+
+
+class MatroskaWriter:
+    """Frames (bytes) into one video track of a Matroska or WebM file: a
+    Cluster per second, the Segment's size and Duration patched on
+    `release()`. A frame's time slot may be given (`add(at=)`): a hidden
+    VP8 frame shares the slot of the frame after it."""
+
+    def __init__(self, path: Union[str, Path], doctype: str, codec: str, private: bytes, width: int, height: int,
+                 fps: float):
+        self.path = Path(path)
+        self.fps = fps
+        self.n = 0
+        self._pending: List[Tuple[int, bytes, bool]] = []
+        self._cluster_ms = 0
+        self._f = open(self.path, "wb")
+        head = _matroska_head(doctype, codec, private, width, height, fps)
+        self._f.write(head)
+        self._segment = head.index(SEGMENT.to_bytes(4, "big")) + 4
+        self._duration = head.index(DURATION.to_bytes(2, "big") + b"\x88") + 3
+
+    def add(self, data: bytes, key: bool = True, at: Optional[int] = None) -> None:
+        """One frame, timed as frame `at` (by default the next one's slot)."""
+        at = self.n if at is None else at
+        self.n = max(self.n, at + 1)
+        stamp = round(at * 1000 / self.fps)
+        if self._pending and stamp - self._cluster_ms >= 1000:
+            self._flush()
+        if not self._pending:
+            self._cluster_ms = stamp
+        self._pending.append((stamp - self._cluster_ms, data, key))
+
+    def _flush(self) -> None:
+        if self._pending:
+            self._f.write(_cluster(self._cluster_ms, self._pending))
+            self._pending = []
+
+    def release(self) -> None:
+        if self._f.closed:
+            return
+        try:
+            self._flush()
+            end = self._f.tell()
+            self._f.seek(self._segment)
+            self._f.write(_vint_size(end - self._segment - 8))
+            self._f.seek(self._duration)
+            self._f.write(struct.pack(">d", self.n * 1000 / self.fps))
+        finally:
+            self._f.close()
+
+
+class MkvWriter:
+    """An MPEG-4 Part 2 Matroska writer with `cv2.VideoWriter`'s surface:
+    `write` BGR uint8 frames of `frame_size` (w, h), then `release()`. As
+    OpenCV's FFmpeg writer does, an odd height loses its last row."""
+
+    def __init__(self, path: Union[str, Path], fps: float, frame_size: Tuple[int, int]):
+        self.path = Path(path)
+        self.width, self.height = (int(v) for v in frame_size)
+        fps_ratio(fps)  # refuses a rate of 0 or below
+        self.encoder = Mpeg4Encoder(self.width, self.height & ~1, fps)
+        self._out = MatroskaWriter(self.path, "matroska", MPEG4_CODEC_IDS[1], self.encoder.headers(),
+                                   self.encoder.width, self.encoder.height, fps)
+
+    def isOpened(self) -> bool:  # noqa: N802 -- cv2.VideoWriter's name
+        return not self._out._f.closed
+
+    def write(self, frame_bgr: np.ndarray) -> None:
+        if not self.isOpened():
+            raise ValueError(f"{self.path}: write after release()")
+        frame = np.asarray(frame_bgr)
+        if frame.shape != (self.height, self.width, 3) or frame.dtype != np.uint8:
+            raise ValueError(f"{self.path}: a frame of {frame.shape} {frame.dtype}; the writer takes uint8 "
+                             f"({self.height}, {self.width}, 3) BGR")
+        self._out.add(self.encoder.encode(frame[:self.encoder.height]))
+
+    def release(self) -> None:
+        self._out.release()

@@ -6,7 +6,7 @@
               `mdat`, `wide`, `free` or `skip` -> `data/mp4.py Mp4Reader`
               (MPEG-4 Part 2)
   Matroska    the EBML magic -> `data/mkv.py MkvReader` (MPEG-4 Part 2;
-              WebM raises)
+              WebM, VP8 through `data/vp8.py`)
 
 Every reader has `width`, `height`, `fps`, `frame_count`, `info()` (the
 JAX package's `get_video_info` keys) and `read(rgb)`, and raises on an
@@ -42,5 +42,5 @@ def open_video(path: Union[str, Path]):
     if head[:4] == b"\x1a\x45\xdf\xa3":
         return MkvReader(path)
     what = f"a RIFF {head[8:12]!r} file" if head[:4] == b"RIFF" else f"a file that starts {head[:8].hex()}"
-    raise NotImplementedError(f"{path}: {what}; the port reads AVI, MP4/MOV and Matroska video (ROADMAP Queue 1 "
+    raise NotImplementedError(f"{path}: {what}; the port reads AVI, MP4/MOV and Matroska/WebM video (ROADMAP Queue 1 "
                               "item 11.2)")

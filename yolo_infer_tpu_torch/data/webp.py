@@ -1,27 +1,29 @@
-"""Lossless WebP (VP8L) decode and encode in numpy, to the pixels of `cv2.imread`.
+"""WebP decode (lossless and lossy) and lossless encode in numpy, to the pixels of `cv2.imread`.
 
 The JAX package reads WebP through OpenCV (libwebp underneath); the port
-reads the lossless form itself (`decode_webp`, RFC 9649):
+reads it itself (`decode_webp`, RFC 9649):
 
-  - the RIFF container: the simple form (one `VP8L` chunk) and the extended
-    one (`VP8X` with a `VP8L` chunk), whose `EXIF` chunk's orientation is
-    applied as OpenCV applies it;
-  - prefix codes: the simple one- and two-symbol codes and the normal code
-    read through its code-length code (repeat codes 16, 17 and 18, the
-    optional max_symbol); a code of one symbol takes no bits;
-  - meta prefix codes (the entropy image and its groups), the colour cache
-    (hash 0x1e35a7bd), LZ77 backward references with the 120-entry
-    distance map;
-  - the four transforms, undone in reverse order: the predictor's 14 modes
-    (with its top-row, left-column and right-edge rules), cross-colour,
-    subtract-green, and colour indexing with pixel bundling for palettes of
-    16 colours or fewer;
+  - the RIFF container: the simple form (one `VP8L` or `VP8 ` chunk) and
+    the extended one (`VP8X`), whose `EXIF` chunk's orientation is applied
+    as OpenCV applies it; an animation (`ANIM`, `ANMF`) gives its first
+    frame, lossy or lossless, at its offset on a zeroed canvas, as
+    libwebp's `WebPAnimDecoder` gives it;
+  - lossy frames (`VP8 `): a VP8 key frame through `data/vp8.py`, then
+    libwebp's default conversion to RGB (`fancy_upsample_rgb`); an `ALPH`
+    chunk's header is checked;
+  - lossless frames (`VP8L`): prefix codes (the simple one- and two-symbol
+    codes and the normal code read through its code-length code, with
+    repeat codes 16, 17 and 18 and the optional max_symbol; a code of one
+    symbol takes no bits), meta prefix codes (the entropy image and its
+    groups), the colour cache (hash 0x1e35a7bd), LZ77 backward references
+    with the 120-entry distance map, and the four transforms, undone in
+    reverse order: the predictor's 14 modes (with its top-row, left-column
+    and right-edge rules), cross-colour, subtract-green, and colour
+    indexing with pixel bundling for palettes of 16 colours or fewer;
   - alpha is dropped, as OpenCV's BGR read drops it.
 
-The entropy decoder and the predictor are Python loops; the other
-transforms are numpy. Lossy WebP (`VP8 `, with or without `ALPH`) and
-animations raise `NotImplementedError` (ROADMAP Queue 1 item 10); malformed
-data raises `ValueError`.
+The lossless entropy decoder and predictor are Python loops, the rest
+numpy. Malformed data raises `ValueError`.
 
 `encode_webp` writes a VP8L file: the subtract-green transform, no colour
 cache, no backward references, one group of length-limited Huffman codes.
@@ -36,8 +38,8 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 
 from yolo_infer_tpu_torch.data.jpeg import apply_orientation, exif_orientation
+from yolo_infer_tpu_torch.data.vp8 import Vp8Decoder, key_frame_size
 
-_UNSUPPORTED = "the port reads lossless WebP (VP8L); {} is ROADMAP Queue 1 item 10"
 _CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 # (dy << 4) | (8 - dx) of each of the 120 short distance codes (RFC 9649 4.2.2)
 _CODE_TO_PLANE = bytes.fromhex(
@@ -383,23 +385,80 @@ def _unpredict(px: List[int], modes: List[int], w: int, h: int) -> List[int]:
     return px
 
 
-def decode_webp(data: bytes) -> np.ndarray:
-    """WebP bytes -> uint8 (H, W, 3) RGB, the pixels of `cv2.imread(path,
-    cv2.IMREAD_COLOR)` in RGB order, for a lossless file."""
-    if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
-        raise ValueError("not a WebP file")
-    pos, end = 12, min(len(data), 8 + struct.unpack("<I", data[4:8])[0])
-    chunks = {}
+def _chunks(data: bytes, pos: int, end: int) -> List[Tuple[bytes, bytes]]:
+    """The (fourcc, payload) chunks in data[pos:end], in order."""
+    out = []
     while pos + 8 <= end:
         kind, size = data[pos: pos + 4], struct.unpack("<I", data[pos + 4: pos + 8])[0]
-        chunks.setdefault(kind, data[pos + 8: pos + 8 + size])
+        out.append((kind, data[pos + 8: pos + 8 + size]))
         pos += 8 + size + (size & 1)
-    if b"ANIM" in chunks or b"ANMF" in chunks:
-        raise NotImplementedError(_UNSUPPORTED.format("an animated WebP"))
-    if b"VP8 " in chunks or b"ALPH" in chunks:
-        raise NotImplementedError(_UNSUPPORTED.format("lossy WebP (VP8)"))
-    body = chunks.get(b"VP8L")
-    if body is None or len(body) < 5 or body[0] != 0x2F:
+    return out
+
+
+def _mult_hi(v: np.ndarray, coeff: int) -> np.ndarray:
+    return (v * coeff) >> 8
+
+
+def _clip8(v: np.ndarray) -> np.ndarray:
+    return np.where((v & ~((256 << 6) - 1)) == 0, v >> 6, np.where(v < 0, 0, 255))
+
+
+def fancy_upsample_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """libwebp's default YUV 4:2:0 to RGB: "fancy" upsampling (each output
+    pixel's chroma from its four nearest chroma samples, 9-3-3-1, as
+    `UpsampleRgbLinePair` computes it; the first row, and the last of an
+    even height, from one chroma row) and `VP8YUVToR/G/B` (14-bit
+    fixed point). (h, w) luma, ((h+1)/2, (w+1)/2) chroma -> (h, w, 3)."""
+    h, w = y.shape
+    r = np.arange(h)
+    near = np.where(r & 1, (r - 1) >> 1, r >> 1)
+    far = np.clip(np.where(r & 1, near + 1, near - 1), 0, u.shape[0] - 1)
+    out = []
+    for c in (u, v):
+        c = c.astype(np.int32)
+        n, f = c[near], c[far]  # (h, cw)
+        full = np.empty((h, w), np.int32)
+        full[:, 0] = (3 * n[:, 0] + f[:, 0] + 2) >> 2
+        pairs = (w - 1) >> 1
+        if pairs:
+            a, b, cc, d = n[:, :pairs], n[:, 1:pairs + 1], f[:, :pairs], f[:, 1:pairs + 1]
+            full[:, 1:2 * pairs:2] = (((a + 3 * b + 3 * cc + d + 8) >> 3) + a) >> 1
+            full[:, 2:2 * pairs + 1:2] = (((3 * a + b + cc + 3 * d + 8) >> 3) + b) >> 1
+        if not w & 1:
+            full[:, w - 1] = (3 * n[:, pairs] + f[:, pairs] + 2) >> 2
+        out.append(full)
+    uu, vv = out
+    yy = _mult_hi(y.astype(np.int32), 19077)
+    rgb = np.empty((h, w, 3), np.uint8)
+    rgb[..., 0] = _clip8(yy + _mult_hi(vv, 26149) - 14234)
+    rgb[..., 1] = _clip8(yy - _mult_hi(uu, 6419) - _mult_hi(vv, 13320) + 8708)
+    rgb[..., 2] = _clip8(yy + _mult_hi(uu, 33050) - 17685)
+    return rgb
+
+
+def _check_alph(alph: bytes, w: int, h: int) -> None:
+    """An ALPH chunk's header (alpha is dropped, so only its form is checked)."""
+    if not alph or (alph[0] & 3) > 1 or ((alph[0] >> 2) & 3) > 3 or (not alph[0] & 3 and len(alph) < 1 + w * h):
+        raise ValueError("WebP with a malformed ALPH chunk")
+
+
+def _decode_lossy(frame: bytes, w: int = 0, h: int = 0) -> np.ndarray:
+    """A `VP8 ` chunk (one key frame) -> (H, W, 3) RGB; w, h, when given,
+    must be its size."""
+    if len(frame) < 10 or frame[0] & 1:
+        raise ValueError("a lossy WebP whose VP8 data is not a key frame")
+    fw, fh = key_frame_size(frame)
+    if w and (fw, fh) != (w, h):
+        raise ValueError(f"a lossy WebP whose VP8 frame ({fw}x{fh}) is not the canvas's size ({w}x{h})")
+    planes = Vp8Decoder().decode(frame)
+    if planes is None:
+        raise ValueError("a lossy WebP whose VP8 frame is not shown")
+    return fancy_upsample_rgb(*planes)
+
+
+def _decode_lossless(body: bytes) -> np.ndarray:
+    """A `VP8L` chunk -> (H, W, 3) RGB (alpha dropped)."""
+    if len(body) < 5 or body[0] != 0x2F:
         raise ValueError("WebP without a VP8L bitstream")
     r = _Reader(body[1:])
     w, h = r.bits(14) + 1, r.bits(14) + 1
@@ -407,12 +466,57 @@ def decode_webp(data: bytes) -> np.ndarray:
     if r.bits(3):
         raise ValueError("VP8L version is not 0")
     argb = _decode_image(r, w, h, True)
-    rgb = argb.view(np.uint8).reshape(h, w, 4)[..., 2::-1]  # B, G, R, A in memory
+    return np.ascontiguousarray(argb.view(np.uint8).reshape(h, w, 4)[..., 2::-1])  # B, G, R, A in memory
+
+
+def _decode_frame(chunks: List[Tuple[bytes, bytes]], w: int = 0, h: int = 0) -> np.ndarray:
+    """The image of a still file's chunks, or of one ANMF frame's."""
+    kinds = dict(chunks[::-1])  # the first chunk of each kind
+    if b"VP8 " in kinds:
+        if b"ALPH" in kinds:
+            _check_alph(kinds[b"ALPH"], *key_frame_size(kinds[b"VP8 "]))
+        return _decode_lossy(kinds[b"VP8 "], w, h)
+    if b"VP8L" in kinds:
+        return _decode_lossless(kinds[b"VP8L"])
+    raise ValueError("WebP without a VP8 or VP8L bitstream")
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """WebP bytes -> uint8 (H, W, 3) RGB, the pixels of `cv2.imread(path,
+    cv2.IMREAD_COLOR)` in RGB order: lossless or lossy, with or without
+    alpha (dropped), an animation's first frame on its zeroed canvas."""
+    if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
+        raise ValueError("not a WebP file")
+    chunks = _chunks(data, 12, min(len(data), 8 + struct.unpack("<I", data[4:8])[0]))
+    kinds = dict(chunks[::-1])
+    vp8x = kinds.get(b"VP8X")
+    cw = ch = 0
+    if vp8x is not None:
+        if len(vp8x) < 10:
+            raise ValueError("WebP with a short VP8X chunk")
+        cw, ch = int.from_bytes(vp8x[4:7], "little") + 1, int.from_bytes(vp8x[7:10], "little") + 1
+    if b"ANMF" in kinds:
+        if vp8x is None:
+            raise ValueError("an animated WebP without a VP8X chunk")
+        anmf = kinds[b"ANMF"]
+        if len(anmf) < 16:
+            raise ValueError("WebP with a short ANMF chunk")
+        fx, fy = 2 * int.from_bytes(anmf[0:3], "little"), 2 * int.from_bytes(anmf[3:6], "little")
+        fw, fh = int.from_bytes(anmf[6:9], "little") + 1, int.from_bytes(anmf[9:12], "little") + 1
+        if fx + fw > cw or fy + fh > ch:
+            raise ValueError("an animated WebP whose first frame leaves its canvas")
+        frame = _decode_frame(_chunks(anmf, 16, len(anmf)), fw, fh)
+        if frame.shape[:2] != (fh, fw):
+            raise ValueError("an animated WebP whose frame is not the size its ANMF chunk gives")
+        rgb = np.zeros((ch, cw, 3), np.uint8)
+        rgb[fy:fy + fh, fx:fx + fw] = frame
+        return rgb
+    rgb = _decode_frame(chunks, cw, ch)
     orientation = 1
-    exif = chunks.get(b"EXIF")
-    if exif is not None and b"VP8X" in chunks:
+    exif = kinds.get(b"EXIF")
+    if exif is not None and vp8x is not None:
         orientation = exif_orientation(exif if exif.startswith(b"Exif\0\0") else b"Exif\0\0" + exif)
-    return apply_orientation(np.ascontiguousarray(rgb), orientation)
+    return apply_orientation(rgb, orientation)
 
 
 # ---------------------------------------------------------------------------

@@ -11,11 +11,11 @@ port's own encoder). A directory runs every image in it through
 the last image's parts: decode, predict, draw and encode.
 
 A video is read by its signature (`data/loader.py load_video`,
-`data/video.py`): MPEG-4 Part 2 in MP4, MOV, Matroska or AVI, or motion
-JPEG in AVI; other containers and codecs raise before any frame is read
-(ROADMAP Queue 1 item 11.2). The output's suffix picks its writer
-(`create_video_writer`): MPEG-4 Part 2 for `.mp4`, `.m4v` and `.mov`,
-motion JPEG for `.avi`. For detect, `detect_video` is the JAX demo's
+`data/video.py`): MPEG-4 Part 2 in MP4, MOV, Matroska or AVI, VP8 in
+WebM, or motion JPEG in AVI; other containers and codecs raise before any
+frame is read (ROADMAP Queue 1 item 11.2). The output's suffix picks its
+writer (`create_video_writer`): MPEG-4 Part 2 for `.mp4`, `.m4v`, `.mov`
+and `.mkv`, motion JPEG for `.avi`. For detect, `detect_video` is the JAX demo's
 batched pipeline: a decode thread reads and letterboxes frames on the host
 into batches of `batch_size` (the last one padded with its last frame), the
 predictor's staging pipeline (`Predictor._serve_stream`, the one

@@ -24,10 +24,12 @@ those two give the JAX package's pixels. Oriented boxes take their corners
 from `ops/rotated.py xywhr_to_corners`. Images are RGB uint8 (H, W, 3).
 
 `create_video_writer` writes MPEG-4 Part 2 in MP4 or QuickTime for
-`.mp4`, `.m4v` and `.mov` (`data/mp4.py Mp4Writer`, I-VOPs only) and motion
-JPEG for `.avi` (`data/avi.py AviWriter`); any other container (`.mkv`,
-`.webm`, ...) raises before anything is written (ROADMAP Queue 1 item
-11.2).
+`.mp4`, `.m4v` and `.mov` (`data/mp4.py Mp4Writer`, I-VOPs only) and in
+Matroska for `.mkv` (`data/mkv.py MkvWriter`), and motion JPEG for `.avi`
+(`data/avi.py AviWriter`). `.webm` raises `RuntimeError`, as the JAX
+package's codec chain finds no codec that goes into WebM; any other
+container (`.mpg`, ...) raises before anything is written (ROADMAP Queue 1
+item 11.2).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from yolo_infer_tpu_torch.data.avi import AviWriter
+from yolo_infer_tpu_torch.data.mkv import MkvWriter
 from yolo_infer_tpu_torch.data.mp4 import Mp4Writer
 from yolo_infer_tpu_torch.ops.letterbox import resize_linear_f32, resize_linear_u8
 from yolo_infer_tpu_torch.ops.rotated import xywhr_to_corners
@@ -338,13 +341,19 @@ def draw_obb(
 
 def create_video_writer(path: Union[str, Path], fps: float, frame_size: Tuple[int, int]):
     """A writer of BGR uint8 frames of `frame_size` (w, h) into `path`: MPEG-4
-    Part 2 for `.mp4`, `.m4v` and `.mov` (`data/mp4.py Mp4Writer`), motion
-    JPEG for `.avi` (`data/avi.py AviWriter`)."""
+    Part 2 for `.mp4`, `.m4v` and `.mov` (`data/mp4.py Mp4Writer`) and
+    `.mkv` (`data/mkv.py MkvWriter`), motion JPEG for `.avi`
+    (`data/avi.py AviWriter`); `.webm` raises `RuntimeError` as the JAX
+    package's codec chain does."""
     path = Path(path)
-    writer = {".mp4": Mp4Writer, ".m4v": Mp4Writer, ".mov": Mp4Writer, ".avi": AviWriter}.get(path.suffix.lower())
+    suffix = path.suffix.lower()
+    if suffix == ".webm":
+        raise RuntimeError(f"no working codec for {path}")
+    writer = {".mp4": Mp4Writer, ".m4v": Mp4Writer, ".mov": Mp4Writer, ".mkv": MkvWriter,
+              ".avi": AviWriter}.get(suffix)
     if writer is None:
-        raise NotImplementedError(f"{path}: the port writes MPEG-4 Part 2 in .mp4, .m4v and .mov and motion JPEG in "
-                                  ".avi; other containers and codecs are ROADMAP Queue 1 item 11.2")
+        raise NotImplementedError(f"{path}: the port writes MPEG-4 Part 2 in .mp4, .m4v, .mov and .mkv and motion "
+                                  "JPEG in .avi; other containers and codecs are ROADMAP Queue 1 item 11.2")
     path.parent.mkdir(parents=True, exist_ok=True)
     return writer(path, fps, frame_size)
 
