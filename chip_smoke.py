@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs thirty-two phases, each printing one JSON line. Kernels A, C, F and G
+runs thirty-six phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -348,17 +348,17 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              (tp = 2) with its loss. gloo stages CUDA tensors through the
              host: (b)'s seconds time correctness plumbing, not NCCL
  32. video   the batched video demo (`DetectionDemo.detect_video`), ~40 s:
-             the port's writer makes a motion-JPEG AVI of 45 seeded 640x480
+             the port's writer makes a motion-JPEG AVI of 30 seeded 640x480
              frames at 30 fps (no OpenCV on the card's machine); phase 4's
              weights, written as a `.msgpack`, run it at b8/640 bf16 with an
              output AVI. The path's run (its first batch captures the b8/640
              signature) counts A and B at (1 + WARMUP_CALLS) times one
-             uncaptured body call; 45 frames out, every frame's detections
+             uncaptured body call; 30 frames out, every frame's detections
              (the boxes and scores drawn) equal to the same predictor's
              `predict_raw` on the frames the demo decoded (the first equal to
              the port's reader's), letterboxed on the host and batched as the
              demo batches them (counts and classes equal, boxes within 1e-3
-             px, scores within 1e-5); the output read back by the port with 45 frames of 640x480, its
+             px, scores within 1e-5); the output read back by the port with 30 frames of 640x480, its
              first frame bit-equal to `decode_jpeg(encode_jpeg(...))` of the
              first annotated frame. A second run under torch.profiler: A and
              B once per batch by name, frames/s, the host seconds per frame
@@ -369,7 +369,9 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              frame by frame over 4 frames (`predict` and `draw_results` per
              frame): A, B and D launched
  33. formats every still-image format on the card's host, ~40 s: each
-             fixture of `tests/torch_formats/` decodes to its manifest's
+             fixture of `tests/torch_formats/` (since phase 36's slice also
+             1-bit, CCITT and JPEG-in-TIFF and progressive JPEGs cut short)
+             decodes to its manifest's
              hash of OpenCV's pixels and shape, and each refused file raises
              as listed; a seeded 480x640 frame written as `.bmp`, `.tiff`
              and `.webp` by the port reads back bit for bit; the host
@@ -389,12 +391,14 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
  34. mpeg4   MPEG-4 Part 2 video on the card's host, ~60 s: each fixture of
              `tests/torch_video/` (OpenCV-written MP4, MOV, Matroska and
              XVID/FMP4/DIVX AVI with I- and P-VOPs, port-written files with
-             AC prediction) decodes to its manifest's sha256 of every frame
+             AC prediction, raw I420 and IYUV AVIs, an odd width among them)
+             decodes to its manifest's sha256 of every frame
              OpenCV decodes, and its info; each refused file (VP8 WebM, an
              `avc1` MP4, VOLs announcing B-VOPs, quarter-pel, interlace or
-             MPEG quantisation, a truncated MP4) raises as listed (its VP8
+             MPEG quantisation, a truncated MP4, raw I420 of an odd height)
+             raises as listed (its VP8
              WebM from OpenCV's writer now decodes to its hashes too); phase 32's
-             45 seeded 640x480 frames written to `.mp4` by the port read back
+             30 seeded 640x480 frames written to `.mp4` by the port read back
              bit-equal to the encoder's reconstruction; `detect_video`
              (yolo11n, b8/640 bf16, phase 4's weights) over the committed
              24-frame 640x480 fixture with `.mp4` output: every frame's
@@ -423,6 +427,23 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              per batch by name in a traced second run; frames/s, host
              seconds per frame by part, the kernels' busy share), the frames
              it drew on equal to the manifest's, the output read back
+ 36. scripts the repo's scripts as the port runs them
+             (`yolo_infer_tpu_torch.scripts.*`, in this process), on phase
+             4's weights saved as a checkpoint: `benchmark` yolo11n b32/640
+             with `--int8` (the JAX script's JSON keys; A and B in the bf16
+             run, E 72 times a call in the dynamic-int8 run, each run's
+             launches (1 + WARMUP_CALLS) times one uncaptured body call);
+             `export_dynamic` (the file reloaded serves as dynamic int8, and
+             its `predict_raw` on the card equals the quantizer's own
+             model's bit for bit); `val_matrix` at 640 over 480x640 frames
+             in the kinds the port reads since this phase (1-bit PackBits
+             TIFF, CCITT modified Huffman, T.4 one- and two-dimensional and
+             T.6, YCbCr 4:2:0 JPEG-in-TIFF in strips, a progressive JPEG
+             cut short), written here (the bilevel files decode to their
+             bits exactly): metrics and `confusion_matrix.txt` equal to a
+             direct `validate` in the same process, F and G launched;
+             `train`: one QAT epoch at 640 on a small rectangle set writes
+             its checkpoint, and the int8 file is refused before any step
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -3758,14 +3779,14 @@ OVERFIT_STEPS = 40
 TRAIN_DEVICE = "cuda"  # the card (a CPU rehearsal of the phase sets "cpu")
 
 
-def write_rect_dataset(root: Path, seed: int) -> Path:
+def write_rect_dataset(root: Path, seed: int, frames=TRAIN_FRAMES) -> Path:
     """A detect dataset of coloured rectangles on gray, 640x480 PNGs with
     their exact boxes as labels (a later rectangle may cover part of an
-    earlier one, whose box stays as drawn)."""
+    earlier one, whose box stays as drawn); `frames` (train, val)."""
     from yolo_infer_tpu_torch.data.loader import create_dataset_config, save_image
 
     rng = np.random.default_rng(seed)
-    for split, n in zip(("train", "val"), TRAIN_FRAMES):
+    for split, n in zip(("train", "val"), frames):
         images, labels = root / "images" / split, root / "labels" / split
         labels.mkdir(parents=True)
         for i in range(n):
@@ -4309,7 +4330,7 @@ def phase_optimize(report):
 PAR_TRAIN = dict(batch=16, imgsz=640, epochs=1)  # MultiChipTrainer(device_ids=[0]) over phase 29's dataset: 6 steps
 PAR_CHECK = (2, 640)  # the fp32 step, meshed against unmeshed: batch, imgsz (2 x 1 images over two ranks)
 PAR_STEP = (16, 640)  # the timed bf16 steps: batch, imgsz
-PAR_STEPS = 10  # timed steps of each form per turn (two turns: unmeshed, meshed, meshed, unmeshed)
+PAR_STEPS = 6  # timed steps of each form per turn (two turns: unmeshed, meshed, meshed, unmeshed)
 PAR_SERVE = (32, 640)  # the meshed bf16 predict: batch, imgsz
 PAR_LOSS_RTOL = 1e-5
 # the update's bound: phase 29's cuda-vs-cpu one, for the same f32 step summed
@@ -4717,7 +4738,7 @@ def phase_parallel(report):
     return out
 
 
-VIDEO_FRAMES = 45  # the video phase's input: seeded 640x480 frames at 30 fps, MJPEG AVI written by the port
+VIDEO_FRAMES = 30  # the video phase's input: seeded 640x480 frames at 30 fps, MJPEG AVI written by the port
 VIDEO_SIZE = (480, 640)
 VIDEO_SERVE = (8, 640)  # detect_video: batch, imgsz
 VIDEO_SEG_FRAMES = 4  # the segment video, frame by frame
@@ -5243,7 +5264,7 @@ def phase_formats(report):
 
 MPEG4_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_video"
 MPEG4_DEMO = "mp4v_640x480_30.mp4"  # the committed 640x480 I- and P-VOP fixture the demo runs over
-MPEG4_ROUND_TRIP = 45  # phase 32's seeded 640x480 frames, written to .mp4 by the port and read back
+MPEG4_ROUND_TRIP = 30  # phase 32's seeded 640x480 frames, written to .mp4 by the port and read back
 
 
 def median_s(fn, reps: int = 3) -> float:
@@ -5292,7 +5313,10 @@ def phase_mpeg4(report):
                     failures.append(f"{name}: {read.__name__} raised {exc!r}, not {want['error']} "
                                     f"/{want['match']}/")
     out["fixtures"] = {"videos": len(manifest["files"]), "refused": len(manifest["raises"]),
+                       "raw_i420": sorted(n for n in manifest["files"] if n.startswith(("i420", "iyuv"))),
                        "seconds": time.perf_counter() - t0}
+    if len(out["fixtures"]["raw_i420"]) < 3:
+        failures.append(f"the manifest lists {out['fixtures']['raw_i420']} raw I420 AVIs, not 3")
     # --- the host's decode and encode seconds at 640x480 (median of 3)
     demo_src = MPEG4_FIXTURES / MPEG4_DEMO
     reader = Mp4Reader(demo_src)
@@ -5447,6 +5471,328 @@ def phase_vp8(report):
     return out
 
 
+SCRIPTS_BENCH = (32, 640, 20)  # benchmark: batch, imgsz, runs a timing window (three windows a model)
+SCRIPTS_VAL = (16, 640)  # val_matrix: batch, imgsz
+SCRIPTS_KINDS = ("bilevel.tif", "ccitt_rle.tif", "ccitt_g3.tif", "ccitt_g3_2d.tif", "ccitt_g4.tif",
+                 "jpeg_ycc.tif", "prog_cut.jpg")  # the still kinds the port reads since phase 36
+SCRIPTS_FRAMES = 14  # val_matrix's 480x640 frames, two of each kind
+SCRIPTS_TRAIN = (16, 640)  # train: batch, imgsz
+SCRIPTS_TRAIN_FRAMES = (16, 8)  # train: rectangle frames (one b16 step, one validation batch)
+SCRIPTS_VAL_KERNELS = ("dfl_decode", "greedy_nms_keep")  # F, G
+DYNAMIC_E_LAUNCHES = 72  # kernel E launches of one dynamic-int8 yolo11n call (phase 30)
+
+
+def run_script(name: str, *argv):
+    """`python -m yolo_infer_tpu_torch.scripts.<name> argv` in this process:
+    (exit code, stdout, host seconds, the kernel launches of the run)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    module = importlib.import_module(f"yolo_infer_tpu_torch.scripts.{name}")
+    buf = io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0, {k: v for k, v in read_counters().items() if v}
+
+
+def tiff_file(width: int, height: int, tags: dict, units) -> bytes:
+    """A little-endian one-page TIFF: `tags` {tag: (type 3 or 4, values)};
+    `units` the strips' bytes (their offsets and counts filled in)."""
+    body, offsets = b"", []
+    for u in units:
+        offsets.append(8 + len(body))
+        body += u + b"\0" * (len(u) & 1)
+    tags = {256: (4, [width]), 257: (4, [height]), **tags, 273: (4, offsets), 279: (4, [len(u) for u in units])}
+    entries = sorted(tags.items())
+    ifd_at = 8 + len(body)
+    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, extra = struct.pack("<H", len(entries)), b""
+    for tag, (typ, vals) in entries:
+        packed = struct.pack("<" + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+        if len(packed) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, len(vals)) + packed.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHII", tag, typ, len(vals), extra_at + len(extra))
+            extra += packed
+    return b"II*\0" + struct.pack("<I", ifd_at) + body + ifd + struct.pack("<I", 0) + extra
+
+
+def _changes(row) -> list:
+    """A row of 0 (white) and 1 (black) -> its changing elements, then the
+    row's width three times (T.4 4.2's b1, b2 past the end)."""
+    w = len(row)
+    return (np.flatnonzero(np.diff(np.concatenate([[0], row]).astype(np.int8))).tolist()) + [w] * 3
+
+
+def _run_code(n: int, black: int, codes) -> str:
+    """One run as T.4 codes it: make-up codes (2560 while more is left),
+    then a terminating code."""
+    out = []
+    while n >= 2624:
+        out.append(codes[black][2560])
+        n -= 2560
+    if n >= 64:
+        out.append(codes[black][n // 64 * 64])
+    return "".join(out) + codes[black][n % 64]
+
+
+def ccitt_encode(bits: np.ndarray, compression: int, two_d: bool = False) -> bytes:
+    """(h, w) bits (1 black) as one strip of CCITT compression 2 (rows
+    one-dimensional from byte boundaries), 3 (an EOL before each row; with
+    `two_d`, T4Options bit 0: a tag bit, every second row two-dimensional)
+    or 4 (T.6: every row two-dimensional, EOFB last). The card's machine has
+    no libtiff to write one."""
+    from yolo_infer_tpu_torch.data.ccitt_tables import EOL, MODES, run_codes
+
+    codes = [{v: k for k, v in run_codes(b).items()} for b in (False, True)]
+    mode = {v: k for k, v in MODES.items()}
+    out, ref = [], [bits.shape[1]] * 3
+    for y, row in enumerate(bits):
+        cur = _changes(row)
+        w = len(row)
+        one_d = compression == 2 or (compression == 3 and (not two_d or y % 2 == 0))
+        if compression == 3:
+            out.append(EOL + ("" if not two_d else "1" if one_d else "0"))
+        if one_d:
+            runs = np.diff([0] + [c for c in cur if c < w] + [w]).tolist()
+            out.extend(_run_code(n, k & 1, codes) for k, n in enumerate(runs))
+        else:
+            a0, black = -1, 0
+            while a0 < w:
+                a1 = next(c for c in cur if c > a0) if a0 >= 0 else cur[0]
+                a2 = next((c for c in cur if c > a1), w)
+                j = next(i for i, c in enumerate(ref) if c > a0)
+                i = j + ((j & 1) != black)
+                b1, b2 = ref[i], ref[i + 1]
+                if b2 < a1:
+                    out.append(mode["P"])
+                    a0 = b2
+                elif abs(a1 - b1) <= 3:
+                    out.append(mode[a1 - b1])
+                    a0, black = a1, black ^ 1
+                else:
+                    out.append(mode["H"] + _run_code(a1 - max(a0, 0), black, codes)
+                               + _run_code(a2 - a1, black ^ 1, codes))
+                    a0 = a2
+        if compression == 2:
+            out.append("0" * (-sum(map(len, out)) % 8))
+        ref = cur
+    if compression == 4:
+        out.append(EOL * 2)
+    text = "".join(out)
+    text += "0" * (-len(text) % 8)
+    return int(text, 2).to_bytes(len(text) // 8, "big") if text else b""
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits (TIFF compression 32773)."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        n = 1
+        while i + n < len(data) and data[i + n] == data[i] and n < 128:
+            n += 1
+        if n >= 2:
+            out += bytes([257 - n, data[i]])
+            i += n
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and not (j + 1 < len(data) and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def write_new_kind(path: Path, kind: str, rgb: np.ndarray):
+    """`rgb` (480x640) in one of SCRIPTS_KINDS; returns the pixels the port
+    must decode for a bilevel kind (exact), else None."""
+    from yolo_infer_tpu_torch.data.jpeg import encode_jpeg
+
+    h, w = rgb.shape[:2]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    # bilevel: the frame's 4x4 blocks thresholded (runs for the fax codes)
+    bits = (rgb[::4, ::4].mean(-1) > 127).repeat(4, 0).repeat(4, 1)[:h, :w].astype(np.uint8)
+    if kind == "bilevel.tif":  # 1-bit min-is-black, PackBits
+        rows = np.packbits(bits, axis=1)
+        path.write_bytes(tiff_file(w, h, {258: (3, [1]), 259: (3, [32773]), 262: (3, [1]), 278: (4, [h])},
+                                   [packbits(rows.tobytes())]))
+        return np.repeat((bits * 255)[..., None], 3, -1)
+    if kind.startswith("ccitt"):  # min-is-white: a set bit is black
+        compression = {"ccitt_rle.tif": 2, "ccitt_g3.tif": 3, "ccitt_g3_2d.tif": 3, "ccitt_g4.tif": 4}[kind]
+        two_d = kind == "ccitt_g3_2d.tif"
+        tags = {258: (3, [1]), 259: (3, [compression]), 262: (3, [0]), 278: (4, [h])}
+        if two_d:
+            tags[292] = (4, [1])
+        path.write_bytes(tiff_file(w, h, tags, [ccitt_encode(bits, compression, two_d)]))
+        return np.repeat(((1 - bits) * 255)[..., None], 3, -1).astype(np.uint8)
+    if kind == "jpeg_ycc.tif":  # strips of 16 rows, each a 4:2:0 JPEG stream of the port's encoder
+        path.write_bytes(tiff_file(w, h, {258: (3, [8, 8, 8]), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]),
+                                          278: (4, [16]), 530: (3, [2, 2])},
+                                   [encode_jpeg(rgb[y: y + 16]) for y in range(0, h, 16)]))
+        return None
+    full = progressive_jpeg(rgb)  # cut after its DC scans and the luma AC scan: the chroma smoothed
+    sos = [i for i in range(len(full) - 1) if full[i: i + 2] == b"\xff\xda"]
+    path.write_bytes(full[: sos[3]] + b"\xff\xd9")
+    return None
+
+
+def phase_scripts(report):
+    """The repo's scripts as the port runs them (phase 36): benchmark with
+    --int8, export_dynamic, val_matrix over the new still kinds, train (QAT)
+    and its refusal of an int8 file; see the module docstring."""
+    import torch
+
+    from yolo_infer_tpu_torch.core.graphs import WARMUP_CALLS
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.core.validator import YOLO11Validator
+    from yolo_infer_tpu_torch.data.loader import create_dataset_config, load_image
+    from yolo_infer_tpu_torch.optimization.quantization.quantizers import DynamicQuantizer
+
+    out = {"phase": "scripts", "card": card_line()}
+    failures = []
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_scripts_"))
+    cwd = os.getcwd()
+    os.chdir(root)  # the scripts write validation_results/ and runs/ where they run
+    try:
+        model = report["weights"][0] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "smoke.msgpack")
+        batch, imgsz, runs = SCRIPTS_BENCH
+        frames = np.random.default_rng(SEED + 36).integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+        # --- benchmark: each model's run counted apart (the script benchmarks bf16, then dynamic int8)
+        per_run = []
+        benchmark = YOLO11Model.benchmark
+
+        def counted(self, *args, **kwargs):
+            reset_counters()
+            result = benchmark(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            per_run.append(read_counters())
+            return result
+
+        YOLO11Model.benchmark = counted
+        try:
+            rc, text, seconds, _ = run_script("benchmark", ckpt, "--imgsz", imgsz, "--batch", batch, "--runs", runs,
+                                              "--int8")
+        finally:
+            YOLO11Model.benchmark = benchmark
+        parsed = json.loads(text)
+        bf16_model = YOLO11Model(ckpt)
+        qmodel = DynamicQuantizer(YOLO11Model(ckpt)).optimize()
+        body = {}
+        for name, m in (("bf16", bf16_model), ("int8_dynamic", qmodel)):
+            reset_counters()
+            eager_run(m.predictor, frames, imgsz)
+            body[name] = read_counters()
+        out["benchmark"] = {
+            "rc": rc, "keys": list(parsed), "seconds": seconds, "speedup": parsed.get("speedup"),
+            "img_s": {k: parsed[k]["fps"] for k in ("bf16", "int8_dynamic") if k in parsed},
+            "avg_time_ms": {k: parsed[k]["avg_time_s"] * 1e3 for k in ("bf16", "int8_dynamic") if k in parsed},
+            "launches": {"bf16": {k: per_run[0][k] for k in ("nms_keep", "attention_qkv", "int8_conv")},
+                         "int8_dynamic": {k: per_run[1][k] for k in ("nms_keep", "attention_qkv", "int8_conv")}},
+            "launches_per_call": {"bf16": {k: body["bf16"][k] for k in ("nms_keep", "attention_qkv")},
+                                  "int8_dynamic": body["int8_dynamic"]["int8_conv"]}}
+        emit({"scripts_benchmark_b32_640": out["benchmark"], "card": out["card"]})
+        if rc != 0 or list(parsed) != ["bf16", "int8_dynamic", "speedup"]:
+            failures.append(f"benchmark: exit {rc}, keys {list(parsed)}")
+        for k in ("nms_keep", "attention_qkv"):
+            if not body["bf16"][k] or per_run[0][k] != (1 + WARMUP_CALLS) * body["bf16"][k]:
+                failures.append(f"benchmark bf16: {k} {per_run[0][k]} launches, {body['bf16'][k]} a call")
+        if (body["int8_dynamic"]["int8_conv"] != DYNAMIC_E_LAUNCHES or per_run[0]["int8_conv"]
+                or per_run[1]["int8_conv"] != (1 + WARMUP_CALLS) * DYNAMIC_E_LAUNCHES):
+            failures.append(f"benchmark int8: E {per_run[1]['int8_conv']} launches in the run, "
+                            f"{body['int8_dynamic']['int8_conv']} a call, {per_run[0]['int8_conv']} in bf16's")
+        # --- export_dynamic: the file reloaded serves as the quantizer's own model does, bit for bit
+        rc, text, seconds, _ = run_script("export_dynamic", ckpt, "--output", root / "int8.msgpack")
+        reloaded = YOLO11Model(root / "int8.msgpack")
+        frames_dev = torch.from_numpy(frames).cuda()
+        got = reloaded.predictor.predict_raw(frames_dev, 0.25, 0.45, imgsz)
+        want = qmodel.predictor.predict_raw(frames_dev, 0.25, 0.45, imgsz)
+        equal = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+        out["export_dynamic"] = {"rc": rc, "printed": text.strip(), "seconds": seconds,
+                                 "quant_mode": reloaded.predictor.quant_mode, "predict_raw_bit_equal": equal,
+                                 "detections": int(want["num"].sum()),
+                                 "info_json": (root / "int8.info.json").exists()}
+        if (rc != 0 or not equal or reloaded.predictor.quant_mode != "dynamic" or not re.search(
+                r"compression \d+\.\d\dx", text) or not out["export_dynamic"]["info_json"]):
+            failures.append(f"export_dynamic: {out['export_dynamic']}")
+        del reloaded, qmodel, bf16_model
+        # --- val_matrix over the new still kinds, against a direct validate in this process
+        images = root / "val" / "images" / "val"
+        exact, decoded, kinds = [], [], collections.Counter()
+        t0 = time.perf_counter()
+        for i in range(SCRIPTS_FRAMES):
+            kind = SCRIPTS_KINDS[i % len(SCRIPTS_KINDS)]
+            path = images / f"f{i:02d}{Path(kind).suffix}"
+            want_px = write_new_kind(path, kind, formats_frame(SEED + 3600 + i))
+            kinds[kind] += 1
+            img = load_image(path)
+            decoded.append(img)
+            if img.shape != (480, 640, 3) or (want_px is not None and not np.array_equal(img, want_px)):
+                exact.append(path.name)
+        out["write_and_decode_s"] = time.perf_counter() - t0
+        labelled = YOLO11Model(ckpt).predict(decoded, conf=0.25, imgsz=SCRIPTS_VAL[1])
+        labels = root / "val" / "labels" / "val"
+        labels.mkdir(parents=True)
+        for path, r in zip(sorted(images.iterdir()), labelled):
+            h, w = r.orig_shape
+            rows = [f"{c} {(b[0] + b[2]) / 2 / w:.6f} {(b[1] + b[3]) / 2 / h:.6f} {(b[2] - b[0]) / w:.6f} "
+                    f"{(b[3] - b[1]) / h:.6f}" for b, c in zip(r.boxes.clip(0, [w, h, w, h]), r.classes)]
+            (labels / f"{path.stem}.txt").write_text("\n".join(rows) + "\n")
+        data = create_dataset_config(root / "val" / "data.yaml", str(images), str(images),
+                                     {c: str(c) for c in range(80)})
+        rc, text, seconds, launches = run_script("val_matrix", ckpt, "--data", data, "--imgsz", SCRIPTS_VAL[1],
+                                                 "--batch", SCRIPTS_VAL[0])
+        metrics = json.loads(text[: text.rindex("confusion matrix written")]) if rc == 0 else {}
+        matrix = (root / "validation_results" / "confusion_matrix.txt").read_text() if rc == 0 else ""
+        direct = YOLO11Validator(model_path=str(ckpt), output_dir=root / "direct").validate(
+            data, imgsz=SCRIPTS_VAL[1], batch=SCRIPTS_VAL[0], confusion_matrix=True)
+        out["val_matrix"] = {
+            "rc": rc, "seconds": seconds, "images_per_s_wall": SCRIPTS_FRAMES / seconds, "kinds": dict(kinds),
+            "labels": sum(len(r) for r in labelled), "metrics": metrics,
+            "metrics_equal_direct": metrics == json.loads(json.dumps(direct["metrics"])),
+            "matrix_equal_direct": matrix == (root / "direct" / "confusion_matrix.txt").read_text(),
+            "decoded_wrong": exact, "launches": {k: launches.get(k, 0) for k in SCRIPTS_VAL_KERNELS}}
+        v = out["val_matrix"]
+        if rc != 0 or exact or not v["metrics_equal_direct"] or not v["matrix_equal_direct"] or not v["labels"]:
+            failures.append(f"val_matrix: {v}")
+        if min(v["launches"].values()) < 1:
+            failures.append(f"val_matrix launched F or G no time: {v['launches']}")
+        # --- train: one QAT epoch from the float file; the int8 file refused before any step
+        data = write_rect_dataset(root / "rects", SEED + 36, SCRIPTS_TRAIN_FRAMES)
+        argv = ("--data", data, "--epochs", 1, "--batch", SCRIPTS_TRAIN[0], "--imgsz", SCRIPTS_TRAIN[1])
+        rc, text, seconds, launches = run_script("train", ckpt, *argv)
+        summary = json.loads(text[text.index("{"):]) if rc == 0 else {}
+        run_dir = Path(summary.get("run_dir", root / "missing"))
+        out["train"] = {"rc": rc, "seconds": seconds, "summary": summary,
+                        "checkpoints": sorted(p.name for p in (run_dir / "checkpoints").glob("*")),
+                        "launches": {k: launches.get(k, 0) for k in SCRIPTS_VAL_KERNELS}}
+        if (rc != 0 or summary.get("status") != "completed" or summary.get("epochs_completed") != 1
+                or not out["train"]["checkpoints"] or "history" in summary):
+            failures.append(f"train: {out['train']}")
+        try:
+            run_script("train", root / "int8.msgpack", *argv)
+            out["train"]["int8_refused"] = None
+        except ValueError as exc:
+            out["train"]["int8_refused"] = str(exc)
+        if "fused deploy checkpoint, int8" not in (out["train"]["int8_refused"] or ""):
+            failures.append(f"train did not refuse the int8 file: {out['train']['int8_refused']}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     faulthandler.enable(all_threads=True)  # a crash in native code prints where each thread was
     try:
@@ -5474,7 +5820,7 @@ def main() -> int:
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
               phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats, phase_mpeg4,
-              phase_vp8)
+              phase_vp8, phase_scripts)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

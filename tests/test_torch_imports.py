@@ -25,6 +25,8 @@ training. An eighth runs `yolo_infer_tpu_torch.parallel` (a meshed step,
 predictor and dry run in a gloo group of one) with jax and `yolo_infer_tpu`
 blocked. A ninth reads every image fixture to its manifest's hash and
 round-trips every writer with jax, cv2, PIL and `yolo_infer_tpu` blocked.
+A tenth runs the port's scripts (`yolo_infer_tpu_torch.scripts`) with jax,
+the JAX package, cv2, yaml and PIL blocked.
 Last, every "ROADMAP Queue 1 item N" in
 the port's sources names an item that ROADMAP's Queue 1 has.
 """
@@ -496,6 +498,53 @@ def test_port_reads_and_writes_every_image_format_without_opencv_or_pil():
     animated WebP among them) decodes to its manifest's hash, and the port's
     writers round-trip, with jax, cv2, PIL and the JAX package blocked."""
     subprocess.run([sys.executable, "-I", "-c", _FORMATS_CODE.format(repo=str(REPO))], check=True, timeout=300,
+                   env=TORCH_SUBPROCESS_ENV)
+
+
+_SCRIPTS_CODE = """
+import contextlib, io, json, os, sys, tempfile
+from pathlib import Path
+for name in ("jax", "yolo_infer_tpu", "cv2", "yaml", "PIL", "flax", "msgpack", "safetensors"):
+    sys.modules[name] = None  # any import of these raises
+sys.path.insert(0, {repo!r})
+from yolo_infer_tpu_torch.scripts import benchmark, export_dynamic, train
+os.chdir(tempfile.mkdtemp())
+
+
+def run(module, *argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert module.main([*argv, "--device", "cpu"]) == 0
+    return out.getvalue()
+
+
+assert "compression" in run(export_dynamic, "yolo11n", "--output", "n_int8.msgpack")
+assert list(json.loads(run(benchmark, "yolo11n", "--imgsz", "64", "--batch", "1", "--runs", "1", "--int8"))) == [
+    "bf16", "int8_dynamic", "speedup"]
+import numpy as np
+from yolo_infer_tpu_torch.data.loader import create_dataset_config, save_image
+for split in ("train", "val"):
+    Path("labels", split).mkdir(parents=True)
+    for i in range(2):
+        save_image(Path("images", split, f"{{i}}.png"), np.full((64, 64, 3), 90 + 60 * i, np.uint8))
+        Path("labels", split, f"{{i}}.txt").write_text("0 0.5 0.5 0.4 0.4\\n")
+data = create_dataset_config("data.yaml", str(Path("images/train").resolve()), str(Path("images/val").resolve()),
+                             {{0: "box"}})
+try:
+    run(train, "n_int8.msgpack", "--data", str(data), "--epochs", "1", "--batch", "2", "--imgsz", "64")
+    raise AssertionError("the int8 file trained")
+except ValueError as exc:
+    assert "fused deploy checkpoint, int8" in str(exc), exc
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_infer_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_port_scripts_run_without_jax_opencv_yaml_or_pil():
+    """`yolo_infer_tpu_torch.scripts`: export_dynamic, benchmark with
+    --int8 and train's refusal of the int8 file, with jax, the JAX package,
+    cv2, yaml and PIL blocked (their imports are inside `main`)."""
+    subprocess.run([sys.executable, "-I", "-c", _SCRIPTS_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 
 

@@ -3,7 +3,7 @@
 
 The fixtures in `tests/torch_video/` come from `tests/torch_video/make_fixtures.py`
 (OpenCV's FFmpeg writer, and the port's writer with AC prediction, which
-libavcodec's encoder does not use); its manifest holds the sha256 of every
+libavcodec's encoder does not use), and raw I420 AVIs; its manifest holds the sha256 of every
 frame OpenCV's FFmpeg backend decodes. The JAX package opens video with
 `cv2.VideoCapture(path)`, that same backend, so its `load_video` is the
 reference for every frame, bit for bit. The demo tests hold the frames each
@@ -37,7 +37,7 @@ import main as jax_main  # noqa: E402
 import yolo_infer_tpu.core.model as jax_model_module  # noqa: E402
 import yolo_infer_tpu.demos.detection_demo as jax_demo_module  # noqa: E402
 from golden_common import GOLDEN_VERSION, golden_state_dict, unpack_manifest  # noqa: E402
-from make_fixtures import scene  # noqa: E402
+from make_fixtures import build_avi, i420_planes, scene  # noqa: E402
 from yolo_infer_tpu.data import loader as jax_loader  # noqa: E402
 from yolo_infer_tpu.models import build_spec as jax_build_spec  # noqa: E402
 from yolo_infer_tpu.models.convert import convert_state_dict  # noqa: E402
@@ -180,6 +180,34 @@ def test_refused_files_raise_before_any_frame(name):
     for read in (get_video_info, load_video):
         with pytest.raises(error, match=want["match"]):
             read(FIXTURES / name)
+
+
+@pytest.mark.parametrize("fourcc", ["I420", "IYUV"])
+@pytest.mark.parametrize("size", [(1, 2), (3, 2), (33, 18), (99, 60), (64, 48)])
+def test_raw_i420_avi_equals_opencv_at_any_width(tmp_path, size, fourcc):
+    """Raw planar 4:2:0 in AVI at odd and even widths: the frames of
+    OpenCV's FFmpeg backend (swscale's copy), and its info."""
+    w, h = size
+    frames = [np.random.default_rng(w * h + k).integers(0, 256, (h, w, 3), dtype=np.uint8) for k in range(3)]
+    path = tmp_path / "raw.avi"
+    build_avi(path, [i420_planes(f) for f in frames], fourcc.encode(), w, h, 25)
+    want, _ = cv2_read(path)
+    got = list(load_video(path, rgb=False))
+    assert len(got) == len(want) == 3 and all(np.array_equal(g, x) for g, x in zip(got, want))
+    assert get_video_info(path) == jax_loader.get_video_info(path)
+
+
+@pytest.mark.parametrize("size", [(64, 47), (99, 61), (2, 1)])
+def test_raw_i420_of_an_odd_height_raises(tmp_path, size):
+    """OpenCV reads these, but swscale converts an odd height on its scaled
+    path, which the port does not reproduce: refused before any frame."""
+    w, h = size
+    path = tmp_path / "odd.avi"
+    build_avi(path, [i420_planes(np.full((h, w, 3), 90, np.uint8))], b"I420", w, h, 25)
+    assert len(cv2_read(path)[0]) == 1
+    for read in (get_video_info, load_video):
+        with pytest.raises(NotImplementedError, match=r"odd height.*ROADMAP Queue 1 item 11\.2"):
+            read(path)
 
 
 # ---------------------------------------------------------------- writing

@@ -36,7 +36,7 @@ from pathlib import Path
 
 import cv2
 import numpy as np
-from PIL import Image
+from PIL import Image, TiffImagePlugin
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent.parent
@@ -283,7 +283,8 @@ def make() -> dict:
     add("prog_pil_40x56.jpg", pil(Image.fromarray(frame(8, 40, 56)), "JPEG", progressive=True, quality=80), "PIL")
     full = cv2_bytes(".jpg", frame(9, 48, 64), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     sos = [i for i in range(len(full) - 1) if full[i] == 0xFF and full[i + 1] == 0xDA]
-    raises["prog_cut3_48x64.jpg"] = (full[: sos[3]] + b"\xff\xd9", "hand", "NotImplementedError")
+    for n in (1, 3, 9):  # cut after the DC scan, after three scans and before the last (block smoothing)
+        add(f"prog_cut{n}_48x64.jpg", full[: sos[n]] + b"\xff\xd9", "hand")
     # --- four-component and untransformed JPEG (PIL writes CMYK with Adobe transform 0)
     cmyk = np.concatenate([frame(10, 40, 56), frame(11, 40, 56)[..., :1]], -1)
     data = pil(Image.fromarray(cmyk, "CMYK"), "JPEG", quality=90)
@@ -304,7 +305,11 @@ def make() -> dict:
         add(f"pal{bits}_37x53.png", pil(Image.fromarray(f).quantize(1 << bits), "PNG", bits=bits), "PIL")
         grey = (f[..., 0] >> (8 - bits)).astype(np.uint8) * (255 // ((1 << bits) - 1))
         add(f"grey{bits}_37x53.png", pil(Image.fromarray(grey), "PNG", bits=bits), "PIL")
-    noise = np.random.default_rng(21).integers(0, 65536, (37, 53, 4), dtype=np.uint16)
+    # 16-bit samples: a photo's structure in the high byte, every low byte (what 16 to 8 bits rounds) in a
+    # pattern that compresses
+    high = np.concatenate([frame(21, 37, 53), frame(22, 37, 53)[..., :1]], -1).astype(np.uint16) << 8
+    yy, xx, cc = np.mgrid[0:37, 0:53, 0:4]
+    noise = high | ((xx * 53 + yy * 29 + cc * 71) % 256).astype(np.uint16)
     add("grey16_37x53.png", cv2_bytes(".png", noise[..., 0]), "cv2")
     add("rgb16_37x53.png", cv2_bytes(".png", noise[..., :3]), "cv2")
     add("rgba16_37x53.png", cv2_bytes(".png", noise), "cv2")
@@ -387,9 +392,12 @@ def make() -> dict:
     tags.update({278: (3, [h]), 338: (3, [2])})
     rgba = np.concatenate([f, np.random.default_rng(43).integers(0, 256, (h, w, 1), dtype=np.uint8)], -1)
     add("planar2_unassoc_alpha_37x53.tif", tiff("<", tags, [rgba[..., c].tobytes() for c in range(4)]), "hand")
+    add_bilevel_and_jpeg_tiff(add, f)
     jpeg_tags = base_tags(w, h, 8, 2, 3, 7)
     jpeg_tags[278] = (3, [h])
-    raises["jpeg_in_tiff_37x53.tif"] = (tiff("<", jpeg_tags, [b"\0" * 16]), "hand", "NotImplementedError")
+    raises["jpeg_in_tiff_37x53.tif"] = (tiff("<", jpeg_tags, [b"\0" * 16]), "hand", "FileNotFoundError")
+    raises["ojpeg_37x53.tif"] = (tiff("<", {**jpeg_tags, 259: (3, [6])}, [b"\0" * 16]), "hand",
+                                 "NotImplementedError")
     raises["orient6_37x53.tif"] = (pil(Image.fromarray(f), "TIFF", tiffinfo={274: 6}), "PIL", "FileNotFoundError")
     # --- lossless WebP (libwebp through PIL and cv2)
     f = frame(50, 37, 53)
@@ -428,6 +436,60 @@ def make() -> dict:
     raises["lossless_sof3_24x32.jpg"] = (base[:sof] + b"\xff\xc3" + base[sof + 2:], "hand", "NotImplementedError")
     raises["twelve_bit_24x32.jpg"] = (base[:sof + 4] + b"\x0c" + base[sof + 5:], "hand", "NotImplementedError")
     return files, raises
+
+
+def pil_tiff(img: Image.Image, strip_size: int = 65536, **kw) -> bytes:
+    """Pillow's libtiff writer, strips of about `strip_size` bytes."""
+    old, TiffImagePlugin.STRIP_SIZE = TiffImagePlugin.STRIP_SIZE, strip_size
+    try:
+        return pil(img, "TIFF", **kw)
+    finally:
+        TiffImagePlugin.STRIP_SIZE = old
+
+
+def add_bilevel_and_jpeg_tiff(add, f: np.ndarray) -> None:
+    """1-bit TIFF (uncompressed, PackBits, min-is-white, fill order 2), every
+    CCITT compression (libtiff through Pillow: modified Huffman, T.4 one-
+    and two-dimensional with and without fill bits, T.6, fill order 2,
+    min-is-white, several strips) and JPEG-in-TIFF (Pillow: RGB, grey and
+    YCbCr, abbreviated streams after JPEGTables, one strip or several;
+    by hand: YCbCr 4:2:0 strips and tiles, each a JPEG stream of
+    `cv2.imencode`)."""
+    h, w = f.shape[:2]
+    bw = Image.fromarray(f[..., 1] > 110)
+    add("bilevel_none_37x53.tif", pil_tiff(bw, compression="raw"), "PIL")
+    add("bilevel_packbits_37x53.tif", pil_tiff(bw, compression="packbits"), "PIL")
+    add("bilevel_miniswhite_37x53.tif", pil_tiff(bw, compression="raw", tiffinfo={262: 0}), "PIL")
+    rows = np.packbits(np.asarray(bw), axis=1).tobytes().translate(bytes(int(f"{i:08b}"[::-1], 2)
+                                                                         for i in range(256)))
+    tags = base_tags(w, h, 1, 1, 1, 1)
+    tags.update({266: (3, [2]), 278: (3, [h])})
+    add("bilevel_fill2_37x53.tif", tiff("<", tags, [rows]), "hand")
+    add("ccitt_rle_37x53.tif", pil_tiff(bw, compression="tiff_ccitt"), "PIL")
+    add("ccitt_g3_1d_37x53.tif", pil_tiff(bw, compression="group3"), "PIL")
+    add("ccitt_g3_2d_37x53.tif", pil_tiff(bw, compression="group3", tiffinfo={292: 1}), "PIL")
+    add("ccitt_g3_2d_fill_37x53.tif", pil_tiff(bw, compression="group3", tiffinfo={292: 5}), "PIL")
+    add("ccitt_g4_37x53.tif", pil_tiff(bw, compression="group4"), "PIL")
+    add("ccitt_g4_fill2_37x53.tif", pil_tiff(bw, compression="group4", tiffinfo={266: 2}), "PIL")
+    add("ccitt_g4_miniswhite_37x53.tif", pil_tiff(bw, compression="group4", tiffinfo={262: 0}), "PIL")
+    add("ccitt_g3_2d_strips_37x53.tif", pil_tiff(bw, 40, compression="group3", tiffinfo={292: 1}), "PIL")
+    wide = Image.fromarray(np.kron(frame(44, 8, 12)[..., 0] > 100, np.ones((8, 8), bool))[:, :96])
+    add("ccitt_g4_strips_64x96.tif", pil_tiff(wide, 48, compression="group4"), "PIL")
+    f = cv2.GaussianBlur(f, (5, 5), 0)  # small files: the structure without the noise
+    add("jpeg_in_tiff_rgb_37x53.tif", pil_tiff(Image.fromarray(f), compression="jpeg"), "PIL")
+    add("jpeg_in_tiff_grey_37x53.tif", pil_tiff(Image.fromarray(f[..., 0]), compression="jpeg"), "PIL")
+    add("jpeg_in_tiff_rgb_strips_37x53.tif", pil_tiff(Image.fromarray(f), 1024, compression="jpeg"), "PIL")
+    add("jpeg_in_tiff_ycc_strips_37x53.tif", pil_tiff(Image.fromarray(f).convert("YCbCr"), 1024,
+                                                      compression="jpeg"), "PIL")
+    tags = base_tags(w, h, 8, 6, 3, 7)
+    tags.update({278: (3, [16]), 530: (3, [2, 2])})
+    strips = [cv2_bytes(".jpg", f[y: y + 16, :, ::-1]) for y in range(0, h, 16)]  # 4:2:0, the last 5 rows
+    add("jpeg_in_tiff_420_strips_37x53.tif", tiff("<", tags, strips), "hand")
+    tags = base_tags(w, h, 8, 6, 3, 7)
+    tags.update({322: (3, [16]), 323: (3, [16]), 530: (3, [2, 2])})
+    padded = np.pad(f, ((0, 48 - h), (0, 64 - w), (0, 0)), mode="edge")
+    tiles = [cv2_bytes(".jpg", padded[y: y + 16, x: x + 16, ::-1]) for y in range(0, h, 16) for x in range(0, w, 16)]
+    add("jpeg_in_tiff_420_tiles_37x53.tif", tiff("<", tags, tiles), "hand")
 
 
 def riff_chunk(kind: bytes, body: bytes) -> bytes:

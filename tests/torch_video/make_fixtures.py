@@ -12,12 +12,14 @@ tools:
   cv2    `cv2.VideoWriter` (OpenCV's FFmpeg backend, libavcodec's MPEG-4
          encoder under rate control: I-VOPs every 12 frames, P-VOPs between
          them) into `.mp4` and `.mov` (fourcc `mp4v`), `.mkv`, and `.avi`
-         under `XVID`, `FMP4` and `DIVX`; a VP8 WebM (`VP80`)
+         under `XVID`, `FMP4` and `DIVX`; a VP8 WebM (`VP80`); raw video in
+         AVI (`I420`, `IYUV`)
   port   the port's `Mp4Writer` (AC prediction, which libavcodec's encoder
          does not use; the DC coded as an AC coefficient; quantiser 9),
          read back by OpenCV for the hashes; an MP4 whose sample entry says
          `avc1` (refused)
-  hand   copies of the XVID AVI whose video object layer header announces
+  hand   raw I420 AVIs of an odd width (read) and an odd height (refused);
+         copies of the XVID AVI whose video object layer header announces
          B-VOPs (`low_delay` 0), quarter-pel motion, interlace or MPEG
          quantisation, one under a lower-case `xvid` tag without its Lavc
          user data (libavcodec would take Xvid's IDCT), and an MP4 cut
@@ -62,6 +64,9 @@ VIDEOS = {
     "mp4v_640x480_30.mp4": ("cv2", "mp4v", (640, 480), 30, 24),
     "acpred_dcac_100x60_25.mp4": ("port", "mp4v", (100, 60), 25, 5),
     "acpred_q9_64x48_125.mov": ("port", "mp4v", (64, 48), 12.5, 5),
+    "i420_64x48_25.avi": ("cv2", "I420", (64, 48), 25, 3),
+    "iyuv_100x60_30.avi": ("cv2", "IYUV", (100, 60), 30, 2),
+    "i420_99x60_25.avi": ("hand", "I420", (99, 60), 25, 2),
 }
 ROADMAP = r"ROADMAP Queue 1 item 11\.2"
 
@@ -102,6 +107,9 @@ def cv2_frames(path: Path):
 def write_video(name: str, seed: int) -> None:
     tool, fourcc, (w, h), fps, n = VIDEOS[name]
     frames = scene(n, h, w, seed)
+    if tool == "hand":
+        build_avi(HERE / name, [i420_planes(f) for f in frames], fourcc.encode(), w, h, fps)
+        return
     if tool == "cv2":
         writer = cv2.VideoWriter(str(HERE / name), cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
     else:  # the encoder's own options, which no program caller sets
@@ -112,6 +120,20 @@ def write_video(name: str, seed: int) -> None:
     for f in frames:
         writer.write(f)
     writer.release()
+
+
+def i420_planes(frame_bgr: np.ndarray) -> bytes:
+    """A BGR frame as one raw I420 frame: the Y plane, then U and V of
+    (ceil(h / 2), ceil(w / 2)) samples (an odd size converted at the even
+    size above it and cropped)."""
+    h, w = frame_bgr.shape[:2]
+    even = np.pad(frame_bgr, ((0, h % 2), (0, w % 2), (0, 0)), mode="edge")
+    yuv = cv2.cvtColor(even, cv2.COLOR_BGR2YUV_I420).reshape(-1)
+    H, W = even.shape[:2]
+    y = yuv[: H * W].reshape(H, W)
+    u = yuv[H * W: H * W * 5 // 4].reshape(H // 2, W // 2)
+    v = yuv[H * W * 5 // 4:].reshape(H // 2, W // 2)
+    return y[:h, :w].tobytes() + u.tobytes() + v.tobytes()
 
 
 def vol_bits(width: int, height: int, resolution: int, low_delay=1, quarter_sample=0, interlaced=0,
@@ -209,6 +231,8 @@ def write_refused():
     build_avi(HERE / "xvid_lowercase_no_userdata_100x60.avi", [first] + packets[1:], b"xvid", vol.width,
               vol.height, 30)
     raises["xvid_lowercase_no_userdata_100x60.avi"] = ("NotImplementedError", f"Xvid fourcc.*{ROADMAP}")
+    build_avi(HERE / "i420_99x61.avi", [i420_planes(f) for f in scene(2, 61, 99, 91)], b"I420", 99, 61, 25)
+    raises["i420_99x61.avi"] = ("NotImplementedError", f"odd height.*{ROADMAP}")  # swscale's scaled path
     data = (HERE / "mp4v_176x144_2997.mp4").read_bytes()
     (HERE / "truncated_176x144.mp4").write_bytes(data[:len(data) * 2 // 3])
     raises["truncated_176x144.mp4"] = ("ValueError", "truncated")

@@ -75,6 +75,14 @@ def _host_tree(tree: Any) -> Any:
     return tree.float().numpy() if torch.is_tensor(tree) else tree
 
 
+def _leaves(tree: Any):
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _has_batch_norms(model: YOLO11) -> bool:
     return any(m.bn is not None for m in model.modules() if hasattr(m, "bn"))
 
@@ -137,7 +145,10 @@ class YOLO11Model:
     def _load_native(self, path: Path, task_override: Optional[str] = None) -> None:
         """A native checkpoint: the JAX package's `_load_native`. The model
         is the file's (folded when the file is, int8 where it is quantized),
-        in f32 on the CPU; the predictor casts it."""
+        in f32 on the CPU; the predictor casts it. A fused file of f32
+        weights is its own deploy form, in f32 (the JAX package's
+        `_deploy_params` of a fused file are the file's leaves): what it
+        saves fused and what a quantizer quantizes."""
         raw = msgpack_restore(path.read_bytes())
         meta = raw.get("meta", {})
         self.task = task_override or meta.get("task", "detect")
@@ -151,6 +162,9 @@ class YOLO11Model:
         if "quant_act_scales" in raw:
             self.quant_act_scales = np.array(_host_tree(raw["quant_act_scales"]), np.float32)
         self._deploy_model = None
+        stored = {str(leaf.dtype) for leaf in _leaves(raw["params"])}
+        if fused and stored == {"float32"}:  # the JAX package serves a fused float file's weights as stored
+            self._deploy_model = self.model
         logger.info("loaded %s (%s/%s, fused=%s)", path, self.task, self.size, fused)
 
     @classmethod

@@ -295,9 +295,11 @@ def init_train_state(model: YOLO11, tx: YoloSGD, *, seed: int = 0,
     """A training state from an unfolded model (the model itself is not
     changed): a f32 copy of it on `device` in training mode, its parameters
     and batch-norm buffers rebound as views of the flat buffers."""
+    if any(getattr(m, "bn", 1) is None for m in model.modules()):
+        int8 = any(t.dtype == torch.int8 for t in model.state_dict().values())
+        raise ValueError("training needs the unfolded model (batch norms present); this is a fused deploy "
+                         f"checkpoint{', int8 (quantized)' if int8 else ' (float)'}, which has none")
     module = copy.deepcopy(model).float().to(device).train()
-    if any(getattr(m, "bn", 1) is None for m in module.modules()):
-        raise ValueError("training needs the unfolded model (batch norms present)")
     named_p = list(module.named_parameters())
     named_b = [(n, b) for n, b in module.named_buffers() if n.endswith(("running_mean", "running_var"))]
     p_layout, b_layout = Layout.of(named_p), Layout.of(named_b)

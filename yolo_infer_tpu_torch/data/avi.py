@@ -4,7 +4,10 @@ The JAX package reads and writes video through OpenCV (`cv2.VideoCapture`,
 `cv2.VideoWriter`). In an AVI (RIFF) file the port reads the two codecs
 that its own decoders handle: motion JPEG (`data/jpeg.py`) and MPEG-4
 Part 2 (`data/mpeg4.py`), which OpenCV's FFmpeg writer puts in an AVI under
-the fourccs `XVID`, `FMP4` and `DIVX`; it writes motion JPEG.
+the fourccs `XVID`, `FMP4` and `DIVX`, and raw planar YUV 4:2:0 (`I420`,
+`IYUV`: each chunk the Y, U and V planes, converted by swscale's copy,
+`data/mpeg4.py yuv420_to_bgr`; an odd height, which swscale scales,
+raises); it writes motion JPEG.
 
 `AviReader` takes the first `vids` stream whose handler or compression is
 motion JPEG (`MJPEG_CODECS`) or MPEG-4 Part 2 (`data/mpeg4.py
@@ -49,6 +52,7 @@ from __future__ import annotations
 
 import os
 import struct
+from collections import Counter
 from fractions import Fraction
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple, Union
@@ -56,14 +60,15 @@ from typing import Iterator, List, Optional, Tuple, Union
 import numpy as np
 
 from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
-from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Track
+from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Track, yuv420_to_bgr
 
 MJPEG_CODECS = (b"MJPG", b"mjpg", b"AVDJ", b"dmb1")  # stream handlers and compressions read as motion JPEG
+I420_FOURCCS = (b"I420", b"IYUV")  # raw planar YUV 4:2:0
 RIFF_LIMIT = 1 << 30  # bytes of one RIFF part; the writer goes on in an OpenDML `RIFF AVIX` part past it
 SUPER_INDEX_ENTRIES = 256  # room in the writer's `indx` super index: the RIFF parts a file may have
 
-_NOT_READ_AVI = ("the port reads motion JPEG and MPEG-4 Part 2 in AVI; other codecs are ROADMAP Queue 1 item "
-                 "11.2")
+_NOT_READ_AVI = ("the port reads motion JPEG, MPEG-4 Part 2 and raw I420 in AVI; other codecs are ROADMAP Queue 1 "
+                 "item 11.2")
 
 # the writer's header list: LIST hdrl, avih, LIST strl (strh, strf, the super
 # index or JUNK in its place), LIST odml (dmlh)
@@ -159,7 +164,7 @@ class AviReader(Mpeg4Track):
         if not videos:
             raise ValueError(f"corrupt AVI {self.path}: no video stream")
         known = [(i, h, f) for i, h, f in videos
-                 if {h[4:8], f[16:20]} & set(MJPEG_CODECS + MPEG4_FOURCCS)]
+                 if {h[4:8], f[16:20]} & set(MJPEG_CODECS + MPEG4_FOURCCS + I420_FOURCCS)]
         if not known:
             _, h, f = videos[0]
             raise NotImplementedError(f"{self.path}: an AVI whose video is {_fourcc(h[4:8])!r} (compression "
@@ -167,8 +172,9 @@ class AviReader(Mpeg4Track):
         index, strh, strf = known[0]
         if len(strf) < 40:
             raise ValueError(f"corrupt AVI {self.path}: a video stream format of {len(strf)} bytes")
-        self.codec = "mjpeg" if {strh[4:8], strf[16:20]} & set(MJPEG_CODECS) else "mpeg4"
-        self.fourcc = _fourcc(strf[16:20] if strf[16:20] in MPEG4_FOURCCS else strh[4:8])
+        tags = {strh[4:8], strf[16:20]}
+        self.codec = "mjpeg" if tags & set(MJPEG_CODECS) else "i420" if tags & set(I420_FOURCCS) else "mpeg4"
+        self.fourcc = _fourcc(strf[16:20] if strf[16:20] in MPEG4_FOURCCS + I420_FOURCCS else strh[4:8])
         self.config = strf[40:]
         scale, rate, _, length = struct.unpack("<4I", strh[20:36])
         _, width, height = struct.unpack("<Iii", strf[:12])
@@ -179,6 +185,9 @@ class AviReader(Mpeg4Track):
         if self.codec == "mpeg4":
             vol = self._vol()
             self.width, self.height = vol.width, vol.height
+        if self.codec == "i420" and self.height % 2:  # swscale's scaled path, not ported (as data/mpeg4.py)
+            raise NotImplementedError(f"{self.path}: raw I420 video of an odd height ({self.height}); "
+                                      "ROADMAP Queue 1 item 11.2")
 
     def packets(self) -> Iterator[bytes]:
         """Each frame's packet (a JPEG or an MPEG-4 VOP), in file order."""
@@ -205,9 +214,28 @@ class AviReader(Mpeg4Track):
         if self.codec == "mpeg4":
             yield from super().read(rgb)
             return
+        self.counts = Counter()
         for data in self.packets():
+            if self.codec == "i420":
+                bgr = i420_frame(data, self.width, self.height)
+                yield np.ascontiguousarray(bgr[..., ::-1]) if rgb else bgr
+                continue
             img = decode_jpeg(data)
             yield img if rgb else np.ascontiguousarray(img[..., ::-1])
+
+
+def i420_frame(data: bytes, width: int, height: int) -> np.ndarray:
+    """One raw I420 frame (the Y plane, then U and V of (height / 2,
+    ceil(width / 2)), no row padding) -> BGR, as OpenCV's FFmpeg backend
+    converts it (`data/mpeg4.py yuv420_to_bgr`)."""
+    cw, ch = (width + 1) // 2, (height + 1) // 2
+    if len(data) < width * height + 2 * cw * ch:
+        raise ValueError(f"corrupt I420 frame: {len(data)} bytes for {width}x{height}")
+    b = np.frombuffer(data, np.uint8)
+    y = b[: width * height].reshape(height, width)
+    u = b[width * height: width * height + cw * ch].reshape(ch, cw)
+    v = b[width * height + cw * ch: width * height + 2 * cw * ch].reshape(ch, cw)
+    return yuv420_to_bgr(y, u, v)
 
 
 def fps_ratio(fps: float) -> Tuple[int, int]:

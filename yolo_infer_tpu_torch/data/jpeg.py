@@ -41,25 +41,26 @@ encode (`encode_jpeg`): what `cv2.imwrite(".jpg")` writes by default, byte
   image edge as `jccoefct.c` makes them. The encoder is numpy throughout,
   the Huffman bit packing included.
 
-Lossless (SOF3), hierarchical, arithmetic-coded and 12-bit files, a
-height given by a DNL marker, and a progressive file whose scans stop
-before AC1-AC9 of every component are complete (libjpeg-turbo smooths its
-blocks, `jdcoefct.c decompress_smooth_data`, which is not ported) raise
-`NotImplementedError` (ROADMAP Queue 1 item 10); malformed data raises
-`ValueError`.
+  A progressive file whose scans stop before AC1-AC9 are complete (a file
+  cut after any scan but its last) is smoothed as libjpeg-turbo 2.1+
+  smooths it (`jdcoefct.c decompress_smooth_data`): the missing low
+  coefficients estimated from the 5x5 neighbourhood of DC values.
+  `colour` decodes a JPEG-in-TIFF strip in the colour space libtiff sets.
+Lossless (SOF3), hierarchical, arithmetic-coded and 12-bit files and a
+height given by a DNL marker raise `NotImplementedError` (ROADMAP Queue 1
+item 10); malformed data raises `ValueError`.
 """
 
 from __future__ import annotations
 
 import functools
 import struct
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _UNSUPPORTED = ("the port decodes baseline, extended-sequential and progressive Huffman JPEG of 8-bit samples "
-                "(grey, YCbCr, RGB, CMYK, YCCK) whose progressive scans complete AC1-AC9; {} is ROADMAP Queue 1 "
-                "item 10")
+                "(grey, YCbCr, RGB, CMYK, YCCK); {} is ROADMAP Queue 1 item 10")
 
 # the natural (row-major) index of the k-th coefficient in zigzag order; 16
 # extra entries of 63 absorb a corrupt run past the block, as libjpeg's
@@ -607,9 +608,92 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def _smoothing_weights() -> np.ndarray:
+    """The 5x5 DC neighbourhood's weights (rows above to below, columns left
+    to right) of each estimate in `decompress_smooth_data` of libjpeg-turbo
+    2.1+: (zigzag index, [weights while the component has no AC coefficient
+    (the DC is re-estimated too), weights once it has some]), from its
+    terms "c@n" (weight c on DC n, DC01..DC25 row by row)."""
+    terms = {
+        1: ("-1@1 -1@2 1@4 1@5 -3@6 13@7 -13@9 3@10 -3@11 38@12 -38@14 3@15 -3@16 13@17 -13@19 3@20 -1@21 -1@22 "
+            "1@24 1@25", "-7@11 50@12 -50@14 7@15"),
+        2: ("-1@1 -3@2 -3@3 -3@4 -1@5 -1@6 13@7 38@8 13@9 -1@10 1@16 -13@17 -38@18 -13@19 1@20 1@21 3@22 3@23 "
+            "3@24 1@25", "-7@3 50@8 -50@18 7@23"),
+        3: ("1@3 2@7 7@8 2@9 -5@12 -14@13 -5@14 2@17 7@18 2@19 1@23", "-1@3 13@8 -24@13 13@18 -1@23"),
+        4: ("-1@1 1@5 9@7 -9@9 -9@17 9@19 1@21 -1@25",
+            "1@10 1@16 -10@17 10@19 -1@2 -1@20 1@22 -1@24 1@4 -1@6 10@7 -10@9"),
+        5: ("2@7 -5@8 2@9 1@11 7@12 -14@13 7@14 1@15 2@17 -5@18 2@19", "-1@11 13@12 -24@13 13@14 -1@15"),
+        6: ("1@7 -1@9 2@12 -2@14 1@17 -1@19", ""),
+        7: ("1@7 -3@8 1@9 -1@17 3@18 -1@19", ""),
+        8: ("1@7 -1@9 -3@12 3@14 1@17 -1@19", ""),
+        9: ("1@7 2@8 1@9 -1@17 -2@18 -1@19", ""),
+        0: ("-2@1 -6@2 -8@3 -6@4 -2@5 -6@6 6@7 42@8 6@9 -6@10 -8@11 42@12 152@13 42@14 -8@15 -6@16 6@17 42@18 "
+            "6@19 -6@20 -2@21 -6@22 -8@23 -6@24 -2@25", ""),
+    }
+    w = np.zeros((10, 2, 5, 5), np.int64)
+    for k, pair in terms.items():
+        for known, text in enumerate(pair):
+            for term in text.split():
+                c, n = term.split("@")
+                w[k, known, (int(n) - 1) // 5, (int(n) - 1) % 5] = int(c)
+    return w
+
+
+# jdcoefct.c block smoothing: the natural positions of zigzag coefficients 0-9, and the estimates' weights
+_SMOOTH_POS = ZIGZAG[:10]
+_W = _smoothing_weights()
+
+
+def _smooth_blocks(coef: np.ndarray, qt: np.ndarray, bits: List[int], v: int, rows: int, cols: int,
+                   imcu_rows: int) -> np.ndarray:
+    """libjpeg-turbo's interblock smoothing of one component's (bh, bw, 64)
+    quantised coefficients: each of AC1-AC9 still zero and not known to its
+    last bit is estimated from the DC values of the 5x5 blocks around it
+    (clamped below 2**Al when some of its bits are known); with no AC
+    coefficient known at all, AC1-AC9 and the DC come from Gaussian-like
+    weights. The neighbour rows follow `decompress_smooth_data`'s iMCU-row
+    bookkeeping (its last iMCU row counts its own rows, and the rows below
+    an iMCU row may be the padding blocks of an interleaved scan); the
+    columns repeat the edge block."""
+    dc = coef[..., 0].copy()
+    r = np.arange(rows)
+    m, b = r // v, r % v
+    last_rows = rows % v or v
+    block_rows = np.where(m == imcu_rows - 1, last_rows, v)
+    at = m * block_rows + b  # image_block_row, with the last iMCU row's own count
+    total = block_rows * imcu_rows  # image_block_rows
+    prev = np.where(at > 0, r - 1, r)
+    nxt = np.where(at < total - 1, r + 1, r)
+    row_idx = np.stack([np.where(at > 1, r - 2, prev), prev, r, nxt, np.where(at < total - 2, r + 2, nxt)], 1)
+    col_idx = np.clip(np.arange(cols)[:, None] + np.arange(-2, 3), 0, cols - 1)  # the registers, edges repeated
+    nb = dc[row_idx[:, :, None, None], col_idx[None, None, :, :]]  # (rows, 5, cols, 5)
+    change_dc = all(bk == -1 for bk in bits[1:10])
+    q00 = int(qt[0])
+    out = coef.copy()
+    for k in (range(10) if change_dc else range(1, 6)):
+        al = bits[k] if k else 0
+        if k and al == 0:
+            continue
+        pos = int(ZIGZAG[k])
+        num = q00 * np.einsum("rics,is->rc", nb, _W[k, 0 if change_dc else 1])
+        qk = int(qt[pos]) << 8
+        pred = (np.abs(num) + (qk >> 1)) // qk
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(num >= 0, pred, -pred)
+        cur = out[:rows, :cols, pos]
+        out[:rows, :cols, pos] = pred if k == 0 else np.where(cur == 0, pred, cur)
+    return out
+
+
+def decode_jpeg(data: bytes, colour: Optional[str] = None) -> np.ndarray:
     """JPEG bytes -> uint8 (H, W, 3) RGB, the pixels `cv2.imread(path,
-    cv2.IMREAD_COLOR)` gives (in RGB order), EXIF orientation applied."""
+    cv2.IMREAD_COLOR)` gives (in RGB order), EXIF orientation applied.
+
+    `colour` sets the colour space as libtiff sets it for a JPEG-in-TIFF
+    strip instead of guessing it from the markers: "ycc" converts three
+    components from YCbCr, "stored" returns them as stored; either way no
+    EXIF orientation is applied."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("not a JPEG file (no SOI marker)")
     qts: Dict[int, np.ndarray] = {}
@@ -733,14 +817,16 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError("corrupt JPEG: no frame or no scan")
     # jdcoefct.c smoothing_ok: with every DC known, a coefficient of AC1-AC9
     # not sent to its last bit makes libjpeg-turbo smooth the blocks
-    if progressive and all(b[0] >= 0 for b in coef_bits) and any(any(b[1:10]) for b in coef_bits):
-        raise NotImplementedError(_UNSUPPORTED.format(
-            "a progressive JPEG whose scans stop before AC1-AC9 are complete (block smoothing)"))
+    smooth = (progressive and all(b[0] >= 0 for b in coef_bits) and any(any(b[1:10]) for b in coef_bits)
+              and all(c.qt[_SMOOTH_POS].all() for c in comps))
     height, width = frame
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     planes = []
-    for c in comps:
-        blocks = np.array(c.coef, np.int64).reshape(c.bh * c.bw, 8, 8) * c.qt.reshape(8, 8)
+    for ci, c in enumerate(comps):
+        coef = np.array(c.coef, np.int64).reshape(c.bh, c.bw, 64)
+        if smooth:
+            coef = _smooth_blocks(coef, c.qt, coef_bits[ci], c.v, -(-c.dh // 8), -(-c.dw // 8), mcuy)
+        blocks = coef.reshape(c.bh * c.bw, 8, 8) * c.qt.reshape(8, 8)
         pix = _idct_islow(blocks).reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
         pix = _upsample(pix[: c.dh, : c.dw], hmax // c.h, vmax // c.v)
         planes.append(pix[:height, :width])
@@ -749,7 +835,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     elif len(planes) == 3:
         # jdapimin.c default_decompress_parms: JFIF, then Adobe's transform, then the ids 'R', 'G', 'B'
         rgb = not jfif and (adobe_transform == 0 if adobe_transform is not None
-                            else [c.cid for c in comps] == [82, 71, 66])
+                            else [c.cid for c in comps] == [82, 71, 66]) if colour is None else colour == "stored"
         img = np.stack(planes, axis=-1) if rgb else _ycc_to_rgb(*planes)
     else:
         if adobe_transform is not None and adobe_transform != 0:  # YCCK: jdcolor.c ycck_cmyk_convert
@@ -758,7 +844,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             cmy = np.stack(planes[:3], axis=-1).astype(np.int32)
         k = planes[3].astype(np.int32)[..., None]
         img = (k - (((255 - cmy) * k) >> 8)).astype(np.uint8)  # OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, in RGB order
-    return apply_orientation(img, orientation)
+    return apply_orientation(img, orientation) if colour is None else img
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,15 @@ pixels:
   - compression none (1), LZW (5: MSB-first codes, 9 to 12 bits, the width
     growing one code early as libtiff's decoder grows it), Deflate (8 and
     32946, `zlib`) and PackBits (32773); fill order 2 reversed first;
+  - CCITT compressions 2, 3 and 4 (`data/ccitt.py`, libtiff's fax
+    decoders) and JPEG (7: each strip or tile its own JPEG stream after the
+    `JPEGTables` tag's tables, decoded by `data/jpeg.py` in the colour space
+    libtiff's `JPEGPreDecode` sets: YCbCr converted to RGB, which upsamples
+    within each strip or tile, any other as stored);
   - horizontal differencing (predictor 2) at 8 and 16 bits, undone after
     LZW and Deflate only (libtiff ignores the tag for the other two);
+  - 1-bit min-is-black and min-is-white grey (`put1bitbwtile`: 0 and 255,
+    min-is-white inverted, rows padded to whole bytes);
   - 8 or 16 bits per sample: min-is-black and min-is-white grey (16-bit
     samples by their high byte, min-is-white inverted), RGB (16-bit samples
     as (v + 128) // 257, `Bitdepth16To8`), palette (the 16-bit colour map
@@ -20,10 +27,10 @@ pixels:
     colour ((a * v + 127) // 255, `UaToAa`) where libtiff's RGBA reader
     does: RGB contiguous, and every separate-plane image.
 
-Compressions 6 and 7 (JPEG), CCITT, and every other one, BigTIFF, float or
-signed samples, other bit depths, and photometric interpretations other
-than grey, RGB and palette raise `NotImplementedError` (ROADMAP Queue 1
-item 10). Orientations 2, 3 and 4 are applied (a flip, or both); 5 to 8,
+Old-style JPEG (compression 6) and every other compression, BigTIFF,
+float or signed samples, other bit depths, and photometric interpretations
+other than grey, RGB, palette and (under JPEG) YCbCr raise
+`NotImplementedError` (ROADMAP Queue 1 item 10). Orientations 2, 3 and 4 are applied (a flip, or both); 5 to 8,
 which transpose, raise `FileNotFoundError`, as the JAX package's
 `load_image` raises when `cv2.imread` returns None for such a file.
 
@@ -40,15 +47,17 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from yolo_infer_tpu_torch.data.jpeg import _windows, apply_orientation, pack_msb_first
+from yolo_infer_tpu_torch.data.ccitt import decode_ccitt
+from yolo_infer_tpu_torch.data.jpeg import _windows, apply_orientation, decode_jpeg, pack_msb_first
 
-_UNSUPPORTED = ("the port reads baseline TIFF (8- or 16-bit grey, RGB or palette; none, LZW, Deflate or PackBits); "
-                "{} is ROADMAP Queue 1 item 10")
+_UNSUPPORTED = ("the port reads baseline TIFF (1-bit grey; 8- or 16-bit grey, RGB or palette; none, LZW, Deflate, "
+                "PackBits, CCITT or JPEG); {} is ROADMAP Queue 1 item 10")
 _TYPES = {1: "B", 2: "c", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "", 12: "d",
           16: "Q"}
 _SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 16: 8}
 _REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))  # fill order 2
-_COMPRESSIONS = (1, 5, 8, 32946, 32773)  # none, LZW, Deflate (two codes), PackBits
+_CCITT = (2, 3, 4)  # modified Huffman, T.4 (Group 3), T.6 (Group 4)
+_COMPRESSIONS = (1, 5, 8, 32946, 32773) + _CCITT + (7,)  # none, LZW, Deflate (two codes), PackBits, CCITT, JPEG
 
 
 def _read_ifd(data: bytes, o: str, at: int) -> Dict[int, List]:
@@ -153,13 +162,23 @@ def decode_tiff(data: bytes) -> np.ndarray:
     bits = tags.get(258, [1])
     compression, photometric = one(259, 1), one(262)
     planar, predictor, fmt = one(284, 1), one(317, 1), one(339, 1)
-    if compression in (6, 7):
-        raise NotImplementedError(_UNSUPPORTED.format(f"JPEG-in-TIFF (compression {compression})"))
+    if compression == 6:
+        raise NotImplementedError(_UNSUPPORTED.format("old-style JPEG-in-TIFF (compression 6)"))
     if compression not in _COMPRESSIONS:
         raise NotImplementedError(_UNSUPPORTED.format(f"TIFF compression {compression}"))
     depth = bits[0]
-    if any(b != depth for b in bits) or depth not in (8, 16) or fmt != 1:
+    if any(b != depth for b in bits) or depth not in (1, 8, 16) or fmt != 1:
         raise NotImplementedError(_UNSUPPORTED.format(f"TIFF of {bits} bits, sample format {fmt}"))
+    if depth == 1 and (spp != 1 or photometric not in (0, 1) or predictor != 1):
+        raise NotImplementedError(_UNSUPPORTED.format(
+            f"1-bit TIFF of {spp} samples, photometric interpretation {photometric}, predictor {predictor}"))
+    if compression in _CCITT and depth != 1:
+        raise NotImplementedError(_UNSUPPORTED.format(f"CCITT TIFF (compression {compression}) of {bits} bits"))
+    if compression == 7 and (depth != 8 or planar == 2 or photometric not in (0, 1, 2, 6)):
+        raise NotImplementedError(_UNSUPPORTED.format(
+            f"JPEG-in-TIFF of {bits} bits, planar configuration {planar}, photometric interpretation {photometric}"))
+    if photometric == 6 and compression == 7:
+        photometric = 2  # TIFFRGBAImageBegin: libjpeg converts YCbCr to RGB (JPEGCOLORMODE_RGB)
     if photometric not in (0, 1, 2, 3) or (photometric == 2 and spp < 3) or (photometric == 3 and depth != 8):
         raise NotImplementedError(_UNSUPPORTED.format(
             f"TIFF photometric interpretation {photometric} of {spp} samples at {depth} bits"))
@@ -182,6 +201,8 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError("TIFF with too few strips or tiles")
     samples = np.zeros((h, w, spp), dtype.newbyteorder("=") if depth == 16 else np.uint8)
     fill_reversed = one(266, 1) == 2
+    jpeg_tables = bytes(tags.get(347, []))
+    ycbcr = one(262) == 6
     i = 0
     for plane in range(planes):
         for ty in range(down):
@@ -190,19 +211,28 @@ def decode_tiff(data: bytes) -> np.ndarray:
                 i += 1
                 if fill_reversed:
                     raw = raw.translate(_REVERSED)
-                if compression == 5:
-                    raw = _lzw_decode(raw)
-                elif compression in (8, 32946):
-                    raw = zlib.decompressobj().decompress(raw)
-                elif compression == 32773:
-                    raw = _packbits_decode(raw)
                 rows = th if 322 in tags else min(th, h - ty * th)
-                need = rows * tw * per_unit * dtype.itemsize
-                buf = np.zeros(need, np.uint8)
-                buf[: min(need, len(raw))] = np.frombuffer(raw, np.uint8, min(need, len(raw)))
-                unit = buf.view(dtype).astype(samples.dtype).reshape(rows, tw, per_unit)
-                if predictor == 2 and compression != 1 and compression != 32773:  # libtiff: LZW and Deflate only
-                    unit = np.cumsum(unit, axis=1, dtype=samples.dtype)
+                if compression in _CCITT:
+                    unit = decode_ccitt(raw, tw, rows, compression, one(292, 0), one(293, 0))[..., None]
+                elif compression == 7:
+                    unit = _jpeg_unit(raw, jpeg_tables, ycbcr, rows, tw, spp)
+                else:
+                    if compression == 5:
+                        raw = _lzw_decode(raw)
+                    elif compression in (8, 32946):
+                        raw = zlib.decompressobj().decompress(raw)
+                    elif compression == 32773:
+                        raw = _packbits_decode(raw)
+                    row_bytes = (tw + 7) // 8 if depth == 1 else tw * per_unit * dtype.itemsize
+                    need = rows * row_bytes
+                    buf = np.zeros(need, np.uint8)
+                    buf[: min(need, len(raw))] = np.frombuffer(raw, np.uint8, min(need, len(raw)))
+                    if depth == 1:  # rows padded to whole bytes, the first pixel in the high bit
+                        unit = np.unpackbits(buf.reshape(rows, row_bytes), axis=1)[:, :tw, None]
+                    else:
+                        unit = buf.view(dtype).astype(samples.dtype).reshape(rows, tw, per_unit)
+                    if predictor == 2 and compression != 1 and compression != 32773:  # libtiff: LZW and Deflate
+                        unit = np.cumsum(unit, axis=1, dtype=samples.dtype)
                 y0, x0 = ty * th, tx * tw
                 ph, pw = min(rows, h - y0), min(tw, w - x0)
                 if separate:
@@ -211,6 +241,23 @@ def decode_tiff(data: bytes) -> np.ndarray:
                     samples[y0: y0 + ph, x0: x0 + pw] = unit[:ph, :pw]
     img = _to_rgb(samples, depth, photometric, spp, separate, tags)
     return apply_orientation(img, orientation) if orientation in (2, 3, 4) else img
+
+
+def _jpeg_unit(raw: bytes, tables: bytes, ycbcr: bool, rows: int, cols: int, spp: int) -> np.ndarray:
+    """One strip or tile of JPEG-in-TIFF (compression 7) as libtiff's
+    `JPEGPreDecode` has libjpeg decode it: a JPEG stream of its own (fancy
+    upsampling within the strip or tile), after the `JPEGTables` tag's
+    tables; YCbCr converted to RGB, any other colour space output as
+    stored. -> (rows, cols, spp) uint8."""
+    if raw[:2] != b"\xff\xd8":  # libjpeg fails, TIFFReadRGBAStrip with it: cv2.imread returns None
+        raise FileNotFoundError("could not read image (a JPEG-in-TIFF strip or tile that is no JPEG stream)")
+    if tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9":
+        raw = raw[:2] + tables[2:-2] + raw[2:]  # libjpeg reads the tables first (jpeg_read_header of the tag)
+    img = decode_jpeg(raw, colour="ycc" if ycbcr else "stored")
+    unit = np.zeros((rows, cols, spp), np.uint8)
+    r, c = min(rows, img.shape[0]), min(cols, img.shape[1])
+    unit[:r, :c] = img[:r, :c, :spp]
+    return unit
 
 
 def _extra_alpha(tags: Dict[int, List], spp: int, colour: int) -> int:
@@ -239,7 +286,10 @@ def _to_rgb(samples: np.ndarray, depth: int, photometric: int, spp: int, separat
     colour = 1 if photometric in (0, 1) else 3
     alpha = _extra_alpha(tags, spp, colour)
     if colour == 1 and not separate:
-        grey = (samples[..., 0] >> 8).astype(np.uint8) if depth == 16 else samples[..., 0].astype(np.uint8)
+        if depth == 1:  # put1bitbwtile: 0 black, 1 white (min-is-white inverted below)
+            grey = samples[..., 0] * np.uint8(255)
+        else:
+            grey = (samples[..., 0] >> 8).astype(np.uint8) if depth == 16 else samples[..., 0].astype(np.uint8)
         if photometric == 0:
             grey = 255 - grey
         return np.repeat(grey[..., None], 3, axis=-1)
