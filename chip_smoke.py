@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs thirty-six phases, each printing one JSON line. Kernels A, C, F and G
+runs thirty-seven phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -417,7 +417,7 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              partitions, error resilience, sharpness, an altref with hidden
              frames, an odd width) decodes to its manifest's sha256 of every
              frame OpenCV decodes, and its info; each refused file (an odd
-             height, VP9, a truncated WebM) raises as listed; the host
+             height, a truncated WebM) raises as listed; the host
              seconds to decode the demo file's key frame, its first inter
              frame and a 480x640 lossy WebP (that key frame in a RIFF, as the
              port has no VP8 encoder; median of 3); `detect_video` (yolo11n,
@@ -444,6 +444,19 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              direct `validate` in the same process, F and G launched;
              `train`: one QAT epoch at 640 on a small rectangle set writes
              its checkpoint, and the int8 file is refused before any step
+ 37. vp9     VP9 on the card's host, ~60 s: each WebM fixture of
+             `tests/torch_vp9/` (OpenCV's `VP90` writer at 64x48, 176x144,
+             1280x64 with four tile columns and the 24-frame 640x480 demo
+             file with two; libvpx's odd width and real-time bilinear
+             stream) decodes to its manifest's sha256 of every frame OpenCV
+             decodes, and its info; each refused file (superframes, error
+             resilience, backward adaptation, lossless, segmentation, an odd
+             height, a truncated WebM) raises as listed; the host seconds to
+             decode the demo file's key frame and its first inter frame
+             (median of 3); `detect_video` (yolo11n, b8/640 bf16) over the
+             640x480 VP9 WebM with `.mp4` output, checked as phase 35 checks
+             its demo, the frames it drew on equal to the manifest's, the
+             output read back
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -5277,6 +5290,54 @@ def median_s(fn, reps: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def check_video_fixtures(fixtures: Path, manifest: dict, failures: list) -> dict:
+    """Every video of a codec's fixture `manifest` ("files") decoded by the
+    port to its sha256 of every frame OpenCV decodes and to its info, and
+    every refused file ("raises") raising as listed in `get_video_info` and
+    `load_video`. Returns {name: frames, seconds, frames_per_s}."""
+    import hashlib
+
+    from yolo_infer_tpu_torch.data.loader import get_video_info, load_video
+    from yolo_infer_tpu_torch.data.video import open_video
+
+    decoded = {}
+    for name, want in manifest["files"].items():
+        t0 = time.perf_counter()
+        reader = open_video(fixtures / name)
+        hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader.read(rgb=False)]
+        seconds = time.perf_counter() - t0
+        decoded[name] = {"frames": len(hashes), "seconds": seconds, "frames_per_s": len(hashes) / seconds}
+        if hashes != want["frames"] or reader.info() != want["info"]:
+            failures.append(f"{name}: {sum(a != b for a, b in zip(hashes, want['frames']))} frames differ, "
+                            f"{len(hashes)} decoded of {len(want['frames'])}, info {reader.info()}")
+    for name, want in manifest["raises"].items():
+        for read in (get_video_info, load_video):
+            try:
+                read(fixtures / name)
+                failures.append(f"{name}: {read.__name__} did not raise")
+            except Exception as exc:  # noqa: BLE001 -- the manifest names the type
+                if type(exc).__name__ != want["error"] or not re.search(want["match"], str(exc)):
+                    failures.append(f"{name}: {read.__name__} raised {exc!r}, not {want['error']} "
+                                    f"/{want['match']}/")
+    return decoded
+
+
+def key_inter_decode_s(decoder_type, path: Path) -> dict:
+    """The host's seconds to decode the first (key) frame and the second
+    (inter) frame of a WebM file with a fresh `decoder_type`, median of 3."""
+    from yolo_infer_tpu_torch.data.mkv import MkvReader
+
+    first_two = list(MkvReader(path).packets())[:2]
+    times = {"key_frame": [], "inter_frame": []}
+    for _ in range(3):
+        decoder = decoder_type()
+        for kind, packet in zip(times, first_two):
+            t0 = time.perf_counter()
+            decoder.decode(packet)
+            times[kind].append(time.perf_counter() - t0)
+    return {k: sorted(v)[1] for k, v in times.items()}
+
+
 def phase_mpeg4(report):
     """MPEG-4 Part 2 video on the card's host (phase 34): the committed
     fixtures against their manifest, the refused files, a port-written
@@ -5297,21 +5358,7 @@ def phase_mpeg4(report):
     manifest = json.loads((MPEG4_FIXTURES / "manifest.json").read_text())
     # --- the fixtures and the refused files
     t0 = time.perf_counter()
-    for name, want in manifest["files"].items():
-        reader = open_video(MPEG4_FIXTURES / name)
-        hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader.read(rgb=False)]
-        if hashes != want["frames"] or reader.info() != want["info"]:
-            failures.append(f"{name}: {sum(a != b for a, b in zip(hashes, want['frames']))} frames differ, "
-                            f"{len(hashes)} decoded of {len(want['frames'])}, info {reader.info()}")
-    for name, want in manifest["raises"].items():
-        for read in (get_video_info, load_video):
-            try:
-                read(MPEG4_FIXTURES / name)
-                failures.append(f"{name}: {read.__name__} did not raise")
-            except Exception as exc:  # noqa: BLE001 -- the manifest names the type
-                if type(exc).__name__ != want["error"] or not re.search(want["match"], str(exc)):
-                    failures.append(f"{name}: {read.__name__} raised {exc!r}, not {want['error']} "
-                                    f"/{want['match']}/")
+    check_video_fixtures(MPEG4_FIXTURES, manifest, failures)
     out["fixtures"] = {"videos": len(manifest["files"]), "refused": len(manifest["raises"]),
                        "raw_i420": sorted(n for n in manifest["files"] if n.startswith(("i420", "iyuv"))),
                        "seconds": time.perf_counter() - t0}
@@ -5392,8 +5439,6 @@ def phase_vp8(report):
     import hashlib
 
     from yolo_infer_tpu_torch.core.model import YOLO11Model
-    from yolo_infer_tpu_torch.data.loader import get_video_info, load_video
-    from yolo_infer_tpu_torch.data.mkv import MkvReader
     from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Encoder
     from yolo_infer_tpu_torch.data.video import open_video
     from yolo_infer_tpu_torch.data.vp8 import Vp8Decoder
@@ -5404,38 +5449,12 @@ def phase_vp8(report):
     failures = []
     manifest = json.loads((VP8_FIXTURES / "manifest.json").read_text())
     # --- the fixtures (the demo file decoded whole too) and the refused files
-    out["fixtures"] = {}
-    for name, want in manifest["files"].items():
-        t0 = time.perf_counter()
-        reader = open_video(VP8_FIXTURES / name)
-        hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in reader.read(rgb=False)]
-        seconds = time.perf_counter() - t0
-        out["fixtures"][name] = {"frames": len(hashes), "seconds": seconds, "frames_per_s": len(hashes) / seconds}
-        if hashes != want["frames"] or reader.info() != want["info"]:
-            failures.append(f"{name}: {sum(a != b for a, b in zip(hashes, want['frames']))} frames differ, "
-                            f"{len(hashes)} decoded of {len(want['frames'])}, info {reader.info()}")
-    for name, want in manifest["raises"].items():
-        for read in (get_video_info, load_video):
-            try:
-                read(VP8_FIXTURES / name)
-                failures.append(f"{name}: {read.__name__} did not raise")
-            except Exception as exc:  # noqa: BLE001 -- the manifest names the type
-                if type(exc).__name__ != want["error"] or not re.search(want["match"], str(exc)):
-                    failures.append(f"{name}: {read.__name__} raised {exc!r}, not {want['error']} "
-                                    f"/{want['match']}/")
+    out["fixtures"] = check_video_fixtures(VP8_FIXTURES, manifest, failures)
     out["refused"] = len(manifest["raises"])
     emit({"vp8_demo_file_decode_frames_per_s": out["fixtures"][VP8_DEMO]["frames_per_s"], "card": out["card"]})
     # --- the host's decode seconds at 640x480 (median of 3)
     demo_src = VP8_FIXTURES / VP8_DEMO
-    first_two = list(MkvReader(demo_src).packets())[:2]
-    times = {"key_frame": [], "inter_frame": []}
-    for _ in range(3):
-        decoder = Vp8Decoder()
-        for kind, packet in zip(times, first_two):
-            t0 = time.perf_counter()
-            decoder.decode(packet)
-            times[kind].append(time.perf_counter() - t0)
-    decode_s = {k: sorted(v)[1] for k, v in times.items()}
+    decode_s = key_inter_decode_s(Vp8Decoder, demo_src)
     lossy = vp8_key_webp(0)
     decode_s["lossy_webp_480x640"] = median_s(lambda: decode_webp(lossy))
     out["host_s"] = {"decode_640x480": decode_s}
@@ -5461,6 +5480,61 @@ def phase_vp8(report):
                                                                   reencode.reconstruction))}
         if (out["output"]["frames_read"], written.frame_count, written.width, written.height) != (n, n, 640, 480) \
                 or not out["output"]["first_frame_equal"] or not out["decoded_as_manifest"]:
+            failures.append(f"the output video read back: {out['output']}; decoded as the manifest: "
+                            f"{out['decoded_as_manifest']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+VP9_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_vp9"
+VP9_DEMO = "vp9_640x480_30.webm"  # the committed 640x480 VP9 WebM the demo runs over (two tile columns, keys 0, 12)
+
+
+def phase_vp9(report):
+    """VP9 on the card's host (phase 37): the WebM fixtures against their
+    manifest, the refused files, the host's decode seconds of a 640x480 key
+    frame and an inter frame, and the batched detect video demo over the
+    committed 640x480 VP9 WebM (A, B) with MP4 output."""
+    import hashlib
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.data.video import open_video
+    from yolo_infer_tpu_torch.data.vp9 import Vp9Decoder
+    from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
+
+    out = {"phase": "vp9", "card": card_line()}
+    failures = []
+    manifest = json.loads((VP9_FIXTURES / "manifest.json").read_text())
+    # --- the fixtures (the demo file decoded whole too) and the refused files
+    out["fixtures"] = check_video_fixtures(VP9_FIXTURES, manifest, failures)
+    out["refused"] = len(manifest["raises"])
+    emit({"vp9_demo_file_decode_frames_per_s": out["fixtures"][VP9_DEMO]["frames_per_s"], "card": out["card"]})
+    # --- the host's decode seconds at 640x480 (median of 3)
+    demo_src = VP9_FIXTURES / VP9_DEMO
+    decode_s = key_inter_decode_s(Vp9Decoder, demo_src)
+    out["host_s"] = {"decode_640x480": decode_s}
+    emit({"vp9_decode_s_640x480": decode_s, "card": out["card"]})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_vp9_"))
+    try:
+        # --- the demo over the committed 640x480 VP9 WebM, .mp4 out
+        model = report["weights"][0] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "detect.msgpack")
+        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+        n = manifest["files"][VP9_DEMO]["info"]["frame_count"]
+        ran, drawn = check_video_demo(demo, demo_src, root, ".mp4", n, "vp9", "vp9_video", failures)
+        out.update(ran)
+        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+        out["decoded_as_manifest"] = hashes == manifest["files"][VP9_DEMO]["frames"]
+        written = open_video(root / "out.mp4")
+        out["output"] = {**written.info(), "frames_read": sum(1 for _ in written.read())}
+        if (out["output"]["frames_read"], written.frame_count, written.width, written.height) != (n, n, 640, 480) \
+                or not out["decoded_as_manifest"]:
             failures.append(f"the output video read back: {out['output']}; decoded as the manifest: "
                             f"{out['decoded_as_manifest']}")
     finally:
@@ -5820,7 +5894,7 @@ def main() -> int:
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
               phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats, phase_mpeg4,
-              phase_vp8, phase_scripts)
+              phase_vp8, phase_scripts, phase_vp9)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

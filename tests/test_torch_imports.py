@@ -311,6 +311,12 @@ for name in ("vp8_altref_64x48.webm", "vp8_version1_64x48.webm"):
     hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in load_video(vp8_fixtures / name, rgb=False)]
     assert hashes == vp8_manifest["files"][name]["frames"] and get_video_info(vp8_fixtures / name) == \
         vp8_manifest["files"][name]["info"], name
+vp9_fixtures = Path({repo!r}) / "tests" / "torch_vp9"
+vp9_manifest = json.loads((vp9_fixtures / "manifest.json").read_text())
+for name in ("vp9_64x48_25.webm", "vp9_99x60.webm"):
+    hashes = [hashlib.sha256(f.tobytes()).hexdigest() for f in load_video(vp9_fixtures / name, rgb=False)]
+    assert hashes == vp9_manifest["files"][name]["frames"] and get_video_info(vp9_fixtures / name) == \
+        vp9_manifest["files"][name]["info"], name
 with contextlib.redirect_stdout(io.StringIO()):
     rc = YOLO11CLI().run(["demo", "--input", str(fixtures / "mp4v_64x48_30.mkv"), "--output", str(root / "o.mp4"),
                           "--imgsz", "64", "--batch", "4", "--conf", "1e-9", "--device", "cpu"])
@@ -322,10 +328,11 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml", "PIL", "yolo_
 
 def test_port_video_runs_without_jax_opencv_yaml_or_pil():
     """Motion-JPEG AVI, MPEG-4 Part 2 (MP4 written; MOV, Matroska, AVI and
-    MP4 fixtures read to their manifest's hashes) and VP8 video (WebM
-    fixtures from OpenCV's writer and libvpx, hidden frames included, read to
-    theirs) run through the readers, the writers and the video demo on the
-    command line, with jax, yolo_infer_tpu, cv2, yaml and PIL blocked."""
+    MP4 fixtures read to their manifest's hashes) and VP8 and VP9 video
+    (WebM fixtures from OpenCV's writer and libvpx, VP8's hidden frames
+    included, read to theirs) run through the readers, the writers and the
+    video demo on the command line, with jax, yolo_infer_tpu, cv2, yaml and
+    PIL blocked."""
     subprocess.run([sys.executable, "-I", "-c", _VIDEO_CODE.format(repo=str(REPO))], check=True, timeout=300,
                    env=TORCH_SUBPROCESS_ENV)
 

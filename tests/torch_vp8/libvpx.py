@@ -60,11 +60,13 @@ def version() -> str:
     return _LIB.vpx_codec_version_str().decode()
 
 
-def decode(frames: List[bytes]) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """(Y, U, V) of each frame libvpx's decoder outputs (none for a hidden frame)."""
+def decode(frames: List[bytes], iface: Optional[int] = None) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """(Y, U, V) of each frame libvpx's decoder outputs (none for a hidden
+    frame): VP8's, or the decoder interface `iface` (VP9's)."""
     ctx = ctypes.create_string_buffer(1024)
+    iface = _LIB.vpx_codec_vp8_dx() if iface is None else iface
     for abi in range(8, 40):  # VPX_DECODER_ABI_VERSION differs between releases
-        if _LIB.vpx_codec_dec_init_ver(ctx, ctypes.c_void_p(_LIB.vpx_codec_vp8_dx()), None, 0, abi) == 0:
+        if _LIB.vpx_codec_dec_init_ver(ctx, ctypes.c_void_p(iface), None, 0, abi) == 0:
             break
     else:
         raise RuntimeError("vpx_codec_dec_init_ver failed")

@@ -1,14 +1,16 @@
-"""Matroska and WebM video without OpenCV: a demuxer for MPEG-4 Part 2 and VP8 tracks and an MPEG-4 muxer, in `struct`.
+"""Matroska and WebM video without OpenCV: a demuxer for MPEG-4 Part 2, VP8 and VP9 tracks and an MPEG-4 muxer.
 
 `MkvReader` walks a Matroska file's EBML elements: the EBML header (whose
 DocType must be `matroska` or `webm`), the Segment's Info (TimestampScale,
 Duration), its Tracks and its Clusters. It takes the first video
-TrackEntry (TrackType 1), which must be MPEG-4 Part 2 or VP8: a CodecID of
-`V_MPEG4/ISO/SP`, `V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose
+TrackEntry (TrackType 1), which must be MPEG-4 Part 2, VP8 or VP9: a
+CodecID of `V_MPEG4/ISO/SP`, `V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose
 CodecPrivate is the decoder configuration (the video object layer header),
 `V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER with an
 MPEG-4 fourcc (`data/mpeg4.py MPEG4_FOURCCS`) and the configuration after
-it, or `V_VP8` (`data/vp8.py`; the first key frame gives the size). Its
+it, `V_VP8` (`data/vp8.py`) or `V_VP9` (`data/vp9.py`, profile 0 as
+OpenCV's `VP90` writer writes it; every frame's headers are read first).
+The first key frame gives a VP8 or VP9 track's size. Its
 SimpleBlocks, and the Blocks of its BlockGroups, are the packets for the
 decoder, in file order.
 
@@ -19,7 +21,7 @@ Matroska file counts no frames, the Segment's duration times that rate,
 rounded. Without a DefaultDuration the rate is the blocks' count over their
 time span.
 
-Other codecs (VP9, AV1, H.264, ...), laced blocks and elements of unknown
+Other codecs (AV1, H.264, ...), laced blocks and elements of unknown
 size raise `NotImplementedError` naming what was found (ROADMAP Queue 1
 item 11.2), before any frame is read; a malformed or truncated file
 raises `ValueError`.
@@ -28,7 +30,7 @@ raises `ValueError`.
 `V_MPEG4/ISO/ASP`, the headers as CodecPrivate), as OpenCV's FFmpeg
 writer lays out its `.mkv` files, through `MatroskaWriter`, which muxes
 compressed frames of any codec into one video track (the fixtures put
-VP8 frames into WebM with it).
+VP8 and VP9 frames into WebM with it).
 """
 
 from __future__ import annotations
@@ -45,10 +47,13 @@ import numpy as np
 from yolo_infer_tpu_torch.data.avi import fps_ratio
 from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Encoder, Mpeg4Track
 from yolo_infer_tpu_torch.data.vp8 import Vp8Track
+from yolo_infer_tpu_torch.data.vp9 import Vp9Track
 
 _ROADMAP = "ROADMAP Queue 1 item 11.2"
 MPEG4_CODEC_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 VP8_CODEC_ID = "V_VP8"
+VP9_CODEC_ID = "V_VP9"
+_VP_TRACKS = {VP8_CODEC_ID: Vp8Track, VP9_CODEC_ID: Vp9Track}
 
 EBML, DOCTYPE = 0x1A45DFA3, 0x4282
 SEGMENT, INFO, TRACKS, CLUSTER = 0x18538067, 0x1549A966, 0x1654AE6B, 0x1F43B675
@@ -184,16 +189,15 @@ class MkvReader(Mpeg4Track):
             self.frame_count = math.floor(micros / 1_000_000 * self.fps + 0.5)
         else:
             self.frame_count = len(self._blocks)
-        if self.codec == VP8_CODEC_ID:
-            self.width, self.height = Vp8Track.size(self)
+        if self.codec in _VP_TRACKS:
+            self.width, self.height = _VP_TRACKS[self.codec].size(self)
         else:
             vol = self._vol()
             self.width, self.height = vol.width, vol.height
 
     def read(self, rgb: bool = True) -> Iterator[np.ndarray]:
         """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
-        track = Vp8Track if self.codec == VP8_CODEC_ID else Mpeg4Track
-        return track.read(self, rgb)
+        return _VP_TRACKS.get(self.codec, Mpeg4Track).read(self, rgb)
 
     def _track(self, ebml: _File, start: int, end: int):
         for eid, s, e in ebml.elements(start, end):
@@ -211,9 +215,9 @@ class MkvReader(Mpeg4Track):
                     raise NotImplementedError(f"{self.path}: a Matroska video track of VFW fourcc {fourcc!r}; the "
                                               f"port reads MPEG-4 Part 2 video only ({_ROADMAP})")
                 private = private[40:]
-            elif codec not in MPEG4_CODEC_IDS and codec != VP8_CODEC_ID:
+            elif codec not in MPEG4_CODEC_IDS and codec not in _VP_TRACKS:
                 raise NotImplementedError(f"{self.path}: a Matroska video track of codec {codec!r}; the port reads "
-                                          f"MPEG-4 Part 2 and VP8 video only ({_ROADMAP})")
+                                          f"MPEG-4 Part 2, VP8 and VP9 video only ({_ROADMAP})")
             if TRACK_NUMBER not in fields:
                 raise ValueError(f"corrupt Matroska {self.path}: a track without a number")
             default = ebml.uint(*fields[DEFAULT_DURATION]) if DEFAULT_DURATION in fields else 0

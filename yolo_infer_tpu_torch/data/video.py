@@ -6,7 +6,8 @@
               `mdat`, `wide`, `free` or `skip` -> `data/mp4.py Mp4Reader`
               (MPEG-4 Part 2)
   Matroska    the EBML magic -> `data/mkv.py MkvReader` (MPEG-4 Part 2;
-              WebM, VP8 through `data/vp8.py`)
+              WebM, VP8 through `data/vp8.py` and VP9 through
+              `data/vp9.py`)
 
 Every reader has `width`, `height`, `fps`, `frame_count`, `info()` (the
 JAX package's `get_video_info` keys) and `read(rgb)`, and raises on an

@@ -1243,17 +1243,25 @@ class Vp8Track:
 
     def read(self, rgb: bool = True) -> Iterator[np.ndarray]:
         """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
+        return read_frames(self, Vp8Decoder, rgb)
+
+
+def read_frames(track, decoder_type, rgb: bool) -> Iterator[np.ndarray]:
+    """A container track's frames through `decoder_type` (`Vp8Decoder` or
+    `data/vp9.py Vp9Decoder`): every frame's headers checked first
+    (`check_stream`), then each shown frame's planes through swscale's
+    YUV 4:2:0 to BGR. The decoder's tallies go to `track.counts`."""
+    try:
+        decoder_type().check_stream(track.packets())
+    except (NotImplementedError, ValueError) as exc:
+        raise type(exc)(f"{track.path}: {exc}") from exc
+    decoder = decoder_type()
+    track.counts = decoder.counts
+    for data in track.packets():
         try:
-            Vp8Decoder().check_stream(self.packets())
+            planes = decoder.decode(data)
         except (NotImplementedError, ValueError) as exc:
-            raise type(exc)(f"{self.path}: {exc}") from exc
-        decoder = Vp8Decoder()
-        self.counts = decoder.counts
-        for data in self.packets():
-            try:
-                planes = decoder.decode(data)
-            except (NotImplementedError, ValueError) as exc:
-                raise type(exc)(f"{self.path}: {exc}") from exc
-            if planes is not None:
-                bgr = yuv420_to_bgr(*planes)
-                yield np.ascontiguousarray(bgr[..., ::-1]) if rgb else bgr
+            raise type(exc)(f"{track.path}: {exc}") from exc
+        if planes is not None:
+            bgr = yuv420_to_bgr(*planes)
+            yield np.ascontiguousarray(bgr[..., ::-1]) if rgb else bgr
