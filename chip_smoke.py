@@ -447,14 +447,22 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
  37. vp9     VP9 on the card's host, ~60 s: each WebM fixture of
              `tests/torch_vp9/` (OpenCV's `VP90` writer at 64x48, 176x144,
              1280x64 with four tile columns and the 24-frame 640x480 demo
-             file with two; libvpx's odd width and real-time bilinear
-             stream) decodes to its manifest's sha256 of every frame OpenCV
-             decodes, and its info; each refused file (superframes, error
-             resilience, backward adaptation, lossless, segmentation, an odd
+             file with two; libvpx's odd width, real-time bilinear stream,
+             two-pass altrefs in superframes with hidden frames and
+             compound prediction, six altref layers with frame contexts
+             1-3 and show_existing_frame, error resilience, backward
+             adaptation, lossless frames, AQ-mode-3 and active-map
+             segmentation, and the 30-frame 352x288 file at libvpx's own
+             defaults) decodes to its manifest's sha256 of every frame
+             OpenCV decodes, and its info; each refused file (an odd
              height, a truncated WebM) raises as listed; the host seconds to
-             decode the demo file's key frame and its first inter frame
-             (median of 3); `detect_video` (yolo11n, b8/640 bf16) over the
-             640x480 VP9 WebM with `.mp4` output, checked as phase 35 checks
+             decode the demo file's key frame and its first inter frame, a
+             superframe of the defaults file (hidden altref and shown
+             frame), and an inter frame that adapts its probabilities
+             beside the same frame decoded without counting (median of 3
+             each); `detect_video` (yolo11n, b8/640 bf16) over the 640x480
+             VP9 WebM and over the defaults file (its hidden frames draw
+             nothing) with `.mp4` output, each checked as phase 35 checks
              its demo, the frames it drew on equal to the manifest's, the
              output read back
 
@@ -486,6 +494,7 @@ from __future__ import annotations
 import collections
 import copy
 import faulthandler
+import gc
 import json
 import os
 import re
@@ -5492,13 +5501,73 @@ def phase_vp8(report):
 
 VP9_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_vp9"
 VP9_DEMO = "vp9_640x480_30.webm"  # the committed 640x480 VP9 WebM the demo runs over (two tile columns, keys 0, 12)
+VP9_DEFAULTS = "vp9_default_352x288.webm"  # libvpx's defaults: two passes, altref in superframes (blocks 1, 12, 23)
+VP9_ADAPTS = ("vp9_nofp_176x144.webm", 2)  # a file that adapts its probabilities, and the inter frame timed
+
+
+def vp9_frame_s() -> dict:
+    """The host's seconds (median of 3, each from a copy of the decoder's
+    state before it) to decode a superframe of the defaults file (a hidden
+    altref and the frame shown after it), and an inter frame that adapts
+    its probabilities beside the same frame decoded without counting and
+    adapting (its planes are the same: adaptation changes only what later
+    frames decode with)."""
+    from yolo_infer_tpu_torch.data.mkv import MkvReader
+    from yolo_infer_tpu_torch.data.vp9 import Vp9Decoder, split_superframe
+
+    class NoAdaptation(Vp9Decoder):
+        def _uncompressed(self, data):
+            h = super()._uncompressed(data)
+            h.adapt = False
+            return h
+
+    def timed(decoders, block):
+        """Median seconds of `decode(block)` by each decoder (each after a
+        collection, so that none pays for the copies' garbage), and the
+        planes of each."""
+        times, planes = [], []
+        for d in decoders:
+            gc.collect()
+            t0 = time.perf_counter()
+            planes.append(d.decode(block))
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[len(times) // 2], planes
+
+    def state_before(path, i):
+        blocks = list(MkvReader(VP9_FIXTURES / path).packets())
+        decoder = Vp9Decoder()
+        for block in blocks[:i]:
+            decoder.decode(block)
+        return decoder, blocks[i]
+
+    base, block = state_before(VP9_DEFAULTS, 1)
+    if len(split_superframe(block)) != 2:
+        raise AssertionError(f"{VP9_DEFAULTS} block 1 is not a superframe of two frames")
+    out = {"superframe_352x288": timed([copy.deepcopy(base) for _ in range(3)], block)[0]}
+    base, block = state_before(*VP9_ADAPTS)
+    decoders = [copy.deepcopy(base) for _ in range(6)]
+    for d in decoders[1::2]:
+        d.__class__ = NoAdaptation
+    times = {"adapting_inter_176x144": [], "same_frame_not_adapting_176x144": []}
+    planes = []
+    for i, d in enumerate(decoders):  # in turns: adapting, not, adapting, ...
+        t, p = timed([d], block)
+        times[list(times)[i & 1]].append(t)
+        planes += p
+    if any(not all(np.array_equal(a, b) for a, b in zip(planes[0], p)) for p in planes) or \
+            not base.counts["backward_adaptation"]:
+        raise AssertionError(f"{VP9_ADAPTS[0]}: frame {VP9_ADAPTS[1]} decoded differently without adaptation, "
+                             "or the file does not adapt")
+    out.update({k: sorted(v)[1] for k, v in times.items()})
+    return out
 
 
 def phase_vp9(report):
     """VP9 on the card's host (phase 37): the WebM fixtures against their
     manifest, the refused files, the host's decode seconds of a 640x480 key
-    frame and an inter frame, and the batched detect video demo over the
-    committed 640x480 VP9 WebM (A, B) with MP4 output."""
+    frame and an inter frame, of a superframe and of an adapting frame, and
+    the batched detect video demo over the committed 640x480 VP9 WebM and
+    over the file at libvpx's defaults (A, B) with MP4 output."""
     import hashlib
 
     from yolo_infer_tpu_torch.core.model import YOLO11Model
@@ -5513,30 +5582,38 @@ def phase_vp9(report):
     out["fixtures"] = check_video_fixtures(VP9_FIXTURES, manifest, failures)
     out["refused"] = len(manifest["raises"])
     emit({"vp9_demo_file_decode_frames_per_s": out["fixtures"][VP9_DEMO]["frames_per_s"], "card": out["card"]})
-    # --- the host's decode seconds at 640x480 (median of 3)
+    # --- the host's decode seconds at 640x480, of a superframe and of an adapting frame (median of 3)
     demo_src = VP9_FIXTURES / VP9_DEMO
     decode_s = key_inter_decode_s(Vp9Decoder, demo_src)
-    out["host_s"] = {"decode_640x480": decode_s}
+    out["host_s"] = {"decode_640x480": decode_s, "decode_frames": vp9_frame_s()}
     emit({"vp9_decode_s_640x480": decode_s, "card": out["card"]})
+    emit({"vp9_decode_s_frames": out["host_s"]["decode_frames"], "card": out["card"]})
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_vp9_"))
     try:
-        # --- the demo over the committed 640x480 VP9 WebM, .mp4 out
         model = report["weights"][0] if "weights" in report else smoke_weights(
             np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
         ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
                                        device="cpu").save(root / "detect.msgpack")
-        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
-        n = manifest["files"][VP9_DEMO]["info"]["frame_count"]
-        ran, drawn = check_video_demo(demo, demo_src, root, ".mp4", n, "vp9", "vp9_video", failures)
-        out.update(ran)
-        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
-        out["decoded_as_manifest"] = hashes == manifest["files"][VP9_DEMO]["frames"]
-        written = open_video(root / "out.mp4")
-        out["output"] = {**written.info(), "frames_read": sum(1 for _ in written.read())}
-        if (out["output"]["frames_read"], written.frame_count, written.width, written.height) != (n, n, 640, 480) \
-                or not out["decoded_as_manifest"]:
-            failures.append(f"the output video read back: {out['output']}; decoded as the manifest: "
-                            f"{out['decoded_as_manifest']}")
+        # --- the demo over the committed 640x480 VP9 WebM and the file at libvpx's defaults, .mp4 out (each
+        # demo its own predictor: the path's first run captures its graphs)
+        for name, where, key in ((VP9_DEMO, "vp9", None), (VP9_DEFAULTS, "vp9_defaults", "defaults")):
+            demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+            info = manifest["files"][name]["info"]
+            n = info["frame_count"]
+            ran, drawn = check_video_demo(demo, VP9_FIXTURES / name, root, ".mp4", n, where, f"{where}_video",
+                                          failures)
+            hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+            ran["decoded_as_manifest"] = hashes == manifest["files"][name]["frames"]
+            written = open_video(root / "out.mp4")
+            ran["output"] = {**written.info(), "frames_read": sum(1 for _ in written.read())}
+            if (ran["output"]["frames_read"], written.frame_count, written.width, written.height) != \
+                    (n, n, info["width"], info["height"]) or not ran["decoded_as_manifest"]:
+                failures.append(f"{name}: the output video read back: {ran['output']}; decoded as the manifest: "
+                                f"{ran['decoded_as_manifest']}")
+            if key is None:
+                out.update(ran)
+            else:
+                out[key] = ran
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if failures:

@@ -3,7 +3,8 @@ package.
 
 The WebM fixtures in `tests/torch_vp9/` come from `tests/torch_vp9/make_fixtures.py`
 (OpenCV's `VP90` writer, and libvpx's VP9 encoder through ctypes for an odd
-width, the bilinear filter and the syntax the port refuses); its manifest
+width, the bilinear filter, what libvpx writes outside OpenCV's one
+setting and its own defaults, and what the port refuses); its manifest
 holds the sha256 of every frame OpenCV's FFmpeg backend decodes, which is
 what the JAX package's `load_video` returns. VP9 reconstruction is
 normative, so the port's Y, U and V planes are also held to libvpx's
@@ -40,6 +41,7 @@ from yolo_infer_tpu_torch.data.video import open_video  # noqa: E402
 MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())
 VIDEOS = sorted(MANIFEST["files"])
 DEMO = "vp9_640x480_30.webm"
+DEFAULTS = "vp9_default_352x288.webm"  # libvpx's own defaults: two passes, an automatic altref, lag 25
 SMALL = [n for n in VIDEOS if n != DEMO]
 REFUSED = sorted(MANIFEST["raises"])
 DEMO_TAIL = slice(12, 17)  # the demo file's second key frame and the inter frames up to its first 32x64 block
@@ -55,7 +57,11 @@ CASES = ("profile_0", "key_frame", "inter_frame", "colour_space_0", "studio_rang
          "sub8x8_ZERO", "sub8x8_NEW", "switchable_regular", "switchable_smooth", "switchable_sharp",
          "mv_joint_0", "mv_joint_1", "mv_joint_2", "mv_joint_3", "mv_class0", "mv_class_n", "mv_hp_bit",
          "inter_regular", "inter_smooth", "inter_sharp", "inter_bilinear", "kf_sub8x8", "intra_sub8x8",
-         "tx_4", "tx_8", "tx_16", "tx_32") \
+         "tx_4", "tx_8", "tx_16", "tx_32", "superframe", "hidden_frame", "show_existing_frame", "prev_frame_mvs",
+         "error_resilient", "keep_frame_context", "frame_context_1", "frame_context_2", "frame_context_3",
+         "backward_adaptation", "compound", "reference_select", "comp_inter_prob_update", "ref_compound",
+         "inter_compound", "segmentation", "seg_update_map", "seg_temporal_update", "seg_update_data", "seg_alt_q",
+         "seg_alt_lf", "seg_skip", "seg_predicted", "seg_coded", "lossless", "tx_mode_0", "tx_mode_1") \
     + tuple(f"block_{b}" for b in vp9.BLOCK_NAMES) + tuple(f"tx_type_{t}" for t in vp9.TX_TYPE_NAMES) \
     + tuple(f"{p}{m}" for p in ("kf_", "intra_", "uv_") for m in vp9.MODE_NAMES[:10]) \
     + tuple(f"refresh_slot_{i}" for i in range(8))
@@ -100,7 +106,7 @@ def test_planes_equal_libvpx(name):
     packets = list(open_video(FIXTURES / name).packets())
     want = libvpx_vp9.decode(packets)
     decoder = vp9.Vp9Decoder()
-    got = [decoder.decode(data) for data in packets]
+    got = [planes for planes in map(decoder.decode, packets) if planes is not None]
     assert len(got) == len(want) == len(packets)
     for g, w in zip(got, want):
         assert all(np.array_equal(a, b) for a, b in zip(g, w))
@@ -200,18 +206,70 @@ def test_the_demo_file_is_the_card_demo_size():
 
 
 def test_fixtures_stay_small():
+    """The folder stays under 500 kB, and each decoded file under 1280x64
+    pixels but the one at libvpx's defaults, at 352x288 (CIF)."""
     assert sum(p.stat().st_size for p in FIXTURES.iterdir() if p.is_file()) < 500_000
     for name in SMALL:
-        assert np.prod(MANIFEST["files"][name]["shape"][:2]) <= 1280 * 64
+        assert np.prod(MANIFEST["files"][name]["shape"][:2]) <= (352 * 288 if name == DEFAULTS else 1280 * 64)
 
 
 def test_superframe_index_is_found():
     """A superframe's index (its marker byte at both ends) gives its frames' sizes; plain frames have none."""
-    packets, _ = cv2_packets(FIXTURES / "vp9_altref_176x144.webm")  # the port's reader refuses the file
+    packets, _ = cv2_packets(FIXTURES / "vp9_altref_176x144.webm")
     sizes = [vp9.superframe_sizes(p) for p in packets]
     found = [(p, s) for p, s in zip(packets, sizes) if s]
     assert found and all(len(p) == sum(s) + 2 + len(s) * (((p[-1] >> 3) & 3) + 1) for p, s in found)
+    assert all(b"".join(vp9.split_superframe(p)) == p[:sum(s)] for p, s in found)
     assert vp9.superframe_sizes(list(open_video(FIXTURES / "vp9_64x48_25.webm").packets())[0]) is None
+    with pytest.raises(ValueError, match="superframe"):
+        vp9.split_superframe(found[0][0][:sum(found[0][1]) // 2] + found[0][0][sum(found[0][1]):])
+
+
+def test_hidden_altrefs_give_no_frame_and_no_vectors():
+    """The two-pass altref file: 20 blocks hold 22 frames; its 2 hidden
+    altrefs give no frame, and the frame after each (shown in the same
+    superframe) does not take the hidden one's vectors: every other inter
+    frame takes its predecessor's."""
+    frames, counts = decoded("vp9_altref_176x144.webm")
+    packets = list(open_video(FIXTURES / "vp9_altref_176x144.webm").packets())
+    assert (len(packets), len(frames), counts["profile_0"]) == (20, 20, 22)
+    assert counts["hidden_frame"] == counts["superframe"] == 2
+    assert counts["prev_frame_mvs"] == counts["inter_frame"] - counts["hidden_frame"] == 19
+
+
+def test_show_existing_frame_outputs_its_slot():
+    """The altref-layers file: a one-byte frame shows a slot again (the
+    altref decoded hidden earlier), decodes nothing and leaves the
+    stream's state alone."""
+    packets = list(open_video(FIXTURES / "vp9_layers_176x144.webm").packets())
+    decoder = vp9.Vp9Decoder()
+    shown = []
+    for p in packets:
+        if len(p) == 1:
+            slot = p[0] & 7  # frame marker, profile 0, show_existing_frame, then the slot
+            before = (*decoder.contexts, decoder.prev, decoder.seg_map, decoder.last_key)
+            planes = decoder.decode(p)
+            assert all(np.array_equal(a, b) for a, b in zip(planes, decoder.slots[slot]))
+            after = (*decoder.contexts, decoder.prev, decoder.seg_map, decoder.last_key)
+            assert all(x is y for x, y in zip(before, after))
+            shown.append(slot)
+        else:
+            decoder.decode(p)
+    assert len(shown) == decoder.counts["show_existing_frame"] > 0
+
+
+def test_frame_parallel_streams_do_not_tally(monkeypatch):
+    """OpenCV's files (frame-parallel) decode through the token loop that
+    does not count; a stream that adapts counts every token."""
+    def fail(*args):
+        raise AssertionError("a frame-parallel stream reached the counting token loop")
+
+    monkeypatch.setattr(vp9, "_coefs_tallied", fail)
+    decoder = vp9.Vp9Decoder()
+    for p in open_video(FIXTURES / "vp9_176x144_30.webm").packets():
+        decoder.decode(p)
+    with pytest.raises(AssertionError, match="counting token loop"):
+        next(load_video(FIXTURES / "vp9_nofp_176x144.webm"))
 
 
 # ---------------------------------------------------------------- transforms
@@ -247,13 +305,75 @@ def test_inverse_transforms_are_near_orthonormal(tx, tx_type):
     assert np.abs(gram - np.diag(diag)).max() < 0.02 * diag.mean()
 
 
+def _iwht4x4_direct(block):
+    """libvpx's vpx_iwht4x4_16_add as written: its two passes over one
+    block of dequantised coefficients, element by element."""
+    out = [[0] * 4 for _ in range(4)]
+    for i in range(4):
+        a, c, d, b = (int(v) >> 2 for v in block[i])
+        a += c
+        d -= b
+        e = (a - d) >> 1
+        b = e - b
+        c = e - c
+        a -= b
+        d += c
+        out[i] = [a, b, c, d]
+    res = np.zeros((4, 4), np.int64)
+    for i in range(4):
+        a, c, d, b = (out[k][i] for k in range(4))
+        a += c
+        d -= b
+        e = (a - d) >> 1
+        b = e - b
+        c = e - c
+        a -= b
+        d += c
+        res[:, i] = (a, b, c, d)
+    return res
+
+
+def test_walsh_hadamard_inverse_equals_the_lifting_steps():
+    """The batched lossless inverse equals libvpx's two passes of lifting
+    steps, evaluated one element at a time, on dequantised (x4) blocks."""
+    rng = np.random.default_rng(24)
+    blocks = rng.integers(-300, 300, (64, 4, 4)) * 4
+    blocks[:8, 1:, :] = 0
+    blocks[:4, 0, 1:] = 0  # DC only (libvpx's vpx_iwht4x4_1_add gives the same)
+    got = vp9.inverse_transform(blocks, 0, vp9.WHT_WHT)
+    assert all((got[k] == _iwht4x4_direct(blocks[k])).all() for k in range(len(blocks)))
+
+
+def test_probability_merges_equal_hand_worked_counts():
+    """libvpx's merge_probs and its tree form on counts worked by hand."""
+    # a mode or vector probability: prob(3 of 4) = 770 // 4 = 192, factor 128 * 4 // 20 = 25
+    assert vp9.merge_prob(128, 3, 1) == (128 * 231 + 192 * 25 + 128) >> 8 == 134
+    assert vp9.merge_prob(77, 0, 0) == 77
+    # a coefficient probability: 40 counts saturate at 24; factor 112, or 128 after a key frame
+    assert vp9.merge_prob(200, 10, 30, 24, 112) == (200 * 144 + 64 * 112 + 128) >> 8 == 141
+    assert vp9.merge_prob(200, 10, 30, 24, 128) == (200 * 128 + 64 * 128 + 128) >> 8 == 132
+    assert vp9.merge_prob(200, 1, 0, 24, 112) == (200 * 252 + 255 * 4 + 128) >> 8 == 201  # prob 256 clipped to 255
+    # the inter-mode tree (ZERO | NEAREST | NEAR, NEW) over counts by offset (NEAREST 4, NEAR 0, ZERO 6, NEW 10)
+    out = [0, 0, 0]
+    assert vp9.merge_tree((-2, 2, 0, 4, -1, -3), [50, 150, 100], [4, 0, 6, 10], out) == 20
+    assert out == [(50 * 128 + 77 * 128 + 128) >> 8, (150 * 167 + 73 * 89 + 128) >> 8, (100 * 192 + 1 * 64 + 128) >> 8]
+    assert out == [64, 123, 75]
+
+
+def test_compound_average_rounds_half_up():
+    first, second = np.array([0, 1, 254, 255, 10, 7]), np.array([1, 2, 255, 255, 13, 7])
+    assert vp9.compound_average(first, second).tolist() == [1, 2, 255, 255, 12, 7]
+
+
 # ---------------------------------------------------------------- the demo
 
 
-def test_detect_video_on_vp9_matches_the_jax_demo(ckpts, tmp_path, monkeypatch):  # noqa: F811
+@pytest.mark.parametrize("name", ["vp9_64x48_25.webm", DEFAULTS])
+def test_detect_video_on_vp9_matches_the_jax_demo(ckpts, tmp_path, monkeypatch, name):  # noqa: F811
     """detect_video on VP9 WebM, batched: the frames each demo drew on are
-    equal, its detections within the f32 tolerances."""
-    name = "vp9_64x48_25.webm"
+    equal, its detections within the f32 tolerances. At libvpx's defaults
+    a superframe's hidden altref draws nothing: the demo counts OpenCV's
+    frames."""
     (want, jax_draws, _), (got, draws, written) = run_demos(
         ckpts, tmp_path, monkeypatch, FIXTURES / name, "detect", "draw_detections", batch_size=4)
     n = MANIFEST["files"][name]["info"]["frame_count"]

@@ -2,10 +2,12 @@
 
 OpenCV's `VP90` writer drives libvpx at one setting (profile 0, no
 hidden frames, frame-parallel mode, no segmentation). The fixture maker
-asks this encoder for the syntax the port refuses: an automatic altref
-with lag (superframes and hidden frames), error resilience, frame-parallel
-mode off (backward adaptation), lossless coding and an AQ mode
-(segmentation). It also writes the odd width OpenCV's writer rounds down.
+asks this encoder for the rest: an automatic altref with lag, one layer
+or several (superframes, hidden frames, compound prediction, frame
+contexts 1-3, show_existing_frame), error resilience, frame-parallel
+mode off (backward adaptation), lossless coding, an AQ mode and an active
+map (segmentation), and the library's defaults. It also writes the odd
+width OpenCV's writer rounds down.
 The decoder gives each shown frame's Y, U and V planes, which the tests
 hold the port's to. The shared ctypes plumbing is `tests/torch_vp8/libvpx.py`.
 
@@ -22,7 +24,7 @@ import numpy as np
 sys.path.append(str(Path(__file__).resolve().parent.parent / "torch_vp8"))
 import libvpx  # noqa: E402  (tests/torch_vp8: the library, its image struct, the config slots)
 
-VP8E_SET_CPUUSED, VP8E_SET_ENABLEAUTOALTREF = 13, 14
+VP8E_SET_ACTIVEMAP, VP8E_SET_CPUUSED, VP8E_SET_ENABLEAUTOALTREF = 9, 13, 14
 VPX_DL_REALTIME = 1
 VP9E_SET_LOSSLESS, VP9E_SET_FRAME_PARALLEL_DECODING, VP9E_SET_AQ_MODE = 32, 35, 36
 _MIN_Q, _MAX_Q = 29, 30  # vpx_codec_enc_cfg_t's rc_min_quantizer and rc_max_quantizer, as uint32 slots
@@ -44,33 +46,42 @@ def decode(frames: List[bytes]) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray
     return libvpx.decode(frames, _LIB.vpx_codec_vp9_dx())
 
 
-def encode(frames_i420, w: int, h: int, altref: bool = False, error_resilient: bool = False,
-           frame_parallel: bool = True, lossless: bool = False, aq_mode: Optional[int] = None, speed: int = 4,
-           realtime: bool = False, quantizer: Optional[int] = None) -> List[Tuple[bytes, bool]]:
+class _ActiveMap(ctypes.Structure):  # vpx_active_map_t
+    _fields_ = [("active_map", ctypes.c_void_p), ("rows", ctypes.c_uint), ("cols", ctypes.c_uint)]
+
+
+def encode(frames_i420, w: int, h: int, altref: int = 0, error_resilient: bool = False,
+           frame_parallel: Optional[bool] = True, lossless: bool = False, aq_mode: Optional[int] = None,
+           speed: Optional[int] = 4, realtime: bool = False, quantizer: Optional[int] = None,
+           active_map: Optional[np.ndarray] = None) -> List[Tuple[bytes, bool]]:
     """VP9 frames (data, is key) of I420 frames (each Y, U, V flattened):
     one pass without lag, or with `altref` two passes with a lag of 25
-    frames (the second reads the first's statistics). `speed` is cpu-used;
-    `realtime` asks for the real-time deadline (at speed 9 libvpx then
-    codes every inter frame with the bilinear filter); `quantizer` (0-63)
-    pins the rate control's quantizer."""
-    args = (frames_i420, w, h, error_resilient, frame_parallel, lossless, aq_mode, speed,
-            VPX_DL_REALTIME if realtime else libvpx.VPX_DL_GOOD_QUALITY, quantizer)
+    frames (the second reads the first's statistics) and the automatic
+    altref at that value (1, or up to 6 for layers of them). `speed` is
+    cpu-used; `realtime` asks for the real-time deadline (at speed 9
+    libvpx then codes every inter frame with the bilinear filter);
+    `quantizer` (0-63) pins the rate control's quantizer; `active_map`
+    (uint8 by 16x16 block, 0 inactive) is handed over before every frame
+    after the first (libvpx drops it at a key frame). A `speed` or
+    `frame_parallel` of None leaves that control at the library's
+    default."""
+    opts = dict(error_resilient=error_resilient, frame_parallel=frame_parallel, lossless=lossless, aq_mode=aq_mode,
+                speed=speed, deadline=VPX_DL_REALTIME if realtime else libvpx.VPX_DL_GOOD_QUALITY,
+                quantizer=quantizer, active_map=active_map, altref=int(altref))
     if not altref:
-        return _encode_pass(*args, 0, 0, None)[0]
-    _, stats = _encode_pass(*args, 25, 1, None)
-    return _encode_pass(*args, 25, 2, stats)[0]
+        return _encode_pass(frames_i420, w, h, opts, 0, 0, None)[0]
+    _, stats = _encode_pass(frames_i420, w, h, opts, 25, 1, None)
+    return _encode_pass(frames_i420, w, h, opts, 25, 2, stats)[0]
 
 
-def _encode_pass(frames_i420, w: int, h: int, error_resilient: bool, frame_parallel: bool, lossless: bool,
-                 aq_mode: Optional[int], speed: int, deadline: int, quantizer: Optional[int], lag: int, passno: int,
-                 stats: Optional[bytes]):
+def _encode_pass(frames_i420, w: int, h: int, opts: dict, lag: int, passno: int, stats: Optional[bytes]):
     cfg = (ctypes.c_uint32 * 512)()
     if _LIB.vpx_codec_enc_config_default(ctypes.c_void_p(_LIB.vpx_codec_vp9_cx()), cfg, 0):
         raise RuntimeError("vpx_codec_enc_config_default failed")
     cfg[libvpx._WIDTH], cfg[libvpx._HEIGHT] = w, h
-    cfg[libvpx._ERROR_RESILIENT], cfg[libvpx._PASS], cfg[libvpx._LAG] = int(error_resilient), passno, lag
-    if quantizer is not None:
-        cfg[_MIN_Q] = cfg[_MAX_Q] = quantizer
+    cfg[libvpx._ERROR_RESILIENT], cfg[libvpx._PASS], cfg[libvpx._LAG] = int(opts["error_resilient"]), passno, lag
+    if opts["quantizer"] is not None:
+        cfg[_MIN_Q] = cfg[_MAX_Q] = opts["quantizer"]
     keep = None
     if stats is not None:
         keep = ctypes.create_string_buffer(stats, len(stats))
@@ -82,15 +93,21 @@ def _encode_pass(frames_i420, w: int, h: int, error_resilient: bool, frame_paral
             break
     else:
         raise RuntimeError("vpx_codec_enc_init_ver failed")
-    controls = [(VP8E_SET_CPUUSED, speed), (VP8E_SET_ENABLEAUTOALTREF, int(lag > 0)),
-                (VP9E_SET_FRAME_PARALLEL_DECODING, int(frame_parallel)), (VP9E_SET_LOSSLESS, int(lossless))]
-    if aq_mode is not None:
-        controls.append((VP9E_SET_AQ_MODE, aq_mode))
+    frame_parallel = opts["frame_parallel"]
+    controls = [(VP8E_SET_CPUUSED, opts["speed"]), (VP8E_SET_ENABLEAUTOALTREF, opts["altref"] if lag else 0),
+                (VP9E_SET_FRAME_PARALLEL_DECODING, None if frame_parallel is None else int(frame_parallel)),
+                (VP9E_SET_LOSSLESS, int(opts["lossless"])), (VP9E_SET_AQ_MODE, opts["aq_mode"])]
     for ctrl, value in controls:
+        if value is None:
+            continue
         if _LIB.vpx_codec_control_(ctx, ctrl, ctypes.c_int(value)):
             raise RuntimeError(f"vpx_codec_control_ {ctrl} failed")
     packets, stats_out = [], []
     img = ctypes.create_string_buffer(512)
+    active = None
+    if opts["active_map"] is not None:
+        cells = ctypes.create_string_buffer(np.ascontiguousarray(opts["active_map"], np.uint8).tobytes())
+        active = _ActiveMap(ctypes.addressof(cells), *opts["active_map"].shape)
 
     def drain():
         it = ctypes.c_void_p(0)
@@ -107,16 +124,18 @@ def _encode_pass(frames_i420, w: int, h: int, error_resilient: bool, frame_paral
 
     try:
         for i, f in enumerate(frames_i420):
+            if active is not None and i and _LIB.vpx_codec_control_(ctx, VP8E_SET_ACTIVEMAP, ctypes.byref(active)):
+                raise RuntimeError("vpx_codec_control_ VP8E_SET_ACTIVEMAP failed")
             data = ctypes.create_string_buffer(f.tobytes())
             p = _LIB.vpx_img_wrap(img, libvpx.VPX_IMG_FMT_I420, w, h, 1, data)
             if _LIB.vpx_codec_encode(ctx, ctypes.c_void_p(p), ctypes.c_int64(i), ctypes.c_ulong(1), ctypes.c_long(0),
-                                     ctypes.c_ulong(deadline)):
+                                     ctypes.c_ulong(opts["deadline"])):
                 raise RuntimeError("vpx_codec_encode failed")
             drain()
         while True:  # flush: the lagged frames come out a few at a time
             n = len(packets)
             _LIB.vpx_codec_encode(ctx, None, ctypes.c_int64(-1), ctypes.c_ulong(1), ctypes.c_long(0),
-                                  ctypes.c_ulong(deadline))
+                                  ctypes.c_ulong(opts["deadline"]))
             drain()
             if len(packets) == n:
                 break

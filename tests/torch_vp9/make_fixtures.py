@@ -17,12 +17,17 @@ tools:
           the port's `data/mkv.py MatroskaWriter`: an odd width (OpenCV's
           writer rounds it down), the real-time speed 9 that codes inter
           frames with the bilinear filter, a coarse quantiser (no
-          high-precision vectors, zero vector differences); and refused:
-          a two-pass encode with an automatic altref (superframes with
-          hidden frames), error resilience, frame-parallel mode off
-          (backward adaptation), lossless coding, AQ mode 3
-          (segmentation), an odd height (swscale converts it through its
-          scaled path)
+          high-precision vectors, zero vector differences), a two-pass
+          encode with an automatic altref (superframes with hidden frames,
+          compound prediction, frame context 1), error resilience,
+          frame-parallel mode off (backward adaptation), lossless coding,
+          AQ mode 3 (segmentation), a real-time encode with AQ mode 3 and
+          an active map (segments that skip, with their own loop filter
+          level), six layers of automatic altrefs (frame contexts 1-3,
+          show_existing_frame), the library's own defaults at 352x288
+          (two passes, automatic altref, lag 25, every other control
+          unset: the manifest records what libvpx chose), and refused: an
+          odd height (swscale converts it through its scaled path)
   hand    the 176x144 file cut short (refused)
 
 The 640x480 file is the video demo's input on the card (`chip_smoke.py
@@ -47,10 +52,14 @@ sys.path.insert(0, str(REPO / "tests" / "torch_video"))
 import libvpx_vp9  # noqa: E402
 from make_fixtures import scene  # noqa: E402  (tests/torch_video)
 from yolo_infer_tpu.data.loader import get_video_info  # noqa: E402
-from yolo_infer_tpu_torch.data.mkv import VP9_CODEC_ID, MatroskaWriter  # noqa: E402
+from yolo_infer_tpu_torch.data.mkv import VP9_CODEC_ID, MatroskaWriter, MkvReader  # noqa: E402
 from yolo_infer_tpu_torch.data.mpeg4 import bgr_to_yuv420  # noqa: E402
+from yolo_infer_tpu_torch.data.vp9 import Vp9Decoder  # noqa: E402
 
 ROADMAP = r"ROADMAP Queue 1 item 11\.2"
+ACTIVE_MAP = np.ones((9, 11), np.uint8)  # 176x144 by 16x16 block: the left quarter and a bottom-right corner inactive
+ACTIVE_MAP[:, :4] = 0
+ACTIVE_MAP[6:, 8:] = 0
 # name: (tool, (width, height), fps, frames, seed, libvpx options)
 VIDEOS = {
     "vp9_64x48_25.webm": ("cv2", (64, 48), 25, 12, 200, {}),
@@ -61,15 +70,21 @@ VIDEOS = {
     "vp9_99x60.webm": ("libvpx", (99, 60), 25, 6, 204, {}),
     "vp9_bilinear_176x144.webm": ("libvpx", (176, 144), 25, 6, 205, {"speed": 9, "realtime": True}),
     "vp9_coarse_256x192.webm": ("libvpx", (256, 192), 25, 8, 7, {"speed": 2, "quantizer": 50}),
+    "vp9_altref_176x144.webm": ("libvpx", (176, 144), 25, 20, 300, {"altref": True}),
+    "vp9_errres_176x144.webm": ("libvpx", (176, 144), 25, 4, 301, {"error_resilient": True}),
+    "vp9_nofp_176x144.webm": ("libvpx", (176, 144), 25, 4, 302, {"frame_parallel": False}),
+    "vp9_lossless_64x48.webm": ("libvpx", (64, 48), 25, 3, 303, {"lossless": True}),
+    "vp9_aq_176x144.webm": ("libvpx", (176, 144), 25, 4, 304, {"aq_mode": 3}),
+    "vp9_activemap_176x144.webm": ("libvpx", (176, 144), 25, 6, 308,
+                                   {"speed": 7, "realtime": True, "aq_mode": 3, "active_map": ACTIVE_MAP}),
+    "vp9_layers_176x144.webm": ("libvpx", (176, 144), 25, 32, 307, {"altref": 6, "quantizer": 40}),
+    "vp9_default_352x288.webm": ("libvpx", (352, 288), 30, 30, 306,
+                                 {"altref": True, "speed": None, "frame_parallel": None}),
 }
-# name: ((width, height), frames, libvpx options, what it raises)
+DEFAULTS = "vp9_default_352x288.webm"
+# name: ((width, height), frames, seed, libvpx options, what it raises)
 REFUSED = {
-    "vp9_altref_176x144.webm": ((176, 144), 20, {"altref": True}, "superframe index"),
-    "vp9_errres_176x144.webm": ((176, 144), 4, {"error_resilient": True}, "error_resilient_mode 1"),
-    "vp9_nofp_176x144.webm": ((176, 144), 4, {"frame_parallel": False}, "backward probability adaptation"),
-    "vp9_lossless_64x48.webm": ((64, 48), 3, {"lossless": True}, "lossless"),
-    "vp9_aq_176x144.webm": ((176, 144), 4, {"aq_mode": 3}, "segmentation"),
-    "vp9_99x61.webm": ((99, 61), 3, {}, "odd height"),
+    "vp9_99x61.webm": ((99, 61), 3, 305, {}, "odd height"),
 }
 
 
@@ -105,6 +120,18 @@ def cv2_frames(path: Path):
     return frames
 
 
+def libvpx_choices(path: Path) -> dict:
+    """What the encoder chose where its controls were left unset, from the
+    stream's frame headers (read by the port's decoder)."""
+    decoder = Vp9Decoder()
+    decoder.check_stream(MkvReader(path).packets())
+    n = decoder.counts
+    return {"frames": n["profile_0"], "hidden_frames": n["hidden_frame"], "superframes": n["superframe"],
+            "frame_parallel_decoding_mode": int(not n["backward_adaptation"]),
+            "compound_prediction_frames": n["compound"], "frame_contexts": sorted(
+                int(k[-1]) for k in n if k.startswith("frame_context_"))}
+
+
 def main() -> None:
     files = {}
     for name, (tool, (w, h), fps, n, seed, options) in VIDEOS.items():
@@ -117,8 +144,9 @@ def main() -> None:
         assert len(frames) == info["frame_count"] == n, (name, len(frames), info)
         files[name] = {"tool": tool, "info": info, "shape": list(frames[0].shape),
                        "frames": [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]}
+    files[DEFAULTS]["libvpx_chose"] = libvpx_choices(HERE / DEFAULTS)
     raises = {}
-    for seed, (name, ((w, h), n, options, what)) in enumerate(REFUSED.items(), start=300):
+    for name, ((w, h), n, seed, options, what) in REFUSED.items():
         write_libvpx(HERE / name, w, h, 25, n, seed, options)
         raises[name] = ("NotImplementedError", f"{what}.*{ROADMAP}")
     data = (HERE / "vp9_176x144_30.webm").read_bytes()

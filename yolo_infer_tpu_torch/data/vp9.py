@@ -1,63 +1,85 @@
-"""VP9 (profile 0) decoding in numpy: the video inside WebM files, as OpenCV's `VP90` writer writes it.
+"""VP9 (profile 0) decoding in numpy: the video in WebM as OpenCV's `VP90` writer and libvpx's encoder write it.
 
-`Vp9Decoder.decode(frame)` takes one compressed frame and returns its Y, U
-and V planes, cropped to the picture's size. The decoder keeps the state
-that VP9 carries from frame to frame: the eight reference slots, the four
-saved probability contexts, the loop filter deltas and the previous
-frame's motion vectors.
+`Vp9Decoder.decode(block)` takes one container block (a frame, or a
+superframe of several) and returns the Y, U and V planes of its last
+frame, cropped to the picture's size, or None where that frame is hidden.
+The decoder keeps the state that VP9 carries from frame to frame: the
+eight reference slots, the four saved probability contexts, the loop
+filter deltas, the segmentation and its map, and the motion vectors of
+the last frame decoded.
 
 Decoded, as far as the committed fixtures reach (`counts` tallies each
 case; the tests list what the fixtures meet):
 
+  stream      superframes (each frame of the block in turn), hidden
+              frames, show_existing_frame (a slot shown again, no state
+              changed); the previous frame's vectors only after a shown
+              frame of the same size and not in an error-resilient frame
   header      the uncompressed header of key and inter frames (profile 0,
               8-bit 4:2:0, colour space and range, frame and render size,
               the size taken from a reference, `refresh_frame_flags`, the
-              three reference indices, high-precision vectors, a
-              switchable or fixed interpolation filter, frame context 0
-              and its refresh, the loop filter level and its reference
-              and mode delta updates, the quantiser index, tile columns)
-              and the compressed header through the bool
+              three reference indices and sign biases, high-precision
+              vectors, a switchable or fixed interpolation filter,
+              error-resilient frames, frame contexts 0-3 with or without
+              their refresh and the reset of past state, the loop filter
+              level and its reference and mode delta updates, the
+              quantiser index, lossless frames, segmentation: the map's
+              tree and temporal prediction probabilities and the alternative
+              quantiser, loop filter level and skip features as deltas,
+              tile columns) and the compressed header through the bool
               decoder: `tx_mode` and its probabilities, and the forward
               updates (`inv_remap_prob`) of the coefficient, skip,
-              inter-mode, filter, is-inter, reference, y-mode, partition
-              and motion vector probabilities
-  modes       the partition tree from 64x64 to 4x4, intra modes (key
-              frames' above/left contexts, inter frames' size groups,
-              4x4 sub-blocks), the skip flag and transform size in
-              context, single references (LAST, GOLDEN, ALTREF) in
-              context, NEARESTMV/NEARMV/ZEROMV/NEWMV with the candidate
-              search (`find_mv_refs`: neighbours by block size, the
-              previous frame's vectors, clamping) and its sub-8x8 form,
-              the switchable filter in context, and vector coding
-  residual    tokens with band and neighbour contexts, dequantisation
-              (32x32 halved), DCT and ADST at 4, 8 and 16 and the 32x32
-              DCT with libvpx's integer rounding
+              inter-mode, filter, is-inter, single and per-block compound
+              reference, y-mode, partition and motion vector probabilities
+  modes       the partition tree from 64x64 to 4x4, segment ids (coded,
+              predicted from the last map in context, or the last map's),
+              intra modes (key frames' above/left contexts, inter frames'
+              size groups, 4x4 sub-blocks), the skip flag and transform
+              size in context, single references and per-block compound
+              references (fixed and variable by sign bias) in context,
+              NEARESTMV/NEARMV/ZEROMV/NEWMV for each reference with the
+              candidate search (`find_mv_refs`: neighbours by block size
+              and either of their references, negated across sign biases,
+              the previous frame's vectors, clamping) and its sub-8x8
+              form, the switchable filter in context, and vector coding
+  residual    tokens with band and neighbour contexts, dequantisation by
+              segment (32x32 halved), DCT and ADST at 4, 8 and 16, the
+              32x32 DCT with libvpx's integer rounding, and the 4x4
+              Walsh-Hadamard of lossless frames
   prediction  the ten intra predictors at every size with VP9's edge
               rules, and 8-tap (regular, smooth, sharp) and bilinear
-              inter prediction from references clamped at their edges
+              inter prediction from references clamped at their edges,
+              compound blocks averaging their two predictions
   loop filter the 4-, 8- and 16-wide filters over the edges that
               `vp9_loopfilter.c` masks per 64x64 superblock, levels from
-              the frame level and the reference and mode deltas
+              the frame's or the segment's level and the reference and
+              mode deltas
+  adaptation  backward adaptation (`frame_parallel_decoding_mode` 0):
+              the frame's symbols tallied as it is parsed and the saved
+              context merged towards them (libvpx's vp9_adapt_coef_probs,
+              vp9_adapt_mode_probs, vp9_adapt_mv_probs)
 
 What no fixture reaches raises `NotImplementedError` citing ROADMAP Queue 1
-item 11.2 (`UNREACHED`): profiles 1-3 and high bit depth, a superframe
-index, `show_existing_frame`, hidden and intra-only frames, error
-resilience, backward adaptation (`frame_parallel_decoding_mode` 0),
-segmentation, lossless frames, compound prediction, references of another
-size, tile rows, frame contexts 1-3 and frames that keep theirs
-(`refresh_frame_context` 0), a loop filter sharpness and quantiser
-deltas. `check_stream` finds them in the headers of a whole stream before
-any frame is decoded; `decode` raises on such a frame's header. What the
-headers carry without changing a pixel is read and passed over: the
-colour space and range, a render size, an inter frame's coded size (a
-size that differs from its references' raises as scaled motion). A
-corrupt frame raises `ValueError`.
+item 11.2 (`UNREACHED`): profiles 1-3 and high bit depth, intra-only
+frames, compound prediction in every block without a per-block choice,
+a forward update of the compound reference probabilities, a segment with
+a fixed reference, absolute segment data, references of another size,
+tile rows, a loop filter sharpness and quantiser deltas. `check_stream`
+finds them in the headers of a whole stream before any frame is decoded;
+`decode` raises on such a frame's header. What the headers carry without
+changing a pixel is read and passed over: the colour space and range, a
+render size, an inter frame's coded size (a size that differs from its
+references' raises as scaled motion). A corrupt frame raises
+`ValueError`.
 
 Modes and tokens are parsed for the whole frame first (the token loop
-inlines the bool decoder); then every inverse transform runs batched by
-size and type, inter blocks are predicted in gathers by plane, size and
-filter, intra blocks follow in decoding order, and the loop filter runs
-superblock wavefronts, one batched call per edge position and filter.
+inlines the bool decoder; a twin of it counts tokens for frames that
+adapt); then every inverse transform runs batched by size and type,
+inter blocks are predicted in gathers by reference, plane, size and
+filter (the second references of compound blocks after the first), intra
+blocks follow in decoding order, and the loop filter runs its edges in
+batches, each edge in the first batch after every earlier edge (in
+libvpx's order) that touches the same 4x4 units.
 """
 
 from __future__ import annotations
@@ -78,21 +100,13 @@ UNREACHED: Dict[str, str] = {
     "profile_1": "profile 1 (4:2:2, 4:4:0 or 4:4:4)",
     "profile_2": "profile 2 (10 or 12 bits)",
     "profile_3": "profile 3",
-    "superframe": "a superframe index (several frames in one block)",
-    "show_existing_frame": "show_existing_frame",
-    "hidden_frame": "a hidden frame (show_frame 0)",
     "intra_only": "an intra-only frame",
-    "error_resilient": "error_resilient_mode 1",
-    "backward_adaptation": "frame_parallel_decoding_mode 0 (backward probability adaptation)",
-    "segmentation": "segmentation",
-    "lossless": "lossless coding (the Walsh-Hadamard transform)",
-    "compound": "compound prediction",
+    "compound_only": "compound prediction in every block (reference mode COMPOUND_REFERENCE)",
+    "comp_ref_prob_update": "a forward update of the compound reference probabilities",
+    "seg_ref": "a segment with a fixed reference frame",
+    "seg_abs_data": "segment data given as absolute values",
     "scaled_reference": "a reference frame of another size (scaled motion)",
     "tile_rows": "tile rows",
-    "frame_context_1": "probabilities from saved frame context 1",
-    "frame_context_2": "probabilities from saved frame context 2",
-    "frame_context_3": "probabilities from saved frame context 3",
-    "keep_frame_context": "refresh_frame_context 0 (its probabilities not saved)",
     "sharpness": "a loop filter sharpness above 0",
     "delta_q": "quantiser deltas for the luma DC or the chroma",
 }
@@ -124,13 +138,14 @@ TX_MODE_SELECT = 4
 DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D117_PRED, D153_PRED, D207_PRED, D63_PRED, TM_PRED = range(10)
 NEARESTMV, NEARMV, ZEROMV, NEWMV = range(10, 14)
 MODE_NAMES = ("DC", "V", "H", "D45", "D135", "D117", "D153", "D207", "D63", "TM", "NEAREST", "NEAR", "ZERO", "NEW")
-INTRA_FRAME, LAST_FRAME, GOLDEN_FRAME, ALTREF_FRAME = range(4)
+NONE_FRAME, INTRA_FRAME, LAST_FRAME, GOLDEN_FRAME, ALTREF_FRAME = range(-1, 4)
 REF_NAMES = ("intra", "last", "golden", "altref")
+SINGLE_REFERENCE, COMPOUND_REFERENCE, REFERENCE_MODE_SELECT = range(3)
 EIGHTTAP, EIGHTTAP_SMOOTH, EIGHTTAP_SHARP, BILINEAR, SWITCHABLE = range(5)
 FILTER_NAMES = ("regular", "smooth", "sharp", "bilinear")
 _LITERAL_TO_FILTER = (EIGHTTAP_SMOOTH, EIGHTTAP, EIGHTTAP_SHARP, BILINEAR)
-DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST = range(4)
-TX_TYPE_NAMES = ("dct_dct", "adst_dct", "dct_adst", "adst_adst")
+DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, WHT_WHT = range(5)  # WHT_WHT: the 4x4 Walsh-Hadamard of lossless frames
+TX_TYPE_NAMES = ("dct_dct", "adst_dct", "dct_adst", "adst_adst", "wht_wht")
 _MODE_TX_TYPE = (DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST, DCT_ADST, ADST_DCT, ADST_ADST)
 
 # trees: a leaf is -value (a leaf of value 0 is 0)
@@ -142,6 +157,16 @@ _SWITCHABLE_TREE = (-EIGHTTAP, 2, -EIGHTTAP_SMOOTH, -EIGHTTAP_SHARP)
 _MV_JOINT_TREE = (0, 2, -1, 4, -2, -3)
 _MV_CLASS_TREE = (0, 2, -1, 4, 6, 8, -2, -3, 10, 12, -4, -5, -6, 14, 16, 18, -7, -8, -9, -10)
 _MV_FP_TREE = (0, 2, -1, 4, -2, -3)
+_MV_CLASS0_TREE = (0, -1)
+_SEGMENT_TREE = (2, 4, 6, 8, 10, 12, 0, -1, -2, -3, -4, -5, -6, -7)
+
+# segment features: the alternative quantiser and loop filter level, a fixed reference, skip
+SEG_ALT_Q, SEG_ALT_LF, SEG_REF, SEG_SKIP = range(4)
+SEG_FEATURE_NAMES = ("seg_alt_q", "seg_alt_lf", "seg_ref", "seg_skip")
+_SEG_BITS, _SEG_MAX = (8, 6, 2, 0), (255, 63, 3, 0)
+
+# backward adaptation (vp9_adapt_coef_probs, vp9_adapt_mode_probs): the update factor by count
+_COEF_COUNT_SAT, _COEF_FACTOR, _COEF_FACTOR_AFTER_KEY = 24, 112, 128
 
 # coefficient tokens: ZERO 0, ONE 1, TWO..FOUR 2-4, CAT1..CAT6 5-10
 _COEF_CON_TREE = (2, 6, -2, 4, -3, -4, 8, 10, -5, -6, 12, 14, -7, -8, -9, -10)
@@ -307,7 +332,9 @@ def _default_context() -> Dict[str, list]:
         "inter_mode": _split(_T.INTER_MODE_PROBS, 3),
         "interp": _split(_T.SWITCHABLE_INTERP_PROBS, 2),
         "intra_inter": [9, 102, 187, 225],
+        "comp_inter": [239, 183, 119, 96, 41],
         "single_ref": _split(_T.SINGLE_REF_PROBS, 2),
+        "comp_ref": [50, 126, 123, 221, 226],
         "y_mode": _split(_T.Y_MODE_PROBS, 9),
         "uv_mode": _split(_T.UV_MODE_PROBS, 9),
         "partition": _split(_T.PARTITION_PROBS, 3),
@@ -333,6 +360,117 @@ class _Header:
     """The fields of one frame's headers that decoding reads."""
 
 
+class _Segmentation:
+    """The segmentation parameters a stream carries from frame to frame
+    (the header's `segmentation_params`): each segment's features hold
+    their data, or None where the feature is off."""
+
+    def __init__(self):
+        self.enabled = self.update_map = self.temporal = self.abs_delta = 0
+        self.tree_probs, self.pred_probs = [255] * 7, [255] * 3
+        self.features: List[List[Optional[int]]] = [[None] * 4 for _ in range(8)]
+
+    def feature(self, segment: int, kind: int) -> Optional[int]:
+        return self.features[segment][kind] if self.enabled else None
+
+
+class _Tally:
+    """What a frame that adapts its probabilities decoded, by context
+    (libvpx's FRAME_COUNTS): coefficient tokens (zero, one, more, end of
+    block at index (band * 6 + context) * 4 + kind) and more-coefficients
+    branches, and every mode, reference, filter and vector symbol."""
+
+    def __init__(self):
+        z = lambda *shape: [z(*shape[1:]) for _ in range(shape[0])] if len(shape) > 1 else [0] * shape[0]  # noqa: E731
+        self.coef = [[[[0] * 144 for _ in range(2)] for _ in range(2)] for _ in range(4)]
+        self.eob = [[[[0] * 36 for _ in range(2)] for _ in range(2)] for _ in range(4)]
+        self.skip, self.intra_inter, self.comp_inter, self.comp_ref = z(3, 2), z(4, 2), z(5, 2), z(5, 2)
+        self.single_ref = z(5, 2, 2)
+        self.tx8, self.tx16, self.tx32 = z(2, 2), z(2, 3), z(2, 4)
+        self.inter_mode, self.interp = z(7, 4), z(4, 3)
+        self.y_mode, self.uv_mode, self.partition = z(4, 10), z(10, 10), z(16, 4)
+        self.mv_joints = [0] * 4
+        self.mv = [{"sign": [0, 0], "classes": [0] * 11, "class0": [0, 0], "bits": z(10, 2), "class0_fp": z(2, 4),
+                    "fp": [0] * 4, "class0_hp": [0, 0], "hp": [0, 0]} for _ in range(2)]
+
+
+def _get_prob(n0: int, den: int) -> int:
+    return min(max((n0 * 256 + (den >> 1)) // den, 1), 255)
+
+
+def merge_prob(pre: int, n0: int, n1: int, count_sat: int = 20, factor: int = 128) -> int:
+    """libvpx's merge_probs: the saved probability moved towards the
+    frame's branch counts (n0 zeros, n1 ones) by a factor that grows with
+    their total up to `count_sat`. Modes and vectors (mode_mv_merge_probs)
+    take the defaults (count_to_update_factor)."""
+    den = n0 + n1
+    if not den:
+        return pre
+    f = factor * min(den, count_sat) // count_sat
+    return (pre * (256 - f) + _get_prob(n0, den) * f + 128) >> 8
+
+
+def merge_tree(tree, pre: List[int], counts: List[int], out: List[int], i: int = 0) -> int:
+    """vpx_tree_merge_probs: each node's probability merged from the counts
+    of the leaves under its two branches; returns the node's total."""
+    left, right = tree[i], tree[i + 1]
+    n0 = counts[-left] if left <= 0 else merge_tree(tree, pre, counts, out, left)
+    n1 = counts[-right] if right <= 0 else merge_tree(tree, pre, counts, out, right)
+    out[i >> 1] = merge_prob(pre[i >> 1], n0, n1)
+    return n0 + n1
+
+
+def _adapt(fc, pre, t: _Tally, h) -> None:
+    """Backward adaptation into `fc` from the saved context `pre` (the
+    probabilities before this frame's forward updates) and the frame's
+    counts: the coefficients always (vp9_adapt_coef_probs), the rest on
+    inter frames (vp9_adapt_mode_probs, vp9_adapt_mv_probs)."""
+    factor = _COEF_FACTOR_AFTER_KEY if not h.intra and h.after_key else _COEF_FACTOR
+    for tx in range(4):
+        for i in range(2):
+            for j in range(2):
+                cc, eb = t.coef[tx][i][j], t.eob[tx][i][j]
+                pc, out = pre["coef"][tx][i][j], fc["coef"][tx][i][j]
+                for band in range(6):
+                    for ctx in range(3 if band == 0 else 6):
+                        k = band * 6 + ctx
+                        n0, n1, n2, neob = cc[4 * k:4 * k + 4]
+                        p = pc[band][ctx]
+                        out[band][ctx] = [merge_prob(p[0], neob, eb[k] - neob, _COEF_COUNT_SAT, factor),
+                                          merge_prob(p[1], n0, n1 + n2, _COEF_COUNT_SAT, factor),
+                                          merge_prob(p[2], n1, n2, _COEF_COUNT_SAT, factor)]
+    if h.intra:
+        return
+    for key, n in (("intra_inter", 4), ("comp_inter", 5), ("comp_ref", 5), ("skip", 3)):
+        fc[key] = [merge_prob(pre[key][i], *getattr(t, key)[i]) for i in range(n)]
+    fc["single_ref"] = [[merge_prob(pre["single_ref"][i][j], *t.single_ref[i][j]) for j in range(2)]
+                        for i in range(5)]
+    for key, tree, n in (("inter_mode", _INTER_MODE_TREE, 7), ("y_mode", _INTRA_MODE_TREE, 4),
+                         ("uv_mode", _INTRA_MODE_TREE, 10), ("partition", _PARTITION_TREE, 16)):
+        for i in range(n):
+            merge_tree(tree, pre[key][i], getattr(t, key)[i], fc[key][i])
+    if h.interp == SWITCHABLE:
+        for i in range(4):
+            merge_tree(_SWITCHABLE_TREE, pre["interp"][i], t.interp[i], fc["interp"][i])
+    if h.tx_mode == TX_MODE_SELECT:
+        for i in range(2):
+            for key in ("tx8", "tx16", "tx32"):
+                c = getattr(t, key)[i]  # counts of 4x4, 8x8, ... up to the size's largest
+                fc[key][i] = [merge_prob(pre[key][i][j], c[j], sum(c[j + 1:])) for j in range(len(c) - 1)]
+    merge_tree(_MV_JOINT_TREE, pre["mv_joints"], t.mv_joints, fc["mv_joints"])
+    for comp, pc, c in zip(fc["mv"], pre["mv"], t.mv):
+        comp["sign"] = [merge_prob(pc["sign"][0], *c["sign"])]
+        merge_tree(_MV_CLASS_TREE, pc["classes"], c["classes"], comp["classes"])
+        merge_tree(_MV_CLASS0_TREE, pc["class0"], c["class0"], comp["class0"])
+        comp["bits"] = [merge_prob(pc["bits"][j], *c["bits"][j]) for j in range(10)]
+        for j in range(2):
+            merge_tree(_MV_FP_TREE, pc["class0_fp"][j], c["class0_fp"][j], comp["class0_fp"][j])
+        merge_tree(_MV_FP_TREE, pc["fp"], c["fp"], comp["fp"])
+        if h.allow_hp:
+            comp["class0_hp"] = [merge_prob(pc["class0_hp"][0], *c["class0_hp"])]
+            comp["hp"] = [merge_prob(pc["hp"][0], *c["hp"])]
+
+
 def superframe_sizes(data: bytes) -> Optional[List[int]]:
     """The frame sizes of a superframe index at the end of `data`, or None."""
     if not data:
@@ -348,6 +486,21 @@ def superframe_sizes(data: bytes) -> Optional[List[int]]:
     return [int.from_bytes(idx[i * mag:(i + 1) * mag], "little") for i in range(frames)]
 
 
+def split_superframe(data: bytes) -> List[bytes]:
+    """The frames of one container block: those its superframe index lists,
+    or the block itself."""
+    sizes = superframe_sizes(data)
+    if sizes is None:
+        return [data]
+    frames, at = [], 0
+    for n in sizes:
+        if at + n > len(data):
+            raise ValueError("a VP9 superframe whose index lists more bytes than the block holds")
+        frames.append(data[at:at + n])
+        at += n
+    return frames
+
+
 # ------------------------------------------------------------------ decoder
 
 
@@ -361,15 +514,19 @@ class Vp9Decoder:
         self.contexts = [_default_context() for _ in range(4)]
         self.ref_deltas = [1, 0, -1, -1]
         self.mode_deltas = [0, 0]
+        self.seg = _Segmentation()
+        self.seg_map: Optional[List[int]] = None  # the last segment map (libvpx's last_frame_seg_map); None: all 0
         self.started = False
-        self.prev = None  # ((width, height), reference by 8x8 unit, vector by 8x8 unit) of the last frame
+        self.last_key = False  # the frame decoded last was a key frame
+        self.prev = None  # ((width, height), block by 8x8 unit) of the last frame decoded, if shown and not intra-only
 
     # ---------------------------------------------------------- headers
     def _uncompressed(self, data: bytes) -> _Header:
+        """The uncompressed header. Like libvpx's read_uncompressed_header
+        it also sets what the stream carries on: the loop filter deltas,
+        the segmentation, and for key and error-resilient frames the reset
+        of past state (`_past_independence`)."""
         cnt = self.counts
-        if superframe_sizes(data) is not None:
-            cnt["superframe"] += 1
-            self._check_reached()
         rb = _Bits(data)
         h = _Header()
         if rb.lit(2) != 2:
@@ -378,9 +535,14 @@ class Vp9Decoder:
         if profile == 3:
             rb.bit()
         cnt[f"profile_{profile}"] += 1
-        if rb.bit():
+        h.existing = None
+        if rb.bit():  # show_existing_frame: a slot shown again, nothing decoded
             cnt["show_existing_frame"] += 1
             self._check_reached()
+            h.existing, h.show = rb.lit(3), 1
+            if self.slot_size[h.existing] is None:
+                raise ValueError("a VP9 frame that shows an empty reference slot")
+            return h
         h.key = rb.bit() == KEY_FRAME
         h.show = rb.bit()
         h.error_res = rb.bit()
@@ -389,6 +551,7 @@ class Vp9Decoder:
         if h.error_res:
             cnt["error_resilient"] += 1
         self._check_reached()
+        h.reset_ctx = 0
         if h.key:
             if rb.lit(24) != 0x498342:
                 raise ValueError("a VP9 key frame without its sync code")
@@ -413,7 +576,8 @@ class Vp9Decoder:
             if not h.show and rb.bit():
                 cnt["intra_only"] += 1
                 self._check_reached()
-            rb.lit(2)  # reset_frame_context: read, and used only by intra-only and error-resilient frames
+            if not h.error_res:
+                h.reset_ctx = rb.lit(2)  # used by intra-only frames only
             h.refresh = rb.lit(8)
             idx, bias = [], [0]
             for _ in range(3):
@@ -442,32 +606,32 @@ class Vp9Decoder:
             cnt["allow_hp" if h.allow_hp else "no_hp"] += 1
             cnt["filter_switchable" if h.interp == SWITCHABLE else f"filter_{FILTER_NAMES[h.interp]}"] += 1
             cnt["inter_frame"] += 1
-        h.refresh_ctx = rb.bit()
-        if not rb.bit():
+        h.intra = h.key
+        h.after_key = self.last_key
+        if h.error_res:
+            h.refresh_ctx, h.adapt = 0, False  # frame-parallel implied
+        else:
+            h.refresh_ctx = rb.bit()
+            h.adapt = not rb.bit()
+        if h.adapt:
             cnt["backward_adaptation"] += 1
-            self._check_reached()
         h.ctx_idx = rb.lit(2)
-        if h.key:
-            h.ctx_idx = 0  # setup_past_independence
+        if h.intra or h.error_res:
+            self._past_independence(h)
         cnt["refresh_frame_context" if h.refresh_ctx else "keep_frame_context"] += 1
         cnt[f"frame_context_{h.ctx_idx}"] += 1
-        self._check_reached()
         # loop filter
         h.lf_level, h.sharpness = rb.lit(6), rb.lit(3)
         h.lf_deltas = rb.bit()
-        h.ref_deltas, h.mode_deltas = (list(self.ref_deltas), list(self.mode_deltas)) if not h.key else \
-            ([1, 0, -1, -1], [0, 0])
         if h.lf_deltas:
             cnt["lf_deltas"] += 1
             if rb.bit():
-                for i in range(4):
-                    if rb.bit():
-                        h.ref_deltas[i] = rb.sint(6)
-                        cnt["lf_delta_update"] += 1
-                for i in range(2):
-                    if rb.bit():
-                        h.mode_deltas[i] = rb.sint(6)
-                        cnt["lf_delta_update"] += 1
+                for deltas in (self.ref_deltas, self.mode_deltas):
+                    for i in range(len(deltas)):
+                        if rb.bit():
+                            deltas[i] = rb.sint(6)
+                            cnt["lf_delta_update"] += 1
+        h.ref_deltas, h.mode_deltas = list(self.ref_deltas), list(self.mode_deltas)
         if h.sharpness:
             cnt["sharpness"] += 1
         # quantiser
@@ -475,10 +639,10 @@ class Vp9Decoder:
         h.dq = [rb.sint(4) if rb.bit() else 0 for _ in range(3)]  # y dc, uv dc, uv ac
         if any(h.dq):
             cnt["delta_q"] += 1
-        if h.base_q == 0 and not any(h.dq):
+        h.lossless = h.base_q == 0 and not any(h.dq)
+        if h.lossless:
             cnt["lossless"] += 1
-        if rb.bit():
-            cnt["segmentation"] += 1
+        self._segmentation(rb)
         self._check_reached()
         # tiles
         sb_cols = (((h.width + 7) >> 3) + 7) >> 3
@@ -503,13 +667,65 @@ class Vp9Decoder:
             raise ValueError("a VP9 frame whose compressed header is empty or runs past its end")
         return h
 
+    def _past_independence(self, h: _Header) -> None:
+        """libvpx's vp9_setup_past_independence, for key, intra-only and
+        error-resilient frames: segment features and maps cleared, the
+        loop filter deltas at their defaults, the probability contexts
+        reset (all four, or with `reset_frame_context` 2 the frame's own
+        only), the sign biases cleared, and context 0 chosen."""
+        self.seg.features = [[None] * 4 for _ in range(8)]
+        self.seg.abs_delta = 0
+        self.seg_map = None
+        self.ref_deltas, self.mode_deltas = [1, 0, -1, -1], [0, 0]
+        if h.key or h.error_res or h.reset_ctx == 3:
+            self.contexts = [_default_context() for _ in range(4)]
+        elif h.reset_ctx == 2:
+            self.contexts[h.ctx_idx] = _default_context()
+        h.sign_bias = (0, 0, 0, 0)
+        h.ctx_idx = 0
+
+    def _segmentation(self, rb: _Bits) -> None:
+        """The header's segmentation parameters, into `self.seg` (features
+        persist until a frame updates or resets them)."""
+        seg, cnt = self.seg, self.counts
+        seg.update_map = 0
+        seg.enabled = rb.bit()
+        if not seg.enabled:
+            return
+        cnt["segmentation"] += 1
+        seg.update_map = rb.bit()
+        if seg.update_map:
+            cnt["seg_update_map"] += 1
+            seg.tree_probs = [rb.lit(8) if rb.bit() else 255 for _ in range(7)]
+            seg.temporal = rb.bit()
+            seg.pred_probs = [rb.lit(8) if rb.bit() else 255 for _ in range(3)] if seg.temporal else [255] * 3
+            if seg.temporal:
+                cnt["seg_temporal_update"] += 1
+        if rb.bit():
+            cnt["seg_update_data"] += 1
+            seg.abs_delta = rb.bit()
+            seg.features = [[None] * 4 for _ in range(8)]
+            for i in range(8):
+                for kind in range(4):
+                    if rb.bit():
+                        v = min(rb.lit(_SEG_BITS[kind]), _SEG_MAX[kind])
+                        if kind <= SEG_ALT_LF and rb.bit():
+                            v = -v
+                        seg.features[i][kind] = v
+                        cnt[SEG_FEATURE_NAMES[kind]] += 1
+            if seg.abs_delta:
+                cnt["seg_abs_data"] += 1
+
     def _compressed(self, data: bytes, h: _Header, fc) -> None:
         """The compressed header's forward updates, into `fc`."""
         cnt = self.counts
         br = _bool_decoder(data[h.first:h.first + h.header_size])
-        tx_mode = br.lit(2)
-        if tx_mode == 3:
-            tx_mode += br.bool(128)
+        if h.lossless:
+            tx_mode = 0  # ONLY_4X4, not coded
+        else:
+            tx_mode = br.lit(2)
+            if tx_mode == 3:
+                tx_mode += br.bool(128)
         h.tx_mode = tx_mode
         cnt[f"tx_mode_{tx_mode}"] += 1
         if tx_mode == TX_MODE_SELECT:
@@ -528,7 +744,8 @@ class Vp9Decoder:
                                     _diff_update(br, r[b][x], m, cnt, "coef_prob_delta")
         for i in range(3):
             _diff_update(br, fc["skip"], i, cnt, "skip_prob_update")
-        if h.key:
+        h.ref_mode = SINGLE_REFERENCE
+        if h.intra:
             return
         for i in range(7):
             for j in range(3):
@@ -539,12 +756,25 @@ class Vp9Decoder:
                     _diff_update(br, fc["interp"][i], j, cnt, "interp_prob_update")
         for i in range(4):
             _diff_update(br, fc["intra_inter"], i, cnt, "intra_inter_prob_update")
-        if len(set(h.sign_bias[1:])) > 1 and br.bool(128):  # compound allowed by the sign biases, and chosen
+        bias = h.sign_bias
+        if len(set(bias[1:])) > 1 and br.bool(128):  # compound allowed by the sign biases, and chosen
+            h.ref_mode = REFERENCE_MODE_SELECT if br.bool(128) else COMPOUND_REFERENCE
+            # vp9_setup_compound_reference_mode: the reference of the odd sign bias is fixed
+            h.comp_fixed, h.comp_var = (ALTREF_FRAME, (LAST_FRAME, GOLDEN_FRAME)) if bias[1] == bias[2] else \
+                (GOLDEN_FRAME, (LAST_FRAME, ALTREF_FRAME)) if bias[1] == bias[3] else \
+                (LAST_FRAME, (GOLDEN_FRAME, ALTREF_FRAME))
             cnt["compound"] += 1
-            self._check_reached()
-        for i in range(5):
-            for j in range(2):
-                _diff_update(br, fc["single_ref"][i], j, cnt, "single_ref_prob_update")
+            cnt["reference_select" if h.ref_mode == REFERENCE_MODE_SELECT else "compound_only"] += 1
+        if h.ref_mode == REFERENCE_MODE_SELECT:
+            for i in range(5):
+                _diff_update(br, fc["comp_inter"], i, cnt, "comp_inter_prob_update")
+        if h.ref_mode != COMPOUND_REFERENCE:
+            for i in range(5):
+                for j in range(2):
+                    _diff_update(br, fc["single_ref"][i], j, cnt, "single_ref_prob_update")
+        if h.ref_mode != SINGLE_REFERENCE:
+            for i in range(5):
+                _diff_update(br, fc["comp_ref"], i, cnt, "comp_ref_prob_update")
         for i in range(4):
             for j in range(9):
                 _diff_update(br, fc["y_mode"][i], j, cnt, "y_mode_prob_update")
@@ -577,20 +807,30 @@ class Vp9Decoder:
         if not data:
             raise ValueError("an empty VP9 frame")
         h = self._uncompressed(data)
-        fc = _copy_context(_default_context() if h.key else self.contexts[h.ctx_idx])
+        if h.existing is not None:
+            return h, None
+        fc = _copy_context(self.contexts[h.ctx_idx])
         self._compressed(data, h, fc)
         self._check_reached()
         return h, fc
 
-    def check_stream(self, frames) -> None:
-        """Parse both headers of every frame (not its blocks) and raise where
-        `decode` would raise on them: for syntax `UNREACHED` names, before
-        any frame is decoded."""
-        for data in frames:
-            h, _ = self._frame_header(data)
-            for i in range(8):
-                if h.refresh >> i & 1:
-                    self.slot_size[i] = (h.width, h.height)
+    def _frames(self, data: bytes) -> List[bytes]:
+        if superframe_sizes(data) is not None:
+            self.counts["superframe"] += 1
+        return split_superframe(data)
+
+    def check_stream(self, blocks) -> None:
+        """Parse both headers of every frame (not its blocks), each frame of
+        a superframe in turn, and raise where `decode` would raise on them:
+        for syntax `UNREACHED` names, before any frame is decoded."""
+        for data in blocks:
+            for frame in self._frames(data):
+                h, _ = self._frame_header(frame)
+                if h.existing is not None:
+                    continue
+                for i in range(8):
+                    if h.refresh >> i & 1:
+                        self.slot_size[i] = (h.width, h.height)
 
     # ---------------------------------------------------------- modes
     def _tiles(self, data: bytes, h: _Header):
@@ -631,10 +871,19 @@ class Vp9Decoder:
         self.intra_ops: List[tuple] = []
         self.inter_res: List[tuple] = []
         self.h, self.fc = h, fc
-        q = h.base_q
-        dc = lambda d: _T.DC_QLOOKUP[min(max(q + d, 0), 255)]  # noqa: E731
-        ac = lambda d: _T.AC_QLOOKUP[min(max(q + d, 0), 255)]  # noqa: E731
-        self.dq = ((dc(h.dq[0]), ac(0)), (dc(h.dq[1]), ac(h.dq[2])))
+        self.tally = _Tally() if h.adapt else None
+        seg = self.seg
+        if seg.enabled:
+            self.seg_last = self.seg_map or [0] * (mi_rows * mi_cols)
+            self.seg_cur = [0] * (mi_rows * mi_cols)
+        self.dq = []
+        for i in range(8):  # each segment's (luma, chroma) (dc, ac) steps
+            q, alt = h.base_q, seg.feature(i, SEG_ALT_Q)
+            if alt is not None:
+                q = min(max(alt if seg.abs_delta else q + alt, 0), 255)
+            dc = lambda d: _T.DC_QLOOKUP[min(max(q + d, 0), 255)]  # noqa: E731
+            ac = lambda d: _T.AC_QLOOKUP[min(max(q + d, 0), 255)]  # noqa: E731
+            self.dq.append(((dc(h.dq[0]), ac(0)), (dc(h.dq[1]), ac(h.dq[2]))))
         for c0, c1, br in self._tiles(data, h):
             self.br, self.tile = br, (c0, c1)
             for r in range(0, mi_rows, 8):
@@ -642,6 +891,8 @@ class Vp9Decoder:
                 self.left_nz = [[0] * 16, [0] * 8, [0] * 8]
                 for c in range(c0, c1, 8):
                     self._partition(r, c, BLOCK_64X64, 3)
+        if seg.enabled:  # libvpx swaps its two maps after a frame that has segmentation only
+            self.seg_map = self.seg_cur
 
     def _partition(self, r: int, c: int, bsize: int, bsl: int) -> None:
         if r >= self.mi_rows or c >= self.mi_cols:
@@ -650,7 +901,7 @@ class Vp9Decoder:
         hbs = n8 >> 1
         has_rows, has_cols = r + hbs < self.mi_rows, c + hbs < self.mi_cols
         ctx = bsl * 4 + ((self.left_seg[r & 7] >> bsl) & 1) * 2 + ((self.above_seg[c] >> bsl) & 1)
-        probs = _KF_PARTITION_PROBS[ctx] if self.h.key else self.fc["partition"][ctx]
+        probs = _KF_PARTITION_PROBS[ctx] if self.h.intra else self.fc["partition"][ctx]
         br = self.br
         if has_rows and has_cols:
             p = br.tree(_PARTITION_TREE, probs)
@@ -661,6 +912,8 @@ class Vp9Decoder:
         else:
             p = 3
         self.counts[f"partition_{p}"] += 1
+        if self.tally:
+            self.tally.partition[ctx][p] += 1
         sub = _SUBSIZE[bsize][p]
         if not hbs or p == 0:
             self._block(r, c, sub)
@@ -687,20 +940,35 @@ class Vp9Decoder:
         above = self.grid[(r - 1) * cols + c] if r else None
         left = self.grid[r * cols + c - 1] if c > self.tile[0] else None
         b.above, b.left = above, left
-        br, fc, cnt = self.br, self.fc, self.counts
-        b.skip = br.bool(fc["skip"][(above.skip if above else 0) + (left.skip if left else 0)])
-        if self.h.key:
+        br, fc, cnt, tally, seg = self.br, self.fc, self.counts, self.tally, self.seg
+        x_mis, y_mis = min(_BW8[sb], cols - c), min(_BH8[sb], self.mi_rows - r)
+        b.seg_pred = 0
+        b.seg = self._segment_id(b, x_mis, y_mis) if seg.enabled else 0
+        if seg.feature(b.seg, SEG_SKIP) is not None:
+            b.skip = 1
+        else:
+            ctx = (above.skip if above else 0) + (left.skip if left else 0)
+            b.skip = br.bool(fc["skip"][ctx])
+            if tally:
+                tally.skip[ctx][b.skip] += 1
+        if self.h.intra:
             b.inter = 0
             b.tx = self._tx_size(b, True)
             self._intra_modes_kf(b)
         else:
-            if above and left:
-                ctx = 3 if not above.inter and not left.inter else int(not above.inter or not left.inter)
-            elif above or left:
-                ctx = 2 * (not (above or left).inter)
+            ref = seg.feature(b.seg, SEG_REF)
+            if ref is not None:
+                b.inter = int(ref != INTRA_FRAME)
             else:
-                ctx = 0
-            b.inter = br.bool(fc["intra_inter"][ctx])
+                if above and left:
+                    ctx = 3 if not above.inter and not left.inter else int(not above.inter or not left.inter)
+                elif above or left:
+                    ctx = 2 * (not (above or left).inter)
+                else:
+                    ctx = 0
+                b.inter = br.bool(fc["intra_inter"][ctx])
+                if tally:
+                    tally.intra_inter[ctx][b.inter] += 1
             b.tx = self._tx_size(b, not b.skip or not b.inter)
             if b.inter:
                 self._inter_modes(b)
@@ -710,12 +978,37 @@ class Vp9Decoder:
         cnt[f"tx_{4 << b.tx}"] += 1
         if b.skip:
             cnt["skip"] += 1
-        x_mis, y_mis = min(_BW8[sb], cols - c), min(_BH8[sb], self.mi_rows - r)
         grid = self.grid
         for y in range(r, r + y_mis):
             grid[y * cols + c:y * cols + c + x_mis] = [b] * x_mis
         self.blocks.append(b)
         self._tokens(b)
+
+    def _segment_id(self, b, x_mis: int, y_mis: int) -> int:
+        """The block's segment (libvpx's read_intra_segment_id and
+        read_inter_segment_id): coded, predicted from the last map, or
+        without a map update the last map's (0 on intra frames); the
+        current map takes it over the block's area."""
+        seg, cols = self.seg, self.mi_cols
+        at = [y * cols + x for y in range(b.r, b.r + y_mis) for x in range(b.c, b.c + x_mis)]
+        last, cur = self.seg_last, self.seg_cur
+        if not seg.update_map:
+            for i in at:
+                cur[i] = last[i]
+            return 0 if self.h.intra else min(last[i] for i in at)
+        br = self.br
+        if seg.temporal and not self.h.intra:
+            ctx = (b.above.seg_pred if b.above else 0) + (b.left.seg_pred if b.left else 0)
+            b.seg_pred = br.bool(seg.pred_probs[ctx])
+        if b.seg_pred:
+            sid = min(last[i] for i in at)
+            self.counts["seg_predicted"] += 1
+        else:
+            sid = br.tree(_SEGMENT_TREE, seg.tree_probs)
+            self.counts["seg_coded"] += 1
+        for i in at:
+            cur[i] = sid
+        return sid
 
     def _tx_size(self, b, allow_select: bool) -> int:
         max_tx = _MAX_TX[b.sb]
@@ -728,7 +1021,9 @@ class Vp9Decoder:
                 lf = a
             if not above:
                 a = lf
-            probs = self.fc[("tx8", "tx16", "tx32")[max_tx - 1]][int(a + lf > max_tx)]
+            ctx = int(a + lf > max_tx)
+            key = ("tx8", "tx16", "tx32")[max_tx - 1]
+            probs = self.fc[key][ctx]
             br = self.br
             tx = br.bool(probs[0])
             if tx and max_tx >= 2:
@@ -736,6 +1031,8 @@ class Vp9Decoder:
                 if tx > 1 and max_tx >= 3:
                     tx += br.bool(probs[2])
             self.counts["tx_selected"] += 1
+            if self.tally:
+                getattr(self.tally, key)[ctx][tx] += 1
             return tx
         return min(max_tx, _TX_MODE_BIGGEST[tx_mode])
 
@@ -771,22 +1068,29 @@ class Vp9Decoder:
         self._intra_done(b, "kf_")
 
     def _intra_modes(self, b) -> None:
-        br, fc = self.br, self.fc
+        br, fc, tally = self.br, self.fc, self.tally
         sb = b.sb
         if sb >= BLOCK_8X8:
             m = br.tree(_INTRA_MODE_TREE, fc["y_mode"][_SIZE_GROUP[sb]])
             b.bmodes = (m,) * 4
+            if tally:
+                tally.y_mode[_SIZE_GROUP[sb]][m] += 1
         else:
             n = 4 if sb == BLOCK_4X4 else 2
             ms = [br.tree(_INTRA_MODE_TREE, fc["y_mode"][0]) for _ in range(n)]
             b.bmodes = tuple(ms) if n == 4 else (ms[0], ms[1], ms[0], ms[1]) if sb == BLOCK_4X8 else \
                 (ms[0], ms[0], ms[1], ms[1])
+            if tally:
+                for m in ms:
+                    tally.y_mode[0][m] += 1
         b.mode = b.bmodes[3]
         b.uv = br.tree(_INTRA_MODE_TREE, fc["uv_mode"][b.mode])
+        if tally:
+            tally.uv_mode[b.mode][b.uv] += 1
         self._intra_done(b, "intra_")
 
     def _intra_done(self, b, prefix: str) -> None:
-        b.ref, b.mv, b.bmvs, b.filt = INTRA_FRAME, (0, 0), None, 3
+        b.ref, b.ref1, b.mv, b.mv1, b.bmvs, b.bmvs1, b.filt = INTRA_FRAME, NONE_FRAME, (0, 0), (0, 0), None, None, 3
         cnt = self.counts
         for m in set(b.bmodes):
             cnt[prefix + MODE_NAMES[m]] += 1
@@ -795,45 +1099,53 @@ class Vp9Decoder:
             cnt[prefix + "sub8x8"] += 1
 
     # -------------------------------------------------- inter modes
-    def _inter_modes(self, b) -> None:
-        br, fc, cnt = self.br, self.fc, self.counts
+    def _refs(self, b) -> None:
+        """The block's references (libvpx's read_ref_frames): the segment's,
+        or single or compound as the frame's reference mode and its
+        contexts choose."""
+        br, fc, h, tally = self.br, self.fc, self.h, self.tally
         above, left = b.above, b.left
-        # the single reference, in context (libvpx's vp9_get_pred_context_single_ref_p1/p2)
-        if above and left:
-            if not above.inter and not left.inter:
-                c1 = 2
-            elif not above.inter or not left.inter:
-                c1 = 4 * ((left if not above.inter else above).ref == LAST_FRAME)
-            else:
-                c1 = 2 * (above.ref == LAST_FRAME) + 2 * (left.ref == LAST_FRAME)
-        elif above or left:
-            e = above or left
-            c1 = 4 * (e.ref == LAST_FRAME) if e.inter else 2
-        else:
-            c1 = 2
-        if br.bool(fc["single_ref"][c1][0]):
-            if above and left:
-                if not above.inter and not left.inter:
-                    c2 = 2
-                elif not above.inter or not left.inter:
-                    e = left if not above.inter else above
-                    c2 = 3 if e.ref == LAST_FRAME else 4 * (e.ref == GOLDEN_FRAME)
-                elif above.ref == LAST_FRAME and left.ref == LAST_FRAME:
-                    c2 = 3
-                elif above.ref == LAST_FRAME or left.ref == LAST_FRAME:
-                    c2 = 4 * ((left.ref if above.ref == LAST_FRAME else above.ref) == GOLDEN_FRAME)
-                else:
-                    c2 = 2 * (above.ref == GOLDEN_FRAME) + 2 * (left.ref == GOLDEN_FRAME)
-            elif above or left:
-                e = above or left
-                c2 = 2 if not e.inter or e.ref == LAST_FRAME else 4 * (e.ref == GOLDEN_FRAME)
-            else:
-                c2 = 2
-            b.ref = ALTREF_FRAME if br.bool(fc["single_ref"][c2][1]) else GOLDEN_FRAME
+        fixed = self.seg.feature(b.seg, SEG_REF)
+        if fixed is not None:
+            b.ref, b.ref1 = fixed, NONE_FRAME
+            return
+        compound = h.ref_mode == COMPOUND_REFERENCE
+        if h.ref_mode == REFERENCE_MODE_SELECT:
+            ctx = _comp_inter_ctx(above, left, h.comp_fixed)
+            compound = br.bool(fc["comp_inter"][ctx])
+            if tally:
+                tally.comp_inter[ctx][compound] += 1
+        if compound:
+            fix_idx = h.sign_bias[h.comp_fixed]
+            ctx = _comp_ref_ctx(above, left, h.comp_fixed, h.comp_var, 1 - fix_idx)
+            bit = br.bool(fc["comp_ref"][ctx])
+            if tally:
+                tally.comp_ref[ctx][bit] += 1
+            refs = [0, 0]
+            refs[fix_idx], refs[1 - fix_idx] = h.comp_fixed, h.comp_var[bit]
+            b.ref, b.ref1 = refs
+            return
+        ctx = _single_ref_p1_ctx(above, left)
+        bit = br.bool(fc["single_ref"][ctx][0])
+        if tally:
+            tally.single_ref[ctx][0][bit] += 1
+        if bit:
+            ctx = _single_ref_p2_ctx(above, left)
+            bit = br.bool(fc["single_ref"][ctx][1])
+            if tally:
+                tally.single_ref[ctx][1][bit] += 1
+            b.ref = ALTREF_FRAME if bit else GOLDEN_FRAME
         else:
             b.ref = LAST_FRAME
+        b.ref1 = NONE_FRAME
+
+    def _inter_modes(self, b) -> None:
+        br, fc, cnt, tally = self.br, self.fc, self.counts, self.tally
+        self._refs(b)
+        refs = (b.ref,) if b.ref1 <= INTRA_FRAME else (b.ref, b.ref1)
         cnt["ref_" + REF_NAMES[b.ref]] += 1
-        ref = b.ref
+        if len(refs) == 2:
+            cnt["ref_compound"] += 1
         # the mode context: what the two nearest neighbours did
         counter = 0
         r, c = b.r, b.c
@@ -845,42 +1157,58 @@ class Vp9Decoder:
                 counter += _MODE_2_COUNTER[grid[y * cols + x].mode]
         ctx = _COUNTER_TO_CONTEXT[counter]
         allow_hp = self.h.allow_hp
-        if b.sb >= BLOCK_8X8:
+        if self.seg.feature(b.seg, SEG_SKIP) is not None:
+            if b.sb < BLOCK_8X8:
+                raise ValueError("a VP9 block under 8x8 in a segment that skips")
+            b.mode = ZEROMV
+        elif b.sb >= BLOCK_8X8:
             b.mode = NEARESTMV + br.tree(_INTER_MODE_TREE, fc["inter_mode"][ctx])
+            if tally:
+                tally.inter_mode[ctx][b.mode - NEARESTMV] += 1
         b.filt = self._filter(b)
         if b.sb >= BLOCK_8X8:
             mode = b.mode
-            if mode == ZEROMV:
-                b.mv = (0, 0)
-            else:
+            mvs = []
+            for ref in refs:
+                if mode == ZEROMV:
+                    mvs.append((0, 0))
+                    continue
                 lst = [_lower_precision(mv, allow_hp) for mv in self._mv_refs(b, ref, -1)]
-                b.mv = self._read_mv(lst[0]) if mode == NEWMV else lst[mode - NEARESTMV]
-            b.bmvs = None
+                mvs.append(lst[0] if mode == NEWMV else lst[mode - NEARESTMV])
+            if mode == NEWMV:
+                mvs = [self._read_mv(best) for best in mvs]
+            b.mv, b.mv1 = mvs[0], mvs[-1] if len(refs) == 2 else (0, 0)
+            b.bmvs = b.bmvs1 = None
             cnt[MODE_NAMES[mode]] += 1
         else:
             n4w = 1 if b.sb in (BLOCK_4X4, BLOCK_4X8) else 2
             n4h = 1 if b.sb in (BLOCK_4X4, BLOCK_8X4) else 2
-            bmvs = [None] * 4
+            bmvs = [[None] * 4 for _ in refs]
             best = None
             for idy in range(0, 2, n4h):
                 for idx in range(0, 2, n4w):
                     j = idy * 2 + idx
                     mode = NEARESTMV + br.tree(_INTER_MODE_TREE, fc["inter_mode"][ctx])
-                    if mode == NEWMV:
-                        if best is None:
-                            best = _lower_precision(self._mv_refs(b, ref, -1)[0], allow_hp)
-                        mv = self._read_mv(best)
-                    elif mode == ZEROMV:
-                        mv = (0, 0)
-                    else:
-                        mv = self._sub8x8_mv(b, ref, j, bmvs, mode == NEARMV)
-                    bmvs[j] = mv
-                    if n4h == 2:
-                        bmvs[j + 2] = mv
-                    if n4w == 2:
-                        bmvs[j + 1] = mv
+                    if tally:
+                        tally.inter_mode[ctx][mode - NEARESTMV] += 1
+                    if mode == NEWMV and best is None:
+                        best = [_lower_precision(self._mv_refs(b, ref, -1)[0], allow_hp) for ref in refs]
+                    for k, ref in enumerate(refs):
+                        if mode == NEWMV:
+                            mv = self._read_mv(best[k])
+                        elif mode == ZEROMV:
+                            mv = (0, 0)
+                        else:
+                            mv = self._sub8x8_mv(b, ref, j, bmvs[k], mode == NEARMV)
+                        bmvs[k][j] = mv
+                        if n4h == 2:
+                            bmvs[k][j + 2] = mv
+                        if n4w == 2:
+                            bmvs[k][j + 1] = mv
                     cnt["sub8x8_" + MODE_NAMES[mode]] += 1
-            b.mode, b.mv, b.bmvs = mode, bmvs[3], tuple(bmvs)
+            b.mode, b.bmvs = mode, tuple(bmvs[0])
+            b.bmvs1 = tuple(bmvs[1]) if len(refs) == 2 else None
+            b.mv, b.mv1 = b.bmvs[3], b.bmvs1[3] if b.bmvs1 else (0, 0)
         b.bmodes = (DC_PRED,) * 4
         b.uv = DC_PRED
 
@@ -894,10 +1222,15 @@ class Vp9Decoder:
         ctx = lt if lt == at else at if lt == 3 else lt if at == 3 else 3
         f = self.br.tree(_SWITCHABLE_TREE, self.fc["interp"][ctx])
         self.counts["switchable_" + FILTER_NAMES[f]] += 1
+        if self.tally:
+            self.tally.interp[ctx][f] += 1
         return f
 
     def _mv_refs(self, b, ref: int, block: int) -> List[Tuple[int, int]]:
-        """libvpx's find_mv_refs: two candidate vectors, clamped to 16 pixels past the frame."""
+        """libvpx's find_mv_refs: two candidate vectors, clamped to 16 pixels
+        past the frame. A neighbour's vector for either of its references
+        counts; one for another reference is negated where the two
+        references' sign biases differ."""
         r, c, sb = b.r, b.c, b.sb
         c0, c1 = self.tile
         grid, cols, rows = self.grid, self.mi_cols, self.mi_rows
@@ -915,37 +1248,43 @@ class Vp9Decoder:
                 return True
             return False
 
-        done = False
-        for i, cand in positions:
-            if cand.ref == ref:
-                if i < 2 and block >= 0 and cand.sb < BLOCK_8X8:
-                    col = _MV_REF_BLOCKS[sb][i][1]
-                    mv = cand.bmvs[_IDX_N_COLUMN_TO_SUBBLOCK[block][col == 0]]
-                else:
-                    mv = cand.mv
-                if add(mv):
-                    done = True
-                    break
-        prev = self.prev_ok
-        if not done and prev:
-            pref, pmv = self.prev_ref[r * cols + c], self.prev_mv[r * cols + c]
-            if pref == ref:
-                done = add(pmv)
-        if not done and positions:
+        def scaled(mv, cand_ref):
+            return (-mv[0], -mv[1]) if bias[cand_ref] != bias[ref] else mv
+
+        def first_pass() -> bool:
             for i, cand in positions:
-                if cand.inter and cand.ref != ref:
-                    mv = cand.mv
-                    if bias[cand.ref] != bias[ref]:
-                        mv = (-mv[0], -mv[1])
+                if cand.ref == ref or cand.ref1 == ref:
+                    second = cand.ref != ref
+                    if i < 2 and block >= 0 and cand.sb < BLOCK_8X8:
+                        col = _MV_REF_BLOCKS[sb][i][1]
+                        mv = (cand.bmvs1 if second else cand.bmvs)[_IDX_N_COLUMN_TO_SUBBLOCK[block][col == 0]]
+                    else:
+                        mv = cand.mv1 if second else cand.mv
                     if add(mv):
-                        done = True
-                        break
-        if not done and prev:
-            pref, pmv = self.prev_ref[r * cols + c], self.prev_mv[r * cols + c]
-            if pref != ref and pref > INTRA_FRAME:
-                if bias[pref] != bias[ref]:
-                    pmv = (-pmv[0], -pmv[1])
-                add(pmv)
+                        return True
+            prev = self.prev_grid[r * cols + c] if self.prev_grid else None
+            if prev is not None:
+                if prev.ref == ref:
+                    if add(prev.mv):
+                        return True
+                elif prev.ref1 == ref and add(prev.mv1):
+                    return True
+            for i, cand in positions:
+                if cand.inter:
+                    if cand.ref != ref and add(scaled(cand.mv, cand.ref)):
+                        return True
+                    if cand.ref1 > INTRA_FRAME and cand.ref1 != ref and cand.mv1 != cand.mv and \
+                            add(scaled(cand.mv1, cand.ref1)):
+                        return True
+            if prev is not None:
+                if prev.ref != ref and prev.ref > INTRA_FRAME and add(scaled(prev.mv, prev.ref)):
+                    return True
+                if prev.ref1 > INTRA_FRAME and prev.ref1 != ref and prev.mv1 != prev.mv and \
+                        add(scaled(prev.mv1, prev.ref1)):
+                    return True
+            return False
+
+        first_pass()
         while len(found) < 2:
             found.append((0, 0))
         bw, bh = _BW8[sb], _BH8[sb]
@@ -954,7 +1293,9 @@ class Vp9Decoder:
         return [(min(max(mr, lo_r), hi_r), min(max(mc, lo_c), hi_c)) for mr, mc in found[:2]]
 
     def _sub8x8_mv(self, b, ref: int, block: int, bmvs, near: bool) -> Tuple[int, int]:
-        """NEARESTMV or NEARMV of sub-block `block` (libvpx's append_sub8x8_mvs_for_idx)."""
+        """NEARESTMV or NEARMV of sub-block `block` for reference `ref`, whose
+        earlier sub-blocks' vectors are `bmvs` (libvpx's
+        append_sub8x8_mvs_for_idx)."""
         lst = self._mv_refs(b, ref, block)
         if block == 0:
             return lst[1] if near else lst[0]
@@ -972,16 +1313,18 @@ class Vp9Decoder:
         return (0, 0)
 
     def _read_mv(self, best: Tuple[int, int]) -> Tuple[int, int]:
-        br, fc = self.br, self.fc
+        br, fc, tally = self.br, self.fc, self.tally
         use_hp = self.h.allow_hp and abs(best[0]) < 64 and abs(best[1]) < 64
         joint = br.tree(_MV_JOINT_TREE, fc["mv_joints"])
-        dr = self._mv_component(fc["mv"][0], use_hp) if joint in (2, 3) else 0
-        dc = self._mv_component(fc["mv"][1], use_hp) if joint in (1, 3) else 0
+        dr = self._mv_component(0, use_hp) if joint in (2, 3) else 0
+        dc = self._mv_component(1, use_hp) if joint in (1, 3) else 0
         self.counts["mv_joint_%d" % joint] += 1
+        if tally:
+            tally.mv_joints[joint] += 1
         return best[0] + dr, best[1] + dc
 
-    def _mv_component(self, comp, use_hp: bool) -> int:
-        br, cnt = self.br, self.counts
+    def _mv_component(self, i: int, use_hp: bool) -> int:
+        br, cnt, comp = self.br, self.counts, self.fc["mv"][i]
         sign = br.bool(comp["sign"][0])
         cls = br.tree(_MV_CLASS_TREE, comp["classes"])
         if cls == 0:
@@ -991,33 +1334,59 @@ class Vp9Decoder:
             hp = br.bool(comp["class0_hp"][0]) if use_hp else 1
         else:
             d = 0
-            for i in range(cls):
-                d |= br.bool(comp["bits"][i]) << i
+            for k in range(cls):
+                d |= br.bool(comp["bits"][k]) << k
             mag = 2 << (cls + 2)
             fr = br.tree(_MV_FP_TREE, comp["fp"])
             hp = br.bool(comp["hp"][0]) if use_hp else 1
         cnt["mv_class0" if cls == 0 else "mv_class_n"] += 1
         if use_hp:
             cnt["mv_hp_bit"] += 1
+        if self.tally:  # vp9_inc_mv: an implied high-precision bit (1) is counted too
+            t = self.tally.mv[i]
+            t["sign"][sign] += 1
+            t["classes"][cls] += 1
+            if cls == 0:
+                t["class0"][d] += 1
+                t["class0_fp"][d][fr] += 1
+                t["class0_hp"][hp] += 1
+            else:
+                for k in range(cls):
+                    t["bits"][k][(d >> k) & 1] += 1
+                t["fp"][fr] += 1
+                t["hp"][hp] += 1
         mag += ((d << 3) | (fr << 1) | hp) + 1
         return -mag if sign else mag
 
     # ---------------------------------------------------------- frames
-    def decode(self, data: bytes) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def decode(self, data: bytes) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Decode one container block: every frame of a superframe in turn.
+        Returns the last frame's planes if it is shown (as libvpx outputs
+        a block), else None."""
+        out = None
+        for frame in self._frames(data):
+            out = self._decode_frame(frame)
+        return out
+
+    def _decode_frame(self, data: bytes) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         h, fc = self._frame_header(data)
+        if h.existing is not None:  # libvpx leaves every state of the stream as it was
+            return tuple(p.copy() for p in self.slots[h.existing])
         cnt = self.counts
-        if h.key:
-            self.contexts = [_default_context() for _ in range(4)]
         w, ht = h.width, h.height
         self.mi_cols, self.mi_rows = (w + 7) >> 3, (ht + 7) >> 3
+        # use_prev_frame_mvs: the last frame decoded was shown, not intra-only, of this size; this one not
+        # error-resilient (after a hidden frame no vectors carry over)
         prev = self.prev
-        self.prev_ok = not h.key and prev is not None and prev[0] == (w, ht)
-        if self.prev_ok:
-            self.prev_ref, self.prev_mv = prev[1], prev[2]
+        self.prev_grid = None
+        if prev is not None and prev[0] == (w, ht) and not h.error_res and not h.intra:
+            self.prev_grid = prev[1]
+            cnt["prev_frame_mvs"] += 1
         self._parse(data, h, fc)
+        if h.adapt:
+            _adapt(fc, self.contexts[h.ctx_idx], self.tally, h)
         if h.refresh_ctx:
             self.contexts[h.ctx_idx] = fc
-        self.ref_deltas, self.mode_deltas = h.ref_deltas, h.mode_deltas
         planes = self._reconstruct(h)
         if h.lf_level:
             cnt["loop_filter"] += 1
@@ -1032,26 +1401,34 @@ class Vp9Decoder:
                 self.slots[i] = (Y, U, V)
                 self.slot_size[i] = (w, ht)
                 cnt[f"refresh_slot_{i}"] += 1
-        self.prev = ((w, ht), [b.ref for b in self.grid], [b.mv for b in self.grid])
-        self.grid = self.blocks = self.intra_ops = self.inter_res = None
-        return Y.copy(), U.copy(), V.copy()
+        self.prev = ((w, ht), self.grid) if h.show else None
+        self.last_key = h.key
+        self.grid = self.blocks = self.intra_ops = self.inter_res = self.prev_grid = self.tally = None
+        return (Y.copy(), U.copy(), V.copy()) if h.show else None
 
     def _levels(self, h: _Header) -> List[int]:
-        """Each 8x8 unit's loop filter level: the frame's, moved by the
-        reference's and the inter mode's deltas (doubled from level 32)."""
+        """Each 8x8 unit's loop filter level: the frame's, or its segment's,
+        moved by the reference's and the inter mode's deltas (scaled by 2
+        from frame level 32)."""
         lvl0 = h.lf_level
         scale = 1 << (lvl0 >> 5)
+        seg = self.seg
+        by_seg = []
+        for i in range(8):
+            alt = seg.feature(i, SEG_ALT_LF)
+            by_seg.append(lvl0 if alt is None else min(max(alt if seg.abs_delta else lvl0 + alt, 0), 63))
         by_block = {}
         out = []
         for b in self.grid:
             v = by_block.get(id(b))
             if v is None:
+                v = by_seg[b.seg]
                 if not h.lf_deltas:
-                    v = lvl0
+                    pass
                 elif b.ref == INTRA_FRAME:
-                    v = lvl0 + h.ref_deltas[0] * scale
+                    v += h.ref_deltas[0] * scale
                 else:
-                    v = lvl0 + h.ref_deltas[b.ref] * scale + h.mode_deltas[int(b.mode != ZEROMV)] * scale
+                    v += h.ref_deltas[b.ref] * scale + h.mode_deltas[int(b.mode != ZEROMV)] * scale
                 v = min(max(v, 0), 63)
                 by_block[id(b)] = v
             out.append(v)
@@ -1073,39 +1450,46 @@ class Vp9Decoder:
             coefs = coefs.reshape(n, size, size)
             out = np.zeros((n, size, size), np.int64)
             types = np.asarray(self.res_type[t], np.int64)
-            for tt in range(4):
+            for tt in range(5):
                 sel = np.nonzero(types == tt)[0]
                 if len(sel):
                     out[sel] = inverse_transform(coefs[sel], t, tt)
             res.append(out)
-        # inter prediction
+        # inter prediction: every block's first reference, then the second of compound blocks, averaged in
         groups: Dict[tuple, list] = {}
         for b in self.blocks:
             if not b.inter:
                 continue
-            slot = h.ref_idx[b.ref - 1]
             r, c, sb = b.r, b.c, b.sb
-            if sb >= BLOCK_8X8:
-                my, mx = b.mv
-                groups.setdefault((slot, 0, _BH8[sb] * 8, _BW8[sb] * 8, b.filt), []).append(
-                    (r * 8, c * 8, my * 2, mx * 2))
-                for p in (1, 2):
-                    groups.setdefault((slot, p, _BH8[sb] * 4, _BW8[sb] * 4, b.filt), []).append((r * 4, c * 4, my, mx))
-            else:
-                for i, (my, mx) in enumerate(b.bmvs):
-                    groups.setdefault((slot, 0, 4, 4, b.filt), []).append(
-                        (r * 8 + 4 * (i >> 1), c * 8 + 4 * (i & 1), my * 2, mx * 2))
-                sy, sx = sum(m[0] for m in b.bmvs), sum(m[1] for m in b.bmvs)
-                my, mx = int((sy - 2 if sy < 0 else sy + 2) / 4), int((sx - 2 if sx < 0 else sx + 2) / 4)
-                for p in (1, 2):
-                    groups.setdefault((slot, p, 4, 4, b.filt), []).append((r * 4, c * 4, my, mx))
-        for (slot, p, bh, bw, filt), items in groups.items():
-            a = np.array(items, np.int64)
+            for second, (ref, mv, bmvs) in enumerate(((b.ref, b.mv, b.bmvs), (b.ref1, b.mv1, b.bmvs1))):
+                if ref <= INTRA_FRAME:
+                    break
+                key = (second, h.ref_idx[ref - 1])
+                if sb >= BLOCK_8X8:
+                    my, mx = mv
+                    groups.setdefault(key + (0, _BH8[sb] * 8, _BW8[sb] * 8, b.filt), []).append(
+                        (r * 8, c * 8, my * 2, mx * 2))
+                    for p in (1, 2):
+                        groups.setdefault(key + (p, _BH8[sb] * 4, _BW8[sb] * 4, b.filt), []).append(
+                            (r * 4, c * 4, my, mx))
+                else:
+                    for i, (my, mx) in enumerate(bmvs):
+                        groups.setdefault(key + (0, 4, 4, b.filt), []).append(
+                            (r * 8 + 4 * (i >> 1), c * 8 + 4 * (i & 1), my * 2, mx * 2))
+                    sy, sx = sum(m[0] for m in bmvs), sum(m[1] for m in bmvs)
+                    my, mx = int((sy - 2 if sy < 0 else sy + 2) / 4), int((sx - 2 if sx < 0 else sx + 2) / 4)
+                    for p in (1, 2):
+                        groups.setdefault(key + (p, 4, 4, b.filt), []).append((r * 4, c * 4, my, mx))
+        for (second, slot, p, bh, bw, filt) in sorted(groups):
+            a = np.array(groups[(second, slot, p, bh, bw, filt)], np.int64)
             pred = predict_inter(self.slots[slot][p], a[:, 0], a[:, 1], a[:, 2], a[:, 3], bh, bw, _FILTERS[filt])
             rows = a[:, 0, None] + np.arange(bh)
             cols = a[:, 1, None] + np.arange(bw)
-            planes[p][rows[:, :, None], cols[:, None, :]] = pred
+            ix = (rows[:, :, None], cols[:, None, :])
+            planes[p][ix] = compound_average(planes[p][ix], pred) if second else pred
             cnt[f"inter_{FILTER_NAMES[filt]}"] += 1
+            if second:
+                cnt["inter_compound"] += 1
         byk: Dict[tuple, list] = {}
         for plane, t, slot, y0, x0 in self.inter_res:
             byk.setdefault((plane, t), []).append((slot, y0, x0))
@@ -1137,6 +1521,7 @@ class Vp9Decoder:
         cols, rows = self.mi_cols, self.mi_rows
         above_nz, left_nz = self.above_nz, self.left_nz
         probs_all = self.fc["coef"]
+        tally, lossless = self.tally, self.h.lossless
         eob_total = 0
         for plane in range(3):
             if plane == 0:
@@ -1157,7 +1542,7 @@ class Vp9Decoder:
             if b.skip and b.inter:
                 continue
             probs = probs_all[tx][plane > 0][b.inter]
-            dqdc, dqac = self.dq[plane > 0]
+            dqdc, dqac = self.dq[b.seg][plane > 0]
             for row in range(0, max_h, step):
                 for col in range(0, max_w, step):
                     if b.inter:
@@ -1166,21 +1551,27 @@ class Vp9Decoder:
                         tx_type, mode = DCT_DCT, b.uv
                     else:
                         mode = b.bmodes[(row << 1) + col] if sb < BLOCK_8X8 else b.mode
-                        tx_type = _MODE_TX_TYPE[mode] if tx < 3 else DCT_DCT
+                        tx_type = _MODE_TX_TYPE[mode] if tx < 3 and not lossless else DCT_DCT
                     slot = -1
                     if not b.skip:
                         ctx = int(any(a_ctx[ax + col:ax + col + step])) + int(any(l_ctx[ly + row:ly + row + step]))
                         scan, nb = _SCANS[tx][tx_type]
                         slot = self.n_res[tx]
-                        eob = _coefs(self.br, probs, _BAND_4X4 if tx == 0 else _BAND_8X8, scan, nb, 16 << (tx << 1),
-                                     ctx, dqdc, dqac, int(tx == 3), self.coef_pos[tx], self.coef_val[tx],
-                                     slot << (4 + 2 * tx))
+                        args = (self.br, probs, _BAND_4X4 if tx == 0 else _BAND_8X8, scan, nb, 16 << (tx << 1), ctx,
+                                dqdc, dqac, int(tx == 3), self.coef_pos[tx], self.coef_val[tx], slot << (4 + 2 * tx))
+                        if tally:
+                            eob = _coefs_tallied(*args, tally.coef[tx][plane > 0][b.inter],
+                                                 tally.eob[tx][plane > 0][b.inter])
+                        else:
+                            eob = _coefs(*args)
                         has = int(eob > 0)
                         na = min(step, max_w - col)
                         a_ctx[ax + col:ax + col + step] = [has] * na + [0] * (step - na)
                         nl = min(step, max_h - row)
                         l_ctx[ly + row:ly + row + step] = [has] * nl + [0] * (step - nl)
                         if eob:
+                            if lossless:
+                                tx_type = WHT_WHT
                             self.n_res[tx] = slot + 1
                             self.res_type[tx].append(tx_type)
                             eob_total += 1
@@ -1202,8 +1593,133 @@ class Vp9Decoder:
 
 
 class _Block:
-    __slots__ = ("r", "c", "sb", "skip", "tx", "inter", "ref", "mode", "uv", "bmodes", "mv", "bmvs", "filt", "above",
-                 "left")
+    __slots__ = ("r", "c", "sb", "skip", "tx", "inter", "ref", "ref1", "mode", "uv", "bmodes", "mv", "mv1", "bmvs",
+                 "bmvs1", "filt", "seg", "seg_pred", "above", "left")
+
+
+# reference contexts (libvpx's vp9_pred_common.c); a block's second reference `ref1` is NONE_FRAME unless compound
+
+
+def _comp_inter_ctx(above, left, fixed: int) -> int:
+    """vp9_get_reference_mode_context: single or compound, by the neighbours."""
+    if above and left:
+        a2, l2 = above.ref1 > INTRA_FRAME, left.ref1 > INTRA_FRAME
+        if not a2 and not l2:
+            return (above.ref == fixed) ^ (left.ref == fixed)
+        if not a2:
+            return 2 + (above.ref == fixed or not above.inter)
+        if not l2:
+            return 2 + (left.ref == fixed or not left.inter)
+        return 4
+    if above or left:
+        e = above or left
+        return 3 if e.ref1 > INTRA_FRAME else int(e.ref == fixed)
+    return 1
+
+
+def _comp_ref_ctx(above, left, fixed: int, var, var_idx: int) -> int:
+    """vp9_get_pred_context_comp_ref_p: which variable reference, by the neighbours."""
+    def var_ref(e):
+        return e.ref if e.ref1 <= INTRA_FRAME else (e.ref, e.ref1)[var_idx]
+
+    if above and left:
+        ai, li = not above.inter, not left.inter
+        if ai and li:
+            return 2
+        if ai or li:
+            return 1 + 2 * (var_ref(left if ai else above) != var[1])
+        a_sg, l_sg = above.ref1 <= INTRA_FRAME, left.ref1 <= INTRA_FRAME
+        vrfa, vrfl = var_ref(above), var_ref(left)
+        if vrfa == vrfl and var[1] == vrfa:
+            return 0
+        if l_sg and a_sg:
+            if (vrfa == fixed and vrfl == var[0]) or (vrfl == fixed and vrfa == var[0]):
+                return 4
+            return 3 if vrfa == vrfl else 1
+        if l_sg or a_sg:
+            vrfc, rfs = (vrfa, vrfl) if l_sg else (vrfl, vrfa)
+            if vrfc == var[1] and rfs != var[1]:
+                return 1
+            if rfs == var[1] and vrfc != var[1]:
+                return 2
+            return 4
+        return 4 if vrfa == vrfl else 2
+    if above or left:
+        e = above or left
+        if not e.inter:
+            return 2
+        return 4 * (var_ref(e) != var[1]) if e.ref1 > INTRA_FRAME else 3 * (e.ref != var[1])
+    return 2
+
+
+def _single_ref_p1_ctx(above, left) -> int:
+    """vp9_get_pred_context_single_ref_p1: LAST or not, by the neighbours."""
+    if above and left:
+        ai, li = not above.inter, not left.inter
+        if ai and li:
+            return 2
+        if ai or li:
+            e = left if ai else above
+            if e.ref1 <= INTRA_FRAME:
+                return 4 * (e.ref == LAST_FRAME)
+            return 1 + (e.ref == LAST_FRAME or e.ref1 == LAST_FRAME)
+        a2, l2 = above.ref1 > INTRA_FRAME, left.ref1 > INTRA_FRAME
+        if a2 and l2:
+            return 1 + (LAST_FRAME in (above.ref, above.ref1, left.ref, left.ref1))
+        if a2 or l2:
+            rfs = left.ref if a2 else above.ref
+            crf = (above.ref, above.ref1) if a2 else (left.ref, left.ref1)
+            return (3 if rfs == LAST_FRAME else 0) + (LAST_FRAME in crf)
+        return 2 * (above.ref == LAST_FRAME) + 2 * (left.ref == LAST_FRAME)
+    if above or left:
+        e = above or left
+        if not e.inter:
+            return 2
+        if e.ref1 <= INTRA_FRAME:
+            return 4 * (e.ref == LAST_FRAME)
+        return 1 + (e.ref == LAST_FRAME or e.ref1 == LAST_FRAME)
+    return 2
+
+
+def _single_ref_p2_ctx(above, left) -> int:
+    """vp9_get_pred_context_single_ref_p2: GOLDEN or ALTREF, by the neighbours."""
+    if above and left:
+        ai, li = not above.inter, not left.inter
+        if ai and li:
+            return 2
+        if ai or li:
+            e = left if ai else above
+            if e.ref1 <= INTRA_FRAME:
+                return 3 if e.ref == LAST_FRAME else 4 * (e.ref == GOLDEN_FRAME)
+            return 1 + 2 * (e.ref == GOLDEN_FRAME or e.ref1 == GOLDEN_FRAME)
+        a2, l2 = above.ref1 > INTRA_FRAME, left.ref1 > INTRA_FRAME
+        a0, a1, l0, l1 = above.ref, above.ref1, left.ref, left.ref1
+        if a2 and l2:
+            if a0 == l0 and a1 == l1:
+                return 3 * (GOLDEN_FRAME in (a0, a1, l0, l1))
+            return 2
+        if a2 or l2:
+            rfs = l0 if a2 else a0
+            crf = (a0, a1) if a2 else (l0, l1)
+            g = GOLDEN_FRAME in crf
+            if rfs == GOLDEN_FRAME:
+                return 3 + g
+            if rfs == ALTREF_FRAME:
+                return int(g)
+            return 1 + 2 * g
+        if a0 == LAST_FRAME and l0 == LAST_FRAME:
+            return 3
+        if a0 == LAST_FRAME or l0 == LAST_FRAME:
+            return 4 * ((l0 if a0 == LAST_FRAME else a0) == GOLDEN_FRAME)
+        return 2 * (a0 == GOLDEN_FRAME) + 2 * (l0 == GOLDEN_FRAME)
+    if above or left:
+        e = above or left
+        if not e.inter or (e.ref == LAST_FRAME and e.ref1 <= INTRA_FRAME):
+            return 2
+        if e.ref1 <= INTRA_FRAME:
+            return 4 * (e.ref == GOLDEN_FRAME)
+        return 3 * (e.ref == GOLDEN_FRAME or e.ref1 == GOLDEN_FRAME)
+    return 2
 
 
 def _lower_precision(mv: Tuple[int, int], allow_hp: int) -> Tuple[int, int]:
@@ -1371,6 +1887,172 @@ def _coefs(br: _Bool, probs, bands, scan, nb, n: int, ctx: int, dqdc: int, dqac:
             ctx = (1 + cache[nb[2 * c]] + cache[nb[2 * c + 1]]) >> 1
         dqv = dqac
     br.val, br.rng, br.nb, br.k = val, rng, nbits, k
+    return c
+
+
+def _coefs_tallied(br: _Bool, probs, bands, scan, nb, n: int, ctx: int, dqdc: int, dqac: int, shift: int,
+                   out_pos: List[int], out_val: List[int], base: int, tally: List[int], eob_branch: List[int]) -> int:
+    """`_coefs`, counting as libvpx's decode_coefs counts for backward
+    adaptation: at index (band * 6 + context) * 4 of `tally` each zero,
+    one, larger token (+0, +1, +2) and end of block (+3), and in
+    `eob_branch` each more-coefficients read. A twin of `_coefs`, so that
+    frames that do not adapt decode without counting."""
+    val, rng, nbits, words, kw = br.val, br.rng, br.nb, br.words, br.k
+    nw = len(words)
+    norm = _NORM
+    cache = [0] * n
+    c = 0
+    dqv = dqdc
+    while c < n:
+        k = bands[c] * 6 + ctx
+        eob_branch[k] += 1
+        p = probs[bands[c]][ctx]
+        # more coefficients? (p[0])
+        split = 1 + (((rng - 1) * p[0]) >> 8)
+        big = split << nbits
+        if val >= big:
+            rng -= split
+            val -= big
+            bit = 1
+        else:
+            rng = split
+            bit = 0
+        s = norm[rng]
+        if s:
+            rng <<= s
+            nbits -= s
+            if nbits < 0:
+                val = (val << 32) | (words[kw] if kw < nw else 0)
+                kw += 1
+                nbits += 32
+        if not bit:
+            tally[4 * k + 3] += 1
+            break
+        while True:  # zero tokens (p[1])
+            split = 1 + (((rng - 1) * p[1]) >> 8)
+            big = split << nbits
+            if val >= big:
+                rng -= split
+                val -= big
+                bit = 1
+            else:
+                rng = split
+                bit = 0
+            s = norm[rng]
+            if s:
+                rng <<= s
+                nbits -= s
+                if nbits < 0:
+                    val = (val << 32) | (words[kw] if kw < nw else 0)
+                    kw += 1
+                    nbits += 32
+            if bit:
+                break
+            tally[4 * k] += 1
+            dqv = dqac
+            cache[scan[c]] = 0
+            c += 1
+            if c >= n:
+                br.val, br.rng, br.nb, br.k = val, rng, nbits, kw
+                return c
+            ctx = (1 + cache[nb[2 * c]] + cache[nb[2 * c + 1]]) >> 1
+            k = bands[c] * 6 + ctx
+            p = probs[bands[c]][ctx]
+        # one (p[2]) or more
+        split = 1 + (((rng - 1) * p[2]) >> 8)
+        big = split << nbits
+        if val >= big:
+            rng -= split
+            val -= big
+            bit = 1
+        else:
+            rng = split
+            bit = 0
+        s = norm[rng]
+        if s:
+            rng <<= s
+            nbits -= s
+            if nbits < 0:
+                val = (val << 32) | (words[kw] if kw < nw else 0)
+                kw += 1
+                nbits += 32
+        if not bit:
+            tok = v = 1
+            tally[4 * k + 1] += 1
+        else:
+            tally[4 * k + 2] += 1
+            pp = _PARETO[p[2] - 1]
+            node = 0
+            while True:
+                split = 1 + (((rng - 1) * pp[node >> 1]) >> 8)
+                big = split << nbits
+                if val >= big:
+                    rng -= split
+                    val -= big
+                    node = _COEF_CON_TREE[node + 1]
+                else:
+                    rng = split
+                    node = _COEF_CON_TREE[node]
+                s = norm[rng]
+                if s:
+                    rng <<= s
+                    nbits -= s
+                    if nbits < 0:
+                        val = (val << 32) | (words[kw] if kw < nw else 0)
+                        kw += 1
+                        nbits += 32
+                if node <= 0:
+                    break
+            tok = -node
+            if tok <= 4:
+                v = tok
+            else:
+                v = 0
+                for prob in _CAT_PROBS[tok - 5]:
+                    split = 1 + (((rng - 1) * prob) >> 8)
+                    big = split << nbits
+                    if val >= big:
+                        rng -= split
+                        val -= big
+                        v = (v << 1) | 1
+                    else:
+                        rng = split
+                        v <<= 1
+                    s = norm[rng]
+                    if s:
+                        rng <<= s
+                        nbits -= s
+                        if nbits < 0:
+                            val = (val << 32) | (words[kw] if kw < nw else 0)
+                            kw += 1
+                            nbits += 32
+                v += _CAT_BASE[tok - 5]
+        v = (v * dqv) >> shift
+        split = 1 + ((rng - 1) >> 1)  # the sign
+        big = split << nbits
+        if val >= big:
+            rng -= split
+            val -= big
+            v = -v
+        else:
+            rng = split
+        s = norm[rng]
+        if s:
+            rng <<= s
+            nbits -= s
+            if nbits < 0:
+                val = (val << 32) | (words[kw] if kw < nw else 0)
+                kw += 1
+                nbits += 32
+        rc = scan[c]
+        out_pos.append(base + rc)
+        out_val.append(v)
+        cache[rc] = _ENERGY[tok]
+        c += 1
+        if c < n:
+            ctx = (1 + cache[nb[2 * c]] + cache[nb[2 * c + 1]]) >> 1
+        dqv = dqac
+    br.val, br.rng, br.nb, br.k = val, rng, nbits, kw
     return c
 
 
@@ -1543,12 +2225,30 @@ _ONE_D = {(0, 0): idct4, (0, 1): iadst4, (1, 0): idct8, (1, 1): iadst8, (2, 0): 
           (3, 0): idct32}
 
 
+def iwht4(x: List[np.ndarray]) -> List[np.ndarray]:
+    """The 4-point inverse Walsh-Hadamard lifting steps of libvpx's
+    vpx_iwht4x4_16_add (lossless frames), on inputs (a, c, d, b)."""
+    a, c, d, b = x
+    a = a + c
+    d = d - b
+    e = (a - d) >> 1
+    b = e - b
+    c = e - c
+    return [a - b, b, c, d + c]
+
+
 def inverse_transform(coefs: np.ndarray, tx: int, tx_type: int) -> np.ndarray:
     """libvpx's 2-D inverse transforms of blocks (m, n, n) of dequantised
     coefficients: rows first, then columns, then rounded by 4, 5, 6, 6 bits.
-    `tx_type` ADST_DCT is ADST down the columns and DCT along the rows."""
+    `tx_type` ADST_DCT is ADST down the columns and DCT along the rows.
+    WHT_WHT (4x4 only) takes the coefficients down by 2 bits, then the
+    Walsh-Hadamard along the rows and down the columns, unrounded."""
     n = 4 << tx
     x = coefs.astype(np.int64)
+    if tx_type == WHT_WHT:
+        x = x >> 2
+        t = np.stack(iwht4([x[:, :, k] for k in range(4)]), axis=2)
+        return np.stack(iwht4([t[:, k, :] for k in range(4)]), axis=1)
     row_f = _ONE_D[(tx, int(tx_type in (DCT_ADST, ADST_ADST)))]
     col_f = _ONE_D[(tx, int(tx_type in (ADST_DCT, ADST_ADST)))]
     rows = row_f([x[:, :, k] for k in range(n)])  # each (m, n): row r's output k
@@ -1675,6 +2375,12 @@ def predict_intra(plane: np.ndarray, fw: int, fh: int, y0: int, x0: int, tx: int
 
 
 # --------------------------------------------------------- inter prediction
+
+
+def compound_average(first: np.ndarray, second: np.ndarray) -> np.ndarray:
+    """A compound block's prediction: its two references' predictions
+    averaged, rounding half up (libvpx's vpx_convolve_avg)."""
+    return (first + second + 1) >> 1
 
 
 def predict_inter(ref: np.ndarray, ys: np.ndarray, xs: np.ndarray, mvy: np.ndarray, mvx: np.ndarray, h: int, w: int,
@@ -1937,86 +2643,106 @@ def _window(x: np.ndarray, r: int) -> np.ndarray:
     return (total + r + 1) >> (r + 1).bit_length()
 
 
-def _filter_lines(buf: np.ndarray, idx: np.ndarray, kind: int, lim, blim, hev) -> None:
-    """libvpx's filter4/8/16 on lines of pixels: idx (n, 16) for kind 16
-    (p7..q7), (n, 8) otherwise (p3..q3); lim, blim, hev (n,)."""
-    px = buf[idx].astype(np.int32)
-    o = 4 if kind == 16 else 0
-    p3, p2, p1, p0, q0, q1, q2, q3 = (px[:, o + k] for k in range(8))
-    ab = np.abs
-    mask = (ab(p3 - p2) <= lim) & (ab(p2 - p1) <= lim) & (ab(p1 - p0) <= lim) & (ab(q1 - q0) <= lim) & \
-        (ab(q2 - q1) <= lim) & (ab(q3 - q2) <= lim) & (ab(p0 - q0) * 2 + (ab(p1 - q1) >> 1) <= blim)
+def _clamp8(x: np.ndarray) -> np.ndarray:
+    """A signed 8-bit value's clamp, -128 .. 127 (libvpx's signed_char_clamp)."""
+    return np.minimum(np.maximum(x, -128), 127)
+
+
+def _filter_lines(buf: np.ndarray, idx: np.ndarray, kind: np.ndarray, lim, blim, hev) -> None:
+    """libvpx's filter4/8/16 on lines of pixels, each line by its own `kind`
+    (4, 8 or 16): idx (n, 16) p7..q7 where some line is of kind 16 (the
+    other lines' p7..p4 and q4..q7 repeat their p3 and q3, which no filter
+    but the 16-wide one reads or writes), (n, 8) p3..q3 otherwise; kind,
+    lim, blim, hev (n,)."""
+    px = buf[idx]
+    o = 4 if idx.shape[1] == 16 else 0
+    c = px[:, o:o + 8]  # p3 .. q3
+    d = np.abs(np.diff(c, axis=1))  # |p2-p3|, |p1-p2|, |p0-p1|, |q0-p0|, |q1-q0|, |q2-q1|, |q3-q2|
+    p1, p0, q0, q1 = c[:, 2], c[:, 3], c[:, 4], c[:, 5]
+    mask = (np.maximum(d[:, :3].max(1), d[:, 4:].max(1)) <= lim) & (d[:, 3] * 2 + (np.abs(p1 - q1) >> 1) <= blim)
     if not mask.any():
         return
     out = px.copy()
     # filter4
-    hv = (ab(p1 - p0) > hev) | (ab(q1 - q0) > hev)
+    hv = np.maximum(d[:, 2], d[:, 4]) > hev
     ps1, ps0, qs0, qs1 = p1 - 128, p0 - 128, q0 - 128, q1 - 128
-    f = np.where(hv, np.clip(ps1 - qs1, -128, 127), 0)
-    f = np.where(mask, np.clip(f + 3 * (qs0 - ps0), -128, 127), 0)
-    f1 = np.clip(f + 4, -128, 127) >> 3
-    f2 = np.clip(f + 3, -128, 127) >> 3
-    f4 = {o + 4: np.clip(qs0 - f1, -128, 127) + 128, o + 3: np.clip(ps0 + f2, -128, 127) + 128}
+    f = np.where(hv, _clamp8(ps1 - qs1), 0)
+    f = np.where(mask, _clamp8(f + 3 * (qs0 - ps0)), 0)
+    f1 = _clamp8(f + 4) >> 3
+    f2 = _clamp8(f + 3) >> 3
     fo = np.where(hv, 0, (f1 + 1) >> 1)
-    f4[o + 5] = np.clip(qs1 - fo, -128, 127) + 128
-    f4[o + 2] = np.clip(ps1 + fo, -128, 127) + 128
-    for k, v in f4.items():
-        out[:, k] = v
-    if kind >= 8:
-        flat = mask & (ab(p1 - p0) <= 1) & (ab(q1 - q0) <= 1) & (ab(p2 - p0) <= 1) & (ab(q2 - q0) <= 1) & \
-            (ab(p3 - p0) <= 1) & (ab(q3 - q0) <= 1)
-        if flat.any():
-            # filter8: each of p2 .. q2 is (the 7 taps around it, edges repeated, + itself + 4) >> 3
-            out[:, o + 1:o + 7] = np.where(flat[:, None], _window(px[:, o:o + 8], 3), out[:, o + 1:o + 7])
-            if kind == 16:
-                flat2 = flat.copy()
-                for k in range(4, 8):
-                    flat2 &= (ab(px[:, 7 - k] - p0) <= 1) & (ab(px[:, 8 + k] - q0) <= 1)
-                if flat2.any():
-                    out[:, 1:15] = np.where(flat2[:, None], _window(px, 7), out[:, 1:15])
+    out[:, o + 2] = _clamp8(ps1 + fo) + 128
+    out[:, o + 3] = _clamp8(ps0 + f2) + 128
+    out[:, o + 4] = _clamp8(qs0 - f1) + 128
+    out[:, o + 5] = _clamp8(qs1 - fo) + 128
+    flat = mask & (kind >= 8) & (np.abs(c[:, :3] - p0[:, None]).max(1) <= 1) & \
+        (np.abs(c[:, 5:] - q0[:, None]).max(1) <= 1)
+    if flat.any():
+        # filter8: each of p2 .. q2 is (the 7 taps around it, edges repeated, + itself + 4) >> 3
+        out[:, o + 1:o + 7] = np.where(flat[:, None], _window(c, 3), out[:, o + 1:o + 7])
+        if o:
+            flat2 = flat & (kind == 16) & (np.abs(px[:, :4] - p0[:, None]).max(1) <= 1) & \
+                (np.abs(px[:, 12:] - q0[:, None]).max(1) <= 1)
+            if flat2.any():
+                out[:, 1:15] = np.where(flat2[:, None], _window(px, 7), out[:, 1:15])
     buf[idx] = out
 
 
-def _lf_lines(ops: List[tuple], offsets, strides) -> Tuple[np.ndarray, np.ndarray]:
-    """Flat pixel indices (n*8, 16 or 8) of the lines of edge operations of
-    one kind, and each line's level."""
+def _lf_lines(ops: List[tuple], offsets, strides) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Flat pixel indices (n*8, 16 or 8) of the lines of edge operations at
+    one position, and each line's level and filter kind."""
     a = np.array(ops, np.int64)  # plane, kind, y, x, level, pass
     plane, kind, y, x, lvl, pas = a.T
-    half = 8 if kind[0] == 16 else 4
+    half = 8 if (kind == 16).any() else 4
     stride = np.asarray(strides)[plane]
     base = np.asarray(offsets)[plane] + y * stride + x
     along = np.where(pas == 0, stride, 1)  # the 8 lines of a vertical edge step down, of a horizontal one right
     across = np.where(pas == 0, 1, stride)
     k = np.arange(8)
     t = np.arange(-half, half)
-    idx = base[:, None, None] + k[None, :, None] * along[:, None, None] + t[None, None, :] * across[:, None, None]
-    return idx.reshape(-1, 2 * half), np.repeat(lvl, 8)
+    t = np.where(kind[:, None] == 16, t, np.clip(t, -4, 3))  # narrower filters read and write p3..q3 only
+    idx = base[:, None, None] + k[None, :, None] * along[:, None, None] + t[:, None, :] * across[:, None, None]
+    return idx.reshape(-1, 2 * half), np.repeat(lvl, 8), np.repeat(kind, 8)
 
 
 def _loop_filter(planes, grid, levels, cols: int, rows: int, sharpness: int) -> None:
-    """Filter the reconstructed planes in place, superblock by superblock
-    as libvpx does (each superblock's vertical edges, then its horizontal
-    ones), running the superblocks of a wavefront (column + 2 * row)
-    together, one batched call per edge position and filter width."""
+    """Filter the reconstructed planes in place, in libvpx's order
+    (superblocks in raster order; each one's vertical edges left to right,
+    then its horizontal ones top to bottom), batched as early as that
+    order allows: each edge operation reads and writes within the 4x4
+    units its lines span (8 pixels each side of a 16-wide edge, 4 of the
+    others), so it joins the batch after the last one that touched any of
+    its units (U's operations stand for V's too). A batch is one call."""
     lim, blim, hev = _limits(sharpness)
     shapes = [p.shape for p in planes]
     flat = np.concatenate([p.reshape(-1) for p in planes]).astype(np.int32)
     offsets = [0, shapes[0][0] * shapes[0][1], shapes[0][0] * shapes[0][1] + shapes[1][0] * shapes[1][1]]
     strides = [s[1] for s in shapes]
-    waves: Dict[int, list] = {}
+    wu = (shapes[0][1] >> 2) + 4  # 4x4 units a row, two spare each side
+    half = ((shapes[0][0] >> 2) + 4) * wu
+    last = [0] * (2 * half)  # the batch that last touched each unit, by plane (Y, UV)
+    # the units an edge's lines span, from the unit right of or below the edge: vertical (pass 0) and horizontal
+    # edges, reaching 1 unit each side (4- and 8-wide) or 2 (16-wide)
+    spans = {(pas, wide): [i * wu + j if pas == 0 else j * wu + i for i in (0, 1) for j in range(-wide, wide)]
+             for pas in (0, 1) for wide in (1, 2)}
+    batches: List[list] = []
     for r0 in range(0, rows, 8):
         for c0 in range(0, cols, 8):
             ops = _mask_ops(_setup_mask(grid, levels, cols, rows, r0, c0), r0, c0, rows)
-            waves.setdefault((c0 >> 3) + 2 * (r0 >> 3), []).extend(ops)
-    for t in sorted(waves):
-        groups: Dict[tuple, list] = {}
-        for pas, key, plane, kind, y, x, lvl in waves[t]:
-            groups.setdefault((pas, key, kind), []).append((plane, kind, y, x, lvl, pas))
-        for (pas, key, kind) in sorted(groups, key=lambda g: (g[0], g[1], -g[2])):
-            ops = groups[(pas, key, kind)]
-            ops = ops + [(2, kind, y, x, lvl, p) for (pl, kind, y, x, lvl, p) in ops if pl == 1]
-            idx, lv = _lf_lines(ops, offsets, strides)
-            _filter_lines(flat, idx, kind, lim[lv], blim[lv], hev[lv])
+            ops.sort(key=lambda op: op[:2])  # by pass, then edge position (stable: planes are independent)
+            for pas, _, plane, kind, y, x, lvl in ops:
+                base = plane * half + ((y >> 2) + 2) * wu + (x >> 2) + 2
+                units = [base + d for d in spans[pas, 2 if kind == 16 else 1]]
+                at = max([last[u] for u in units])
+                for u in units:
+                    last[u] = at + 1
+                if at == len(batches):
+                    batches.append([])
+                batches[at].append((plane, kind, y, x, lvl, pas))
+    for ops in batches:
+        ops = ops + [(2, kind, y, x, lvl, p) for (pl, kind, y, x, lvl, p) in ops if pl == 1]
+        idx, lv, kinds = _lf_lines(ops, offsets, strides)
+        _filter_lines(flat, idx, kinds, lim[lv], blim[lv], hev[lv])
     at = 0
     for p, s in zip(planes, shapes):
         n = s[0] * s[1]
