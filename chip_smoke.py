@@ -393,10 +393,11 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              XVID/FMP4/DIVX AVI with I- and P-VOPs, port-written files with
              AC prediction, raw I420 and IYUV AVIs, an odd width among them)
              decodes to its manifest's sha256 of every frame
-             OpenCV decodes, and its info; each refused file (VP8 WebM, an
-             `avc1` MP4, VOLs announcing B-VOPs, quarter-pel, interlace or
-             MPEG quantisation, a truncated MP4, raw I420 of an odd height)
-             raises as listed (its VP8
+             OpenCV decodes, and its info (the copies whose VOL announces
+             B-VOPs, quarter-pel or MPEG quantisation and the lower-case
+             `xvid` one among them); each refused file (an `avc1` MP4, a
+             VOL announcing interlace, a truncated MP4, raw I420 of an odd
+             height) raises as listed (its VP8
              WebM from OpenCV's writer now decodes to its hashes too); phase 32's
              30 seeded 640x480 frames written to `.mp4` by the port read back
              bit-equal to the encoder's reconstruction; `detect_video`
@@ -410,7 +411,18 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              name, frames/s, host seconds per frame by part and the kernels'
              busy share; and the host seconds to decode one 640x480 I-VOP
              and one P-VOP and to encode one frame (median of 3), each on a
-             line beside the card's name and power limit
+             line beside the card's name and power limit. Advanced Simple
+             Profile, ~20 s more: each fixture of `tests/torch_mpeg4/`
+             (libavcodec's encoder: B-VOPs, 4MV, quarter-pel, MPEG
+             quantisation, dquant, video packets, data partitioning, loaded
+             matrices, HEC, a not-coded VOP, Xvid user data; AVI, MP4 and
+             Matroska) decodes to its manifest's hashes and info and each
+             refused kind (DivX, an old Lavc build, sprites, reversible VLC,
+             the short header) raises as listed; the host seconds to decode
+             each VOP type of the 24-frame 640x480 Xvid demo file (median
+             over its VOPs of that type); and `detect_video` over that file
+             as above (a fresh demo: its own b8/640 capture), A and B
+             launched, its frames/s
  35. vp8     VP8 on the card's host, ~40 s: each WebM fixture of
              `tests/torch_vp8/` (OpenCV's `VP80` writer, 176x144 and the
              24-frame 640x480 demo file; libvpx's versions 1-3, 8 token
@@ -5287,6 +5299,8 @@ def phase_formats(report):
 MPEG4_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_video"
 MPEG4_DEMO = "mp4v_640x480_30.mp4"  # the committed 640x480 I- and P-VOP fixture the demo runs over
 MPEG4_ROUND_TRIP = 30  # phase 32's seeded 640x480 frames, written to .mp4 by the port and read back
+MPEG4_ASP_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_mpeg4"
+MPEG4_ASP_DEMO = "xvid_asp_640x480.avi"  # the committed 640x480 Xvid file: B-VOPs, quarter-pel and 4MV
 
 
 def median_s(fn, reps: int = 3) -> float:
@@ -5347,6 +5361,26 @@ def key_inter_decode_s(decoder_type, path: Path) -> dict:
     return {k: sorted(v)[1] for k, v in times.items()}
 
 
+def vop_decode_s(path: Path) -> dict:
+    """The host's seconds to decode each VOP of an MPEG-4 file in order and
+    convert the frame it gives to BGR, by VOP type: the median and the
+    count."""
+    from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, yuv420_to_bgr
+    from yolo_infer_tpu_torch.data.video import open_video
+
+    reader = open_video(path)
+    decoder = Mpeg4Decoder(reader.config, reader.fourcc)
+    times = {}
+    for packet in reader.packets():
+        kind = "IPBS"[packet[packet.index(b"\x00\x00\x01\xb6") + 4] >> 6]
+        t0 = time.perf_counter()
+        planes = decoder.decode(packet)
+        if planes is not None:
+            yuv420_to_bgr(*planes)
+        times.setdefault(f"{kind}_vop", []).append(time.perf_counter() - t0)
+    return {k: {"median_s": sorted(v)[len(v) // 2], "vops": len(v)} for k, v in times.items()}
+
+
 def phase_mpeg4(report):
     """MPEG-4 Part 2 video on the card's host (phase 34): the committed
     fixtures against their manifest, the refused files, a port-written
@@ -5357,7 +5391,7 @@ def phase_mpeg4(report):
     from yolo_infer_tpu_torch.core.model import YOLO11Model
     from yolo_infer_tpu_torch.data.loader import get_video_info, load_video
     from yolo_infer_tpu_torch.data.mp4 import Mp4Reader
-    from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, Mpeg4Encoder
+    from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, Mpeg4Encoder, yuv420_to_bgr
     from yolo_infer_tpu_torch.data.video import open_video
     from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
     from yolo_infer_tpu_torch.utils.visualization import create_video_writer
@@ -5382,7 +5416,7 @@ def phase_mpeg4(report):
         decoder = Mpeg4Decoder(reader.config)
         for kind, packet in zip(("i_vop", "p_vop"), first_two):
             t0 = time.perf_counter()
-            decoder.decode(packet)
+            yuv420_to_bgr(*decoder.decode(packet))
             times[kind].append(time.perf_counter() - t0)
     decode_s = {k: sorted(v)[1] for k, v in times.items()}
     frame = jpeg_frame(300, 480, 640)[..., ::-1].copy()
@@ -5428,6 +5462,27 @@ def phase_mpeg4(report):
                 or not out["output"]["first_frame_equal"] or not out["decoded_as_manifest"]:
             failures.append(f"the output video read back: {out['output']}; decoded as the manifest: "
                             f"{out['decoded_as_manifest']}")
+        # --- Advanced Simple Profile: the fixtures, the refused kinds, the host's decode seconds by VOP
+        # type and the demo over the Xvid file
+        t_asp = time.perf_counter()
+        asp = json.loads((MPEG4_ASP_FIXTURES / "manifest.json").read_text())
+        t0 = time.perf_counter()
+        decoded = check_video_fixtures(MPEG4_ASP_FIXTURES, asp, failures)
+        out["asp_fixtures"] = {"videos": len(asp["files"]), "refused": len(asp["raises"]),
+                               "seconds": time.perf_counter() - t0,
+                               "frames_per_s": {k: v["frames_per_s"] for k, v in decoded.items()}}
+        asp_src = MPEG4_ASP_FIXTURES / MPEG4_ASP_DEMO
+        out["asp_host_decode_s_640x480"] = vop_decode_s(asp_src)
+        emit({"mpeg4_asp_decode_s_640x480": out["asp_host_decode_s_640x480"], "card": out["card"]})
+        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+        n = asp["files"][MPEG4_ASP_DEMO]["info"]["frame_count"]
+        ran, drawn = check_video_demo(demo, asp_src, root, ".mp4", n, "mpeg4_asp", "mpeg4_asp_video", failures)
+        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+        ran["decoded_as_manifest"] = hashes == asp["files"][MPEG4_ASP_DEMO]["frames"]
+        if not ran["decoded_as_manifest"]:
+            failures.append("the ASP demo's frames differ from the manifest's")
+        out["asp_demo"] = ran
+        out["asp_seconds"] = time.perf_counter() - t_asp
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if failures:

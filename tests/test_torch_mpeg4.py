@@ -44,7 +44,7 @@ from yolo_infer_tpu.models.convert import convert_state_dict  # noqa: E402
 from yolo_infer_tpu_torch import cli as port_cli  # noqa: E402
 from yolo_infer_tpu_torch.data.loader import get_video_info, load_video  # noqa: E402
 from yolo_infer_tpu_torch.data.mp4 import Mp4Reader, Mp4Writer  # noqa: E402
-from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, Mpeg4Encoder, simple_idct  # noqa: E402
+from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, Mpeg4Encoder, simple_idct, yuv420_to_bgr  # noqa: E402
 from yolo_infer_tpu_torch.data.video import open_video  # noqa: E402
 from yolo_infer_tpu_torch.demos import detection_demo as port_demo_module  # noqa: E402
 from yolo_infer_tpu_torch.utils.visualization import create_video_writer  # noqa: E402
@@ -257,7 +257,7 @@ def test_encoder_options_read_back_in_opencv(tmp_path):
         enc = Mpeg4Encoder(64, 48, 25, quant=quant, dc_vlc=dc_vlc)
         decoder = Mpeg4Decoder(enc.headers())
         for f in frames:
-            assert np.array_equal(decoder.decode(enc.encode(f)), enc.reconstruction)
+            assert np.array_equal(yuv420_to_bgr(*decoder.decode(enc.encode(f))), enc.reconstruction)
     path = tmp_path / "v.mp4"
     writer = Mp4Writer(path, 25, (64, 48))
     writer.encoder = Mpeg4Encoder(64, 48, 25, quant=31, dc_vlc=False)

@@ -19,10 +19,13 @@ tools:
          read back by OpenCV for the hashes; an MP4 whose sample entry says
          `avc1` (refused)
   hand   raw I420 AVIs of an odd width (read) and an odd height (refused);
-         copies of the XVID AVI whose video object layer header announces
-         B-VOPs (`low_delay` 0), quarter-pel motion, interlace or MPEG
-         quantisation, one under a lower-case `xvid` tag without its Lavc
-         user data (libavcodec would take Xvid's IDCT), and an MP4 cut
+         copies of the XVID AVI whose first video object layer header
+         announces B-VOPs (`low_delay` 0: one frame of delay; the second
+         group's own header ends it, and OpenCV then returns one frame
+         fewer), quarter-pel motion or MPEG quantisation (read), or
+         interlace (refused: OpenCV returns no frame for it), one under a
+         lower-case `xvid` tag without its Lavc user data (read:
+         libavcodec takes Xvid's IDCT and edge workaround), and an MP4 cut
          short (refused)
 
 The frames are seeded: gradients under a drifting textured patch (so that
@@ -203,8 +206,8 @@ def write_vp8() -> None:
 
 
 def write_refused():
-    """The refused files: {name: (exception, regex)}."""
-    raises = {}
+    """The hand-made copies: ({refused name: (exception, regex)}, [names read])."""
+    raises, read = {}, []
     frames = scene(4, 48, 64, 90)
     writer = Mp4Writer(HERE / "avc1_entry_64x48.mp4", 25, (64, 48))
     for f in frames:
@@ -216,27 +219,35 @@ def write_refused():
     packets = list(source.packets())
     code, start, end = next(u for u in start_codes(packets[0]) if VOL_FIRST <= u[0] <= VOL_LAST)
     vol = Vol(packets[0][start:end])
-    for name, flags, what in (("low_delay0", {"low_delay": 0}, "B-VOPs"),
-                              ("quarter_sample", {"quarter_sample": 1}, "quarter-pel"),
-                              ("interlaced", {"interlaced": 1}, "interlaced"),
-                              ("quant_type1", {"quant_type": 1}, "MPEG quantisation")):
+    for name, flags in (("low_delay0", {"low_delay": 0}), ("quarter_sample", {"quarter_sample": 1}),
+                        ("interlaced", {"interlaced": 1}), ("quant_type1", {"quant_type": 1})):
         first = packets[0][:start - 4] + vol_bits(vol.width, vol.height, vol.time_resolution, **flags) \
             + packets[0][end:]
         file = f"{name}_100x60.avi"
         build_avi(HERE / file, [first] + packets[1:], b"XVID", vol.width, vol.height, 30)
-        raises[file] = ("NotImplementedError", f"{what}.*{ROADMAP}")
+        if name == "interlaced":
+            raises[file] = ("NotImplementedError", f"interlaced.*returns no frame.*{ROADMAP}")
+        else:
+            read.append(file)
     # the XVID AVI under a lower-case `xvid` tag without its Lavc user data:
-    # libavcodec upper-cases the tag and takes Xvid's IDCT
+    # libavcodec upper-cases the tag and takes Xvid's IDCT (it keeps it when
+    # the second group's Lavc user data comes)
     first = b"".join(packets[0][s - 4:e] for c, s, e in start_codes(packets[0]) if c != USER_DATA)
     build_avi(HERE / "xvid_lowercase_no_userdata_100x60.avi", [first] + packets[1:], b"xvid", vol.width,
               vol.height, 30)
-    raises["xvid_lowercase_no_userdata_100x60.avi"] = ("NotImplementedError", f"Xvid fourcc.*{ROADMAP}")
+    read.append("xvid_lowercase_no_userdata_100x60.avi")
     build_avi(HERE / "i420_99x61.avi", [i420_planes(f) for f in scene(2, 61, 99, 91)], b"I420", 99, 61, 25)
     raises["i420_99x61.avi"] = ("NotImplementedError", f"odd height.*{ROADMAP}")  # swscale's scaled path
     data = (HERE / "mp4v_176x144_2997.mp4").read_bytes()
     (HERE / "truncated_176x144.mp4").write_bytes(data[:len(data) * 2 // 3])
     raises["truncated_176x144.mp4"] = ("ValueError", "truncated")
-    return raises
+    return raises, read
+
+
+def manifest_entry(name: str, tool: str) -> dict:
+    frames = cv2_frames(HERE / name)
+    return {"tool": tool, "info": get_video_info(HERE / name), "shape": list(frames[0].shape),
+            "frames": [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]}
 
 
 def main() -> None:
@@ -245,12 +256,12 @@ def main() -> None:
     for seed, name in enumerate(list(VIDEOS) + ["vp8_64x48.webm"]):
         if name in VIDEOS:
             write_video(name, seed)
-        frames = cv2_frames(HERE / name)
-        info = get_video_info(HERE / name)
-        assert len(frames) == info["frame_count"] == VIDEOS.get(name, (0,) * 4 + (4,))[4], (name, len(frames), info)
-        files[name] = {"tool": VIDEOS[name][0] if name in VIDEOS else "cv2", "info": info, "shape": list(frames[0].shape),
-                       "frames": [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]}
-    raises = write_refused()
+        files[name] = manifest_entry(name, VIDEOS[name][0] if name in VIDEOS else "cv2")
+        n = len(files[name]["frames"])
+        assert n == files[name]["info"]["frame_count"] == VIDEOS.get(name, (0,) * 4 + (4,))[4], (name, files[name])
+    raises, read = write_refused()
+    for name in read:
+        files[name] = manifest_entry(name, "hand")
     manifest = {"files": files, "raises": {k: {"error": e, "match": m} for k, (e, m) in raises.items()}}
     (HERE / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
     total = sum(p.stat().st_size for p in HERE.iterdir() if p.suffix != ".py")

@@ -4,7 +4,8 @@ The JAX package reads and writes video through OpenCV (`cv2.VideoCapture`,
 `cv2.VideoWriter`). In an AVI (RIFF) file the port reads the two codecs
 that its own decoders handle: motion JPEG (`data/jpeg.py`) and MPEG-4
 Part 2 (`data/mpeg4.py`), which OpenCV's FFmpeg writer puts in an AVI under
-the fourccs `XVID`, `FMP4` and `DIVX`, and raw planar YUV 4:2:0 (`I420`,
+the fourccs `XVID`, `FMP4` and `DIVX` and Xvid and libavcodec write as
+Advanced Simple Profile (B-VOPs, quarter-pel, ...), and raw planar YUV 4:2:0 (`I420`,
 `IYUV`: each chunk the Y, U and V planes, converted by swscale's copy,
 `data/mpeg4.py yuv420_to_bgr`; an odd height, which swscale scales,
 raises); it writes motion JPEG.
@@ -22,7 +23,11 @@ other streams' chunks (audio `01wb`), `JUNK` and the `ix##` indexes, and
 honours the pad byte after an odd-sized chunk. Each `##dc` / `##db` chunk
 of the stream is one packet. An MPEG-4 packet goes to `Mpeg4Decoder`, with
 the `strf` extra bytes as its configuration and the compression as its
-fourcc: OpenCV's FFmpeg backend's frames, bit for bit. A motion-JPEG packet
+fourcc: OpenCV's FFmpeg backend's frames, bit for bit. The packets of a
+B-VOP stream come in decoding order, and the decoder returns display
+order (the frame it holds back is flushed at the end); the frame count
+stays the container's, as OpenCV reports it, even where a not-coded VOP
+gives no frame. A motion-JPEG packet
 is a JPEG, decoded by `decode_jpeg`: the pixels of
 `cv2.imdecode`, and so of OpenCV's own MJPEG backend
 (`cv2.VideoCapture(path, cv2.CAP_OPENCV_MJPEG)`), not of its FFmpeg backend,

@@ -12,7 +12,9 @@ it, `V_VP8` (`data/vp8.py`) or `V_VP9` (`data/vp9.py`, profile 0 as
 OpenCV's `VP90` writer writes it; every frame's headers are read first).
 The first key frame gives a VP8 or VP9 track's size. Its
 SimpleBlocks, and the Blocks of its BlockGroups, are the packets for the
-decoder, in file order.
+decoder, in file order: an MPEG-4 track with B-VOPs (Advanced Simple
+Profile, as libavformat's muxer writes it) has them in decoding order, its
+timestamps out of order, and the decoder gives display order.
 
 `fps` and `frame_count` are what OpenCV reports for the same file: the
 average frame rate libavformat derives from DefaultDuration (10^9 /

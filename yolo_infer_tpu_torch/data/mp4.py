@@ -12,6 +12,10 @@ every sample is decoded, in order). Each sample is one packet for
 (the track's timescale over its one sample duration, or over the mean of
 several) and `frame_count` the samples in `stts`: what OpenCV reports for
 the same file, so that `info()` equals the JAX package's `get_video_info`.
+A B-VOP track's samples are in decoding order and the decoder gives
+display order, so its `ctts` is not read; nor is the edit list that
+libavformat's muxer writes to start at the first displayed frame, since
+neither moves the average rate or the count of `stts` in such a file.
 
 Any other sample entry (`avc1`, `hvc1`, `hev1`, `vp09`, `av01`, ...) raises
 `NotImplementedError` naming it (ROADMAP Queue 1 item 11.2), before any

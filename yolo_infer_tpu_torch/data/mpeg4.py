@@ -1,58 +1,93 @@
-"""MPEG-4 Part 2 (ISO/IEC 14496-2) Simple Profile video in numpy: a decoder and an intra-only encoder.
+"""MPEG-4 Part 2 (ISO/IEC 14496-2) Simple and Advanced Simple Profile video in numpy: a decoder and an intra-only encoder.
 
 The JAX package reads and writes video through OpenCV, whose FFmpeg
 backend writes `.mp4`, `.mov`, `.mkv` and, under the fourccs `XVID`,
-`FMP4` and `DIVX`, `.avi` files as MPEG-4 Part 2 Simple Profile ("mp4v").
-`Mpeg4Decoder` decodes those streams to the frames OpenCV returns for them,
-bit for bit: libavcodec's MPEG-4 decoder followed by swscale's conversion to
-BGR. The containers are `data/mp4.py`, `data/mkv.py` and `data/avi.py`.
+`FMP4` and `DIVX`, `.avi` files as MPEG-4 Part 2 Simple Profile ("mp4v"),
+and reads the Advanced Simple Profile streams of libavcodec's `mpeg4`
+encoder and of Xvid (most Xvid AVIs). `Mpeg4Decoder` decodes those streams
+to the frames OpenCV returns for them, bit for bit: libavcodec's MPEG-4
+decoder followed by swscale's conversion to BGR. The containers are
+`data/mp4.py`, `data/mkv.py` and `data/avi.py`.
 
 Decoded, as far as those streams reach:
 
   headers      visual object sequence, visual object, video object layer
                (VOL), group of VOPs and user data; a VOL may come from the
                container (`config`) or in band, and is parsed again each
-               time it recurs
-  VOPs         I-VOPs and P-VOPs (`low_delay` 1: no reordering); intra,
-               inter and skipped (`not_coded`) macroblocks, intra
-               macroblocks in P-VOPs
+               time it recurs; MPEG quantisation's default and loaded
+               matrices (zigzag order, a 0 ending the list early)
+  VOPs         I-, P- and B-VOPs; with `low_delay` 0 the output is in
+               display order, one reference held back until the next
+               arrives and flushed at the end of the stream, as libavcodec
+               and OpenCV's drain give it; a not-coded VOP gives no frame; a
+               B-VOP without a past reference or out of order is dropped
+  macroblocks  intra, inter (one vector or four: 4MV) and skipped
+               macroblocks in P-VOPs, dquant in I- and P-VOPs (the DC
+               scaler following the running quantiser); B macroblocks
+               (`modb`, the four B types, `dbquant`): forward, backward and
+               interpolated prediction with their own vector predictors
+               reset at each macroblock row, and direct mode (TRB and TRD
+               from `modulo_time_base` and `vop_time_increment`, the
+               co-located macroblock's one or four vectors, the delta
+               vector); a B macroblock whose co-located one was skipped is
+               a copy of the past reference
+  packets      resync markers (their length by `vop_fcode_forward`, and
+               `vop_fcode_backward` in B-VOPs), `macroblock_number`,
+               `quant_scale` and the header extension; across a packet
+               boundary DC, AC and vector prediction treat the other
+               packet's macroblocks as unavailable (libavcodec's first-row
+               rules); data partitioning of I- and P-VOPs (the DC and
+               motion markers)
   entropy      the MCBPC, CBPY, MVD and DC-size VLCs; the intra and inter
                TCOEF VLCs with escape modes 1 and 2 (the LMAX and RMAX
                tables) and 3 (fixed length, with its marker bits)
   texture      DC prediction by the gradient rule with the `dc_scaler`
                tables, AC prediction with the alternate horizontal and
-               vertical scans, `intra_dc_vlc_thr` (DC coded as an AC
-               coefficient past it), H.263 inverse quantisation saturated
-               to [-2048, 2047], and libavcodec's "simple" integer IDCT (the
-               one it picks for streams whose user data names Lavc)
+               vertical scans rescaled between quantisers, `intra_dc_vlc_thr`
+               (DC coded as an AC coefficient past it); H.263 inverse
+               quantisation (an inter level an escape 3 codes saturated to
+               12 bits) or MPEG's (by the matrices; mismatch control on
+               inter blocks, none on intra, as libavcodec without its
+               bit-exact flag); libavcodec's "simple" integer IDCT, or
+               Xvid's (`xvid_idct`) for the streams libavcodec gives it
   motion       median prediction with the edge rules, the MVD range wrap
-               of `vop_fcode_forward` (1 to 7), half-pel interpolation under
-               `vop_rounding_type`, unrestricted vectors over an edge-
-               replicated reference and H.263 chroma vector rounding
+               of the vector's fcode (1 to 7), half-pel and quarter-pel
+               interpolation under `vop_rounding_type` (`data/mpeg4_motion.py`:
+               MPEG-4's 8-tap filter mirrored at the 16x16 or 8x8 block's
+               edge, libavcodec's chroma rules), unrestricted vectors over an
+               edge-replicated reference, libavcodec's clip of 8x8 blocks;
+               B interpolation the rounded mean of the two predictions
+  Xvid         Xvid user data, or an Xvid fourcc in any letter case with no
+               encoder user data (read as build 0), selects Xvid's IDCT and,
+               by build, libavcodec's Xvid workarounds (`XVID_WORKAROUNDS`:
+               the picture's own edge for motion, the unclipped DC
+               predictor, the quarter-pel chroma rounding); they stay once
+               taken, as in libavcodec
   output       cropping to the VOL's width and height, and swscale's YUV
                4:2:0 to BGR (BT.601, limited range, chroma repeated 2x2,
                16-bit fixed point: `yuv420_to_bgr`)
 
 The parser takes a whole VOP's macroblocks into the coefficient domain
 first, then runs one dequantisation and one IDCT over all its blocks, then
-forms every macroblock's motion-compensated prediction in one gather.
+forms every macroblock's motion-compensated prediction in a few gathers.
 
 Raising `NotImplementedError` (ROADMAP Queue 1 item 11.2), a VOL that
 announces the syntax before the first frame and a VOP when it is met:
 
-  - B-VOPs (`low_delay` 0) and S-VOPs (sprites, GMC)
-  - quarter-pel motion (`quarter_sample`), interlace, MPEG quantisation
-    (`quant_type` 1), 4MV (`inter4v`) macroblocks, `dquant`
-  - data partitioning, resync markers and video packets, reversible VLC
-  - the short (H.263) video header, a not-coded VOP
+  - interlaced video (OpenCV's FFmpeg backend returns no frame for it:
+    swscale cannot convert interlaced to progressive frames)
+  - S-VOPs (sprites, GMC: no encoder here writes them), reversible VLC
+  - the short (H.263) video header
   - shapes other than rectangular, `not_8_bit`, complexity estimation,
     newpred, reduced resolution and scalability
   - chroma other than 4:2:0, and odd heights (swscale converts those
     through its scaling path, whose pixels are not reproduced)
-  - streams that libavcodec decodes with another IDCT or its bug
-    workarounds: user data naming XviD or DivX or an old Lavc build, or no
-    such user data under an Xvid fourcc in any letter case (what the
-    headers before the first VOP show raises as the file is opened)
+  - streams whose workarounds libavcodec takes from DivX user data (or a
+    `DIVX` tag over an object type 0 VOL) and from old Lavc builds, and a
+    packet holding more than one VOP (DivX's packed B-frames)
+  - a data-partitioned VOP whose `intra_dc_vlc_thr` is not 0, and dquant
+    in an intra macroblock of a VOP whose `intra_dc_vlc_thr` depends on
+    the quantiser (no encoder here writes either)
 
 A corrupt or truncated stream raises `ValueError`.
 
@@ -71,6 +106,8 @@ from fractions import Fraction
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from yolo_infer_tpu_torch.data import mpeg4_motion as mc
 
 _ROADMAP = "ROADMAP Queue 1 item 11.2"
 
@@ -260,6 +297,36 @@ def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(f"MPEG-4 Part 2: {what} is not decoded by the port ({_ROADMAP})")
 
 
+# the default matrices of MPEG quantisation (quant_type 1), in raster order
+_DEFAULT_INTRA_MATRIX = np.array([
+    8, 17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28, 20, 21, 22, 23, 24, 26, 28, 30,
+    21, 22, 23, 24, 26, 28, 30, 32, 22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30, 32, 35, 38,
+    25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45], np.int32)
+_DEFAULT_INTER_MATRIX = np.array([
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24, 18, 19, 20, 21, 22, 23, 24, 25,
+    19, 20, 21, 22, 23, 24, 26, 27, 20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
+    22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33], np.int32)
+
+
+def _load_matrix(b: "_Bits", default: np.ndarray) -> Tuple[np.ndarray, bool]:
+    """A VOL's load_*_quant_mat: up to 64 values in zigzag order, a 0 ending
+    the list early and the last value repeated (libavcodec), else the default."""
+    if not b.bit():
+        return default, False
+    m = default.copy()
+    last, i = 0, 0
+    while i < 64:
+        v = b.read(8)
+        if v == 0:
+            break
+        last = v
+        m[_ZIGZAG[i]] = v
+        i += 1
+    for k in range(i, 64):
+        m[_ZIGZAG[k]] = last
+    return m, True
+
+
 class Vol:
     """The fields of a video object layer header that decoding uses."""
 
@@ -274,7 +341,8 @@ class Vol:
         if b.read(4) == 15:  # aspect_ratio_info: extended PAR
             b.read(16)
         self.low_delay = int(self.object_type in (1, 17))  # libavcodec's default: simple and advanced simple
-        if b.bit():  # vol_control_parameters
+        self.control = b.bit()  # vol_control_parameters
+        if self.control:
             if b.read(2) != 1:
                 raise _unsupported("a chroma format other than 4:2:0")
             self.low_delay = b.bit()
@@ -299,22 +367,27 @@ class Vol:
         if not (self.width and self.height):
             raise ValueError(f"corrupt MPEG-4 VOL: a frame of {self.width}x{self.height}")
         if b.bit():
-            raise _unsupported("interlaced video")
+            raise _unsupported("interlaced video (OpenCV's FFmpeg backend returns no frame for it: swscale "
+                               "cannot convert interlaced to progressive frames)")
         b.bit()  # obmc_disable
         if b.read(1 if verid == 1 else 2):
             raise _unsupported("sprites (S-VOPs, GMC)")
         if b.bit():
             raise _unsupported("not_8_bit video")
-        if b.bit():
-            raise _unsupported("MPEG quantisation (quant_type 1)")
-        if verid != 1 and b.bit():
-            raise _unsupported("quarter-pel motion (quarter_sample)")
+        self.quant_type = b.bit()
+        self.intra_matrix, self.inter_matrix = _DEFAULT_INTRA_MATRIX, _DEFAULT_INTER_MATRIX
+        self.loaded_matrices = 0
+        if self.quant_type:
+            self.intra_matrix, intra_loaded = _load_matrix(b, _DEFAULT_INTRA_MATRIX)
+            self.inter_matrix, inter_loaded = _load_matrix(b, _DEFAULT_INTER_MATRIX)
+            self.loaded_matrices = intra_loaded + inter_loaded
+        self.quarter_sample = b.bit() if verid != 1 else 0
         if not b.bit():
             raise _unsupported("complexity estimation headers")
-        if not b.bit():
-            raise _unsupported("resync markers and video packets")
-        if b.bit():
-            raise _unsupported("data partitioning")
+        self.resync = 1 - b.bit()  # resync_marker_disable
+        self.partitioned = b.bit()
+        if self.partitioned and b.bit():
+            raise _unsupported("reversible VLC")
         if verid != 1:
             if b.bit():
                 raise _unsupported("newpred")
@@ -322,34 +395,39 @@ class Vol:
                 raise _unsupported("reduced resolution VOPs")
         if b.bit():
             raise _unsupported("scalability")
-        if not self.low_delay:
-            raise _unsupported("B-VOPs (low_delay 0)")
         if self.height % 2:
             raise _unsupported(f"an odd height ({self.height})")
         if b.pos > b.end:
             raise ValueError("corrupt MPEG-4 VOL: truncated")
+        if self.object_type == 0 and not self.control:
+            self.low_delay = 1  # libavcodec forces it for such streams (DivX 4, old Xvid, OpenDivX)
         self.mb_w = (self.width + 15) // 16
         self.mb_h = (self.height + 15) // 16
 
 
-def _user_data_build(text: bytes) -> Optional[Tuple[str, int]]:
-    """The encoder a user data string names, as libavcodec reads it."""
+def _user_data(text: bytes) -> Dict[str, int]:
+    """The encoder builds a user data string names, as libavcodec reads them
+    (`divx`, `divx_packed`, `lavc`, `xvid`; several may match)."""
     s = text.split(b"\0")[0].decode("latin-1")
-    m = re.match(r"DivX(\d+)(?:Build|b)(\d+)", s)
+    found: Dict[str, int] = {}
+    m = re.match(r"DivX(\d+)(?:Build|b)(\d+)(p?)", s)
     if m:
-        return "divx", int(m.group(1))
-    m = re.match(r"Lavc(\d+)\.(\d+)\.(\d+)", s)
-    if m:
-        return "lavc", (int(m.group(1)) << 16) + (int(m.group(2)) << 8) + int(m.group(3))
+        found["divx"] = int(m.group(1))
+        if m.group(3):
+            found["divx_packed"] = 1
     m = re.match(r"FFmpe[^b]*b(\d+)", s) or re.match(r"FFmpeg v\d+\.\d+\.\d+ / libavcodec build: (\d+)", s)
     if m:
-        return "lavc", int(m.group(1))
-    if s == "ffmpeg":
-        return "lavc", 4600
+        found["lavc"] = int(m.group(1))
+    else:
+        m = re.match(r"Lavc(\d+)\.(\d+)\.(\d+)", s)
+        if m:
+            found["lavc"] = ((int(m.group(1)) & 0xFF) << 16) + ((int(m.group(2)) & 0xFF) << 8) + (int(m.group(3)) & 0xFF)
+        elif s == "ffmpeg":
+            found["lavc"] = 4600
     m = re.match(r"XviD(\d+)", s)
     if m:
-        return "xvid", int(m.group(1))
-    return None
+        found["xvid"] = int(m.group(1))
+    return found
 
 
 def _refuse_short_header(data: bytes) -> None:
@@ -358,45 +436,59 @@ def _refuse_short_header(data: bytes) -> None:
         raise _unsupported("the short (H.263) video header")
 
 
-def check_encoder(kind: Optional[Tuple[str, int]], fourcc: str) -> None:
-    """Refuse a stream that libavcodec decodes with another IDCT or its bug
-    workarounds, by the encoder its user data names (`kind`, None if none
-    did) and the container's codec tag, which libavcodec upper-cases."""
-    if kind is None and fourcc.upper() in XVID_FOURCCS:
-        raise _unsupported(f"a stream under the Xvid fourcc {fourcc!r} without Lavc user data (Xvid's IDCT)")
-    if kind is not None and kind[0] in ("xvid", "divx"):
-        raise _unsupported(f"a stream whose user data names {kind[0]} (its IDCT and bug workarounds)")
-    if kind is not None and (kind[1] <= 4712 or ((kind[1] & 0xFF) >= 100 and 3621476 < kind[1] < 3752552
-                                                  and not 3752037 <= kind[1] <= 3752191)):
-        raise _unsupported(f"a stream of an old libavcodec build ({kind[1]}) with its bug workarounds")
+def check_encoder(builds: Dict[str, int], fourcc: str, vol: Optional[Vol] = None,
+                  xvid_build: Optional[int] = None) -> Optional[int]:
+    """The Xvid build whose IDCT and bug workarounds libavcodec applies (None:
+    libavcodec's own simple IDCT, no workaround), from the encoders the user
+    data names so far (`builds`), the container's codec tag, which libavcodec
+    upper-cases, and the build taken before (`xvid_build`: libavcodec keeps
+    one it read off the tag); raises for the encoders whose workarounds the
+    port does not reproduce (DivX, old libavcodec builds)."""
+    tag = fourcc.upper()
+    if "divx" in builds or (not builds and tag == "DIVX" and vol is not None and vol.object_type == 0
+                            and not vol.control):
+        raise _unsupported("a stream whose user data or codec tag names DivX (its bug workarounds, packed B-frames)")
+    lavc = builds.get("lavc")
+    if lavc is not None and (lavc <= 4712 or ((lavc & 0xFF) >= 100 and 3621476 < lavc < 3752552
+                                             and not 3752037 <= lavc <= 3752191)):
+        raise _unsupported(f"a stream of an old libavcodec build ({lavc}) with its bug workarounds")
+    if "xvid" in builds:
+        return builds["xvid"]
+    if xvid_build is not None:
+        return xvid_build
+    if not builds and tag in XVID_FOURCCS:
+        return 0  # libavcodec reads an Xvid tag without encoder user data as Xvid build 0
+    return None
 
 
 def find_vol(*sources: bytes, fourcc: str = "") -> Vol:
     """The first video object layer header in `sources` (a container's
     configuration, a first packet): raises ValueError if there is none, and
     `check_encoder`'s refusal on the user data before the first VOP."""
-    vol, kind = None, None
+    vol, builds = None, {}
     for data in sources:
         _refuse_short_header(data)
         for code, start, end in start_codes(data):
             if VOL_FIRST <= code <= VOL_LAST and vol is None:
                 vol = Vol(data[start:end])
             elif code == USER_DATA:
-                kind = _user_data_build(data[start:end]) or kind
+                builds.update(_user_data(data[start:end]))
             elif code == VOP_START:
                 break
     if vol is None:
         raise ValueError("corrupt MPEG-4 stream: no video object layer header")
-    check_encoder(kind, fourcc)
+    check_encoder(builds, fourcc, vol)
     return vol
 
 
 XVID_FOURCCS = ("XVID", "XVIX", "RMP4", "ZMP4", "SIPP")
 # AVI and VFW codec tags read as MPEG-4 Part 2 (those OpenCV's FFmpeg writer uses, and their kin)
 MPEG4_FOURCCS = (b"XVID", b"FMP4", b"DIVX", b"DX50", b"mp4v", b"MP4V", b"xvid", b"divx")
+# libavcodec's bug workarounds by Xvid build: (tally, last build that gets it)
+XVID_WORKAROUNDS = {"xvid_qpel_chroma": 1, "xvid_edge": 12, "xvid_dc_clip": 32}
 
 
-# ---------------------------------------------------------------- the IDCT
+# ---------------------------------------------------------------- the IDCTs
 
 _W1, _W2, _W3, _W4, _W5, _W6, _W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
 
@@ -419,15 +511,80 @@ def _idct_1d(x, shift: int, rounding, col: bool):
 
 def simple_idct(blocks: np.ndarray) -> np.ndarray:
     """libavcodec's 8-bit simple IDCT of (..., 8, 8) dequantised coefficients
-    (rows then columns): (..., 8, 8) int32, before the clip to pixels."""
+    (rows then columns) as it runs on x86 (`ff_simple_idct8_sse2`: each
+    pass's results packed to 16 bits with saturation): (..., 8, 8) int32,
+    before the clip to pixels."""
     x = blocks.astype(np.int16).astype(np.int32)  # libavcodec's blocks are int16
     with np.errstate(over="ignore"):
         rows = _idct_1d(x, 11, 1 << 10, col=False)
         dc_only = ~np.any(x[..., 1:] != 0, axis=-1, keepdims=True)
-        rows = np.where(dc_only, x[..., :1] * 8, rows)
-        rows = rows.astype(np.int16).astype(np.int32)  # the row pass stores int16
+        rows = np.clip(np.where(dc_only, x[..., :1] * 8, rows), -32768, 32767)
         cols = _idct_1d(np.swapaxes(rows, -1, -2), 20, 0, col=True)
-    return np.ascontiguousarray(np.swapaxes(cols, -1, -2))
+    return np.ascontiguousarray(np.swapaxes(np.clip(cols, -32768, 32767), -1, -2))
+
+
+# Xvid's IDCT as libavcodec runs it on x86 (`ff_xvid_idct_sse2`): each row's
+# constants scaled by its column's factor (rows 0 and 4, 1 and 7, 2 and 6, 3
+# and 5 share a table) with a rounding term of its own, 32-bit products
+# saturated to 16 bits; then the columns by tangent butterflies in saturating
+# 16-bit arithmetic (a product's high half, tan(3 pi / 16) as -21746 + 65536)
+_XVID_TABS = np.array([[22725, 21407, 19266, 16384, 12873, 8867, 4520],
+                       [31521, 29692, 26722, 22725, 17855, 12299, 6270],
+                       [29692, 27969, 25172, 21407, 16819, 11585, 5906],
+                       [26722, 25172, 22654, 19266, 15137, 10426, 5315]], np.int64)
+_XVID_ROW_TAB = _XVID_TABS[[0, 1, 2, 3, 0, 3, 2, 1]]  # (8 rows, 7 constants)
+_XVID_ROW_RND = np.array([65536, 3597, 2260, 1203, 0, 120, 512, 512], np.int64)
+_TAN1, _TAN2, _TAN3_LOW, _SQRT2 = 13036, 27146, 43790 - 65536, 23170
+
+
+def _sat16(x):
+    return np.clip(x, -32768, 32767)
+
+
+def xvid_idct(blocks: np.ndarray) -> np.ndarray:
+    """Xvid's integer IDCT of (..., 8, 8) dequantised coefficients as
+    libavcodec runs it for Xvid streams on x86: (..., 8, 8) int32, before
+    the clip to pixels."""
+    x = blocks.astype(np.int16).astype(np.int64)
+    c1, c2, c3, c4, c5, c6, c7 = (_XVID_ROW_TAB[:, k] for k in range(7))
+    i0, i1, i2, i3, i4, i5, i6, i7 = (x[..., k] for k in range(8))
+    k = c4 * i0 + _XVID_ROW_RND
+    a0 = k + c2 * i2 + c4 * i4 + c6 * i6
+    a1 = k + c6 * i2 - c4 * i4 - c2 * i6
+    a2 = k - c6 * i2 - c4 * i4 + c2 * i6
+    a3 = k - c2 * i2 + c4 * i4 - c6 * i6
+    b0 = c1 * i1 + c3 * i3 + c5 * i5 + c7 * i7
+    b1 = c3 * i1 - c7 * i3 - c1 * i5 - c5 * i7
+    b2 = c5 * i1 - c1 * i3 + c7 * i5 + c3 * i7
+    b3 = c7 * i1 - c5 * i3 + c3 * i5 - c1 * i7
+    rows = np.stack([a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0], -1)
+    rows = _sat16((((rows & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000) >> 11)  # 32-bit sums, packed with saturation
+    col = lambda k: rows[..., k, :]  # noqa: E731
+    high = lambda t, v: (t * v) >> 16  # noqa: E731 -- pmulhw
+    add = lambda a, b: _sat16(a + b)  # noqa: E731 -- paddsw
+    sub = lambda a, b: _sat16(a - b)  # noqa: E731 -- psubsw
+    r1, r3, r5, r7 = col(1), col(3), col(5), col(7)
+    t3_3 = add(high(_TAN3_LOW, r3), r3)
+    t3_5 = add(high(_TAN3_LOW, r5), r5)
+    m3 = sub(t3_3, r5)
+    m2 = add(t3_5, r3)
+    m0 = add(high(_TAN1, r7), r1)
+    m1 = sub(high(_TAN1, r1), r7)
+    m7, m4 = add(m2, m0), sub(m1, m3)
+    m0, m1 = sub(m0, m2), add(m3, m1)
+    m5, m6 = sub(m0, m1), add(m1, m0)
+    m5, m6 = add(high(_SQRT2, m5), high(_SQRT2, m5)), add(high(_SQRT2, m6), high(_SQRT2, m6))
+    r0, r2, r4, r6 = col(0), col(2), col(4), col(6)
+    e3 = add(high(_TAN2, r6), r2)
+    e2 = sub(high(_TAN2, r2), r6)
+    e1, e0 = sub(r0, r4), add(r4, r0)
+    e3, e0 = sub(e0, e3), add(e3, e0)
+    e2, e1 = sub(e1, e2), add(e2, e1)
+    o6, o1 = sub(e1, m6), add(m6, e1)
+    o5, o2 = sub(e2, m5), add(m5, e2)
+    o7, o0 = sub(e0, m7), add(m7, e0)
+    o4, o3 = sub(e3, m4), add(m4, e3)
+    return (np.stack([o0, o1, o2, o3, o4, o5, o6, o7], -2) >> 6).astype(np.int32)
 
 
 # ---------------------------------------------------------------- colour
@@ -454,261 +611,884 @@ def yuv420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
 
 # ---------------------------------------------------------------- the decoder
 
+_QUANT_DELTA = (-1, -2, 1, 2)  # dquant
+_Y_SCALE = [_dc_scaler(q, True) for q in range(32)]
+_C_SCALE = [_dc_scaler(q, False) for q in range(32)]
+# the 16 bits at a resync marker's stuffing, by the bit position within its byte
+_RESYNC_PREFIX = (0x7F00, 0x7E00, 0x7C00, 0x7800, 0x7000, 0x6000, 0x4000, 0x0000)
+_DC_MARKER, _MOTION_MARKER = 0x6B001, 0x1F001  # 19 and 17 bits: the ends of the first partitions
+# B macroblock types by their VLC (1, 01, 001, 0001): motion directions (1 forward, 2 backward, 0 direct)
+_B_TYPES = ((0, "b_direct_delta"), (3, "b_interpolate"), (2, "b_backward"), (1, "b_forward"))
+
+
+def _median(a: int, b: int, c: int) -> int:
+    return max(min(a, b), min(max(a, b), c))
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division (toward zero) by a positive b."""
+    return a // b if a >= 0 else -((-a) // b)
+
+
+def _rounded_div(a: int, b: int) -> int:
+    """libavcodec's ROUNDED_DIV."""
+    return (a + (b >> 1)) // b if a >= 0 else -((-a + (b >> 1)) // b)
+
+
+class _Ref:
+    """A decoded reference VOP: its macroblock-aligned planes and, for the
+    B-VOPs that follow it, each 8x8 block's vector and which macroblocks
+    were 4MV or skipped."""
+
+    __slots__ = ("planes", "mvx", "mvy", "four", "skipped")
+
+    def __init__(self, planes, mvx, mvy, four, skipped):
+        self.planes, self.mvx, self.mvy, self.four, self.skipped = planes, mvx, mvy, four, skipped
+
+
+class _Vop:
+    """One VOP's parse: each macroblock's levels, quantiser, kind and motion,
+    and the predictors it is parsed with."""
+
+    def __init__(self, vol: Vol, kind: int, q: int, dc_thr: int, fcode: int, bcode: int):
+        self.kind, self.q, self.dc_thr, self.fcode, self.bcode = kind, q, dc_thr, fcode, bcode
+        mb_w, mb_h = vol.mb_w, vol.mb_h
+        n_mb = mb_w * mb_h
+        self.levels = np.zeros((n_mb, 6, 64), np.int32)
+        self.idx: List[int] = []  # inter coefficients: flat index and level
+        self.val: List[int] = []
+        self.esc3: List[int] = []  # flat indices of inter levels an escape 3 coded
+        self.intra_at: List[int] = []  # intra blocks: block index and the 64 levels
+        self.intra_rows: List[List[int]] = []
+        self.mb_kind = bytearray(n_mb)  # 0 a copy from the forward reference, 1 inter, 2 intra
+        self.mbq = [q] * n_mb
+        self.coded = np.zeros((n_mb, 6), bool)
+        self.motion: List[Optional[tuple]] = [None] * n_mb  # (directions, 4MV, forward and backward vectors)
+        # DC and AC predictors per 8x8 block in a (rows + 1, cols + 1) grid
+        # whose row 0 and column 0 are outside the VOP
+        self.lw, self.cw = 2 * mb_w + 1, mb_w + 1
+        lw, cw = self.lw, self.cw
+        self.dc = [[1024] * (lw * (2 * mb_h + 1)), [1024] * (cw * (mb_h + 1)), [1024] * (cw * (mb_h + 1))]
+        zero7 = [0] * 7
+        self.ac_left = [[zero7] * len(self.dc[0]), [zero7] * len(self.dc[1]), [zero7] * len(self.dc[2])]
+        self.ac_top = [[zero7] * len(self.dc[0]), [zero7] * len(self.dc[1]), [zero7] * len(self.dc[2])]
+        # the block vectors of a P-VOP, (2 mb_h + 1) rows of 2 mb_w + 1 (row 0 and the last column a border)
+        self.stride = 2 * mb_w + 1
+        self.mvx = [0] * (self.stride * (2 * mb_h + 1))
+        self.mvy = [0] * (self.stride * (2 * mb_h + 1))
+        self.four = bytearray(n_mb)
+        self.skipped = bytearray(n_mb)
+        self.start = 0  # the current video packet's first macroblock
+        self.trb = self.trd = 0  # direct mode's TRB and TRD
+
 
 class Mpeg4Decoder:
-    """Decode MPEG-4 Part 2 Simple Profile packets (one VOP each, with any
-    headers before it) to BGR frames. `config` is the container's decoder
-    configuration (the VOL), `fourcc` the container's codec tag."""
+    """Decode MPEG-4 Part 2 packets (one VOP each, with any headers before
+    it) to frames in display order, each the (Y, U, V) planes cropped to the
+    picture (`yuv420_to_bgr` converts them as swscale does): `decode`
+    returns the frame a packet completes, if any, and `flush` the frame
+    held back at the end of the stream (B-VOP streams hold one reference
+    back). `config` is the container's decoder configuration (the VOL),
+    `fourcc` its codec tag."""
 
     def __init__(self, config: bytes = b"", fourcc: str = ""):
         self.vol: Optional[Vol] = None
         self.fourcc = fourcc
-        self.encoder: Optional[Tuple[str, int]] = None
+        self.builds: Dict[str, int] = {}  # the encoders the user data names
+        self.xvid_build: Optional[int] = None
+        self._bugs: set = set()  # libavcodec's Xvid workarounds taken so far (they stay, as its IDCT does)
         self.counts: Counter = Counter()
-        self._ref: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+        self._past: Optional[_Ref] = None  # the references: the one before the latest, and the latest
+        self._future: Optional[_Ref] = None
+        self._held = False  # the latest reference is not output yet
+        self._time_base = self._last_time_base = 0  # seconds (modulo_time_base) of the latest and the one before
+        self._last_non_b_time = self._pp_time = 0  # in vop_time_increment ticks
         if config:
             self.decode(config)
             if self.vol is None:
                 raise ValueError("corrupt MPEG-4 decoder configuration: no video object layer header")
 
-    def decode(self, packet: bytes) -> Optional[np.ndarray]:
-        """Parse one packet; the decoded BGR frame if it held a VOP, else None."""
+    def decode(self, packet: bytes):
+        """Parse one packet; the planes of the frame it completes, if any."""
         _refuse_short_header(packet)
         frame = None
+        vops = 0
         for code, start, end in start_codes(packet):
             if VOL_FIRST <= code <= VOL_LAST:
                 vol = Vol(packet[start:end])
                 if self.vol is None or (vol.width, vol.height) != (self.vol.width, self.vol.height):
-                    self._ref = None  # a new frame size: a P-VOP must wait for an I-VOP
+                    self._past = self._future = None  # a new frame size: a P-VOP must wait for an I-VOP
+                    self._held = False
                 self.vol = vol
             elif code == USER_DATA:
-                found = _user_data_build(packet[start:end])
-                if found is not None:
-                    self.encoder = found
+                self.builds.update(_user_data(packet[start:end]))
             elif code == VOP_START:
-                if frame is not None:
+                vops += 1
+                if vops > 1:
                     raise _unsupported("a packet with more than one VOP (packed B-frames)")
                 frame = self._vop(packet[start:end])
         return frame
+
+    def flush(self):
+        """The reference held back for display order, at the end of the stream."""
+        if not self._held:
+            return None
+        self._held = False
+        return self._output(self._future.planes)
+
+    def _output(self, planes):
+        """A decoded VOP's planes cropped to the picture."""
+        y, u, v = planes
+        h, w = self.vol.height, self.vol.width
+        return y[:h, :w], u[:h // 2, :(w + 1) // 2], v[:h // 2, :(w + 1) // 2]
 
     def _vop(self, data: bytes):
         vol = self.vol
         if vol is None:
             raise ValueError("corrupt MPEG-4 stream: a VOP before any video object layer header")
-        check_encoder(self.encoder, self.fourcc)
+        self.xvid_build = check_encoder(self.builds, self.fourcc, vol, self.xvid_build)
+        if self.xvid_build is not None:
+            self._bugs.add("xvid_idct")
+            self._bugs.update(k for k, last in XVID_WORKAROUNDS.items() if self.xvid_build <= last)
         b = _Bits(data)
         kind = b.read(2)
-        if kind == 2:
-            raise _unsupported("a B-VOP")
         if kind == 3:
             raise _unsupported("an S-VOP (sprite, GMC)")
+        seconds = 0
         while b.bit():  # modulo_time_base
+            seconds += 1
             if b.left() <= 0:
                 raise ValueError("corrupt MPEG-4 VOP: truncated header")
         b.marker("before vop_time_increment")
-        b.read(vol.time_bits)
+        increment = b.read(vol.time_bits)
         b.marker("after vop_time_increment")
-        if not b.bit():
-            raise _unsupported("a not-coded VOP")
+        # libavcodec's clock: a B-VOP counts from the reference before the latest
+        if kind != 2:
+            self._last_time_base = self._time_base
+            self._time_base += seconds
+            time = self._time_base * vol.time_resolution + increment
+            self._pp_time = time - self._last_non_b_time
+            self._last_non_b_time = time
+            pb_time = 0
+        else:
+            time = (self._last_time_base + seconds) * vol.time_resolution + increment
+            pb_time = self._pp_time - (self._last_non_b_time - time)
+        if not b.bit():  # vop_coded 0: no frame, the references and the clock as they now are
+            self.counts["not_coded_vop"] += 1
+            return None
+        if kind == 2 and (self._past is None or not 0 < pb_time < self._pp_time):
+            self.counts["b_vop_dropped"] += 1  # no past reference, or out of order: libavcodec drops it
+            return None
         rounding = b.bit() if kind == 1 else 0
         dc_thr = _DC_THRESHOLD[b.read(3)]
         q = b.read(5)
         if q == 0:
             raise ValueError("corrupt MPEG-4 VOP: vop_quant 0")
-        fcode = b.read(3) if kind == 1 else 1
-        if fcode == 0:
-            raise ValueError("corrupt MPEG-4 VOP: vop_fcode_forward 0")
+        fcode = b.read(3) if kind else 1
+        bcode = b.read(3) if kind == 2 else 1
+        if fcode == 0 or bcode == 0:
+            raise ValueError("corrupt MPEG-4 VOP: a vop_fcode of 0")
         if b.left() < 0:
             raise ValueError("corrupt MPEG-4 VOP: truncated header")
-        if kind == 1 and self._ref is None:
-            raise ValueError("corrupt MPEG-4 stream: a P-VOP before any I-VOP")
-        self.counts["p_vop" if kind else "i_vop"] += 1
-        if kind:
-            self.counts[f"rounding_{rounding}"] += 1
-            self.counts[f"fcode_{fcode}"] += 1
-        planes = self._macroblocks(b, kind, q, dc_thr, fcode, rounding)
-        self._ref = planes
-        y, u, v = planes
-        h, w = vol.height, vol.width
-        return yuv420_to_bgr(y[:h, :w], u[:h // 2, :(w + 1) // 2], v[:h // 2, :(w + 1) // 2])
-
-    def _macroblocks(self, b: _Bits, p_vop: int, q: int, dc_thr: int, fcode: int, rounding: int):
-        vol = self.vol
-        mb_w, mb_h = vol.mb_w, vol.mb_h
-        n_mb = mb_w * mb_h
+        if kind and self._future is None:
+            raise ValueError("corrupt MPEG-4 stream: a P- or B-VOP before any I-VOP")
         counts = self.counts
-        levels = np.zeros((n_mb, 6, 64), np.int32)
-        flat = levels.reshape(-1)
-        idx: List[int] = []  # inter coefficients: flat index and level
-        val: List[int] = []
-        intra_at: List[int] = []  # intra blocks: block index and the 64 levels
-        intra_rows: List[List[int]] = []
-        mb_kind = bytearray(n_mb)  # 0 skipped, 1 inter, 2 intra
-        coded = np.zeros((n_mb, 6), bool)
-        mvs = np.zeros((mb_h + 1, mb_w + 2, 2), np.int64)  # a zero border: row 0, columns 0 and mb_w + 1
-        mv_list = [[0, 0]] * n_mb
-        # DC and AC predictors per 8x8 block in a (rows + 1, cols + 1) grid
-        # whose row 0 and column 0 are outside the VOP
-        lw, cw = 2 * mb_w + 1, mb_w + 1
-        dc = [[1024] * (lw * (2 * mb_h + 1)), [1024] * (cw * (mb_h + 1)), [1024] * (cw * (mb_h + 1))]
-        zero7 = [0] * 7
-        ac_left = [[zero7] * len(dc[0]), [zero7] * len(dc[1]), [zero7] * len(dc[2])]
-        ac_top = [[zero7] * len(dc[0]), [zero7] * len(dc[1]), [zero7] * len(dc[2])]
-        y_scale, c_scale = _dc_scaler(q, True), _dc_scaler(q, False)
-        use_dc_vlc = q < dc_thr
-        qmul, qadd = 2 * q, (q - 1) | 1
-        peek, read, bit = b.peek, b.read, b.bit
-        lut_cbpy, lut_intra_mcbpc, lut_inter_mcbpc = _LUT_CBPY, _LUT_INTRA_MCBPC, _LUT_INTER_MCBPC
-        mvd_range = 1 << (4 + fcode)
+        counts[("i_vop", "p_vop", "b_vop")[kind]] += 1
+        if kind:
+            counts[f"fcode_{fcode}"] += 1
+        if kind == 1:
+            counts[f"rounding_{rounding}"] += 1
+        if vol.quarter_sample:
+            counts["qpel_vop"] += 1
+        if vol.quant_type:
+            counts["mpeg_quant_vop"] += 1
+            if vol.loaded_matrices:
+                counts["loaded_matrix_vop"] += 1
+        if "xvid_idct" in self._bugs:
+            counts["xvid_idct_vop"] += 1
+        vop = _Vop(vol, kind, q, dc_thr, fcode, bcode)
+        vop.trb, vop.trd = pb_time, self._pp_time
+        if vol.partitioned and kind != 2:
+            if dc_thr != 99:
+                raise _unsupported("a data-partitioned VOP whose intra_dc_vlc_thr is not 0")
+            counts["partitioned_vop"] += 1
+            self._partitioned(b, vop)
+        else:
+            self._plain(b, vop)
+        if b.pos > b.end:
+            raise ValueError("corrupt MPEG-4 VOP: truncated")
+        planes = self._reconstruct(vop, rounding)
+        if kind == 2:
+            return self._output(planes)
+        shown = self._held
+        self._past, self._future = self._future, _Ref(planes, vop.mvx, vop.mvy, vop.four, vop.skipped)
+        if vol.low_delay:
+            self._held = False
+            return self._output(planes)
+        self._held = True
+        return self._output(self._past.planes) if shown else None
+
+    # ------------------------------------------------------------ packets
+
+    def _resync(self, b: _Bits, vop: _Vop) -> Optional[Tuple[int, int, int]]:
+        """A video packet header after stuffing at the current position:
+        (its first macroblock, the bit position after the header, its
+        quant_scale), else None."""
+        p = b.pos
+        if p + 8 >= b.end or b.peek(16) != _RESYNC_PREFIX[p & 7]:  # the VOP's last byte is stuffing
+            return None
+        p += 8 - (p & 7)
+        zeros = 0
+        words = b.words
+        while zeros < 32 and not (words[(p + zeros) >> 3] >> (39 - ((p + zeros) & 7))) & 1:
+            zeros += 1
+        need = 16 if vop.kind == 0 else vop.fcode + 15 if vop.kind == 1 else max(vop.fcode, vop.bcode, 2) + 15
+        if zeros < need:
+            return None
+        if zeros != need:
+            raise ValueError("corrupt MPEG-4 VOP: a resync marker of the wrong length")
+        save = b.pos
+        b.pos = p + zeros + 1
+        n_mb = self.vol.mb_w * self.vol.mb_h
+        mb = b.read(max((n_mb - 1).bit_length(), 1))
+        if not 0 < mb < n_mb:
+            raise ValueError(f"corrupt MPEG-4 VOP: a video packet at macroblock {mb} of {n_mb}")
+        q = b.read(5)
+        if b.bit():  # header_extension_code: the VOP header's fields again, which libavcodec skips
+            self.counts["hec"] += 1
+            while b.bit():
+                if b.left() <= 0:
+                    raise ValueError("corrupt MPEG-4 VOP: a truncated video packet header")
+            b.marker("in a video packet header")
+            b.read(self.vol.time_bits)
+            b.marker("in a video packet header")
+            b.read(2 + 3)  # vop_coding_type, intra_dc_vlc_thr
+            if vop.kind:
+                b.read(3)
+            if vop.kind == 2:
+                b.read(3)
+        after = b.pos
+        b.pos = save
+        return mb, after, q
+
+    def _start_packet(self, b: _Bits, vop: _Vop, mb: int, after: int, q: int) -> None:
+        b.pos = after
+        vop.start = mb
+        if q:
+            vop.q = q
+        self.counts["video_packet"] += 1
+
+    # ------------------------------------------------------------ macroblocks
+
+    def _plain(self, b: _Bits, vop: _Vop) -> None:
+        """The macroblocks of a VOP without data partitioning, video packets
+        split where a resync marker follows a macroblock."""
+        vol = self.vol
+        mb_w, n_mb = vol.mb_w, vol.mb_w * vol.mb_h
+        kind, counts = vop.kind, self.counts
+        skipped = self._future.skipped if kind == 2 else None
+        pending = None
+        last = [0, 0, 0, 0]  # the B-VOP's forward and backward vector predictors
         for mb in range(n_mb):
             mby, mbx = divmod(mb, mb_w)
+            if mb and vol.resync:
+                if pending is None:
+                    pending = self._resync(b, vop)
+                if pending is not None and pending[0] <= mb:
+                    if pending[0] < mb:
+                        raise ValueError(f"corrupt MPEG-4 VOP: a video packet at macroblock {pending[0]} met at {mb}")
+                    self._start_packet(b, vop, *pending)
+                    pending = None
+                    last[:] = (0, 0, 0, 0)
+            if kind == 2:
+                if mbx == 0:
+                    last[:] = (0, 0, 0, 0)
+                vop.mbq[mb] = vop.q
+                if skipped[mb]:  # skipped in the next reference: a copy from the previous one
+                    vop.motion[mb] = (1, 0, _ZERO4, None)
+                    counts["b_colocated_skip"] += 1
+                    continue
+            if pending is not None:
+                raise ValueError(f"corrupt MPEG-4 VOP: macroblock data before the video packet at {pending[0]}")
             if b.pos >= b.end:
                 raise ValueError(f"corrupt MPEG-4 VOP: truncated at macroblock {mb} of {n_mb}")
-            if p_vop:
-                while True:
-                    if bit():
-                        hit = None
-                        break
-                    hit = lut_inter_mcbpc[peek(9)]
-                    if hit is None:
-                        raise ValueError(f"corrupt MPEG-4 VOP: bad MCBPC at macroblock {mb}")
-                    b.pos += hit[1]
-                    if hit[0] != 20:
-                        break
-                if hit is None:
-                    counts["skipped_mb"] += 1
-                    continue
-                cbpc = hit[0]
-                if cbpc & 16:
-                    raise _unsupported("a 4MV (inter4v) macroblock")
-                intra = cbpc & 4
+            if kind == 2:
+                self._b_mb(b, vop, mb, mbx, mby, last)
             else:
-                while True:
-                    hit = lut_intra_mcbpc[peek(9)]
-                    if hit is None:
-                        raise ValueError(f"corrupt MPEG-4 VOP: bad MCBPC at macroblock {mb}")
-                    b.pos += hit[1]
-                    if hit[0] != 8:
-                        break
-                cbpc = hit[0] << 1 & 8 | hit[0] & 3  # the dquant flag where the inter table has it
-                intra = 4
-            if cbpc & 8:
-                raise _unsupported("dquant (a macroblock quantiser change)")
-            if intra:
-                ac_pred = bit()
-            hit = lut_cbpy[peek(6)]
+                self._ip_mb(b, vop, mb, mbx, mby)
+
+    def _mcbpc(self, b: _Bits, vop: _Vop, mb: int) -> Optional[int]:
+        """An I- or P-VOP macroblock's not_coded bit and MCBPC, stuffing
+        skipped: None for a skipped macroblock, else 16 * inter4v + 8 *
+        dquant + 4 * intra + cbpc."""
+        if vop.kind:
+            while True:
+                if b.bit():
+                    return None
+                hit = _LUT_INTER_MCBPC[b.peek(9)]
+                if hit is None:
+                    raise ValueError(f"corrupt MPEG-4 VOP: bad MCBPC at macroblock {mb}")
+                b.pos += hit[1]
+                if hit[0] != 20:
+                    return hit[0]
+        while True:
+            hit = _LUT_INTRA_MCBPC[b.peek(9)]
             if hit is None:
-                raise ValueError(f"corrupt MPEG-4 VOP: bad CBPY at macroblock {mb}")
+                raise ValueError(f"corrupt MPEG-4 VOP: bad MCBPC at macroblock {mb}")
             b.pos += hit[1]
-            cbp = (hit[0] if intra else 15 - hit[0]) << 2 | cbpc & 3
-            if not intra:
-                mb_kind[mb] = 1
-                counts["inter_mb"] += 1
-                # median prediction: left, above, above right; a zero border stands outside
-                if mby == 0:
-                    px, py = (mvs[1, mbx] if mbx else (0, 0))  # row 1 holds mb row 0
-                    px, py = int(px), int(py)
-                else:
-                    a, bb, c = mvs[mby + 1, mbx], mvs[mby, mbx + 1], mvs[mby, mbx + 2]
-                    px = int(sorted((a[0], bb[0], c[0]))[1])
-                    py = int(sorted((a[1], bb[1], c[1]))[1])
-                mv = []
-                for pred in (px, py):
-                    hit = _LUT_MVD[peek(12)]
-                    if hit is None:
-                        raise ValueError(f"corrupt MPEG-4 VOP: bad MVD at macroblock {mb}")
-                    b.pos += hit[1]
-                    code = hit[0]
-                    if code:
-                        sign = bit()
-                        if fcode > 1:
-                            code = ((code - 1) << (fcode - 1) | read(fcode - 1)) + 1
-                        pred += -code if sign else code
-                        # wrap into [-16 << fcode... ) as libavcodec's sign_extend(val, 5 + fcode)
-                        pred = (pred + mvd_range) % (2 * mvd_range) - mvd_range
-                    mv.append(pred)
-                mvs[mby + 1, mbx + 1] = mv
-                mv_list[mb] = mv
-                for n in range(6):
-                    if cbp & (32 >> n):
-                        coded[mb, n] = True
-                        base = (mb * 6 + n) * 64
-                        self._tcoef(b, _LUT_INTER, _MAX_INTER, -1, _ZIGZAG, base, idx, val, None)
-                continue
-            # intra
-            mb_kind[mb] = 2
-            counts["intra_mb_in_p" if p_vop else "intra_mb"] += 1
-            if ac_pred:
-                counts["ac_pred_mb"] += 1
-            for n in range(6):
-                if n < 4:
-                    plane, gw = 0, lw
-                    at = (2 * mby + (n >> 1) + 1) * gw + 2 * mbx + (n & 1) + 1
-                    scale = y_scale
-                else:
-                    plane, gw = n - 3, cw
-                    at = (mby + 1) * gw + mbx + 1
-                    scale = c_scale
-                dcp = dc[plane]
-                a, bb, c = dcp[at - 1], dcp[at - 1 - gw], dcp[at - gw]
-                top = abs(a - bb) < abs(bb - c)  # predict from above, else from the left
-                pred = ((c if top else a) + (scale >> 1)) // scale
-                block = [0] * 64
+            if hit[0] != 8:
+                return hit[0] << 1 & 8 | 4 | hit[0] & 3  # the dquant flag where the inter table has it
+
+    def _cbpy(self, b: _Bits, mb: int, intra: int) -> int:
+        hit = _LUT_CBPY[b.peek(6)]
+        if hit is None:
+            raise ValueError(f"corrupt MPEG-4 VOP: bad CBPY at macroblock {mb}")
+        b.pos += hit[1]
+        return hit[0] if intra else 15 - hit[0]
+
+    def _dquant(self, b: _Bits, vop: _Vop, intra: int) -> None:
+        if intra and vop.dc_thr not in (0, 99):
+            raise _unsupported("dquant in an intra macroblock of a VOP whose intra_dc_vlc_thr depends on the quantiser")
+        vop.q = min(max(vop.q + _QUANT_DELTA[b.read(2)], 1), 31)
+        self.counts["dquant_mb"] += 1
+
+    def _ip_mb(self, b: _Bits, vop: _Vop, mb: int, mbx: int, mby: int) -> None:
+        """One macroblock of an I- or P-VOP, not partitioned."""
+        counts = self.counts
+        cbpc = self._mcbpc(b, vop, mb)
+        if cbpc is None:
+            self._skip(vop, mb)
+            return
+        intra = cbpc & 4
+        ac_pred = b.bit() if intra else 0
+        cbp = self._cbpy(b, mb, intra) << 2 | cbpc & 3
+        use_dc_vlc = vop.q < vop.dc_thr  # libavcodec tests the quantiser before this macroblock's dquant
+        if cbpc & 8:
+            self._dquant(b, vop, intra)
+        vop.mbq[mb] = vop.q
+        if intra:
+            if vop.kind:
+                counts["intra_mb_in_p"] += 1
+            self._intra_mb(b, vop, mb, mbx, mby, cbp, ac_pred, use_dc_vlc, None, None)
+            return
+        self._p_vectors(b, vop, mb, mbx, mby, cbpc & 16)
+        self._inter_blocks(b, vop, mb, cbp)
+
+    def _skip(self, vop: _Vop, mb: int) -> None:
+        vop.motion[mb] = (1, 0, _ZERO4, None)
+        vop.skipped[mb] = 1
+        vop.mbq[mb] = vop.q
+        self.counts["skipped_mb"] += 1
+
+    def _p_vectors(self, b: _Bits, vop: _Vop, mb: int, mbx: int, mby: int, four: int) -> None:
+        """A P-VOP macroblock's one or four vectors, each from its median prediction."""
+        self.counts["inter_mb"] += 1
+        vop.mb_kind[mb] = 1
+        stride, mvx, mvy = vop.stride, vop.mvx, vop.mvy
+        top = (2 * mby + 1) * stride + 2 * mbx  # block 0 (row 0 of the lists is a border)
+        fcode = vop.fcode
+        if four:
+            self.counts["inter4v_mb"] += 1
+            vop.four[mb] = 1
+            vectors = []
+            for n in range(4):
+                at = top + (n >> 1) * stride + (n & 1)
+                px, py = self._pred_motion(vop, n, at, mb, mbx, mby)
+                mvx[at] = x = self._mvd(b, px, fcode, mb)
+                mvy[at] = y = self._mvd(b, py, fcode, mb)
+                vectors.append((x, y))
+            vop.motion[mb] = (1, 1, vectors, None)
+            return
+        px, py = self._pred_motion(vop, 0, top, mb, mbx, mby)
+        x, y = self._mvd(b, px, fcode, mb), self._mvd(b, py, fcode, mb)
+        mvx[top] = mvx[top + 1] = mvx[top + stride] = mvx[top + stride + 1] = x
+        mvy[top] = mvy[top + 1] = mvy[top + stride] = mvy[top + stride + 1] = y
+        vop.motion[mb] = (1, 0, [(x, y)] * 4, None)
+
+    def _pred_motion(self, vop: _Vop, n: int, at: int, mb: int, mbx: int, mby: int) -> Tuple[int, int]:
+        """libavcodec's `ff_h263_pred_motion` of block n: the median of the
+        left, above and above-right vectors, with the rules of a video
+        packet's first row (the row whose above macroblock lies in another
+        packet), including its zeroing of the left vector of block 2 at the
+        packet's first macroblock."""
+        mvx, mvy, stride = vop.mvx, vop.mvy, vop.stride
+        start = vop.start
+        rx = start % self.vol.mb_w
+        a = at - 1
+        if (mby == 0 or mb - self.vol.mb_w < start) and n < 3:
+            if n == 0:
+                if mbx == rx:
+                    return 0, 0
+                if mbx + 1 == rx:
+                    c = at + 2 - stride
+                    if mbx == 0:
+                        return mvx[c], mvy[c]
+                    return _median(mvx[a], 0, mvx[c]), _median(mvy[a], 0, mvy[c])
+                return mvx[a], mvy[a]
+            if n == 1:
+                if mbx + 1 == rx:
+                    c = at + 1 - stride
+                    return _median(mvx[a], 0, mvx[c]), _median(mvy[a], 0, mvy[c])
+                return mvx[a], mvy[a]
+            if mbx == rx:
+                mvx[a] = mvy[a] = 0
+        off = (2, 1, 1, -1)[n]
+        bb, c = at - stride, at + off - stride
+        return _median(mvx[a], mvx[bb], mvx[c]), _median(mvy[a], mvy[bb], mvy[c])
+
+    def _mvd(self, b: _Bits, pred: int, fcode: int, mb: int) -> int:
+        """One vector component: the MVD added to pred, wrapped as libavcodec's sign_extend(v, 5 + fcode)."""
+        hit = _LUT_MVD[b.peek(12)]
+        if hit is None:
+            raise ValueError(f"corrupt MPEG-4 VOP: bad MVD at macroblock {mb}")
+        b.pos += hit[1]
+        code = hit[0]
+        if not code:
+            return pred
+        sign = b.bit()
+        if fcode > 1:
+            code = ((code - 1) << (fcode - 1) | b.read(fcode - 1)) + 1
+        pred += -code if sign else code
+        half = 1 << (4 + fcode)
+        return (pred + half) % (2 * half) - half
+
+    def _b_mb(self, b: _Bits, vop: _Vop, mb: int, mbx: int, mby: int, last: List[int]) -> None:
+        """One macroblock of a B-VOP (its co-located macroblock coded)."""
+        counts = self.counts
+        if b.bit():  # modb 1: direct, no vector delta, no coefficients
+            counts["b_direct_skip"] += 1
+            self._direct(vop, mb, mbx, mby, 0, 0)
+            return
+        no_cbp = b.bit()
+        for dirs, name in _B_TYPES:
+            if b.bit():
+                break
+        else:
+            raise ValueError(f"corrupt MPEG-4 VOP: bad B macroblock type at macroblock {mb}")
+        counts[name] += 1
+        cbp = 0 if no_cbp else b.read(6)
+        if dirs and cbp and b.bit():  # dbquant: 0, 10 (-2), 11 (+2)
+            vop.q = min(max(vop.q + 4 * b.bit() - 2, 1), 31)
+            counts["dbquant_mb"] += 1
+        vop.mbq[mb] = vop.q
+        if dirs:
+            fwd = bwd = None
+            if dirs & 1:
+                last[0] = self._mvd(b, last[0], vop.fcode, mb)
+                last[1] = self._mvd(b, last[1], vop.fcode, mb)
+                fwd = [(last[0], last[1])] * 4
+            if dirs & 2:
+                last[2] = self._mvd(b, last[2], vop.bcode, mb)
+                last[3] = self._mvd(b, last[3], vop.bcode, mb)
+                bwd = [(last[2], last[3])] * 4
+            vop.motion[mb] = (dirs, 0, fwd, bwd)
+            vop.mb_kind[mb] = 1
+        else:
+            self._direct(vop, mb, mbx, mby, self._mvd(b, 0, 1, mb), self._mvd(b, 0, 1, mb))
+        self._inter_blocks(b, vop, mb, cbp)
+
+    def _direct(self, vop: _Vop, mb: int, mbx: int, mby: int, dx: int, dy: int) -> None:
+        """Direct mode: the co-located macroblock's one or four vectors in
+        the next reference, scaled by TRB / TRD, plus the delta (dx, dy)."""
+        ref, trb, trd = self._future, vop.trb, vop.trd
+        counts = self.counts
+        counts["b_direct"] += 1
+        stride = vop.stride
+        top = (2 * mby + 1) * stride + 2 * mbx
+        four = ref.four[mb]
+        fwd, bwd = [], []
+        for n in range(4 if four else 1):
+            at = top + (n >> 1) * stride + (n & 1)
+            pair_f, pair_b = [], []
+            for p, d in ((ref.mvx[at], dx), (ref.mvy[at], dy)):
+                f = _tdiv(p * trb, trd) + d
+                pair_f.append(f)
+                pair_b.append(f - p if d else _tdiv(p * (trb - trd), trd))
+            fwd.append(tuple(pair_f))
+            bwd.append(tuple(pair_b))
+        if four:
+            counts["b_direct_4mv"] += 1
+        else:
+            fwd, bwd = fwd * 4, bwd * 4
+        # libavcodec predicts a quarter-pel direct macroblock as four 8x8 blocks
+        vop.motion[mb] = (3, int(bool(four or self.vol.quarter_sample)), fwd, bwd)
+        vop.mb_kind[mb] = 1
+
+    def _inter_blocks(self, b: _Bits, vop: _Vop, mb: int, cbp: int) -> None:
+        for n in range(6):
+            if cbp & (32 >> n):
+                vop.coded[mb, n] = True
+                self._tcoef(b, _LUT_INTER, _MAX_INTER, -1, _ZIGZAG, (mb * 6 + n) * 64, vop.idx, vop.val, None,
+                            vop.esc3)
+
+    def _dc_pred(self, vop: _Vop, n: int, mb: int, mbx: int, mby: int):
+        """(plane, grid index, from the top, scale, predicted DC level) of
+        intra block n: the gradient rule over the left, above-left and above
+        blocks, those of macroblocks in another video packet taken as 1024."""
+        mb_w, start = self.vol.mb_w, vop.start
+        left = mbx > 0 and mb - 1 >= start
+        above = mby > 0 and mb - mb_w >= start
+        corner = mbx > 0 and mby > 0 and mb - mb_w - 1 >= start
+        if n < 4:
+            plane, gw = 0, vop.lw
+            at = (2 * mby + (n >> 1) + 1) * gw + 2 * mbx + (n & 1) + 1
+            scale = _Y_SCALE[vop.q]
+        else:
+            plane, gw = n - 3, vop.cw
+            at = (mby + 1) * gw + mbx + 1
+            scale = _C_SCALE[vop.q]
+        dcp = vop.dc[plane]
+        a, bb, c = dcp[at - 1], dcp[at - 1 - gw], dcp[at - gw]
+        if n == 1:
+            if not above:
+                bb = c = 1024
+        elif n == 2:
+            if not left:
+                a = bb = 1024
+        elif n != 3:
+            if not left:
+                a = 1024
+            if not corner:
+                bb = 1024
+            if not above:
+                c = 1024
+        top = abs(a - bb) < abs(bb - c)  # predict from above, else from the left
+        return plane, at, top, scale, ((c if top else a) + (scale >> 1)) // scale
+
+    def _store_dc(self, vop: _Vop, plane: int, at: int, level: int, scale: int) -> None:
+        dc_val = level * scale
+        if dc_val > 2047 and "xvid_dc_clip" in self._bugs:
+            self.counts["xvid_dc_clip"] += 1  # libavcodec keeps the unclipped DC for such Xvid builds
+        else:
+            dc_val = 0 if dc_val < 0 else 2047 if dc_val > 2047 else dc_val
+        vop.dc[plane][at] = dc_val
+
+    def _dc_level(self, b: _Bits, n: int, mb: int) -> int:
+        """A DC difference: dct_dc_size, the bits, a marker past size 8."""
+        hit = _LUT_DC[n >= 4][b.peek(12)]
+        if hit is None:
+            raise ValueError(f"corrupt MPEG-4 VOP: bad DC size at macroblock {mb}")
+        b.pos += hit[1]
+        size = hit[0]
+        if not size:
+            return 0
+        diff = b.read(size)
+        if not diff >> (size - 1):
+            diff -= (1 << size) - 1
+        if size > 8:
+            b.marker("after a DC coefficient")
+        return diff
+
+    def _intra_mb(self, b: _Bits, vop: _Vop, mb: int, mbx: int, mby: int, cbp: int, ac_pred: int,
+                  use_dc_vlc: bool, dcs, dirs) -> None:
+        """An intra macroblock's six blocks: DC (from `dcs`, levels a data
+        partition gave with their directions `dirs`, or read here), TCOEF,
+        then AC prediction from the block the DC predicted from, rescaled to
+        this macroblock's quantiser."""
+        counts = self.counts
+        vop.mb_kind[mb] = 2
+        counts["intra_mb"] += 1
+        if ac_pred:
+            counts["ac_pred_mb"] += 1
+        mb_w, start, q, mbq = self.vol.mb_w, vop.start, vop.q, vop.mbq
+        for n in range(6):
+            block = [0] * 64
+            if dcs is None:
+                plane, at, top, scale, pred = self._dc_pred(vop, n, mb, mbx, mby)
                 first = 0
                 if use_dc_vlc:
-                    hit = _LUT_DC[n >= 4][peek(12)]
-                    if hit is None:
-                        raise ValueError(f"corrupt MPEG-4 VOP: bad DC size at macroblock {mb}")
-                    b.pos += hit[1]
-                    size = hit[0]
-                    if size:
-                        diff = read(size)
-                        if not diff >> (size - 1):
-                            diff -= (1 << size) - 1
-                        if size > 8:
-                            b.marker("after a DC coefficient")
-                        block[0] = diff
+                    block[0] = self._dc_level(b, n, mb)
                     first = 1
                 else:
                     counts["dc_as_ac"] += 1
-                if ac_pred:
-                    scan = _ALT_H if top else _ALT_V
-                    counts["scan_horizontal" if top else "scan_vertical"] += 1
-                else:
-                    scan = _ZIGZAG
-                    counts["scan_zigzag"] += 1
-                if cbp & (32 >> n):
-                    self._tcoef(b, _LUT_INTRA, _MAX_INTRA, first - 1, scan, 0, None, None, block)
+            else:
+                plane, at, scale, top = dirs[n]
+                first = 1
+            if ac_pred:
+                scan = _ALT_H if top else _ALT_V
+                counts["scan_horizontal" if top else "scan_vertical"] += 1
+            else:
+                scan = _ZIGZAG
+                counts["scan_zigzag"] += 1
+            if cbp & (32 >> n):
+                self._tcoef(b, _LUT_INTRA, _MAX_INTRA, first - 1, scan, 0, None, None, block, None)
+            if dcs is None:
                 level = block[0] + pred
-                dc_val = level * scale
-                dcp[at] = 0 if dc_val < 0 else 2047 if dc_val > 2047 else dc_val
-                block[0] = level
-                if ac_pred:
-                    if top:
-                        src = ac_top[plane][at - gw]
-                        for k in range(7):
-                            block[k + 1] += src[k]
-                    else:
-                        src = ac_left[plane][at - 1]
-                        for k in range(7):
-                            block[8 * k + 8] += src[k]
-                ac_top[plane][at] = block[1:8]
-                ac_left[plane][at] = block[8::8]
-                intra_at.append(mb * 6 + n)
-                intra_rows.append(block)
-            coded[mb] = True
-        if b.pos > b.end:
-            raise ValueError("corrupt MPEG-4 VOP: truncated")
-        if idx:
-            flat[np.asarray(idx, np.int64)] = val
-        if intra_at:
-            levels.reshape(-1, 64)[np.asarray(intra_at, np.int64)] = intra_rows
-        return self._reconstruct(levels, np.frombuffer(bytes(mb_kind), np.uint8), coded, mv_list, q, qmul, qadd,
-                                 y_scale, c_scale, rounding)
+                if level < 0 and use_dc_vlc:
+                    raise ValueError(f"corrupt MPEG-4 VOP: a negative intra DC at macroblock {mb}")
+                self._store_dc(vop, plane, at, level, scale)
+            else:
+                level = dcs[n]
+            block[0] = level
+            if ac_pred:
+                gw = vop.lw if plane == 0 else vop.cw
+                if top:
+                    src = vop.ac_top[plane][at - gw]
+                    if n < 2 or n > 3:  # the block above is the above macroblock's
+                        src = self._ac_source(src, mb - mb_w, mby > 0 and mb - mb_w >= start, mbq, q)
+                    for k in range(7):
+                        block[k + 1] += src[k]
+                else:
+                    src = vop.ac_left[plane][at - 1]
+                    if n != 1 and n != 3:  # the block left is the left macroblock's
+                        src = self._ac_source(src, mb - 1, mbx > 0 and mb - 1 >= start, mbq, q)
+                    for k in range(7):
+                        block[8 * k + 8] += src[k]
+                if type(src) is tuple:
+                    counts["ac_pred_rescaled"] += 1
+            vop.ac_top[plane][at] = block[1:8]
+            vop.ac_left[plane][at] = block[8::8]
+            vop.intra_at.append(mb * 6 + n)
+            vop.intra_rows.append(block)
+        vop.coded[mb] = True
 
-    def _tcoef(self, b: _Bits, lut, maxes, i: int, scan, base: int, idx, val, block) -> None:
+    @staticmethod
+    def _ac_source(src, nb: int, available: bool, mbq, q: int):
+        """A neighbour macroblock's AC predictors: zero from another video
+        packet, rescaled from its quantiser to q (libavcodec's ROUNDED_DIV;
+        a tuple, where the stored ones are lists)."""
+        if not available:
+            return _ZERO7
+        if mbq[nb] == q:
+            return src
+        return tuple(_rounded_div(v * mbq[nb], q) for v in src)
+
+    def _partitioned(self, b: _Bits, vop: _Vop) -> None:
+        """The macroblocks of a data-partitioned I- or P-VOP, packet by
+        packet: modes, DCs (I) or vectors (P) up to the DC or motion
+        marker, then the AC prediction flags, CBPY, dquant and (P) intra
+        DCs, then the coefficients."""
+        vol, counts = self.vol, self.counts
+        mb_w, n_mb = vol.mb_w, vol.mb_w * vol.mb_h
+        p_vop = vop.kind
+        marker_bits, marker, stuffing = (17, _MOTION_MARKER, 10) if p_vop else (19, _DC_MARKER, 9)
+        mb = 0
+        while mb < n_mb:
+            if mb:
+                found = self._resync(b, vop)
+                if found is None or found[0] != mb:
+                    raise ValueError(f"corrupt MPEG-4 VOP: no video packet where macroblock {mb} begins")
+                self._start_packet(b, vop, *found)
+            counts["partition_packet"] += 1
+            heads = []  # each macroblock's MCBPC (None: skipped) and, in an I-VOP, its DCs
+            while True:  # the first partition
+                if b.peek(marker_bits) == marker:
+                    break
+                if mb + len(heads) >= n_mb or b.pos >= b.end:
+                    raise ValueError("corrupt MPEG-4 VOP: no DC or motion marker")
+                at = mb + len(heads)
+                mby, mbx = divmod(at, mb_w)
+                if p_vop:
+                    if b.bit():
+                        self._skip(vop, at)
+                        heads.append(None)
+                        continue
+                    hit = _LUT_INTER_MCBPC[b.peek(9)]
+                    if hit is None:
+                        raise ValueError(f"corrupt MPEG-4 VOP: bad MCBPC at macroblock {at}")
+                    b.pos += hit[1]
+                    if hit[0] == 20:  # stuffing: the marker may follow
+                        continue
+                    cbpc = hit[0]
+                    if not cbpc & 4:
+                        self._p_vectors(b, vop, at, mbx, mby, cbpc & 16)
+                    heads.append([cbpc])
+                    continue
+                if b.peek(9) == 1:  # stuffing
+                    b.pos += 9
+                    continue
+                cbpc = self._mcbpc(b, vop, at)
+                if cbpc & 8:
+                    self._dquant(b, vop, 1)
+                vop.mbq[at] = vop.q
+                heads.append([cbpc] + self._partition_dcs(b, vop, at, mbx, mby))
+            if not heads:
+                raise ValueError("corrupt MPEG-4 VOP: an empty video packet")
+            while b.peek(stuffing) == 1:
+                b.pos += stuffing
+            if b.read(marker_bits) != marker:
+                raise ValueError("corrupt MPEG-4 VOP: no DC or motion marker")
+            for k, head in enumerate(heads):  # the second partition
+                at = mb + k
+                if head is None:
+                    vop.mbq[at] = vop.q
+                    continue
+                cbpc = head[0]
+                if not p_vop:
+                    head.append(b.bit())
+                    head.append(self._cbpy(b, at, 1) << 2 | cbpc & 3)
+                    continue
+                intra = cbpc & 4
+                ac_pred = b.bit() if intra else 0
+                cbp = self._cbpy(b, at, intra) << 2 | cbpc & 3
+                if cbpc & 8:
+                    self._dquant(b, vop, intra)
+                vop.mbq[at] = vop.q
+                if intra:
+                    mby, mbx = divmod(at, mb_w)
+                    head += self._partition_dcs(b, vop, at, mbx, mby)
+                head += [ac_pred, cbp]
+            for k, head in enumerate(heads):  # the coefficients
+                at = mb + k
+                if head is None:
+                    continue
+                vop.q = vop.mbq[at]
+                cbpc, ac_pred, cbp = head[0], head[-2], head[-1]
+                if cbpc & 4:
+                    mby, mbx = divmod(at, mb_w)
+                    if p_vop:
+                        counts["intra_mb_in_p"] += 1
+                    self._intra_mb(b, vop, at, mbx, mby, cbp, ac_pred, True, head[1], head[2])
+                else:
+                    self._inter_blocks(b, vop, at, cbp)
+            mb += len(heads)
+
+    def _partition_dcs(self, b: _Bits, vop: _Vop, mb: int, mbx: int, mby: int) -> list:
+        """An intra macroblock's six DCs in a data partition: [levels as its
+        coefficients get them back from the stored DC, (plane, grid index,
+        scale, from the top) of each block]."""
+        levels, where = [], []
+        for n in range(6):
+            plane, at, top, scale, pred = self._dc_pred(vop, n, mb, mbx, mby)
+            level = self._dc_level(b, n, mb) + pred
+            if level < 0:
+                raise ValueError(f"corrupt MPEG-4 VOP: a negative intra DC at macroblock {mb}")
+            self._store_dc(vop, plane, at, level, scale)
+            levels.append((vop.dc[plane][at] + (scale >> 1)) // scale)
+            where.append((plane, at, scale, top))
+        return [levels, where]
+
+    # ------------------------------------------------------------ pictures
+
+    def _reconstruct(self, vop: _Vop, rounding: int):
+        """The VOP's planes: every block dequantised and through the IDCT at
+        once, every macroblock's prediction in a few gathers."""
+        vol = self.vol
+        mb_w, mb_h = vol.mb_w, vol.mb_h
+        n_mb = mb_w * mb_h
+        levels = vop.levels
+        if vop.idx:
+            levels.reshape(-1)[np.asarray(vop.idx, np.int64)] = vop.val
+        if vop.intra_at:
+            levels.reshape(-1, 64)[np.asarray(vop.intra_at, np.int64)] = vop.intra_rows
+        intra = np.frombuffer(bytes(vop.mb_kind), np.uint8) == 2
+        res = np.zeros((n_mb, 6, 8, 8), np.int32)
+        work = np.nonzero(vop.coded.any(1))[0]
+        if work.size:
+            lv = levels[work].astype(np.int64)
+            q = np.asarray(vop.mbq, np.int64)[work][:, None, None]
+            iw = intra[work][:, None, None]
+            if vol.quant_type:  # MPEG: by the matrices; coded inter blocks get the mismatch control
+                mag = np.abs(lv)
+                w = np.where(iw, vol.intra_matrix, vol.inter_matrix)
+                deq = np.where(iw, (mag * 2 * q * w) >> 4, ((2 * mag + 1) * 2 * q * w) >> 5)
+                deq = np.where(lv < 0, -deq, np.where(lv > 0, deq, 0))
+                toggle = vop.coded[work] & ~iw[..., 0] & ((deq.sum(-1) & 1) == 0)
+                deq[..., 63] ^= toggle
+            else:  # H.263; an inter level an escape 3 coded is saturated to 12 bits
+                qmul, qadd = 2 * q, (q - 1) | 1
+                deq = np.where(lv > 0, lv * qmul + qadd, np.where(lv < 0, lv * qmul - qadd, 0))
+                if vop.esc3:
+                    at = np.asarray(vop.esc3, np.int64)
+                    rows = np.searchsorted(work, at // 384)
+                    sub = deq.reshape(len(work), -1)
+                    sub[rows, at % 384] = np.clip(sub[rows, at % 384], -2048, 2047)
+            mq = q[:, 0, 0]
+            ys, cs = np.asarray(_Y_SCALE)[mq], np.asarray(_C_SCALE)[mq]
+            deq[:, :4, 0] = np.where(iw[:, :, 0], lv[:, :4, 0] * ys[:, None], deq[:, :4, 0])
+            deq[:, 4:, 0] = np.where(iw[:, :, 0], lv[:, 4:, 0] * cs[:, None], deq[:, 4:, 0])
+            idct = xvid_idct if "xvid_idct" in self._bugs else simple_idct
+            res[work] = idct(deq.reshape(-1, 6, 8, 8))
+        pred_y = np.zeros((n_mb, 16, 16), np.int32)
+        pred_c = np.zeros((n_mb, 2, 8, 8), np.int32)
+        moving = [m for m in range(n_mb) if vop.motion[m] is not None]
+        if moving:
+            refs = (self._past, self._future) if vop.kind == 2 else (self._future, None)
+            count = np.zeros(n_mb, np.int32)
+            for d, ref in enumerate(refs):
+                sel = [m for m in moving if vop.motion[m][0] >> d & 1]
+                if not sel:
+                    continue
+                py, pc = self._predict(ref.planes, np.asarray(sel, np.int64),
+                                       np.asarray([vop.motion[m][1] for m in sel], bool),
+                                       np.asarray([vop.motion[m][2 + d] for m in sel], np.int64),
+                                       rounding if vop.kind == 1 else 0)
+                pred_y[sel] += py
+                pred_c[sel] += pc
+                count[sel] += 1
+            both = count == 2  # B-VOP interpolation: the rounded mean of the two
+            pred_y[both] = (pred_y[both] + 1) >> 1
+            pred_c[both] = (pred_c[both] + 1) >> 1
+        # assemble: intra blocks are their IDCT, the rest prediction plus residual
+        luma = res[:, :4].reshape(n_mb, 2, 2, 8, 8).transpose(0, 1, 3, 2, 4).reshape(n_mb, 16, 16)
+        y = np.clip(pred_y + luma, 0, 255).astype(np.uint8)
+        c = np.clip(pred_c + res[:, 4:], 0, 255).astype(np.uint8)
+        y = y.reshape(mb_h, mb_w, 16, 16).transpose(0, 2, 1, 3).reshape(16 * mb_h, 16 * mb_w)
+        u = c[:, 0].reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3).reshape(8 * mb_h, 8 * mb_w)
+        v = c[:, 1].reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3).reshape(8 * mb_h, 8 * mb_w)
+        return y, u, v
+
+    def _predict(self, planes, sel: np.ndarray, four: np.ndarray, vec: np.ndarray, rounding: int):
+        """(n, 16, 16) luma and (n, 2, 8, 8) chroma predictions of the
+        macroblocks `sel` from a reference's planes: 16x16 or (`four`) four
+        8x8 vectors each, half- or quarter-pel as the VOL says."""
+        vol, counts = self.vol, self.counts
+        mb_w = vol.mb_w
+        if "xvid_edge" in self._bugs:
+            ew, eh = vol.width, vol.height  # libavcodec's edge workaround: the picture's own edge
+            counts["xvid_edge"] += 1
+        else:
+            ew, eh = 16 * mb_w, 16 * vol.mb_h
+        ry, ru, rv = planes[0][:eh, :ew], planes[1][:eh >> 1, :ew >> 1], planes[2][:eh >> 1, :ew >> 1]
+        qpel_chroma_bug = "xvid_qpel_chroma" in self._bugs
+        qp = vol.quarter_sample
+        n = len(sel)
+        mbx, mby = sel % mb_w, sel // mb_w
+        py = np.empty((n, 16, 16), np.int32)
+        pc = np.empty((n, 2, 8, 8), np.int32)
+        shift, frac = (2, 3) if qp else (1, 1)
+        one = np.nonzero(~four)[0]
+        if one.size:
+            mx, my = vec[one, 0, 0], vec[one, 0, 1]
+            sx, sy = 16 * mbx[one] + (mx >> shift), 16 * mby[one] + (my >> shift)
+            if ((sx < 0) | (sy < 0) | (sx + 16 + (mx & frac > 0) > ew) | (sy + 16 + (my & frac > 0) > eh)).any():
+                counts["mv_past_edge"] += 1
+            if qp:
+                py[one] = mc.qpel(ry, sx, sy, mx & 3, my & 3, 16, rounding)
+                if qpel_chroma_bug:
+                    counts["xvid_qpel_chroma"] += 1
+                (cx, cfx), (cy, cfy) = mc.chroma_qpel(mx, qpel_chroma_bug), mc.chroma_qpel(my, qpel_chroma_bug)
+            else:
+                py[one] = mc.halfpel(ry, sx, sy, mx & 1, my & 1, 16, rounding)
+                (cx, cfx), (cy, cfy) = mc.chroma_halfpel(mx), mc.chroma_halfpel(my)
+            for k, ref in enumerate((ru, rv)):
+                pc[one, k] = mc.halfpel(ref, 8 * mbx[one] + cx, 8 * mby[one] + cy, cfx, cfy, 8, rounding)
+        many = np.nonzero(four)[0]
+        if many.size:
+            v = vec[many]
+            mx, my = v[..., 0], v[..., 1]
+            blk = np.arange(4)
+            sx, fx = mc.clip_8x8(16 * mbx[many, None] + 8 * (blk & 1) + (mx >> shift), mx & frac, -16, vol.width, frac)
+            sy, fy = mc.clip_8x8(16 * mby[many, None] + 8 * (blk >> 1) + (my >> shift), my & frac, -16, vol.height,
+                                 frac)
+            if ((sx < 0) | (sy < 0) | (sx + 8 + (fx > 0) > ew) | (sy + 8 + (fy > 0) > eh)).any():
+                counts["mv_past_edge"] += 1
+            predict = mc.qpel if qp else mc.halfpel
+            blocks = predict(ry, sx.ravel(), sy.ravel(), fx.ravel(), fy.ravel(), 8, rounding)
+            py[many] = blocks.reshape(-1, 2, 2, 8, 8).transpose(0, 1, 3, 2, 4).reshape(-1, 16, 16)
+            if qp:  # libavcodec sums the quarter-pel vectors halved toward zero
+                mx, my = np.where(mx < 0, -((-mx) >> 1), mx >> 1), np.where(my < 0, -((-my) >> 1), my >> 1)
+            (cx, cfx), (cy, cfy) = mc.chroma_4mv(mx.sum(1)), mc.chroma_4mv(my.sum(1))
+            csx, cfx = mc.clip_8x8(8 * mbx[many] + cx, cfx, -8, vol.width >> 1, 1)
+            csy, cfy = mc.clip_8x8(8 * mby[many] + cy, cfy, -8, vol.height >> 1, 1)
+            for k, ref in enumerate((ru, rv)):
+                pc[many, k] = mc.halfpel(ref, csx, csy, cfx, cfy, 8, rounding)
+        return py, pc
+
+    def _tcoef(self, b: _Bits, lut, maxes, i: int, scan, base: int, idx, val, block, esc3) -> None:
         """One block's TCOEF events from scan position i + 1: levels into
-        block (intra, quantised) or idx/val (inter, at base)."""
+        block (intra, quantised) or idx/val (inter, at base; `esc3` gets the
+        flat index of each level an escape 3 coded)."""
         counts = self.counts
         lmax, rmax = maxes
         words = b.words
@@ -719,6 +1499,7 @@ class Mpeg4Decoder:
             if e is None:
                 raise ValueError("corrupt MPEG-4 VOP: bad TCOEF code")
             length, last, run, level = e
+            third = False
             if level:
                 p += length
             else:  # escape
@@ -751,6 +1532,7 @@ class Mpeg4Decoder:
                         raise ValueError("corrupt MPEG-4 VOP: an escape-3 level of 0")
                     p += 30
                     counts["escape_3"] += 1
+                    third = True
             b.pos = p
             i += run + 1
             if i > 63:
@@ -760,73 +1542,31 @@ class Mpeg4Decoder:
             else:
                 idx.append(base + scan[i])
                 val.append(level)
+                if third:
+                    esc3.append(base + scan[i])
             if last:
                 return
 
-    def _reconstruct(self, levels, mb_kind, coded, mv_list, q, qmul, qadd, y_scale, c_scale, rounding):
-        vol = self.vol
-        mb_w, mb_h = vol.mb_w, vol.mb_h
-        n_mb = mb_w * mb_h
-        intra = mb_kind == 2
-        # H.263 inverse quantisation, saturated
-        deq = np.where(levels > 0, levels * qmul + qadd, np.where(levels < 0, levels * qmul - qadd, 0))
-        deq[intra, :4, 0] = levels[intra, :4, 0] * y_scale
-        deq[intra, 4:, 0] = levels[intra, 4:, 0] * c_scale
-        np.clip(deq, -2048, 2047, out=deq)
-        work = np.nonzero(coded.any(1))[0]
-        res = np.zeros((n_mb, 6, 8, 8), np.int32)
-        if work.size:
-            res[work] = simple_idct(deq[work].reshape(-1, 6, 8, 8))
-        # motion-compensated prediction of every macroblock that is not intra
-        pred_y = np.zeros((n_mb, 16, 16), np.int32)
-        pred_c = np.zeros((n_mb, 2, 8, 8), np.int32)
-        inter = np.nonzero(~intra)[0]
-        if inter.size:
-            ref_y, ref_u, ref_v = self._ref
-            mv = np.asarray(mv_list, np.int64)[inter]
-            mbx, mby = inter % mb_w, inter // mb_w
-            mx, my = mv[:, 0], mv[:, 1]
-            sx, sy = 16 * mbx + (mx >> 1), 16 * mby + (my >> 1)
-            if ((sx < 0) | (sy < 0) | (sx + 16 + (mx & 1) > 16 * mb_w) | (sy + 16 + (my & 1) > 16 * mb_h)).any():
-                self.counts["mv_past_edge"] += 1
-            pred_y[inter] = _halfpel(ref_y, sx, sy, mx & 1, my & 1, 16, rounding)
-            cdx, cdy = (mx & 1) | ((mx & 2) >> 1), (my & 1) | ((my & 2) >> 1)
-            for k, ref in enumerate((ref_u, ref_v)):
-                pred_c[inter, k] = _halfpel(ref, sx >> 1, sy >> 1, cdx, cdy, 8, rounding)
-        # assemble: intra blocks are their IDCT, the rest prediction plus residual
-        luma = res[:, :4].reshape(n_mb, 2, 2, 8, 8).transpose(0, 1, 3, 2, 4).reshape(n_mb, 16, 16)
-        y = np.clip(pred_y + luma, 0, 255).astype(np.uint8)
-        c = np.clip(pred_c + res[:, 4:], 0, 255).astype(np.uint8)
-        y = y.reshape(mb_h, mb_w, 16, 16).transpose(0, 2, 1, 3).reshape(16 * mb_h, 16 * mb_w)
-        u = c[:, 0].reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3).reshape(8 * mb_h, 8 * mb_w)
-        v = c[:, 1].reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3).reshape(8 * mb_h, 8 * mb_w)
-        return y, u, v
 
-
-def _halfpel(ref: np.ndarray, sx, sy, dx, dy, size: int, rounding: int) -> np.ndarray:
-    """(n, size, size) half-pel predictions from ref at integer (sx, sy) plus
-    half steps (dx, dy), the reference edge-replicated without bound."""
-    h, w = ref.shape
-    ys = np.clip(sy[:, None] + np.arange(size + 1), 0, h - 1)
-    xs = np.clip(sx[:, None] + np.arange(size + 1), 0, w - 1)
-    g = ref[ys[:, :, None], xs[:, None, :]].astype(np.int32)
-    a, r, d, rd = g[:, :size, :size], g[:, :size, 1:], g[:, 1:, :size], g[:, 1:, 1:]
-    dx, dy = dx[:, None, None], dy[:, None, None]
-    out = np.where(dx & dy, (a + r + d + rd + 2 - rounding) >> 2,
-                   np.where(dx, (a + r + 1 - rounding) >> 1, np.where(dy, (a + d + 1 - rounding) >> 1, a)))
-    return out
+_ZERO4 = [(0, 0)] * 4
+_ZERO7 = [0] * 7
 
 
 def decode_packets(decoder: "Mpeg4Decoder", packets, rgb: bool, path):
-    """Each packet's frame through `decoder`, RGB or BGR (packets without a
-    VOP give none); errors name `path`."""
-    for data in packets:
-        try:
-            bgr = decoder.decode(data)
-        except (NotImplementedError, ValueError) as exc:
-            raise type(exc)(f"{path}: {exc}") from exc
-        if bgr is not None:
-            yield np.ascontiguousarray(bgr[..., ::-1]) if rgb else bgr
+    """The frames of `packets` through `decoder` in display order, RGB or
+    BGR, the one held back flushed at the end; errors name `path`."""
+    def frames():
+        for data in packets:
+            yield decoder.decode(data)
+        yield decoder.flush()
+
+    try:
+        for planes in frames():
+            if planes is not None:
+                bgr = yuv420_to_bgr(*planes)
+                yield np.ascontiguousarray(bgr[..., ::-1]) if rgb else bgr
+    except (NotImplementedError, ValueError) as exc:
+        raise type(exc)(f"{path}: {exc}") from exc
 
 
 class Mpeg4Track:
