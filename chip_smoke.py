@@ -5298,9 +5298,11 @@ def phase_formats(report):
 
 MPEG4_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_video"
 MPEG4_DEMO = "mp4v_640x480_30.mp4"  # the committed 640x480 I- and P-VOP fixture the demo runs over
-MPEG4_ROUND_TRIP = 30  # phase 32's seeded 640x480 frames, written to .mp4 by the port and read back
+MPEG4_ROUND_TRIP = 12  # the first of phase 32's seeded 640x480 frames, written to .mp4 by the port and read back
 MPEG4_ASP_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_mpeg4"
 MPEG4_ASP_DEMO = "xvid_asp_640x480.avi"  # the committed 640x480 Xvid file: B-VOPs, quarter-pel and 4MV
+MPEG4_DIVX_DEMO = "divx_packed_640x480.avi"  # the committed 640x480 DivX file: packed B-frames, quarter-pel, 4MV
+MPEG4_H263_CIF = "h263_352x288.avi"  # the committed 352x288 H.263 file: GOB headers
 
 
 def median_s(fn, reps: int = 3) -> float:
@@ -5362,30 +5364,44 @@ def key_inter_decode_s(decoder_type, path: Path) -> dict:
 
 
 def vop_decode_s(path: Path) -> dict:
-    """The host's seconds to decode each VOP of an MPEG-4 file in order and
-    convert the frame it gives to BGR, by VOP type: the median and the
-    count."""
+    """The host's seconds to decode each packet of an MPEG-4 or H.263 file
+    in order and convert the frame it gives to BGR, by the type of the VOP
+    or picture it decodes (a packed B-VOP under the placeholder that decodes
+    it, "B_packed"; an H.263 picture "I_picture", "P_picture"): the median
+    and the count."""
+    from yolo_infer_tpu_torch.data.h263 import H263Decoder
     from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, yuv420_to_bgr
     from yolo_infer_tpu_torch.data.video import open_video
 
     reader = open_video(path)
-    decoder = Mpeg4Decoder(reader.config, reader.fourcc)
+    h263 = reader.codec == "h263"
+    decoder = H263Decoder() if h263 else Mpeg4Decoder(reader.config, reader.fourcc)
     times = {}
     for packet in reader.packets():
-        kind = "IPBS"[packet[packet.index(b"\x00\x00\x01\xb6") + 4] >> 6]
+        packed = decoder.counts["packed_vop"]
         t0 = time.perf_counter()
         planes = decoder.decode(packet)
         if planes is not None:
             yuv420_to_bgr(*planes)
-        times.setdefault(f"{kind}_vop", []).append(time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        if h263:
+            kind = "IP"[packet[4] >> 1 & 1] + "_picture"
+        elif decoder.counts["packed_vop"] > packed:
+            kind = "B_packed"
+        else:
+            kind = "IPBS"[packet[packet.index(b"\x00\x00\x01\xb6") + 4] >> 6] + "_vop"
+        times.setdefault(kind, []).append(seconds)
     return {k: {"median_s": sorted(v)[len(v) // 2], "vops": len(v)} for k, v in times.items()}
 
 
 def phase_mpeg4(report):
-    """MPEG-4 Part 2 video on the card's host (phase 34): the committed
-    fixtures against their manifest, the refused files, a port-written
-    round trip, the batched detect video demo over a committed P-VOP file
-    (A, B) with MP4 output, and the host's decode and encode seconds."""
+    """MPEG-4 Part 2 and H.263 video on the card's host (phase 34): the
+    committed fixtures against their manifests (Simple Profile; Advanced
+    Simple Profile, DivX, old libavcodec builds and H.263), the refused
+    files, a port-written round trip, the batched detect video demo (A, B)
+    with MP4 output over a committed P-VOP file, the Xvid ASP file and the
+    packed DivX file, and the host's decode seconds by VOP or picture type
+    and encode seconds."""
     import hashlib
 
     from yolo_infer_tpu_torch.core.model import YOLO11Model
@@ -5483,6 +5499,23 @@ def phase_mpeg4(report):
             failures.append("the ASP demo's frames differ from the manifest's")
         out["asp_demo"] = ran
         out["asp_seconds"] = time.perf_counter() - t_asp
+        # --- DivX's packed B-frames and H.263 (their fixtures are in the ASP manifest, checked above): the
+        # host's decode seconds by picture type, and the demo over the packed DivX file
+        t_divx = time.perf_counter()
+        out["divx_host_decode_s_640x480"] = vop_decode_s(MPEG4_ASP_FIXTURES / MPEG4_DIVX_DEMO)
+        out["h263_host_decode_s_352x288"] = vop_decode_s(MPEG4_ASP_FIXTURES / MPEG4_H263_CIF)
+        emit({"mpeg4_divx_decode_s_640x480": out["divx_host_decode_s_640x480"], "card": out["card"]})
+        emit({"h263_decode_s_352x288": out["h263_host_decode_s_352x288"], "card": out["card"]})
+        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+        divx_src = MPEG4_ASP_FIXTURES / MPEG4_DIVX_DEMO
+        n = asp["files"][MPEG4_DIVX_DEMO]["info"]["frame_count"]
+        ran, drawn = check_video_demo(demo, divx_src, root, ".mp4", n, "mpeg4_divx", "mpeg4_divx_video", failures)
+        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+        ran["decoded_as_manifest"] = hashes == asp["files"][MPEG4_DIVX_DEMO]["frames"]
+        if not ran["decoded_as_manifest"]:
+            failures.append("the packed DivX demo's frames differ from the manifest's")
+        out["divx_demo"] = ran
+        out["divx_seconds"] = time.perf_counter() - t_divx
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if failures:

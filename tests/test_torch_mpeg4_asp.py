@@ -1,19 +1,22 @@
-"""MPEG-4 Part 2 Advanced Simple Profile in the port (`data/mpeg4.py`, `data/mpeg4_motion.py`) against OpenCV,
-the JAX package and libavcodec.
+"""MPEG-4 Part 2 Advanced Simple Profile, DivX and old libavcodec streams, and H.263 in the port (`data/mpeg4.py`,
+`data/mpeg4_motion.py`, `data/h263.py`) against OpenCV, the JAX package and libavcodec.
 
 The fixtures in `tests/torch_mpeg4/` come from libavcodec's own `mpeg4`
-encoder through ctypes (`tests/torch_mpeg4/make_fixtures.py`): B-VOPs,
-4MV, quarter-pel, MPEG quantisation, dquant, video packets and data
-partitioning, loaded matrices, the header extension and a not-coded VOP
-spliced in, and Xvid user data (Xvid's IDCT and its bug workarounds) in
-AVI, MP4 and Matroska. The manifest holds the sha256 of every frame
-OpenCV's FFmpeg backend decodes, which the JAX package's `load_video`
-returns; libavcodec's decoder, driven through ctypes from the copy OpenCV
-bundles, gives the Y, U and V planes (skipped where it is missing). The
-demo test holds the frames each demo drew on (equal) and what it drew
-(detections within 1e-2 px and 1e-5, as `tests/test_torch_mpeg4.py`) over
-the first `DEMO_FRAMES` frames of the 640x480 Xvid file, both demos
-serving the golden detect model from one fused checkpoint.
+and `h263` encoders through ctypes (`tests/torch_mpeg4/make_fixtures.py`):
+B-VOPs, 4MV, quarter-pel, MPEG quantisation, dquant, video packets and
+data partitioning, loaded matrices, the header extension and a not-coded
+VOP spliced in, Xvid, DivX and old libavcodec user data (their bug
+workarounds; DivX's packed B-frames) in AVI, MP4 and Matroska, H.263 in
+AVI and 3GP and as `cv2.VideoWriter('H263')` writes it in AVI and MOV, and
+the short video header under an MPEG-4 tag. The manifest holds the sha256
+of every frame OpenCV's FFmpeg backend decodes, which the JAX package's
+`load_video` returns; libavcodec's decoder, driven through ctypes from the
+copy OpenCV bundles, gives the Y, U and V planes (skipped where it is
+missing). The demo tests hold the frames each demo drew on (equal) and
+what it drew (detections within 1e-2 px and 1e-5, as
+`tests/test_torch_mpeg4.py`) over the first `DEMO_FRAMES` frames of the
+640x480 Xvid file and over a packed DivX file, both demos serving the
+golden detect model from one fused checkpoint.
 """
 
 import hashlib
@@ -38,6 +41,7 @@ import libavcodec  # noqa: E402
 from test_torch_mpeg4 import cv2_packets, run_demos  # noqa: E402
 from test_torch_mpeg4 import ckpts  # noqa: E402,F401  (the module-scoped fixture)
 from yolo_infer_tpu.data import loader as jax_loader  # noqa: E402
+from yolo_infer_tpu_torch.data.h263 import H263Decoder  # noqa: E402
 from yolo_infer_tpu_torch.data.loader import get_video_info, load_video  # noqa: E402
 from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, simple_idct, xvid_idct, yuv420_to_bgr  # noqa: E402
 from yolo_infer_tpu_torch.data.video import open_video  # noqa: E402
@@ -47,11 +51,15 @@ VIDEOS = list(MANIFEST["files"])
 REFUSED = list(MANIFEST["raises"])
 DEMO = "xvid_asp_640x480.avi"
 DEMO_FRAMES = 8
-# every Advanced Simple Profile case the decoder's docstring lists as decoded
+PACKED_DEMO = "divx_packed_64x48.avi"
+# every Advanced Simple Profile case the decoder's docstring lists as decoded, and every libavcodec
+# workaround taken for DivX and old libavcodec builds, and the short video header
 CASES = ("b_vop", "b_direct", "b_direct_skip", "b_direct_delta", "b_direct_4mv", "b_forward", "b_backward",
          "b_interpolate", "b_colocated_skip", "inter4v_mb", "qpel_vop", "mpeg_quant_vop", "loaded_matrix_vop",
          "dquant_mb", "video_packet", "hec", "partitioned_vop", "partition_packet", "not_coded_vop",
-         "xvid_idct_vop", "xvid_edge", "xvid_dc_clip", "xvid_qpel_chroma")
+         "xvid_idct_vop", "xvid_edge", "xvid_dc_clip", "xvid_qpel_chroma", "packed_vop", "divx_qpel_chroma",
+         "divx_qpel_chroma2", "divx_edge", "divx_hpel_chroma", "lavc_std_qpel", "lavc_direct_blocksize", "lavc_edge",
+         "lavc_dc_clip", "lavc_iedge", "short_header")
 _DECODED = {}
 
 
@@ -60,7 +68,7 @@ def decoded(name):
     if name not in _DECODED:
         reader = open_video(FIXTURES / name)
         packets = list(reader.packets())
-        decoder = Mpeg4Decoder(reader.config, reader.fourcc)
+        decoder = H263Decoder() if reader.codec == "h263" else Mpeg4Decoder(reader.config, reader.fourcc)
         planes = [decoder.decode(p) for p in packets] + [decoder.flush()]
         _DECODED[name] = [p for p in planes if p is not None], packets, reader, Counter(decoder.counts)
     return _DECODED[name]
@@ -71,7 +79,7 @@ def test_fixture_frames_match_the_manifest(name):
     want = MANIFEST["files"][name]
     planes, _, reader, counts = decoded(name)
     assert [hashlib.sha256(yuv420_to_bgr(*p).tobytes()).hexdigest() for p in planes] == want["frames"]
-    assert list(yuv420_to_bgr(*planes[0]).shape) == want["shape"]
+    assert (list(yuv420_to_bgr(*planes[0]).shape) if planes else None) == want["shape"]
     assert reader.info() == want["info"]
     assert {k: counts[k] for k in want["reach"] if not counts[k]} == {}
 
@@ -104,9 +112,12 @@ def test_demuxer_packets_equal_opencv_raw_packets(name):
 @pytest.mark.parametrize("name", VIDEOS)
 def test_planes_equal_libavcodec(name):
     """Y, U and V of every output frame, in display order, equal libavcodec's
-    decoder's on the same packets under the same codec tag."""
+    decoder's (`h263` for an H.263 track, else `mpeg4`) on the same packets
+    under the same codec tag, a refused packet ending the input as it ends
+    OpenCV's."""
     planes, packets, reader, _ = decoded(name)
-    want = libavcodec.decode(packets, reader.config, reader.fourcc.encode() if reader.fourcc else None)
+    want = libavcodec.decode(packets, reader.config, reader.fourcc.encode() if reader.fourcc else None,
+                             codec_name="h263" if reader.codec == "h263" else "mpeg4", stop_on_error=True)
     assert len(planes) == len(want)
     for got, ref in zip(planes, want):
         assert all(np.array_equal(a, b) for a, b in zip(got, ref))
@@ -143,7 +154,8 @@ def test_idct_equals_libavcodec(algo, port_idct, limit):
 def test_every_asp_case_is_met_across_the_fixtures():
     total = Counter()
     for name in VIDEOS:
-        total.update(decoded(name)[3])
+        if open_video(FIXTURES / name).codec == "mpeg4":
+            total.update(decoded(name)[3])
     assert {case: total[case] for case in CASES if not total[case]} == {}
 
 
@@ -182,6 +194,22 @@ def test_detect_video_on_xvid_asp_matches_the_jax_demo(fused_ckpts, tmp_path, mo
         fused_ckpts, tmp_path, monkeypatch, FIXTURES / DEMO, "detect", "draw_detections", batch_size=4,
         max_frames=DEMO_FRAMES)
     assert got["total_frames"] == want["total_frames"] == DEMO_FRAMES == len(draws) == len(jax_draws) == len(written)
+    assert got["total_detections"] == want["total_detections"]
+    assert got["video_info"] == want["video_info"]
+    for (frame, (boxes, scores, classes, _), out), (jframe, (jboxes, jscores, jclasses, _), _), w in zip(
+            draws, jax_draws, written):
+        assert np.array_equal(frame, jframe) and np.array_equal(w, out[..., ::-1])
+        np.testing.assert_array_equal(classes, jclasses)
+        np.testing.assert_allclose(boxes, jboxes, atol=1e-2, rtol=0)
+        np.testing.assert_allclose(scores, jscores, atol=1e-5, rtol=0)
+
+
+def test_detect_video_on_packed_divx_matches_the_jax_demo(fused_ckpts, tmp_path, monkeypatch):
+    """The packed B-frames come out in display order through both demos."""
+    n = MANIFEST["files"][PACKED_DEMO]["info"]["frame_count"]
+    (want, jax_draws, _), (got, draws, written) = run_demos(
+        fused_ckpts, tmp_path, monkeypatch, FIXTURES / PACKED_DEMO, "detect", "draw_detections", batch_size=4)
+    assert got["total_frames"] == want["total_frames"] == n == len(draws) == len(jax_draws) == len(written)
     assert got["total_detections"] == want["total_detections"]
     assert got["video_info"] == want["video_info"]
     for (frame, (boxes, scores, classes, _), out), (jframe, (jboxes, jscores, jclasses, _), _), w in zip(

@@ -1,16 +1,19 @@
-"""Time the port's MPEG-4 Simple Profile decode in one or more checkouts on this host.
+"""Time the port's MPEG-4 decode in one or more checkouts on this host.
 
     python tests/torch_mpeg4/decode_speed.py ROOT [ROOT ...]
 
 For each ROOT in the order given (a checkout of the repo; name two
 checkouts as A B B A to compare two versions on one host), a fresh
-process imports `yolo_infer_tpu_torch` from ROOT and reads the committed
-640x480 mp4v file (`tests/torch_video/mp4v_640x480_30.mp4`: 2 I-VOPs, 22
-P-VOPs, one VOP a frame) through `open_video(path).read(rgb=False)` three
-times. Each frame's seconds cover its VOP's decode and the conversion to
-BGR. Prints one JSON line per ROOT: the median seconds of an I-VOP and of a
-P-VOP over the three passes, the whole file's frames/s (best pass), and
-the host's `nvidia-smi` name and power limit where there is a card.
+process imports `yolo_infer_tpu_torch` from ROOT and decodes two committed
+files three times each, packet by packet through `Mpeg4Decoder.decode`
+(plus `yuv420_to_bgr` of the frame a packet gives): the 640x480 Simple
+Profile mp4v file (`tests/torch_video/mp4v_640x480_30.mp4`: 2 I-VOPs, 22
+P-VOPs) and the 640x480 Xvid Advanced Simple Profile file
+(`tests/torch_mpeg4/xvid_asp_640x480.avi`: 3 I-, 6 P-, 15 B-VOPs,
+quarter-pel, 4MV). Prints one JSON line per ROOT: for each file the median
+seconds of a packet by its VOP type over the three passes and the whole
+file's packets/s (best pass), and the host's `nvidia-smi` name and power
+limit where there is a card.
 """
 
 import json
@@ -19,31 +22,38 @@ import sys
 import time
 from pathlib import Path
 
-FILE = Path("tests") / "torch_video" / "mp4v_640x480_30.mp4"
+FILES = {"sp": Path("tests") / "torch_video" / "mp4v_640x480_30.mp4",
+         "asp": Path("tests") / "torch_mpeg4" / "xvid_asp_640x480.avi"}
 PASSES = 3
 
 
 def measure(root: Path) -> dict:
-    """This process's timings of the file, with the package from `root`."""
+    """This process's timings of the files, with the package from `root`."""
     sys.path.insert(0, str(root))
+    from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, yuv420_to_bgr
     from yolo_infer_tpu_torch.data.video import open_video
 
-    path = root / FILE
-    kinds = ["IPBS"[p[p.index(b"\x00\x00\x01\xb6") + 4] >> 6] for p in open_video(path).packets()]
-    times = {"I": [], "P": []}
-    passes = []
-    for _ in range(PASSES):
-        frames = open_video(path).read(rgb=False)
-        start = t0 = time.perf_counter()
-        for kind in kinds:
-            next(frames)
-            t1 = time.perf_counter()
-            times[kind].append(t1 - t0)
-            t0 = t1
-        passes.append(time.perf_counter() - start)
-    return {"root": str(root), "i_vop_s": sorted(times["I"])[len(times["I"]) // 2],
-            "p_vop_s": sorted(times["P"])[len(times["P"]) // 2], "vops": {k: len(v) // PASSES for k, v in times.items()},
-            "file_frames_per_s": len(kinds) / min(passes)}
+    out = {"root": str(root)}
+    for key, name in FILES.items():
+        reader = open_video(root / name)
+        packets = list(reader.packets())
+        kinds = ["IPBS"[p[p.index(b"\x00\x00\x01\xb6") + 4] >> 6] for p in packets]
+        times = {k: [] for k in sorted(set(kinds))}
+        passes = []
+        for _ in range(PASSES):
+            decoder = Mpeg4Decoder(reader.config, reader.fourcc)
+            start = time.perf_counter()
+            for kind, packet in zip(kinds, packets):
+                t0 = time.perf_counter()
+                planes = decoder.decode(packet)
+                if planes is not None:
+                    yuv420_to_bgr(*planes)
+                times[kind].append(time.perf_counter() - t0)
+            passes.append(time.perf_counter() - start)
+        out[key] = {**{f"{k.lower()}_vop_s": sorted(v)[len(v) // 2] for k, v in times.items()},
+                    "vops": {k: len(v) // PASSES for k, v in times.items()},
+                    "file_packets_per_s": len(packets) / min(passes)}
+    return out
 
 
 def card() -> str:

@@ -1,4 +1,4 @@
-"""libavcodec's MPEG-4 Part 2 encoder and decoder and libavformat's muxers through ctypes, from the copies OpenCV's wheel bundles.
+"""libavcodec's MPEG-4 Part 2 and H.263 encoders and decoders, a bitstream filter and libavformat's muxers through ctypes, from the copies OpenCV's wheel bundles.
 
 OpenCV's FFmpeg writer drives the `mpeg4` encoder at one setting (no
 B-VOPs, half-pel, H.263 quantisation, no video packets). The fixture maker
@@ -12,7 +12,14 @@ asked (libavcodec takes Xvid's IDCT for an Xvid tag without encoder user
 data). `idct` runs the IDCT the decoder picks (`auto`: the simple one, or
 `xvid`) on blocks through the `AVDCT` API. `mux` writes packets through libavformat's own MP4 or Matroska
 muxer, so that the `ctts`, the edit list and the block timestamps of a
-B-VOP stream are FFmpeg's own (bit-exact muxing: the same bytes each run).
+B-VOP stream are FFmpeg's own (bit-exact muxing: the same bytes each run),
+or through its 3GP muxer. `encode` and
+`decode` take the codec by name: `mpeg4`, `h263` (H.263 baseline, the
+five source formats; `ps` gives GOB headers, `flags=+mv4` four-vector
+macroblocks without the annex flag, `obmc` annex F, which the port
+refuses) or `h263p` (H.263+, refused). `unpack_bframes` runs the
+`mpeg4_unpack_bframes` bitstream filter over packets (DivX's packed
+B-frames split, one VOP a packet).
 
 The structure offsets used are those of the bundled build (libavcodec 62,
 libavutil 60, libavformat 62); `available()` checks them and is False
@@ -27,6 +34,8 @@ import numpy as np
 
 AV_PIX_FMT_YUV420P = 0
 AV_CODEC_ID_MPEG4 = 12
+AV_CODEC_ID_H263 = 4
+AV_CODEC_ID_H263P = 19
 AV_NOPTS = -(1 << 63)
 EAGAIN = -11
 AVERROR_EOF = -0x20464F45  # FFERRTAG('E','O','F',' ')
@@ -41,6 +50,9 @@ _PK_PTS, _PK_DTS, _PK_DATA, _PK_SIZE, _PK_STREAM, _PK_FLAGS, _PK_DURATION = 8, 1
 _ST_INDEX, _ST_PAR, _ST_TB = 8, 16, 32
 _FMT_PB = 32
 _PAR_EXTRA, _PAR_EXTRA_SIZE = 16, 24
+_PAR_ID = 4
+_CODEC_ID = 20  # AVCodec: name, long_name, type, id
+_BSF_PAR_IN, _BSF_PAR_OUT = 24, 32  # AVBSFContext: av_class, filter, priv_data, par_in, par_out
 
 
 def _library():
@@ -60,7 +72,7 @@ def _library():
         return None
     vp = ctypes.c_void_p
     for lib, names in ((libs["avcodec"], ("avcodec_find_encoder_by_name", "avcodec_find_decoder_by_name",
-                                         "avcodec_alloc_context3", "av_packet_alloc")),
+                                         "avcodec_alloc_context3", "av_packet_alloc", "av_bsf_get_by_name")),
                        (libs["avutil"], ("av_frame_alloc",)),
                        (libs["avformat"], ("avformat_new_stream",))):
         for name in names:
@@ -111,11 +123,14 @@ class Encoded:
 
 
 def encode(frames: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], w: int, h: int, fps: Tuple[int, int] = (25, 1),
-           global_header: bool = False, **options) -> Encoded:
-    """The `mpeg4` encoder over I420 frames ((Y, U, V) uint8 planes of
-    (h, w) and (h/2, ceil(w/2))), with encoder options by name."""
+           global_header: bool = False, codec_name: str = "mpeg4", **options) -> Encoded:
+    """The `codec_name` encoder (`mpeg4`, `h263`, `h263p`) over I420 frames
+    ((Y, U, V) uint8 planes of (h, w) and (h/2, ceil(w/2))), with encoder
+    options by name."""
     codec, util = _LIBS["avcodec"], _LIBS["avutil"]
-    enc = codec.avcodec_find_encoder_by_name(b"mpeg4")
+    enc = codec.avcodec_find_encoder_by_name(codec_name.encode())
+    if not enc:
+        raise RuntimeError(f"no {codec_name} encoder")
     ctx = codec.avcodec_alloc_context3(ctypes.c_void_p(enc))
     flags = str(options.pop("flags", ""))
     if global_header:
@@ -124,7 +139,7 @@ def encode(frames: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], w: int, 
             **({"flags": flags} if flags else {}), **options}
     _set_options(ctx, opts)
     if codec.avcodec_open2(ctypes.c_void_p(ctx), ctypes.c_void_p(enc), None):
-        raise RuntimeError(f"avcodec_open2 refused the mpeg4 encoder with {opts}")
+        raise RuntimeError(f"avcodec_open2 refused the {codec_name} encoder with {opts}")
     frame = util.av_frame_alloc()
     pkt = codec.av_packet_alloc()
     packets = []
@@ -163,16 +178,21 @@ def encode(frames: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], w: int, 
     return Encoded(packets, extra, (fps[1], fps[0]), p)
 
 
-def decode(packets: Sequence[bytes], extradata: bytes = b"", codec_tag: Optional[bytes] = None, **options
+def decode(packets: Sequence[bytes], extradata: bytes = b"", codec_tag: Optional[bytes] = None,
+           codec_name: str = "mpeg4", stop_on_error: bool = False, **options
            ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """(Y, U, V) of each frame the `mpeg4` decoder outputs for `packets`
-    (in decoding order), the delayed frames drained at the end, as
-    OpenCV's FFmpeg backend drains them; `codec_tag` is the container's
-    fourcc, `options` decoder options by name."""
+    """(Y, U, V) of each frame the `codec_name` decoder (`mpeg4`, `h263`)
+    outputs for `packets` (in decoding order), the delayed frames drained
+    at the end, as OpenCV's FFmpeg backend drains them; `codec_tag` is the
+    container's fourcc, `options` decoder options by name. An empty packet
+    is not sent (OpenCV's reader skips it). A packet the decoder refuses
+    raises, or with `stop_on_error` ends the input, as it ends OpenCV's
+    reading."""
     codec, util = _LIBS["avcodec"], _LIBS["avutil"]
-    dec = codec.avcodec_find_decoder_by_name(b"mpeg4")
+    dec = codec.avcodec_find_decoder_by_name(codec_name.encode())
+    codec_id = _at(dec, ctypes.c_int, _CODEC_ID).value
     ctx = codec.avcodec_alloc_context3(ctypes.c_void_p(dec))
-    if _at(ctx, ctypes.c_int, _CTX_ID).value != AV_CODEC_ID_MPEG4:
+    if _at(ctx, ctypes.c_int, _CTX_ID).value != codec_id:
         raise RuntimeError("unexpected AVCodecContext layout")
     if codec_tag is not None:
         _at(ctx, ctypes.c_uint32, _CTX_TAG).value = int.from_bytes(codec_tag, "little")
@@ -182,10 +202,10 @@ def decode(packets: Sequence[bytes], extradata: bytes = b"", codec_tag: Optional
         buf.restype = ctypes.c_void_p
         keep = buf(len(extradata) + 64)
         ctypes.memmove(keep, extradata, len(extradata))
-        _set_extradata(ctx, keep, len(extradata))
+        _set_extradata(ctx, keep, len(extradata), codec_id)
     _set_options(ctx, {"threads": 1, **options})
     if codec.avcodec_open2(ctypes.c_void_p(ctx), ctypes.c_void_p(dec), None):
-        raise RuntimeError("avcodec_open2 refused the mpeg4 decoder")
+        raise RuntimeError(f"avcodec_open2 refused the {codec_name} decoder")
     frame = util.av_frame_alloc()
     pkt = codec.av_packet_alloc()
     out = []
@@ -204,11 +224,15 @@ def decode(packets: Sequence[bytes], extradata: bytes = b"", codec_tag: Optional
 
     try:
         for data in packets:
+            if not data:
+                continue
             buf = ctypes.create_string_buffer(bytes(data) + bytes(64), len(data) + 64)
             _at(pkt, ctypes.c_void_p, _PK_DATA).value = ctypes.addressof(buf)
             _at(pkt, ctypes.c_int, _PK_SIZE).value = len(data)
             ret = codec.avcodec_send_packet(ctypes.c_void_p(ctx), ctypes.c_void_p(pkt))
             if ret and ret != EAGAIN:
+                if stop_on_error:
+                    break
                 raise ValueError(f"libavcodec refused a packet ({ret})")
             drain()
         codec.avcodec_send_packet(ctypes.c_void_p(ctx), None)
@@ -221,14 +245,14 @@ def decode(packets: Sequence[bytes], extradata: bytes = b"", codec_tag: Optional
     return out
 
 
-def _set_extradata(ctx: int, buf: int, size: int) -> None:
+def _set_extradata(ctx: int, buf: int, size: int, codec_id: int = AV_CODEC_ID_MPEG4) -> None:
     """AVCodecContext.extradata / extradata_size, found by their neighbours'
     layout in this build: set through a parameters struct."""
     codec = _LIBS["avcodec"]
     codec.avcodec_parameters_alloc.restype = ctypes.c_void_p
     p = codec.avcodec_parameters_alloc()
     _at(p, ctypes.c_int, 0).value = 0  # AVMEDIA_TYPE_VIDEO
-    _at(p, ctypes.c_int, 4).value = AV_CODEC_ID_MPEG4
+    _at(p, ctypes.c_int, _PAR_ID).value = codec_id
     _at(p, ctypes.c_void_p, _PAR_EXTRA).value = buf
     _at(p, ctypes.c_int, _PAR_EXTRA_SIZE).value = size
     codec.avcodec_parameters_to_context(ctypes.c_void_p(ctx), ctypes.c_void_p(p))
@@ -239,7 +263,8 @@ def _set_extradata(ctx: int, buf: int, size: int) -> None:
 
 def mux(path: Path, encoded: Encoded, format_name: str) -> None:
     """Write `encoded`'s packets with libavformat's `format_name` muxer
-    ("mp4", "matroska"), each packet's pts and dts from the encoder."""
+    ("mp4", "matroska", "3gp"), each packet's pts and dts from the encoder,
+    under the muxer's own tag for the codec."""
     fmt, codec = _LIBS["avformat"], _LIBS["avcodec"]
     oc = ctypes.c_void_p()
     if fmt.avformat_alloc_output_context2(ctypes.byref(oc), None, format_name.encode(), str(path).encode()):
@@ -279,6 +304,52 @@ def mux(path: Path, encoded: Encoded, format_name: str) -> None:
         codec.av_packet_free(ctypes.byref(ctypes.c_void_p(pkt)))
         fmt.avio_closep(ctypes.byref(pb))
         fmt.avformat_free_context(oc)
+
+
+def unpack_bframes(packets: Sequence[bytes], extradata: bytes = b"") -> Tuple[List[bytes], bytes]:
+    """The `mpeg4_unpack_bframes` bitstream filter over MPEG-4 `packets` (in
+    file order, an empty one passed as it is): the packets it gives and its
+    extradata (the DivX user data's trailing 'p' removed)."""
+    codec = _LIBS["avcodec"]
+    bsf = codec.av_bsf_get_by_name(b"mpeg4_unpack_bframes")
+    ctx = ctypes.c_void_p()
+    if not bsf or codec.av_bsf_alloc(ctypes.c_void_p(bsf), ctypes.byref(ctx)):
+        raise RuntimeError("no mpeg4_unpack_bframes filter")
+    par_in = _at(ctx.value, ctypes.c_void_p, _BSF_PAR_IN).value
+    _at(par_in, ctypes.c_int, _PAR_ID).value = AV_CODEC_ID_MPEG4
+    if extradata:
+        util = _LIBS["avutil"]
+        util.av_mallocz.restype = ctypes.c_void_p
+        buf = util.av_mallocz(len(extradata) + 64)
+        ctypes.memmove(buf, extradata, len(extradata))
+        _at(par_in, ctypes.c_void_p, _PAR_EXTRA).value = buf
+        _at(par_in, ctypes.c_int, _PAR_EXTRA_SIZE).value = len(extradata)
+    pkt = codec.av_packet_alloc()
+    out = []
+    try:
+        if codec.av_bsf_init(ctx):
+            raise RuntimeError("av_bsf_init refused mpeg4_unpack_bframes")
+        par_out = _at(ctx.value, ctypes.c_void_p, _BSF_PAR_OUT).value
+        size = _at(par_out, ctypes.c_int, _PAR_EXTRA_SIZE).value
+        extra = ctypes.string_at(_at(par_out, ctypes.c_void_p, _PAR_EXTRA).value, size) if size else b""
+
+        def drain():
+            while codec.av_bsf_receive_packet(ctx, ctypes.c_void_p(pkt)) == 0:
+                out.append(_packet(pkt)[0])
+                codec.av_packet_unref(ctypes.c_void_p(pkt))
+
+        for data in packets:
+            codec.av_new_packet(ctypes.c_void_p(pkt), len(data))
+            ctypes.memmove(_at(pkt, ctypes.c_void_p, _PK_DATA).value, data, len(data))
+            if codec.av_bsf_send_packet(ctx, ctypes.c_void_p(pkt)):
+                raise RuntimeError("av_bsf_send_packet failed")
+            drain()
+        codec.av_bsf_send_packet(ctx, None)
+        drain()
+    finally:
+        codec.av_packet_free(ctypes.byref(ctypes.c_void_p(pkt)))
+        codec.av_bsf_free(ctypes.byref(ctx))
+    return out, extra
 
 
 def idct(blocks: np.ndarray, algo: str = "auto") -> np.ndarray:

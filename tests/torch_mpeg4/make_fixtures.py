@@ -1,4 +1,4 @@
-"""Write the MPEG-4 Advanced Simple Profile fixtures of the port's decoder (`data/mpeg4.py`) and their manifest.
+"""Write the MPEG-4 Part 2 and H.263 fixtures of the port's decoders (`data/mpeg4.py`, `data/h263.py`) and their manifest.
 
     python tests/torch_mpeg4/make_fixtures.py
 
@@ -6,11 +6,15 @@ Writes small video files beside this script and `manifest.json`: for each
 file the tool that made it, `get_video_info` as OpenCV reports it (the JAX
 package's `yolo_infer_tpu.data.loader.get_video_info`), the sha256 and
 shape of every frame `cv2.VideoCapture(path)` (the FFmpeg backend) decodes
-(BGR), and the decoder tallies (`Mpeg4Decoder.counts`) the file must
-reach; under "raises", the files the port refuses and what it raises.
-Every stream comes from libavcodec's own `mpeg4` encoder through ctypes
-(`libavcodec.py`), over `tests/torch_video/make_fixtures.py scene`
-(seeded: it moves, so that 4MV, quarter-pel and direct mode are chosen):
+(BGR), the decoder tallies (`Mpeg4Decoder.counts`) the file must reach
+and, for an MPEG-4 file that takes libavcodec's bug workarounds, whether
+its frames change when the port leaves each out
+(`workarounds_change_frames`); under "raises", the files the port refuses
+and what it raises. Every stream comes from libavcodec's own `mpeg4`,
+`h263` or `h263p` encoder through ctypes (`libavcodec.py`), or from
+`cv2.VideoWriter`, over `tests/torch_video/make_fixtures.py scene`
+(seeded: it moves, so that 4MV, quarter-pel and direct mode are chosen;
+`smooth` blurs it where the bytes matter):
 
   lavc     encoder options by name: B-VOPs (`bf`), 4MV and quarter-pel
            (`flags=+mv4+qpel`), MPEG quantisation (`mpeg_quant`), an
@@ -31,14 +35,27 @@ Every stream comes from libavcodec's own `mpeg4` encoder through ctypes
            between quantisers), its user data naming Xvid builds 1 and 64 (libavcodec then takes
            Xvid's IDCT and, at build 1, its edge, DC-clip and quarter-pel
            chroma workarounds); the 640x480 Xvid file is the video demo's
-           input on the card (`chip_smoke.py mpeg4`)
-  refused  a DivX (packed B-frames) or old libavcodec build in the user
-           data, a VOL with reversible VLC or sprites, and a short (H.263)
-           video header
+           input on the card (`chip_smoke.py mpeg4`); DivX user data with
+           its B-VOPs packed as DivX writes them (`pack_divx`: a P- and a
+           B-VOP in one chunk, an N-VOP placeholder after), with and
+           without the 'p', DivX 6, a DivX 4 VOL (`divx4_vol`) under a
+           `DIVX` tag, and old libavcodec builds, one of each workaround
+           range (white blocks moving at a width that is not a multiple of
+           16); the 640x480 packed DivX file is the card's second demo
+  h263     the `h263` encoder at 128x96, 176x144 (in a 3GP by
+           libavformat's muxer) and 352x288, with and without GOB headers
+           (`ps`), at several quantisers, dquant and `+mv4`;
+           `cv2.VideoWriter('H263')`'s own AVI and MOV; an `h263` stream
+           under an `FMP4` tag (the short video header: OpenCV reads no
+           frame of it)
+  refused  a VOL with reversible VLC or sprites, H.263+ (the `h263p`
+           encoder) and H.263's annex F (the `h263` encoder's `obmc`)
 
 `tests/test_torch_mpeg4_asp.py` holds the port to the manifest, to the
-JAX package and to libavcodec's decoder; `chip_smoke.py mpeg4` holds it to
-the manifest on the card's host without OpenCV.
+JAX package and to libavcodec's decoders; `tests/test_torch_mpeg4_divx.py`
+and `tests/test_torch_h263.py` hold the workaround effects, packing and
+H.263 cases; `chip_smoke.py mpeg4` holds it to the manifest on the card's
+host without OpenCV.
 """
 
 import hashlib
@@ -68,6 +85,9 @@ ASP = dict(bf=2, flags="+mv4+qpel", mpeg_quant=1, p_mask=0.5, lumi_mask=0.5, tcp
            dark_mask=0.5, ps=300)
 DEMO = "xvid_asp_640x480.avi"
 DARK = "lavc_dark_4mv_64x48.avi"
+DIVX_DEMO = "divx_packed_640x480.avi"  # the packed DivX demo input on the card
+DIVX_DEMO_FRAMES = 12
+H263_CIF = "h263_352x288.avi"
 # a custom intra matrix (64 values) and a non-intra one cut short by a 0 (its last value repeats)
 INTRA_MATRIX = [8] + [12 + (i * 7) % 29 for i in range(1, 64)]
 INTER_MATRIX = [16, 18, 20, 22, 24, 26, 28, 30, 32, 34, 36, 38]
@@ -341,6 +361,84 @@ def with_vol_bit(packets, name):
     return out
 
 
+def vop_kind(packet: bytes) -> int:
+    """The coding type of a packet's first VOP (0 I, 1 P, 2 B)."""
+    return next(packet[s] >> 6 for c, s, _ in start_codes(packet) if c == VOP_START)
+
+
+def nvop(packet: bytes, vol) -> bytes:
+    """DivX's placeholder: a not-coded P-VOP with the time of the packet's VOP."""
+    (code, start, end), = [u for u in start_codes(packet) if u[0] == VOP_START][:1]
+    f = vop_fields(packet[start:end], vol)
+    bits = "01" + "1" * f["seconds"] + "0" + "1" + format(f["increment"], f"0{vol.time_bits}b") + "1" + "0"
+    return b"\x00\x00\x01\xb6" + to_bytes(stuffed(bits))
+
+
+def pack_divx(packets):
+    """Decoding-order packets packed as DivX 5 writes B-frames: a reference
+    followed by B-VOPs shares its chunk with the first of them, any further
+    B-VOP has a chunk of its own, then an N-VOP placeholder (so each frame
+    keeps one chunk)."""
+    vol = first_vol(packets)
+    out, i = [], 0
+    while i < len(packets):
+        ref, i = packets[i], i + 1
+        bs = []
+        while i < len(packets) and vop_kind(packets[i]) == 2:
+            bs.append(packets[i])
+            i += 1
+        if not bs:
+            out.append(ref)
+            continue
+        out += [ref + bs[0]] + bs[1:] + [nvop(ref, vol)]
+    return out
+
+
+def divx4_vol(packets):
+    """Every VOL rewritten as DivX 4 writes it: object type 0 and no
+    vol_control_parameters (libavcodec then reads a `DIVX` tag as DivX 4)."""
+    out = []
+    for p in packets:
+        parts = []
+        for code, unit in units(p):
+            if VOL_FIRST <= code <= VOL_LAST:
+                bits = bits_of(unit[4:])
+                b = _Bits(unit[4:])
+                b.read(9)
+                if b.bit():
+                    b.read(7)
+                if b.read(4) == 15:
+                    b.read(16)
+                at = b.pos
+                assert bits[at] == "1" and bits[at + 4] == "0", "a VOL with control parameters and no vbv"
+                rest = bits[at + 5:].rstrip("1")[:-1]  # the VOL's own stuffing dropped
+                unit = unit[:4] + to_bytes(stuffed(bits[0] + "0" * 8 + bits[9:at] + "0" + rest))
+            parts.append(unit)
+        out.append(b"".join(parts))
+    return out
+
+
+def white_blocks(frames):
+    """I420 planes of `frames` with a white block at the top left (DCs past 2047 at a coarse quantiser)."""
+    for f in frames:
+        f[:16, :32] = 255
+    planes = yuv(frames)
+    for y, _, _ in planes:
+        y[:16, :32] = 255
+    return planes
+
+
+def smooth(frames):
+    """`frames` blurred (a quarter-size round trip): cheaper to code than the scene's noise block."""
+    return [cv2.resize(cv2.resize(f, (f.shape[1] // 4, f.shape[0] // 4), interpolation=cv2.INTER_AREA),
+                       (f.shape[1], f.shape[0]), interpolation=cv2.INTER_LINEAR) for f in frames]
+
+
+def h263(frames, w, h, **options):
+    """The `h263` encoder's packets of BGR `frames`."""
+    return packets_of(libavcodec.encode(yuv(frames), w, h, codec_name="h263", **options))
+
+
 def write(name, packets, fourcc=b"FMP4", fps=25, size=None):
     w, h = size
     build_avi(HERE / name, packets, fourcc, w, h, fps)
@@ -421,6 +519,95 @@ def make_videos():
                           qmax=31, b=300000)
     write(DEMO, replace_user_data(packets_of(e), b"XviD0064"), fourcc=b"XVID", fps=30, size=(640, 480))
     made[DEMO] = ("spliced", ["xvid_idct_vop", "b_vop", "qpel_vop", "inter4v_mb", "b_direct"])
+    made.update(make_divx())
+    made.update(make_old_builds())
+    made.update(make_h263())
+    return made
+
+
+def make_divx():
+    """DivX user data and tags: packed B-frames (a P- and a B-VOP in one
+    chunk, an N-VOP after them), DivX 6, unflagged packing, DivX 4."""
+    made = {}
+    # DivX 5.03 build 1393, packed: quarter-pel chroma 2 (it overrides 1)
+    e = libavcodec.encode(yuv(scene(9, 48, 64, 30)), 64, 48, bf=1, flags="+mv4+qpel")
+    write("divx_packed_64x48.avi", pack_divx(replace_user_data(packets_of(e), b"DivX503b1393p")), fourcc=b"DX50",
+          size=(64, 48))
+    made["divx_packed_64x48.avi"] = ("spliced", ["packed_vop", "divx_qpel_chroma2", "divx_hpel_chroma", "b_vop",
+                                                 "b_direct"])
+    # DivX 6, two B-VOPs a reference: the second B-VOP in a chunk of its own
+    e = libavcodec.encode(yuv(scene(8, 60, 100, 31)), 100, 60, bf=2, flags="+mv4+qpel", qmin=8)
+    write("divx6_packed_100x60.avi", pack_divx(replace_user_data(packets_of(e), b"DivX609Build1896p")),
+          fourcc=b"DIVX", size=(100, 60))
+    made["divx6_packed_100x60.avi"] = ("spliced", ["packed_vop", "divx_hpel_chroma", "b_vop", "b_direct"])
+    # DivX 5.01 build 1600 without the 'p': the packed B-VOPs are dropped; quarter-pel chroma 1
+    e = libavcodec.encode(yuv(scene(7, 60, 100, 32)), 100, 60, bf=1, flags="+qpel", qmin=8)
+    write("divx501_unflagged_100x60.avi", pack_divx(replace_user_data(packets_of(e), b"DivX501b1600")),
+          fourcc=b"DX50", size=(100, 60))
+    made["divx501_unflagged_100x60.avi"] = ("spliced", ["divx_qpel_chroma", "not_coded_vop"])
+    # DivX 4: a DIVX tag over an object type 0 VOL with no user data: the picture's own edge
+    e = libavcodec.encode(yuv(scene(6, 60, 100, 33)), 100, 60, flags="+mv4", qmin=8)
+    write("divx4_100x60.avi", divx4_vol(replace_user_data(packets_of(e), b"")), fourcc=b"DIVX", size=(100, 60))
+    made["divx4_100x60.avi"] = ("spliced", ["divx_edge", "divx_hpel_chroma", "inter4v_mb"])
+    # the demo: packed DivX at 640x480
+    e = libavcodec.encode(yuv(smooth(scene(DIVX_DEMO_FRAMES, 480, 640, 34))), 640, 480, fps=(30, 1), bf=1,
+                          flags="+mv4+qpel", qmin=24, qmax=31, b=100000)
+    write(DIVX_DEMO, pack_divx(replace_user_data(packets_of(e), b"DivX503b1393p")), fourcc=b"DX50", fps=30,
+          size=(640, 480))
+    made[DIVX_DEMO] = ("spliced", ["packed_vop", "divx_qpel_chroma2", "b_vop", "qpel_vop", "inter4v_mb"])
+    return made
+
+
+def make_old_builds():
+    """Old libavcodec builds in the user data, one of each workaround range:
+    white blocks at a coarse quantiser (DCs past 2047) moving at a width that
+    is not a multiple of 16, quarter-pel, 4MV and B-VOPs."""
+    made = {}
+    planes = white_blocks(scene(9, 60, 100, 35))
+    packets = packets_of(libavcodec.encode(planes, 100, 60, bf=1, flags="+mv4+qpel", qmin=29, qmax=31))
+    for name, text, reach in (
+            ("lavc_b4600_100x60.avi", b"ffmpeg", ["lavc_std_qpel", "lavc_direct_blocksize", "lavc_edge",
+                                                   "lavc_dc_clip"]),
+            ("lavc_b4654_100x60.avi", b"FFmpeg0.4.9-pre1b4654", ["lavc_direct_blocksize", "lavc_edge",
+                                                                  "lavc_dc_clip"]),
+            ("lavc_b4669_100x60.avi", b"FFmpeg v0.4.9 / libavcodec build: 4669", ["lavc_edge", "lavc_dc_clip"]),
+            ("lavc_b4712_100x60.avi", b"FFmpeg0.4.9b4712", ["lavc_dc_clip"])):
+        write(name, replace_user_data(packets, text), size=(100, 60))
+        made[name] = ("spliced", reach + ["b_vop", "qpel_vop"])
+    # Lavc 56.60.100 (FFmpeg 2.8): its intra edge workaround (no effect on these frames)
+    e = libavcodec.encode(yuv(scene(6, 48, 64, 18)), 64, 48, bf=1)
+    write("lavc_old_build_64x48.avi", replace_user_data(packets_of(e), b"Lavc56.60.100"), size=(64, 48))
+    made["lavc_old_build_64x48.avi"] = ("spliced", ["lavc_iedge", "b_vop"])
+    return made
+
+
+def make_h263():
+    """H.263 baseline from the `h263` encoder (AVI by this script's writer,
+    3GP by libavformat's muxer) and from `cv2.VideoWriter('H263')` (AVI,
+    MOV), and the short video header: an `h263` stream under an MPEG-4 tag."""
+    made = {}
+    write("h263_128x96.avi", h263(scene(3, 96, 128, 40), 128, 96, qmin=2, qmax=3, flags="+mv4"), fourcc=b"H263",
+          size=(128, 96))
+    made["h263_128x96.avi"] = ("h263", ["i_picture", "p_picture", "escape", "inter4v_mb", "skipped_mb"])
+    write("h263_gob_128x96.avi", h263(scene(3, 96, 128, 41), 128, 96, ps=200, p_mask=0.5, lumi_mask=0.3),
+          fourcc=b"h263", size=(128, 96))
+    made["h263_gob_128x96.avi"] = ("h263", ["gob_header", "dquant_mb", "escape", "intra_mb_in_p"])
+    write(H263_CIF, h263(smooth(scene(4, 288, 352, 42)), 352, 288, ps=1000, qmin=12, qmax=20), fourcc=b"H263",
+          size=(352, 288))
+    made[H263_CIF] = ("h263", ["gob_header", "i_picture", "p_picture"])
+    e = libavcodec.encode(yuv(scene(3, 144, 176, 43)), 176, 144, codec_name="h263", qmin=16, qmax=24, ps=300)
+    libavcodec.mux(HERE / "h263_gob_176x144.3gp", e, "3gp")
+    made["h263_gob_176x144.3gp"] = ("h263", ["gob_header", "i_picture", "p_picture"])
+    for suffix in (".avi", ".mov"):
+        writer = cv2.VideoWriter(str(HERE / f"cv2_h263_176x144{suffix}"), cv2.VideoWriter_fourcc(*"H263"), 25,
+                                 (176, 144))
+        assert writer.isOpened()
+        for f in smooth(scene(3, 144, 176, 44)):
+            writer.write(f)
+        writer.release()
+        made[f"cv2_h263_176x144{suffix}"] = ("cv2", ["i_picture", "p_picture"])
+    write("short_header_128x96.avi", h263(scene(3, 96, 128, 45), 128, 96, qmin=10, qmax=12), size=(128, 96))
+    made["short_header_128x96.avi"] = ("h263", ["short_header"])
     return made
 
 
@@ -429,24 +616,48 @@ def make_refused():
     raises = {}
     e = libavcodec.encode(yuv(scene(3, 48, 64, 18)), 64, 48, bf=1)
     packets = packets_of(e)
-    write("divx_packed_64x48.avi", replace_user_data(packets, b"DivX503b1393p"), fourcc=b"DX50", size=(64, 48))
-    raises["divx_packed_64x48.avi"] = ("NotImplementedError", f"DivX.*{ROADMAP}")
-    write("lavc_old_build_64x48.avi", replace_user_data(packets, b"Lavc56.60.100"), size=(64, 48))
-    raises["lavc_old_build_64x48.avi"] = ("NotImplementedError", f"old libavcodec build.*{ROADMAP}")
     write("sprite_vol_64x48.avi", with_vol_bit(packets, "sprite"), size=(64, 48))
     raises["sprite_vol_64x48.avi"] = ("NotImplementedError", f"sprites.*{ROADMAP}")
     e = libavcodec.encode(yuv(scene(3, 48, 64, 19)), 64, 48, data_partitioning=1)
     write("reversible_vlc_64x48.avi", with_vol_bit(packets_of(e), "rvlc"), size=(64, 48))
     raises["reversible_vlc_64x48.avi"] = ("NotImplementedError", f"reversible VLC.*{ROADMAP}")
-    write("short_header_64x48.avi", [b"\x00\x00\x80\x02\x08" + bytes(40)], size=(64, 48))
-    raises["short_header_64x48.avi"] = ("NotImplementedError", f"short \\(H.263\\) video header.*{ROADMAP}")
+    frames = scene(2, 96, 128, 46)
+    write("h263p_128x96.avi", packets_of(libavcodec.encode(yuv(frames), 128, 96, codec_name="h263p", qmin=12)),
+          fourcc=b"H263", size=(128, 96))
+    raises["h263p_128x96.avi"] = ("NotImplementedError", f"H.263\\+.*PLUSPTYPE.*{ROADMAP}")
+    write("h263_obmc_128x96.avi", h263(scene(2, 96, 128, 47), 128, 96, obmc=1, qmin=12), fourcc=b"H263",
+          size=(128, 96))
+    raises["h263_obmc_128x96.avi"] = ("NotImplementedError", f"advanced prediction \\(annex F.*{ROADMAP}")
     return raises
+
+
+def workaround_effects(name, hashes):
+    """{workaround: whether the port's frames of `name` change without it}
+    for each libavcodec workaround the file's decode takes (the IDCT aside)."""
+    reader = open_video(HERE / name)
+    decoder = Mpeg4Decoder(reader.config, reader.fourcc)
+    for p in reader.packets():
+        decoder.decode(p)
+    real = mpeg4.workarounds
+    effects = {}
+    for flag in sorted(set(decoder._bugs) - {"xvid_idct"}):
+        def without(ids, fourcc, vol, bugs, flag=flag):
+            real(ids, fourcc, vol, bugs)
+            bugs.pop(flag, None)
+
+        mpeg4.workarounds = without
+        try:
+            frames = [hashlib.sha256(f.tobytes()).hexdigest() for f in open_video(HERE / name).read(rgb=False)]
+        finally:
+            mpeg4.workarounds = real
+        effects[flag] = frames != hashes
+    return effects
 
 
 def main() -> None:
     assert libavcodec.available(), "needs the libavcodec OpenCV's wheel bundles"
     for old in HERE.iterdir():
-        if old.suffix in (".avi", ".mp4", ".mkv"):
+        if old.suffix in (".avi", ".mp4", ".mkv", ".mov", ".3gp"):
             old.unlink()
     made = make_videos()
     files = {}
@@ -458,8 +669,17 @@ def main() -> None:
         assert [hashlib.sha256(f.tobytes()).hexdigest() for f in mine] == hashes, name
         missing = [k for k in reach if not reader.counts[k]]
         assert not missing, (name, missing, dict(reader.counts))
-        files[name] = {"tool": tool, "info": get_video_info(HERE / name), "shape": list(frames[0].shape),
-                       "frames": hashes, "reach": reach}
+        files[name] = {"tool": tool, "info": get_video_info(HERE / name),
+                       "shape": list(frames[0].shape) if frames else None, "frames": hashes, "reach": reach}
+        if reader.codec == "mpeg4":
+            changed = workaround_effects(name, hashes)
+            if changed:
+                files[name]["workarounds_change_frames"] = changed
+        if any(k == "packed_vop" for k in reach):
+            unpacked, extra = libavcodec.unpack_bframes(list(reader.packets()), reader.config)
+            want = [hashlib.sha256(mpeg4.yuv420_to_bgr(*p).tobytes()).hexdigest()
+                    for p in libavcodec.decode(unpacked, extra, reader.fourcc.encode())]
+            assert want == hashes, f"{name}: its mpeg4_unpack_bframes output decodes to other frames"
     exact = mpeg4.mc.halfpel
 
     def exact_averages(ref, sx, sy, dx, dy, size, rounding):

@@ -1,33 +1,40 @@
-"""AVI files without OpenCV: a motion-JPEG and MPEG-4 Part 2 reader and a motion-JPEG writer, in numpy and `struct`.
+"""AVI files without OpenCV: a motion-JPEG, MPEG-4 Part 2, H.263 and raw I420 reader and a motion-JPEG writer, in numpy and `struct`.
 
 The JAX package reads and writes video through OpenCV (`cv2.VideoCapture`,
-`cv2.VideoWriter`). In an AVI (RIFF) file the port reads the two codecs
-that its own decoders handle: motion JPEG (`data/jpeg.py`) and MPEG-4
-Part 2 (`data/mpeg4.py`), which OpenCV's FFmpeg writer puts in an AVI under
-the fourccs `XVID`, `FMP4` and `DIVX` and Xvid and libavcodec write as
-Advanced Simple Profile (B-VOPs, quarter-pel, ...), and raw planar YUV 4:2:0 (`I420`,
-`IYUV`: each chunk the Y, U and V planes, converted by swscale's copy,
-`data/mpeg4.py yuv420_to_bgr`; an odd height, which swscale scales,
+`cv2.VideoWriter`). In an AVI (RIFF) file the port reads the codecs that
+its own decoders handle: motion JPEG (`data/jpeg.py`), MPEG-4 Part 2
+(`data/mpeg4.py`), which OpenCV's FFmpeg writer puts in an AVI under the
+fourccs `XVID`, `FMP4` and `DIVX` and Xvid, DivX and libavcodec write as
+Advanced Simple Profile (B-VOPs, quarter-pel, DivX's packed B-frames,
+...), H.263 (`data/h263.py`, the fourcc `H263` in either letter case, as
+OpenCV's writer and libavformat write it), and raw planar YUV 4:2:0
+(`I420`, `IYUV`: each chunk the Y, U and V planes, converted by swscale's
+copy, `data/mpeg4.py yuv420_to_bgr`; an odd height, which swscale scales,
 raises); it writes motion JPEG.
 
 `AviReader` takes the first `vids` stream whose handler or compression is
-motion JPEG (`MJPEG_CODECS`) or MPEG-4 Part 2 (`data/mpeg4.py
-MPEG4_FOURCCS`). Its size comes from the stream format (`strf`; for MPEG-4
-the video object layer header, in band or in the bytes after `strf`'s
-BITMAPINFOHEADER), its fps is the stream header's dwRate / dwScale and its
+motion JPEG (`MJPEG_CODECS`), MPEG-4 Part 2 (`data/mpeg4.py
+MPEG4_FOURCCS`), H.263 or raw I420. Its size comes from the stream format
+(`strf`; for MPEG-4 the video object layer header, in band or in the bytes
+after `strf`'s BITMAPINFOHEADER, except for the short video header, which
+has none; for H.263 the first picture header, once every picture header is
+checked), its fps is the stream header's dwRate / dwScale and its
 frame count the OpenDML `dmlh` total where the file has one, else the
 stream header's dwLength (what OpenCV reports for the same files). `packets()`
 walks every `LIST movi` in file order, the first RIFF's and those of any
 OpenDML `RIFF AVIX` parts after it: it descends into `LIST rec `, skips the
 other streams' chunks (audio `01wb`), `JUNK` and the `ix##` indexes, and
 honours the pad byte after an odd-sized chunk. Each `##dc` / `##db` chunk
-of the stream is one packet. An MPEG-4 packet goes to `Mpeg4Decoder`, with
-the `strf` extra bytes as its configuration and the compression as its
-fourcc: OpenCV's FFmpeg backend's frames, bit for bit. The packets of a
-B-VOP stream come in decoding order, and the decoder returns display
-order (the frame it holds back is flushed at the end); the frame count
-stays the container's, as OpenCV reports it, even where a not-coded VOP
-gives no frame. A motion-JPEG packet
+of the stream is one packet; a zero-length chunk (a dropped frame, or a
+DivX placeholder written empty) is none, as OpenCV's reader hands its
+decoder none. An MPEG-4 packet goes to `Mpeg4Decoder`, with the `strf`
+extra bytes as its configuration and the compression as its fourcc, an
+H.263 packet to `H263Decoder`: OpenCV's FFmpeg backend's frames, bit for
+bit. The packets of a B-VOP stream come in decoding order (DivX's packed
+chunks and placeholders too), and the decoder returns display order (the
+frame it holds back is flushed at the end); the frame count stays the
+container's (zero-length chunks and placeholders included), as OpenCV
+reports it, even where a not-coded VOP gives no frame. A motion-JPEG packet
 is a JPEG, decoded by `decode_jpeg`: the pixels of
 `cv2.imdecode`, and so of OpenCV's own MJPEG backend
 (`cv2.VideoCapture(path, cv2.CAP_OPENCV_MJPEG)`), not of its FFmpeg backend,
@@ -64,6 +71,7 @@ from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from yolo_infer_tpu_torch.data.h263 import H263_FOURCC, H263Track
 from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Track, yuv420_to_bgr
 
@@ -72,8 +80,8 @@ I420_FOURCCS = (b"I420", b"IYUV")  # raw planar YUV 4:2:0
 RIFF_LIMIT = 1 << 30  # bytes of one RIFF part; the writer goes on in an OpenDML `RIFF AVIX` part past it
 SUPER_INDEX_ENTRIES = 256  # room in the writer's `indx` super index: the RIFF parts a file may have
 
-_NOT_READ_AVI = ("the port reads motion JPEG, MPEG-4 Part 2 and raw I420 in AVI; other codecs are ROADMAP Queue 1 "
-                 "item 11.2")
+_NOT_READ_AVI = ("the port reads motion JPEG, MPEG-4 Part 2, H.263 and raw I420 in AVI; other codecs are ROADMAP "
+                 "Queue 1 item 11.2")
 
 # the writer's header list: LIST hdrl, avih, LIST strl (strh, strf, the super
 # index or JUNK in its place), LIST odml (dmlh)
@@ -108,11 +116,15 @@ def _chunks(data: bytes, pos: int, end: int) -> Iterator[Tuple[bytes, int, int]]
         pos += 8 + size + (size & 1)
 
 
-class AviReader(Mpeg4Track):
-    """The first motion-JPEG or MPEG-4 video stream of an AVI file: `width`,
-    `height`, `fps`, `frame_count`, `info()`, the frames' packets
-    (`packets()`: JPEGs or MPEG-4 VOPs, `codec` says which) and the decoded
-    frames (`read()`)."""
+def _is_h263(tag: bytes) -> bool:
+    return tag.upper() == H263_FOURCC.encode()
+
+
+class AviReader(Mpeg4Track, H263Track):
+    """The first motion-JPEG, MPEG-4, H.263 or raw I420 video stream of an
+    AVI file: `width`, `height`, `fps`, `frame_count`, `info()`, the
+    frames' packets (`packets()`: JPEGs, MPEG-4 VOPs, H.263 pictures or raw
+    frames, `codec` says which) and the decoded frames (`read()`)."""
 
     def __init__(self, path: Union[str, Path]):
         self.path = Path(path)
@@ -169,7 +181,8 @@ class AviReader(Mpeg4Track):
         if not videos:
             raise ValueError(f"corrupt AVI {self.path}: no video stream")
         known = [(i, h, f) for i, h, f in videos
-                 if {h[4:8], f[16:20]} & set(MJPEG_CODECS + MPEG4_FOURCCS + I420_FOURCCS)]
+                 if {h[4:8], f[16:20]} & set(MJPEG_CODECS + MPEG4_FOURCCS + I420_FOURCCS) or _is_h263(f[16:20])
+                 or _is_h263(h[4:8])]
         if not known:
             _, h, f = videos[0]
             raise NotImplementedError(f"{self.path}: an AVI whose video is {_fourcc(h[4:8])!r} (compression "
@@ -178,8 +191,10 @@ class AviReader(Mpeg4Track):
         if len(strf) < 40:
             raise ValueError(f"corrupt AVI {self.path}: a video stream format of {len(strf)} bytes")
         tags = {strh[4:8], strf[16:20]}
-        self.codec = "mjpeg" if tags & set(MJPEG_CODECS) else "i420" if tags & set(I420_FOURCCS) else "mpeg4"
-        self.fourcc = _fourcc(strf[16:20] if strf[16:20] in MPEG4_FOURCCS + I420_FOURCCS else strh[4:8])
+        self.codec = "mjpeg" if tags & set(MJPEG_CODECS) else "i420" if tags & set(I420_FOURCCS) else \
+            "mpeg4" if tags & set(MPEG4_FOURCCS) else "h263"
+        self.fourcc = _fourcc(strf[16:20] if strf[16:20] in MPEG4_FOURCCS + I420_FOURCCS or _is_h263(strf[16:20])
+                              else strh[4:8])
         self.config = strf[40:]
         scale, rate, _, length = struct.unpack("<4I", strh[20:36])
         _, width, height = struct.unpack("<Iii", strf[:12])
@@ -189,7 +204,10 @@ class AviReader(Mpeg4Track):
         self._ids = (b"%02ddc" % index, b"%02ddb" % index)
         if self.codec == "mpeg4":
             vol = self._vol()
-            self.width, self.height = vol.width, vol.height
+            if vol is not None:  # else the short video header: the stream format's size
+                self.width, self.height = vol.width, vol.height
+        elif self.codec == "h263":
+            self.width, self.height = self.h263_size()
         if self.codec == "i420" and self.height % 2:  # swscale's scaled path, not ported (as data/mpeg4.py)
             raise NotImplementedError(f"{self.path}: raw I420 video of an odd height ({self.height}); "
                                       "ROADMAP Queue 1 item 11.2")
@@ -218,6 +236,9 @@ class AviReader(Mpeg4Track):
         """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
         if self.codec == "mpeg4":
             yield from super().read(rgb)
+            return
+        if self.codec == "h263":
+            yield from self.read_h263(rgb)
             return
         self.counts = Counter()
         for data in self.packets():

@@ -195,6 +195,9 @@ class MkvReader(Mpeg4Track):
             self.width, self.height = _VP_TRACKS[self.codec].size(self)
         else:
             vol = self._vol()
+            if vol is None:
+                raise NotImplementedError(f"{self.path}: an MPEG-4 track of the short (H.263) video header in "
+                                          "Matroska (ROADMAP Queue 1 item 11.2)")
             self.width, self.height = vol.width, vol.height
 
     def read(self, rgb: bool = True) -> Iterator[np.ndarray]:

@@ -1,14 +1,17 @@
-"""MP4 and QuickTime (ISO base media file format) video without OpenCV: a demuxer and an MPEG-4 Part 2 writer.
+"""MP4, QuickTime and 3GPP (ISO base media file format) video without OpenCV: a demuxer and an MPEG-4 Part 2 writer.
 
-`Mp4Reader` reads the first `vide` track of an `.mp4`, `.m4v` or `.mov`
-file: boxes with 32- or 64-bit sizes or a size of 0 (to the end of the
-file), `moov` before or after `mdat`. The track's `mdhd` gives its
+`Mp4Reader` reads the first `vide` track of an `.mp4`, `.m4v`, `.mov` or
+`.3gp` file: boxes with 32- or 64-bit sizes or a size of 0 (to the end of
+the file), `moov` before or after `mdat`. The track's `mdhd` gives its
 timescale; `stsd` its sample entry, which must be `mp4v` with an `esds`
 whose DecoderConfigDescriptor names MPEG-4 Visual (object type 0x20) and
-whose DecoderSpecificInfo holds the video object layer header; `stts`,
+whose DecoderSpecificInfo holds the video object layer header (each sample
+to `data/mpeg4.py`), or H.263's `h263` (QuickTime's, as OpenCV's `H263`
+writer writes a `.mov`) or `s263` (3GPP's), whatever the extension (each
+sample to `data/h263.py`; the size from the first picture header); `stts`,
 `stsc`, `stsz` and `stco` or `co64` the samples (`stss` is not needed:
-every sample is decoded, in order). Each sample is one packet for
-`data/mpeg4.py`. `fps` is libavformat's average frame rate
+every sample is decoded, in order). Each sample is one packet. `fps` is
+libavformat's average frame rate
 (the track's timescale over its one sample duration, or over the mean of
 several) and `frame_count` the samples in `stts`: what OpenCV reports for
 the same file, so that `info()` equals the JAX package's `get_video_info`.
@@ -42,6 +45,7 @@ from typing import Iterator, List, Optional, Tuple, Union
 import numpy as np
 
 from yolo_infer_tpu_torch.data.avi import fps_ratio
+from yolo_infer_tpu_torch.data.h263 import H263_SAMPLE_ENTRIES, H263Track
 from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Encoder, Mpeg4Track
 
 _ROADMAP = "ROADMAP Queue 1 item 11.2"
@@ -113,7 +117,7 @@ def _full(data: bytes, start: int, fmt: str) -> Tuple[int, ...]:
     return struct.unpack_from(fmt, data, start + 4)
 
 
-class Mp4Reader(Mpeg4Track):
+class Mp4Reader(Mpeg4Track, H263Track):
     """The first video track of an MP4 or QuickTime file: `width`, `height`,
     `fps`, `frame_count`, `info()`, the samples (`packets()`) and the decoded
     frames (`read()`)."""
@@ -175,7 +179,7 @@ class Mp4Reader(Mpeg4Track):
         for need in (b"stsd", b"stts", b"stsc", b"stsz"):
             if need not in boxes:
                 raise ValueError(f"corrupt MP4 {self.path}: no {need.decode()} box")
-        self.config = self._sample_entry(moov, *boxes[b"stsd"])
+        self.codec, self.config = self._sample_entry(moov, *boxes[b"stsd"])
         # stts: (count, duration) runs
         start = boxes[b"stts"][0]
         (n,) = _full(moov, start, ">I")
@@ -211,26 +215,35 @@ class Mp4Reader(Mpeg4Track):
         else:
             num, den = self.timescale * self.frame_count, sum(c * d for c, d in stts)
         self.fps = num / den if num and den else 0.0
+        if self.codec == "h263":
+            self.width, self.height = self.h263_size()
+            return
         vol = self._vol()
-        self.width, self.height = vol.width, vol.height
+        if vol is not None:  # else the short video header: the sample entry's size
+            self.width, self.height = vol.width, vol.height
 
-    def _sample_entry(self, moov: bytes, start: int, end: int) -> bytes:
+    def _sample_entry(self, moov: bytes, start: int, end: int) -> Tuple[str, bytes]:
+        """The track's codec ("mpeg4", "h263") and decoder configuration;
+        the sample entry's width and height into `width`, `height`."""
         (n,) = _full(moov, start, ">I")
         if n < 1:
             raise ValueError(f"corrupt MP4 {self.path}: an empty stsd")
         entries = _boxes(moov, start + 8, end)
         kind, body, stop = next(entries)
+        if kind in H263_SAMPLE_ENTRIES:
+            return "h263", b""
         if kind != b"mp4v":
             name = kind.decode("latin-1")
             raise NotImplementedError(f"{self.path}: an MP4/MOV video track of sample entry {name!r}; the port reads "
-                                      f"MPEG-4 Part 2 ('mp4v') only ({_ROADMAP})")
+                                      f"MPEG-4 Part 2 ('mp4v') and H.263 ('h263', 's263') only ({_ROADMAP})")
+        self.width, self.height = struct.unpack_from(">HH", moov, body + 24)
         for child, cstart, cend in _boxes(moov, body + 78, stop):
             if child == b"esds":
                 try:
-                    return esds_config(moov[cstart:cend])
+                    return "mpeg4", esds_config(moov[cstart:cend])
                 except NotImplementedError as exc:
                     raise NotImplementedError(f"{self.path}: {exc}") from exc
-        return b""
+        return "mpeg4", b""
 
     @staticmethod
     def _layout(stsc, chunks, sizes) -> List[Tuple[int, int]]:
@@ -259,6 +272,10 @@ class Mp4Reader(Mpeg4Track):
                 if len(data) != size:
                     raise ValueError(f"corrupt MP4 {self.path}: a sample is truncated")
                 yield data
+
+    def read(self, rgb: bool = True) -> Iterator[np.ndarray]:
+        """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
+        return self.read_h263(rgb) if self.codec == "h263" else super().read(rgb)
 
 
 

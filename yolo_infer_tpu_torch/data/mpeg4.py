@@ -4,10 +4,12 @@ The JAX package reads and writes video through OpenCV, whose FFmpeg
 backend writes `.mp4`, `.mov`, `.mkv` and, under the fourccs `XVID`,
 `FMP4` and `DIVX`, `.avi` files as MPEG-4 Part 2 Simple Profile ("mp4v"),
 and reads the Advanced Simple Profile streams of libavcodec's `mpeg4`
-encoder and of Xvid (most Xvid AVIs). `Mpeg4Decoder` decodes those streams
-to the frames OpenCV returns for them, bit for bit: libavcodec's MPEG-4
-decoder followed by swscale's conversion to BGR. The containers are
-`data/mp4.py`, `data/mkv.py` and `data/avi.py`.
+encoder, of Xvid (most Xvid AVIs), of DivX (packed B-frames) and of old
+libavcodec builds (FFmpeg and OpenCV files of 2002-2017). `Mpeg4Decoder`
+decodes those streams to the frames OpenCV returns for them, bit for bit:
+libavcodec's MPEG-4 decoder followed by swscale's conversion to BGR. The
+containers are `data/mp4.py`, `data/mkv.py` and `data/avi.py`; H.263
+(`data/h263.py`) reuses this decoder's macroblock machinery.
 
 Decoded, as far as those streams reach:
 
@@ -19,8 +21,11 @@ Decoded, as far as those streams reach:
   VOPs         I-, P- and B-VOPs; with `low_delay` 0 the output is in
                display order, one reference held back until the next
                arrives and flushed at the end of the stream, as libavcodec
-               and OpenCV's drain give it; a not-coded VOP gives no frame; a
-               B-VOP without a past reference or out of order is dropped
+               and OpenCV's drain give it; a not-coded VOP gives no frame
+               (a last one makes the flush give the latest reference, again
+               in a low-delay stream); a B-VOP without a past reference or
+               out of order is dropped; only a packet's first VOP is
+               decoded, except under DivX's packed B-frames (below)
   macroblocks  intra, inter (one vector or four: 4MV) and skipped
                macroblocks in P-VOPs, dquant in I- and P-VOPs (the DC
                scaler following the running quantiser); B macroblocks
@@ -57,12 +62,32 @@ Decoded, as far as those streams reach:
                edge, libavcodec's chroma rules), unrestricted vectors over an
                edge-replicated reference, libavcodec's clip of 8x8 blocks;
                B interpolation the rounded mean of the two predictions
-  Xvid         Xvid user data, or an Xvid fourcc in any letter case with no
+  encoders     `workarounds` is libavcodec's `ff_mpeg4_workaround_bugs`:
+               Xvid user data, or an Xvid fourcc in any letter case with no
                encoder user data (read as build 0), selects Xvid's IDCT and,
-               by build, libavcodec's Xvid workarounds (`XVID_WORKAROUNDS`:
-               the picture's own edge for motion, the unclipped DC
-               predictor, the quarter-pel chroma rounding); they stay once
-               taken, as in libavcodec
+               by build, its workarounds (`XVID_WORKAROUNDS`); DivX user
+               data (`DivX503b1393p`, `DivX609Build1896p`) or a `DIVX` tag
+               over an object type 0 VOL without control parameters (DivX
+               4) the quarter-pel chroma roundings 1 and 2 (DivX 5.00-5.02,
+               5.03+ before build 1814) and the picture's own edge (DivX 4);
+               old libavcodec builds (`LAVC_WORKAROUNDS`: `FFmpeg...b4600`,
+               `ffmpeg`, `FFmpeg v... / libavcodec build: N`) the old
+               quarter-pel filters (before 4653, `data/mpeg4_motion.py`),
+               the picture's own edge (before 4670), the unclipped DC
+               predictor (to 4712); Xvid named beside DivX wins. Taken and
+               tallied without changing a frame here (`_INERT_WORKAROUNDS`):
+               half-pel chroma (field prediction only), the direct block
+               size (libavcodec reads it from the caller's flags, not the
+               detected ones) and Lavc 55.66.100-57.66.103's intra edge;
+               libavcodec's padding-bug score (Xvid to build 3, DivX 5.01
+               build 20020416) changes no frame of a well-formed stream and
+               is not kept. Workarounds stay once taken, as in libavcodec
+  packing      DivX's packed B-frames (a 'p' after the DivX build): after a
+               packet's first VOP, a following I- or B-VOP is kept and
+               decoded in place of the next packet (DivX's placeholder
+               N-VOP), as libavcodec does; without the 'p' the rest of a
+               packet is dropped (kept only for a next packet of at most
+               `MAX_NVOP_SIZE` bytes)
   output       cropping to the VOL's width and height, and swscale's YUV
                4:2:0 to BGR (BT.601, limited range, chroma repeated 2x2,
                16-bit fixed point: `yuv420_to_bgr`)
@@ -71,20 +96,21 @@ The parser takes a whole VOP's macroblocks into the coefficient domain
 first, then runs one dequantisation and one IDCT over all its blocks, then
 forms every macroblock's motion-compensated prediction in a few gathers.
 
+The short (H.263) video header: libavcodec's MPEG-4 decoder finds no VOP
+start code in it ("header damaged"), so OpenCV returns no frame of such a
+stream, and neither does `decode` (tallied `short_header`; the containers
+take the size from the stream format). H.263 itself is `data/h263.py`'s.
+
 Raising `NotImplementedError` (ROADMAP Queue 1 item 11.2), a VOL that
 announces the syntax before the first frame and a VOP when it is met:
 
   - interlaced video (OpenCV's FFmpeg backend returns no frame for it:
     swscale cannot convert interlaced to progressive frames)
   - S-VOPs (sprites, GMC: no encoder here writes them), reversible VLC
-  - the short (H.263) video header
   - shapes other than rectangular, `not_8_bit`, complexity estimation,
     newpred, reduced resolution and scalability
   - chroma other than 4:2:0, and odd heights (swscale converts those
     through its scaling path, whose pixels are not reproduced)
-  - streams whose workarounds libavcodec takes from DivX user data (or a
-    `DIVX` tag over an object type 0 VOL) and from old Lavc builds, and a
-    packet holding more than one VOP (DivX's packed B-frames)
   - a data-partitioned VOP whose `intra_dc_vlc_thr` is not 0, and dquant
     in an intra macroblock of a VOP whose `intra_dc_vlc_thr` depends on
     the quantiser (no encoder here writes either)
@@ -115,10 +141,12 @@ _ROADMAP = "ROADMAP Queue 1 item 11.2"
 
 # (code, length) of the intra MCBPC; index = 4 * dquant + cbpc, 8 is stuffing
 _INTRA_MCBPC = [(1, 1), (1, 3), (2, 3), (3, 3), (1, 4), (1, 6), (2, 6), (3, 6), (1, 9)]
-# the inter MCBPC; index = 16 * inter4v + 8 * dquant + 4 * intra + cbpc, 20 is stuffing
+# the inter MCBPC; index = 16 * inter4v + 8 * dquant + 4 * intra + cbpc, 20 is stuffing; 24..27, four
+# vectors with dquant, are H.263's (libavcodec's one table reads them in both codecs)
 _INTER_MCBPC = {0: (1, 1), 1: (3, 4), 2: (2, 4), 3: (5, 6), 4: (3, 5), 5: (4, 8), 6: (3, 8), 7: (3, 7),
                 8: (3, 3), 9: (7, 7), 10: (6, 7), 11: (5, 9), 12: (4, 6), 13: (4, 9), 14: (3, 9), 15: (2, 9),
-                16: (2, 3), 17: (5, 7), 18: (4, 7), 19: (5, 8), 20: (1, 9)}
+                16: (2, 3), 17: (5, 7), 18: (4, 7), 19: (5, 8), 20: (1, 9), 24: (2, 11), 25: (12, 13), 26: (14, 13),
+                27: (15, 13)}
 # CBPY of an intra macroblock (an inter one's is 15 minus it)
 _CBPY = [(3, 4), (5, 5), (4, 5), (9, 4), (3, 5), (7, 4), (2, 6), (11, 4), (2, 5), (3, 6), (5, 4), (10, 4),
          (4, 4), (8, 4), (6, 4), (3, 2)]
@@ -225,7 +253,7 @@ def _max_tables(runs, levels, last_from):
 
 
 _LUT_INTRA_MCBPC = _lut(dict(enumerate(_INTRA_MCBPC)), 9)
-_LUT_INTER_MCBPC = _lut(_INTER_MCBPC, 9)
+_LUT_INTER_MCBPC = _lut(_INTER_MCBPC, 13)
 _LUT_CBPY = _lut(dict(enumerate(_CBPY)), 6)
 _LUT_MVD = _lut(dict(enumerate(_MVD)), 12)
 _LUT_DC = (_lut(dict(enumerate(_DC_LUM)), 12), _lut(dict(enumerate(_DC_CHROM)), 12))
@@ -340,7 +368,7 @@ class Vol:
             b.read(3)
         if b.read(4) == 15:  # aspect_ratio_info: extended PAR
             b.read(16)
-        self.low_delay = int(self.object_type in (1, 17))  # libavcodec's default: simple and advanced simple
+        self.low_delay: Optional[int] = None  # without control parameters, the decoder's default (`_low_delay`)
         self.control = b.bit()  # vol_control_parameters
         if self.control:
             if b.read(2) != 1:
@@ -399,23 +427,20 @@ class Vol:
             raise _unsupported(f"an odd height ({self.height})")
         if b.pos > b.end:
             raise ValueError("corrupt MPEG-4 VOL: truncated")
-        if self.object_type == 0 and not self.control:
-            self.low_delay = 1  # libavcodec forces it for such streams (DivX 4, old Xvid, OpenDivX)
         self.mb_w = (self.width + 15) // 16
         self.mb_h = (self.height + 15) // 16
 
 
 def _user_data(text: bytes) -> Dict[str, int]:
     """The encoder builds a user data string names, as libavcodec reads them
-    (`divx`, `divx_packed`, `lavc`, `xvid`; several may match)."""
+    (`divx` with `divx_build` and `divx_packed`, `lavc`, `xvid`; several may
+    match)."""
     s = text.split(b"\0")[0].decode("latin-1")
     found: Dict[str, int] = {}
-    m = re.match(r"DivX(\d+)(?:Build|b)(\d+)(p?)", s)
-    if m:
-        found["divx"] = int(m.group(1))
-        if m.group(3):
-            found["divx_packed"] = 1
-    m = re.match(r"FFmpe[^b]*b(\d+)", s) or re.match(r"FFmpeg v\d+\.\d+\.\d+ / libavcodec build: (\d+)", s)
+    m = re.match(r"DivX(\d+)(?:Build|b)(\d+)(.?)", s, re.S)
+    if m:  # packed B-frames: a 'p' right after the build number
+        found.update(divx=int(m.group(1)), divx_build=int(m.group(2)), divx_packed=int(m.group(3) == "p"))
+    m = re.match(r"FFmpe[^b]+b(\d+)", s) or re.match(r"FFmpeg v\d+\.\d+\.\d+ / libavcodec build: (\d+)", s)
     if m:
         found["lavc"] = int(m.group(1))
     else:
@@ -430,62 +455,77 @@ def _user_data(text: bytes) -> Dict[str, int]:
     return found
 
 
-def _refuse_short_header(data: bytes) -> None:
+def is_short_header(data: bytes) -> bool:
     """The short (H.263) video header starts with 22 bits 0000 0000 0000 0000 1000 00."""
-    if len(data) >= 3 and data[0] == 0 and data[1] == 0 and data[2] & 0xFC == 0x80:
-        raise _unsupported("the short (H.263) video header")
+    return len(data) >= 3 and data[0] == 0 and data[1] == 0 and data[2] & 0xFC == 0x80
 
 
-def check_encoder(builds: Dict[str, int], fourcc: str, vol: Optional[Vol] = None,
-                  xvid_build: Optional[int] = None) -> Optional[int]:
-    """The Xvid build whose IDCT and bug workarounds libavcodec applies (None:
-    libavcodec's own simple IDCT, no workaround), from the encoders the user
-    data names so far (`builds`), the container's codec tag, which libavcodec
-    upper-cases, and the build taken before (`xvid_build`: libavcodec keeps
-    one it read off the tag); raises for the encoders whose workarounds the
-    port does not reproduce (DivX, old libavcodec builds)."""
-    tag = fourcc.upper()
-    if "divx" in builds or (not builds and tag == "DIVX" and vol is not None and vol.object_type == 0
-                            and not vol.control):
-        raise _unsupported("a stream whose user data or codec tag names DivX (its bug workarounds, packed B-frames)")
-    lavc = builds.get("lavc")
-    if lavc is not None and (lavc <= 4712 or ((lavc & 0xFF) >= 100 and 3621476 < lavc < 3752552
-                                             and not 3752037 <= lavc <= 3752191)):
-        raise _unsupported(f"a stream of an old libavcodec build ({lavc}) with its bug workarounds")
-    if "xvid" in builds:
-        return builds["xvid"]
-    if xvid_build is not None:
-        return xvid_build
-    if not builds and tag in XVID_FOURCCS:
-        return 0  # libavcodec reads an Xvid tag without encoder user data as Xvid build 0
-    return None
+def workarounds(ids: Dict[str, Optional[int]], fourcc: str, vol: Vol, bugs: Dict[str, str]) -> None:
+    """libavcodec's `ff_mpeg4_workaround_bugs`, run before each VOP: the
+    encoder `ids` the user data named so far (`xvid`, `divx` and
+    `divx_build`, `lavc`; None where unnamed) completed from the codec tag,
+    which libavcodec upper-cases (an Xvid tag with no encoder named is Xvid
+    build 0; `DIVX` over an object type 0 VOL without control parameters is
+    DivX 4), DivX forgotten where Xvid is named too; then each bug
+    workaround they call for added to `bugs` (workaround -> "xvid", "divx"
+    or "lavc", the encoder it was first taken for: they stay, as
+    libavcodec's flags do). `ids` is updated in place, as libavcodec keeps
+    what it infers."""
+    if ids["xvid"] is None and ids["divx"] is None and ids["lavc"] is None:
+        tag = fourcc.upper()
+        if tag in XVID_FOURCCS:
+            ids["xvid"] = 0
+        elif tag == "DIVX" and vol.object_type == 0 and not vol.control:
+            ids["divx"] = 400
+    if ids["xvid"] is not None and ids["divx"] is not None:
+        ids["divx"] = ids["divx_build"] = None
+    xvid, divx, lavc = ids["xvid"], ids["divx"], ids["lavc"]
+    build = -1 if ids["divx_build"] is None else ids["divx_build"]
+    wanted = []
+    if divx is not None:
+        wanted += [("qpel_chroma", divx >= 500 and build < 1814), ("qpel_chroma2", divx > 502 and build < 1814),
+                   ("edge", divx < 500), ("hpel_chroma", True)]
+    if xvid is not None:
+        wanted += [(name, xvid <= last) for name, last in XVID_WORKAROUNDS.items()] + [("xvid_idct", True)]
+    if lavc is not None:
+        wanted += [(name, lavc < first) for name, first in LAVC_WORKAROUNDS.items()]
+        wanted += [("dc_clip", lavc <= 4712), ("iedge", (lavc & 0xFF) >= 100 and 3621476 < lavc < 3752552
+                                                and not 3752037 <= lavc <= 3752191)]
+    who = "xvid" if xvid is not None else "divx" if divx is not None else "lavc"
+    for name, on in wanted:
+        if on:
+            bugs.setdefault(name, who)
 
 
-def find_vol(*sources: bytes, fourcc: str = "") -> Vol:
+def find_vol(*sources: bytes) -> Optional[Vol]:
     """The first video object layer header in `sources` (a container's
-    configuration, a first packet): raises ValueError if there is none, and
-    `check_encoder`'s refusal on the user data before the first VOP."""
-    vol, builds = None, {}
+    configuration, a first packet), None for a stream of the short (H.263)
+    video header, which has none; raises ValueError if there is neither,
+    and a VOL's refusal (`Vol`) before the first VOP."""
     for data in sources:
-        _refuse_short_header(data)
+        if is_short_header(data):
+            return None
         for code, start, end in start_codes(data):
-            if VOL_FIRST <= code <= VOL_LAST and vol is None:
-                vol = Vol(data[start:end])
-            elif code == USER_DATA:
-                builds.update(_user_data(data[start:end]))
-            elif code == VOP_START:
+            if VOL_FIRST <= code <= VOL_LAST:
+                return Vol(data[start:end])
+            if code == VOP_START:
                 break
-    if vol is None:
-        raise ValueError("corrupt MPEG-4 stream: no video object layer header")
-    check_encoder(builds, fourcc, vol)
-    return vol
+    raise ValueError("corrupt MPEG-4 stream: no video object layer header")
 
 
 XVID_FOURCCS = ("XVID", "XVIX", "RMP4", "ZMP4", "SIPP")
 # AVI and VFW codec tags read as MPEG-4 Part 2 (those OpenCV's FFmpeg writer uses, and their kin)
 MPEG4_FOURCCS = (b"XVID", b"FMP4", b"DIVX", b"DX50", b"mp4v", b"MP4V", b"xvid", b"divx")
-# libavcodec's bug workarounds by Xvid build: (tally, last build that gets it)
-XVID_WORKAROUNDS = {"xvid_qpel_chroma": 1, "xvid_edge": 12, "xvid_dc_clip": 32}
+# libavcodec's bug workarounds by Xvid build (the last build that gets each) and by
+# libavcodec build (the first build that no longer gets each)
+XVID_WORKAROUNDS = {"qpel_chroma": 1, "edge": 12, "dc_clip": 32}
+LAVC_WORKAROUNDS = {"std_qpel": 4653, "direct_blocksize": 4655, "edge": 4670}
+MAX_NVOP_SIZE = 19  # libavcodec's bound on a placeholder (N-VOP) packet, in bytes
+# workarounds libavcodec takes that change no frame the port decodes, tallied per VOP: half-pel chroma
+# acts on field (interlaced) prediction only, the direct block size rule reads the caller's flags
+# (AVCodecContext.workaround_bugs) and not the detected ones, and no fixture or fuzzed stream shows the
+# intra edge workaround change a frame
+_INERT_WORKAROUNDS = ("hpel_chroma", "direct_blocksize", "iedge")
 
 
 # ---------------------------------------------------------------- the IDCTs
@@ -650,6 +690,8 @@ class _Vop:
     """One VOP's parse: each macroblock's levels, quantiser, kind and motion,
     and the predictors it is parsed with."""
 
+    h263 = False  # an H.263 picture (`data/h263.py`): its intra DC is scaled by 8
+
     def __init__(self, vol: Vol, kind: int, q: int, dc_thr: int, fcode: int, bcode: int):
         self.kind, self.q, self.dc_thr, self.fcode, self.bcode = kind, q, dc_thr, fcode, bcode
         mb_w, mb_h = vol.mb_w, vol.mb_h
@@ -694,13 +736,17 @@ class Mpeg4Decoder:
     def __init__(self, config: bytes = b"", fourcc: str = ""):
         self.vol: Optional[Vol] = None
         self.fourcc = fourcc
-        self.builds: Dict[str, int] = {}  # the encoders the user data names
-        self.xvid_build: Optional[int] = None
-        self._bugs: set = set()  # libavcodec's Xvid workarounds taken so far (they stay, as its IDCT does)
+        self.ids: Dict[str, Optional[int]] = dict.fromkeys(("xvid", "divx", "divx_build", "lavc"))
+        self.divx_packed = False  # DivX user data with a 'p': later VOPs of a packet are kept for the next
+        self._bugs: Dict[str, str] = {}  # libavcodec's workarounds taken so far and for whom (they stay)
         self.counts: Counter = Counter()
         self._past: Optional[_Ref] = None  # the references: the one before the latest, and the latest
         self._future: Optional[_Ref] = None
         self._held = False  # the latest reference is not output yet
+        self._low_delay = 0
+        self._pictures = 0  # VOPs decoded (libavcodec's picture_number)
+        self._stored: Optional[bytes] = None  # the rest of a packed packet, decoded in the next one's place
+        self._skipped_last = False  # the last VOP was not coded: the flush outputs the latest reference again
         self._time_base = self._last_time_base = 0  # seconds (modulo_time_base) of the latest and the one before
         self._last_non_b_time = self._pp_time = 0  # in vop_time_increment ticks
         if config:
@@ -709,31 +755,61 @@ class Mpeg4Decoder:
                 raise ValueError("corrupt MPEG-4 decoder configuration: no video object layer header")
 
     def decode(self, packet: bytes):
-        """Parse one packet; the planes of the frame it completes, if any."""
-        _refuse_short_header(packet)
-        frame = None
-        vops = 0
-        for code, start, end in start_codes(packet):
+        """Parse one packet; the planes of the frame it completes, if any.
+
+        As libavcodec: only a packet's first VOP is decoded. Under DivX's
+        packed B-frames (`divx_packed`), a packet that decoded a VOP and
+        holds an I- or B-VOP start code past it keeps the rest, which the
+        next packet (DivX's placeholder) gives way to; without it, the rest
+        is kept only for a next packet of at most `MAX_NVOP_SIZE` bytes."""
+        data, stored, self._stored = packet, self._stored, None
+        if stored is not None:
+            codes = start_codes(packet)
+            if self.divx_packed and codes and codes[0][0] == 0xB0:  # a new sequence: the kept VOP goes
+                stored = b""
+            if stored and (self.divx_packed or len(packet) <= MAX_NVOP_SIZE):
+                data = stored
+                self.counts["packed_vop"] += 1
+        self._skipped_last = False
+        frame, end = None, None
+        for code, start, stop in start_codes(data):
             if VOL_FIRST <= code <= VOL_LAST:
-                vol = Vol(packet[start:end])
+                vol = Vol(data[start:stop])
                 if self.vol is None or (vol.width, vol.height) != (self.vol.width, self.vol.height):
                     self._past = self._future = None  # a new frame size: a P-VOP must wait for an I-VOP
                     self._held = False
+                if vol.low_delay is not None:
+                    self._low_delay = vol.low_delay
+                elif not self._pictures:  # libavcodec's default: simple and advanced simple
+                    self._low_delay = int(vol.object_type in (1, 17))
                 self.vol = vol
             elif code == USER_DATA:
-                self.builds.update(_user_data(packet[start:end]))
+                found = _user_data(data[start:stop])
+                self.divx_packed = bool(found.pop("divx_packed", self.divx_packed))
+                self.ids.update(found)
             elif code == VOP_START:
-                vops += 1
-                if vops > 1:
-                    raise _unsupported("a packet with more than one VOP (packed B-frames)")
-                frame = self._vop(packet[start:end])
+                frame, bits = self._vop(data[start:stop])
+                if bits is not None:
+                    end = start + bits // 8
+                break
+        else:
+            if is_short_header(data):  # libavcodec's MPEG-4 decoder finds no VOP in it: no frame
+                self.counts["short_header"] += 1
+        if self.divx_packed and end is not None:
+            at = 0 if data is not packet else end
+            if len(packet) - at > 7:
+                nxt = packet.find(b"\x00\x00\x01\xb6", at, len(packet) - 4)
+                if nxt >= 0 and not packet[nxt + 4] & 0x40:  # an I- or B-VOP follows
+                    self._stored = packet[at:]
         return frame
 
     def flush(self):
-        """The reference held back for display order, at the end of the stream."""
-        if not self._held:
+        """The reference held back for display order, at the end of the
+        stream; after a last VOP that was not coded, the latest reference
+        (again, in a low-delay stream), as libavcodec gives it."""
+        if not (self._held or (self._skipped_last and self._future is not None)):
             return None
-        self._held = False
+        self._held = self._skipped_last = False
         return self._output(self._future.planes)
 
     def _output(self, planes):
@@ -743,13 +819,11 @@ class Mpeg4Decoder:
         return y[:h, :w], u[:h // 2, :(w + 1) // 2], v[:h // 2, :(w + 1) // 2]
 
     def _vop(self, data: bytes):
+        """One VOP: (the frame it completes or None, the bits its decode
+        read, or None where no picture was decoded)."""
         vol = self.vol
         if vol is None:
             raise ValueError("corrupt MPEG-4 stream: a VOP before any video object layer header")
-        self.xvid_build = check_encoder(self.builds, self.fourcc, vol, self.xvid_build)
-        if self.xvid_build is not None:
-            self._bugs.add("xvid_idct")
-            self._bugs.update(k for k, last in XVID_WORKAROUNDS.items() if self.xvid_build <= last)
         b = _Bits(data)
         kind = b.read(2)
         if kind == 3:
@@ -775,10 +849,15 @@ class Mpeg4Decoder:
             pb_time = self._pp_time - (self._last_non_b_time - time)
         if not b.bit():  # vop_coded 0: no frame, the references and the clock as they now are
             self.counts["not_coded_vop"] += 1
-            return None
+            self._skipped_last = True
+            return None, None
+        if not self._pictures and vol.object_type == 0 and not vol.control and self.ids["divx"] is None:
+            self._low_delay = 1  # libavcodec forces it for such streams (DivX 4, old Xvid, OpenDivX)
+        self._pictures += 1
+        workarounds(self.ids, self.fourcc, vol, self._bugs)
         if kind == 2 and (self._past is None or not 0 < pb_time < self._pp_time):
             self.counts["b_vop_dropped"] += 1  # no past reference, or out of order: libavcodec drops it
-            return None
+            return None, None
         rounding = b.bit() if kind == 1 else 0
         dc_thr = _DC_THRESHOLD[b.read(3)]
         q = b.read(5)
@@ -806,6 +885,9 @@ class Mpeg4Decoder:
                 counts["loaded_matrix_vop"] += 1
         if "xvid_idct" in self._bugs:
             counts["xvid_idct_vop"] += 1
+        for name in _INERT_WORKAROUNDS:
+            if name in self._bugs:
+                self._tally(name)
         vop = _Vop(vol, kind, q, dc_thr, fcode, bcode)
         vop.trb, vop.trd = pb_time, self._pp_time
         if vol.partitioned and kind != 2:
@@ -819,14 +901,14 @@ class Mpeg4Decoder:
             raise ValueError("corrupt MPEG-4 VOP: truncated")
         planes = self._reconstruct(vop, rounding)
         if kind == 2:
-            return self._output(planes)
+            return self._output(planes), b.pos
         shown = self._held
         self._past, self._future = self._future, _Ref(planes, vop.mvx, vop.mvy, vop.four, vop.skipped)
-        if vol.low_delay:
+        if self._low_delay:
             self._held = False
-            return self._output(planes)
+            return self._output(planes), b.pos
         self._held = True
-        return self._output(self._past.planes) if shown else None
+        return (self._output(self._past.planes) if shown else None), b.pos
 
     # ------------------------------------------------------------ packets
 
@@ -925,7 +1007,7 @@ class Mpeg4Decoder:
             while True:
                 if b.bit():
                     return None
-                hit = _LUT_INTER_MCBPC[b.peek(9)]
+                hit = _LUT_INTER_MCBPC[b.peek(13)]
                 if hit is None:
                     raise ValueError(f"corrupt MPEG-4 VOP: bad MCBPC at macroblock {mb}")
                 b.pos += hit[1]
@@ -1110,7 +1192,8 @@ class Mpeg4Decoder:
             counts["b_direct_4mv"] += 1
         else:
             fwd, bwd = fwd * 4, bwd * 4
-        # libavcodec predicts a quarter-pel direct macroblock as four 8x8 blocks
+        # libavcodec predicts a quarter-pel direct macroblock as four 8x8 blocks (its direct block size
+        # workaround reads the caller's flags, not the detected ones: it never acts here)
         vop.motion[mb] = (3, int(bool(four or self.vol.quarter_sample)), fwd, bwd)
         vop.mb_kind[mb] = 1
 
@@ -1157,8 +1240,8 @@ class Mpeg4Decoder:
 
     def _store_dc(self, vop: _Vop, plane: int, at: int, level: int, scale: int) -> None:
         dc_val = level * scale
-        if dc_val > 2047 and "xvid_dc_clip" in self._bugs:
-            self.counts["xvid_dc_clip"] += 1  # libavcodec keeps the unclipped DC for such Xvid builds
+        if dc_val > 2047 and "dc_clip" in self._bugs:
+            self._tally("dc_clip")  # libavcodec keeps the unclipped DC for such Xvid and Lavc builds
         else:
             dc_val = 0 if dc_val < 0 else 2047 if dc_val > 2047 else dc_val
         vop.dc[plane][at] = dc_val
@@ -1242,6 +1325,10 @@ class Mpeg4Decoder:
             vop.intra_rows.append(block)
         vop.coded[mb] = True
 
+    def _tally(self, workaround: str) -> None:
+        """Count a workaround met, under the encoder it was taken for."""
+        self.counts[f"{self._bugs[workaround]}_{workaround}"] += 1
+
     @staticmethod
     def _ac_source(src, nb: int, available: bool, mbq, q: int):
         """A neighbour macroblock's AC predictors: zero from another video
@@ -1283,7 +1370,7 @@ class Mpeg4Decoder:
                         self._skip(vop, at)
                         heads.append(None)
                         continue
-                    hit = _LUT_INTER_MCBPC[b.peek(9)]
+                    hit = _LUT_INTER_MCBPC[b.peek(13)]
                     if hit is None:
                         raise ValueError(f"corrupt MPEG-4 VOP: bad MCBPC at macroblock {at}")
                     b.pos += hit[1]
@@ -1394,7 +1481,7 @@ class Mpeg4Decoder:
                     sub = deq.reshape(len(work), -1)
                     sub[rows, at % 384] = np.clip(sub[rows, at % 384], -2048, 2047)
             mq = q[:, 0, 0]
-            ys, cs = np.asarray(_Y_SCALE)[mq], np.asarray(_C_SCALE)[mq]
+            ys, cs = (np.full_like(mq, 8),) * 2 if vop.h263 else (np.asarray(_Y_SCALE)[mq], np.asarray(_C_SCALE)[mq])
             deq[:, :4, 0] = np.where(iw[:, :, 0], lv[:, :4, 0] * ys[:, None], deq[:, :4, 0])
             deq[:, 4:, 0] = np.where(iw[:, :, 0], lv[:, 4:, 0] * cs[:, None], deq[:, 4:, 0])
             idct = xvid_idct if "xvid_idct" in self._bugs else simple_idct
@@ -1434,13 +1521,14 @@ class Mpeg4Decoder:
         8x8 vectors each, half- or quarter-pel as the VOL says."""
         vol, counts = self.vol, self.counts
         mb_w = vol.mb_w
-        if "xvid_edge" in self._bugs:
+        if "edge" in self._bugs:
             ew, eh = vol.width, vol.height  # libavcodec's edge workaround: the picture's own edge
-            counts["xvid_edge"] += 1
+            self._tally("edge")
         else:
             ew, eh = 16 * mb_w, 16 * vol.mb_h
         ry, ru, rv = planes[0][:eh, :ew], planes[1][:eh >> 1, :ew >> 1], planes[2][:eh >> 1, :ew >> 1]
-        qpel_chroma_bug = "xvid_qpel_chroma" in self._bugs
+        chroma_bug = 2 if "qpel_chroma2" in self._bugs else int("qpel_chroma" in self._bugs)
+        old = "std_qpel" in self._bugs
         qp = vol.quarter_sample
         n = len(sel)
         mbx, mby = sel % mb_w, sel // mb_w
@@ -1454,10 +1542,12 @@ class Mpeg4Decoder:
             if ((sx < 0) | (sy < 0) | (sx + 16 + (mx & frac > 0) > ew) | (sy + 16 + (my & frac > 0) > eh)).any():
                 counts["mv_past_edge"] += 1
             if qp:
-                py[one] = mc.qpel(ry, sx, sy, mx & 3, my & 3, 16, rounding)
-                if qpel_chroma_bug:
-                    counts["xvid_qpel_chroma"] += 1
-                (cx, cfx), (cy, cfy) = mc.chroma_qpel(mx, qpel_chroma_bug), mc.chroma_qpel(my, qpel_chroma_bug)
+                py[one] = mc.qpel(ry, sx, sy, mx & 3, my & 3, 16, rounding, old)
+                if old and (mx & my & 1 | mx & 1 & my >> 1).any():
+                    self._tally("std_qpel")
+                if chroma_bug:
+                    self._tally(("qpel_chroma", "qpel_chroma2")[chroma_bug - 1])
+                (cx, cfx), (cy, cfy) = mc.chroma_qpel(mx, chroma_bug), mc.chroma_qpel(my, chroma_bug)
             else:
                 py[one] = mc.halfpel(ry, sx, sy, mx & 1, my & 1, 16, rounding)
                 (cx, cfx), (cy, cfy) = mc.chroma_halfpel(mx), mc.chroma_halfpel(my)
@@ -1473,8 +1563,12 @@ class Mpeg4Decoder:
                                  frac)
             if ((sx < 0) | (sy < 0) | (sx + 8 + (fx > 0) > ew) | (sy + 8 + (fy > 0) > eh)).any():
                 counts["mv_past_edge"] += 1
-            predict = mc.qpel if qp else mc.halfpel
-            blocks = predict(ry, sx.ravel(), sy.ravel(), fx.ravel(), fy.ravel(), 8, rounding)
+            if qp:
+                blocks = mc.qpel(ry, sx.ravel(), sy.ravel(), fx.ravel(), fy.ravel(), 8, rounding, old)
+                if old and (fx & fy & 1 | fx & 1 & fy >> 1).any():
+                    self._tally("std_qpel")
+            else:
+                blocks = mc.halfpel(ry, sx.ravel(), sy.ravel(), fx.ravel(), fy.ravel(), 8, rounding)
             py[many] = blocks.reshape(-1, 2, 2, 8, 8).transpose(0, 1, 3, 2, 4).reshape(-1, 16, 16)
             if qp:  # libavcodec sums the quarter-pel vectors halved toward zero
                 mx, my = np.where(mx < 0, -((-mx) >> 1), mx >> 1), np.where(my < 0, -((-my) >> 1), my >> 1)
@@ -1578,12 +1672,12 @@ class Mpeg4Track:
     fourcc = ""
     counts: Counter  # the last `read()`'s decoder tallies (the tests read them)
 
-    def _vol(self) -> Vol:
+    def _vol(self) -> Optional[Vol]:
         """The video object layer header: from the configuration, else the
-        first packet; a stream `check_encoder` refuses raises here, before
-        any frame is read."""
+        first packet (None for the short video header, which has none); a
+        VOL the port refuses raises here, before any frame is read."""
         try:
-            return find_vol(self.config, next(self.packets(), b""), fourcc=self.fourcc)
+            return find_vol(self.config, next(self.packets(), b""))
         except (NotImplementedError, ValueError) as exc:
             raise type(exc)(f"{self.path}: {exc}") from exc
 

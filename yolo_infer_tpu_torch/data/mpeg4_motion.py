@@ -15,11 +15,16 @@ and returns the (n, size, size) predictions (int32, 0..255).
                with the nearer full sample, the quarter one; the vertical
                pass runs over that result the same way; each pass rounds
                (+16, or +15 under `vop_rounding_type` 1) and clips to
-               0..255, each average rounds up (down under rounding type 1)
+               0..255, each average rounds up (down under rounding type 1);
+               under libavcodec's `FF_BUG_STD_QPEL` (Lavc builds before
+               4653) its old filters at the six positions of an odd x and
+               a non-zero y quarter step: four- or two-way averages of the
+               full, across, down and centre samples
   chroma       the H.263 rule of a 16x16 half-pel vector (`chroma_halfpel`),
                libavcodec's rule of a 16x16 quarter-pel vector
                (`chroma_qpel`: halved toward zero, then to half-pel with
-               the odd quarter kept), and the sixteenth-pel rounding table
+               the odd quarter kept; its two quarter-pel chroma
+               workarounds), and the sixteenth-pel rounding table
                of four 8x8 vectors' sum (`chroma_4mv`)
 
 The reference is the decoded plane cut to the picture's edge position
@@ -77,19 +82,46 @@ def _lowpass(x: np.ndarray, size: int, rounding: int) -> np.ndarray:
     return np.clip((s + 16 - rounding) >> 5, 0, 255)
 
 
-def qpel(ref: np.ndarray, sx, sy, fx, fy, size: int, rounding: int) -> np.ndarray:
-    """(n, size, size) quarter-pel predictions at integer (sx, sy) plus quarter steps (fx, fy) in 0..3."""
+def _vlowpass(x: np.ndarray, size: int, rounding: int) -> np.ndarray:
+    """The 8-tap filter down the columns of x (n, size + 1, size) -> (n, size, size)."""
+    return np.swapaxes(_lowpass(np.swapaxes(x, 1, 2), size, rounding), 1, 2)
+
+
+def qpel(ref: np.ndarray, sx, sy, fx, fy, size: int, rounding: int, old: bool = False) -> np.ndarray:
+    """(n, size, size) quarter-pel predictions at integer (sx, sy) plus
+    quarter steps (fx, fy) in 0..3; `old`: libavcodec's pre-4653 filters
+    (`FF_BUG_STD_QPEL`) at the six positions of an odd x step and a
+    non-zero y step."""
     g = gather(ref, sx, sy, size + 1)  # (n, size + 1, size + 1)
     r = 1 - rounding
     half = _lowpass(g, size, rounding)  # (n, size + 1, size): each row's half samples
     fx = fx[:, None, None]
     rows = np.where(fx == 0, g[:, :, :size], np.where(fx == 2, half, np.where(
         fx == 1, (half + g[:, :, :size] + r) >> 1, (half + g[:, :, 1:] + r) >> 1)))
-    vert = np.swapaxes(_lowpass(np.swapaxes(rows, 1, 2), size, rounding), 1, 2)  # (n, size, size)
+    vert = _vlowpass(rows, size, rounding)  # (n, size, size)
     fy = fy[:, None, None]
     top, bottom = rows[:, :size], rows[:, 1:]
-    return np.where(fy == 0, top, np.where(fy == 2, vert, np.where(
+    out = np.where(fy == 0, top, np.where(fy == 2, vert, np.where(
         fy == 1, (top + vert + r) >> 1, (bottom + vert + r) >> 1)))
+    if not old:
+        return out
+    # the old filters: the full sample, the half sample across, the half sample down (of the full
+    # samples' column at x or x + 1) and the centre half sample, averaged four ways at y 1 and 3,
+    # the last two averaged at y 2
+    odd = fx & 1
+    at = odd.astype(bool) & (fy > 0)
+    if not at.any():
+        return out
+    centre = _vlowpass(half, size, rounding)
+    right = (fx == 3)
+    down = np.where(right, _vlowpass(g[:, :, 1:], size, rounding), _vlowpass(g[:, :, :size], size, rounding))
+    low = (fy == 3)
+    full = np.where(low, np.where(right, g[:, 1:, 1:], g[:, 1:, :size]), np.where(right, g[:, :size, 1:],
+                                                                                g[:, :size, :size]))
+    across = np.where(low, half[:, 1:], half[:, :size])
+    four = (full + across + down + centre + 2 - rounding) >> 2
+    two = (down + centre + r) >> 1
+    return np.where(at, np.where(fy == 2, two, four), out)
 
 
 def clip_8x8(pos: np.ndarray, frac: np.ndarray, low: int, limit: int, mask: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -104,12 +136,19 @@ def chroma_halfpel(mx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return mx >> 2, (mx & 1) | ((mx & 2) >> 1)
 
 
-def chroma_qpel(mx: np.ndarray, qpel_chroma_bug: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+_QPEL_CHROMA2_ROUND = np.array([0, 0, 1, 1, 0, 0, 0, 1], np.int64)
+
+
+def chroma_qpel(mx: np.ndarray, bug: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """(integer offset, half step) of the chroma vector of a 16x16 quarter-pel
-    luma vector: halved toward zero (or, under libavcodec's Xvid quarter-pel
-    chroma workaround, halved keeping the odd bit), then to half samples
-    keeping the odd bit."""
-    m = (mx >> 1) | (mx & 1) if qpel_chroma_bug else np.where(mx < 0, -((-mx) >> 1), mx >> 1)
+    luma vector: halved toward zero (under libavcodec's quarter-pel chroma
+    workaround, `bug` 1, halved keeping the odd bit; under its second, `bug`
+    2, halved and rounded by its table of the vector's low 3 bits), then to
+    half samples keeping the odd bit."""
+    if bug == 2:
+        m = (mx >> 1) + _QPEL_CHROMA2_ROUND[mx & 7]
+    else:
+        m = (mx >> 1) | (mx & 1) if bug else np.where(mx < 0, -((-mx) >> 1), mx >> 1)
     m = (m >> 1) | (m & 1)
     return m >> 1, m & 1
 

@@ -1,10 +1,10 @@
 """Open a video file by its signature, as OpenCV's FFmpeg backend probes it, not by its name.
 
   AVI         `RIFF....AVI ` -> `data/avi.py AviReader` (motion JPEG,
-              MPEG-4 Part 2)
-  MP4, MOV    an `ftyp` box, or a QuickTime file that starts with `moov`,
-              `mdat`, `wide`, `free` or `skip` -> `data/mp4.py Mp4Reader`
-              (MPEG-4 Part 2)
+              MPEG-4 Part 2, H.263, raw I420)
+  MP4, MOV    an `ftyp` box (3GP too), or a QuickTime file that starts
+              with `moov`, `mdat`, `wide`, `free` or `skip` ->
+              `data/mp4.py Mp4Reader` (MPEG-4 Part 2, H.263)
   Matroska    the EBML magic -> `data/mkv.py MkvReader` (MPEG-4 Part 2;
               WebM, VP8 through `data/vp8.py` and VP9 through
               `data/vp9.py`)
