@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs thirty-seven phases, each printing one JSON line. Kernels A, C, F and G
+runs thirty-eight phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -477,6 +477,23 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              nothing) with `.mp4` output, each checked as phase 35 checks
              its demo, the frames it drew on equal to the manifest's, the
              output read back
+ 38. msmpeg4 Microsoft's MPEG-4 family and AV1 on the card's host: each
+             fixture of `tests/torch_msmpeg4/` (OpenCV's `DIV3`, `MP43`,
+             `MP42`, `WMV1` and `WMV2` writers in AVI, Matroska and MOV,
+             the 12-frame 640x480 DIV3 demo file and a 6-frame 640x480 WMV2
+             file; libavcodec's encoders at both ends of the quantiser
+             range, WMV1's DCs from pixels, WMV2's loop filter; random
+             streams of the syntax no bundled encoder writes; AV1 in WebM
+             and MP4, which give their info and no frame, as OpenCV gives
+             none) decodes to its manifest's sha256 of every frame OpenCV
+             decodes, and its info; each refused file (MS-MPEG-4 v1, a WMV2
+             IntraX8 picture) raises as listed; the host seconds to decode
+             each picture of the 640x480 DIV3 and WMV2 files and convert it
+             to BGR (median by picture type over three decodes of each
+             file, the garbage collector off); `detect_video` (yolo11n,
+             b8/640 bf16) over the DIV3 AVI with `.mp4` output, checked as
+             phase 35 checks its demo, the frames it drew on equal to the
+             manifest's, the output read back
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -5710,6 +5727,102 @@ def phase_vp9(report):
     return out
 
 
+MSMPEG4_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_msmpeg4"
+MSMPEG4_DEMO = "div3_640x480.avi"  # the committed 640x480 DivX ;-) (DIV3) AVI the demo runs over (12 frames)
+MSMPEG4_TIMED = ("div3_640x480.avi", "wmv2_640x480.avi")  # the files decoded by picture type
+
+
+def picture_decode_s(path: Path, passes: int = 3) -> dict:
+    """The host's seconds to decode each picture of an MS-MPEG-4 or WMV
+    file in order and convert it to BGR, by picture type ("I_picture",
+    "P_picture"; v2 to WMV1 code the type in 2 bits, WMV2 in 1), over
+    `passes` decodes of the whole file, each with a fresh decoder, after a
+    garbage collection and with the collector off (a collection of this
+    process's heap takes longer than a picture): the median and the count."""
+    from yolo_infer_tpu_torch.data.mpeg4 import yuv420_to_bgr
+    from yolo_infer_tpu_torch.data.msmpeg4 import WMV2, make_decoder
+    from yolo_infer_tpu_torch.data.video import open_video
+
+    reader = open_video(path)
+    packets = list(reader.packets())
+    times = {}
+    for _ in range(passes):
+        decoder = make_decoder(reader.width, reader.height, reader.ms_version, reader.config)
+        gc.collect()
+        gc.disable()
+        try:
+            for packet in packets:
+                t0 = time.perf_counter()
+                planes = decoder.decode(packet)
+                if planes is not None:
+                    yuv420_to_bgr(*planes)
+                seconds = time.perf_counter() - t0
+                kind = packet[0] >> 7 if reader.ms_version == WMV2 else packet[0] >> 6
+                times.setdefault("IP"[kind] + "_picture", []).append(seconds)
+        finally:
+            gc.enable()
+    return {k: {"median_s": sorted(v)[len(v) // 2], "pictures": len(v)} for k, v in times.items()}
+
+
+def phase_msmpeg4(report):
+    """Microsoft's MPEG-4 family and AV1 on the card's host (phase 38): the
+    committed fixtures of `tests/torch_msmpeg4/` against their manifest
+    (AV1 files give their info and no frame), the refused files, the host's
+    decode seconds by picture type of the 640x480 DIV3 and WMV2 files, and
+    the batched detect video demo (A, B) with MP4 output over the DIV3 AVI."""
+    import hashlib
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.data.video import open_video
+    from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
+
+    out = {"phase": "msmpeg4", "card": card_line()}
+    failures = []
+    manifest = json.loads((MSMPEG4_FIXTURES / "manifest.json").read_text())
+    # --- the fixtures (the 640x480 files decoded whole) and the refused files
+    t0 = time.perf_counter()
+    decoded = check_video_fixtures(MSMPEG4_FIXTURES, manifest, failures)
+    out["fixtures"] = {"videos": len(manifest["files"]), "refused": len(manifest["raises"]),
+                       "av1_frames": {k: v["frames"] for k, v in decoded.items() if k.startswith("av1_")},
+                       "seconds": time.perf_counter() - t0}
+    # --- the host's decode seconds at 640x480 by picture type
+    t0 = time.perf_counter()
+    for name in MSMPEG4_TIMED:
+        key = f"{name.split('_')[0]}_decode_s_640x480"
+        out[key] = picture_decode_s(MSMPEG4_FIXTURES / name)
+        emit({key: out[key], "card": out["card"]})
+    out["timing_seconds"] = time.perf_counter() - t0
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_msmpeg4_"))
+    try:
+        # --- the demo over the committed 640x480 DIV3 AVI, .mp4 out (a fresh demo: its own b8/640 capture)
+        t0 = time.perf_counter()
+        model = report["weights"][0] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "detect.msgpack")
+        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+        info = manifest["files"][MSMPEG4_DEMO]["info"]
+        n = info["frame_count"]
+        ran, drawn = check_video_demo(demo, MSMPEG4_FIXTURES / MSMPEG4_DEMO, root, ".mp4", n, "msmpeg4",
+                                      "msmpeg4_video", failures)
+        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+        ran["decoded_as_manifest"] = hashes == manifest["files"][MSMPEG4_DEMO]["frames"]
+        written = open_video(root / "out.mp4")
+        ran["output"] = {**written.info(), "frames_read": sum(1 for _ in written.read())}
+        if (ran["output"]["frames_read"], written.frame_count, written.width, written.height) != \
+                (n, n, info["width"], info["height"]) or not ran["decoded_as_manifest"]:
+            failures.append(f"{MSMPEG4_DEMO}: the output video read back: {ran['output']}; decoded as the "
+                            f"manifest: {ran['decoded_as_manifest']}")
+        ran["seconds"] = time.perf_counter() - t0
+        out["demo"] = ran
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 SCRIPTS_BENCH = (32, 640, 20)  # benchmark: batch, imgsz, runs a timing window (three windows a model)
 SCRIPTS_VAL = (16, 640)  # val_matrix: batch, imgsz
 SCRIPTS_KINDS = ("bilevel.tif", "ccitt_rle.tif", "ccitt_g3.tif", "ccitt_g3_2d.tif", "ccitt_g4.tif",
@@ -6059,7 +6172,7 @@ def main() -> int:
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
               phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats, phase_mpeg4,
-              phase_vp8, phase_scripts, phase_vp9)
+              phase_vp8, phase_scripts, phase_vp9, phase_msmpeg4)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

@@ -59,8 +59,8 @@ CASES = ("profile_0", "key_frame", "inter_frame", "colour_space_0", "studio_rang
          "inter_regular", "inter_smooth", "inter_sharp", "inter_bilinear", "kf_sub8x8", "intra_sub8x8",
          "tx_4", "tx_8", "tx_16", "tx_32", "superframe", "hidden_frame", "show_existing_frame", "prev_frame_mvs",
          "error_resilient", "keep_frame_context", "frame_context_1", "frame_context_2", "frame_context_3",
-         "backward_adaptation", "compound", "reference_select", "comp_inter_prob_update", "ref_compound",
-         "inter_compound", "segmentation", "seg_update_map", "seg_temporal_update", "seg_update_data", "seg_alt_q",
+         "backward_adaptation", "compound", "compound_only", "reference_select", "comp_inter_prob_update",
+         "ref_compound", "inter_compound", "segmentation", "seg_update_map", "seg_temporal_update", "seg_update_data", "seg_alt_q",
          "seg_alt_lf", "seg_skip", "seg_predicted", "seg_coded", "lossless", "tx_mode_0", "tx_mode_1") \
     + tuple(f"block_{b}" for b in vp9.BLOCK_NAMES) + tuple(f"tx_type_{t}" for t in vp9.TX_TYPE_NAMES) \
     + tuple(f"{p}{m}" for p in ("kf_", "intra_", "uv_") for m in vp9.MODE_NAMES[:10]) \
@@ -175,6 +175,17 @@ def test_unreached_syntax_raises_before_any_frame(monkeypatch):
         next(load_video(FIXTURES / "vp9_176x144_30.webm"))
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 11\.2"):
         decoder.decode(packets[13])
+
+
+def test_compound_only_frames_decode_and_adapt_their_compound_counts_only():
+    """Frames in reference mode COMPOUND_REFERENCE decode (libvpx's planes:
+    `test_planes_equal_libvpx`), the frame-parallel-off one with backward
+    adaptation after them; a forward update of the compound reference
+    probabilities stays refused."""
+    assert "compound_only" not in vp9.UNREACHED and "comp_ref_prob_update" in vp9.UNREACHED
+    counts = decoded("vp9_compound_nofp_96x48.webm")[1]
+    assert counts["compound_only"] and counts["backward_adaptation"]
+    assert all(decoded(n)[1]["compound_only"] for n in SMALL if n.startswith("vp9_compound_"))
 
 
 def test_corrupt_frames_raise_value_error():

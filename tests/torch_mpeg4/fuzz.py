@@ -1,6 +1,6 @@
 """Hold the port's MPEG-4 and H.263 decoders to libavcodec's on random encodes.
 
-    python tests/torch_mpeg4/fuzz.py SEED [CASES] [asp|divx|h263]
+    python tests/torch_mpeg4/fuzz.py SEED [CASES] [asp|divx|h263|msmpeg4v2|div3|wmv1|wmv2|synth]
 
 Mode `asp` (the default): each case draws a size, a frame count and a set
 of libavcodec `mpeg4` encoder options (B-VOPs, 4MV, quarter-pel, MPEG
@@ -17,7 +17,17 @@ spliced in (`DIVX_USER_DATA`), or a DivX 4 VOL under a `DIVX` tag, the
 B-VOPs packed as DivX writes them (`make_fixtures.pack_divx`) or not.
 Mode `h263`: the `h263` encoder at a random one of its five sizes (the
 largest rarely), quantisers, GOB headers (`ps`), an adaptive quantiser and
-`+mv4`, against libavcodec's `h263` decoder and `H263Decoder`. Prints each
+`+mv4`, against libavcodec's `h263` decoder and `H263Decoder`. Modes
+`msmpeg4v2`, `div3`, `wmv1` and `wmv2`: libavcodec's `msmpeg4v2`,
+`msmpeg4`, `wmv1` and `wmv2` encoders at a random size (odd ones too),
+quantiser (fixed at 1..31, so that every DC scale is met, or free), GOP,
+macroblock decision, motion search range, bit rate (WMV1's per-macroblock
+RL flag and its intra DC from pixels turn on by it), fps and (WMV2) the
+loop filter, against the same decoders and the port's `MsMpeg4Decoder` or
+`Wmv2Decoder` (`data/msmpeg4.py make_decoder`). Mode `synth`: random
+streams of `tests/torch_msmpeg4/synth.py` (a random version, size and
+picture order: the syntax those encoders never write) against the same
+decoders. Prints each
 case that differs, with the frames and macroblocks, and last `seed S cases
 N fails F`. Exits 1 if a case failed, 2 without the library.
 """
@@ -38,6 +48,10 @@ sys.path.insert(0, str(HERE))
 import libavcodec  # noqa: E402
 from yolo_infer_tpu_torch.data.h263 import H263Decoder  # noqa: E402
 from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Decoder, bgr_to_yuv420  # noqa: E402
+from yolo_infer_tpu_torch.data.msmpeg4 import make_decoder  # noqa: E402
+
+sys.path.append(str(REPO / "tests" / "torch_msmpeg4"))
+import synth  # noqa: E402
 
 # this folder's make_fixtures.py, under another name: it imports tests/torch_video's make_fixtures.py
 _spec = importlib.util.spec_from_file_location("mpeg4_fixtures", HERE / "make_fixtures.py")
@@ -51,6 +65,8 @@ DIVX_USER_DATA = (b"DivX503b1393p", b"DivX501b1600p", b"DivX502b1813", b"DivX609
                   b"FFmpeg v0.4.9 / libavcodec build: 4669", b"FFmpeg0.4.9b4712", b"Lavc56.60.100",
                   b"Lavc57.64.101", b"Lavc51.40.4")
 H263_SIZES = ((128, 96), (176, 144), (352, 288), (704, 576))
+# mode: (libavcodec codec name, the port's MS-MPEG-4 version)
+MS_MODES = {"msmpeg4v2": ("msmpeg4v2", 2), "div3": ("msmpeg4", 3), "wmv1": ("wmv1", 4), "wmv2": ("wmv2", 5)}
 
 
 def draw_case(rng: random.Random):
@@ -134,6 +150,38 @@ def draw_h263(rng: random.Random):
     return w, h, planes, opts
 
 
+def draw_ms(rng: random.Random, mode: str):
+    """An MS-MPEG-4 or WMV case: size, planes and encoder options."""
+    w = rng.choice([16, 32, 48, 64, 80, 96, 98, 100, 130, 176, 200])
+    h = rng.choice([16, 32, 48, 60, 64, 96, 144])
+    opts = {"g": rng.randint(1, 12)} if rng.random() < 0.6 else {}
+    if rng.random() < 0.6:
+        q = rng.randint(1, 31)
+        opts["qmin"], opts["qmax"] = q, min(31, q + rng.randint(0, 3))
+    if rng.random() < 0.4:
+        opts["b"] = rng.choice([20_000, 60_000, 100_000, 140_000, 400_000, 2_000_000])
+    if rng.random() < 0.3:
+        opts["mbd"] = rng.randint(0, 2)
+    if rng.random() < 0.2:
+        opts["me_range"] = rng.choice([4, 16, 64])
+    if mode == "wmv2" and rng.random() < 0.5:
+        opts["flags"] = "+loop"
+    fps = rng.choice([(25, 1), (30, 1), (30000, 1001), (15, 1), (60, 1)])
+    frames = make_fixtures.scene(rng.randint(2, 12), h, w, rng.randint(0, 1000))
+    if rng.random() < 0.3:
+        for f in frames:
+            f[: h // 3, : w // 3] = 255
+    planes = [bgr_to_yuv420(f) for f in frames]
+    if rng.random() < 0.3:  # samples at 0 and 255 in moving rectangles of every plane
+        for i, frame in enumerate(planes):
+            for k, p in enumerate(frame):
+                ph, pw = p.shape
+                y0, x0 = (i * 2 + k) % max(ph - 4, 1), (i * 3) % max(pw - 4, 1)
+                p[y0:y0 + ph // 3, x0:x0 + pw // 3] = 0
+                p[ph // 2:ph // 2 + ph // 4, pw // 2:] = 255
+    return w, h, planes, opts, fps
+
+
 def run_case(packets, xvid, matrices, tag=b"FMP4", divx=None):
     """None if the port's planes of an encode's `packets` (Xvid user data,
     matrices, DivX user data and packing as drawn: `divx` is (user data,
@@ -182,7 +230,28 @@ def main(seed: int, cases: int, mode: str = "asp") -> int:
     rng = random.Random(seed)
     fails = 0
     for case in range(cases):
-        if mode == "h263":
+        if mode == "synth":
+            version = rng.choice([2, 3, 4, 5])
+            name = MS_MODES[("msmpeg4v2", "div3", "wmv1", "wmv2")[version - 2]][0]
+            w, h = rng.choice([16, 32, 40, 48, 64, 80, 96, 112]), rng.choice([16, 32, 48, 64])
+            writer = synth.Synth(version, w, h, rng)
+            packets = [writer.picture(k) for k in [0] + [rng.choice([0, 1, 1, 1]) for _ in range(rng.randint(1, 6))]]
+            want = libavcodec.decode(packets, writer.extradata, codec_name=name, video_size=f"{w}x{h}")
+            diff = compare(make_decoder(w, h, version, writer.extradata), packets, want)
+            planes, drawn = packets, (name,)
+        elif mode in MS_MODES:
+            name, version = MS_MODES[mode]
+            w, h, planes, opts, fps = draw_ms(rng, mode)
+            try:
+                encoded = libavcodec.encode(planes, w, h, fps=fps, codec_name=name, **opts)
+            except (RuntimeError, ValueError) as exc:
+                print("encode refused", opts, exc)
+                continue
+            packets = [p[0] for p in encoded.packets]
+            want = libavcodec.decode(packets, encoded.extradata, codec_name=name, video_size=f"{w}x{h}")
+            diff = compare(make_decoder(w, h, version, encoded.extradata), packets, want)
+            drawn = (opts, fps)
+        elif mode == "h263":
             w, h, planes, opts = draw_h263(rng)
             packets = [p[0] for p in libavcodec.encode(planes, w, h, codec_name="h263", **opts).packets]
             diff = compare(H263Decoder(), packets, libavcodec.decode(packets, codec_name="h263"))

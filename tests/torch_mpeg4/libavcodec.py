@@ -17,7 +17,13 @@ or through its 3GP muxer. `encode` and
 `decode` take the codec by name: `mpeg4`, `h263` (H.263 baseline, the
 five source formats; `ps` gives GOB headers, `flags=+mv4` four-vector
 macroblocks without the annex flag, `obmc` annex F, which the port
-refuses) or `h263p` (H.263+, refused). `unpack_bframes` runs the
+refuses), `h263p` (H.263+, refused), or Microsoft's MPEG-4 family:
+`msmpeg4v2`, `msmpeg4` (v3, DivX ;-)), `wmv1` and `wmv2` (options such as
+`qmin`/`qmax`, `g`, `mbd`, `b`, and WMV2's `flags=+loop`; WMV2's extension
+header is the encode's extradata; their decoders need `video_size`, since
+the streams carry no size). `parameters` makes the codec parameters of a
+stream no encoder here writes (AV1 key frames from the AVIF that OpenCV's
+bundled libavif writes), for `mux`. `unpack_bframes` runs the
 `mpeg4_unpack_bframes` bitstream filter over packets (DivX's packed
 B-frames split, one VOP a packet).
 
@@ -51,6 +57,7 @@ _ST_INDEX, _ST_PAR, _ST_TB = 8, 16, 32
 _FMT_PB = 32
 _PAR_EXTRA, _PAR_EXTRA_SIZE = 16, 24
 _PAR_ID = 4
+_PAR_WIDTH, _PAR_HEIGHT = 72, 76
 _CODEC_ID = 20  # AVCodec: name, long_name, type, id
 _BSF_PAR_IN, _BSF_PAR_OUT = 24, 32  # AVBSFContext: av_class, filter, priv_data, par_in, par_out
 
@@ -178,11 +185,33 @@ def encode(frames: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], w: int, 
     return Encoded(packets, extra, (fps[1], fps[0]), p)
 
 
+def parameters(codec_name: str, width: int, height: int, extradata: bytes = b"") -> int:
+    """New codec parameters of a video stream of the `codec_name` decoder's
+    codec, its size and extradata (an `Encoded`'s `_par`, which frees them)."""
+    codec, util = _LIBS["avcodec"], _LIBS["avutil"]
+    dec = codec.avcodec_find_decoder_by_name(codec_name.encode())
+    if not dec:
+        raise RuntimeError(f"no {codec_name} decoder")
+    codec.avcodec_parameters_alloc.restype = ctypes.c_void_p
+    p = codec.avcodec_parameters_alloc()
+    _at(p, ctypes.c_int, 0).value = 0  # AVMEDIA_TYPE_VIDEO
+    _at(p, ctypes.c_int, _PAR_ID).value = _at(dec, ctypes.c_int, _CODEC_ID).value
+    _at(p, ctypes.c_int, _PAR_WIDTH).value, _at(p, ctypes.c_int, _PAR_HEIGHT).value = width, height
+    if extradata:
+        util.av_mallocz.restype = ctypes.c_void_p
+        buf = util.av_mallocz(len(extradata) + 64)
+        ctypes.memmove(buf, extradata, len(extradata))
+        _at(p, ctypes.c_void_p, _PAR_EXTRA).value = buf
+        _at(p, ctypes.c_int, _PAR_EXTRA_SIZE).value = len(extradata)
+    return p
+
+
 def decode(packets: Sequence[bytes], extradata: bytes = b"", codec_tag: Optional[bytes] = None,
            codec_name: str = "mpeg4", stop_on_error: bool = False, **options
            ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """(Y, U, V) of each frame the `codec_name` decoder (`mpeg4`, `h263`)
-    outputs for `packets` (in decoding order), the delayed frames drained
+    """(Y, U, V) of each frame the `codec_name` decoder (`mpeg4`, `h263`,
+    `msmpeg4v2`, `msmpeg4`, `wmv1`, `wmv2`) outputs for `packets` (in
+    decoding order), the delayed frames drained
     at the end, as OpenCV's FFmpeg backend drains them; `codec_tag` is the
     container's fourcc, `options` decoder options by name. An empty packet
     is not sent (OpenCV's reader skips it). A packet the decoder refuses
@@ -263,7 +292,7 @@ def _set_extradata(ctx: int, buf: int, size: int, codec_id: int = AV_CODEC_ID_MP
 
 def mux(path: Path, encoded: Encoded, format_name: str) -> None:
     """Write `encoded`'s packets with libavformat's `format_name` muxer
-    ("mp4", "matroska", "3gp"), each packet's pts and dts from the encoder,
+    ("mp4", "matroska", "webm", "3gp", ...), each packet's pts and dts from the encoder,
     under the muxer's own tag for the codec."""
     fmt, codec = _LIBS["avformat"], _LIBS["avcodec"]
     oc = ctypes.c_void_p()

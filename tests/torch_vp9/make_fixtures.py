@@ -24,7 +24,9 @@ tools:
           AQ mode 3 (segmentation), a real-time encode with AQ mode 3 and
           an active map (segments that skip, with their own loop filter
           level), six layers of automatic altrefs (frame contexts 1-3,
-          show_existing_frame), the library's own defaults at 352x288
+          show_existing_frame), frames with compound prediction in every
+          block (two-pass altref layers at a coarse fixed quantiser; one
+          with frame-parallel mode off), the library's own defaults at 352x288
           (two passes, automatic altref, lag 25, every other control
           unset: the manifest records what libvpx chose), and refused: an
           odd height (swscale converts it through its scaled path)
@@ -80,6 +82,16 @@ VIDEOS = {
     "vp9_layers_176x144.webm": ("libvpx", (176, 144), 25, 32, 307, {"altref": 6, "quantizer": 40}),
     "vp9_default_352x288.webm": ("libvpx", (352, 288), 30, 30, 306,
                                  {"altref": True, "speed": None, "frame_parallel": None}),
+    # compound prediction in every block of some frames (reference mode COMPOUND_REFERENCE)
+    "vp9_compound_96x80.webm": ("libvpx", (96, 80), 25, 22, 475,
+                                {"altref": 6, "aq_mode": 0, "speed": 3, "quantizer": 62}),
+    "vp9_compound_64x64.webm": ("libvpx", (64, 64), 25, 9, 806,
+                                {"altref": 3, "aq_mode": 3, "speed": 8, "quantizer": 57, "frame_parallel": None}),
+    "vp9_compound_nofp_96x48.webm": ("libvpx", (96, 48), 25, 24, 590,
+                                     {"altref": 1, "aq_mode": 0, "speed": 7, "quantizer": 63,
+                                      "frame_parallel": False}),
+    "vp9_compound_96x96.webm": ("libvpx", (96, 96), 25, 13, 246,
+                                {"altref": 3, "aq_mode": 1, "speed": 6, "quantizer": 63}),
 }
 DEFAULTS = "vp9_default_352x288.webm"
 # name: ((width, height), frames, seed, libvpx options, what it raises)

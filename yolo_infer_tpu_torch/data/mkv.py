@@ -1,16 +1,24 @@
-"""Matroska and WebM video without OpenCV: a demuxer for MPEG-4 Part 2, VP8 and VP9 tracks and an MPEG-4 muxer.
+"""Matroska and WebM video without OpenCV: a demuxer for MPEG-4 Part 2, MS-MPEG-4, WMV, VP8 and VP9 tracks and an MPEG-4 muxer.
 
 `MkvReader` walks a Matroska file's EBML elements: the EBML header (whose
 DocType must be `matroska` or `webm`), the Segment's Info (TimestampScale,
 Duration), its Tracks and its Clusters. It takes the first video
-TrackEntry (TrackType 1), which must be MPEG-4 Part 2, VP8 or VP9: a
-CodecID of `V_MPEG4/ISO/SP`, `V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose
-CodecPrivate is the decoder configuration (the video object layer header),
+TrackEntry (TrackType 1), which must be MPEG-4 Part 2, Microsoft's
+MPEG-4 family, VP8, VP9 or AV1: a CodecID of `V_MPEG4/ISO/SP`,
+`V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose CodecPrivate is the decoder
+configuration (the video object layer header), `V_MPEG4/MS/V3` (DivX ;-)
+as OpenCV's `DIV3` writer writes it, `data/msmpeg4.py`),
 `V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER with an
-MPEG-4 fourcc (`data/mpeg4.py MPEG4_FOURCCS`) and the configuration after
-it, `V_VP8` (`data/vp8.py`) or `V_VP9` (`data/vp9.py`, profile 0 as
-OpenCV's `VP90` writer writes it; every frame's headers are read first).
-The first key frame gives a VP8 or VP9 track's size. Its
+MPEG-4 fourcc (`data/mpeg4.py MPEG4_FOURCCS`) or an MS-MPEG-4 or WMV one
+(`data/msmpeg4.py FOURCCS`: OpenCV writes `MP42`, `WMV1` and `WMV2` so)
+and the configuration after it (WMV2's extension header), `V_VP8`
+(`data/vp8.py`) or `V_VP9` (`data/vp9.py`, profile 0 as OpenCV's `VP90`
+writer writes it; every frame's headers are read first). The first key
+frame gives a VP8 or VP9 track's size, the track's PixelWidth and
+PixelHeight an MS-MPEG-4 one's. An AV1 track (`V_AV1`) is read as the JAX
+package reads it through OpenCV, whose bundled libavcodec has no AV1
+decoder it can run (its native `av1` decoder needs a hardware one): the
+track's size, rate and count, and no frame. Its
 SimpleBlocks, and the Blocks of its BlockGroups, are the packets for the
 decoder, in file order: an MPEG-4 track with B-VOPs (Advanced Simple
 Profile, as libavformat's muxer writes it) has them in decoding order, its
@@ -23,10 +31,10 @@ Matroska file counts no frames, the Segment's duration times that rate,
 rounded. Without a DefaultDuration the rate is the blocks' count over their
 time span.
 
-Other codecs (AV1, H.264, ...), laced blocks and elements of unknown
-size raise `NotImplementedError` naming what was found (ROADMAP Queue 1
-item 11.2), before any frame is read; a malformed or truncated file
-raises `ValueError`.
+Other codecs (H.264, ...), MS-MPEG-4 v1, laced blocks and elements of
+unknown size raise `NotImplementedError` naming what was found (ROADMAP
+Queue 1 item 11.2), before any frame is read; a malformed or truncated
+file raises `ValueError`.
 
 `MkvWriter` writes `Mpeg4Encoder`'s I-VOPs into Matroska (CodecID
 `V_MPEG4/ISO/ASP`, the headers as CodecPrivate), as OpenCV's FFmpeg
@@ -48,6 +56,7 @@ import numpy as np
 
 from yolo_infer_tpu_torch.data.avi import fps_ratio
 from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Encoder, Mpeg4Track
+from yolo_infer_tpu_torch.data.msmpeg4 import V3, MsMpeg4Track, is_fourcc
 from yolo_infer_tpu_torch.data.vp8 import Vp8Track
 from yolo_infer_tpu_torch.data.vp9 import Vp9Track
 
@@ -55,6 +64,8 @@ _ROADMAP = "ROADMAP Queue 1 item 11.2"
 MPEG4_CODEC_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 VP8_CODEC_ID = "V_VP8"
 VP9_CODEC_ID = "V_VP9"
+MSMPEG4V3_CODEC_ID = "V_MPEG4/MS/V3"
+AV1_CODEC_ID = "V_AV1"
 _VP_TRACKS = {VP8_CODEC_ID: Vp8Track, VP9_CODEC_ID: Vp9Track}
 
 EBML, DOCTYPE = 0x1A45DFA3, 0x4282
@@ -139,7 +150,7 @@ class _File:
         return struct.unpack(">f" if len(data) == 4 else ">d", data)[0] if data else 0.0
 
 
-class MkvReader(Mpeg4Track):
+class MkvReader(Mpeg4Track, MsMpeg4Track):
     """The first video track of a Matroska or WebM file: `width`, `height`,
     `fps`, `frame_count`, `info()`, the blocks' frames (`packets()`) and the
     decoded frames (`read()`)."""
@@ -178,7 +189,7 @@ class MkvReader(Mpeg4Track):
                 self._clusters.append((start, end))
         if track is None:
             raise ValueError(f"corrupt Matroska {self.path}: no video track")
-        self.number, self.config, default_duration, self.fourcc, self.codec = track
+        self.number, self.config, default_duration, self.fourcc, self.codec, pixels = track
         self._blocks = self._index(ebml)
         if default_duration:
             num, den = av_reduce(1_000_000_000, default_duration, 30000)
@@ -193,6 +204,11 @@ class MkvReader(Mpeg4Track):
             self.frame_count = len(self._blocks)
         if self.codec in _VP_TRACKS:
             self.width, self.height = _VP_TRACKS[self.codec].size(self)
+        elif self.codec == AV1_CODEC_ID:
+            self.width, self.height = pixels
+        elif self.codec == MSMPEG4V3_CODEC_ID or is_fourcc(self.fourcc.encode()):
+            self.width, self.height = pixels
+            self.open_msmpeg4(V3 if self.codec == MSMPEG4V3_CODEC_ID else self.fourcc)
         else:
             vol = self._vol()
             if vol is None:
@@ -201,7 +217,12 @@ class MkvReader(Mpeg4Track):
             self.width, self.height = vol.width, vol.height
 
     def read(self, rgb: bool = True) -> Iterator[np.ndarray]:
-        """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
+        """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`);
+        none of an AV1 track, as OpenCV gives none."""
+        if self.codec == AV1_CODEC_ID:
+            return iter(())
+        if self.ms_version:
+            return self.read_msmpeg4(rgb)
         return _VP_TRACKS.get(self.codec, Mpeg4Track).read(self, rgb)
 
     def _track(self, ebml: _File, start: int, end: int):
@@ -214,19 +235,27 @@ class MkvReader(Mpeg4Track):
             codec = ebml.read(*fields[CODEC_ID]).rstrip(b"\0").decode("latin-1") if CODEC_ID in fields else ""
             private = ebml.read(*fields[CODEC_PRIVATE]) if CODEC_PRIVATE in fields else b""
             fourcc = ""
+            pixels = (0, 0)
+            if VIDEO in fields:
+                video = {i: ebml.uint(a, b) for i, a, b in ebml.elements(*fields[VIDEO])
+                         if i in (PIXEL_WIDTH, PIXEL_HEIGHT)}
+                pixels = (video.get(PIXEL_WIDTH, 0), video.get(PIXEL_HEIGHT, 0))
             if codec == "V_MS/VFW/FOURCC" and len(private) >= 40:
                 fourcc = private[16:20].decode("latin-1")
-                if private[16:20] not in MPEG4_FOURCCS:
+                if private[16:20] not in MPEG4_FOURCCS and not is_fourcc(private[16:20]):
                     raise NotImplementedError(f"{self.path}: a Matroska video track of VFW fourcc {fourcc!r}; the "
-                                              f"port reads MPEG-4 Part 2 video only ({_ROADMAP})")
+                                              f"port reads MPEG-4 Part 2, MS-MPEG-4 and WMV video only ({_ROADMAP})")
+                if pixels == (0, 0):
+                    width, height = struct.unpack("<ii", private[4:12])
+                    pixels = (width, abs(height))
                 private = private[40:]
-            elif codec not in MPEG4_CODEC_IDS and codec not in _VP_TRACKS:
+            elif codec not in MPEG4_CODEC_IDS + (MSMPEG4V3_CODEC_ID, AV1_CODEC_ID) and codec not in _VP_TRACKS:
                 raise NotImplementedError(f"{self.path}: a Matroska video track of codec {codec!r}; the port reads "
-                                          f"MPEG-4 Part 2, VP8 and VP9 video only ({_ROADMAP})")
+                                          f"MPEG-4 Part 2, MS-MPEG-4, WMV, VP8 and VP9 video only ({_ROADMAP})")
             if TRACK_NUMBER not in fields:
                 raise ValueError(f"corrupt Matroska {self.path}: a track without a number")
             default = ebml.uint(*fields[DEFAULT_DURATION]) if DEFAULT_DURATION in fields else 0
-            return ebml.uint(*fields[TRACK_NUMBER]), private, default, fourcc, codec
+            return ebml.uint(*fields[TRACK_NUMBER]), private, default, fourcc, codec, pixels
         return None
 
     def _index(self, ebml: _File) -> List[Tuple[int, int, int]]:

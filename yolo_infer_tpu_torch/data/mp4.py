@@ -8,7 +8,11 @@ whose DecoderConfigDescriptor names MPEG-4 Visual (object type 0x20) and
 whose DecoderSpecificInfo holds the video object layer header (each sample
 to `data/mpeg4.py`), or H.263's `h263` (QuickTime's, as OpenCV's `H263`
 writer writes a `.mov`) or `s263` (3GPP's), whatever the extension (each
-sample to `data/h263.py`; the size from the first picture header); `stts`,
+sample to `data/h263.py`; the size from the first picture header), or an
+MS-MPEG-4 or WMV tag (`data/msmpeg4.py FOURCCS`, as libavformat falls back
+to the AVI tags: OpenCV's `DIV3` writer writes `3IVD` into a `.mov`, its
+`MP42`, `WMV1` and `WMV2` writers their own fourccs, WMV2's extension
+header in a `glbl` box; the size from the sample entry); `stts`,
 `stsc`, `stsz` and `stco` or `co64` the samples (`stss` is not needed:
 every sample is decoded, in order). Each sample is one packet. `fps` is
 libavformat's average frame rate
@@ -20,9 +24,12 @@ display order, so its `ctts` is not read; nor is the edit list that
 libavformat's muxer writes to start at the first displayed frame, since
 neither moves the average rate or the count of `stts` in such a file.
 
-Any other sample entry (`avc1`, `hvc1`, `hev1`, `vp09`, `av01`, ...) raises
-`NotImplementedError` naming it (ROADMAP Queue 1 item 11.2), before any
-frame is read; a malformed or truncated file raises `ValueError`.
+An AV1 track (`av01`) is read as the JAX package reads it through OpenCV,
+whose bundled libavcodec has no AV1 decoder it can run: the track's size,
+rate and count, and no frame. Any other sample entry (`avc1`, `hvc1`,
+`hev1`, `vp09`, ...) and MS-MPEG-4 v1 raise `NotImplementedError` naming it
+(ROADMAP Queue 1 item 11.2), before any frame is read; a malformed or
+truncated file raises `ValueError`.
 
 `Mp4Writer` has `cv2.VideoWriter`'s surface (`write(frame_bgr)`,
 `release()`, `isOpened()`). It encodes each frame with `Mpeg4Encoder` (an
@@ -47,6 +54,7 @@ import numpy as np
 from yolo_infer_tpu_torch.data.avi import fps_ratio
 from yolo_infer_tpu_torch.data.h263 import H263_SAMPLE_ENTRIES, H263Track
 from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Encoder, Mpeg4Track
+from yolo_infer_tpu_torch.data.msmpeg4 import MsMpeg4Track, is_fourcc
 
 _ROADMAP = "ROADMAP Queue 1 item 11.2"
 MPEG4_VISUAL = 0x20  # the esds objectTypeIndication of MPEG-4 Part 2 video
@@ -117,7 +125,7 @@ def _full(data: bytes, start: int, fmt: str) -> Tuple[int, ...]:
     return struct.unpack_from(fmt, data, start + 4)
 
 
-class Mp4Reader(Mpeg4Track, H263Track):
+class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track):
     """The first video track of an MP4 or QuickTime file: `width`, `height`,
     `fps`, `frame_count`, `info()`, the samples (`packets()`) and the decoded
     frames (`read()`)."""
@@ -218,6 +226,11 @@ class Mp4Reader(Mpeg4Track, H263Track):
         if self.codec == "h263":
             self.width, self.height = self.h263_size()
             return
+        if self.codec == "msmpeg4":
+            self.open_msmpeg4(self.fourcc)
+            return
+        if self.codec == "av1":
+            return
         vol = self._vol()
         if vol is not None:  # else the short video header: the sample entry's size
             self.width, self.height = vol.width, vol.height
@@ -232,10 +245,18 @@ class Mp4Reader(Mpeg4Track, H263Track):
         kind, body, stop = next(entries)
         if kind in H263_SAMPLE_ENTRIES:
             return "h263", b""
+        if kind == b"av01" or is_fourcc(kind):
+            self.width, self.height = struct.unpack_from(">HH", moov, body + 24)
+            if kind == b"av01":
+                return "av1", b""
+            self.fourcc = kind.decode("latin-1")
+            glbl = [moov[a:b] for child, a, b in _boxes(moov, body + 78, stop) if child == b"glbl"]
+            return "msmpeg4", glbl[0] if glbl else b""
         if kind != b"mp4v":
             name = kind.decode("latin-1")
             raise NotImplementedError(f"{self.path}: an MP4/MOV video track of sample entry {name!r}; the port reads "
-                                      f"MPEG-4 Part 2 ('mp4v') and H.263 ('h263', 's263') only ({_ROADMAP})")
+                                      f"MPEG-4 Part 2 ('mp4v'), MS-MPEG-4, WMV and H.263 ('h263', 's263') only "
+                                      f"({_ROADMAP})")
         self.width, self.height = struct.unpack_from(">HH", moov, body + 24)
         for child, cstart, cend in _boxes(moov, body + 78, stop):
             if child == b"esds":
@@ -274,7 +295,12 @@ class Mp4Reader(Mpeg4Track, H263Track):
                 yield data
 
     def read(self, rgb: bool = True) -> Iterator[np.ndarray]:
-        """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`)."""
+        """The decoded frames: uint8 (H, W, 3), RGB (BGR with `rgb=False`);
+        none of an AV1 track, as OpenCV gives none."""
+        if self.codec == "av1":
+            return iter(())
+        if self.codec == "msmpeg4":
+            return self.read_msmpeg4(rgb)
         return self.read_h263(rgb) if self.codec == "h263" else super().read(rgb)
 
 

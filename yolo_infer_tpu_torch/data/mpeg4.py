@@ -691,6 +691,7 @@ class _Vop:
     and the predictors it is parsed with."""
 
     h263 = False  # an H.263 picture (`data/h263.py`): its intra DC is scaled by 8
+    dc_scales = None  # the luma and chroma DC scales by quantiser where they are not MPEG-4's (`data/msmpeg4.py`)
 
     def __init__(self, vol: Vol, kind: int, q: int, dc_thr: int, fcode: int, bcode: int):
         self.kind, self.q, self.dc_thr, self.fcode, self.bcode = kind, q, dc_thr, fcode, bcode
@@ -1481,11 +1482,13 @@ class Mpeg4Decoder:
                     sub = deq.reshape(len(work), -1)
                     sub[rows, at % 384] = np.clip(sub[rows, at % 384], -2048, 2047)
             mq = q[:, 0, 0]
-            ys, cs = (np.full_like(mq, 8),) * 2 if vop.h263 else (np.asarray(_Y_SCALE)[mq], np.asarray(_C_SCALE)[mq])
+            if vop.dc_scales is not None:
+                ys, cs = np.asarray(vop.dc_scales[0])[mq], np.asarray(vop.dc_scales[1])[mq]
+            else:
+                ys, cs = (np.full_like(mq, 8),) * 2 if vop.h263 else (np.asarray(_Y_SCALE)[mq], np.asarray(_C_SCALE)[mq])
             deq[:, :4, 0] = np.where(iw[:, :, 0], lv[:, :4, 0] * ys[:, None], deq[:, :4, 0])
             deq[:, 4:, 0] = np.where(iw[:, :, 0], lv[:, 4:, 0] * cs[:, None], deq[:, 4:, 0])
-            idct = xvid_idct if "xvid_idct" in self._bugs else simple_idct
-            res[work] = idct(deq.reshape(-1, 6, 8, 8))
+            res[work] = self._transform(vop, work, deq.reshape(-1, 6, 8, 8))
         pred_y = np.zeros((n_mb, 16, 16), np.int32)
         pred_c = np.zeros((n_mb, 2, 8, 8), np.int32)
         moving = [m for m in range(n_mb) if vop.motion[m] is not None]
@@ -1514,6 +1517,10 @@ class Mpeg4Decoder:
         u = c[:, 0].reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3).reshape(8 * mb_h, 8 * mb_w)
         v = c[:, 1].reshape(mb_h, mb_w, 8, 8).transpose(0, 2, 1, 3).reshape(8 * mb_h, 8 * mb_w)
         return y, u, v
+
+    def _transform(self, vop: _Vop, work: np.ndarray, deq: np.ndarray) -> np.ndarray:
+        """The residual (n, 6, 8, 8) of the dequantised blocks of the macroblocks `work`."""
+        return (xvid_idct if "xvid_idct" in self._bugs else simple_idct)(deq)
 
     def _predict(self, planes, sel: np.ndarray, four: np.ndarray, vec: np.ndarray, rounding: int):
         """(n, 16, 16) luma and (n, 2, 8, 8) chroma predictions of the

@@ -35,8 +35,11 @@ case; the tests list what the fixtures meet):
               predicted from the last map in context, or the last map's),
               intra modes (key frames' above/left contexts, inter frames'
               size groups, 4x4 sub-blocks), the skip flag and transform
-              size in context, single references and per-block compound
-              references (fixed and variable by sign bias) in context,
+              size in context, single references, per-block compound
+              references (fixed and variable by sign bias) in context, and
+              compound references in every block (reference mode
+              COMPOUND_REFERENCE: no per-block choice, the compound
+              reference counts adapted after the frame),
               NEARESTMV/NEARMV/ZEROMV/NEWMV for each reference with the
               candidate search (`find_mv_refs`: neighbours by block size
               and either of their references, negated across sign biases,
@@ -61,8 +64,7 @@ case; the tests list what the fixtures meet):
 
 What no fixture reaches raises `NotImplementedError` citing ROADMAP Queue 1
 item 11.2 (`UNREACHED`): profiles 1-3 and high bit depth, intra-only
-frames, compound prediction in every block without a per-block choice,
-a forward update of the compound reference probabilities, a segment with
+frames, a forward update of the compound reference probabilities, a segment with
 a fixed reference, absolute segment data, references of another size,
 tile rows, a loop filter sharpness and quantiser deltas. `check_stream`
 finds them in the headers of a whole stream before any frame is decoded;
@@ -101,7 +103,6 @@ UNREACHED: Dict[str, str] = {
     "profile_2": "profile 2 (10 or 12 bits)",
     "profile_3": "profile 3",
     "intra_only": "an intra-only frame",
-    "compound_only": "compound prediction in every block (reference mode COMPOUND_REFERENCE)",
     "comp_ref_prob_update": "a forward update of the compound reference probabilities",
     "seg_ref": "a segment with a fixed reference frame",
     "seg_abs_data": "segment data given as absolute values",
