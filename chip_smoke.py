@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It imports only `torch`, numpy and `yolo_infer_tpu_torch`, builds the port's
 CUDA kernels from `yolo_infer_tpu_torch/csrc/` with nvcc (in parallel), and
-runs thirty-eight phases, each printing one JSON line. Kernels A, C, F and G
+runs thirty-nine phases, each printing one JSON line. Kernels A, C, F and G
 are timed with L2 flushed before each call (`l2_cold`), as the path finds
 them.
 
@@ -494,6 +494,24 @@ in torch.profiler traces in phases 21, 24, 25 and 27:
              b8/640 bf16) over the DIV3 AVI with `.mp4` output, checked as
              phase 35 checks its demo, the frames it drew on equal to the
              manifest's, the output read back
+ 39. mpeg12  MPEG-1 and MPEG-2 on the card's host: each fixture of
+             `tests/torch_mpeg12/` (OpenCV's `PIM1`, `mpg1`, `MPEG` and
+             `mpg2` writers in AVI, Matroska, MP4 and MOV, the 12-frame
+             640x480 MPEG-2 demo file with I, P and B pictures; libavcodec's
+             `mpeg1video` and `mpeg2video` encoders with B pictures,
+             intra_vlc, DC precision 9 to 11, the non-linear quantiser,
+             escapes, skipped macroblocks, sizes that are not a multiple of
+             16, the BT.709 and FCC colour matrices; encodes with rewritten
+             headers: the alternate scan, loaded matrices, an open GOP cut;
+             H.263 under `H263` in Matroska and `U263` in AVI and Matroska)
+             decodes to its manifest's sha256 of every frame OpenCV decodes,
+             and its info; each refused file (interlaced, 4:2:2, a
+             D-picture, full_pel vectors, an odd height, the YCgCo matrix)
+             raises as listed; the host seconds to decode each picture of
+             the 640x480 file and convert it to BGR (median by picture type
+             over three decodes, the garbage collector off);
+             `detect_video` (yolo11n, b8/640 bf16) over it with `.mp4`
+             output, checked as phase 38 checks its demo
 
 Phase 15 also holds G's bits pass to the card's HBM rate (3.35 TB/s) over
 the pairs of valid candidates it must read, with L2 flushed before each call,
@@ -5732,22 +5750,22 @@ MSMPEG4_DEMO = "div3_640x480.avi"  # the committed 640x480 DivX ;-) (DIV3) AVI t
 MSMPEG4_TIMED = ("div3_640x480.avi", "wmv2_640x480.avi")  # the files decoded by picture type
 
 
-def picture_decode_s(path: Path, passes: int = 3) -> dict:
-    """The host's seconds to decode each picture of an MS-MPEG-4 or WMV
-    file in order and convert it to BGR, by picture type ("I_picture",
-    "P_picture"; v2 to WMV1 code the type in 2 bits, WMV2 in 1), over
-    `passes` decodes of the whole file, each with a fresh decoder, after a
-    garbage collection and with the collector off (a collection of this
-    process's heap takes longer than a picture): the median and the count."""
-    from yolo_infer_tpu_torch.data.mpeg4 import yuv420_to_bgr
-    from yolo_infer_tpu_torch.data.msmpeg4 import WMV2, make_decoder
+def picture_decode_s(path: Path, new_decoder, kind_of, passes: int = 3) -> dict:
+    """The host's seconds to decode each packet of a file in order and
+    convert the frame it gives to BGR (by the decoder's `yuv_coeffs` where
+    it has them), by the type of the picture it holds (`kind_of(reader,
+    packet)`: "I_picture", "P_picture", ...), over `passes` decodes of the
+    whole file, each with a fresh `new_decoder(reader)`, after a garbage
+    collection and with the collector off (a collection of this process's
+    heap takes longer than a picture): the median and the count."""
+    from yolo_infer_tpu_torch.data.mpeg4 import BT601, yuv420_to_bgr
     from yolo_infer_tpu_torch.data.video import open_video
 
     reader = open_video(path)
     packets = list(reader.packets())
     times = {}
     for _ in range(passes):
-        decoder = make_decoder(reader.width, reader.height, reader.ms_version, reader.config)
+        decoder = new_decoder(reader)
         gc.collect()
         gc.disable()
         try:
@@ -5755,13 +5773,25 @@ def picture_decode_s(path: Path, passes: int = 3) -> dict:
                 t0 = time.perf_counter()
                 planes = decoder.decode(packet)
                 if planes is not None:
-                    yuv420_to_bgr(*planes)
+                    yuv420_to_bgr(*planes, getattr(decoder, "yuv_coeffs", BT601))
                 seconds = time.perf_counter() - t0
-                kind = packet[0] >> 7 if reader.ms_version == WMV2 else packet[0] >> 6
-                times.setdefault("IP"[kind] + "_picture", []).append(seconds)
+                times.setdefault(kind_of(reader, packet), []).append(seconds)
         finally:
             gc.enable()
     return {k: {"median_s": sorted(v)[len(v) // 2], "pictures": len(v)} for k, v in times.items()}
+
+
+def msmpeg4_decoder(reader):
+    from yolo_infer_tpu_torch.data.msmpeg4 import make_decoder
+
+    return make_decoder(reader.width, reader.height, reader.ms_version, reader.config)
+
+
+def msmpeg4_kind(reader, packet: bytes) -> str:
+    """An MS-MPEG-4 or WMV picture's type: v2 to WMV1 code it in 2 bits, WMV2 in 1."""
+    from yolo_infer_tpu_torch.data.msmpeg4 import WMV2
+
+    return "IP"[packet[0] >> 7 if reader.ms_version == WMV2 else packet[0] >> 6] + "_picture"
 
 
 def phase_msmpeg4(report):
@@ -5789,7 +5819,7 @@ def phase_msmpeg4(report):
     t0 = time.perf_counter()
     for name in MSMPEG4_TIMED:
         key = f"{name.split('_')[0]}_decode_s_640x480"
-        out[key] = picture_decode_s(MSMPEG4_FIXTURES / name)
+        out[key] = picture_decode_s(MSMPEG4_FIXTURES / name, msmpeg4_decoder, msmpeg4_kind)
         emit({key: out[key], "card": out["card"]})
     out["timing_seconds"] = time.perf_counter() - t0
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_msmpeg4_"))
@@ -5812,6 +5842,77 @@ def phase_msmpeg4(report):
         if (ran["output"]["frames_read"], written.frame_count, written.width, written.height) != \
                 (n, n, info["width"], info["height"]) or not ran["decoded_as_manifest"]:
             failures.append(f"{MSMPEG4_DEMO}: the output video read back: {ran['output']}; decoded as the "
+                            f"manifest: {ran['decoded_as_manifest']}")
+        ran["seconds"] = time.perf_counter() - t0
+        out["demo"] = ran
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        emit(out)
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+MPEG12_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_mpeg12"
+MPEG12_DEMO = "mpeg2_640x480.avi"  # the committed 640x480 MPEG-2 AVI (OpenCV's `MPEG` writer) the demo runs over
+
+
+def mpeg12_decoder(reader):
+    from yolo_infer_tpu_torch.data.mpeg12 import Mpeg12Decoder
+
+    return Mpeg12Decoder(reader.config)
+
+
+def mpeg12_kind(reader, packet: bytes) -> str:
+    """The type of the picture an MPEG-1/2 packet holds (picture_coding_type)."""
+    return "XIPBD"[packet[packet.index(b"\x00\x00\x01\x00") + 5] >> 3 & 7] + "_picture"
+
+
+def phase_mpeg12(report):
+    """MPEG-1 and MPEG-2 on the card's host (phase 39): the committed
+    fixtures of `tests/torch_mpeg12/` against their manifest, the refused
+    files, the host's decode seconds by picture type of the 640x480 MPEG-2
+    file, and the batched detect video demo (A, B) with MP4 output over it."""
+    import hashlib
+
+    from yolo_infer_tpu_torch.core.model import YOLO11Model
+    from yolo_infer_tpu_torch.data.video import open_video
+    from yolo_infer_tpu_torch.demos import detection_demo as demo_mod
+
+    out = {"phase": "mpeg12", "card": card_line()}
+    failures = []
+    manifest = json.loads((MPEG12_FIXTURES / "manifest.json").read_text())
+    # --- the fixtures (the 640x480 file decoded whole) and the refused files
+    t0 = time.perf_counter()
+    decoded = check_video_fixtures(MPEG12_FIXTURES, manifest, failures)
+    out["fixtures"] = {"videos": len(manifest["files"]), "refused": len(manifest["raises"]),
+                       "demo_file_frames_per_s": decoded[MPEG12_DEMO]["frames_per_s"],
+                       "seconds": time.perf_counter() - t0}
+    # --- the host's decode seconds at 640x480 by picture type
+    t0 = time.perf_counter()
+    out["mpeg2_decode_s_640x480"] = picture_decode_s(MPEG12_FIXTURES / MPEG12_DEMO, mpeg12_decoder, mpeg12_kind)
+    emit({"mpeg2_decode_s_640x480": out["mpeg2_decode_s_640x480"], "card": out["card"]})
+    out["timing_seconds"] = time.perf_counter() - t0
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mpeg12_"))
+    try:
+        # --- the demo over the committed 640x480 MPEG-2 AVI, .mp4 out (a fresh demo: its own b8/640 capture)
+        t0 = time.perf_counter()
+        model = report["weights"][0] if "weights" in report else smoke_weights(
+            np.random.default_rng(SEED + 2).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))[0]
+        ckpt = YOLO11Model.from_params(copy.deepcopy(model), task="detect", size="n", fused=False,
+                                       device="cpu").save(root / "detect.msgpack")
+        demo = demo_mod.DetectionDemo(model_path=str(ckpt), imgsz=VIDEO_SERVE[1])
+        info = manifest["files"][MPEG12_DEMO]["info"]
+        n = info["frame_count"]
+        ran, drawn = check_video_demo(demo, MPEG12_FIXTURES / MPEG12_DEMO, root, ".mp4", n, "mpeg12",
+                                      "mpeg12_video", failures)
+        hashes = [hashlib.sha256(f[..., ::-1].tobytes()).hexdigest() for _, _, _, _, f in drawn]
+        ran["decoded_as_manifest"] = hashes == manifest["files"][MPEG12_DEMO]["frames"]
+        written = open_video(root / "out.mp4")
+        ran["output"] = {**written.info(), "frames_read": sum(1 for _ in written.read())}
+        if (ran["output"]["frames_read"], written.frame_count, written.width, written.height) != \
+                (n, n, info["width"], info["height"]) or not ran["decoded_as_manifest"]:
+            failures.append(f"{MPEG12_DEMO}: the output video read back: {ran['output']}; decoded as the "
                             f"manifest: {ran['decoded_as_manifest']}")
         ran["seconds"] = time.perf_counter() - t0
         out["demo"] = ran
@@ -6172,7 +6273,7 @@ def main() -> int:
               phase_int8, phase_attn_packed, phase_attn_pallas, phase_many, phase_mask_modes,
               phase_bench, phase_exported, phase_exported_tasks, phase_checkpoints, phase_live_graphs,
               phase_cli, phase_train, phase_optimize, phase_parallel, phase_video, phase_formats, phase_mpeg4,
-              phase_vp8, phase_scripts, phase_vp9, phase_msmpeg4)
+              phase_vp8, phase_scripts, phase_vp9, phase_msmpeg4, phase_mpeg12)
     if len(sys.argv) > 1:  # a subset by name, for a quick check of some phases (the card's phase always runs)
         phases = tuple(p for p in phases if p is phase_card or p.__name__[len("phase_"):] in sys.argv[1:])
     for phase in phases:

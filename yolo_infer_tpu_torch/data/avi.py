@@ -1,4 +1,4 @@
-"""AVI files without OpenCV: a motion-JPEG, MPEG-4 Part 2, MS-MPEG-4, WMV, H.263 and raw I420 reader and a motion-JPEG writer, in numpy and `struct`.
+"""AVI files without OpenCV: a motion-JPEG, MPEG-4 Part 2, MS-MPEG-4, WMV, H.263, MPEG-1/2 and raw I420 reader and a motion-JPEG writer, in numpy and `struct`.
 
 The JAX package reads and writes video through OpenCV (`cv2.VideoCapture`,
 `cv2.VideoWriter`). In an AVI (RIFF) file the port reads the codecs that
@@ -10,20 +10,24 @@ Advanced Simple Profile (B-VOPs, quarter-pel, DivX's packed B-frames,
 MS-MPEG-4 v2 under `MP42` or `DIV2`, v3 under `DIV3`, `MP43`, `MPG3`,
 `DIV4`, `DIV5`, `DIV6`, `DVX3`, `AP41`, `COL0`, `COL1` or `3IVD`, `WMV1`,
 `WMV2` or `GXVE`, in any letter case, as libavformat maps them; v1's
-`MPG4` and `MP41` raise), H.263 (`data/h263.py`, the fourcc `H263` in
-either letter case, as OpenCV's writer and libavformat write it), and raw
-planar YUV 4:2:0
+`MPG4` and `MP41` raise), H.263 (`data/h263.py`, the fourccs `H263` and
+`U263` in either letter case, as OpenCV's writer and libavformat write
+them), MPEG-1 and MPEG-2 (`data/mpeg12.py`: `PIM1` and `mpg1`, `MPEG` and
+`mpg2` as OpenCV's writer writes them, and their kin `data/mpeg12.py
+FOURCCS` lists; the stream itself says which of the two), and raw planar
+YUV 4:2:0
 (`I420`, `IYUV`: each chunk the Y, U and V planes, converted by swscale's
 copy, `data/mpeg4.py yuv420_to_bgr`; an odd height, which swscale scales,
 raises); it writes motion JPEG.
 
 `AviReader` takes the first `vids` stream whose handler or compression is
 motion JPEG (`MJPEG_CODECS`), MPEG-4 Part 2 (`data/mpeg4.py
-MPEG4_FOURCCS`), MS-MPEG-4 or WMV (`data/msmpeg4.py FOURCCS`), H.263 or
-raw I420. Its size comes from the stream format
+MPEG4_FOURCCS`), MS-MPEG-4 or WMV (`data/msmpeg4.py FOURCCS`), H.263,
+MPEG-1/2 or raw I420. Its size comes from the stream format
 (`strf`; for MPEG-4 the video object layer header, in band or in the bytes
 after `strf`'s BITMAPINFOHEADER, except for the short video header, which
 has none; for H.263 the first picture header, once every picture header is
+checked; for MPEG-1/2 the first sequence header, once every header is
 checked), its fps is the stream header's dwRate / dwScale and its
 frame count the OpenDML `dmlh` total where the file has one, else the
 stream header's dwLength (what OpenCV reports for the same files). `packets()`
@@ -37,9 +41,10 @@ decoder none. An MPEG-4 packet goes to `Mpeg4Decoder`, with the `strf`
 extra bytes as its configuration and the compression as its fourcc, an
 H.263 packet to `H263Decoder`, an MS-MPEG-4 or WMV packet to
 `MsMpeg4Decoder` or `Wmv2Decoder` (WMV2's extension header is the `strf`
-extra bytes; its IntraX8 pictures raise before any frame): OpenCV's FFmpeg
-backend's frames, bit for bit. The packets of a B-VOP stream come in decoding order (DivX's packed
-chunks and placeholders too), and the decoder returns display order (the
+extra bytes; its IntraX8 pictures raise before any frame), an MPEG-1/2
+packet to `Mpeg12Decoder`: OpenCV's FFmpeg backend's frames, bit for bit.
+The packets of a B-VOP or B-picture stream come in decoding order (DivX's
+packed chunks and placeholders too), and the decoder returns display order (the
 frame it holds back is flushed at the end); the frame count stays the
 container's (zero-length chunks and placeholders included), as OpenCV
 reports it, even where a not-coded VOP gives no frame. A motion-JPEG packet
@@ -80,9 +85,11 @@ from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
-from yolo_infer_tpu_torch.data.h263 import H263_FOURCC, H263Track
+from yolo_infer_tpu_torch.data import mpeg12
+from yolo_infer_tpu_torch.data.h263 import H263Track, is_h263_fourcc
 from yolo_infer_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Track, yuv420_to_bgr
+from yolo_infer_tpu_torch.data.mpeg12 import Mpeg12Track
 from yolo_infer_tpu_torch.data.msmpeg4 import MsMpeg4Track, is_fourcc
 
 MJPEG_CODECS = (b"MJPG", b"mjpg", b"AVDJ", b"dmb1")  # stream handlers and compressions read as motion JPEG
@@ -90,8 +97,8 @@ I420_FOURCCS = (b"I420", b"IYUV")  # raw planar YUV 4:2:0
 RIFF_LIMIT = 1 << 30  # bytes of one RIFF part; the writer goes on in an OpenDML `RIFF AVIX` part past it
 SUPER_INDEX_ENTRIES = 256  # room in the writer's `indx` super index: the RIFF parts a file may have
 
-_NOT_READ_AVI = ("the port reads motion JPEG, MPEG-4 Part 2, MS-MPEG-4 v2 and v3, WMV1, WMV2, H.263 and raw I420 in "
-                 "AVI; other codecs are ROADMAP Queue 1 item 11.2")
+_NOT_READ_AVI = ("the port reads motion JPEG, MPEG-4 Part 2, MS-MPEG-4 v2 and v3, WMV1, WMV2, H.263, MPEG-1, MPEG-2 "
+                 "and raw I420 in AVI; other codecs are ROADMAP Queue 1 item 11.2")
 
 # the writer's header list: LIST hdrl, avih, LIST strl (strh, strf, the super
 # index or JUNK in its place), LIST odml (dmlh)
@@ -126,13 +133,9 @@ def _chunks(data: bytes, pos: int, end: int) -> Iterator[Tuple[bytes, int, int]]
         pos += 8 + size + (size & 1)
 
 
-def _is_h263(tag: bytes) -> bool:
-    return tag.upper() == H263_FOURCC.encode()
-
-
-class AviReader(Mpeg4Track, H263Track, MsMpeg4Track):
-    """The first motion-JPEG, MPEG-4, MS-MPEG-4, WMV, H.263 or raw I420
-    video stream of an AVI file: `width`, `height`, `fps`, `frame_count`,
+class AviReader(Mpeg4Track, H263Track, MsMpeg4Track, Mpeg12Track):
+    """The first motion-JPEG, MPEG-4, MS-MPEG-4, WMV, H.263, MPEG-1, MPEG-2
+    or raw I420 video stream of an AVI file: `width`, `height`, `fps`, `frame_count`,
     `info()`, the frames' packets (`packets()`: JPEGs, MPEG-4 VOPs,
     pictures or raw frames, `codec` says which) and the decoded frames
     (`read()`)."""
@@ -192,8 +195,8 @@ class AviReader(Mpeg4Track, H263Track, MsMpeg4Track):
         if not videos:
             raise ValueError(f"corrupt AVI {self.path}: no video stream")
         known = [(i, h, f) for i, h, f in videos
-                 if {h[4:8], f[16:20]} & set(MJPEG_CODECS + MPEG4_FOURCCS + I420_FOURCCS) or _is_h263(f[16:20])
-                 or _is_h263(h[4:8]) or is_fourcc(f[16:20])]
+                 if {h[4:8], f[16:20]} & set(MJPEG_CODECS + MPEG4_FOURCCS + I420_FOURCCS) or is_h263_fourcc(f[16:20])
+                 or is_h263_fourcc(h[4:8]) or is_fourcc(f[16:20]) or mpeg12.is_fourcc(f[16:20])]
         if not known:
             _, h, f = videos[0]
             raise NotImplementedError(f"{self.path}: an AVI whose video is {_fourcc(h[4:8])!r} (compression "
@@ -203,9 +206,10 @@ class AviReader(Mpeg4Track, H263Track, MsMpeg4Track):
             raise ValueError(f"corrupt AVI {self.path}: a video stream format of {len(strf)} bytes")
         tags = {strh[4:8], strf[16:20]}
         self.codec = "mjpeg" if tags & set(MJPEG_CODECS) else "i420" if tags & set(I420_FOURCCS) else \
-            "mpeg4" if tags & set(MPEG4_FOURCCS) else "msmpeg4" if is_fourcc(strf[16:20]) else "h263"
-        self.fourcc = _fourcc(strf[16:20] if strf[16:20] in MPEG4_FOURCCS + I420_FOURCCS or _is_h263(strf[16:20])
-                              or self.codec == "msmpeg4" else strh[4:8])
+            "mpeg4" if tags & set(MPEG4_FOURCCS) else "msmpeg4" if is_fourcc(strf[16:20]) else \
+            "mpeg12" if mpeg12.is_fourcc(strf[16:20]) else "h263"
+        self.fourcc = _fourcc(strf[16:20] if strf[16:20] in MPEG4_FOURCCS + I420_FOURCCS
+                              or is_h263_fourcc(strf[16:20]) or self.codec in ("msmpeg4", "mpeg12") else strh[4:8])
         self.config = strf[40:]
         scale, rate, _, length = struct.unpack("<4I", strh[20:36])
         _, width, height = struct.unpack("<Iii", strf[:12])
@@ -221,6 +225,8 @@ class AviReader(Mpeg4Track, H263Track, MsMpeg4Track):
             self.width, self.height = self.h263_size()
         elif self.codec == "msmpeg4":  # libavformat takes the compression, not the handler
             self.open_msmpeg4(self.fourcc)
+        elif self.codec == "mpeg12":
+            self.open_mpeg12()
         if self.codec == "i420" and self.height % 2:  # swscale's scaled path, not ported (as data/mpeg4.py)
             raise NotImplementedError(f"{self.path}: raw I420 video of an odd height ({self.height}); "
                                       "ROADMAP Queue 1 item 11.2")
@@ -255,6 +261,9 @@ class AviReader(Mpeg4Track, H263Track, MsMpeg4Track):
             return
         if self.codec == "msmpeg4":
             yield from self.read_msmpeg4(rgb)
+            return
+        if self.codec == "mpeg12":
+            yield from self.read_mpeg12(rgb)
             return
         self.counts = Counter()
         for data in self.packets():

@@ -6,8 +6,10 @@ formats, 128x96, 176x144, 352x288, 704x576 and 1408x1152), and OpenCV
 reads them back through libavcodec's `h263` decoder. `H263Decoder`
 decodes those streams to the planes that decoder gives, bit for bit, and
 so, through `data/mpeg4.py yuv420_to_bgr`, to the frames OpenCV returns.
-The containers are `data/avi.py` (the `H263` tag in either letter case)
-and `data/mp4.py` (the `h263` and `s263` sample entries).
+The containers are `data/avi.py` (the `H263` and `U263` tags in either
+letter case), `data/mkv.py` (those tags under `V_MS/VFW/FOURCC`, as
+OpenCV's writer puts them in a `.mkv`) and `data/mp4.py` (the `h263` and
+`s263` sample entries).
 
 Decoded:
 
@@ -58,7 +60,9 @@ from yolo_infer_tpu_torch.data.mpeg4 import _LUT_INTER, _ROADMAP, _ZIGZAG, Mpeg4
 
 # the picture sizes of PTYPE's source formats 1..5 (sub-QCIF, QCIF, CIF, 4CIF, 16CIF)
 SOURCE_FORMATS = {1: (128, 96), 2: (176, 144), 3: (352, 288), 4: (704, 576), 5: (1408, 1152)}
-H263_FOURCC = "H263"  # the AVI tag, in either letter case (libavformat upper-cases it)
+# the AVI and VFW tags libavformat reads as H.263 and OpenCV writes (`U263` is UB Video's), in either letter case
+# (libavformat upper-cases them)
+H263_FOURCCS = (b"H263", b"U263")
 H263_SAMPLE_ENTRIES = (b"h263", b"s263")  # QuickTime's and 3GPP's
 _ANNEXES = ("unrestricted motion vectors (annex D)", "syntax-based arithmetic coding (annex E)",
             "advanced prediction (annex F: OBMC)", "PB-frames (annex G)")
@@ -112,6 +116,10 @@ def picture_header(b: _Bits) -> Tuple[int, int, int, int]:
             raise ValueError("corrupt H.263 picture header: truncated")
     width, height = SOURCE_FORMATS[source]
     return kind, q, width, height
+
+
+def is_h263_fourcc(tag: bytes) -> bool:
+    return tag.upper() in H263_FOURCCS
 
 
 def check_stream(packets: Iterable[bytes]) -> Tuple[int, int]:
@@ -252,8 +260,9 @@ class H263Decoder(Mpeg4Decoder):
 
 class H263Track:
     """What a container's H.263 track adds to its reader (`data/avi.py`,
-    `data/mp4.py` mix it in): the size from the first picture header once
-    every header is checked (`h263_size`), and the decoded frames."""
+    `data/mkv.py`, `data/mp4.py` mix it in): the size from the first
+    picture header once every header is checked (`h263_size`), and the
+    decoded frames."""
 
     def h263_size(self) -> Tuple[int, int]:
         try:

@@ -39,11 +39,14 @@ and `.jpeg` the same bytes (quality 95, 4:2:0), `.bmp` the same bytes
 TIFF, WebP and PNG the pixels, not the bytes, are OpenCV's. Images are
 uint8 HWC, RGB by default. `get_video_info` and `load_video` open a video
 by its signature (`data/video.py`): motion JPEG in AVI (`data/avi.py`; the
-frames of OpenCV's own MJPEG backend, bit for bit), MPEG-4 Part 2 in
-MP4, MOV, Matroska and AVI (`data/mpeg4.py`) and VP8 in WebM (`data/vp8.py`),
-both the frames of OpenCV's FFmpeg backend, bit for bit; other containers
-and codecs raise before any frame is read (ROADMAP Queue 1 item 11.2). `create_dataset_config` writes its YAML with
-the port's `utils/yaml_io.py`.
+frames of OpenCV's own MJPEG backend, bit for bit), MPEG-4 Part 2, H.263,
+Microsoft's MPEG-4 family, MPEG-1 and MPEG-2 (`data/mpeg4.py`,
+`data/h263.py`, `data/msmpeg4.py`, `data/mpeg12.py`) in MP4, MOV,
+Matroska and AVI, and VP8 and VP9 in WebM (`data/vp8.py`, `data/vp9.py`),
+all the frames of OpenCV's FFmpeg backend, bit for bit; other containers
+and codecs raise before any frame is read (ROADMAP Queue 1 item 11.2).
+`create_dataset_config` writes its YAML with the port's
+`utils/yaml_io.py`.
 """
 
 from __future__ import annotations
@@ -123,13 +126,15 @@ def save_image(path: Union[str, Path], img_rgb: np.ndarray, compress_level: int 
 
 
 def get_video_info(path: Union[str, Path]) -> Dict[str, Any]:
-    """width, height, fps, frame_count and duration_s of a video file."""
+    """width, height, fps, frame_count and duration_s of a video file (any
+    container and codec `data/video.py` opens), as OpenCV reports them."""
     return open_video(path).info()
 
 
 def load_video(path: Union[str, Path], rgb: bool = True, max_frames: Optional[int] = None) -> Iterator[np.ndarray]:
-    """The frames of a video file as uint8 (H, W, 3), RGB by default (BGR
-    with `rgb=False`), at most `max_frames` (None: all). The file's headers
+    """The frames of a video file (any container and codec `data/video.py`
+    opens) as uint8 (H, W, 3), RGB by default (BGR with `rgb=False`), at
+    most `max_frames` (None: all). The file's headers
     are read, and an unsupported file raises, before this returns."""
     reader = open_video(path)
 

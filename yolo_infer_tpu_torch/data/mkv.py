@@ -1,17 +1,22 @@
-"""Matroska and WebM video without OpenCV: a demuxer for MPEG-4 Part 2, MS-MPEG-4, WMV, VP8 and VP9 tracks and an MPEG-4 muxer.
+"""Matroska and WebM video without OpenCV: a demuxer for MPEG-4 Part 2, MS-MPEG-4, WMV, MPEG-1/2, H.263, VP8 and VP9 tracks and an MPEG-4 muxer.
 
 `MkvReader` walks a Matroska file's EBML elements: the EBML header (whose
 DocType must be `matroska` or `webm`), the Segment's Info (TimestampScale,
 Duration), its Tracks and its Clusters. It takes the first video
 TrackEntry (TrackType 1), which must be MPEG-4 Part 2, Microsoft's
-MPEG-4 family, VP8, VP9 or AV1: a CodecID of `V_MPEG4/ISO/SP`,
-`V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose CodecPrivate is the decoder
-configuration (the video object layer header), `V_MPEG4/MS/V3` (DivX ;-)
+MPEG-4 family, MPEG-1, MPEG-2, H.263, VP8, VP9 or AV1: a CodecID of
+`V_MPEG4/ISO/SP`, `V_MPEG4/ISO/ASP` or `V_MPEG4/ISO/AP`, whose
+CodecPrivate is the decoder configuration (the video object layer header), `V_MPEG4/MS/V3` (DivX ;-)
 as OpenCV's `DIV3` writer writes it, `data/msmpeg4.py`),
 `V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER with an
 MPEG-4 fourcc (`data/mpeg4.py MPEG4_FOURCCS`) or an MS-MPEG-4 or WMV one
-(`data/msmpeg4.py FOURCCS`: OpenCV writes `MP42`, `WMV1` and `WMV2` so)
-and the configuration after it (WMV2's extension header), `V_VP8`
+(`data/msmpeg4.py FOURCCS`: OpenCV writes `MP42`, `WMV1` and `WMV2` so),
+an MPEG-1/2 one (`data/mpeg12.py FOURCCS`) or H.263's `H263` and `U263`
+(as OpenCV's writer puts them in a `.mkv`; `data/h263.py`, the size from
+the first picture header) and the configuration after it (WMV2's
+extension header), `V_MPEG1` or `V_MPEG2` (`data/mpeg12.py`, the
+CodecPrivate its sequence header; the size from the first sequence
+header once every header is read), `V_VP8`
 (`data/vp8.py`) or `V_VP9` (`data/vp9.py`, profile 0 as OpenCV's `VP90`
 writer writes it; every frame's headers are read first). The first key
 frame gives a VP8 or VP9 track's size, the track's PixelWidth and
@@ -54,8 +59,11 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from yolo_infer_tpu_torch.data import mpeg12
 from yolo_infer_tpu_torch.data.avi import fps_ratio
+from yolo_infer_tpu_torch.data.h263 import H263Track, is_h263_fourcc
 from yolo_infer_tpu_torch.data.mpeg4 import MPEG4_FOURCCS, Mpeg4Encoder, Mpeg4Track
+from yolo_infer_tpu_torch.data.mpeg12 import Mpeg12Track
 from yolo_infer_tpu_torch.data.msmpeg4 import V3, MsMpeg4Track, is_fourcc
 from yolo_infer_tpu_torch.data.vp8 import Vp8Track
 from yolo_infer_tpu_torch.data.vp9 import Vp9Track
@@ -150,7 +158,7 @@ class _File:
         return struct.unpack(">f" if len(data) == 4 else ">d", data)[0] if data else 0.0
 
 
-class MkvReader(Mpeg4Track, MsMpeg4Track):
+class MkvReader(Mpeg4Track, MsMpeg4Track, Mpeg12Track, H263Track):
     """The first video track of a Matroska or WebM file: `width`, `height`,
     `fps`, `frame_count`, `info()`, the blocks' frames (`packets()`) and the
     decoded frames (`read()`)."""
@@ -197,11 +205,19 @@ class MkvReader(Mpeg4Track, MsMpeg4Track):
             stamps = [t for t, _, _ in self._blocks]
             num, den = (len(stamps) - 1) * 1_000_000_000, (max(stamps) - min(stamps)) * scale if stamps else 0
         self.fps = num / den if num and den else 0.0
+        self._open_codec(pixels)
+        if self.codec == "mpeg12" and not default_duration and self.frame_rate[0]:
+            # libavformat times each block by the sequence's frame rate, in whole ticks of the track's scale
+            ticks = 1_000_000_000 * self.frame_rate[1] // (self.frame_rate[0] * scale)
+            self.fps = 1_000_000_000 / (ticks * scale) if ticks else 0.0
         if duration:
             micros = int(duration * scale * 1000 / 1_000_000)  # libavformat's AVFormatContext.duration
             self.frame_count = math.floor(micros / 1_000_000 * self.fps + 0.5)
         else:
             self.frame_count = len(self._blocks)
+
+    def _open_codec(self, pixels: Tuple[int, int]) -> None:
+        """The track's size, and what its codec refuses raised, before any frame."""
         if self.codec in _VP_TRACKS:
             self.width, self.height = _VP_TRACKS[self.codec].size(self)
         elif self.codec == AV1_CODEC_ID:
@@ -209,6 +225,12 @@ class MkvReader(Mpeg4Track, MsMpeg4Track):
         elif self.codec == MSMPEG4V3_CODEC_ID or is_fourcc(self.fourcc.encode()):
             self.width, self.height = pixels
             self.open_msmpeg4(V3 if self.codec == MSMPEG4V3_CODEC_ID else self.fourcc)
+        elif self.codec in mpeg12.CODEC_IDS or mpeg12.is_fourcc(self.fourcc.encode()):
+            self.codec = "mpeg12"
+            self.open_mpeg12()
+        elif is_h263_fourcc(self.fourcc.encode()):
+            self.codec = "h263"
+            self.width, self.height = self.h263_size()
         else:
             vol = self._vol()
             if vol is None:
@@ -223,6 +245,10 @@ class MkvReader(Mpeg4Track, MsMpeg4Track):
             return iter(())
         if self.ms_version:
             return self.read_msmpeg4(rgb)
+        if self.codec == "mpeg12":
+            return self.read_mpeg12(rgb)
+        if self.codec == "h263":
+            return self.read_h263(rgb)
         return _VP_TRACKS.get(self.codec, Mpeg4Track).read(self, rgb)
 
     def _track(self, ebml: _File, start: int, end: int):
@@ -242,16 +268,20 @@ class MkvReader(Mpeg4Track, MsMpeg4Track):
                 pixels = (video.get(PIXEL_WIDTH, 0), video.get(PIXEL_HEIGHT, 0))
             if codec == "V_MS/VFW/FOURCC" and len(private) >= 40:
                 fourcc = private[16:20].decode("latin-1")
-                if private[16:20] not in MPEG4_FOURCCS and not is_fourcc(private[16:20]):
+                if private[16:20] not in MPEG4_FOURCCS and not is_fourcc(private[16:20]) \
+                        and not mpeg12.is_fourcc(private[16:20]) and not is_h263_fourcc(private[16:20]):
                     raise NotImplementedError(f"{self.path}: a Matroska video track of VFW fourcc {fourcc!r}; the "
-                                              f"port reads MPEG-4 Part 2, MS-MPEG-4 and WMV video only ({_ROADMAP})")
+                                              f"port reads MPEG-4 Part 2, MS-MPEG-4, WMV, MPEG-1/2 and H.263 video "
+                                              f"only ({_ROADMAP})")
                 if pixels == (0, 0):
                     width, height = struct.unpack("<ii", private[4:12])
                     pixels = (width, abs(height))
                 private = private[40:]
-            elif codec not in MPEG4_CODEC_IDS + (MSMPEG4V3_CODEC_ID, AV1_CODEC_ID) and codec not in _VP_TRACKS:
+            elif codec not in MPEG4_CODEC_IDS + mpeg12.CODEC_IDS + (MSMPEG4V3_CODEC_ID, AV1_CODEC_ID) \
+                    and codec not in _VP_TRACKS:
                 raise NotImplementedError(f"{self.path}: a Matroska video track of codec {codec!r}; the port reads "
-                                          f"MPEG-4 Part 2, MS-MPEG-4, WMV, VP8 and VP9 video only ({_ROADMAP})")
+                                          f"MPEG-4 Part 2, MS-MPEG-4, WMV, MPEG-1/2, H.263, VP8 and VP9 video only "
+                                          f"({_ROADMAP})")
             if TRACK_NUMBER not in fields:
                 raise ValueError(f"corrupt Matroska {self.path}: a track without a number")
             default = ebml.uint(*fields[DEFAULT_DURATION]) if DEFAULT_DURATION in fields else 0

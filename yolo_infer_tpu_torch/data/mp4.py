@@ -6,8 +6,13 @@ the file), `moov` before or after `mdat`. The track's `mdhd` gives its
 timescale; `stsd` its sample entry, which must be `mp4v` with an `esds`
 whose DecoderConfigDescriptor names MPEG-4 Visual (object type 0x20) and
 whose DecoderSpecificInfo holds the video object layer header (each sample
-to `data/mpeg4.py`), or H.263's `h263` (QuickTime's, as OpenCV's `H263`
-writer writes a `.mov`) or `s263` (3GPP's), whatever the extension (each
+to `data/mpeg4.py`) or names MPEG-1 or MPEG-2 video (0x6A, 0x60-0x65: as
+OpenCV's `PIM1` and `MPEG` writers write a `.mp4`) and holds a sequence
+header (each sample to `data/mpeg12.py`), QuickTime's MPEG-1/2 entries
+`m1v `, `m1v1`, `mpeg` and `m2v1` (OpenCV's writers' `.mov`; the size from
+the first sequence header once every header is read), or H.263's `h263`
+(QuickTime's, as OpenCV's `H263` writer writes a `.mov`) or `s263`
+(3GPP's), whatever the extension (each
 sample to `data/h263.py`; the size from the first picture header), or an
 MS-MPEG-4 or WMV tag (`data/msmpeg4.py FOURCCS`, as libavformat falls back
 to the AVI tags: OpenCV's `DIV3` writer writes `3IVD` into a `.mov`, its
@@ -51,9 +56,11 @@ from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from yolo_infer_tpu_torch.data import mpeg12
 from yolo_infer_tpu_torch.data.avi import fps_ratio
 from yolo_infer_tpu_torch.data.h263 import H263_SAMPLE_ENTRIES, H263Track
 from yolo_infer_tpu_torch.data.mpeg4 import Mpeg4Encoder, Mpeg4Track
+from yolo_infer_tpu_torch.data.mpeg12 import Mpeg12Track
 from yolo_infer_tpu_torch.data.msmpeg4 import MsMpeg4Track, is_fourcc
 
 _ROADMAP = "ROADMAP Queue 1 item 11.2"
@@ -98,9 +105,10 @@ def _descriptor(data: bytes, pos: int) -> Tuple[int, int, int]:
     return tag, pos, pos + size
 
 
-def esds_config(body: bytes) -> bytes:
-    """The DecoderSpecificInfo of an esds box body (after version and flags);
-    raises unless the stream is MPEG-4 Visual."""
+def esds_config(body: bytes) -> Tuple[int, bytes]:
+    """The objectTypeIndication and DecoderSpecificInfo of an esds box body
+    (after version and flags); raises unless the stream is MPEG-4 Visual,
+    MPEG-1 or MPEG-2 video."""
     tag, pos, end = _descriptor(body, 4)
     if tag != 3:
         raise ValueError("corrupt MP4: esds without an ES descriptor")
@@ -109,23 +117,24 @@ def esds_config(body: bytes) -> bytes:
     tag, pos, end = _descriptor(body, pos)
     if tag != 4:
         raise ValueError("corrupt MP4: esds without a decoder configuration")
-    if body[pos] != MPEG4_VISUAL:
-        raise NotImplementedError(f"an mp4v sample entry whose esds names object type 0x{body[pos]:02x}, not MPEG-4 "
-                                  f"Visual; the port reads MPEG-4 Part 2 video ({_ROADMAP})")
+    kind = body[pos]
+    if kind != MPEG4_VISUAL and kind not in mpeg12.OBJECT_TYPES:
+        raise NotImplementedError(f"an mp4v sample entry whose esds names object type 0x{kind:02x}, not MPEG-4 "
+                                  f"Visual, MPEG-1 or MPEG-2 video; the port reads those ({_ROADMAP})")
     pos += 13
     while pos < end:
         tag, start, stop = _descriptor(body, pos)
         if tag == 5:
-            return body[start:stop]
+            return kind, body[start:stop]
         pos = stop
-    return b""
+    return kind, b""
 
 
 def _full(data: bytes, start: int, fmt: str) -> Tuple[int, ...]:
     return struct.unpack_from(fmt, data, start + 4)
 
 
-class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track):
+class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track, Mpeg12Track):
     """The first video track of an MP4 or QuickTime file: `width`, `height`,
     `fps`, `frame_count`, `info()`, the samples (`packets()`) and the decoded
     frames (`read()`)."""
@@ -229,6 +238,9 @@ class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track):
         if self.codec == "msmpeg4":
             self.open_msmpeg4(self.fourcc)
             return
+        if self.codec == "mpeg12":
+            self.open_mpeg12()
+            return
         if self.codec == "av1":
             return
         vol = self._vol()
@@ -236,8 +248,9 @@ class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track):
             self.width, self.height = vol.width, vol.height
 
     def _sample_entry(self, moov: bytes, start: int, end: int) -> Tuple[str, bytes]:
-        """The track's codec ("mpeg4", "h263") and decoder configuration;
-        the sample entry's width and height into `width`, `height`."""
+        """The track's codec ("mpeg4", "mpeg12", "h263", "msmpeg4", "av1")
+        and decoder configuration; the sample entry's width and height into
+        `width`, `height`."""
         (n,) = _full(moov, start, ">I")
         if n < 1:
             raise ValueError(f"corrupt MP4 {self.path}: an empty stsd")
@@ -245,6 +258,8 @@ class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track):
         kind, body, stop = next(entries)
         if kind in H263_SAMPLE_ENTRIES:
             return "h263", b""
+        if kind in mpeg12.SAMPLE_ENTRIES:
+            return "mpeg12", b""
         if kind == b"av01" or is_fourcc(kind):
             self.width, self.height = struct.unpack_from(">HH", moov, body + 24)
             if kind == b"av01":
@@ -261,9 +276,10 @@ class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track):
         for child, cstart, cend in _boxes(moov, body + 78, stop):
             if child == b"esds":
                 try:
-                    return "mpeg4", esds_config(moov[cstart:cend])
+                    kind, config = esds_config(moov[cstart:cend])
                 except NotImplementedError as exc:
                     raise NotImplementedError(f"{self.path}: {exc}") from exc
+                return ("mpeg4" if kind == MPEG4_VISUAL else "mpeg12"), config
         return "mpeg4", b""
 
     @staticmethod
@@ -301,6 +317,8 @@ class Mp4Reader(Mpeg4Track, H263Track, MsMpeg4Track):
             return iter(())
         if self.codec == "msmpeg4":
             return self.read_msmpeg4(rgb)
+        if self.codec == "mpeg12":
+            return self.read_mpeg12(rgb)
         return self.read_h263(rgb) if self.codec == "h263" else super().read(rgb)
 
 

@@ -630,22 +630,31 @@ def xvid_idct(blocks: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------- colour
 
 _R16 = lambda c: (c * 8192 + 0x8000) >> 16  # noqa: E731 -- swscale's roundToInt16(coeff << 13)
-_Y_COEFF, _VR, _UB, _UG, _VG = _R16(76309), _R16(104597), _R16(132201), _R16(-25675), _R16(-53279)
+_Y_COEFF = _R16(76309)
 _Y_OFFSET = ((16 << 16) * 8 + 0x8000) >> 16
+# swscale's YUV to RGB coefficients (its `ff_yuv2rgb_coeffs`, times 65536: Cr to R, Cb to B, Cb to G, Cr to G)
+# by the matrix_coefficients a stream names (ISO/IEC 23091-2: 1 BT.709, 4 FCC, 7 SMPTE 240M, 9 BT.2020
+# non-constant luminance); every other code but 8 (YCgCo) and 10 (BT.2020 constant luminance), which swscale
+# converts otherwise, takes BT.601's
+BT601 = (104597, 132201, 25675, 53279)
+YUV2RGB_COEFFS = {1: (117489, 138438, 13975, 34925), 4: (104448, 132798, 24759, 53109),
+                  7: (117579, 136230, 16907, 35559), 9: (110013, 140363, 12277, 42626)}
 
 
-def yuv420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """swscale's YUV 4:2:0 to BGR24 (BT.601, limited range) as OpenCV's FFmpeg
-    backend gets it: each term a 16-bit product's high half, each chroma
-    sample on 2x2 pixels. (h, w) luma, (h/2, ceil(w/2)) chroma -> (h, w, 3)."""
+def yuv420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray, coeffs: Tuple[int, int, int, int] = BT601) -> np.ndarray:
+    """swscale's YUV 4:2:0 to BGR24 (BT.601 unless `coeffs` says otherwise,
+    limited range) as OpenCV's FFmpeg backend gets it: each term a 16-bit
+    product's high half, each chroma sample on 2x2 pixels. (h, w) luma,
+    (h/2, ceil(w/2)) chroma -> (h, w, 3)."""
+    vr, ub, ug, vg = _R16(coeffs[0]), _R16(coeffs[1]), _R16(-coeffs[2]), _R16(-coeffs[3])
     h, w = y.shape
     uu = np.repeat(np.repeat(u.astype(np.int32) * 8 - 1024, 2, 0), 2, 1)[:h, :w]
     vv = np.repeat(np.repeat(v.astype(np.int32) * 8 - 1024, 2, 0), 2, 1)[:h, :w]
     yy = ((y.astype(np.int32) * 8 - _Y_OFFSET) * _Y_COEFF) >> 16
     out = np.empty((h, w, 3), np.uint8)
-    np.clip(yy + ((uu * _UB) >> 16), 0, 255, out=out[..., 0], casting="unsafe")
-    np.clip(yy + ((uu * _UG) >> 16) + ((vv * _VG) >> 16), 0, 255, out=out[..., 1], casting="unsafe")
-    np.clip(yy + ((vv * _VR) >> 16), 0, 255, out=out[..., 2], casting="unsafe")
+    np.clip(yy + ((uu * ub) >> 16), 0, 255, out=out[..., 0], casting="unsafe")
+    np.clip(yy + ((uu * ug) >> 16) + ((vv * vg) >> 16), 0, 255, out=out[..., 1], casting="unsafe")
+    np.clip(yy + ((vv * vr) >> 16), 0, 255, out=out[..., 2], casting="unsafe")
     return out
 
 
@@ -1655,7 +1664,8 @@ _ZERO7 = [0] * 7
 
 def decode_packets(decoder: "Mpeg4Decoder", packets, rgb: bool, path):
     """The frames of `packets` through `decoder` in display order, RGB or
-    BGR, the one held back flushed at the end; errors name `path`."""
+    BGR (by the decoder's `yuv_coeffs` where it has them), the one held
+    back flushed at the end; errors name `path`."""
     def frames():
         for data in packets:
             yield decoder.decode(data)
@@ -1664,7 +1674,7 @@ def decode_packets(decoder: "Mpeg4Decoder", packets, rgb: bool, path):
     try:
         for planes in frames():
             if planes is not None:
-                bgr = yuv420_to_bgr(*planes)
+                bgr = yuv420_to_bgr(*planes, getattr(decoder, "yuv_coeffs", BT601))
                 yield np.ascontiguousarray(bgr[..., ::-1]) if rgb else bgr
     except (NotImplementedError, ValueError) as exc:
         raise type(exc)(f"{path}: {exc}") from exc

@@ -1,19 +1,22 @@
 """Open a video file by its signature, as OpenCV's FFmpeg backend probes it, not by its name.
 
   AVI         `RIFF....AVI ` -> `data/avi.py AviReader` (motion JPEG,
-              MPEG-4 Part 2, MS-MPEG-4 v2 and v3, WMV1 and WMV2, H.263,
-              raw I420)
+              MPEG-4 Part 2, MS-MPEG-4 v2 and v3, WMV1 and WMV2, H.263
+              (`H263`, `U263`), MPEG-1 and MPEG-2, raw I420)
   MP4, MOV    an `ftyp` box (3GP too), or a QuickTime file that starts
               with `moov`, `mdat`, `wide`, `free` or `skip` ->
               `data/mp4.py Mp4Reader` (MPEG-4 Part 2, MS-MPEG-4 v2 and
-              v3, WMV1 and WMV2, H.263; AV1 gives its info and no frame)
-  Matroska    the EBML magic -> `data/mkv.py MkvReader` (MPEG-4 Part 2,
-              MS-MPEG-4 v2 and v3, WMV1 and WMV2; WebM, VP8 through
-              `data/vp8.py` and VP9 through `data/vp9.py`; AV1 gives its
+              v3, WMV1 and WMV2, H.263, MPEG-1 and MPEG-2; AV1 gives its
               info and no frame)
+  Matroska    the EBML magic -> `data/mkv.py MkvReader` (MPEG-4 Part 2,
+              MS-MPEG-4 v2 and v3, WMV1 and WMV2, H.263, MPEG-1 and MPEG-2;
+              WebM, VP8 through `data/vp8.py` and VP9 through `data/vp9.py`;
+              AV1 gives its info and no frame)
 
 Microsoft's MPEG-4 family decodes through `data/msmpeg4.py` and
-`data/wmv2.py`. An AV1 track is read as the JAX package reads it through
+`data/wmv2.py`, MPEG-1 and MPEG-2 through `data/mpeg12.py` (progressive
+frame pictures, 4:2:0; OpenCV's `PIM1`, `mpg1`, `MPEG` and `mpg2` writers
+and libavcodec's encoders write them so). An AV1 track is read as the JAX package reads it through
 OpenCV, whose bundled libavcodec opens it and decodes no frame: the port
 has no AV1 decoder, and gives the container's info and no frame.
 
